@@ -1,0 +1,261 @@
+"""Voicebox-style flow-matching acoustic model (VoSingle / VoMix): port of
+covomix_tpu/models/acoustic.py, inference side.
+
+  * transformer: concat [noisy mel x_t, phoneme emb, cond mel] -> Linear ->
+    depthwise-conv positional embed -> U-Net-skip transformer with halfsplit
+    rotary and adaptive RMSNorm on a learned-sinusoidal time embedding ->
+    Linear to mel
+  * sampler: 16 midpoint steps, the ODE state kept in f32 while the model
+    computes in `dtype`; CFG runs the cond and null rows as one doubled batch
+    and combines them as logits*(1+s) - s*null.
+
+Attention goes through `attend_flash_or_xla`: the hand-written flash kernel
+on CUDA for long sequences, `layers.attend` otherwise."""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from covomix_tpu_torch.models import layers as L
+from covomix_tpu_torch.ops.flash_attention import attend_flash_or_xla
+
+
+@dataclasses.dataclass(frozen=True)
+class AcousticConfig:
+    dim_in: int = 80                 # mel dim (160 for two_two; cond dim for two_one)
+    dim: int = 1024                  # transformer width
+    depth: int = 8
+    dim_head: int = 64
+    heads: int = 16
+    ff_mult: int = 4
+    num_phoneme_tokens: int = 502    # semantic vocab incl. pad/eos; null id == num_phoneme_tokens
+    dim_phoneme_emb: int = 1024
+    conv_pos_kernel: int = 31
+    mode: str = "single"             # 'single' | 'two_two' | 'two_one'
+    p_drop_prob: float = 0.3
+    frac_lengths_mask: tuple = (0.7, 1.0)
+
+    @property
+    def time_hidden_dim(self) -> int:
+        return self.dim * 4
+
+    @property
+    def mel_dim(self) -> int:
+        """dim of x (the flow state) and of the output."""
+        return 80 if self.mode == "two_one" else self.dim_in
+
+    @property
+    def n_phoneme_streams(self) -> int:
+        return 2 if self.mode in ("two_two", "two_one") else 1
+
+    @property
+    def embed_in_dim(self) -> int:
+        if self.mode == "two_two":
+            return self.dim_in * 2 + 2 * self.dim_phoneme_emb
+        if self.mode == "two_one":
+            return self.dim_in + 80 + 2 * self.dim_phoneme_emb
+        return self.dim_in * 2 + self.dim_phoneme_emb
+
+
+# ---------------------------------------------------------------------------
+# init (same names and shapes as the JAX package; numbers from a Generator)
+
+
+def _uniform(gen, shape, bound, device):
+    return (torch.rand(shape, generator=gen, device=device) * 2 - 1) * bound
+
+
+def linear_init(gen, d_in: int, d_out: int, bias: bool = True, device=None):
+    bound = 1.0 / math.sqrt(d_in)
+    p = {"w": _uniform(gen, (d_in, d_out), bound, device)}
+    if bias:
+        p["b"] = _uniform(gen, (d_out,), bound, device)
+    return p
+
+
+def conv1d_init(gen, c_in: int, c_out: int, kernel: int, groups: int = 1, bias: bool = True,
+                device=None):
+    """WIO weights [K, C_in/groups, C_out]."""
+    bound = 1.0 / math.sqrt(kernel * c_in // groups)
+    p = {"w": _uniform(gen, (kernel, c_in // groups, c_out), bound, device)}
+    if bias:
+        p["b"] = _uniform(gen, (c_out,), bound, device)
+    return p
+
+
+def adaptive_rmsnorm_init(dim: int, cond_dim: int, device=None):
+    """Identity at init: gamma weight 0 / bias 1, beta 0 / 0."""
+    z = lambda *s: torch.zeros(s, device=device)
+    return {"to_gamma": {"w": z(cond_dim, dim), "b": torch.ones(dim, device=device)},
+            "to_beta": {"w": z(cond_dim, dim), "b": z(dim)}}
+
+
+def init(gen: torch.Generator, cfg: AcousticConfig, device=None):
+    """Random parameters drawn from `gen` (on gen's device unless `device`)."""
+    device = device or gen.device
+    d = cfg.dim
+    p = {
+        "sinu_weights": torch.randn(d // 2, generator=gen, device=device),
+        "time_mlp": linear_init(gen, d, cfg.time_hidden_dim, device=device),
+        "phoneme_emb": {"w": torch.randn(cfg.num_phoneme_tokens + 1, cfg.dim_phoneme_emb,
+                                         generator=gen, device=device)},
+        "null_cond": torch.zeros(cfg.dim_in, device=device),
+        "to_embed": linear_init(gen, cfg.embed_in_dim, d, device=device),
+        "conv_embed": conv1d_init(gen, d, d, cfg.conv_pos_kernel, groups=d, device=device),
+        "final_norm": {"gamma": torch.ones(d, device=device)},
+        "to_pred": linear_init(gen, d, cfg.mel_dim, bias=False, device=device),
+    }
+    half = cfg.depth // 2
+    layers_p = []
+    for i in range(cfg.depth):
+        lp = {
+            "attn_norm": adaptive_rmsnorm_init(d, cfg.time_hidden_dim, device),
+            "qkv": linear_init(gen, d, cfg.heads * cfg.dim_head * 3, bias=False, device=device),
+            "attn_out": linear_init(gen, cfg.heads * cfg.dim_head, d, bias=False, device=device),
+            "ff_norm": adaptive_rmsnorm_init(d, cfg.time_hidden_dim, device),
+            "ff1": linear_init(gen, d, d * cfg.ff_mult, device=device),
+            "ff2": linear_init(gen, d * cfg.ff_mult, d, device=device),
+        }
+        if i >= half:  # U-Net skip combiner on the second half
+            lp["skip"] = linear_init(gen, d * 2, d, device=device)
+        layers_p.append(lp)
+    p["layers"] = layers_p
+    return p
+
+
+# ---------------------------------------------------------------------------
+# model
+
+
+def _time_embedding(params, times, dtype):
+    """LearnedSinusoidalPosEmb + Linear + SiLU."""
+    freqs = times[:, None].float() * params["sinu_weights"][None, :] * 2 * math.pi
+    fouriered = torch.cat([torch.sin(freqs), torch.cos(freqs)], dim=-1)
+    return F.silu(L.linear(params["time_mlp"], fouriered.to(dtype)))
+
+
+def layer_core(lp, cfg: AcousticConfig, x, time_emb, valid_len=None):
+    """One transformer layer (attention + FFN with adaptive RMSNorm), without
+    the U-Net skip combiner."""
+    inv_freq = L.rotary_freqs(cfg.dim_head, device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device)
+    h = L.adaptive_rmsnorm(lp["attn_norm"], x, time_emb)
+    q, k, v = torch.chunk(L.linear(lp["qkv"], h), 3, dim=-1)
+    q, k, v = (L.split_heads(t, cfg.heads) for t in (q, k, v))
+    attn = attend_flash_or_xla(q, k, v, valid_len=valid_len, rotary=(positions, inv_freq))
+    x = L.linear(lp["attn_out"], L.merge_heads(attn)) + x
+    h = L.adaptive_rmsnorm(lp["ff_norm"], x, time_emb)
+    h = L.linear(lp["ff2"], L.gelu(L.linear(lp["ff1"], h)))
+    return h + x
+
+
+def _transformer(params, cfg: AcousticConfig, x, time_emb, valid_len=None):
+    half = cfg.depth // 2
+    skips = []
+    for i, lp in enumerate(params["layers"]):
+        if i < half:
+            skips.append(x)
+        else:
+            x = L.linear(lp["skip"], torch.cat([x, skips.pop()], dim=-1))
+        x = layer_core(lp, cfg, x, time_emb, valid_len=valid_len)
+    return L.rmsnorm(params["final_norm"], x)
+
+
+def static_embed(params, cfg: AcousticConfig, phoneme_ids, cond, *, cond_drop_mask=None,
+                 dtype=torch.float32):
+    """The x-independent part of the input projection:
+    to_embed(cat[x, ph, cond]) == x @ W[:mel_dim] + (ph @ W_ph + cond @ W_c + b).
+    The sampler computes the bracket once per call."""
+    cond = cond.to(dtype)
+    if cond_drop_mask is not None:
+        null_cond = params["null_cond"].to(dtype)
+        cond = torch.where(cond_drop_mask[:, None, None], null_cond[None, None, :], cond)
+        nd = cond_drop_mask[:, None, None] if phoneme_ids.dim() == 3 else cond_drop_mask[:, None]
+        phoneme_ids = torch.where(nd, torch.full_like(phoneme_ids, cfg.num_phoneme_tokens), phoneme_ids)
+    ph = L.embedding(params["phoneme_emb"], phoneme_ids, dtype)
+    if ph.dim() == 4:  # two streams: [B, T, 2, P] -> [B, T, 2P]
+        b, t = ph.shape[:2]
+        ph = ph.reshape(b, t, 2 * cfg.dim_phoneme_emb)
+    w = params["to_embed"]["w"].to(dtype)
+    md = cfg.mel_dim
+    out = ph @ w[md: md + ph.shape[-1]] + cond @ w[md + ph.shape[-1]:]
+    if "b" in params["to_embed"]:
+        out = out + params["to_embed"]["b"].to(dtype)
+    return out
+
+
+def forward(params, cfg: AcousticConfig, x, phoneme_ids, cond, times, *, cond_drop_mask=None,
+            precomputed_embed=None, valid_len=None, dtype=torch.float32):
+    """Vector-field prediction [B, T, mel_dim] (f32). `valid_len` (int, or
+    one per row): frames >= valid_len are padding, zeroed before the
+    depthwise conv and masked out of attention."""
+    x = x.to(dtype)
+    if precomputed_embed is None:
+        precomputed_embed = static_embed(params, cfg, phoneme_ids, cond,
+                                         cond_drop_mask=cond_drop_mask, dtype=dtype)
+    h = x @ params["to_embed"]["w"].to(dtype)[: cfg.mel_dim] + precomputed_embed
+    conv_in = h
+    if valid_len is not None:
+        vl = torch.as_tensor(valid_len, dtype=torch.int32, device=h.device).reshape(-1)
+        frame_keep = torch.arange(h.shape[1], device=h.device)[None, :] < vl[:, None]
+        conv_in = h * frame_keep[..., None].to(dtype)
+    conv = L.gelu(L.depthwise_conv1d(params["conv_embed"], conv_in, padding=cfg.conv_pos_kernel // 2))
+    h = conv + h
+    time_emb = _time_embedding(params, times, dtype)
+    h = _transformer(params, cfg, h, time_emb, valid_len=valid_len)
+    return L.linear(params["to_pred"], h).float()
+
+
+@torch.no_grad()
+def sample(params, cfg: AcousticConfig, generator: Optional[torch.Generator], phoneme_ids, cond, *,
+           cond_scale: float = 1.0, step_size: float = 0.0625, valid_len=None,
+           noise=None, dtype=torch.float32):
+    """Midpoint ODE integration of the vector field from t=0 to t=1 (16 steps
+    at the default step size). y0 ~ N(0, I) from `generator`, or `noise` when
+    given. CFG (cond_scale != 1) runs cond + null rows as one 2B batch."""
+    n_steps = int(round(1.0 / step_size))
+    b, t = cond.shape[0], cond.shape[1]
+    dev = cond.device
+    if noise is None:
+        y0 = torch.randn((b, t, cfg.mel_dim), generator=generator, device=dev, dtype=torch.float32)
+    else:
+        y0 = noise.to(device=dev, dtype=torch.float32)
+
+    if cond_scale != 1.0:
+        ph2 = torch.cat([phoneme_ids, phoneme_ids], dim=0)
+        c2 = torch.cat([cond, cond], dim=0)
+        drop = torch.cat([torch.zeros(b, dtype=torch.bool, device=dev),
+                          torch.ones(b, dtype=torch.bool, device=dev)])
+        emb2 = static_embed(params, cfg, ph2, c2, cond_drop_mask=drop, dtype=dtype)
+        vl2 = valid_len
+        if valid_len is not None and torch.as_tensor(valid_len).dim() >= 1:
+            vl = torch.as_tensor(valid_len, device=dev)
+            vl2 = torch.cat([vl, vl], dim=0)  # cond + null rows
+
+        def field(y, tt):
+            times = torch.full((2 * b,), tt, device=dev)
+            out = forward(params, cfg, torch.cat([y, y], dim=0), ph2, c2, times, cond_drop_mask=drop,
+                          precomputed_embed=emb2, valid_len=vl2, dtype=dtype)
+            return out[:b] * (1 + cond_scale) - cond_scale * out[b:]
+    else:
+        emb1 = static_embed(params, cfg, phoneme_ids, cond,
+                            cond_drop_mask=torch.zeros(b, dtype=torch.bool, device=dev), dtype=dtype)
+
+        def field(y, tt):
+            times = torch.full((b,), tt, device=dev)
+            return forward(params, cfg, y, phoneme_ids, cond, times, precomputed_embed=emb1,
+                           valid_len=valid_len, dtype=dtype)
+
+    h = 1.0 / n_steps
+    y = y0
+    for i in range(n_steps):
+        t0 = i * h   # exact in f32 for the power-of-two step sizes used
+        k1 = field(y, t0)
+        k2 = field(y + 0.5 * h * k1, t0 + 0.5 * h)
+        y = y + h * k2
+    return y
