@@ -28,12 +28,22 @@
 // f32 inputs (tests, comparisons) take a scalar-FMA kernel with the same
 // masking and the same online softmax in f32.
 //
+// One library per head dim: build with -DFLASH_DH=<dh>, a multiple of 16 (the
+// mma k-step) in [16, 256] (the dispatch rule's limit).
+//
 // C interface (ctypes): covomix_flash_attention_fwd(...) returns the CUDA
-// error code of the launch (0 on success), -1 for an unsupported head dim.
+// error code of the launch (0 on success), -1 for a head dim other than the
+// one the library was built for.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#ifndef FLASH_DH
+#error "build with -DFLASH_DH=<head dim>"
+#endif
+static_assert(FLASH_DH % 16 == 0 && FLASH_DH >= 16 && FLASH_DH <= 256,
+              "FLASH_DH must be a multiple of 16 in [16, 256]");
 
 namespace {
 
@@ -379,18 +389,13 @@ int covomix_flash_attention_fwd(int is_f32, const void* q, const void* k, const 
                                 const int* valid, int valid_n, const void* cos_t,
                                 const void* sin_t, int B, int H, int T, int dh, float scale,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 16: return run<16>(is_f32, q, k, v, o, valid, valid_n, cos_t, sin_t, B, H, T, scale, s);
-    case 32: return run<32>(is_f32, q, k, v, o, valid, valid_n, cos_t, sin_t, B, H, T, scale, s);
-    case 64: return run<64>(is_f32, q, k, v, o, valid, valid_n, cos_t, sin_t, B, H, T, scale, s);
-    case 128: return run<128>(is_f32, q, k, v, o, valid, valid_n, cos_t, sin_t, B, H, T, scale, s);
-    default: return -1;
-  }
+  if (dh != FLASH_DH) return -1;
+  return run<FLASH_DH>(is_f32, q, k, v, o, valid, valid_n, cos_t, sin_t, B, H, T, scale,
+                       static_cast<cudaStream_t>(stream));
 }
 
 const char* covomix_cuda_error_string(int code) {
-  if (code == -1) return "unsupported head dim (kernel instantiated for dh in {16, 32, 64, 128})";
+  if (code == -1) return "head dim differs from the FLASH_DH this library was built for";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -7,6 +7,10 @@ in `csrc/flash_attention.cu` (built with nvcc at first use into
 `valid_len` set to -1e30 before the exp, `valid_len` clamped to >= 1, and the
 output divided by max(l, 1e-30). There is no fallback from one to the other.
 
+The kernel is built once per head dim (`-DFLASH_DH`), for the head dims
+`kernel_supports_dh` admits: multiples of 16 up to 256. The dispatcher uses
+the same rule, so a head dim outside it takes `layers.attend`.
+
 `valid_len` is clamped to [1, T]. (The TPU kernel clamps only from below; a
 valid_len above T there lets zero-padded keys in, which no caller does.)
 
@@ -28,50 +32,66 @@ from covomix_tpu_torch.models import layers as L
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "flash_attention.cu")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SUPPORTED_DH = (16, 32, 64, 128)
+MAX_DH = 256
 _TRAINING_SLICE = "ROADMAP.md 'TPU kernels to port': flash attention training slice (causal, lse, backward)"
 
 
+def kernel_supports_dh(dh: int) -> bool:
+    """The head dims the kernel is built for: multiples of 16 (the mma.sync
+    k-step) up to 256 (the JAX dispatch rule's limit)."""
+    return dh % 16 == 0 and 16 <= dh <= MAX_DH
+
+
 class FlashKernel:
-    """The built kernel library plus its launch count. `launches` goes up by
-    one exactly where the kernel is launched."""
+    """The kernel libraries (one per head dim) plus the launch count.
+    `launches` goes up by one exactly where the kernel is launched."""
 
     def __init__(self):
-        self.lib_path = os.path.join(BUILD_DIR, "libflash_attention.so")
-        self.build_log = ""
+        self.build_logs = {}
         self.launches = 0
-        self._lib = None
+        self._libs = {}
+        self._locks = {}
         self._lock = threading.Lock()
 
-    def build(self) -> ctypes.CDLL:
-        """Compile the source with nvcc (if the library is missing or older
-        than the source) and load it."""
+    @staticmethod
+    def lib_path(dh: int) -> str:
+        return os.path.join(BUILD_DIR, f"libflash_attention_dh{dh}.so")
+
+    def build(self, dh: int = 64) -> ctypes.CDLL:
+        """Compile the source for head dim `dh` with nvcc (if its library is
+        missing or older than the source) and load it. Builds of different
+        head dims may run in parallel threads."""
+        if not kernel_supports_dh(dh):
+            raise NotImplementedError(f"flash kernel is built for head dims that are multiples of 16 "
+                                      f"up to {MAX_DH}; got {dh}")
         with self._lock:
-            if self._lib is not None:
-                return self._lib
-            if (not os.path.exists(self.lib_path)
-                    or os.path.getmtime(self.lib_path) < os.path.getmtime(SOURCE)):
+            lock = self._locks.setdefault(dh, threading.Lock())
+        with lock:
+            if dh in self._libs:
+                return self._libs[dh]
+            path = self.lib_path(dh)
+            if not os.path.exists(path) or os.path.getmtime(path) < os.path.getmtime(SOURCE):
                 nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
                 if not os.path.exists(nvcc):
                     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); cannot build "
                                        "the CUDA kernel")
                 os.makedirs(BUILD_DIR, exist_ok=True)
-                tmp = f"{self.lib_path}.{os.getpid()}.tmp"   # concurrent builds never share a file
+                tmp = f"{path}.{os.getpid()}.tmp"   # concurrent builds never share a file
                 cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-                       "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, SOURCE]
+                       "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DFLASH_DH={dh}", "-o", tmp, SOURCE]
                 res = subprocess.run(cmd, capture_output=True, text=True)
-                self.build_log = res.stdout + res.stderr
+                self.build_logs[dh] = res.stdout + res.stderr
                 if res.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({res.returncode}):\n{self.build_log}")
-                os.replace(tmp, self.lib_path)
-            lib = ctypes.CDLL(self.lib_path)
+                    raise RuntimeError(f"nvcc failed ({res.returncode}):\n{self.build_logs[dh]}")
+                os.replace(tmp, path)
+            lib = ctypes.CDLL(path)
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.covomix_flash_attention_fwd.argtypes = [ci, vp, vp, vp, vp, vp, ci, vp, vp,
                                                         ci, ci, ci, ci, ctypes.c_float, vp]
             lib.covomix_flash_attention_fwd.restype = ci
             lib.covomix_cuda_error_string.argtypes = [ci]
             lib.covomix_cuda_error_string.restype = ctypes.c_char_p
-            self._lib = lib
+            self._libs[dh] = lib
             return lib
 
     def __call__(self, q, k, v, valid, rotary=None):
@@ -86,8 +106,6 @@ class FlashKernel:
             raise ValueError(f"flash kernel: q/k/v must share one [B, H, T, dh] shape; "
                              f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
         b, h, t, dh = q.shape
-        if dh not in SUPPORTED_DH:
-            raise NotImplementedError(f"flash kernel instantiated for dh in {SUPPORTED_DH}, got {dh}")
         if k.dtype != q.dtype or v.dtype != q.dtype:
             raise ValueError("flash kernel: q, k and v must share one dtype")
         if valid.dtype != torch.int32 or valid.dim() != 1 or valid.shape[0] not in (1, b):
@@ -104,7 +122,7 @@ class FlashKernel:
         for x in (q, k, v):
             if x.data_ptr() % 16:
                 raise ValueError("flash kernel: q/k/v must be 16-byte aligned")
-        lib = self.build()
+        lib = self.build(dh)
         out = torch.empty_like(q)
         cos_p = rotary[0].data_ptr() if rotary is not None else None
         sin_p = rotary[1].data_ptr() if rotary is not None else None
@@ -193,16 +211,18 @@ def flash_attention(q, k, v, *, valid_len=None, causal: bool = False, rotary=Non
 
 def use_flash_kernel(*, on_cuda: bool, tq: int, tk: int, dh: int, has_key_mask: bool,
                      causal: bool, min_seq_for_flash: int = 512) -> bool:
-    """The dispatch rule of attend_flash_or_xla."""
-    return (not has_key_mask and on_cuda and tq >= min_seq_for_flash and dh <= 256
+    """The dispatch rule of attend_flash_or_xla; the JAX rule's dh <= 256 is
+    `kernel_supports_dh`."""
+    return (not has_key_mask and on_cuda and tq >= min_seq_for_flash and kernel_supports_dh(dh)
             and (not causal or tq == tk))
 
 
 def attend_flash_or_xla(q, k, v, *, key_mask=None, valid_len=None, causal: bool = False,
                         min_seq_for_flash: int = 512, rotary=None):
     """The JAX package's dispatch rule, with "on TPU" read as "on CUDA": the
-    flash kernel when there is no key_mask, T >= min_seq_for_flash, dh <= 256
-    and (non-causal or tq == tk); `layers.attend` otherwise, with valid_len
+    flash kernel when there is no key_mask, T >= min_seq_for_flash, the
+    kernel is built for dh (a multiple of 16 up to 256) and (non-causal or
+    tq == tk); `layers.attend` otherwise, with valid_len
     turned into a key mask. `rotary`: optional (positions [T], inv_freq
     [dh/2]) halfsplit rotary, fused into the kernel on the flash path."""
     t = q.shape[-2]

@@ -117,9 +117,12 @@ class BatchedPipeline:
         [B, P, cond_dim]; prompt_lens [B] (default P). `noise` [B, P+L, 80]
         overrides the flow sampler's y0. Returns (wav [B, samples] over the
         generated region, GenerateResult)."""
-        if not isinstance(prompt_tokens, torch.Tensor) or prompt_lens is None:
+        if not isinstance(prompt_tokens, torch.Tensor):
             text_ids, prompt_tokens, prompt_mels, prompt_lens = self.place(
                 text_ids, prompt_tokens, prompt_mels, prompt_lens)
+        elif prompt_lens is None:
+            prompt_lens = torch.full((prompt_tokens.shape[0],), prompt_tokens.shape[1],
+                                     dtype=torch.int32, device=prompt_tokens.device)
         two = self.acoustic_cfg.n_phoneme_streams == 2
         L = self.decode_len
         gen = self._gen(self.t2s_params, generator, text_ids)

@@ -12,6 +12,7 @@ import textwrap
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from covomix_tpu.audio import mel as JM
@@ -22,7 +23,7 @@ from covomix_tpu_torch.audio.wav import load_wav, save_wav
 from covomix_tpu_torch.checkpoint import io as pio
 from covomix_tpu_torch.data import tokenizer as PTok
 from covomix_tpu_torch.models import vocoder as PV
-from covomix_tpu_torch.pipeline import load_checkpoint, prepare_prompt
+from covomix_tpu_torch.pipeline import extract_mel, load_checkpoint, prepare_prompt
 
 from _torch_port import J_AC, J_T2S, J_VOC, jax_params, tree_shapes
 
@@ -94,11 +95,36 @@ def test_mel_matches_jax_and_prompt_prep(tmp_path):
     back, sr = load_wav(str(tmp_path / "p.wav"))
     assert sr == 8000 and np.abs(back - wav).max() < 1e-4
     np.save(tmp_path / "p.hubert_code.npy", np.array([str(i) for i in range(60)]))
-    codes, mel = prepare_prompt(str(tmp_path / "p.hubert_code.npy"), cfg)
+    codes, mel = prepare_prompt(str(tmp_path / "p.hubert_code.npy"), cfg, device="cpu")
     assert codes.dtype.kind == "i" and len(codes) == len(mel) == 50 and mel.shape[1] == 80
     np.save(tmp_path / "p.mel.npy", np.zeros((80, 30), np.float32))
-    codes, mel = prepare_prompt(str(tmp_path / "p.hubert_code.npy"), cfg)
+    codes, mel = prepare_prompt(str(tmp_path / "p.hubert_code.npy"), cfg, device="cpu")
     assert len(codes) == len(mel) == 30 and not mel.any()
+
+
+def test_extract_mel_channel_and_default_device(tmp_path):
+    """`channel` picks one channel of a stereo wav (the JAX Synthesizer's
+    extract_mel(channel=)); with no device the mel is computed on cuda, so
+    without a card the call raises instead of running on the CPU."""
+    rs = np.random.RandomState(2)
+    stereo = np.clip(rs.randn(4000, 2) * 0.1, -1, 1).astype(np.float32)
+    save_wav(str(tmp_path / "s.wav"), stereo, 8000)
+    cfg = PM.MelConfig()
+    for ch in (0, 1):
+        wav, _ = load_wav(str(tmp_path / "s.wav"), channel=ch)
+        with jax.default_matmul_precision("highest"):
+            ref = np.asarray(JM.mel_spectrogram(jnp.asarray(wav[None]), JM.MelConfig()))[0].T
+        out = extract_mel(str(tmp_path / "s.wav"), cfg, device="cpu", channel=ch)
+        assert out.shape == ref.shape and np.abs(out - ref).max() < 1e-3   # as the mono test above
+    mono = extract_mel(str(tmp_path / "s.wav"), cfg, device="cpu")
+    assert np.abs(mono - extract_mel(str(tmp_path / "s.wav"), cfg, device="cpu", channel=0)).max() > 1e-3
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="cuda"):
+        extract_mel(str(tmp_path / "s.wav"), cfg)
+    np.save(tmp_path / "s.hubert_code.npy", np.arange(10))
+    with pytest.raises(RuntimeError, match="cuda"):
+        prepare_prompt(str(tmp_path / "s.hubert_code.npy"), cfg)
 
 
 def test_serve_batch_cli_on_cpu(tmp_path):

@@ -96,12 +96,25 @@ def test_fused_rotary_equals_external_rotary():
     (dict(on_cuda=True, tq=511, tk=511, dh=64, has_key_mask=False, causal=False), False),
     (dict(on_cuda=True, tq=512, tk=512, dh=64, has_key_mask=True, causal=False), False),
     (dict(on_cuda=True, tq=912, tk=912, dh=320, has_key_mask=False, causal=False), False),
+    (dict(on_cuda=True, tq=912, tk=912, dh=256, has_key_mask=False, causal=False), True),
+    (dict(on_cuda=True, tq=912, tk=912, dh=48, has_key_mask=False, causal=False), True),
+    (dict(on_cuda=True, tq=912, tk=912, dh=40, has_key_mask=False, causal=False), False),
     (dict(on_cuda=True, tq=600, tk=900, dh=64, has_key_mask=False, causal=True), False),
     (dict(on_cuda=True, tq=600, tk=600, dh=64, has_key_mask=False, causal=True), True),
 ])
 def test_dispatch_rule(kw, expect):
-    """The JAX rule with 'on TPU' read as 'on CUDA' (flash_attention.py:759-761)."""
+    """The JAX rule with 'on TPU' read as 'on CUDA' (flash_attention.py:759-761)
+    and dh <= 256 read as the head dims the kernel is built for (multiples of
+    16 up to 256)."""
     assert PF.use_flash_kernel(**kw) is expect
+    assert PF.kernel_supports_dh(kw["dh"]) is (kw["dh"] % 16 == 0 and kw["dh"] <= 256)
+
+
+def test_kernel_build_refuses_head_dims_outside_the_rule():
+    """The build raises before nvcc for a head dim the dispatcher never sends."""
+    for dh in (8, 40, 272):
+        with pytest.raises(NotImplementedError, match="multiples of 16"):
+            PF.KERNEL.build(dh)
 
 
 def test_dispatcher_on_cpu_matches_jax_dispatcher():

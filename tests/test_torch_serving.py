@@ -61,6 +61,20 @@ def test_batched_pipeline_matches_jax(min_length):
     assert np.abs(pwav.numpy() - jwav).max() < 1e-4
 
 
+def test_placed_tensors_without_prompt_lens():
+    """Device tensors with prompt_lens=None take the full prompt length, as
+    numpy inputs do (they are not sent through place() again)."""
+    jt, ja, jv = (jax.tree_util.tree_map(np.asarray, p) for p in jax_params(1))
+    pipe = BatchedPipeline(jt, P_T2S, ja, P_AC, jv, P_VOC, decode_len=L, dtype=torch.float32,
+                           top_k_thres=GREEDY_THRES, device="cpu")
+    text, ptok, pmel = _inputs(5)
+    noise = torch.from_numpy(np.random.RandomState(6).randn(B, PMAX + L, 80).astype(np.float32))
+    ref, _ = pipe(torch.Generator().manual_seed(0), text, ptok, pmel, noise=noise)
+    placed = tuple(torch.as_tensor(a) for a in (text, ptok, pmel))
+    out, _ = pipe(torch.Generator().manual_seed(0), *placed, noise=noise)
+    assert torch.equal(out, ref)
+
+
 def test_pack_rows_against_direct_packing():
     """Distinct tokens and wildly mixed prompt/decode lengths: the positional
     shift must place row i's tokens at [p_i, p_i + g_i) and fill the rest."""
