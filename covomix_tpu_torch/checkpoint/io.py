@@ -1,8 +1,9 @@
 """Plain-parameter checkpoints: the `.npz` + `.json` format that
-covomix_tpu/checkpoint/io.py writes, read without JAX.
+covomix_tpu/checkpoint/io.py reads and writes, without JAX.
 
 Keys are `/`-joined paths into the parameter tree; a level whose keys are all
-digits is a list. `load_params` returns that tree of numpy arrays and
+digits is a list. `save_params` writes a tree of tensors or arrays (and an
+optional `.json` sidecar), `load_params` returns the tree as numpy arrays and
 `params_from_numpy` carries it (or the JAX package's own parameter pytree
 after `np.asarray`) onto a torch device under the same names."""
 
@@ -14,6 +15,21 @@ from typing import Any
 
 import numpy as np
 import torch
+
+
+def _flatten(tree: Any, prefix: str = "") -> dict:
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+    elif isinstance(tree, torch.Tensor):
+        out[prefix[:-1]] = tree.detach().cpu().numpy()
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
 
 
 def _unflatten(flat: dict) -> Any:
@@ -34,6 +50,20 @@ def _unflatten(flat: dict) -> Any:
         return {k: listify(v) for k, v in node.items()}
 
     return listify(root)
+
+
+def save_params(path: str, params: Any, meta: dict | None = None) -> None:
+    """Save a parameter tree as .npz (+ a .json sidecar with `meta`). The
+    '.npz' suffix is added up front, so the sidecar sits beside the file
+    np.savez writes."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    flat = _flatten(params)
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    np.savez(path, **flat)
+    if meta is not None:
+        with open(path + ".json", "w") as f:
+            json.dump(meta, f, indent=2, default=str)
 
 
 def load_params(path: str) -> Any:

@@ -8,7 +8,11 @@ valid extent are zeroed after every conv, and the extent follows the
 ConvTranspose1d length chain, so the first output_length(n) samples of a row
 equal an exact-length run. The JAX package's packed MRF (`_mrf_packed`) is a
 TPU lane-layout trick with the same math as the three-branch sum / 3 used here.
-The fused tail kernels are not ported yet (`fuse_tail=True` raises)."""
+
+`fuse_tail` runs the rate-4 stage before the last and the last stage (with
+conv_post and tanh) through the fused kernels of `ops/vocoder_tail.py`, by
+the JAX package's rule: None means "on CUDA and a covomix-shaped config", and
+`valid_len` forces the unfused path (the fused kernels are static-length)."""
 
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 
 from covomix_tpu_torch.models import layers as L
 from covomix_tpu_torch.models.acoustic import conv1d_init
+from covomix_tpu_torch.ops import vocoder_tail as VT
 
 LRELU_SLOPE = 0.1
 
@@ -97,6 +102,15 @@ def _resblock2(p, x, kernel: int, dilations: Sequence[int], mask_fn=None):
     return x
 
 
+def _can_fuse_tail(cfg: VocoderConfig) -> bool:
+    """The fused tail covers [lrelu -> ConvTranspose1d(r=2, k=4, p=1) ->
+    3-branch ResBlock1 MRF -> lrelu(0.01) -> conv_post(k=7) -> tanh]: the
+    covomix config's tail (the JAX package's rule)."""
+    return (cfg.resblock == "1" and len(cfg.resblock_kernel_sizes) == 3
+            and cfg.upsample_rates[-1] == 2 and cfg.upsample_kernel_sizes[-1] == 4
+            and 4 * (cfg.upsample_initial_channel // (2 ** len(cfg.upsample_rates))) <= 128)
+
+
 def _length_mask(vl):
     def mask(h):
         keep = torch.arange(h.shape[1], device=h.device)[None, :] < vl[:, None]
@@ -105,14 +119,17 @@ def _length_mask(vl):
 
 
 @torch.no_grad()
-def generator(params, cfg: VocoderConfig, mel, dtype=torch.float32, fuse_tail: bool = False,
+def generator(params, cfg: VocoderConfig, mel, dtype=torch.float32, fuse_tail: bool = None,
               valid_len=None):
-    """mel [B, T, num_mels] -> waveform [B, output_length(T)] in [-1, 1], f32."""
-    if fuse_tail:
-        raise NotImplementedError("the fused vocoder-tail kernels are not ported yet "
-                                  "(ROADMAP: vocoder-tail kernels)")
+    """mel [B, T, num_mels] -> waveform [B, output_length(T)] in [-1, 1], f32.
+
+    fuse_tail: None = auto (CUDA tensor and `_can_fuse_tail`); True runs the
+    fused stage / tail wherever the per-stage rule admits them (their plain
+    versions on CPU tensors). valid_len (scalar or [B], in mel frames) forces
+    the unfused path."""
     mask_fn = None
     if valid_len is not None:
+        fuse_tail = False
         vl = torch.as_tensor(valid_len, dtype=torch.int32, device=mel.device).reshape(-1)
         mask_fn = _length_mask(vl)
         mel = mask_fn(mel)  # pad frames must read as zero
@@ -121,8 +138,18 @@ def generator(params, cfg: VocoderConfig, mel, dtype=torch.float32, fuse_tail: b
         x = mask_fn(x)
     n_kernels = len(cfg.resblock_kernel_sizes)
     rb = _resblock1 if cfg.resblock == "1" else _resblock2
+    n_stages = len(cfg.upsample_rates)
+    if fuse_tail is None:
+        fuse_tail = mel.is_cuda and _can_fuse_tail(cfg)
+    taps = (cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
     for i, (u, k) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes)):
+        channels = cfg.upsample_initial_channel // (2 ** (i + 1))
         stage_blocks = params["resblocks"][i * n_kernels:(i + 1) * n_kernels]
+        if fuse_tail and i == n_stages - 2 and u == 4 and k == 4 and 4 * channels <= 256:
+            x = VT.fused_stage(x, params["ups"][i], stage_blocks, *taps)
+            continue
+        if fuse_tail and i == n_stages - 1 and x.shape[1] % 2 == 0:
+            return VT.fused_tail(x, params["ups"][i], stage_blocks, params["conv_post"], *taps)
         x = L.leaky_relu(x, LRELU_SLOPE)
         x = L.conv_transpose1d(params["ups"][i], x, stride=u, padding=(k - u) // 2, kernel=k)
         if mask_fn is not None:

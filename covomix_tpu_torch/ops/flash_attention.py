@@ -21,17 +21,14 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 import threading
 
 import torch
 
 from covomix_tpu_torch.models import layers as L
+from covomix_tpu_torch.ops.cuda_build import BUILD_DIR, build_library, csrc
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "flash_attention.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SOURCE = csrc("flash_attention.cu")
 MAX_DH = 256
 _TRAINING_SLICE = "ROADMAP.md 'TPU kernels to port': flash attention training slice (causal, lse, backward)"
 
@@ -70,20 +67,7 @@ class FlashKernel:
             if dh in self._libs:
                 return self._libs[dh]
             path = self.lib_path(dh)
-            if not os.path.exists(path) or os.path.getmtime(path) < os.path.getmtime(SOURCE):
-                nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-                if not os.path.exists(nvcc):
-                    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); cannot build "
-                                       "the CUDA kernel")
-                os.makedirs(BUILD_DIR, exist_ok=True)
-                tmp = f"{path}.{os.getpid()}.tmp"   # concurrent builds never share a file
-                cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-                       "-Xcompiler", "-fPIC", "-Xptxas", "-v", f"-DFLASH_DH={dh}", "-o", tmp, SOURCE]
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                self.build_logs[dh] = res.stdout + res.stderr
-                if res.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({res.returncode}):\n{self.build_logs[dh]}")
-                os.replace(tmp, path)
+            self.build_logs[dh] = build_library(SOURCE, path, [f"-DFLASH_DH={dh}"])
             lib = ctypes.CDLL(path)
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.covomix_flash_attention_fwd.argtypes = [ci, vp, vp, vp, vp, vp, ci, vp, vp,

@@ -51,6 +51,24 @@ def test_jax_npz_loads_into_port(tmp_path):
             assert got[k].dtype == np.float32
 
 
+def test_port_npz_loads_into_jax(tmp_path):
+    """Port save_params (torch tensors) -> JAX load_params / load_meta: same
+    keys, values and sidecar; the port reads its own file back unchanged."""
+    for i, jp in enumerate(jax_params(1)):
+        tp = pio.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), "cpu")
+        path = str(tmp_path / f"p{i}")                      # suffix added as the JAX writer adds it
+        pio.save_params(path, tp, meta={"config": {"i": i}})
+        assert os.path.exists(path + ".npz") and jio.load_meta(path + ".npz") == {"config": {"i": i}}
+        back = jio.load_params(path + ".npz")
+        assert tree_shapes(back) == tree_shapes(jp)
+        ref, got = _flat(jp), _flat(back)
+        assert ref.keys() == got.keys()
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k])
+        assert pio._flatten(tp).keys() == jio._flatten(jp).keys()
+        assert tree_shapes(pio.load_params(path + ".npz")) == tree_shapes(jp)
+
+
 def test_load_checkpoint_reads_config_sidecar(tmp_path):
     """Configs come from the .json sidecar; nested lists become tuples."""
     import dataclasses

@@ -70,5 +70,13 @@ def test_output_length_and_padding():
 
 
 def test_fuse_tail_not_ported(params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PV.generator(params[1], P_VOC, torch.zeros(1, 4, 80), fuse_tail=True)
+    """fuse_tail=True no longer raises: the fused stage and tail run (their
+    plain versions on CPU tensors) and match the JAX package's unfused
+    generator, whose f32 arithmetic they repeat."""
+    jp, pp = params
+    mel = _mel(4, b=2, t=10)
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(JV.generator(jp, J_VOC, jnp.asarray(mel), fuse_tail=False))
+    out = PV.generator(pp, P_VOC, torch.from_numpy(mel), fuse_tail=True).numpy()
+    assert out.shape == ref.shape
+    assert np.abs(out - ref).max() < TOL
