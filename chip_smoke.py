@@ -16,16 +16,20 @@ Phases (any failure exits non-zero, nothing is passed over):
      HiFi-GAN, bf16, B=4, prompt 400, decode 512) with random weights from a
      seed: one warm-up batch, then timed batches; the flash kernel's launch
      count over one batch must be 8 layers x 16 steps x 2 evals = 256;
-  5. time the kernels at the paths' shapes beside their plain versions;
+  5. time the kernels at the paths' shapes beside their plain versions, and
+     hold each timed output against its plain version on the same inputs;
   6. per-file generation: full-width random checkpoints written with the
      port's save_params, two dialogue scripts with 400-frame prompts, and
      `covomix_tpu_torch.dialogue_generation.main([... --mode covomix
      --fuse_tail --device cuda ...])` in-process; every vocode must launch the
      fused stage and tail once each, every flow sample the flash kernel 256
-     times, and every wav be finite int16 of 160 x generated frames;
-  7. check small f32 runs on the card against the same runs on the CPU (plain
-     versions), with greedy decode and shared noise: batched serving, and the
-     Synthesizer's covomix dialogue with fuse_tail and a full-width vocoder;
+     times, and every wav be finite int16 of 160 x generated frames; the
+     fused kernels are then checked and timed on the very inputs the last
+     vocode gave them, and the flash kernel at the flow sample's shape;
+  7. check small f32 runs on the card against the same runs on the CPU, with
+     greedy decode and shared noise: batched serving (the flash kernel's
+     plain version on the CPU), and the Synthesizer's covomix dialogue with
+     fuse_tail and a full-width vocoder (the unfused generator on the CPU);
   8. print a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 """
 
@@ -58,8 +62,9 @@ EDGE_DH = (16, 32, 48, 128, 256)   # 32: the small f32 model's head dim
 VOC_F32_TOL = 1e-5
 VOC_BF16_TOL = 4 * 2 ** -8   # four ulps at 1, x max(1, max |plain|)
 VOC_BF16_MEAN_TOL = 1e-4     # mean |err|, x max(1, max |plain|): flips are rare
-# card vs CPU wav of the small f32 Synthesizer run: f32 both sides, and the
-# full-width vocoder's fused kernels against their plain versions on the CPU
+# card vs CPU wav of the small f32 Synthesizer run: f32 both sides, the
+# full-width vocoder's fused kernels on the card against the unfused
+# generator (conv by conv) on the CPU
 SMALL_SYNTH_WAV_TOL = 1e-5
 DIALOGUE_SCRIPT = ("hello there, how are you doing today? [spkchange] i am fine, thank you. "
                    "[spkchange] good to hear [laughter] see you soon")
@@ -143,19 +148,29 @@ def check_flash(results):
             raise AssertionError(f"flash kernel disagrees with its plain version at case {i}")
         if dtype == torch.bfloat16:
             worst = max(worst, err)
-    results["flash_max_abs_err"] = worst
+    results["flash_check_max_abs_err"] = worst
 
 
 def time_flash(results, key, b, t, valid):
     """Kernel, plain version and SDPA yardstick at [b, 16, t, 64] bf16 with
     rotary and a run's own valid lengths (one per row, or one for all), into
-    results[f"{key}_ms"] etc."""
+    results[f"{key}_ms"] etc.; the kernel's output on the timed inputs is
+    held against the plain version's (BF16_TOL)."""
     import torch
     import torch.nn.functional as F
     from covomix_tpu_torch.ops import flash_attention as FA
 
     h, dh = 16, 64
     q, k, v, valid_arr, tables = flash_inputs(b, h, t, dh, torch.bfloat16, 99, valid, True)
+    out = FA.KERNEL(q, k, v, valid_arr, tables)
+    ref = FA.flash_attention_plain(q, k, v, valid_arr, tables)
+    err = results[f"{key}_max_abs_err"] = (out.float() - ref.float()).abs().max().item()
+    ok = bool(torch.isfinite(out).all()) and err <= BF16_TOL
+    log(f"flash check at the timed inputs [{b},{h},{t},{dh}] bf16: max_abs_err {err:.3e} (tol {BF16_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash kernel disagrees with its plain version at [{b},{h},{t},{dh}]")
+    del out, ref
     ms = results[f"{key}_ms"] = cuda_time_ms(lambda: FA.KERNEL(q, k, v, valid_arr, tables))
     results[f"{key}_plain_ms"] = cuda_time_ms(lambda: FA.flash_attention_plain(q, k, v, valid_arr, tables),
                                               iters=5)
@@ -222,21 +237,31 @@ def check_vocoder(results):
             else:
                 out = VT.STAGE(xd, packed)
                 ref = VT.fused_stage_plain(xd, up, blocks)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
-            scale = max(1.0, ref.float().abs().max().item())
+            err = vocoder_agreement(f"fused {kind} check channel {channel}", xd, out, ref)
             if dtype == torch.bfloat16:
-                ok = err.max().item() <= VOC_BF16_TOL * scale and err.mean().item() <= VOC_BF16_MEAN_TOL * scale
-                worst[kind] = max(worst[kind], err.max().item())
-            else:
-                ok = err.max().item() <= VOC_F32_TOL
-            ok = ok and out.shape == ref.shape and out.dtype == ref.dtype and bool(torch.isfinite(out).all())
-            log(f"fused {kind} check channel {channel} x[{b},{t},{up['w'].shape[1]}] {str(dtype)[6:]}: "
-                f"max_abs_err {err.max().item():.3e}, mean {err.mean().item():.3e}, |plain| max {scale:.3g} "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"fused {kind} kernel disagrees with its plain version at case {ci}")
-    results["stage_max_abs_err"], results["tail_max_abs_err"] = worst["stage"], worst["tail"]
+                worst[kind] = max(worst[kind], err)
+    results["stage_check_max_abs_err"], results["tail_check_max_abs_err"] = worst["stage"], worst["tail"]
+
+
+def vocoder_agreement(what, x, out, ref) -> float:
+    """Max |out - ref| of a fused kernel on input `x` against its plain
+    version, logged and held to the tolerances of x's dtype above; raises on
+    disagreement."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    scale = max(1.0, ref.float().abs().max().item())
+    if x.dtype == torch.bfloat16:
+        ok = err.max().item() <= VOC_BF16_TOL * scale and err.mean().item() <= VOC_BF16_MEAN_TOL * scale
+    else:
+        ok = err.max().item() <= VOC_F32_TOL
+    ok = ok and out.shape == ref.shape and out.dtype == ref.dtype and bool(torch.isfinite(out).all())
+    log(f"{what} x{list(x.shape)} {str(x.dtype)[6:]}: max_abs_err {err.max().item():.3e}, "
+        f"mean {err.mean().item():.3e}, |plain| max {scale:.3g} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the kernel disagrees with its plain version")
+    return err.max().item()
 
 
 def unfused_stage(x, up, blocks, tail_post=None):
@@ -257,38 +282,51 @@ def unfused_stage(x, up, blocks, tail_post=None):
     return torch.tanh(L.conv1d(tail_post, L.leaky_relu(h), padding=3))[..., 0].float()
 
 
-def time_vocoder(results, t_mel=512):
-    """Kernel, plain version and the unfused generator ops at B=1 and the
-    Synthesizer's 512-frame bucket, bf16. No single PyTorch call computes
+def time_vocoder(results, key, kind, x, up, blocks, post=None):
+    """Kernel, plain version and the unfused generator ops of the stage
+    (kind "stage") or tail ("tail") on input x [B, T, Cin] with the default
+    taps, into results[f"{key}_ms"] etc.; the kernel's output on these inputs
+    is held against the plain version's. No single PyTorch call computes
     either function, so there is no library yardstick."""
-    import torch
     from covomix_tpu_torch.ops import vocoder_tail as VT
 
-    for kind, t in (("stage", 20 * t_mel + 4), ("tail", 80 * t_mel + 16)):
-        tail = kind == "tail"
-        up, blocks, post = vocoder_stage_params(500, tail, 7)
-        cin, c = up["w"].shape[1], up["w"].shape[2]
-        x = torch.randn((1, t, cin), generator=torch.Generator(device="cuda").manual_seed(8), device="cuda")
-        x = x.to(torch.bfloat16)
-        packed = VT.pack_weights(up, blocks, post, (3, 7, 11), ((1, 3, 5),) * 3, torch.bfloat16, x.device)
-        kern = VT.TAIL if tail else VT.STAGE
-        plain = (lambda: VT.fused_tail_plain(x, up, blocks, post)) if tail else (
-            lambda: VT.fused_stage_plain(x, up, blocks))
-        results[f"{kind}_ms"] = cuda_time_ms(lambda: kern(x, packed))
-        results[f"{kind}_plain_ms"] = cuda_time_ms(plain, iters=5)
-        results[f"{kind}_unfused_ms"] = cuda_time_ms(lambda: unfused_stage(x, up, blocks, post), iters=10)
-        n_out = (2 if tail else 4) * t
-        taps_up = 2 if tail else 1
-        macs = n_out * (taps_up * cin * c + 126 * c * c + (7 * c if tail else 0))   # 126 = 6 convs x (3+7+11)
-        w_bytes = (4 * cin * c + 126 * c * c + (7 * c if tail else 0)) * 2 + (19 * c + 1) * 4
-        nbytes = t * cin * 2 + n_out * (4 if tail else 2 * c) + w_bytes
-        bf, bb = 2 * macs / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-        results[f"{kind}_bound_ms"] = max(bf, bb)
-        results[f"{kind}_bound_by"] = "operations" if bf >= bb else "bytes"
-        log(f"fused {kind} timing x[1,{t},{cin}] bf16: kernel {results[f'{kind}_ms']:.4f} ms, plain "
-            f"{results[f'{kind}_plain_ms']:.4f} ms, unfused generator ops {results[f'{kind}_unfused_ms']:.4f} ms, "
-            f"bound {results[f'{kind}_bound_ms']:.4f} ms ({results[f'{kind}_bound_by']}: {2 * macs / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.2f} MB) -> {2 * macs / results[f'{kind}_ms'] / 1e9:.1f} TFLOP/s")
+    tail = kind == "tail"
+    b, t, cin = x.shape
+    c = up["w"].shape[2]
+    packed = VT.pack_weights(up, blocks, post, (3, 7, 11), ((1, 3, 5),) * 3, x.dtype, x.device)
+    kern = VT.TAIL if tail else VT.STAGE
+    plain = (lambda: VT.fused_tail_plain(x, up, blocks, post)) if tail else (
+        lambda: VT.fused_stage_plain(x, up, blocks))
+    results[f"{key}_max_abs_err"] = vocoder_agreement(f"fused {kind} at the timed inputs", x, kern(x, packed),
+                                                      plain())
+    ms = results[f"{key}_ms"] = cuda_time_ms(lambda: kern(x, packed))
+    results[f"{key}_plain_ms"] = cuda_time_ms(plain, iters=5)
+    results[f"{key}_unfused_ms"] = cuda_time_ms(lambda: unfused_stage(x, up, blocks, post), iters=10)
+    n_out = (2 if tail else 4) * b * t
+    taps_up = 2 if tail else 1
+    macs = n_out * (taps_up * cin * c + 126 * c * c + (7 * c if tail else 0))   # 126 = 6 convs x (3+7+11)
+    w_bytes = ((4 * cin * c + 126 * c * c + (7 * c if tail else 0)) * x.element_size()
+               + (19 * c + 1) * 4)
+    nbytes = b * t * cin * x.element_size() + n_out * (4 if tail else c * x.element_size()) + w_bytes
+    bf, bb = 2 * macs / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    results[f"{key}_bound_ms"] = max(bf, bb)
+    results[f"{key}_bound_by"] = "operations" if bf >= bb else "bytes"
+    log(f"fused {kind} timing x{list(x.shape)} {str(x.dtype)[6:]}: kernel {ms:.4f} ms, plain "
+        f"{results[f'{key}_plain_ms']:.4f} ms, unfused generator ops {results[f'{key}_unfused_ms']:.4f} ms, "
+        f"bound {results[f'{key}_bound_ms']:.4f} ms ({results[f'{key}_bound_by']}: {2 * macs / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB) -> {2 * macs / ms / 1e9:.1f} TFLOP/s")
+
+
+def time_vocoder_t512(results):
+    """Both kernels at B=1 and the Synthesizer's smallest bucket, 512 mel
+    frames, bf16, on random inputs and weights."""
+    import torch
+
+    for kind, t in (("stage", 20 * 512 + 4), ("tail", 80 * 512 + 16)):
+        up, blocks, post = vocoder_stage_params(500, kind == "tail", 7)
+        x = torch.randn((1, t, up["w"].shape[1]), generator=torch.Generator(device="cuda").manual_seed(8),
+                        device="cuda").to(torch.bfloat16)
+        time_vocoder(results, f"{kind}_t512", kind, x, up, blocks, post)
 
 
 # ---------------------------------------------------------------------------
@@ -466,7 +504,17 @@ def run_dialogue_cli(results, root):
     from covomix_tpu_torch.ops import flash_attention as FA, vocoder_tail as VT
 
     calls = {"flow": [], "vocode": [], "steps": [], "dialogue": [], "flow_s": [], "vocode_s": []}
-    orig = (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer.dialogue, T.generate)
+    orig = (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer.dialogue, T.generate,
+            VT.fused_stage, VT.fused_tail)
+    inputs = {}      # the last vocode's fused-kernel inputs (default taps), for the timing phase
+
+    def fused_stage(x, up_p, resblocks, kernels, dilations):
+        inputs["stage"] = (x.contiguous().clone(), up_p, resblocks, None)
+        return orig[4](x, up_p, resblocks, kernels, dilations)
+
+    def fused_tail(x, up_p, resblocks, post_p, kernels, dilations):
+        inputs["tail"] = (x.contiguous().clone(), up_p, resblocks, post_p)
+        return orig[5](x, up_p, resblocks, post_p, kernels, dilations)
 
     def flow_sample(self, phoneme_ids, cond, generator, noise=None):
         n0, t0 = FA.KERNEL.launches, time.time()
@@ -498,15 +546,16 @@ def run_dialogue_cli(results, root):
             "--hifigan_ckpt", os.path.join(root, "vocoder.npz"), "--text_dir", os.path.join(root, "texts"),
             "--prompt_dir", os.path.join(root, "prompts"), "--saved_dir", out, "--mode", "covomix",
             "--fuse_tail", "--device", "cuda", "--allow_fallback_vocab"]
-    P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer.dialogue, T.generate = (
-        flow_sample, vocode, dialogue, generate)
+    (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer.dialogue, T.generate, VT.fused_stage,
+     VT.fused_tail) = (flow_sample, vocode, dialogue, generate, fused_stage, fused_tail)
     FA.KERNEL.launches = VT.STAGE.launches = VT.TAIL.launches = 0
     try:
         t0 = time.time()
         dialogue_generation.main(argv)
         total = time.time() - t0
     finally:
-        P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer.dialogue, T.generate = orig
+        (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer.dialogue, T.generate, VT.fused_stage,
+         VT.fused_tail) = orig
     launches = {"flash": FA.KERNEL.launches, "stage": VT.STAGE.launches, "tail": VT.TAIL.launches}
     log(f"dialogue CLI: {total:.2f} s for {len(calls['dialogue'])} scripts incl. loading; per script "
         f"(wall s, samples) {calls['dialogue']}; decode steps {calls['steps']}; flow (flash launches, frames) "
@@ -533,7 +582,7 @@ def run_dialogue_cli(results, root):
     audio_s = samples / 8000
     results.update(dialogue_launches=launches, dialogue_wall_s=wall, dialogue_audio_s=audio_s,
                    dialogue_rtf=wall / audio_s, dialogue_steps=calls["steps"][-1],
-                   dialogue_flow_frames=calls["flow"][-1][1])
+                   dialogue_flow_frames=calls["flow"][-1][1], dialogue_vocoder_inputs=inputs)
     stages = {"flow_s": calls["flow_s"][-1], "vocode_s": calls["vocode_s"][-1]}
     stages["rest_s (prompts, T2S decode)"] = wall - sum(stages.values())
     results["dialogue_stages"] = stages
@@ -648,7 +697,7 @@ def main() -> int:
     check_vocoder(results)
     valid_rows = run_serving(results)
     time_flash(results, "flash_serving", 8, 912, valid_rows)
-    time_vocoder(results)
+    time_vocoder_t512(results)
     root = os.path.join(VT.BUILD_DIR, "smoke_dialogue")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -659,6 +708,8 @@ def main() -> int:
         run_dialogue_cli(results, root)
         frames = results["dialogue_flow_frames"]   # the Synthesizer's shape: CFG-doubled, bucketed, scalar valid_len
         time_flash(results, "flash", 2, round_up(frames, 128), frames)
+        for kind, (x, up, blocks, post) in results.pop("dialogue_vocoder_inputs").items():
+            time_vocoder(results, kind, kind, x, up, blocks, post)   # the main path's own inputs
         check_small_against_cpu()
         check_small_synth_against_cpu(os.path.join(root, "prompts"))
     finally:

@@ -24,10 +24,8 @@ import time
 import torch
 
 from covomix_tpu_torch import resolve_device
-from covomix_tpu_torch.audio import MelConfig, save_wav
-from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
-from covomix_tpu_torch.models import acoustic as A, text2semantic as T, vocoder as V
-from covomix_tpu_torch.pipeline import SPECULATIVE_ITEM, Synthesizer, load_checkpoint
+from covomix_tpu_torch.audio import save_wav
+from covomix_tpu_torch.pipeline import SPECULATIVE_ITEM, Synthesizer, load_synthesizer
 
 TORCH_CKPT_ITEM = "ROADMAP.md 'Modules to port': torch_convert + hifigan_inference"
 
@@ -71,13 +69,9 @@ def load_models(args) -> Synthesizer:
         dtype = torch.bfloat16
     else:
         dtype = torch.float32
-    t2s_params, t2s_cfg = load_checkpoint(args.t2s_ckpt, T.T2SConfig)
-    ac_params, ac_cfg = load_checkpoint(args.acous_ckpt, A.AcousticConfig)
-    voc_params, voc_cfg = load_checkpoint(args.hifigan_ckpt, V.VocoderConfig)
-    tok = load_covomix_tokenizer(args.bert_vocab, strict=not args.allow_fallback_vocab)
-    return Synthesizer(t2s_params, t2s_cfg, ac_params, ac_cfg, voc_params, voc_cfg, tok,
-                       mel_cfg=MelConfig(sample_rate=voc_cfg.sampling_rate), dtype=dtype,
-                       fuse_tail=args.fuse_tail, device=device)
+    return load_synthesizer(args.t2s_ckpt, args.acous_ckpt, args.hifigan_ckpt, vocab_path=args.bert_vocab,
+                            strict=not args.allow_fallback_vocab, dtype=dtype, fuse_tail=args.fuse_tail,
+                            device=device)
 
 
 def generate_all(args, kind: str, synthesize) -> None:

@@ -310,12 +310,14 @@ class Synthesizer:
 
 
 def load_synthesizer(t2s_path: str, acoustic_path: str, vocoder_path: str, *,
-                     vocab_path: Optional[str] = None, **kwargs) -> Synthesizer:
+                     vocab_path: Optional[str] = None, strict: bool = True, **kwargs) -> Synthesizer:
     """A Synthesizer from `.npz` checkpoints, each with a `.json` sidecar
     carrying the model config (`checkpoint.io.save_params`,
-    convert_checkpoint.py)."""
+    convert_checkpoint.py). `strict=False` permits the tokenizer's fallback
+    vocab; `mel_cfg` defaults to the vocoder's sample rate."""
     t2s_params, t2s_cfg = load_checkpoint(t2s_path, T.T2SConfig)
     ac_params, ac_cfg = load_checkpoint(acoustic_path, A.AcousticConfig)
     voc_params, voc_cfg = load_checkpoint(vocoder_path, V.VocoderConfig)
-    tok = load_covomix_tokenizer(vocab_path)
+    tok = load_covomix_tokenizer(vocab_path, strict=strict)
+    kwargs.setdefault("mel_cfg", MelConfig(sample_rate=voc_cfg.sampling_rate))
     return Synthesizer(t2s_params, t2s_cfg, ac_params, ac_cfg, voc_params, voc_cfg, tok, **kwargs)

@@ -8,10 +8,16 @@ import dataclasses
 
 import jax
 import numpy as np
+import torch
 
 from covomix_tpu.models import acoustic as JA, text2semantic as JT, vocoder as JV
 from covomix_tpu_torch.checkpoint.io import params_from_numpy
 from covomix_tpu_torch.models import acoustic as PA, text2semantic as PT, vocoder as PV
+
+# These tests run the port's tiny shapes on the CPU in a process whose XLA
+# client keeps its own threads busy; torch's intra-op pool then contends with
+# it, and one torch thread is several times faster than the default.
+torch.set_num_threads(1)
 
 J_T2S = JT.T2SConfig(dim=32, source_depth=1, target_depth=1, heads=2, dim_head=16,
                      num_text_tokens=200, num_semantic_tokens=501, target_dim=64, two_output=True)

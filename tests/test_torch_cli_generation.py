@@ -1,8 +1,11 @@
 """The port's generation CLIs end to end on the CPU (`--device cpu`): tiny
 random checkpoints written by the JAX package's `save_params`, prompts and
 scripts in the JAX CLIs' file conventions, one wav per script plus
-config.txt."""
+config.txt. The in-process runs cap the T2S decode at MAX_LEN steps: random
+weights rarely sample EOS, and the CLIs' default of 2048 steps would make
+each run a long eager loop on the CPU."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -16,8 +19,12 @@ from covomix_tpu.checkpoint import io as jio
 from covomix_tpu.models import acoustic as JA, text2semantic as JT, vocoder as JV
 from covomix_tpu_torch.audio.wav import load_wav
 from covomix_tpu_torch import dialogue_generation, monologue_generation
+from covomix_tpu_torch import pipeline as P
+
+import _torch_port  # noqa: F401  (one torch thread beside the XLA client; see there)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MAX_LEN = 64      # 30 prompt frames + 64 fit one 128-frame bucket
 
 
 @pytest.fixture(scope="module")
@@ -34,7 +41,7 @@ def assets(tmp_path_factory):
     for i, (name, init, cfg) in enumerate((("t2s", JT.init, t2s_cfg), ("acoustic", JA.init, mix_cfg),
                                            ("acoustic_single", JA.init, single_cfg),
                                            ("vocoder", JV.init_generator, voc_cfg))):
-        jio.save_params(str(root / f"{name}.npz"), init(jax.random.fold_in(key, i), cfg),
+        jio.save_params(str(root / f"{name}.npz"), jax.jit(init, static_argnums=1)(jax.random.fold_in(key, i), cfg),
                         meta={"config": cfg.__dict__})
     (root / "texts").mkdir()
     (root / "prompts").mkdir()
@@ -44,6 +51,12 @@ def assets(tmp_path_factory):
         np.save(str(root / "prompts" / f"{stem}.hubert_code.npy"), rng.randint(0, 500, size=30).astype(str))
         save_wav(str(root / "prompts" / f"{stem}.wav"), rng.randn(30 * 160).astype(np.float32) * 0.05, 8000)
     return root
+
+
+@pytest.fixture(autouse=True)
+def short_decode(monkeypatch):
+    monkeypatch.setattr(monologue_generation, "load_synthesizer",
+                        functools.partial(P.load_synthesizer, t2s_max_length=MAX_LEN))
 
 
 def _args(assets, out, acoustic="acoustic.npz", extra=()):
@@ -75,9 +88,15 @@ def test_dialogue_cli_covomix(assets, fuse_tail, tmp_path):
 
 
 def test_dialogue_cli_as_module(assets, tmp_path):
-    """`python -m covomix_tpu_torch.dialogue_generation` from the repo root."""
-    res = subprocess.run([sys.executable, "-m", "covomix_tpu_torch.dialogue_generation",
-                          *_args(assets, tmp_path, extra=["--f32"])],
+    """The dialogue CLI run as `__main__` from the repo root in a fresh
+    process, as `python -m covomix_tpu_torch.dialogue_generation` runs it
+    (runpy, with the decode capped as in the in-process tests)."""
+    launcher = ("import functools, runpy, sys\n"
+                "from covomix_tpu_torch import monologue_generation as M, pipeline as P\n"
+                f"M.load_synthesizer = functools.partial(P.load_synthesizer, t2s_max_length={MAX_LEN})\n"
+                "sys.argv[0] = 'dialogue_generation'\n"
+                "runpy.run_module('covomix_tpu_torch.dialogue_generation', run_name='__main__', alter_sys=True)\n")
+    res = subprocess.run([sys.executable, "-c", launcher, *_args(assets, tmp_path, extra=["--f32"])],
                          cwd=REPO, capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "RTF" in res.stdout and "float32" in res.stdout
