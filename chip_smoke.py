@@ -30,13 +30,27 @@ Phases (any failure exits non-zero, nothing is passed over):
      greedy decode and shared noise: batched serving (the flash kernel's
      plain version on the CPU), and the Synthesizer's covomix dialogue with
      fuse_tail and a full-width vocoder (the unfused generator on the CPU);
-  8. print a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
+  8. full-width VoMix training (the recipe of running_command/Acous_VoMix.sh,
+     bf16, B=8, T=832) through `covomix_tpu_torch.train.cli.main` on random
+     data: 12 optimizer steps, one eval on 8 dev files and its top-k save,
+     then `--resume` for one more step; every step must launch the forward
+     with lse, dQ and dK/dV 8 times each (and nothing else), the eval only
+     the forward without lse; then the step's forward / backward / optimizer
+     split, the three training kernels timed at [8, 16, 832, 64] beside
+     their plain versions, bounds and PyTorch yardsticks, and two f32 steps
+     of a tiny model on the card against the CPU;
+  9. print a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
+The training-form kernel checks (forward with lse, dQ, dK/dV in bf16 and
+f32, T 513-2304, valid_len [1] and [B], rotary on and off, head dims
+16-256, and autograd through the kernels against autograd through the plain
+version) run with phase 3.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -49,6 +63,17 @@ H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12    # HBM3 bandwidth (H100 SXM data sheet)
 BF16_TOL = 1e-2               # |out| <~ 1: a few bf16 ulps (2^-8 at 1) of p and out rounding
 F32_TOL = 1e-4                # f32: summation order and __expf vs expf only
+LSE_TOL = 1e-4                # lse = m + log(l): |lse| ~ 10, l a sum of __expf terms (~2 ulps each)
+# backward kernels against their plain versions in bf16: both round p and ds
+# to bf16 at the same points and the outputs once, so an f32 sum taken in
+# another order can only flip a rounding to the neighbouring value: a few
+# ulps (2^-8 relative) of the output's scale at worst
+BWD_BF16_TOL = 4 * 2 ** -8
+# bf16 gradients through the autograd Function (kernels) against torch
+# autograd through the plain forward: autograd rounds other intermediates
+# (the gradient of p, of the rotated q and k) to bf16, so the two differ by
+# several bf16 roundings; a wrong rotation or lse shows as errors of order 1
+AUTOGRAD_BF16_TOL = 2 ** -4
 # card vs CPU wav of the small f32 serving run: both sides f32, so only
 # summation order differs; an H100 80GB HBM3 read 2.98e-8, this is ~30x that
 SMALL_WAV_TOL = 1e-6
@@ -66,6 +91,13 @@ VOC_BF16_MEAN_TOL = 1e-4     # mean |err|, x max(1, max |plain|): flips are rare
 # full-width vocoder's fused kernels on the card against the unfused
 # generator (conv by conv) on the CPU
 SMALL_SYNTH_WAV_TOL = 1e-5
+# card vs CPU, two f32 training steps of a tiny model (flash kernels on the
+# card, einsum attention on the CPU): the losses differ by summation order
+# only; Adam divides each gradient element by its own size, so an element
+# whose gradient is small next to its leaf's rounding noise moves by up to a
+# few thousandths of the learning rate (1e-3): parameters to 1e-2 of it
+SMALL_TRAIN_LOSS_TOL = 1e-5
+SMALL_TRAIN_PARAM_TOL = 1e-5
 DIALOGUE_SCRIPT = ("hello there, how are you doing today? [spkchange] i am fine, thank you. "
                    "[spkchange] good to hear [laughter] see you soon")
 
@@ -151,6 +183,110 @@ def check_flash(results):
     results["flash_check_max_abs_err"] = worst
 
 
+def flash_agreement(what, out, ref, tol):
+    """Max |out - ref| of a flash kernel's output (out, lse, dq, dk, dv)
+    against its plain version, held to tol x max(1, max |plain|) (both round
+    at the same points, so only the order of f32 sums differs); logged,
+    raises on disagreement."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    scale = max(1.0, ref.float().abs().max().item())
+    ok = (out.shape == ref.shape and out.dtype == ref.dtype and bool(torch.isfinite(out).all())
+          and err.max().item() <= tol * scale)
+    log(f"  {what}: max_abs_err {err.max().item():.3e}, mean {err.mean().item():.3e}, |plain| max {scale:.3g} "
+        f"(tol {tol:g} x max(1, |plain|)) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the kernel disagrees with its plain version")
+    return err.max().item()
+
+
+def check_flash_training_case(b, h, t, dh, dtype, seed, valid, rotary):
+    """The forward with lse, dQ and dK/dV against their plain versions on the
+    same inputs; returns {kernel: max_abs_err}."""
+    import torch
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    q, k, v, valid_arr, tables = flash_inputs(b, h, t, dh, dtype, seed, valid, rotary)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1000),
+                       device="cuda").to(dtype)
+    bf16 = dtype == torch.bfloat16
+    log(f"flash training check [{b},{h},{t},{dh}] {str(dtype)[6:]} valid={valid} rotary={rotary}:")
+    out, lse = FA.KERNEL(q, k, v, valid_arr, tables, return_lse=True)
+    ref, ref_lse = FA.flash_attention_plain(q, k, v, valid_arr, tables, return_lse=True)
+    errs = {"fwd_lse": max(flash_agreement("out", out, ref, BF16_TOL if bf16 else F32_TOL),
+                           flash_agreement("lse", lse, ref_lse, LSE_TOL))}
+    if tables is not None:
+        # the backward re-rotates with _rotary_plain: it must give the very
+        # operands the kernel rotated in shared memory, bit for bit
+        q, k = FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables)
+        out2, lse2 = FA.KERNEL(q, k, v, valid_arr, None, return_lse=True)
+        same = torch.equal(out2, out) and torch.equal(lse2, lse)
+        log(f"  in-kernel rotary == _rotary_plain then the kernel, bit for bit: {same}")
+        if not same:
+            raise AssertionError("the kernel's rotary differs from _rotary_plain")
+    delta = FA.flash_delta(dout, ref)
+    tol = BWD_BF16_TOL if bf16 else F32_TOL
+    errs["bwd_dq"] = flash_agreement("dq", FA.KERNEL.bwd_dq(q, k, v, dout, ref_lse, delta, valid_arr),
+                                          FA.flash_bwd_dq_plain(q, k, v, dout, ref_lse, delta, valid_arr), tol)
+    (dk, dv), (dk_p, dv_p) = (FA.KERNEL.bwd_dkv(q, k, v, dout, ref_lse, delta, valid_arr),
+                              FA.flash_bwd_dkv_plain(q, k, v, dout, ref_lse, delta, valid_arr))
+    errs["bwd_dkv"] = max(flash_agreement("dk", dk, dk_p, tol), flash_agreement("dv", dv, dv_p, tol))
+    for bi in range(b):
+        vl = int(valid_arr[bi if valid_arr.numel() > 1 else 0])
+        if not (bool((dk[bi, :, vl:] == 0).all()) and bool((dv[bi, :, vl:] == 0).all())):
+            raise AssertionError(f"key rows past valid_len {vl} did not get exact zeros")
+    return errs
+
+
+def check_flash_training(results):
+    """The training form of the flash kernels against their plain versions,
+    in bf16 and f32: the training shape [8, 16, 832, 64], a ragged T, T above
+    2048, valid_len [1] < T and [B], rotary on and off, the edge head dims;
+    then the gradients of the autograd Function on the card against torch
+    autograd through flash_attention_plain."""
+    import torch
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(8, 16, 832, 64, bf, 832, True),                     # the training shape
+             (2, 4, 832, 64, f32, 832, True),
+             (2, 4, 1000, 64, bf, [1000, 613], True), (2, 4, 1000, 64, f32, [1000, 613], False),
+             (1, 2, 2100, 64, bf, 2100, False), (1, 2, 2100, 64, f32, 1500, True),
+             (2, 2, 2304, 64, bf, 1999, True),
+             (2, 2, 600, 16, bf, [600, 1], True), (1, 2, 520, 16, f32, 400, False),
+             (2, 2, 700, 32, bf, [650, 700], True), (1, 2, 513, 32, f32, 513, True),
+             (2, 2, 600, 48, bf, [555, 1], True), (1, 2, 600, 48, f32, 600, False),
+             (1, 2, 640, 128, bf, [500], True), (2, 2, 513, 128, f32, [513, 200], True),
+             (2, 2, 700, 256, bf, [650, 700], True), (1, 2, 520, 256, f32, 400, True)]
+    worst = {}
+    for i, (b, h, t, dh, dtype, valid, rotary) in enumerate(cases):
+        errs = check_flash_training_case(b, h, t, dh, dtype, 200 + i, valid, rotary)
+        if dtype == bf:
+            for key, e in errs.items():
+                worst[key] = max(worst.get(key, 0.0), e)
+    for key, e in worst.items():
+        results[f"{key}_check_max_abs_err"] = e
+
+    # gradients of _FlashCoreRot (kernel forward with lse, re-rotation, dQ,
+    # dK/dV, counter-rotation) against torch autograd through the plain version
+    for b, h, t, dtype, valid, tol in ((2, 4, 1000, f32, [1000, 613], F32_TOL),
+                                       (8, 16, 832, bf, 832, AUTOGRAD_BF16_TOL)):
+        q, k, v, valid_arr, tables = flash_inputs(b, h, t, 64, dtype, 300 + t, valid, True)
+        w = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(7), device="cuda").to(dtype)
+        grads = []
+        for fn in (lambda q, k, v: FA.flash_attention(q, k, v, valid_len=valid_arr, rotary=tables),
+                   lambda q, k, v: FA.flash_attention_plain(q, k, v, valid_arr, tables)):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = fn(*leaves)
+            grads.append(torch.autograd.grad((out.float() * w.float()).sum(), leaves))
+        log(f"autograd through the kernels vs through the plain version [{b},{h},{t},64] {str(dtype)[6:]} "
+            f"valid={valid} rotary:")
+        for name, a, r in zip(("dq", "dk", "dv"), *grads):
+            flash_agreement(name, a, r, tol)
+
+
 def time_flash(results, key, b, t, valid):
     """Kernel, plain version and SDPA yardstick at [b, 16, t, 64] bf16 with
     rotary and a run's own valid lengths (one per row, or one for all), into
@@ -189,6 +325,74 @@ def time_flash(results, key, b, t, valid):
     log(f"flash timing [{b},{h},{t},{dh}] bf16 rotary, valid={valid_arr.tolist()}: kernel {ms:.4f} ms, plain "
         f"{results[f'{key}_plain_ms']:.4f} ms, SDPA {results[f'{key}_sdpa_ms']:.4f} ms, bound {bound:.4f} ms "
         f"({by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) -> {flops / ms / 1e9:.1f} TFLOP/s")
+
+
+def time_flash_training(results, b=8, h=16, t=832, dh=64):
+    """The forward with lse, dQ and dK/dV at the training shape (bf16, rotary,
+    all keys live), each beside its plain version, its bound and one PyTorch
+    call of the same function: SDPA on the pre-rotated inputs for the
+    forward, the gradient of SDPA (one call computes dQ, dK and dV) for the
+    pair. The outputs on the timed inputs are held against the plain
+    versions'."""
+    import torch
+    import torch.nn.functional as F
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    bf = torch.bfloat16
+    q, k, v, valid_arr, tables = flash_inputs(b, h, t, dh, bf, 401, t, True)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(402), device="cuda").to(bf)
+    log(f"flash training kernels at the timed inputs [{b},{h},{t},{dh}] bf16 rotary:")
+    out, lse = FA.KERNEL(q, k, v, valid_arr, tables, return_lse=True)
+    ref, ref_lse = FA.flash_attention_plain(q, k, v, valid_arr, tables, return_lse=True)
+    results["fwd_lse_max_abs_err"] = max(flash_agreement("out", out, ref, BF16_TOL),
+                                         flash_agreement("lse", lse, ref_lse, LSE_TOL))
+    qr, kr = FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables)
+    delta = FA.flash_delta(dout, ref)
+    bwd = (qr, kr, v, dout, ref_lse, delta, valid_arr)
+    results["bwd_dq_max_abs_err"] = flash_agreement("dq", FA.KERNEL.bwd_dq(*bwd), FA.flash_bwd_dq_plain(*bwd),
+                                                         BWD_BF16_TOL)
+    (dk, dv), (dk_p, dv_p) = FA.KERNEL.bwd_dkv(*bwd), FA.flash_bwd_dkv_plain(*bwd)
+    results["bwd_dkv_max_abs_err"] = max(flash_agreement("dk", dk, dk_p, BWD_BF16_TOL),
+                                         flash_agreement("dv", dv, dv_p, BWD_BF16_TOL))
+    del out, ref, dk, dv, dk_p, dv_p
+
+    timed = {
+        "fwd_lse": (lambda: FA.KERNEL(q, k, v, valid_arr, tables, return_lse=True),
+                    lambda: FA.flash_attention_plain(q, k, v, valid_arr, tables, return_lse=True)),
+        "bwd_dq": (lambda: FA.KERNEL.bwd_dq(*bwd), lambda: FA.flash_bwd_dq_plain(*bwd)),
+        "bwd_dkv": (lambda: FA.KERNEL.bwd_dkv(*bwd), lambda: FA.flash_bwd_dkv_plain(*bwd)),
+    }
+    for key, (kern, plain) in timed.items():
+        results[f"{key}_ms"] = cuda_time_ms(kern)
+        results[f"{key}_plain_ms"] = cuda_time_ms(plain, iters=5)
+    # what the lse output and the in-kernel rotary cost the forward, on these inputs
+    variants = {"no lse": cuda_time_ms(lambda: FA.KERNEL(q, k, v, valid_arr, tables)),
+                "lse, pre-rotated inputs": cuda_time_ms(lambda: FA.KERNEL(qr, kr, v, valid_arr, None,
+                                                                          return_lse=True))}
+    log(f"forward variants at [{b},{h},{t},{dh}] bf16 (ms): with lse and rotary {results['fwd_lse_ms']:.4f}, "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in variants.items()))
+    results["fwd_lse_library_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v))
+    leaves = [x.detach().clone().requires_grad_() for x in (qr, kr, v)]
+    o = F.scaled_dot_product_attention(*leaves)
+    results["bwd_dq_library_ms"] = results["bwd_dkv_library_ms"] = cuda_time_ms(
+        lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True))
+    del o, leaves
+
+    n, rows = b * h * t * dh * 2, b * h * t * 4          # one [B,H,T,dh] bf16 tensor; one f32 [B,H,T] row array
+    live = valid_arr.long().expand(b).sum().item()
+    work = {"fwd_lse": (4.0 * h * dh * t * live, 4 * n + rows + 2 * t * dh * 2),     # q,k,v,out; lse; tables
+            "bwd_dq": (6.0 * h * dh * t * live, 5 * n + 2 * rows),                    # q,k,v,dO,dq; lse,delta
+            "bwd_dkv": (8.0 * h * dh * t * live, 6 * n + 2 * rows)}                   # q,k,v,dO,dk,dv; lse,delta
+    for key, (flops, nbytes) in work.items():
+        nbytes += valid_arr.numel() * 4
+        bf_ms, bb_ms = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        results[f"{key}_bound_ms"] = max(bf_ms, bb_ms)
+        results[f"{key}_bound_by"] = "operations" if bf_ms >= bb_ms else "bytes"
+        ms = results[f"{key}_ms"]
+        log(f"{key} timing [{b},{h},{t},{dh}] bf16: kernel {ms:.4f} ms, plain {results[f'{key}_plain_ms']:.4f} ms, "
+            f"library {results[f'{key}_library_ms']:.4f} ms, bound {results[f'{key}_bound_ms']:.4f} ms "
+            f"({results[f'{key}_bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) -> "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
 
 
 # ---------------------------------------------------------------------------
@@ -658,6 +862,255 @@ def check_small_synth_against_cpu(prompt_dir):
         raise AssertionError(f"card and CPU wavs differ by {err}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: full-width VoMix training through the training CLI
+
+
+# the VoMix acoustic recipe (running_command/Acous_VoMix.sh) on one card, bf16
+VOMIX_RECIPE = ["--format", "hubert_overlap_two_input_one_output", "--twocondition_oneoutput",
+                "--CoVoMix_dim", "160", "--CoVoMix_dim_transformer", "1024", "--CoVoMix_depth", "8",
+                "--CoVoMix_heads", "16", "--CoVoMix_num_phoneme_tokens", "502", "--cond_drop_prob", "0.3",
+                "--random_mask", "--batch_size", "8", "--lr", "1e-4", "--lr_scheduler", "--bf16"]
+TRAIN_STEPS = 12
+
+
+def write_vomix_items(root, n, seed):
+    """n random VoMix items in the hubert_overlap_two_input_one_output layout:
+    u.mel.npy (mixed), u-A / u-B .mel.npy [80, ~1000] f32 and u-A / u-B
+    .hubert_code.npy as string arrays."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(root)
+    for i in range(n):
+        t = 960 + 7 * i
+        base = os.path.join(root, f"u{i}")
+        np.save(base + ".mel.npy", (rs.randn(80, t) * 2 - 5).astype(np.float32))
+        for ch in "AB":
+            np.save(f"{base}-{ch}.mel.npy", (rs.randn(80, t) * 2 - 5).astype(np.float32))
+            np.save(f"{base}-{ch}.hubert_code.npy", rs.randint(0, 500, t).astype(str))
+
+
+def flash_counts():
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    return {"fwd": FA.KERNEL.launches, "fwd_lse": FA.KERNEL.lse_launches, "bwd_dq": FA.KERNEL.dq_launches,
+            "bwd_dkv": FA.KERNEL.dkv_launches}
+
+
+def run_training(results, root):
+    """`covomix_tpu_torch.train.cli.main` with the VoMix recipe at full width
+    (B=8, items cropped to 800 frames and bucketed to 832), bf16, on 24 train
+    and 8 dev items: TRAIN_STEPS steps with one eval on the 8 dev files and
+    its top-k save, then `--resume` for one more step. The launch counts are
+    set to 0 just before and read just after; every optimizer step must
+    launch the forward with lse, dQ and dK/dV 8 times each (8 layers) and
+    nothing else, the eval's sampler only the forward without lse."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.ops import flash_attention as FA
+    from covomix_tpu_torch.train import cli, evaluate as E, loop
+
+    train_dir, dev_dir, logs = (os.path.join(root, d) for d in ("train", "dev", "logs"))
+    t0 = time.time()
+    write_vomix_items(train_dir, 24, 0)
+    write_vomix_items(dev_dir, 8, 1)
+    log(f"training data: 24 train + 8 dev random VoMix items written in {time.time() - t0:.1f} s")
+    steps, evals = [], []
+    orig = (loop.make_train_step, E.evaluate_acoustic)
+
+    def make_train_step(loss_fn, cfg):
+        step = orig[0](loss_fn, cfg)
+
+        def timed_step(state, batch, generator):
+            torch.cuda.synchronize()
+            c0, t0 = flash_counts(), time.time()
+            metrics = step(state, batch, generator)
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])   # waits for the card
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.time() - t0) * 1e3, "loss": loss, "grad_norm": gnorm,
+                          "shape": tuple(np.asarray(batch["x"]).shape),
+                          "launches": {k: v - c0[k] for k, v in flash_counts().items()}})
+            return metrics
+
+        return timed_step
+
+    def evaluate_acoustic(params, cfg, batches, generator, **kw):
+        c0, t0 = flash_counts(), time.time()
+        ev = orig[1](params, cfg, batches, generator, **kw)
+        evals.append({"s": time.time() - t0, "batches": len(batches), "rows": sum(len(b["x"]) for b in batches),
+                      "l2": ev["l2"], "launches": {k: v - c0[k] for k, v in flash_counts().items()}})
+        return ev
+
+    argv = ["--base_dir", train_dir, "--dev_base_dir", dev_dir, *VOMIX_RECIPE, "--device", "cuda",
+            "--log_every", "1", "--eval_every", str(TRAIN_STEPS), "--num_eval_files", "8", "--ckpt_every", "1000",
+            "--no_wandb", "--log_dir", logs, "--run_name", "vomix", "--seed", "0"]
+    loop.make_train_step, E.evaluate_acoustic = make_train_step, evaluate_acoustic
+    FA.KERNEL.launches = FA.KERNEL.lse_launches = FA.KERNEL.dq_launches = FA.KERNEL.dkv_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.time()
+        cli.main(argv + ["--max_steps", str(TRAIN_STEPS)])
+        first_s = time.time() - t0
+        t0 = time.time()
+        cli.main(argv + ["--max_steps", str(TRAIN_STEPS + 1), "--resume"])
+        resume_s = time.time() - t0
+    finally:
+        loop.make_train_step, E.evaluate_acoustic = orig
+    totals = flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    per_step = {"fwd": 0, "fwd_lse": 8, "bwd_dq": 8, "bwd_dkv": 8}
+    for i, s in enumerate(steps):
+        log(f"train step {i + 1}: {s['ms']:.1f} ms, batch x {list(s['shape'])}, loss {s['loss']:.5f}, "
+            f"grad_norm {s['grad_norm']:.4f}, launches {s['launches']}")
+        if not (np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])):
+            raise AssertionError(f"train step {i + 1}: loss {s['loss']}, grad_norm {s['grad_norm']}")
+        if s["launches"] != per_step or s["shape"] != (8, 832, 240):
+            raise AssertionError(f"train step {i + 1}: launches {s['launches']} (expected {per_step}), "
+                                 f"batch {s['shape']} (expected (8, 832, 240))")
+    if len(steps) != TRAIN_STEPS + 1:
+        raise AssertionError(f"{len(steps)} optimizer steps over the run and its resume, expected "
+                             f"{TRAIN_STEPS} + 1: the resume did not start from step {TRAIN_STEPS}")
+    log(f"eval: {evals}")
+    if len(evals) != 1 or evals[0]["rows"] != 8 or not np.isfinite(evals[0]["l2"]):
+        raise AssertionError(f"expected one eval over the 8 dev files with a finite l2, got {evals}")
+    if evals[0]["launches"] != {"fwd": 256 * evals[0]["batches"], "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}:
+        raise AssertionError(f"the eval's sampler launched {evals[0]['launches']}: expected the forward "
+                             f"without lse only, 256 per batch")
+    expect = {k: v * len(steps) for k, v in per_step.items()}
+    expect["fwd"] = evals[0]["launches"]["fwd"]
+    if totals != expect:
+        raise AssertionError(f"launch totals {totals} over the training run, expected {expect}")
+    ckpt = os.path.join(logs, "vomix", "checkpoints")
+    with open(os.path.join(ckpt, "topk.json")) as f:
+        topk = json.load(f)
+    with np.load(os.path.join(ckpt, f"step_{TRAIN_STEPS + 1:08d}", "state.npz")) as z:
+        counters = (int(z["step"]), int(z["adam_step"]), int(z["ema_num_updates"]))
+    log(f"checkpoints {sorted(os.listdir(ckpt))}, topk.json {topk}, step {TRAIN_STEPS + 1} counters {counters}")
+    if (sorted(os.listdir(ckpt)) != [f"step_{TRAIN_STEPS:08d}", f"step_{TRAIN_STEPS + 1:08d}", "topk.json"]
+            or topk["best_step"] != TRAIN_STEPS or counters != (TRAIN_STEPS + 1,) * 3):
+        raise AssertionError("the top-k save, the resume or its checkpoint is not as expected")
+    ms = sorted(s["ms"] for s in steps[2:TRAIN_STEPS])
+    median = ms[len(ms) // 2] if len(ms) % 2 else (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
+    results.update(train_launches=totals, train_steps=len(steps), train_step_ms=median,
+                   train_samples_per_s=8 / (median / 1e3), train_peak_gb=peak_gb)
+    log(f"full-width VoMix training (bf16, B=8, T=832): median {median:.2f} ms per optimizer step over steps 3-"
+        f"{TRAIN_STEPS}, {8 / (median / 1e3):.2f} samples/s, peak device memory {peak_gb:.2f} GiB; run "
+        f"{first_s:.1f} s incl. init and {TRAIN_STEPS} steps, eval {evals[0]['s']:.2f} s, resume run "
+        f"{resume_s:.1f} s; launch totals {totals}")
+    return train_dir
+
+
+def split_training_step(results, train_dir, n=5):
+    """Where an optimizer step's time goes at full width: the loss forward,
+    the backward and the optimizer (Adam + EMA), each ended by a synchronize,
+    the median of `n` steps after one warm-up."""
+    import torch
+    from covomix_tpu_torch.data.datasets import CoVoMixDataset, collate_acoustic
+    from covomix_tpu_torch.models import acoustic as A
+    from covomix_tpu_torch.train import loop
+
+    cfg = A.AcousticConfig(dim_in=160, dim=1024, depth=8, heads=16, dim_head=64, num_phoneme_tokens=502,
+                           mode="two_one")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tcfg = loop.TrainConfig(lr=1e-4)
+    state = loop.init_train_state(A.init(gen, cfg), tcfg)
+    loss_fn = loop.acoustic_loss_fn(cfg, cond_drop_prob=0.3, dtype=torch.bfloat16)
+    ds = CoVoMixDataset(train_dir, format="hubert_overlap_two_input_one_output", random_mask=True)
+    batch = loop.to_device(collate_acoustic([ds[i] for i in range(8)]), "cuda")
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for i in range(n + 1):
+        times = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss = loss_fn(state.params, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.time())
+        loss.backward()
+        torch.cuda.synchronize()
+        times.append(time.time())
+        state.optimizer.step()
+        loop.ema_update(state.ema_params, state.params, state.ema_num_updates, tcfg.ema_decay)
+        state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        times.append(time.time())
+        if i:
+            for key, a, b in zip(parts, [t0] + times[:2], times):
+                parts[key].append((b - a) * 1e3)
+    split = {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+    results["train_split_ms"] = split
+    log(f"optimizer step split at full width, bf16 B=8 T=832 (median of {n}, ms): {json.dumps(split)}")
+
+
+def check_small_training_against_cpu():
+    """Two optimizer steps of a tiny f32 VoMix model (dh 16, T = 576 >= 512, so
+    the card takes the flash kernels) on the card and on the CPU (einsum
+    attention there), TF32 off, the same batches and the same draws (one CPU
+    generator: the loss draws on the generator's device)."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.models import acoustic as A
+    from covomix_tpu_torch.train import loop
+    from covomix_tpu_torch.util.misc import tree_leaves, tree_map
+
+    cfg = A.AcousticConfig(dim_in=160, dim=32, depth=2, heads=2, dim_head=16, dim_phoneme_emb=16, mode="two_one")
+    tcfg = loop.TrainConfig(lr=1e-3, use_lr_schedule=True, steps_per_epoch=1, wake_up_epochs=2, grad_clip=1.0)
+    rs = np.random.RandomState(9)
+    batches = []
+    for _ in range(2):
+        mask = np.zeros((2, 576), bool)
+        mask[:, 100:400] = True
+        batches.append({"x": rs.randn(2, 576, 240).astype(np.float32),
+                        "phonemes": rs.randint(0, 502, (2, 576, 2)).astype(np.int32), "mask": mask})
+    init = A.init(torch.Generator().manual_seed(0), cfg)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        state = loop.init_train_state(tree_map(lambda p: p.clone().to(dev), init), tcfg)
+        step = loop.make_train_step(loop.acoustic_loss_fn(cfg, cond_drop_prob=0.3), tcfg)
+        gen = torch.Generator().manual_seed(1)
+        c0 = flash_counts()
+        losses = [float(step(state, b, gen)["loss"]) for b in batches]
+        runs[dev] = (losses, tree_map(lambda p: p.detach().cpu(), state.params),
+                     {k: v - c0[k] for k, v in flash_counts().items()})
+    (lc, pc, nc), (lh, ph, nh) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    param_err = max((a - b).abs().max().item() for a, b in zip(tree_leaves(pc), tree_leaves(ph)))
+    log(f"small f32 training, card vs CPU, 2 steps: losses {lc} / {lh} (max rel err {loss_err:.3e}, tol "
+        f"{SMALL_TRAIN_LOSS_TOL:g}), params max_abs_err {param_err:.3e} (tol {SMALL_TRAIN_PARAM_TOL:g}), "
+        f"launches card {nc} / cpu {nh}")
+    if nc != {"fwd": 0, "fwd_lse": 4, "bwd_dq": 4, "bwd_dkv": 4} or any(nh.values()):
+        raise AssertionError("the small card run did not go through the training kernels, or the CPU run did")
+    if not (loss_err <= SMALL_TRAIN_LOSS_TOL and param_err <= SMALL_TRAIN_PARAM_TOL):
+        raise AssertionError("card and CPU training steps differ")
+
+
+def build_kernels():
+    """Build every kernel library from the checkout's sources, all nvcc runs
+    started together: the flash kernels for the serving / training head dim
+    and the edge head dims checked below, and the fused vocoder library. Logs
+    ptxas's registers and spills per kernel of the dh-64 flash library and
+    the vocoder library."""
+    from covomix_tpu_torch.ops import flash_attention as FA, vocoder_tail as VT
+
+    t0 = time.time()
+    dhs = (SERVING_DH,) + EDGE_DH
+    builds = [lambda dh=dh: FA.KERNEL.build(dh) for dh in dhs] + [VT.LIBRARY.build]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda build: build(), builds))
+    libs = [FA.KERNEL.lib_path(dh) for dh in dhs] + [VT.LIBRARY.lib_path()]
+    log(f"built {[os.path.relpath(p, REPO) for p in libs]} in {time.time() - t0:.1f} s")
+    for name, build_log in ((f"flash dh {SERVING_DH}", FA.KERNEL.build_logs.get(SERVING_DH, "")),
+                            ("vocoder_tail", VT.LIBRARY.build_log)):
+        kernel = "?"
+        for line in build_log.splitlines():
+            if "Compiling entry function" in line:   # the kernel's name, length-prefixed in the mangled one
+                m = re.search(r"\d+((?:flash|vocoder)_[a-z_0-9]+)I(.*?)EEv", line)
+                kernel = f"{m.group(1)}<{m.group(2)}>" if m else line.split("'")[1]
+            elif "Used" in line or "spill" in line:
+                log(f"  ptxas {name} {kernel}: " + line.strip().replace("ptxas info    : ", ""))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "covomix_tpu_torch")):
         print("chip_smoke: covomix_tpu_torch/ not found beside this script; run from a checkout",
@@ -679,21 +1132,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.time()
-    dhs = (SERVING_DH,) + EDGE_DH
-    builds = [lambda dh=dh: FA.KERNEL.build(dh) for dh in dhs] + [VT.LIBRARY.build]
-    with ThreadPoolExecutor(len(builds)) as pool:
-        list(pool.map(lambda build: build(), builds))
-    libs = [FA.KERNEL.lib_path(dh) for dh in dhs] + [VT.LIBRARY.lib_path()]
-    log(f"built {[os.path.relpath(p, REPO) for p in libs]} in {time.time() - t0:.1f} s")
-    for name, build_log in ((f"flash dh {SERVING_DH}", FA.KERNEL.build_logs.get(SERVING_DH, "")),
-                            ("vocoder_tail", VT.LIBRARY.build_log)):
-        for line in build_log.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas {name}: " + line.strip())
+    build_kernels()
 
     results = {}
     check_flash(results)
+    check_flash_training(results)
     check_vocoder(results)
     valid_rows = run_serving(results)
     time_flash(results, "flash_serving", 8, 912, valid_rows)
@@ -714,6 +1157,15 @@ def main() -> int:
         check_small_synth_against_cpu(os.path.join(root, "prompts"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    root = os.path.join(VT.BUILD_DIR, "smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        train_dir = run_training(results, root)
+        split_training_step(results, train_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    time_flash_training(results)
+    check_small_training_against_cpu()
 
     launches = results["dialogue_launches"]     # this slice's main path: the per-file dialogue CLI
     kernels = [{
@@ -734,6 +1186,18 @@ def main() -> int:
             "ms": results[f"{kind}_ms"], "plain_ms": results[f"{kind}_plain_ms"],
             "bound_ms": results[f"{kind}_bound_ms"], "bound_by": results[f"{kind}_bound_by"],
             "library_ms": None, "unfused_ms": results[f"{kind}_unfused_ms"],
+        })
+    train = results["train_launches"]     # this slice's main path: full-width VoMix training
+    for key, replaces in (("fwd_lse", "covomix_tpu/ops/flash_attention.py:162"),
+                          ("bwd_dq", "covomix_tpu/ops/flash_attention.py:502"),
+                          ("bwd_dkv", "covomix_tpu/ops/flash_attention.py:544")):
+        kernels.append({
+            "name": f"flash_attention_{key}", "route": "cuda",
+            "source": "covomix_tpu_torch/csrc/flash_attention.cu", "replaces": replaces,
+            "launches": train[key], "launches_per_train_step": train[key] // results["train_steps"],
+            "max_abs_err": results[f"{key}_max_abs_err"], "ms": results[f"{key}_ms"],
+            "plain_ms": results[f"{key}_plain_ms"], "bound_ms": results[f"{key}_bound_ms"],
+            "bound_by": results[f"{key}_bound_by"], "library_ms": results[f"{key}_library_ms"],
         })
     log(f"total chip_smoke time {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 """Voicebox-style flow-matching acoustic model (VoSingle / VoMix): port of
-covomix_tpu/models/acoustic.py, inference side.
+covomix_tpu/models/acoustic.py (inference and the OT-CFM training loss).
 
   * transformer: concat [noisy mel x_t, phoneme emb, cond mel] -> Linear ->
     depthwise-conv positional embed -> U-Net-skip transformer with halfsplit
@@ -209,6 +209,78 @@ def forward(params, cfg: AcousticConfig, x, phoneme_ids, cond, times, *, cond_dr
     time_emb = _time_embedding(params, times, dtype)
     h = _transformer(params, cfg, h, time_emb, valid_len=valid_len)
     return L.linear(params["to_pred"], h).float()
+
+
+# ---------------------------------------------------------------------------
+# training-side mask + loss (OT-CFM, Voicebox eq. 5-6). Random numbers are
+# drawn from `gen` on the generator's own device and moved to the data's, so
+# one CPU generator gives the same draws to a CPU run and a CUDA run.
+
+
+def _rand(gen, shape, device):
+    return torch.rand(shape, generator=gen, device=gen.device).to(device)
+
+
+def random_span_mask(gen, batch: int, seq_len: int, frac_lo: float, frac_hi: float, device=None):
+    """[B, T] bool: one contiguous True span per row covering a uniform
+    fraction in [frac_lo, frac_hi) of the sequence."""
+    device = device or gen.device
+    frac = _rand(gen, (batch,), device) * (frac_hi - frac_lo) + frac_lo
+    lengths = (frac * seq_len).to(torch.int32)
+    start = ((seq_len - lengths) * _rand(gen, (batch,), device)).to(torch.int32)
+    seq = torch.arange(seq_len, device=device)[None, :]
+    return (seq >= start[:, None]) & (seq < (start + lengths)[:, None])
+
+
+def training_mask(gen, cfg: AcousticConfig, batch: int, seq_len: int, device=None):
+    """The mask used when the batch carries none: one coin flip for the
+    batch between a frac-length span mask and bernoulli(p_drop_prob)."""
+    device = device or gen.device
+    coin = _rand(gen, (), device) < 0.5
+    span = random_span_mask(gen, batch, seq_len, *cfg.frac_lengths_mask, device=device)
+    bern = _rand(gen, (batch, seq_len), device) < cfg.p_drop_prob
+    return torch.where(coin, span, bern)
+
+
+def cfm_inputs(cfg: AcousticConfig, gen, x1, cond, mask=None, *, cond_drop_prob: float = 0.0,
+               sigma: float = 0.0):
+    """All randomness of one OT-CFM training step: (w, times, flow, mask,
+    cond_masked, cond_drop_mask). x0 ~ N(0, I), t ~ U[0, 1):
+    w = (1 - (1 - sigma) t) x0 + t x1, flow = x1 - (1 - sigma) x0; cond is
+    zeroed on the masked region; cond_drop_mask [B] bool (None when
+    cond_drop_prob is 0)."""
+    b, t, _ = x1.shape
+    dev = x1.device
+    if mask is None:
+        mask = training_mask(gen, cfg, b, t, dev)
+    x0 = torch.randn(x1.shape, generator=gen, device=gen.device).to(dev)
+    times = _rand(gen, (b,), dev)
+    tt = times[:, None, None]
+    w = (1 - (1 - sigma) * tt) * x0 + tt * x1
+    flow = x1 - (1 - sigma) * x0
+    cond = cond * (~mask)[:, :, None]
+    drop = _rand(gen, (b,), dev) < cond_drop_prob if cond_drop_prob > 0 else None
+    return w, times, flow, mask, cond, drop
+
+
+def masked_mse(pred, flow, mask):
+    """Per-row masked-mean MSE summed over rows."""
+    err = torch.mean(torch.square(pred - flow), dim=-1)
+    err = torch.where(mask, err, torch.zeros_like(err))
+    den = torch.clamp(torch.sum(mask, dim=-1).float(), min=1e-5)
+    return torch.sum(torch.sum(err, dim=-1) / den)
+
+
+def cfm_loss(params, cfg: AcousticConfig, gen, x1, phoneme_ids, cond, mask=None, *,
+             cond_drop_prob: float = 0.0, sigma: float = 0.0, dtype=torch.float32, inputs=None):
+    """OT-CFM objective: masked-mean MSE between the predicted and the true
+    flow over the masked region, averaged over the batch. `inputs`: the
+    tuple of `cfm_inputs` drawn beforehand (then `gen` is not used)."""
+    if inputs is None:
+        inputs = cfm_inputs(cfg, gen, x1, cond, mask, cond_drop_prob=cond_drop_prob, sigma=sigma)
+    w, times, flow, mask, cond, drop = inputs
+    pred = forward(params, cfg, w, phoneme_ids, cond, times, cond_drop_mask=drop, dtype=dtype)
+    return masked_mse(pred, flow, mask) / x1.shape[0]
 
 
 @torch.no_grad()

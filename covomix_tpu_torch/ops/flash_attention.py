@@ -1,21 +1,34 @@
-"""Flash-attention forward (port of covomix_tpu/ops/flash_attention.py).
+"""Flash attention, forward and backward (port of covomix_tpu/ops/flash_attention.py).
 
-On a CUDA tensor, `flash_attention` launches the hand-written Hopper kernel
-in `csrc/flash_attention.cu` (built with nvcc at first use into
-`covomix_tpu_torch/_build/`, bound with ctypes). On a CPU tensor it runs
-`flash_attention_plain`, the same arithmetic in plain PyTorch: keys past
-`valid_len` set to -1e30 before the exp, `valid_len` clamped to >= 1, and the
-output divided by max(l, 1e-30). There is no fallback from one to the other.
+On CUDA tensors the work runs in the hand-written Hopper kernels of
+`csrc/flash_attention.cu` (built with nvcc at first use into
+`covomix_tpu_torch/_build/`, bound with ctypes): the forward, with or without
+the per-row logsumexp the backward reads, and the dQ and dK/dV backward
+kernels. On CPU tensors the same arithmetic runs in plain PyTorch
+(`flash_attention_plain`, `flash_bwd_dq_plain`, `flash_bwd_dkv_plain`): keys
+past `valid_len` set to -1e30 before the exp, `valid_len` clamped to >= 1, the
+output divided by max(l, 1e-30), p and ds rounded to the input type before
+their products. There is no fallback from one to the other.
 
-The kernel is built once per head dim (`-DFLASH_DH`), for the head dims
+`flash_attention` is differentiable. With grad enabled and an input that
+requires it, it runs a `torch.autograd.Function` (`_FlashCore`, or
+`_FlashCoreRot` with rotary tables), the counterparts of the JAX package's two
+`custom_vjp`s: the forward keeps the logsumexp, the backward computes
+delta = rowsum(dO * O) in f32 and runs dQ and dK/dV. `_FlashCoreRot` saves the
+unrotated q and k; its backward re-rotates them with the kernel's own
+arithmetic (`_rotary_plain`) and counter-rotates dq and dk
+(`_rotary_transpose`). Otherwise (`torch.no_grad()`, inference) it launches the
+forward without the logsumexp.
+
+The kernels are built once per head dim (`-DFLASH_DH`), for the head dims
 `kernel_supports_dh` admits: multiples of 16 up to 256. The dispatcher uses
 the same rule, so a head dim outside it takes `layers.attend`.
 
 `valid_len` is clamped to [1, T]. (The TPU kernel clamps only from below; a
 valid_len above T there lets zero-padded keys in, which no caller does.)
 
-Only the serving slice is ported: non-causal, no logsumexp output. Causal and
-lse requests raise NotImplementedError (ROADMAP: flash training slice)."""
+The causal form (T2S training) is not ported: causal requests raise
+NotImplementedError."""
 
 from __future__ import annotations
 
@@ -30,22 +43,32 @@ from covomix_tpu_torch.ops.cuda_build import BUILD_DIR, build_library, csrc
 
 SOURCE = csrc("flash_attention.cu")
 MAX_DH = 256
-_TRAINING_SLICE = "ROADMAP.md 'TPU kernels to port': flash attention training slice (causal, lse, backward)"
+_CAUSAL_ITEM = "ROADMAP.md 'Modules to port': T2S training (causal flash)"
 
 
 def kernel_supports_dh(dh: int) -> bool:
-    """The head dims the kernel is built for: multiples of 16 (the mma.sync
+    """The head dims the kernels are built for: multiples of 16 (the mma.sync
     k-step) up to 256 (the JAX dispatch rule's limit)."""
     return dh % 16 == 0 and 16 <= dh <= MAX_DH
 
 
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 class FlashKernel:
-    """The kernel libraries (one per head dim) plus the launch count.
-    `launches` goes up by one exactly where the kernel is launched."""
+    """The kernel libraries (one per head dim) and their launch counts, each
+    a plain integer that goes up by one exactly where its kernel is launched:
+    `launches` (forward without logsumexp, the inference form),
+    `lse_launches` (forward with logsumexp, the training form),
+    `dq_launches` and `dkv_launches` (the backward kernels)."""
 
     def __init__(self):
         self.build_logs = {}
         self.launches = 0
+        self.lse_launches = 0
+        self.dq_launches = 0
+        self.dkv_launches = 0
         self._libs = {}
         self._locks = {}
         self._lock = threading.Lock()
@@ -69,55 +92,115 @@ class FlashKernel:
             path = self.lib_path(dh)
             self.build_logs[dh] = build_library(SOURCE, path, [f"-DFLASH_DH={dh}"])
             lib = ctypes.CDLL(path)
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.covomix_flash_attention_fwd.argtypes = [ci, vp, vp, vp, vp, vp, ci, vp, vp,
-                                                        ci, ci, ci, ci, ctypes.c_float, vp]
-            lib.covomix_flash_attention_fwd.restype = ci
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.covomix_flash_attention_fwd.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, vp, vp,
+                                                        ci, ci, ci, ci, cf, vp]
+            lib.covomix_flash_attention_bwd_dq.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                                                           ci, ci, ci, ci, cf, vp]
+            lib.covomix_flash_attention_bwd_dkv.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                                                            ci, ci, ci, ci, cf, vp]
+            for fn in (lib.covomix_flash_attention_fwd, lib.covomix_flash_attention_bwd_dq,
+                       lib.covomix_flash_attention_bwd_dkv):
+                fn.restype = ci
             lib.covomix_cuda_error_string.argtypes = [ci]
             lib.covomix_cuda_error_string.restype = ctypes.c_char_p
             self._libs[dh] = lib
             return lib
 
-    def __call__(self, q, k, v, valid, rotary=None):
-        """q/k/v [B, H, T, dh] contiguous CUDA bf16 or f32; valid int32 [1] or
-        [B] on the same device; rotary (cos, sin_signed) [>=T, dh] or None."""
-        tensors = [q, k, v, valid] + (list(rotary) if rotary is not None else [])
-        if not all(t.is_cuda and t.device == q.device for t in tensors):
+    @staticmethod
+    def _check(q, k, v, valid, extra=()):
+        """Validate q/k/v [B, H, T, dh] (and the other [B, H, T, dh] tensors in
+        `extra`) and valid int32 [1] or [B]: one CUDA device, bf16 or f32,
+        contiguous, 16-byte aligned."""
+        tensors = [q, k, v, *extra]
+        if not all(t.is_cuda and t.device == q.device for t in tensors + [valid]):
             raise ValueError("flash kernel: every tensor must be on the same CUDA device")
         if q.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"flash kernel takes bf16 or f32, got {q.dtype}")
-        if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-            raise ValueError(f"flash kernel: q/k/v must share one [B, H, T, dh] shape; "
-                             f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-        b, h, t, dh = q.shape
-        if k.dtype != q.dtype or v.dtype != q.dtype:
-            raise ValueError("flash kernel: q, k and v must share one dtype")
-        if valid.dtype != torch.int32 or valid.dim() != 1 or valid.shape[0] not in (1, b):
+        if q.dim() != 4 or any(t.shape != q.shape or t.dtype != q.dtype for t in tensors):
+            raise ValueError(f"flash kernel: q/k/v (and dO) must share one [B, H, T, dh] shape and dtype; "
+                             f"got {[(tuple(t.shape), t.dtype) for t in tensors]}")
+        if valid.dtype != torch.int32 or valid.dim() != 1 or valid.shape[0] not in (1, q.shape[0]):
             raise ValueError(f"flash kernel: valid_len must be int32 [1] or [B]; got {valid.dtype} "
                              f"{tuple(valid.shape)}")
-        if rotary is not None:
-            for r in rotary:
-                if r.dtype != q.dtype or r.dim() != 2 or r.shape[0] < t or r.shape[1] != dh:
-                    raise ValueError(f"flash kernel: rotary tables must be [>=T, dh] {q.dtype}; "
-                                     f"got {r.dtype} {tuple(r.shape)}")
-        for x in tensors:
+        for x in tensors + [valid]:
             if not x.is_contiguous():
                 raise ValueError("flash kernel: inputs must be contiguous")
-        for x in (q, k, v):
+        for x in tensors:
             if x.data_ptr() % 16:
-                raise ValueError("flash kernel: q/k/v must be 16-byte aligned")
+                raise ValueError("flash kernel: q/k/v/dO must be 16-byte aligned")
+
+    @staticmethod
+    def _check_rows(q, rows):
+        """lse / delta: contiguous f32 [B, H, T] on q's device."""
+        for r in rows:
+            if (r.dtype != torch.float32 or r.shape != q.shape[:3] or r.device != q.device
+                    or not r.is_contiguous()):
+                raise ValueError(f"flash kernel: lse / delta must be contiguous f32 {tuple(q.shape[:3])} on "
+                                 f"{q.device}; got {r.dtype} {tuple(r.shape)} on {r.device}")
+
+    def _raise_on(self, lib, err, what):
+        if err != 0:
+            raise RuntimeError(f"flash {what} launch failed: {lib.covomix_cuda_error_string(err).decode()}")
+
+    def __call__(self, q, k, v, valid, rotary=None, return_lse=False):
+        """Forward. q/k/v [B, H, T, dh] contiguous CUDA bf16 or f32; valid
+        int32 [1] or [B] on the same device; rotary (cos, sin_signed)
+        [>=T, dh] or None. Returns out, or (out, lse f32 [B, H, T]) with
+        `return_lse`."""
+        self._check(q, k, v, valid)
+        b, h, t, dh = q.shape
+        if rotary is not None:
+            for r in rotary:
+                if (r.dtype != q.dtype or r.dim() != 2 or r.shape[0] < t or r.shape[1] != dh
+                        or r.device != q.device or not r.is_contiguous()):
+                    raise ValueError(f"flash kernel: rotary tables must be contiguous [>=T, dh] {q.dtype} on "
+                                     f"{q.device}; got {r.dtype} {tuple(r.shape)}")
         lib = self.build(dh)
         out = torch.empty_like(q)
-        cos_p = rotary[0].data_ptr() if rotary is not None else None
-        sin_p = rotary[1].data_ptr() if rotary is not None else None
+        lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if return_lse else None
         err = lib.covomix_flash_attention_fwd(
             int(q.dtype == torch.float32), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            valid.data_ptr(), valid.shape[0], cos_p, sin_p, b, h, t, dh, dh ** -0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"flash kernel launch failed: {lib.covomix_cuda_error_string(err).decode()}")
+            lse.data_ptr() if return_lse else None, valid.data_ptr(), valid.shape[0],
+            rotary[0].data_ptr() if rotary is not None else None,
+            rotary[1].data_ptr() if rotary is not None else None, b, h, t, dh, dh ** -0.5, _stream(q))
+        self._raise_on(lib, err, "forward")
+        if return_lse:
+            self.lse_launches += 1
+            return out, lse
         self.launches += 1
         return out
+
+    def bwd_dq(self, q, k, v, dout, lse, delta, valid):
+        """dQ from the already rotated q, k, the output gradient dout, the
+        forward's lse and delta = rowsum(dout * out) (f32 [B, H, T])."""
+        self._check(q, k, v, valid, (dout,))
+        self._check_rows(q, (lse, delta))
+        b, h, t, dh = q.shape
+        lib = self.build(dh)
+        dq = torch.empty_like(q)
+        err = lib.covomix_flash_attention_bwd_dq(
+            int(q.dtype == torch.float32), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), valid.data_ptr(), valid.shape[0],
+            b, h, t, dh, dh ** -0.5, _stream(q))
+        self._raise_on(lib, err, "dQ")
+        self.dq_launches += 1
+        return dq
+
+    def bwd_dkv(self, q, k, v, dout, lse, delta, valid):
+        """(dK, dV), with the same inputs as `bwd_dq`."""
+        self._check(q, k, v, valid, (dout,))
+        self._check_rows(q, (lse, delta))
+        b, h, t, dh = q.shape
+        lib = self.build(dh)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        err = lib.covomix_flash_attention_bwd_dkv(
+            int(q.dtype == torch.float32), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), valid.data_ptr(),
+            valid.shape[0], b, h, t, dh, dh ** -0.5, _stream(q))
+        self._raise_on(lib, err, "dK/dV")
+        self.dkv_launches += 1
+        return dk, dv
 
 
 KERNEL = FlashKernel()
@@ -139,13 +222,24 @@ def rotary_tables_halfsplit(positions, inv_freq, dtype):
     return cos.to(dtype).contiguous(), sin_signed.to(dtype).contiguous()
 
 
+def _roll_half(x):
+    d = x.shape[-1] // 2
+    return torch.cat([x[..., d:], x[..., :d]], dim=-1)
+
+
 def _rotary_plain(x, cos, sin_signed):
     """x [..., T, dh] with [T, dh] tables, in f32 and rounded once to x.dtype
     (the kernel's arithmetic)."""
-    d = x.shape[-1] // 2
     xf = x.float()
-    rolled = torch.cat([xf[..., d:], xf[..., :d]], dim=-1)
-    return (xf * cos.float() + rolled * sin_signed.float()).to(x.dtype)
+    return (xf * cos.float() + _roll_half(xf) * sin_signed.float()).to(x.dtype)
+
+
+def _rotary_transpose(g, cos, sin_signed):
+    """The VJP of `_rotary_plain` in x: dx = g*cos + roll(g*sin_signed, dh/2)
+    (the half roll is its own inverse), in f32 and rounded once to g.dtype;
+    the port's copy of `_rotary_xla_transpose`."""
+    gf = g.float()
+    return (gf * cos.float() + _roll_half(gf * sin_signed.float())).to(g.dtype)
 
 
 def _valid_array(valid_len, b: int, t: int, device) -> torch.Tensor:
@@ -159,37 +253,160 @@ def _valid_array(valid_len, b: int, t: int, device) -> torch.Tensor:
     return torch.clamp(v, 1, t).to(torch.int32).contiguous()
 
 
-def flash_attention_plain(q, k, v, valid, rotary=None):
-    """The kernel's function in plain PyTorch, for CPU tensors (and as the
-    comparison on the card). valid: int32 [1] or [B], already clamped."""
-    b, h, t, dh = q.shape
+# ---------------------------------------------------------------------------
+# plain versions (CPU tensors; the comparison on the card)
+
+
+def _live_keys(valid, t, device):
+    """[1|B, 1, 1, T] bool: key j < valid_len of its row."""
+    return (torch.arange(t, device=device)[None, :] < valid.to(device).reshape(-1, 1))[:, None, None, :]
+
+
+def _scores(q, k, valid):
+    """s = q k^T dh^-0.5 in f32 with keys past valid_len at -1e30."""
+    s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * q.shape[-1] ** -0.5
+    return torch.where(_live_keys(valid, q.shape[2], q.device), s, torch.full_like(s, -1e30))
+
+
+def flash_attention_plain(q, k, v, valid, rotary=None, return_lse: bool = False):
+    """The forward kernel's function in plain PyTorch, for CPU tensors (and
+    as the comparison on the card). valid: int32 [1] or [B], already
+    clamped. With `return_lse`, also lse = m + log(max(l, 1e-30)) f32
+    [B, H, T]."""
+    t = q.shape[2]
     if rotary is not None:
         cos, sin = rotary[0][:t], rotary[1][:t]
         q, k = _rotary_plain(q, cos, sin), _rotary_plain(k, cos, sin)
-    s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * dh ** -0.5
-    live = torch.arange(t, device=q.device)[None, :] < valid.to(q.device).reshape(-1, 1)   # [1|B, T]
-    s = torch.where(live[:, None, None, :], s, torch.full_like(s, -1e30))
+    s = _scores(q, k, valid)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    l = torch.sum(p, dim=-1, keepdim=True)
+    l = torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
     acc = torch.einsum("bhij,bhjd->bhid", p.to(v.dtype).float(), v.float())
-    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    out = (acc / l).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l))[..., 0]
+    return out
 
 
-def flash_attention(q, k, v, *, valid_len=None, causal: bool = False, rotary=None,
-                    return_lse: bool = False):
+def _probs_and_ds(q, k, v, dout, lse, delta, valid):
+    """p = exp(s - lse) (exactly 0 on masked keys) and ds = p (dO v^T - delta),
+    both f32 [B, H, T, T]."""
+    p = torch.exp(_scores(q, k, valid) - lse[..., None])
+    dp = torch.einsum("bhid,bhjd->bhij", dout.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_delta(dout, out):
+    """delta = rowsum(dO * O) in f32 [B, H, T] (computed outside the kernels,
+    as the JAX package computes it in XLA)."""
+    return torch.sum(dout.float() * out.float(), dim=-1)
+
+
+def flash_bwd_dq_plain(q, k, v, dout, lse, delta, valid):
+    """The dQ kernel's function: dq = dh^-0.5 * bf16(ds) k, for q, k already
+    rotated."""
+    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, valid)
+    dq = torch.einsum("bhij,bhjd->bhid", ds.to(k.dtype).float(), k.float())
+    return (dq * q.shape[-1] ** -0.5).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, valid):
+    """The dK/dV kernel's function: dv = bf16(p)^T dO, dk = dh^-0.5 *
+    bf16(ds)^T q."""
+    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, valid)
+    dv = torch.einsum("bhij,bhid->bhjd", p.to(dout.dtype).float(), dout.float())
+    dk = torch.einsum("bhij,bhid->bhjd", ds.to(q.dtype).float(), q.float())
+    return (dk * q.shape[-1] ** -0.5).to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, g, valid):
+    """(dq, dk, dv) of the forward at already rotated q, k, from its output
+    `out`, its lse and the output gradient `g` (the formulas of the JAX
+    package's `_flash_backward`, with its rounding points)."""
+    delta = flash_delta(g, out)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, g, lse, delta, valid)
+    return flash_bwd_dq_plain(q, k, v, g, lse, delta, valid), dk, dv
+
+
+# ---------------------------------------------------------------------------
+# autograd
+
+
+def _forward_lse(q, k, v, valid, rotary):
+    if q.is_cuda:
+        return KERNEL(q, k, v, valid, rotary, return_lse=True)
+    return flash_attention_plain(q, k, v, valid, rotary, return_lse=True)
+
+
+def _backward(q, k, v, out, lse, g, valid):
+    """(dq, dk, dv) at already rotated q, k: the two backward kernels on CUDA
+    tensors, the plain version on CPU tensors."""
+    g = g.contiguous()
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, out, lse, g, valid)
+    delta = flash_delta(g, out)
+    dq = KERNEL.bwd_dq(q, k, v, g, lse, delta, valid)
+    dk, dv = KERNEL.bwd_dkv(q, k, v, g, lse, delta, valid)
+    return dq, dk, dv
+
+
+class _FlashCore(torch.autograd.Function):
+    """Differentiable flash attention without rotary (`_flash_core`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid):
+        out, lse = _forward_lse(q, k, v, valid, None)
+        ctx.save_for_backward(q, k, v, out, lse, valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, valid = ctx.saved_tensors
+        return (*_backward(q, k, v, out, lse, g, valid), None)
+
+
+class _FlashCoreRot(torch.autograd.Function):
+    """Differentiable flash attention with fused halfsplit rotary
+    (`_flash_core_rot`); the tables are constants. Saves the unrotated q and
+    k; the backward re-rotates them with the kernel's arithmetic, runs dQ and
+    dK/dV on the rotated tensors and counter-rotates dq and dk."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid, cos, sin):
+        out, lse = _forward_lse(q, k, v, valid, (cos, sin))
+        ctx.save_for_backward(q, k, v, out, lse, valid, cos, sin)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, valid, cos, sin = ctx.saved_tensors
+        t = q.shape[2]
+        cos, sin = cos[:t], sin[:t]
+        dqr, dkr, dv = _backward(_rotary_plain(q, cos, sin), _rotary_plain(k, cos, sin), v, out, lse, g, valid)
+        return _rotary_transpose(dqr, cos, sin), _rotary_transpose(dkr, cos, sin), dv, None, None, None
+
+
+def flash_attention(q, k, v, *, valid_len=None, causal: bool = False, rotary=None):
     """q/k/v [B, H, T, dh] -> [B, H, T, dh]: softmax(q k^T dh^-0.5) v over the
     keys < valid_len (int, or one per row). `rotary`: optional (cos,
     sin_signed) [>=T, dh] halfsplit tables applied to q and k inside the
-    kernel. CUDA tensors launch the kernel, CPU tensors run the plain version."""
-    if causal or return_lse:
-        raise NotImplementedError(f"causal / lse flash attention is not ported yet ({_TRAINING_SLICE})")
+    kernel. CUDA tensors launch the kernels, CPU tensors run the plain
+    versions. Differentiable in q, k, v: with grad enabled and an input that
+    requires it, the forward keeps the logsumexp for the backward kernels;
+    otherwise the forward without it runs."""
+    if causal:
+        raise NotImplementedError(f"causal flash attention is not ported yet ({_CAUSAL_ITEM})")
     b, h, t, dh = q.shape
     valid = _valid_array(valid_len, b, t, q.device)
     if rotary is not None:
         rotary = tuple(r[:t].to(q.dtype).contiguous() for r in rotary)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if rotary is not None:
+            return _FlashCoreRot.apply(q, k, v, valid, *rotary)
+        return _FlashCore.apply(q, k, v, valid)
     if q.is_cuda:
-        return KERNEL(q.contiguous(), k.contiguous(), v.contiguous(), valid, rotary)
+        return KERNEL(q, k, v, valid, rotary)
     return flash_attention_plain(q, k, v, valid, rotary)
 
 

@@ -1,0 +1,228 @@
+"""Training CLI of the port: `python -m covomix_tpu_torch.train ...`.
+
+The flags of the JAX package's train.py plus `--device` (default cuda; bf16
+compute with `--bf16`). This slice trains the acoustic model (VoSingle /
+VoMix) on one device: the step loop, logging cadence, eval cadence with the
+EMA parameters, and the top-10-on-'l2' checkpoints follow train.py for one
+device. Flags for what is not ported raise NotImplementedError naming their
+ROADMAP item: `--text2semantic`; `--tp/--pp/--sp > 1`, `--fsdp`,
+`--bmuf_sync`, `--multihost`, `--coordinator_address`, `--dp > 1`;
+`--steps_per_dispatch > 1`. `--dp 0` ("all devices") is the one device."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+from covomix_tpu_torch import resolve_device
+from covomix_tpu_torch.checkpoint import io as cio
+from covomix_tpu_torch.data.datasets import CoVoMixDataset, collate_acoustic, data_loader, stack_microbatches
+from covomix_tpu_torch.models import acoustic as A
+from covomix_tpu_torch.train import evaluate as E, loop
+from covomix_tpu_torch.util.logging_utils import MetricsLogger
+from covomix_tpu_torch.util.watchdog import Watchdog
+
+_T2S_ITEM = "ROADMAP.md 'Modules to port': T2S training (causal flash)"
+_PARALLEL_ITEM = "ROADMAP.md 'Modules to port': Parallelism"
+_MULTI_STEP_NOTE = ("ROADMAP.md section 3, reference behaviours: make_multi_step unrolls K optimizer steps "
+                    "into one jitted XLA dispatch, which has no eager counterpart")
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(prog="python -m covomix_tpu_torch.train")
+    t = p.add_argument_group("Trainer")
+    t.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    t.add_argument("--log_dir", type=str, default="./logs")
+    t.add_argument("--run_name", type=str, default=None)
+    t.add_argument("--max_epochs", type=int, default=500)
+    t.add_argument("--steps_per_epoch", type=int, default=0, help="0 = full dataset pass")
+    t.add_argument("--dp", type=int, default=0, help="data-parallel size (0 = all devices: the one device)")
+    t.add_argument("--tp", type=int, default=1)
+    t.add_argument("--pp", type=int, default=1)
+    t.add_argument("--pp_microbatches", type=int, default=4)
+    t.add_argument("--grad_accum", type=int, default=1,
+                   help="micro-batches accumulated per optimizer step (mean); --batch_size is the micro-batch")
+    t.add_argument("--steps_per_dispatch", type=int, default=1)
+    t.add_argument("--sp", type=int, default=1)
+    t.add_argument("--fsdp", action="store_true")
+    t.add_argument("--bmuf_sync", type=int, default=0)
+    t.add_argument("--bmuf_warmup", type=int, default=0)
+    t.add_argument("--bmuf_momentum", type=float, default=None)
+    t.add_argument("--bf16", action="store_true")
+    t.add_argument("--ckpt_every", type=int, default=1000)
+    t.add_argument("--eval_every", type=int, default=1000)
+    t.add_argument("--num_eval_files", type=int, default=20)
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--no_wandb", action="store_true", help="disable the W&B sink (JSONL+TensorBoard always on)")
+    t.add_argument("--max_steps", type=int, default=0, help="stop after N steps (0 = unlimited)")
+    t.add_argument("--log_every", type=int, default=50)
+    t.add_argument("--multihost", action="store_true")
+    t.add_argument("--coordinator_address", type=str, default=None)
+    t.add_argument("--num_processes", type=int, default=None)
+    t.add_argument("--process_id", type=int, default=None)
+    m = p.add_argument_group("CoVoMixModel")
+    m.add_argument("--lr", type=float, default=1e-4)
+    m.add_argument("--ema_decay", type=float, default=0.999)
+    m.add_argument("--CoVoMix_dim", type=int, default=80)
+    m.add_argument("--CoVoMix_num_phoneme_tokens", type=int, default=502)
+    m.add_argument("--CoVoMix_depth", type=int, default=8)
+    m.add_argument("--CoVoMix_dim_head", type=int, default=64)
+    m.add_argument("--CoVoMix_heads", type=int, default=16)
+    m.add_argument("--CoVoMix_dim_transformer", type=int, default=1024)
+    m.add_argument("--cond_drop_prob", type=float, default=0.0)
+    m.add_argument("--lr_scheduler", action="store_true")
+    m.add_argument("--total_epochs", type=int, default=500)
+    m.add_argument("--wake_up_epochs", type=int, default=15)
+    m.add_argument("--decay_start_epoch", type=int, default=30)
+    m.add_argument("--text2semantic", action="store_true")
+    m.add_argument("--twocondition_twooutput", action="store_true")
+    m.add_argument("--twocondition_oneoutput", action="store_true")
+    m.add_argument("--text2semantic_tokens", type=int, default=501)
+    m.add_argument("--text2semantic_target_depth", type=int, default=4)
+    m.add_argument("--text2semantic_source_depth", type=int, default=4)
+    m.add_argument("--text2semantic_head", type=int, default=8)
+    m.add_argument("--no_source_transformer", action="store_true")
+    m.add_argument("--text2semantic_two_output", action="store_true")
+    m.add_argument("--num_text_token_ids", type=int, default=30528)
+    m.add_argument("--target_transformer_dim", type=int, default=0)
+    d = p.add_argument_group("DataModule")
+    d.add_argument("--base_dir", type=str, required=True)
+    d.add_argument("--dev_base_dir", "--val_dir", type=str, default=None, dest="dev_base_dir",
+                   help="held-out eval dir; default: every 10th file of --base_dir is held out")
+    d.add_argument("--format", type=str, default="hubert_fisher")
+    d.add_argument("--batch_size", type=int, default=8)
+    d.add_argument("--num_workers", type=int, default=0)
+    d.add_argument("--dummy", action="store_true")
+    d.add_argument("--random_mask", action="store_true")
+    d.add_argument("--bert_vocab", type=str, default=None)
+    d.add_argument("--allow_fallback_vocab", action="store_true")
+    d.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def _refuse_unported(args) -> None:
+    if args.text2semantic:
+        raise NotImplementedError(f"--text2semantic: T2S training is not ported yet ({_T2S_ITEM})")
+    parallel = [flag for flag, on in (("--tp", args.tp > 1), ("--pp", args.pp > 1), ("--sp", args.sp > 1),
+                                      ("--fsdp", args.fsdp), ("--bmuf_sync", args.bmuf_sync > 0),
+                                      ("--multihost", args.multihost),
+                                      ("--coordinator_address", args.coordinator_address is not None),
+                                      ("--dp", args.dp > 1)) if on]
+    if parallel:
+        raise NotImplementedError(f"{', '.join(parallel)}: the port trains on one device; parallel training "
+                                  f"is not ported yet ({_PARALLEL_ITEM})")
+    if args.steps_per_dispatch > 1:
+        raise NotImplementedError(f"--steps_per_dispatch > 1 is not ported ({_MULTI_STEP_NOTE})")
+
+
+def _datasets(args):
+    """(train, eval) datasets: --dev_base_dir, else every 10th file of
+    --base_dir held out (training files when there are fewer than 10)."""
+    dataset = CoVoMixDataset(args.base_dir, format=args.format, random_mask=args.random_mask,
+                             dummy=args.dummy, seed=args.seed)
+    if len(dataset) == 0:
+        sys.exit(f"no training files found under {args.base_dir} for format={args.format}")
+    if args.dev_base_dir:
+        val = CoVoMixDataset(args.dev_base_dir, format=args.format, random_mask=args.random_mask,
+                             shuffle_spec=False, seed=args.seed)
+    elif len(dataset.files) >= 10:
+        val_files = dataset.files[::10]
+        dataset.files = [f for i, f in enumerate(dataset.files) if i % 10]
+        dataset.short_files = [f for f in dataset.files
+                               if not os.path.basename(f).endswith("_1.hubert_code.npy")] or dataset.files
+        val = CoVoMixDataset(args.base_dir, format=args.format, random_mask=args.random_mask,
+                             shuffle_spec=False, seed=args.seed, files=val_files)
+    else:
+        val = dataset
+        print("note: <10 training files; eval scores training files", file=sys.stderr)
+    if len(val) == 0:
+        sys.exit(f"no eval files found under {args.dev_base_dir}")
+    return dataset, val
+
+
+def main(argv=None) -> None:
+    args = build_argparser().parse_args(argv)
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+
+    run_name = args.run_name or f"acoustic_{int(time.time())}"
+    run_dir = os.path.join(args.log_dir, run_name)
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "args.txt"), "w") as f:
+        json.dump(vars(args), f, indent=2)
+
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    mode = "two_one" if args.twocondition_oneoutput else ("two_two" if args.twocondition_twooutput else "single")
+    model_cfg = A.AcousticConfig(dim_in=args.CoVoMix_dim, dim=args.CoVoMix_dim_transformer, depth=args.CoVoMix_depth,
+                                 dim_head=args.CoVoMix_dim_head, heads=args.CoVoMix_heads,
+                                 num_phoneme_tokens=args.CoVoMix_num_phoneme_tokens, mode=mode)
+    params = A.init(gen, model_cfg)
+    loss_fn = loop.acoustic_loss_fn(model_cfg, cond_drop_prob=args.cond_drop_prob, dtype=dtype)
+
+    dataset, val_dataset = _datasets(args)
+    ga = max(1, args.grad_accum)
+    steps_per_epoch = args.steps_per_epoch or max(1, len(dataset) // (args.batch_size * ga))
+    loader = data_loader(dataset, args.batch_size, collate_acoustic, seed=args.seed,
+                         num_workers=args.num_workers)
+    train_cfg = loop.TrainConfig(lr=args.lr, ema_decay=args.ema_decay, use_lr_schedule=args.lr_scheduler,
+                                 total_epochs=args.total_epochs, wake_up_epochs=args.wake_up_epochs,
+                                 decay_start_epoch=args.decay_start_epoch, steps_per_epoch=steps_per_epoch,
+                                 grad_accum=ga)
+    state = loop.init_train_state(params, train_cfg)
+    step_fn = loop.make_train_step(loss_fn, train_cfg)
+
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    ckpt_mgr = cio.TopKCheckpointer(ckpt_dir, top_k=10, mode="min")   # save_last + top-10 on 'l2'
+    start_step = 0
+    if args.resume:
+        latest = cio.latest_step(ckpt_dir)
+        if latest is not None:
+            cio.load_train_state(ckpt_dir, latest, state)
+            start_step = latest
+            print(f"resumed from step {latest}", flush=True)
+
+    logger = MetricsLogger(run_dir, tensorboard=True, wandb=not args.no_wandb, wandb_run=args.run_name)
+    total_steps = args.max_steps or args.max_epochs * steps_per_epoch
+    t_last, step_last = time.time(), start_step
+    done = start_step
+    with Watchdog(timeout_s=1800.0, name=run_name) as watchdog:
+        try:
+            for step_i in range(start_step, total_steps):
+                batch = (stack_microbatches([next(loader) for _ in range(ga)]) if ga > 1 else next(loader))
+                metrics = step_fn(state, batch, gen)
+                done = step_i + 1
+                watchdog.beat(done)
+                if args.log_every > 0 and done % args.log_every == 0:
+                    now = time.time()
+                    sps = (done - step_last) / max(now - t_last, 1e-9)
+                    t_last, step_last = now, done
+                    rec = {"epoch": done // steps_per_epoch, "train_loss": float(metrics["loss"]),
+                           "grad_norm": float(metrics["grad_norm"]), "steps_per_sec": round(sps, 3)}
+                    print(json.dumps({"step": done, **rec}), flush=True)
+                    logger.log(done, rec)
+                eval_metric = None
+                if args.num_eval_files and args.eval_every > 0 and done % args.eval_every == 0:
+                    items = [val_dataset[i % len(val_dataset)]
+                             for i in range(min(args.num_eval_files, len(val_dataset)))]
+                    batches = [collate_acoustic(items[i:i + args.batch_size])
+                               for i in range(0, len(items), args.batch_size)]
+                    ev = E.evaluate_acoustic(state.ema_params, model_cfg, batches, gen, dtype=dtype)
+                    print("eval:", json.dumps(ev), flush=True)
+                    logger.log(done, ev, prefix="eval_")
+                    eval_metric = ev["l2"]
+                if (args.ckpt_every > 0 and done % args.ckpt_every == 0) or eval_metric is not None:
+                    ckpt_mgr.save(state, done, metric=eval_metric)
+        finally:
+            logger.close()
+            if hasattr(loader, "close"):
+                loader.close()
+    final_step = max(total_steps, done)
+    if ckpt_mgr.last_step != final_step:    # not saved just now (eval at the last step)
+        ckpt_mgr.save(state, final_step)
+    print(f"done: {final_step} steps -> {ckpt_dir}", flush=True)

@@ -1,0 +1,147 @@
+"""The training form of the port's flash attention against the JAX package.
+
+The CUDA kernels run only on the card (chip_smoke.py holds them against these
+plain versions there). Here, on CPU tensors, the plain forward's logsumexp is
+held against `_flash_forward(..., with_lse=True)` in interpret mode, and the
+gradients through the port's autograd Functions (`_FlashCore`,
+`_FlashCoreRot`, with the plain versions) against `jax.grad` through the
+Pallas `flash_attention(interpret=True)`. f32 on both sides at 'highest'
+precision: the two differ only in summation order, so gradients agree to
+about 1e-5 of their scale."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _torch_port  # noqa: F401  (one torch thread beside the XLA client)
+from covomix_tpu.models import layers as JL
+from covomix_tpu.ops import flash_attention as JF
+from covomix_tpu_torch.models import layers as PL
+from covomix_tpu_torch.ops import flash_attention as PF
+
+B, H, DH = 2, 2, 16
+FWD_TOL = 2e-5    # the Pallas kernel's softmax vs torch's reductions, f32
+GRAD_TOL = 1e-5   # x max(1, max |JAX grad|)
+
+
+def _arrays(t, seed, n=4):
+    rs = np.random.RandomState(seed)
+    return [rs.randn(B, H, t, DH).astype(np.float32) for _ in range(n)]
+
+
+def _tables(t, jax_side):
+    if jax_side:
+        return JF.rotary_tables_halfsplit(jnp.arange(t), JL.rotary_freqs(DH), jnp.float32)
+    return PF.rotary_tables_halfsplit(torch.arange(t), PL.rotary_freqs(DH), torch.float32)
+
+
+CASES = [  # (T, valid_len, rotary): scalar and [B] valid_len, rotary on/off, T off the 64-grid
+    (256, None, True),
+    (200, np.array([200, 77], np.int32), True),
+    (192, np.int32(150), False),
+    (330, np.array([1, 330], np.int32), False),
+    (600, np.int32(600), True),
+]
+
+
+@pytest.mark.parametrize("t,valid,rotary", CASES)
+def test_plain_lse_matches_jax(t, valid, rotary):
+    q, k, v, _ = _arrays(t, t)
+    vl = t if valid is None else valid
+    cfg = (JF.DEFAULT_BLOCK_Q, JF.DEFAULT_BLOCK_K, JF.DEFAULT_HEAD_BLOCK, True, False)
+    with jax.default_matmul_precision("highest"):
+        out_j, lse_j = JF._flash_forward(cfg, jnp.maximum(jnp.asarray(vl, jnp.int32).reshape(-1), 1),
+                                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), with_lse=True,
+                                         rotary=_tables(t, True) if rotary else None)
+    out_p, lse_p = PF.flash_attention_plain(*(torch.from_numpy(x) for x in (q, k, v)),
+                                            PF._valid_array(vl, B, t, "cpu"),
+                                            _tables(t, False) if rotary else None, return_lse=True)
+    assert lse_p.shape == (B, H, t) and lse_p.dtype == torch.float32
+    assert np.abs(lse_p.numpy() - np.asarray(lse_j)[..., 0]).max() < FWD_TOL
+    assert np.abs(out_p.numpy() - np.asarray(out_j)).max() < FWD_TOL
+
+
+@pytest.mark.parametrize("t,valid,rotary", CASES)
+def test_gradients_match_jax_grad(t, valid, rotary):
+    """d/d(q, k, v) of sum(out * w) through the port's autograd Functions
+    (plain versions on the CPU) against jax.grad through the Pallas kernels."""
+    q, k, v, w = _arrays(t, 10 + t)
+
+    def jax_loss(q, k, v):
+        out = JF.flash_attention(q, k, v, valid_len=None if valid is None else jnp.asarray(valid),
+                                 rotary=_tables(t, True) if rotary else None, interpret=True)
+        return jnp.sum(out * w)
+
+    with jax.default_matmul_precision("highest"):
+        ref = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = PF.flash_attention(*leaves, valid_len=None if valid is None else torch.as_tensor(valid),
+                             rotary=_tables(t, False) if rotary else None)
+    expect = PF._FlashCoreRot if rotary else PF._FlashCore
+    assert type(out.grad_fn).__name__ == f"{expect.__name__}Backward"
+    (out * torch.from_numpy(w)).sum().backward()
+    for leaf, r in zip(leaves, ref):
+        r = np.asarray(r)
+        assert np.abs(leaf.grad.numpy() - r).max() <= GRAD_TOL * max(1.0, np.abs(r).max())
+
+
+@pytest.mark.parametrize("rotary", [False, True])
+def test_plain_backward_matches_autograd_of_plain_forward(rotary):
+    """The hand-derived backward (flash_attention_bwd_plain, with the rotary
+    transpose) against torch autograd through the plain forward, f32."""
+    t = 150
+    q, k, v, w = (torch.from_numpy(x) for x in _arrays(t, 5))
+    valid = PF._valid_array(torch.tensor([150, 61]), B, t, "cpu")
+    tables = _tables(t, False) if rotary else None
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    (PF.flash_attention_plain(*leaves, valid, tables) * w).sum().backward()
+    qr, kr = (PF._rotary_plain(x, *tables) for x in (q, k)) if rotary else (q, k)
+    out, lse = PF.flash_attention_plain(qr, kr, v, valid, return_lse=True)
+    dq, dk, dv = PF.flash_attention_bwd_plain(qr, kr, v, out, lse, w, valid)
+    if rotary:
+        dq, dk = PF._rotary_transpose(dq, *tables), PF._rotary_transpose(dk, *tables)
+    for mine, leaf in zip((dq, dk, dv), leaves):
+        assert (mine - leaf.grad).abs().max().item() < 1e-5
+    # key rows past valid_len get exact zeros
+    assert bool((dk[1, :, 61:] == 0).all()) and bool((dv[1, :, 61:] == 0).all())
+
+
+def test_no_grad_runs_the_forward_without_lse(monkeypatch):
+    """Under torch.no_grad (inference) the forward without the logsumexp
+    runs; with grad on and an input that requires it, the lse forward inside
+    the autograd Function."""
+    calls = []
+    plain = PF.flash_attention_plain
+
+    def spy(*args, return_lse=False):
+        calls.append(return_lse)
+        return plain(*args, return_lse=return_lse)
+
+    monkeypatch.setattr(PF, "flash_attention_plain", spy)
+    q, k, v = (torch.from_numpy(x) for x in _arrays(64, 3, 3))
+    tables = _tables(64, False)
+    with torch.no_grad():
+        out = PF.flash_attention(q.requires_grad_(), k, v, rotary=tables)
+    assert out.grad_fn is None and calls == [False]
+    out = PF.flash_attention(q.detach(), k, v, rotary=tables)     # nothing requires grad
+    assert out.grad_fn is None and calls == [False, False]
+    out = PF.flash_attention(q.detach().requires_grad_(), k, v, rotary=tables)
+    assert out.grad_fn is not None and calls == [False, False, True]
+
+
+def test_backward_wrappers_take_only_cuda_tensors():
+    """The backward wrappers launch their kernel or raise; they never compute
+    on the CPU, and a refused call counts no launch."""
+    q = torch.zeros(1, 1, 8, 64)
+    rows = torch.zeros(1, 1, 8)
+    valid = torch.ones(1, dtype=torch.int32)
+    counts = (PF.KERNEL.launches, PF.KERNEL.lse_launches, PF.KERNEL.dq_launches, PF.KERNEL.dkv_launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        PF.KERNEL.bwd_dq(q, q, q, q, rows, rows, valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        PF.KERNEL.bwd_dkv(q, q, q, q, rows, rows, valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        PF.KERNEL(q, q, q, valid, return_lse=True)
+    assert counts == (PF.KERNEL.launches, PF.KERNEL.lse_launches, PF.KERNEL.dq_launches, PF.KERNEL.dkv_launches)

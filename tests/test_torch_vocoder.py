@@ -69,7 +69,7 @@ def test_output_length_and_padding():
         assert PV.get_padding(k, d) == JV.get_padding(k, d)
 
 
-def test_fuse_tail_not_ported(params):
+def test_fuse_tail_matches_unfused_jax(params):
     """fuse_tail=True no longer raises: the fused stage and tail run (their
     plain versions on CPU tensors) and match the JAX package's unfused
     generator, whose f32 arithmetic they repeat."""
