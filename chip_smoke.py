@@ -6,12 +6,20 @@
 Phases (any failure exits non-zero, nothing is passed over):
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the ported paths from the checkout's sources
-     (nvcc, sm_90a) into covomix_tpu_torch/_build/: the flash kernel for the
-     serving head dim 64 and for the edge head dims checked below (one nvcc
-     per head dim) and the fused vocoder stage/tail library (both dtypes),
-     all started together;
+     (nvcc, sm_90a) into covomix_tpu_torch/_build/: the flash kernels (non-
+     causal and causal) for the head dim 64 and for the edge head dims
+     checked below (one nvcc per head dim) and the fused vocoder stage/tail
+     library (both dtypes), all started together; log ptxas's registers and
+     spills and hold the non-causal dh-64 bf16 flash kernels to the
+     register counts they had before the causal form (NONCAUSAL_REGS);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the paths give it and at edge shapes, with stated tolerances;
+     shapes the paths give it and at edge shapes, with stated tolerances:
+     the inference forward; the training forms (forward with lse, dQ,
+     dK/dV); their causal forms (the T2S decoder's: [6, 8, 1026, 64], odd
+     and even T 513-2050, T under 512, valid_len [1] < T and [B], rotary off
+     and on, head dims 16-256, also the causal forward without lse); autograd
+     through the kernels against autograd through the plain version, in
+     both forms; the fused vocoder stage and tail;
   4. run batched dialogue serving at full width (CoMix T2S -> VoMix flow ->
      HiFi-GAN, bf16, B=4, prompt 400, decode 512) with random weights from a
      seed: one warm-up batch, then timed batches; the flash kernel's launch
@@ -39,11 +47,19 @@ Phases (any failure exits non-zero, nothing is passed over):
      split, the three training kernels timed at [8, 16, 832, 64] beside
      their plain versions, bounds and PyTorch yardsticks, and two f32 steps
      of a tiny model on the card against the CPU;
-  9. print a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
-The training-form kernel checks (forward with lse, dQ, dK/dV in bf16 and
-f32, T 513-2304, valid_len [1] and [B], rotary on and off, head dims
-16-256, and autograd through the kernels against autograd through the plain
-version) run with phase 3.
+  9. full-width CoMix T2S training (running_command/T2S_CoMix.sh on one card,
+     bf16, B=6, the tokenizer's fallback vocab) through
+     `covomix_tpu_torch.train.cli.main` on 24 + 6 random items of 520-1000
+     codes: 12 optimizer steps, one eval (a 512-step decode) on the 6 dev
+     files and its top-k save, then `--resume` for one more step; every step
+     must launch the causal forward with lse, causal dQ and causal dK/dV 4
+     times each (the 4 decoder layers) and no other flash kernel (the encoder
+     stays below 512 ids, on layers.attend), the eval none; then the step's
+     split at decoder T 1026, the three causal kernels timed at
+     [6, 8, 1026, 64] beside their plain versions, bounds and
+     `scaled_dot_product_attention(is_causal=True)` and its gradient, and two
+     f32 steps of a tiny CoMix T2S model on the card against the CPU;
+ 10. print a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -74,6 +90,7 @@ BWD_BF16_TOL = 4 * 2 ** -8
 # (the gradient of p, of the rotated q and k) to bf16, so the two differ by
 # several bf16 roundings; a wrong rotation or lse shows as errors of order 1
 AUTOGRAD_BF16_TOL = 2 ** -4
+AUTOGRAD_F32_TOL = 1e-5       # f32 both sides: summation order only
 # card vs CPU wav of the small f32 serving run: both sides f32, so only
 # summation order differs; an H100 80GB HBM3 read 2.98e-8, this is ~30x that
 SMALL_WAV_TOL = 1e-6
@@ -202,9 +219,10 @@ def flash_agreement(what, out, ref, tol):
     return err.max().item()
 
 
-def check_flash_training_case(b, h, t, dh, dtype, seed, valid, rotary):
+def check_flash_training_case(b, h, t, dh, dtype, seed, valid, rotary, causal=False):
     """The forward with lse, dQ and dK/dV against their plain versions on the
-    same inputs; returns {kernel: max_abs_err}."""
+    same inputs (causal: also the causal forward without lse); returns
+    {kernel: max_abs_err}."""
     import torch
     from covomix_tpu_torch.ops import flash_attention as FA
 
@@ -212,26 +230,30 @@ def check_flash_training_case(b, h, t, dh, dtype, seed, valid, rotary):
     dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1000),
                        device="cuda").to(dtype)
     bf16 = dtype == torch.bfloat16
-    log(f"flash training check [{b},{h},{t},{dh}] {str(dtype)[6:]} valid={valid} rotary={rotary}:")
-    out, lse = FA.KERNEL(q, k, v, valid_arr, tables, return_lse=True)
-    ref, ref_lse = FA.flash_attention_plain(q, k, v, valid_arr, tables, return_lse=True)
-    errs = {"fwd_lse": max(flash_agreement("out", out, ref, BF16_TOL if bf16 else F32_TOL),
+    log(f"flash training check [{b},{h},{t},{dh}] {str(dtype)[6:]} valid={valid} rotary={rotary} "
+        f"causal={causal}:")
+    out, lse = FA.KERNEL(q, k, v, valid_arr, tables, return_lse=True, causal=causal)
+    ref, ref_lse = FA.flash_attention_plain(q, k, v, valid_arr, tables, return_lse=True, causal=causal)
+    out_tol = BF16_TOL if bf16 else F32_TOL
+    errs = {"fwd_lse": max(flash_agreement("out", out, ref, out_tol),
                            flash_agreement("lse", lse, ref_lse, LSE_TOL))}
+    if causal:
+        errs["fwd"] = flash_agreement("out without lse", FA.KERNEL(q, k, v, valid_arr, tables, causal=True), ref,
+                                      out_tol)
     if tables is not None:
         # the backward re-rotates with _rotary_plain: it must give the very
         # operands the kernel rotated in shared memory, bit for bit
         q, k = FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables)
-        out2, lse2 = FA.KERNEL(q, k, v, valid_arr, None, return_lse=True)
+        out2, lse2 = FA.KERNEL(q, k, v, valid_arr, None, return_lse=True, causal=causal)
         same = torch.equal(out2, out) and torch.equal(lse2, lse)
         log(f"  in-kernel rotary == _rotary_plain then the kernel, bit for bit: {same}")
         if not same:
             raise AssertionError("the kernel's rotary differs from _rotary_plain")
     delta = FA.flash_delta(dout, ref)
     tol = BWD_BF16_TOL if bf16 else F32_TOL
-    errs["bwd_dq"] = flash_agreement("dq", FA.KERNEL.bwd_dq(q, k, v, dout, ref_lse, delta, valid_arr),
-                                          FA.flash_bwd_dq_plain(q, k, v, dout, ref_lse, delta, valid_arr), tol)
-    (dk, dv), (dk_p, dv_p) = (FA.KERNEL.bwd_dkv(q, k, v, dout, ref_lse, delta, valid_arr),
-                              FA.flash_bwd_dkv_plain(q, k, v, dout, ref_lse, delta, valid_arr))
+    bwd = (q, k, v, dout, ref_lse, delta, valid_arr, causal)
+    errs["bwd_dq"] = flash_agreement("dq", FA.KERNEL.bwd_dq(*bwd), FA.flash_bwd_dq_plain(*bwd), tol)
+    (dk, dv), (dk_p, dv_p) = FA.KERNEL.bwd_dkv(*bwd), FA.flash_bwd_dkv_plain(*bwd)
     errs["bwd_dkv"] = max(flash_agreement("dk", dk, dk_p, tol), flash_agreement("dv", dv, dv_p, tol))
     for bi in range(b):
         vl = int(valid_arr[bi if valid_arr.numel() > 1 else 0])
@@ -283,6 +305,55 @@ def check_flash_training(results):
             grads.append(torch.autograd.grad((out.float() * w.float()).sum(), leaves))
         log(f"autograd through the kernels vs through the plain version [{b},{h},{t},64] {str(dtype)[6:]} "
             f"valid={valid} rotary:")
+        for name, a, r in zip(("dq", "dk", "dv"), *grads):
+            flash_agreement(name, a, r, tol)
+
+
+def check_flash_causal(results):
+    """The causal form of the three kernels (the T2S training decoder's) against
+    their plain versions, in bf16 and f32: the T2S step's shape [6, 8, 1026,
+    64], odd T 513 / 1025 / 2049 and even 2050 (one live row in the last
+    tile, or two), T under 512, valid_len [1] < T and [B] with a row < T,
+    rotary off (the T2S path) and on, the edge head dims; then the gradients
+    of the autograd Function with causal=True against torch autograd through
+    the plain forward. Every key row past valid_len must get exact zeros."""
+    import torch
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(6, 8, 1026, 64, bf, 1026, False),                    # the T2S step's shape
+             (2, 4, 1026, 64, f32, 1026, False),
+             (2, 4, 513, 64, bf, [513, 300], False), (2, 4, 513, 64, f32, [513, 300], False),
+             (2, 4, 1025, 64, bf, 700, False), (2, 4, 1025, 64, f32, [1025, 1], False),
+             (1, 2, 2049, 64, bf, 2049, False), (1, 2, 2050, 64, f32, 1999, False),
+             (2, 2, 2050, 64, bf, [2050, 1234], False),
+             (2, 4, 300, 64, bf, [300, 1], False), (2, 4, 300, 64, f32, 300, False),
+             (2, 4, 600, 64, bf, [600, 451], True), (1, 2, 600, 64, f32, 600, True),
+             (2, 2, 513, 16, bf, [513, 200], False), (1, 2, 520, 16, f32, 400, True),
+             (2, 2, 700, 32, bf, [650, 700], True), (1, 2, 600, 32, f32, 600, False),
+             (2, 2, 520, 48, bf, [520, 1], True), (1, 2, 600, 48, f32, 555, False),
+             (1, 2, 640, 128, bf, [500], False), (2, 2, 513, 128, f32, [513, 200], True),
+             (2, 2, 700, 256, bf, [650, 700], False), (1, 2, 520, 256, f32, 400, True)]
+    worst = {}
+    for i, (b, h, t, dh, dtype, valid, rotary) in enumerate(cases):
+        errs = check_flash_training_case(b, h, t, dh, dtype, 500 + i, valid, rotary, causal=True)
+        if dtype == bf:
+            for key, e in errs.items():
+                worst[key] = max(worst.get(key, 0.0), e)
+    for key, e in worst.items():
+        results[f"{key}_causal_check_max_abs_err"] = e
+
+    for b, h, t, dtype, valid, tol in ((2, 4, 1025, f32, [1025, 613], AUTOGRAD_F32_TOL),
+                                       (6, 8, 1026, bf, 1026, AUTOGRAD_BF16_TOL)):
+        q, k, v, valid_arr, _ = flash_inputs(b, h, t, 64, dtype, 600 + t, valid, False)
+        w = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda").to(dtype)
+        grads = []
+        for fn in (lambda q, k, v: FA.flash_attention(q, k, v, valid_len=valid_arr, causal=True),
+                   lambda q, k, v: FA.flash_attention_plain(q, k, v, valid_arr, causal=True)):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            grads.append(torch.autograd.grad((fn(*leaves).float() * w.float()).sum(), leaves))
+        log(f"causal autograd through the kernels vs through the plain version [{b},{h},{t},64] "
+            f"{str(dtype)[6:]} valid={valid}:")
         for name, a, r in zip(("dq", "dk", "dv"), *grads):
             flash_agreement(name, a, r, tol)
 
@@ -891,33 +962,37 @@ def write_vomix_items(root, n, seed):
             np.save(f"{base}-{ch}.hubert_code.npy", rs.randint(0, 500, t).astype(str))
 
 
+COUNTS = {"fwd": "launches", "fwd_lse": "lse_launches", "bwd_dq": "dq_launches", "bwd_dkv": "dkv_launches",
+          "fwd_causal": "causal_launches", "fwd_lse_causal": "causal_lse_launches",
+          "bwd_dq_causal": "causal_dq_launches", "bwd_dkv_causal": "causal_dkv_launches"}
+
+
 def flash_counts():
+    """Every launch count of the flash kernels, by kernel."""
     from covomix_tpu_torch.ops import flash_attention as FA
 
-    return {"fwd": FA.KERNEL.launches, "fwd_lse": FA.KERNEL.lse_launches, "bwd_dq": FA.KERNEL.dq_launches,
-            "bwd_dkv": FA.KERNEL.dkv_launches}
+    return {key: getattr(FA.KERNEL, attr) for key, attr in COUNTS.items()}
 
 
-def run_training(results, root):
-    """`covomix_tpu_torch.train.cli.main` with the VoMix recipe at full width
-    (B=8, items cropped to 800 frames and bucketed to 832), bf16, on 24 train
-    and 8 dev items: TRAIN_STEPS steps with one eval on the 8 dev files and
-    its top-k save, then `--resume` for one more step. The launch counts are
-    set to 0 just before and read just after; every optimizer step must
-    launch the forward with lse, dQ and dK/dV 8 times each (8 layers) and
-    nothing else, the eval's sampler only the forward without lse."""
+def launches(**nonzero):
+    """A flash_counts()-shaped dict: the counts given, 0 for every other kernel."""
+    return {key: nonzero.get(key, 0) for key in COUNTS}
+
+
+def run_train_cli(argv, evaluate_name, steps_total):
+    """`covomix_tpu_torch.train.cli.main(argv)` for `steps_total` steps, then
+    with `--resume` for one more, with every optimizer step timed (host clock
+    ended by a synchronize) and the eval `train.evaluate.<evaluate_name>`
+    recorded, each with the flash launches it made. The launch counts are set
+    to 0 just before and read just after. Returns (steps, evals, totals,
+    peak GiB, seconds of the first run, seconds of the resumed one)."""
     import numpy as np
     import torch
     from covomix_tpu_torch.ops import flash_attention as FA
     from covomix_tpu_torch.train import cli, evaluate as E, loop
 
-    train_dir, dev_dir, logs = (os.path.join(root, d) for d in ("train", "dev", "logs"))
-    t0 = time.time()
-    write_vomix_items(train_dir, 24, 0)
-    write_vomix_items(dev_dir, 8, 1)
-    log(f"training data: 24 train + 8 dev random VoMix items written in {time.time() - t0:.1f} s")
     steps, evals = [], []
-    orig = (loop.make_train_step, E.evaluate_acoustic)
+    orig = (loop.make_train_step, getattr(E, evaluate_name))
 
     def make_train_step(loss_fn, cfg):
         step = orig[0](loss_fn, cfg)
@@ -929,70 +1004,99 @@ def run_training(results, root):
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])   # waits for the card
             torch.cuda.synchronize()
             steps.append({"ms": (time.time() - t0) * 1e3, "loss": loss, "grad_norm": gnorm,
-                          "shape": tuple(np.asarray(batch["x"]).shape),
+                          "shapes": {k: tuple(np.asarray(v).shape) for k, v in batch.items()},
                           "launches": {k: v - c0[k] for k, v in flash_counts().items()}})
             return metrics
 
         return timed_step
 
-    def evaluate_acoustic(params, cfg, batches, generator, **kw):
+    def evaluate(params, cfg, batches, generator, **kw):
         c0, t0 = flash_counts(), time.time()
         ev = orig[1](params, cfg, batches, generator, **kw)
-        evals.append({"s": time.time() - t0, "batches": len(batches), "rows": sum(len(b["x"]) for b in batches),
-                      "l2": ev["l2"], "launches": {k: v - c0[k] for k, v in flash_counts().items()}})
+        evals.append({"s": time.time() - t0, "batches": len(batches),
+                      "rows": sum(len(next(iter(b.values()))) for b in batches), **ev,
+                      "launches": {k: v - c0[k] for k, v in flash_counts().items()}})
         return ev
 
-    argv = ["--base_dir", train_dir, "--dev_base_dir", dev_dir, *VOMIX_RECIPE, "--device", "cuda",
-            "--log_every", "1", "--eval_every", str(TRAIN_STEPS), "--num_eval_files", "8", "--ckpt_every", "1000",
-            "--no_wandb", "--log_dir", logs, "--run_name", "vomix", "--seed", "0"]
-    loop.make_train_step, E.evaluate_acoustic = make_train_step, evaluate_acoustic
-    FA.KERNEL.launches = FA.KERNEL.lse_launches = FA.KERNEL.dq_launches = FA.KERNEL.dkv_launches = 0
+    loop.make_train_step = make_train_step
+    setattr(E, evaluate_name, evaluate)
+    for attr in COUNTS.values():
+        setattr(FA.KERNEL, attr, 0)
     torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.time()
-        cli.main(argv + ["--max_steps", str(TRAIN_STEPS)])
+        cli.main(argv + ["--max_steps", str(steps_total)])
         first_s = time.time() - t0
         t0 = time.time()
-        cli.main(argv + ["--max_steps", str(TRAIN_STEPS + 1), "--resume"])
+        cli.main(argv + ["--max_steps", str(steps_total + 1), "--resume"])
         resume_s = time.time() - t0
     finally:
-        loop.make_train_step, E.evaluate_acoustic = orig
-    totals = flash_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        loop.make_train_step = orig[0]
+        setattr(E, evaluate_name, orig[1])
+    return steps, evals, flash_counts(), torch.cuda.max_memory_allocated() / 2 ** 30, first_s, resume_s
 
-    per_step = {"fwd": 0, "fwd_lse": 8, "bwd_dq": 8, "bwd_dkv": 8}
+
+def check_train_run(what, steps, evals, ckpt, steps_total, rows, per_step, eval_launches):
+    """The checks both training runs share: finite loss and grad norm every
+    step, exactly `per_step` flash launches every step, steps_total + 1 steps
+    over the run and its resume, one eval over `rows` dev files with a finite
+    l2 and `eval_launches`, the top-k save and the resumed checkpoint.
+    Returns the median ms per step over steps 3..steps_total."""
+    import numpy as np
+
     for i, s in enumerate(steps):
-        log(f"train step {i + 1}: {s['ms']:.1f} ms, batch x {list(s['shape'])}, loss {s['loss']:.5f}, "
+        log(f"{what} step {i + 1}: {s['ms']:.1f} ms, batch {s['shapes']}, loss {s['loss']:.5f}, "
             f"grad_norm {s['grad_norm']:.4f}, launches {s['launches']}")
         if not (np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])):
-            raise AssertionError(f"train step {i + 1}: loss {s['loss']}, grad_norm {s['grad_norm']}")
-        if s["launches"] != per_step or s["shape"] != (8, 832, 240):
-            raise AssertionError(f"train step {i + 1}: launches {s['launches']} (expected {per_step}), "
-                                 f"batch {s['shape']} (expected (8, 832, 240))")
-    if len(steps) != TRAIN_STEPS + 1:
+            raise AssertionError(f"{what} step {i + 1}: loss {s['loss']}, grad_norm {s['grad_norm']}")
+        if s["launches"] != per_step:
+            raise AssertionError(f"{what} step {i + 1}: launches {s['launches']} (expected {per_step})")
+    if len(steps) != steps_total + 1:
         raise AssertionError(f"{len(steps)} optimizer steps over the run and its resume, expected "
-                             f"{TRAIN_STEPS} + 1: the resume did not start from step {TRAIN_STEPS}")
-    log(f"eval: {evals}")
-    if len(evals) != 1 or evals[0]["rows"] != 8 or not np.isfinite(evals[0]["l2"]):
-        raise AssertionError(f"expected one eval over the 8 dev files with a finite l2, got {evals}")
-    if evals[0]["launches"] != {"fwd": 256 * evals[0]["batches"], "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}:
-        raise AssertionError(f"the eval's sampler launched {evals[0]['launches']}: expected the forward "
-                             f"without lse only, 256 per batch")
+                             f"{steps_total} + 1: the resume did not start from step {steps_total}")
+    log(f"{what} eval: {evals}")
+    if len(evals) != 1 or evals[0]["rows"] != rows or not np.isfinite(evals[0]["l2"]):
+        raise AssertionError(f"expected one eval over the {rows} dev files with a finite l2, got {evals}")
+    if evals[0]["launches"] != eval_launches:
+        raise AssertionError(f"the eval launched {evals[0]['launches']}, expected {eval_launches}")
+    with open(os.path.join(ckpt, "topk.json")) as f:
+        topk = json.load(f)
+    with np.load(os.path.join(ckpt, f"step_{steps_total + 1:08d}", "state.npz")) as z:
+        counters = (int(z["step"]), int(z["adam_step"]), int(z["ema_num_updates"]))
+    log(f"checkpoints {sorted(os.listdir(ckpt))}, topk.json {topk}, step {steps_total + 1} counters {counters}")
+    if (sorted(os.listdir(ckpt)) != [f"step_{steps_total:08d}", f"step_{steps_total + 1:08d}", "topk.json"]
+            or topk["best_step"] != steps_total or counters != (steps_total + 1,) * 3):
+        raise AssertionError("the top-k save, the resume or its checkpoint is not as expected")
+    ms = sorted(s["ms"] for s in steps[2:steps_total])
+    return ms[len(ms) // 2] if len(ms) % 2 else (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
+
+
+def run_training(results, root):
+    """`covomix_tpu_torch.train.cli.main` with the VoMix recipe at full width
+    (B=8, items cropped to 800 frames and bucketed to 832), bf16, on 24 train
+    and 8 dev items: TRAIN_STEPS steps with one eval on the 8 dev files and
+    its top-k save, then `--resume` for one more step. Every optimizer step
+    must launch the forward with lse, dQ and dK/dV 8 times each (8 layers)
+    and nothing else, the eval's sampler only the forward without lse."""
+    train_dir, dev_dir, logs = (os.path.join(root, d) for d in ("train", "dev", "logs"))
+    t0 = time.time()
+    write_vomix_items(train_dir, 24, 0)
+    write_vomix_items(dev_dir, 8, 1)
+    log(f"training data: 24 train + 8 dev random VoMix items written in {time.time() - t0:.1f} s")
+    argv = ["--base_dir", train_dir, "--dev_base_dir", dev_dir, *VOMIX_RECIPE, "--device", "cuda",
+            "--log_every", "1", "--eval_every", str(TRAIN_STEPS), "--num_eval_files", "8", "--ckpt_every", "1000",
+            "--no_wandb", "--log_dir", logs, "--run_name", "vomix", "--seed", "0"]
+    steps, evals, totals, peak_gb, first_s, resume_s = run_train_cli(argv, "evaluate_acoustic", TRAIN_STEPS)
+    per_step = launches(fwd_lse=8, bwd_dq=8, bwd_dkv=8)
+    bad = [s["shapes"]["x"] for s in steps if s["shapes"]["x"] != (8, 832, 240)]
+    if bad:
+        raise AssertionError(f"VoMix batches {bad}, expected (8, 832, 240)")
+    median = check_train_run("VoMix train", steps, evals, os.path.join(logs, "vomix", "checkpoints"), TRAIN_STEPS,
+                             8, per_step, launches(fwd=256 * evals[0]["batches"]))
     expect = {k: v * len(steps) for k, v in per_step.items()}
     expect["fwd"] = evals[0]["launches"]["fwd"]
     if totals != expect:
         raise AssertionError(f"launch totals {totals} over the training run, expected {expect}")
-    ckpt = os.path.join(logs, "vomix", "checkpoints")
-    with open(os.path.join(ckpt, "topk.json")) as f:
-        topk = json.load(f)
-    with np.load(os.path.join(ckpt, f"step_{TRAIN_STEPS + 1:08d}", "state.npz")) as z:
-        counters = (int(z["step"]), int(z["adam_step"]), int(z["ema_num_updates"]))
-    log(f"checkpoints {sorted(os.listdir(ckpt))}, topk.json {topk}, step {TRAIN_STEPS + 1} counters {counters}")
-    if (sorted(os.listdir(ckpt)) != [f"step_{TRAIN_STEPS:08d}", f"step_{TRAIN_STEPS + 1:08d}", "topk.json"]
-            or topk["best_step"] != TRAIN_STEPS or counters != (TRAIN_STEPS + 1,) * 3):
-        raise AssertionError("the top-k save, the resume or its checkpoint is not as expected")
-    ms = sorted(s["ms"] for s in steps[2:TRAIN_STEPS])
-    median = ms[len(ms) // 2] if len(ms) % 2 else (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
     results.update(train_launches=totals, train_steps=len(steps), train_step_ms=median,
                    train_samples_per_s=8 / (median / 1e3), train_peak_gb=peak_gb)
     log(f"full-width VoMix training (bf16, B=8, T=832): median {median:.2f} ms per optimizer step over steps 3-"
@@ -1002,23 +1106,17 @@ def run_training(results, root):
     return train_dir
 
 
-def split_training_step(results, train_dir, n=5):
+def split_training_step(results, key, params, loss_fn, batch, n=5):
     """Where an optimizer step's time goes at full width: the loss forward,
     the backward and the optimizer (Adam + EMA), each ended by a synchronize,
-    the median of `n` steps after one warm-up."""
+    the median of `n` steps after one warm-up, into results[key]."""
     import torch
-    from covomix_tpu_torch.data.datasets import CoVoMixDataset, collate_acoustic
-    from covomix_tpu_torch.models import acoustic as A
     from covomix_tpu_torch.train import loop
 
-    cfg = A.AcousticConfig(dim_in=160, dim=1024, depth=8, heads=16, dim_head=64, num_phoneme_tokens=502,
-                           mode="two_one")
     gen = torch.Generator(device="cuda").manual_seed(5)
     tcfg = loop.TrainConfig(lr=1e-4)
-    state = loop.init_train_state(A.init(gen, cfg), tcfg)
-    loss_fn = loop.acoustic_loss_fn(cfg, cond_drop_prob=0.3, dtype=torch.bfloat16)
-    ds = CoVoMixDataset(train_dir, format="hubert_overlap_two_input_one_output", random_mask=True)
-    batch = loop.to_device(collate_acoustic([ds[i] for i in range(8)]), "cuda")
+    state = loop.init_train_state(params, tcfg)
+    batch = loop.to_device(batch, "cuda")
     parts = {"forward": [], "backward": [], "optimizer": []}
     for i in range(n + 1):
         times = []
@@ -1036,11 +1134,25 @@ def split_training_step(results, train_dir, n=5):
         torch.cuda.synchronize()
         times.append(time.time())
         if i:
-            for key, a, b in zip(parts, [t0] + times[:2], times):
-                parts[key].append((b - a) * 1e3)
-    split = {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
-    results["train_split_ms"] = split
-    log(f"optimizer step split at full width, bf16 B=8 T=832 (median of {n}, ms): {json.dumps(split)}")
+            for part, a, b in zip(parts, [t0] + times[:2], times):
+                parts[part].append((b - a) * 1e3)
+    split = results[key] = {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+    log(f"{key}: optimizer step split at full width, batch {[tuple(v.shape) for v in batch.values()]} "
+        f"(median of {n}, ms): {json.dumps(split)}")
+
+
+def split_vomix_step(results, train_dir):
+    import torch
+    from covomix_tpu_torch.data.datasets import CoVoMixDataset, collate_acoustic
+    from covomix_tpu_torch.models import acoustic as A
+    from covomix_tpu_torch.train import loop
+
+    cfg = A.AcousticConfig(dim_in=160, dim=1024, depth=8, heads=16, dim_head=64, num_phoneme_tokens=502,
+                           mode="two_one")
+    ds = CoVoMixDataset(train_dir, format="hubert_overlap_two_input_one_output", random_mask=True)
+    split_training_step(results, "train_split_ms", A.init(torch.Generator(device="cuda").manual_seed(5), cfg),
+                        loop.acoustic_loss_fn(cfg, cond_drop_prob=0.3, dtype=torch.bfloat16),
+                        collate_acoustic([ds[i] for i in range(8)]))
 
 
 def check_small_training_against_cpu():
@@ -1079,10 +1191,214 @@ def check_small_training_against_cpu():
     log(f"small f32 training, card vs CPU, 2 steps: losses {lc} / {lh} (max rel err {loss_err:.3e}, tol "
         f"{SMALL_TRAIN_LOSS_TOL:g}), params max_abs_err {param_err:.3e} (tol {SMALL_TRAIN_PARAM_TOL:g}), "
         f"launches card {nc} / cpu {nh}")
-    if nc != {"fwd": 0, "fwd_lse": 4, "bwd_dq": 4, "bwd_dkv": 4} or any(nh.values()):
+    if nc != launches(fwd_lse=4, bwd_dq=4, bwd_dkv=4) or any(nh.values()):
         raise AssertionError("the small card run did not go through the training kernels, or the CPU run did")
     if not (loss_err <= SMALL_TRAIN_LOSS_TOL and param_err <= SMALL_TRAIN_PARAM_TOL):
         raise AssertionError("card and CPU training steps differ")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: full-width CoMix T2S training through the training CLI
+
+
+# the CoMix T2S recipe (running_command/T2S_CoMix.sh) on one card, bf16, with
+# the tokenizer's fallback vocab (no BERT vocab.txt in the checkout)
+COMIX_T2S_RECIPE = ["--format", "text2semantic_2output", "--text2semantic", "--text2semantic_two_output",
+                    "--allow_fallback_vocab", "--CoVoMix_dim_transformer", "512", "--target_transformer_dim", "1024",
+                    "--text2semantic_tokens", "501", "--text2semantic_source_depth", "4",
+                    "--text2semantic_target_depth", "4", "--text2semantic_head", "8", "--batch_size", "6",
+                    "--lr", "1e-4", "--lr_scheduler", "--bf16"]
+T2S_WORDS = ("hello there how are you doing today i am fine thank you good to hear see you soon yes no "
+             "okay right sure well maybe later").split()
+
+
+def write_t2s_items(root, n, seed):
+    """n random CoMix T2S items: `u<i>.hubert_code.npy` of 520-1000 codes (as
+    strings) beside `u<i>.txt` of 4-12 words, every fourth one a `_1` / `_2`
+    two-speaker pair. The texts stay short enough that a 20 % concatenation
+    of two is far below 512 ids of the fallback vocab, so the encoder stays on
+    layers.attend; the codes are long enough that every decoder runs from 578
+    positions on, so every layer takes the causal flash kernels."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(root)
+    for i in range(n):
+        t = int(rs.randint(520, 1001))
+        base = os.path.join(root, f"u{i}")
+        if i % 4 == 3:
+            np.save(base + "_1.hubert_code.npy", rs.randint(0, 500, t).astype(str))
+            np.save(base + "_2.hubert_code.npy", rs.randint(0, 500, t - int(rs.randint(0, 60))).astype(str))
+        else:
+            np.save(base + ".hubert_code.npy", rs.randint(0, 500, t).astype(str))
+        with open(base + ".txt", "w") as f:
+            f.write(" ".join(rs.choice(T2S_WORDS, int(rs.randint(4, 13)))))
+
+
+def run_t2s_training(results, root):
+    """`covomix_tpu_torch.train.cli.main` with the CoMix T2S recipe at full
+    width (dim 512, target_dim 1024, 4 + 4 layers, 8 heads, two streams, B=6),
+    bf16, on 24 train and 6 dev random items: TRAIN_STEPS steps with one eval
+    (a 512-step decode of the EMA parameters on the 6 dev files) and its
+    top-k save, then `--resume` for one more step. Every optimizer step must
+    launch the causal forward with lse, causal dQ and causal dK/dV 4 times
+    each (the 4 decoder layers) and no other flash kernel; the eval's decode
+    none."""
+    train_dir, dev_dir, logs = (os.path.join(root, d) for d in ("train", "dev", "logs"))
+    write_t2s_items(train_dir, 24, 0)
+    write_t2s_items(dev_dir, 6, 1)
+    argv = ["--base_dir", train_dir, "--dev_base_dir", dev_dir, *COMIX_T2S_RECIPE, "--device", "cuda",
+            "--log_every", "1", "--eval_every", str(TRAIN_STEPS), "--num_eval_files", "6", "--ckpt_every", "1000",
+            "--no_wandb", "--log_dir", logs, "--run_name", "comix_t2s", "--seed", "0"]
+    steps, evals, totals, peak_gb, first_s, resume_s = run_train_cli(argv, "evaluate_t2s", TRAIN_STEPS)
+    per_step = launches(fwd_lse_causal=4, bwd_dq_causal=4, bwd_dkv_causal=4)
+    shapes = [s["shapes"]["semantic_ids"] for s in steps]
+    if any(sh[0] != 6 or sh[2] != 2 or not 576 <= sh[1] <= 2048 for sh in shapes):
+        raise AssertionError(f"T2S batches {shapes}: expected [6, 576..2048, 2] semantic ids")
+    median = check_train_run("T2S train", steps, evals, os.path.join(logs, "comix_t2s", "checkpoints"),
+                             TRAIN_STEPS, 6, per_step, launches())
+    if totals != {k: v * len(steps) for k, v in per_step.items()}:
+        raise AssertionError(f"launch totals {totals} over the T2S training run")
+    results.update(t2s_launches=totals, t2s_steps=len(steps), t2s_step_ms=median,
+                   t2s_samples_per_s=6 / (median / 1e3), t2s_peak_gb=peak_gb)
+    decoder_t = sorted(sh[1] + 2 for sh in shapes)
+    log(f"full-width CoMix T2S training (bf16, B=6, decoder T {decoder_t[0]}-{decoder_t[-1]}): median "
+        f"{median:.2f} ms per optimizer step over steps 3-{TRAIN_STEPS}, {6 / (median / 1e3):.2f} samples/s, "
+        f"peak device memory {peak_gb:.2f} GiB; run {first_s:.1f} s incl. init and {TRAIN_STEPS} steps, eval "
+        f"{evals[0]['s']:.2f} s, resume run {resume_s:.1f} s; launch totals {totals}")
+
+
+def split_t2s_step(results):
+    """The T2S step's split at the shape the causal kernels are timed at: a
+    random batch of 6 texts of 64 ids and semantic targets bucketed to 1024
+    (decoder T = 1026)."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.models import text2semantic as T
+    from covomix_tpu_torch.train import loop
+
+    cfg = T.T2SConfig(dim=512, source_depth=4, target_depth=4, heads=8, dim_head=64, num_text_tokens=30528,
+                      num_semantic_tokens=501, target_dim=1024, two_output=True)
+    rs = np.random.RandomState(6)
+    batch = {"text_ids": rs.randint(1, 180, (6, 64)).astype(np.int32),
+             "semantic_ids": rs.randint(0, 500, (6, 1024, 2)).astype(np.int32)}
+    split_training_step(results, "t2s_split_ms", T.init(torch.Generator(device="cuda").manual_seed(5), cfg),
+                        loop.t2s_loss_fn(cfg, dtype=torch.bfloat16), batch)
+
+
+def time_flash_causal(results, b=6, h=8, t=1026, dh=64):
+    """The causal forward with lse, dQ and dK/dV at the T2S step's shape (B=6,
+    8 heads, targets bucketed to 1024 -> decoder T 1026, bf16, no rotary, all
+    keys live), each beside its plain version, its bound and one PyTorch call
+    of the same function: SDPA with is_causal=True for the forward, its
+    gradient (dQ, dK and dV in one call) for the pair. The bound counts the
+    live pairs B*H*T(T+1)/2 at 4, 6 and 8 dh operations each. The outputs on
+    the timed inputs are held against the plain versions'."""
+    import torch
+    import torch.nn.functional as F
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    bf = torch.bfloat16
+    q, k, v, valid_arr, _ = flash_inputs(b, h, t, dh, bf, 701, t, False)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(702), device="cuda").to(bf)
+    log(f"causal flash kernels at the timed inputs [{b},{h},{t},{dh}] bf16:")
+    out, lse = FA.KERNEL(q, k, v, valid_arr, None, return_lse=True, causal=True)
+    ref, ref_lse = FA.flash_attention_plain(q, k, v, valid_arr, None, True, return_lse=True)
+    results["fwd_lse_causal_max_abs_err"] = max(flash_agreement("out", out, ref, BF16_TOL),
+                                                flash_agreement("lse", lse, ref_lse, LSE_TOL))
+    bwd = (q, k, v, dout, ref_lse, FA.flash_delta(dout, ref), valid_arr, True)
+    results["bwd_dq_causal_max_abs_err"] = flash_agreement("dq", FA.KERNEL.bwd_dq(*bwd),
+                                                           FA.flash_bwd_dq_plain(*bwd), BWD_BF16_TOL)
+    (dk, dv), (dk_p, dv_p) = FA.KERNEL.bwd_dkv(*bwd), FA.flash_bwd_dkv_plain(*bwd)
+    results["bwd_dkv_causal_max_abs_err"] = max(flash_agreement("dk", dk, dk_p, BWD_BF16_TOL),
+                                                flash_agreement("dv", dv, dv_p, BWD_BF16_TOL))
+    del out, ref, dk, dv, dk_p, dv_p
+    timed = {
+        "fwd_lse_causal": (lambda: FA.KERNEL(q, k, v, valid_arr, None, return_lse=True, causal=True),
+                           lambda: FA.flash_attention_plain(q, k, v, valid_arr, None, True, return_lse=True)),
+        "bwd_dq_causal": (lambda: FA.KERNEL.bwd_dq(*bwd), lambda: FA.flash_bwd_dq_plain(*bwd)),
+        "bwd_dkv_causal": (lambda: FA.KERNEL.bwd_dkv(*bwd), lambda: FA.flash_bwd_dkv_plain(*bwd)),
+    }
+    for key, (kern, plain) in timed.items():
+        results[f"{key}_ms"] = cuda_time_ms(kern)
+        results[f"{key}_plain_ms"] = cuda_time_ms(plain, iters=5)
+    noncausal = cuda_time_ms(lambda: FA.KERNEL(q, k, v, valid_arr, None, return_lse=True))
+    log(f"forward with lse at [{b},{h},{t},{dh}] bf16: causal {results['fwd_lse_causal_ms']:.4f} ms, non-causal "
+        f"{noncausal:.4f} ms")
+    results["fwd_lse_causal_library_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                                               is_causal=True))
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    results["bwd_dq_causal_library_ms"] = results["bwd_dkv_causal_library_ms"] = cuda_time_ms(
+        lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True))
+    del o, leaves
+
+    n, rows = b * h * t * dh * 2, b * h * t * 4
+    pairs = b * h * t * (t + 1) / 2                      # live (query, key) pairs, all keys valid
+    work = {"fwd_lse_causal": (4.0 * dh * pairs, 4 * n + rows),      # q,k,v,out; lse
+            "bwd_dq_causal": (6.0 * dh * pairs, 5 * n + 2 * rows),   # q,k,v,dO,dq; lse,delta
+            "bwd_dkv_causal": (8.0 * dh * pairs, 6 * n + 2 * rows)}  # q,k,v,dO,dk,dv; lse,delta
+    for key, (flops, nbytes) in work.items():
+        nbytes += valid_arr.numel() * 4
+        bf_ms, bb_ms = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        results[f"{key}_bound_ms"] = max(bf_ms, bb_ms)
+        results[f"{key}_bound_by"] = "operations" if bf_ms >= bb_ms else "bytes"
+        ms = results[f"{key}_ms"]
+        log(f"{key} timing [{b},{h},{t},{dh}] bf16: kernel {ms:.4f} ms, plain {results[f'{key}_plain_ms']:.4f} ms, "
+            f"library {results[f'{key}_library_ms']:.4f} ms, bound {results[f'{key}_bound_ms']:.4f} ms "
+            f"({results[f'{key}_bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) -> "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+
+
+def check_small_t2s_training_against_cpu():
+    """Two optimizer steps of a tiny f32 CoMix T2S model (dh 16, 2 decoder
+    layers, targets of 512 -> decoder T 514, so the card takes the causal
+    flash kernels) on the card and on the CPU (layers.attend there), TF32 off,
+    the same batches."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.models import text2semantic as T
+    from covomix_tpu_torch.train import loop
+    from covomix_tpu_torch.util.misc import tree_leaves, tree_map
+
+    cfg = T.T2SConfig(dim=32, source_depth=1, target_depth=2, heads=2, dim_head=16, num_text_tokens=200,
+                      target_dim=64, two_output=True)
+    tcfg = loop.TrainConfig(lr=1e-3, use_lr_schedule=True, steps_per_epoch=1, wake_up_epochs=2, grad_clip=1.0)
+    rs = np.random.RandomState(9)
+    batches = []
+    for _ in range(2):
+        text = rs.randint(1, 200, (2, 16)).astype(np.int32)
+        text[1, 9:] = 0
+        sem = rs.randint(0, 500, (2, 512, 2)).astype(np.int32)
+        sem[1, 400:] = 501
+        batches.append({"text_ids": text, "semantic_ids": sem})
+    init = T.init(torch.Generator().manual_seed(0), cfg)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        state = loop.init_train_state(tree_map(lambda p: p.clone().to(dev), init), tcfg)
+        step = loop.make_train_step(loop.t2s_loss_fn(cfg), tcfg)
+        c0 = flash_counts()
+        losses = [float(step(state, b, None)["loss"]) for b in batches]
+        runs[dev] = (losses, tree_map(lambda p: p.detach().cpu(), state.params),
+                     {k: v - c0[k] for k, v in flash_counts().items()})
+    (lc, pc, nc), (lh, ph, nh) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    param_err = max((a - b).abs().max().item() for a, b in zip(tree_leaves(pc), tree_leaves(ph)))
+    log(f"small f32 CoMix T2S training, card vs CPU, 2 steps: losses {lc} / {lh} (max rel err {loss_err:.3e}, tol "
+        f"{SMALL_TRAIN_LOSS_TOL:g}), params max_abs_err {param_err:.3e} (tol {SMALL_TRAIN_PARAM_TOL:g}), "
+        f"launches card {nc} / cpu {nh}")
+    if nc != launches(fwd_lse_causal=4, bwd_dq_causal=4, bwd_dkv_causal=4) or any(nh.values()):
+        raise AssertionError("the small card run did not go through the causal kernels, or the CPU run did")
+    if not (loss_err <= SMALL_TRAIN_LOSS_TOL and param_err <= SMALL_TRAIN_PARAM_TOL):
+        raise AssertionError("card and CPU T2S training steps differ")
+
+
+# registers per thread of the dh-64 bf16 flash kernels in their non-causal
+# forms before the causal form existed (ptxas, CUDA 12.8): the causal form
+# is a template argument and must leave these instantiations as they were
+# (one register more can cost a resident block per SM)
+NONCAUSAL_REGS = {"flash_fwd_bf16<Li64ELb0ELb0E>": 122, "flash_fwd_bf16<Li64ELb1ELb0E>": 106,
+                  "flash_bwd_dq_bf16<Li64ELb0E>": 133, "flash_bwd_dkv_bf16<Li64ELb0E>": 200}
 
 
 def build_kernels():
@@ -1090,16 +1406,24 @@ def build_kernels():
     started together: the flash kernels for the serving / training head dim
     and the edge head dims checked below, and the fused vocoder library. Logs
     ptxas's registers and spills per kernel of the dh-64 flash library and
-    the vocoder library."""
+    the vocoder library; returns {kernel: registers} of those."""
     from covomix_tpu_torch.ops import flash_attention as FA, vocoder_tail as VT
 
     t0 = time.time()
     dhs = (SERVING_DH,) + EDGE_DH
     builds = [lambda dh=dh: FA.KERNEL.build(dh) for dh in dhs] + [VT.LIBRARY.build]
+
+    def timed(build):
+        start = time.time()
+        build()
+        return time.time() - start
+
     with ThreadPoolExecutor(len(builds)) as pool:
-        list(pool.map(lambda build: build(), builds))
+        seconds = list(pool.map(timed, builds))
     libs = [FA.KERNEL.lib_path(dh) for dh in dhs] + [VT.LIBRARY.lib_path()]
-    log(f"built {[os.path.relpath(p, REPO) for p in libs]} in {time.time() - t0:.1f} s")
+    log(f"built {[os.path.relpath(p, REPO) for p in libs]} in {time.time() - t0:.1f} s, each (s): "
+        + ", ".join(f"{os.path.basename(p)} {t:.1f}" for p, t in zip(libs, seconds)))
+    regs = {}
     for name, build_log in ((f"flash dh {SERVING_DH}", FA.KERNEL.build_logs.get(SERVING_DH, "")),
                             ("vocoder_tail", VT.LIBRARY.build_log)):
         kernel = "?"
@@ -1109,6 +1433,18 @@ def build_kernels():
                 kernel = f"{m.group(1)}<{m.group(2)}>" if m else line.split("'")[1]
             elif "Used" in line or "spill" in line:
                 log(f"  ptxas {name} {kernel}: " + line.strip().replace("ptxas info    : ", ""))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    regs[kernel] = int(m.group(1))
+    return regs
+
+
+def check_registers(regs):
+    """The non-causal dh-64 bf16 flash kernels keep NONCAUSAL_REGS."""
+    found = {k: regs.get(k) for k in NONCAUSAL_REGS}
+    log(f"non-causal dh-64 bf16 flash registers {found} (expected {NONCAUSAL_REGS})")
+    if found != NONCAUSAL_REGS:
+        raise AssertionError("a non-causal flash kernel's register count changed with the causal form")
 
 
 def main() -> int:
@@ -1132,7 +1468,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    build_kernels()
+    regs = build_kernels()
+    check_registers(regs)
 
     results = {}
     check_flash(results)
@@ -1161,11 +1498,20 @@ def main() -> int:
     shutil.rmtree(root, ignore_errors=True)
     try:
         train_dir = run_training(results, root)
-        split_training_step(results, train_dir)
+        split_vomix_step(results, train_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     time_flash_training(results)
     check_small_training_against_cpu()
+    root = os.path.join(VT.BUILD_DIR, "smoke_t2s")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        run_t2s_training(results, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    split_t2s_step(results)
+    time_flash_causal(results)
+    check_small_t2s_training_against_cpu()
 
     launches = results["dialogue_launches"]     # this slice's main path: the per-file dialogue CLI
     kernels = [{
@@ -1195,6 +1541,19 @@ def main() -> int:
             "name": f"flash_attention_{key}", "route": "cuda",
             "source": "covomix_tpu_torch/csrc/flash_attention.cu", "replaces": replaces,
             "launches": train[key], "launches_per_train_step": train[key] // results["train_steps"],
+            "max_abs_err": results[f"{key}_max_abs_err"], "ms": results[f"{key}_ms"],
+            "plain_ms": results[f"{key}_plain_ms"], "bound_ms": results[f"{key}_bound_ms"],
+            "bound_by": results[f"{key}_bound_by"], "library_ms": results[f"{key}_library_ms"],
+        })
+    t2s = results["t2s_launches"]     # this slice's main path: full-width CoMix T2S training
+    for key, replaces in (("fwd_lse", "covomix_tpu/ops/flash_attention.py:162"),
+                          ("bwd_dq", "covomix_tpu/ops/flash_attention.py:502"),
+                          ("bwd_dkv", "covomix_tpu/ops/flash_attention.py:544")):
+        key = f"{key}_causal"
+        kernels.append({
+            "name": f"flash_attention_{key}", "route": "cuda",
+            "source": "covomix_tpu_torch/csrc/flash_attention.cu", "replaces": replaces,
+            "launches": t2s[key], "launches_per_train_step": t2s[key] // results["t2s_steps"],
             "max_abs_err": results[f"{key}_max_abs_err"], "ms": results[f"{key}_ms"],
             "plain_ms": results[f"{key}_plain_ms"], "bound_ms": results[f"{key}_bound_ms"],
             "bound_by": results[f"{key}_bound_by"], "library_ms": results[f"{key}_library_ms"],

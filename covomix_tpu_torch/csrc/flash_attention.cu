@@ -1,27 +1,41 @@
-// Flash attention for Hopper (sm_90a), non-causal, with a per-row key-prefix
-// mask (valid_len) and optional in-kernel halfsplit rotary: the forward (with
-// an optional per-row logsumexp output) and the two backward kernels.
+// Flash attention for Hopper (sm_90a), with a per-row key-prefix mask
+// (valid_len), an optional causal mask and optional in-kernel halfsplit
+// rotary: the forward (with an optional per-row logsumexp output) and the two
+// backward kernels.
 //
 // Replaces, in covomix_tpu/ops/flash_attention.py:
-//   * `_flash_kernel` (reached through `_flash_forward`), in the forms the
-//     acoustic flow model runs: non-causal, fused halfsplit rotary,
-//     valid_len of shape [1] or [B], with or without the logsumexp output
-//     the training backward reads;
+//   * `_flash_kernel` (reached through `_flash_forward`) in all its forms:
+//     non-causal or causal, fused halfsplit rotary or none, valid_len of
+//     shape [1] or [B], with or without the logsumexp output the training
+//     backward reads;
 //   * `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (reached through
-//     `_flash_backward`): dQ, and dK / dV, from the saved logsumexp.
+//     `_flash_backward`): dQ, and dK / dV, from the saved logsumexp, also
+//     causal.
 //
+// A key j is live for query row i when j < valid_len[b] and, in the causal
+// form (the T2S training decoder; queries and keys share one T), j <= i.
 // Forward: out[b,h,i] = sum_j softmax_j(s_ij) v[b,h,j], with
-//   s_ij = <rot(q_i), rot(k_j)> * dh^-0.5 and keys j >= valid_len[b] set to
-//   -1e30 before the exp (valid_len clamped to [1, T] by the caller);
+//   s_ij = <rot(q_i), rot(k_j)> * dh^-0.5 and dead keys set to -1e30 before
+//   the exp (valid_len clamped to [1, T] by the caller);
 //   out = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)) (f32 [B, H, T]),
 //   the TPU kernel's arithmetic.
 // Backward (q, k already rotated by the caller; delta = rowsum(dO * O) in f32):
-//   p_ij = exp(where(j < valid_len, s_ij, -1e30) - lse_i)   (0 for masked keys)
+//   p_ij = exp(where(live_ij, s_ij, -1e30) - lse_i)   (0 for dead pairs)
 //   ds_ij = p_ij * (dO_i . v_j - delta_i), rounded to the input type
 //   dq_i = scale * sum_j ds_ij k_j
 //   dv_j = sum_i bf16(p_ij) dO_i,   dk_j = scale * sum_i ds_ij q_i
 // Every query row < T takes part in dK / dV, also rows past valid_len (as on
-// the TPU); key rows past valid_len get exact zeros.
+// the TPU; causal: every row i >= j); key rows past valid_len get exact zeros.
+//
+// Causal is a template argument, so the non-causal kernels compile to the
+// code they had before the causal form existed (a run-time flag costs
+// registers, and a register more can cost a resident block per SM). The
+// causal kernels skip the tiles that hold no live pair: the forward and dQ
+// stop the key loop at the block's last query row, dK/dV starts the query
+// loop at the tile of the block's first key. That is exact, not an
+// approximation: key 0 is live for every row, so the first tile gives a
+// finite running max, and a skipped tile would only add exp(-1e30 - m) = 0
+// (forward) or p = 0 (backward). It halves the work.
 //
 // What bounds it on the card: at the training shape [8, 16, 832, 64] bf16 the
 // forward does 4*B*H*T^2*dh = 22.7 GFLOP, dQ 6x and dK/dV 8x that over
@@ -185,8 +199,8 @@ struct Bf16Cfg {
 
 // LSE: write the per-row logsumexp (the training form). A template argument,
 // so that the inference form compiles to the code it had before the lse
-// output existed.
-template <int DH, bool LSE>
+// output existed. CAUSAL: also mask key j > query i.
+template <int DH, bool LSE, bool CAUSAL>
 __global__ void __launch_bounds__(128)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -229,8 +243,17 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 #pragma unroll
   for (int i = 0; i < DH / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
   float m0 = kMaskValue, m1 = kMaskValue, l0 = 0.f, l1 = 0.f;  // rows qr and qr+8
+  // the live keys of the rows qr and qr+8 are j < lim0 / lim1 (the rows'
+  // indices are computed again for the epilogue: holding them across the
+  // loop cost the non-causal forms 18-32 registers)
+  int lim0 = vl, lim1 = vl;
+  if constexpr (CAUSAL) {
+    const int r0 = q0 + warp * 16 + qr;
+    lim0 = min(vl, r0 + 1);
+    lim1 = min(vl, r0 + 9);
+  }
 
-  const int n_tiles = (vl + BN - 1) / BN;
+  const int n_tiles = ((CAUSAL ? min(vl, q0 + BM) : vl) + BN - 1) / BN;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();  // the previous tile is consumed
@@ -263,10 +286,10 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 #pragma unroll
     for (int nt = 0; nt < BN / 8; ++nt) {
       const int col = k0 + nt * 8 + qc;
-      s[nt][0] = col < vl ? s[nt][0] * scale : kMaskValue;
-      s[nt][1] = col + 1 < vl ? s[nt][1] * scale : kMaskValue;
-      s[nt][2] = col < vl ? s[nt][2] * scale : kMaskValue;
-      s[nt][3] = col + 1 < vl ? s[nt][3] * scale : kMaskValue;
+      s[nt][0] = col < lim0 ? s[nt][0] * scale : kMaskValue;
+      s[nt][1] = col + 1 < lim0 ? s[nt][1] * scale : kMaskValue;
+      s[nt][2] = col < lim1 ? s[nt][2] * scale : kMaskValue;
+      s[nt][3] = col + 1 < lim1 ? s[nt][3] * scale : kMaskValue;
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
     }
@@ -360,7 +383,7 @@ __device__ __forceinline__ void load_pair_f32(float* a_s, float* b_s, const floa
   }
 }
 
-template <int DH>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(128)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
@@ -376,8 +399,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z, h = blockIdx.y;
   const size_t base = ((size_t)b * H + h) * (size_t)T * DH;
   const int vl = clamp_valid(valid, valid_n, b, T);
-  const int row = blockIdx.x * C::BM + threadIdx.x;
+  const int q0 = blockIdx.x * C::BM, row = q0 + threadIdx.x;
   const bool live = row < T;
+  const int lim = CAUSAL ? min(vl, row + 1) : vl;  // the row's live keys are j < lim
 
   float qv[DH], acc[DH];
 #pragma unroll
@@ -396,7 +420,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   float m = kMaskValue, l = 0.f;
-  const int n_tiles = (vl + BN - 1) / BN;
+  const int n_tiles = ((CAUSAL ? min(vl, q0 + C::BM) : vl) + BN - 1) / BN;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();
@@ -413,7 +437,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < DH; ++d) dot = fmaf(qv[d], Ks[j * DH + d], dot);
-      s[j] = (k0 + j < vl) ? dot * scale : kMaskValue;
+      s[j] = (k0 + j < lim) ? dot * scale : kMaskValue;
       mx = fmaxf(mx, s[j]);
     }
     const float alpha = expf(m - mx);
@@ -455,7 +479,7 @@ struct BwdCfg {
   static constexpr size_t smem_dkv = (size_t)(2 * BM * LR + 2 * BN * LR + 2 * DH * LT) * 2 + 2 * BN * 4;
 };
 
-template <int DH>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -494,12 +518,18 @@ flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   const int row0 = q0 + rg * 16 + qr, row1 = row0 + 8;
   const float lse0 = row0 < T ? lse[rbase + row0] : 0.f, lse1 = row1 < T ? lse[rbase + row1] : 0.f;
   const float dl0 = row0 < T ? delta[rbase + row0] : 0.f, dl1 = row1 < T ? delta[rbase + row1] : 0.f;
+  int lim0 = vl, lim1 = vl;  // the live keys of rows row0 / row1 are j < lim
+  if constexpr (CAUSAL) {
+    lim0 = min(vl, row0 + 1);
+    lim1 = min(vl, row1 + 1);
+  }
 
   float acc[DC / 8][4];
 #pragma unroll
   for (int i = 0; i < DC / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  const int n_tiles = (vl + BN - 1) / BN;  // tiles wholly past valid_len hold only p = 0
+  // tiles wholly past valid_len (causal: past the block's last row) hold only p = 0
+  const int n_tiles = ((CAUSAL ? min(vl, q0 + BM) : vl) + BN - 1) / BN;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();
@@ -533,10 +563,10 @@ flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 #pragma unroll
     for (int nt = 0; nt < BN / 8; ++nt) {
       const int col = k0 + nt * 8 + qc;
-      const float p0 = col < vl ? __expf(s[nt][0] * scale - lse0) : 0.f;
-      const float p1 = col + 1 < vl ? __expf(s[nt][1] * scale - lse0) : 0.f;
-      const float p2 = col < vl ? __expf(s[nt][2] * scale - lse1) : 0.f;
-      const float p3 = col + 1 < vl ? __expf(s[nt][3] * scale - lse1) : 0.f;
+      const float p0 = col < lim0 ? __expf(s[nt][0] * scale - lse0) : 0.f;
+      const float p1 = col + 1 < lim0 ? __expf(s[nt][1] * scale - lse0) : 0.f;
+      const float p2 = col < lim1 ? __expf(s[nt][2] * scale - lse1) : 0.f;
+      const float p3 = col + 1 < lim1 ? __expf(s[nt][3] * scale - lse1) : 0.f;
       s[nt][0] = p0 * (dp[nt][0] - dl0);
       s[nt][1] = p1 * (dp[nt][1] - dl0);
       s[nt][2] = p2 * (dp[nt][2] - dl1);
@@ -566,7 +596,7 @@ flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
-template <int DH>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -616,8 +646,9 @@ flash_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       }
     }
 
-    const int n_tiles = (T + BN - 1) / BN;  // every query row takes part
-    for (int it = 0; it < n_tiles; ++it) {
+    // every query row takes part (causal: from the tile of the block's first key on)
+    const int n_tiles = (T + BN - 1) / BN;
+    for (int it = CAUSAL ? k0 / BN : 0; it < n_tiles; ++it) {
       const int i0 = it * BN;
       __syncthreads();
       load_rows_bf16_t<BN, DH, LR, NT, LT>(Qs, Qt, q + base, i0, T);
@@ -650,16 +681,17 @@ flash_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
           }
         }
       }
-      // p^T = exp(s^T - lse) on live keys and query rows < T; ds^T = p^T (dp^T - delta)
+      // p^T = exp(s^T - lse) on live keys and query rows < T (causal: and
+      // query row >= key row); ds^T = p^T (dp^T - delta)
 #pragma unroll
       for (int nt = 0; nt < BN / 8; ++nt) {
-        const int col = nt * 8 + qc;
-        const bool ok0 = i0 + col < T, ok1 = i0 + col + 1 < T;
+        const int col = nt * 8 + qc, qi = i0 + col;
+        const bool ok0 = qi < T, ok1 = qi + 1 < T;
         const float la = Ls[col], lb = Ls[col + 1], ea = Es[col], eb = Es[col + 1];
-        const float p0 = live0 && ok0 ? __expf(st[nt][0] * scale - la) : 0.f;
-        const float p1 = live0 && ok1 ? __expf(st[nt][1] * scale - lb) : 0.f;
-        const float p2 = live1 && ok0 ? __expf(st[nt][2] * scale - la) : 0.f;
-        const float p3 = live1 && ok1 ? __expf(st[nt][3] * scale - lb) : 0.f;
+        const float p0 = live0 && ok0 && (!CAUSAL || qi >= key0) ? __expf(st[nt][0] * scale - la) : 0.f;
+        const float p1 = live0 && ok1 && (!CAUSAL || qi + 1 >= key0) ? __expf(st[nt][1] * scale - lb) : 0.f;
+        const float p2 = live1 && ok0 && (!CAUSAL || qi >= key1) ? __expf(st[nt][2] * scale - la) : 0.f;
+        const float p3 = live1 && ok1 && (!CAUSAL || qi + 1 >= key1) ? __expf(st[nt][3] * scale - lb) : 0.f;
         st[nt][0] = p0;
         st[nt][1] = p1;
         st[nt][2] = p2;
@@ -705,7 +737,7 @@ flash_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 // ---------------------------------------------------------------------------
 // backward, f32 (scalar FMA, one row per thread)
 
-template <int DH>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                  const float* __restrict__ dout, const float* __restrict__ lse,
@@ -720,8 +752,9 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const
   const int b = blockIdx.z, h = blockIdx.y;
   const size_t rbase = ((size_t)b * H + h) * (size_t)T, base = rbase * DH;
   const int vl = clamp_valid(valid, valid_n, b, T);
-  const int row = blockIdx.x * C::BM + threadIdx.x;
+  const int q0 = blockIdx.x * C::BM, row = q0 + threadIdx.x;
   const bool live = row < T;
+  const int lim = CAUSAL ? min(vl, row + 1) : vl;  // the row's live keys are j < lim
 
   float qv[DH], dov[DH], acc[DH];
 #pragma unroll
@@ -731,7 +764,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const
     acc[j] = 0.f;
   }
   const float l_r = live ? lse[rbase + row] : 0.f, d_r = live ? delta[rbase + row] : 0.f;
-  const int n_tiles = (vl + BN - 1) / BN;
+  const int n_tiles = ((CAUSAL ? min(vl, q0 + C::BM) : vl) + BN - 1) / BN;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BN;
     __syncthreads();
@@ -744,7 +777,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const
         s = fmaf(qv[d], Ks[j * DH + d], s);
         dp = fmaf(dov[d], Vs[j * DH + d], dp);
       }
-      const float p = (k0 + j < vl) ? expf(s * scale - l_r) : 0.f;
+      const float p = (k0 + j < lim) ? expf(s * scale - l_r) : 0.f;
       const float ds = p * (dp - d_r);
 #pragma unroll
       for (int d = 0; d < DH; ++d) acc[d] = fmaf(ds, Ks[j * DH + d], acc[d]);
@@ -756,7 +789,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const
   }
 }
 
-template <int DH>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
                   const float* __restrict__ dout, const float* __restrict__ lse,
@@ -783,8 +816,9 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, cons
     vv[j] = in_t ? v[base + (size_t)row * DH + j] : 0.f;
     ak[j] = av[j] = 0.f;
   }
+  // causal: the query tiles below the block's first key see none of its keys
   const int n_tiles = (T + BN - 1) / BN;
-  for (int it = 0; it < n_tiles; ++it) {
+  for (int it = CAUSAL ? blockIdx.x * C::BM / BN : 0; it < n_tiles; ++it) {
     const int i0 = it * BN;
     __syncthreads();
     load_pair_f32<BN, DH, NT>(Qs, Ds, q + base, dout + base, i0, T);
@@ -800,7 +834,7 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, cons
         s = fmaf(kv[d], Qs[i * DH + d], s);
         dp = fmaf(vv[d], Ds[i * DH + d], dp);
       }
-      const float p = (live && i0 + i < T) ? expf(s * scale - Ls[i]) : 0.f;
+      const float p = (live && i0 + i < T && (!CAUSAL || i0 + i >= row)) ? expf(s * scale - Ls[i]) : 0.f;
       const float ds = p * (dp - Es[i]);
 #pragma unroll
       for (int d = 0; d < DH; ++d) {
@@ -828,23 +862,23 @@ int allow_smem(Kern kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int DH>
+template <int DH, bool CAUSAL>
 int run_fwd(int is_f32, const void* q, const void* k, const void* v, void* o, float* lse,
             const int* valid, int valid_n, const void* cos_t, const void* sin_t, int B, int H, int T,
             float scale, cudaStream_t stream) {
   if (is_f32) {
     using C = F32Cfg<DH>;
     const dim3 grid((T + C::BM - 1) / C::BM, H, B);
-    int e = allow_smem(flash_fwd_f32<DH>, C::smem);
+    int e = allow_smem(flash_fwd_f32<DH, CAUSAL>, C::smem);
     if (e) return e;
-    flash_fwd_f32<DH><<<grid, C::NT, C::smem, stream>>>(
+    flash_fwd_f32<DH, CAUSAL><<<grid, C::NT, C::smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), lse, valid, valid_n, static_cast<const float*>(cos_t),
         static_cast<const float*>(sin_t), H, T, scale);
   } else {
     using C = Bf16Cfg<DH>;
     const dim3 grid((T + C::BM - 1) / C::BM, H, B);
-    auto kernel = lse != nullptr ? flash_fwd_bf16<DH, true> : flash_fwd_bf16<DH, false>;
+    auto kernel = lse != nullptr ? flash_fwd_bf16<DH, true, CAUSAL> : flash_fwd_bf16<DH, false, CAUSAL>;
     int e = allow_smem(kernel, C::smem);
     if (e) return e;
     kernel<<<grid, C::NT, C::smem, stream>>>(
@@ -856,25 +890,25 @@ int run_fwd(int is_f32, const void* q, const void* k, const void* v, void* o, fl
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, bool CAUSAL>
 int run_bwd_dq(int is_f32, const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dq, const int* valid, int valid_n, int B,
                int H, int T, float scale, cudaStream_t stream) {
   if (is_f32) {
     using C = F32Cfg<DH>;
     const dim3 grid((T + C::BM - 1) / C::BM, H, B);
-    int e = allow_smem(flash_bwd_dq_f32<DH>, C::smem);
+    int e = allow_smem(flash_bwd_dq_f32<DH, CAUSAL>, C::smem);
     if (e) return e;
-    flash_bwd_dq_f32<DH><<<grid, C::NT, C::smem, stream>>>(
+    flash_bwd_dq_f32<DH, CAUSAL><<<grid, C::NT, C::smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), valid, valid_n, H, T,
         scale);
   } else {
     using C = BwdCfg<DH>;
     const dim3 grid((T + C::BM - 1) / C::BM, H, B);
-    int e = allow_smem(flash_bwd_dq_bf16<DH>, C::smem_dq);
+    int e = allow_smem(flash_bwd_dq_bf16<DH, CAUSAL>, C::smem_dq);
     if (e) return e;
-    flash_bwd_dq_bf16<DH><<<grid, C::NT, C::smem_dq, stream>>>(
+    flash_bwd_dq_bf16<DH, CAUSAL><<<grid, C::NT, C::smem_dq, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
         static_cast<__nv_bfloat16*>(dq), valid, valid_n, H, T, scale);
@@ -882,25 +916,25 @@ int run_bwd_dq(int is_f32, const void* q, const void* k, const void* v, const vo
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, bool CAUSAL>
 int run_bwd_dkv(int is_f32, const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv, const int* valid,
                 int valid_n, int B, int H, int T, float scale, cudaStream_t stream) {
   if (is_f32) {
     using C = F32Cfg<DH>;
     const dim3 grid((T + C::BM - 1) / C::BM, H, B);
-    int e = allow_smem(flash_bwd_dkv_f32<DH>, C::smem);
+    int e = allow_smem(flash_bwd_dkv_f32<DH, CAUSAL>, C::smem);
     if (e) return e;
-    flash_bwd_dkv_f32<DH><<<grid, C::NT, C::smem, stream>>>(
+    flash_bwd_dkv_f32<DH, CAUSAL><<<grid, C::NT, C::smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
         valid, valid_n, H, T, scale);
   } else {
     using C = BwdCfg<DH>;
     const dim3 grid((T + C::BM - 1) / C::BM, H, B);
-    int e = allow_smem(flash_bwd_dkv_bf16<DH>, C::smem_dkv);
+    int e = allow_smem(flash_bwd_dkv_bf16<DH, CAUSAL>, C::smem_dkv);
     if (e) return e;
-    flash_bwd_dkv_bf16<DH><<<grid, C::NT, C::smem_dkv, stream>>>(
+    flash_bwd_dkv_bf16<DH, CAUSAL><<<grid, C::NT, C::smem_dkv, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
         static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), valid, valid_n, H, T, scale);
@@ -916,32 +950,36 @@ extern "C" {
 // or f32 (is_f32 == 1), 16-byte aligned. lse, delta: contiguous f32 [B, H, T].
 // valid: int32 device array of valid_n (1 or B) entries. cos_t/sin_t:
 // [>= T, dh] rotary tables of the input type, or both null. lse may be null
-// in the forward (no logsumexp output).
-int covomix_flash_attention_fwd(int is_f32, const void* q, const void* k, const void* v, void* o,
-                                float* lse, const int* valid, int valid_n, const void* cos_t,
+// in the forward (no logsumexp output). causal != 0 picks the causal
+// instantiation (key j <= query i).
+int covomix_flash_attention_fwd(int is_f32, int causal, const void* q, const void* k, const void* v,
+                                void* o, float* lse, const int* valid, int valid_n, const void* cos_t,
                                 const void* sin_t, int B, int H, int T, int dh, float scale,
                                 void* stream) {
   if (dh != FLASH_DH) return -1;
-  return run_fwd<FLASH_DH>(is_f32, q, k, v, o, lse, valid, valid_n, cos_t, sin_t, B, H, T, scale,
-                           static_cast<cudaStream_t>(stream));
+  auto run = causal ? run_fwd<FLASH_DH, true> : run_fwd<FLASH_DH, false>;
+  return run(is_f32, q, k, v, o, lse, valid, valid_n, cos_t, sin_t, B, H, T, scale,
+             static_cast<cudaStream_t>(stream));
 }
 
-int covomix_flash_attention_bwd_dq(int is_f32, const void* q, const void* k, const void* v,
+int covomix_flash_attention_bwd_dq(int is_f32, int causal, const void* q, const void* k, const void* v,
                                    const void* dout, const float* lse, const float* delta, void* dq,
                                    const int* valid, int valid_n, int B, int H, int T, int dh,
                                    float scale, void* stream) {
   if (dh != FLASH_DH) return -1;
-  return run_bwd_dq<FLASH_DH>(is_f32, q, k, v, dout, lse, delta, dq, valid, valid_n, B, H, T, scale,
-                              static_cast<cudaStream_t>(stream));
+  auto run = causal ? run_bwd_dq<FLASH_DH, true> : run_bwd_dq<FLASH_DH, false>;
+  return run(is_f32, q, k, v, dout, lse, delta, dq, valid, valid_n, B, H, T, scale,
+             static_cast<cudaStream_t>(stream));
 }
 
-int covomix_flash_attention_bwd_dkv(int is_f32, const void* q, const void* k, const void* v,
+int covomix_flash_attention_bwd_dkv(int is_f32, int causal, const void* q, const void* k, const void* v,
                                     const void* dout, const float* lse, const float* delta, void* dk,
                                     void* dv, const int* valid, int valid_n, int B, int H, int T,
                                     int dh, float scale, void* stream) {
   if (dh != FLASH_DH) return -1;
-  return run_bwd_dkv<FLASH_DH>(is_f32, q, k, v, dout, lse, delta, dk, dv, valid, valid_n, B, H, T,
-                               scale, static_cast<cudaStream_t>(stream));
+  auto run = causal ? run_bwd_dkv<FLASH_DH, true> : run_bwd_dkv<FLASH_DH, false>;
+  return run(is_f32, q, k, v, dout, lse, delta, dk, dv, valid, valid_n, B, H, T, scale,
+             static_cast<cudaStream_t>(stream));
 }
 
 const char* covomix_cuda_error_string(int code) {

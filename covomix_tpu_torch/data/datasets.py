@@ -10,8 +10,10 @@ Formats:
   text2semantic_2output                CoMix: 2-stream w/ 40/40/20 augmentation
 
 Collate: mel pad -15, hubert codes pad 501, mask False; batches are padded to
-a 64-frame bucket. With the same files and seed this gives the same items and
-batches as the JAX package."""
+a 64-frame bucket (`collate_acoustic`). T2S batches (`collate_t2s`): token ids
+from the tokenizer padded with 0 to a multiple of 16, semantic targets padded
+with 501 to a 64 bucket. With the same files and seed this gives the same
+items and batches as the JAX package."""
 
 from __future__ import annotations
 
@@ -218,6 +220,26 @@ def collate_acoustic(items: List[Dict], bucket: int = 64) -> Dict[str, np.ndarra
         out["phonemes"][i, :t] = it["phonemes"][:t]
         out["mask"][i, :t] = it["mask"][:t]
     return out
+
+
+def _collate_text_ids(items: List[Dict], tokenizer, max_text_len: int) -> np.ndarray:
+    """Tokenized texts, right-padded with 0 to a multiple of 16."""
+    text_ids, _ = tokenizer.batch_encode([it["text"] for it in items], max_length=max_text_len)
+    ts = round_up(text_ids.shape[1], 16)
+    return np.pad(text_ids, ((0, 0), (0, ts - text_ids.shape[1]))).astype(np.int32)
+
+
+def collate_t2s(items: List[Dict], tokenizer, bucket: int = 64, max_text_len: int = 512) -> Dict[str, np.ndarray]:
+    """{'text_ids': [B, S] int32 (pad 0, S a multiple of 16), 'semantic_ids':
+    [B, T] or [B, T, 2] int32 (pad 501, T a multiple of `bucket`)}."""
+    text_ids = _collate_text_ids(items, tokenizer, max_text_len)
+    n = round_up(max(len(it["semantic"]) for it in items), bucket)
+    b = len(items)
+    sem_shape = (b, n) if items[0]["semantic"].ndim == 1 else (b, n, 2)
+    sem = np.full(sem_shape, CODE_PAD, np.int32)
+    for i, it in enumerate(items):
+        sem[i, : len(it["semantic"])] = it["semantic"]
+    return {"text_ids": text_ids, "semantic_ids": sem}
 
 
 _STACK_PAD = {"x": MEL_PAD, "phonemes": CODE_PAD, "mask": False,

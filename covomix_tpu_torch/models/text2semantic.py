@@ -1,15 +1,21 @@
 """Text -> semantic-token transformer (CoSingle / CoMix): port of
-covomix_tpu/models/text2semantic.py, decode side.
+covomix_tpu/models/text2semantic.py.
 
   * non-causal source (text) encoder with interleaved rotary
   * causal target decoder with cross-attention (+ learned null-KV slot),
     GEGLU feed-forward, weight-tied token embedding / logit projection
+  * training forward with teacher forcing and the CE (`forward_loss`), the
+    two-stream CE sum for CoMix
   * autoregressive decode with per-layer KV caches, top-k + Gumbel sampling,
     EOS stop, mask-after-EOS cleanup; CoMix two-stream decode (`two_output`)
     splits the decoder hidden in half, one logit head per stream.
 
-`generate` is a Python loop that stops as soon as the JAX package's
-while_loop condition would. Encoder and decoder attend through
+In training the batches are right-padded, so the key masks are prefix masks:
+`forward_loss` hands them on as per-row lengths, and the full-sequence
+self-attention goes through `attend_flash_or_xla`, which takes the flash
+kernels (the decoder's causal form) on CUDA from 512 positions on and
+`layers.attend` otherwise. `generate` is a Python loop that stops as soon as
+the JAX package's while_loop condition would; it attends through
 `layers.attend` (the JAX package's decode path uses no kernel either)."""
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ import torch
 from covomix_tpu_torch.models import layers as L
 from covomix_tpu_torch.models.acoustic import linear_init
 from covomix_tpu_torch.ops import sampling as S
+from covomix_tpu_torch.ops.flash_attention import attend_flash_or_xla
+
+_SPECULATIVE_ITEM = "ROADMAP.md 'Modules to port': speculative decode"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,17 +141,24 @@ def _ff(p, x):
     return L.linear(p["w2"], L.geglu(h))
 
 
-def _self_attn_full(p, x, heads, *, mask=None):
-    """Full-sequence non-causal self-attention with interleaved rotary (the
-    source encoder), key mask [B, S] through `layers.attend`."""
+def _self_attn_full(p, x, heads, *, mask=None, causal=False, rotary=True, prefix_lens=None):
+    """Full-sequence self-attention (training, encoder). With `prefix_lens`
+    ([B] int, the per-row valid lengths of a right-padded batch) and no
+    `mask`, it goes through `attend_flash_or_xla` (the flash kernels on CUDA
+    from 512 positions on, also causal); a bool key `mask` [B, T] keeps
+    `layers.attend`."""
     h = L.rmsnorm(p["norm"], x)
     q = L.split_heads(L.linear(p["q"], h), heads)
     k, v = torch.chunk(L.linear(p["kv"], h), 2, dim=-1)
     k, v = L.split_heads(k, heads), L.split_heads(v, heads)
-    inv = L.rotary_freqs(q.shape[-1], device=x.device)
-    pos = torch.arange(x.shape[1], device=x.device)
-    q, k = L.rotary_interleaved(pos, inv, q), L.rotary_interleaved(pos, inv, k)
-    out = L.attend(q, k, v, key_mask=mask)
+    if rotary:
+        inv = L.rotary_freqs(q.shape[-1], device=x.device)
+        pos = torch.arange(x.shape[1], device=x.device)
+        q, k = L.rotary_interleaved(pos, inv, q), L.rotary_interleaved(pos, inv, k)
+    if prefix_lens is not None and mask is None:
+        out = attend_flash_or_xla(q, k, v, valid_len=prefix_lens, causal=causal)
+    else:
+        out = L.attend(q, k, v, key_mask=mask, causal=causal)
     return L.linear(p["out"], L.merge_heads(out))
 
 
@@ -168,13 +184,16 @@ def _context_kv(p_cross, context, heads):
     return L.split_heads(k, heads), L.split_heads(v, heads)
 
 
-def encode_source(params, cfg: T2SConfig, source_emb, source_mask, dtype=torch.float32):
-    """Source transformer (non-causal, rotary) + final RMSNorm."""
+def encode_source(params, cfg: T2SConfig, source_emb, source_mask, dtype=torch.float32, prefix_lens=None):
+    """Source transformer (non-causal, rotary) + final RMSNorm. `prefix_lens`:
+    the per-row lengths of a right-padded batch in place of `source_mask`
+    (see _self_attn_full)."""
     x = source_emb.to(dtype)
     if cfg.no_source_transformer:
         return x
+    mask = None if prefix_lens is not None else source_mask
     for lp in params["source_layers"]:
-        x = _self_attn_full(lp["self_attn"], x, cfg.heads, mask=source_mask) + x
+        x = _self_attn_full(lp["self_attn"], x, cfg.heads, mask=mask, prefix_lens=prefix_lens) + x
         x = _ff(lp["ff"], x) + x
     return L.rmsnorm(params["source_final_norm"], x)
 
@@ -203,6 +222,97 @@ def _sem_logits(params, h, dtype):
 
 
 # ---------------------------------------------------------------------------
+# training forward
+
+
+def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: Optional[torch.Generator] = None,
+                 source_mask=None, source_emb=None, cond_drop: bool = False, dtype=torch.float32,
+                 return_logits: bool = False):
+    """Teacher-forced CE. source_ids [B, S] (two_input: [B, S, 2]), or None
+    with precomputed `source_emb` [B, S, dim] and its `source_mask`;
+    target_ids [B, T] (two_output: [B, T, 2]) padded with the collate pad 501.
+    semantic_pad_id -1 means every position counts in the CE. The decoder
+    reads [BOS | targets with EOS]; logits[:, i] predicts target i, and the
+    two-stream loss is the sum of both streams' CE. `cond_drop` with
+    `classifier_free_guidance` replaces a row's context by the null source
+    embedding with probability cond_drop_prob, drawn from `generator`.
+    Returns the loss (0-dim f32), or (loss, logits) with `return_logits`
+    (two_output: a pair of logits)."""
+    if cfg.target_early_exit_layer > 0:
+        raise NotImplementedError(f"the early-exit CE of speculative decoding is not ported yet "
+                                  f"({_SPECULATIVE_ITEM})")
+    # only masks derived here from right-padded ids are provably prefix masks
+    mask_is_prefix = source_mask is None and source_emb is None
+    if source_emb is not None:
+        if source_mask is None:
+            raise ValueError("precomputed source_emb requires source_mask")
+        source_ids = None
+    elif cfg.two_input:
+        s1 = S.set_eos_id(source_ids[..., 0], cfg.text_eos_id, cfg.text_pad_id)
+        s2 = S.set_eos_id(source_ids[..., 1], cfg.text_eos_id, cfg.text_pad_id)
+        source_ids = torch.stack([s1, s2], dim=-1)
+        if source_mask is None:
+            source_mask = s1 != cfg.text_pad_id
+    else:
+        source_ids = S.set_eos_id(source_ids, cfg.text_eos_id, cfg.text_pad_id)
+        if source_mask is None:
+            source_mask = source_ids != cfg.text_pad_id
+
+    if cfg.two_output:
+        t1 = S.set_eos_id(target_ids[..., 0], cfg.semantic_eos_id, cfg.semantic_pad_id)
+        t2 = S.set_eos_id(target_ids[..., 1], cfg.semantic_eos_id, cfg.semantic_pad_id)
+    else:
+        t1 = S.set_eos_id(target_ids if target_ids.dim() == 2 else target_ids[..., 0], cfg.semantic_eos_id,
+                          cfg.semantic_pad_id)
+        t2 = t1
+
+    # right-padded batches: the pad masks are prefix masks, handed on as
+    # per-row lengths (the decoder's causal self-attention then takes the
+    # flash kernels); +1 for the BOS row
+    dec_lens = 1 + torch.sum(t1 != cfg.semantic_pad_id, dim=-1, dtype=torch.int32)
+    src_lens = torch.sum(source_mask, dim=-1, dtype=torch.int32) if mask_is_prefix else None
+
+    if source_emb is None:
+        source_emb = embed_source(params, cfg, source_ids, dtype)
+    context = encode_source(params, cfg, source_emb, source_mask, dtype, prefix_lens=src_lens)
+
+    if cfg.classifier_free_guidance and cond_drop and generator is not None:
+        drop = torch.rand(context.shape[0], generator=generator, device=generator.device).to(context.device)
+        drop = drop < cfg.cond_drop_prob
+        null = params["null_source_embedding"].to(dtype)[None, None, :]
+        context = torch.where(drop[:, None, None], null, context)
+
+    b = t1.shape[0]
+    start = params["start_speech"].to(dtype)[None, None, :].expand(b, 1, cfg.target_dim)
+    x = torch.cat([start, _embed_target(params, cfg, t1, t2, dtype)], dim=1)
+    for lp in params["target_layers"]:
+        x = _self_attn_full(lp["self_attn"], x, cfg.heads, causal=True, prefix_lens=dec_lens) + x
+        ckv = _context_kv(lp["cross_attn"], context, cfg.heads)
+        x = _cross_attn(lp["cross_attn"], x, ckv, cfg.heads, context_mask=source_mask) + x
+        x = _ff(lp["ff"], x) + x
+    x = L.rmsnorm(params["target_final_norm"], x)
+
+    def ce(logits, tgt):
+        logits = logits[:, :-1]     # the last position predicts past the end
+        valid = tgt != cfg.semantic_pad_id
+        tgt_c = torch.clamp(tgt, 0, cfg.num_semantic_tokens).long()
+        nll = -torch.gather(torch.log_softmax(logits, dim=-1), -1, tgt_c[..., None])[..., 0]
+        nll = torch.where(valid, nll, torch.zeros_like(nll))
+        return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+
+    if cfg.two_output:
+        half = cfg.target_dim // 2
+        logits = (_sem_logits(params, x[..., :half], dtype), _sem_logits(params, x[..., half:], dtype))
+        loss = ce(logits[0], t1) + ce(logits[1], t2)
+    else:
+        logits = _sem_logits(params, x, dtype)
+        loss = ce(logits, t1)
+    if return_logits:
+        return loss, logits
+    return loss
+
+
+# ---------------------------------------------------------------------------
 # autoregressive decode
 
 
@@ -225,7 +335,7 @@ def generate(params, cfg: T2SConfig, generator: Optional[torch.Generator], sourc
     positions after EOS become pad; positions never written are pad either way.
     `min_length` masks the EOS logit for the first min_length steps."""
     if speculative:
-        raise NotImplementedError("speculative decode is not ported yet (ROADMAP: speculative decode)")
+        raise NotImplementedError(f"speculative decode is not ported yet ({_SPECULATIVE_ITEM})")
     b = (source_ids if source_emb is None else source_emb).shape[0]
     heads, dh = cfg.heads, cfg.dim_head
     eos, pad = cfg.semantic_eos_id, cfg.semantic_pad_id

@@ -27,8 +27,11 @@ def build_library(source: str, path: str, flags=()) -> str:
         raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); cannot build the CUDA kernel")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"   # concurrent builds never share a file
+    # --split-compile=0: the kernels of one library are optimised on all CPU
+    # cores at once (the dh-256 flash library, one thread: ~290 s of a
+    # parallel build; split: ~107 s alone), with the same registers
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags, "-o", tmp, source]
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0", *flags, "-o", tmp, source]
     res = subprocess.run(cmd, capture_output=True, text=True)
     log = res.stdout + res.stderr
     if res.returncode != 0:

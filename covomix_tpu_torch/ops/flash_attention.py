@@ -4,9 +4,10 @@ On CUDA tensors the work runs in the hand-written Hopper kernels of
 `csrc/flash_attention.cu` (built with nvcc at first use into
 `covomix_tpu_torch/_build/`, bound with ctypes): the forward, with or without
 the per-row logsumexp the backward reads, and the dQ and dK/dV backward
-kernels. On CPU tensors the same arithmetic runs in plain PyTorch
-(`flash_attention_plain`, `flash_bwd_dq_plain`, `flash_bwd_dkv_plain`): keys
-past `valid_len` set to -1e30 before the exp, `valid_len` clamped to >= 1, the
+kernels, each non-causal or causal. On CPU tensors the same arithmetic runs in
+plain PyTorch (`flash_attention_plain`, `flash_bwd_dq_plain`,
+`flash_bwd_dkv_plain`): dead keys (past `valid_len`, and with `causal` past
+the query row) set to -1e30 before the exp, `valid_len` clamped to >= 1, the
 output divided by max(l, 1e-30), p and ds rounded to the input type before
 their products. There is no fallback from one to the other.
 
@@ -27,8 +28,9 @@ the same rule, so a head dim outside it takes `layers.attend`.
 `valid_len` is clamped to [1, T]. (The TPU kernel clamps only from below; a
 valid_len above T there lets zero-padded keys in, which no caller does.)
 
-The causal form (T2S training) is not ported: causal requests raise
-NotImplementedError."""
+`causal` (the T2S training decoder's self-attention) needs queries and keys of
+one length, as in the JAX package: key j is live for query row i when
+j < valid_len and j <= i. Rows past valid_len still see the keys below it."""
 
 from __future__ import annotations
 
@@ -43,7 +45,6 @@ from covomix_tpu_torch.ops.cuda_build import BUILD_DIR, build_library, csrc
 
 SOURCE = csrc("flash_attention.cu")
 MAX_DH = 256
-_CAUSAL_ITEM = "ROADMAP.md 'Modules to port': T2S training (causal flash)"
 
 
 def kernel_supports_dh(dh: int) -> bool:
@@ -61,7 +62,9 @@ class FlashKernel:
     a plain integer that goes up by one exactly where its kernel is launched:
     `launches` (forward without logsumexp, the inference form),
     `lse_launches` (forward with logsumexp, the training form),
-    `dq_launches` and `dkv_launches` (the backward kernels)."""
+    `dq_launches` and `dkv_launches` (the backward kernels); the causal
+    launches are counted apart, in `causal_launches`, `causal_lse_launches`,
+    `causal_dq_launches` and `causal_dkv_launches`."""
 
     def __init__(self):
         self.build_logs = {}
@@ -69,6 +72,10 @@ class FlashKernel:
         self.lse_launches = 0
         self.dq_launches = 0
         self.dkv_launches = 0
+        self.causal_launches = 0
+        self.causal_lse_launches = 0
+        self.causal_dq_launches = 0
+        self.causal_dkv_launches = 0
         self._libs = {}
         self._locks = {}
         self._lock = threading.Lock()
@@ -93,11 +100,11 @@ class FlashKernel:
             self.build_logs[dh] = build_library(SOURCE, path, [f"-DFLASH_DH={dh}"])
             lib = ctypes.CDLL(path)
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.covomix_flash_attention_fwd.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, vp, vp,
+            lib.covomix_flash_attention_fwd.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp,
                                                         ci, ci, ci, ci, cf, vp]
-            lib.covomix_flash_attention_bwd_dq.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+            lib.covomix_flash_attention_bwd_dq.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
                                                            ci, ci, ci, ci, cf, vp]
-            lib.covomix_flash_attention_bwd_dkv.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+            lib.covomix_flash_attention_bwd_dkv.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
                                                             ci, ci, ci, ci, cf, vp]
             for fn in (lib.covomix_flash_attention_fwd, lib.covomix_flash_attention_bwd_dq,
                        lib.covomix_flash_attention_bwd_dkv):
@@ -143,11 +150,11 @@ class FlashKernel:
         if err != 0:
             raise RuntimeError(f"flash {what} launch failed: {lib.covomix_cuda_error_string(err).decode()}")
 
-    def __call__(self, q, k, v, valid, rotary=None, return_lse=False):
+    def __call__(self, q, k, v, valid, rotary=None, return_lse=False, causal=False):
         """Forward. q/k/v [B, H, T, dh] contiguous CUDA bf16 or f32; valid
         int32 [1] or [B] on the same device; rotary (cos, sin_signed)
-        [>=T, dh] or None. Returns out, or (out, lse f32 [B, H, T]) with
-        `return_lse`."""
+        [>=T, dh] or None; `causal` masks key j > query i. Returns out, or
+        (out, lse f32 [B, H, T]) with `return_lse`."""
         self._check(q, k, v, valid)
         b, h, t, dh = q.shape
         if rotary is not None:
@@ -160,18 +167,24 @@ class FlashKernel:
         out = torch.empty_like(q)
         lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if return_lse else None
         err = lib.covomix_flash_attention_fwd(
-            int(q.dtype == torch.float32), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.float32), int(causal), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if return_lse else None, valid.data_ptr(), valid.shape[0],
             rotary[0].data_ptr() if rotary is not None else None,
             rotary[1].data_ptr() if rotary is not None else None, b, h, t, dh, dh ** -0.5, _stream(q))
         self._raise_on(lib, err, "forward")
         if return_lse:
-            self.lse_launches += 1
+            if causal:
+                self.causal_lse_launches += 1
+            else:
+                self.lse_launches += 1
             return out, lse
-        self.launches += 1
+        if causal:
+            self.causal_launches += 1
+        else:
+            self.launches += 1
         return out
 
-    def bwd_dq(self, q, k, v, dout, lse, delta, valid):
+    def bwd_dq(self, q, k, v, dout, lse, delta, valid, causal=False):
         """dQ from the already rotated q, k, the output gradient dout, the
         forward's lse and delta = rowsum(dout * out) (f32 [B, H, T])."""
         self._check(q, k, v, valid, (dout,))
@@ -180,14 +193,17 @@ class FlashKernel:
         lib = self.build(dh)
         dq = torch.empty_like(q)
         err = lib.covomix_flash_attention_bwd_dq(
-            int(q.dtype == torch.float32), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            int(q.dtype == torch.float32), int(causal), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), valid.data_ptr(), valid.shape[0],
             b, h, t, dh, dh ** -0.5, _stream(q))
         self._raise_on(lib, err, "dQ")
-        self.dq_launches += 1
+        if causal:
+            self.causal_dq_launches += 1
+        else:
+            self.dq_launches += 1
         return dq
 
-    def bwd_dkv(self, q, k, v, dout, lse, delta, valid):
+    def bwd_dkv(self, q, k, v, dout, lse, delta, valid, causal=False):
         """(dK, dV), with the same inputs as `bwd_dq`."""
         self._check(q, k, v, valid, (dout,))
         self._check_rows(q, (lse, delta))
@@ -195,11 +211,14 @@ class FlashKernel:
         lib = self.build(dh)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         err = lib.covomix_flash_attention_bwd_dkv(
-            int(q.dtype == torch.float32), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            int(q.dtype == torch.float32), int(causal), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), valid.data_ptr(),
             valid.shape[0], b, h, t, dh, dh ** -0.5, _stream(q))
         self._raise_on(lib, err, "dK/dV")
-        self.dkv_launches += 1
+        if causal:
+            self.causal_dkv_launches += 1
+        else:
+            self.dkv_launches += 1
         return dk, dv
 
 
@@ -257,18 +276,23 @@ def _valid_array(valid_len, b: int, t: int, device) -> torch.Tensor:
 # plain versions (CPU tensors; the comparison on the card)
 
 
-def _live_keys(valid, t, device):
-    """[1|B, 1, 1, T] bool: key j < valid_len of its row."""
-    return (torch.arange(t, device=device)[None, :] < valid.to(device).reshape(-1, 1))[:, None, None, :]
+def _live(valid, t, device, causal=False):
+    """[1|B, 1, 1|T, T] bool: key j < valid_len of its row (and, with
+    `causal`, j <= the query row i)."""
+    j = torch.arange(t, device=device)
+    live = (j[None, :] < valid.to(device).reshape(-1, 1))[:, None, None, :]
+    if causal:
+        live = live & (j[None, :] <= j[:, None])
+    return live
 
 
-def _scores(q, k, valid):
-    """s = q k^T dh^-0.5 in f32 with keys past valid_len at -1e30."""
+def _scores(q, k, valid, causal=False):
+    """s = q k^T dh^-0.5 in f32 with dead keys at -1e30."""
     s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * q.shape[-1] ** -0.5
-    return torch.where(_live_keys(valid, q.shape[2], q.device), s, torch.full_like(s, -1e30))
+    return torch.where(_live(valid, q.shape[2], q.device, causal), s, torch.full_like(s, -1e30))
 
 
-def flash_attention_plain(q, k, v, valid, rotary=None, return_lse: bool = False):
+def flash_attention_plain(q, k, v, valid, rotary=None, causal: bool = False, return_lse: bool = False):
     """The forward kernel's function in plain PyTorch, for CPU tensors (and
     as the comparison on the card). valid: int32 [1] or [B], already
     clamped. With `return_lse`, also lse = m + log(max(l, 1e-30)) f32
@@ -277,7 +301,7 @@ def flash_attention_plain(q, k, v, valid, rotary=None, return_lse: bool = False)
     if rotary is not None:
         cos, sin = rotary[0][:t], rotary[1][:t]
         q, k = _rotary_plain(q, cos, sin), _rotary_plain(k, cos, sin)
-    s = _scores(q, k, valid)
+    s = _scores(q, k, valid, causal)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
@@ -288,10 +312,10 @@ def flash_attention_plain(q, k, v, valid, rotary=None, return_lse: bool = False)
     return out
 
 
-def _probs_and_ds(q, k, v, dout, lse, delta, valid):
-    """p = exp(s - lse) (exactly 0 on masked keys) and ds = p (dO v^T - delta),
+def _probs_and_ds(q, k, v, dout, lse, delta, valid, causal):
+    """p = exp(s - lse) (exactly 0 on dead pairs) and ds = p (dO v^T - delta),
     both f32 [B, H, T, T]."""
-    p = torch.exp(_scores(q, k, valid) - lse[..., None])
+    p = torch.exp(_scores(q, k, valid, causal) - lse[..., None])
     dp = torch.einsum("bhid,bhjd->bhij", dout.float(), v.float())
     return p, p * (dp - delta[..., None])
 
@@ -302,79 +326,83 @@ def flash_delta(dout, out):
     return torch.sum(dout.float() * out.float(), dim=-1)
 
 
-def flash_bwd_dq_plain(q, k, v, dout, lse, delta, valid):
+def flash_bwd_dq_plain(q, k, v, dout, lse, delta, valid, causal: bool = False):
     """The dQ kernel's function: dq = dh^-0.5 * bf16(ds) k, for q, k already
     rotated."""
-    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, valid)
+    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, valid, causal)
     dq = torch.einsum("bhij,bhjd->bhid", ds.to(k.dtype).float(), k.float())
     return (dq * q.shape[-1] ** -0.5).to(q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, valid):
+def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, valid, causal: bool = False):
     """The dK/dV kernel's function: dv = bf16(p)^T dO, dk = dh^-0.5 *
     bf16(ds)^T q."""
-    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, valid)
+    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, valid, causal)
     dv = torch.einsum("bhij,bhid->bhjd", p.to(dout.dtype).float(), dout.float())
     dk = torch.einsum("bhij,bhid->bhjd", ds.to(q.dtype).float(), q.float())
     return (dk * q.shape[-1] ** -0.5).to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, out, lse, g, valid):
+def flash_attention_bwd_plain(q, k, v, out, lse, g, valid, causal: bool = False):
     """(dq, dk, dv) of the forward at already rotated q, k, from its output
     `out`, its lse and the output gradient `g` (the formulas of the JAX
     package's `_flash_backward`, with its rounding points)."""
     delta = flash_delta(g, out)
-    dk, dv = flash_bwd_dkv_plain(q, k, v, g, lse, delta, valid)
-    return flash_bwd_dq_plain(q, k, v, g, lse, delta, valid), dk, dv
+    dk, dv = flash_bwd_dkv_plain(q, k, v, g, lse, delta, valid, causal)
+    return flash_bwd_dq_plain(q, k, v, g, lse, delta, valid, causal), dk, dv
 
 
 # ---------------------------------------------------------------------------
 # autograd
 
 
-def _forward_lse(q, k, v, valid, rotary):
+def _forward_lse(q, k, v, valid, rotary, causal):
     if q.is_cuda:
-        return KERNEL(q, k, v, valid, rotary, return_lse=True)
-    return flash_attention_plain(q, k, v, valid, rotary, return_lse=True)
+        return KERNEL(q, k, v, valid, rotary, return_lse=True, causal=causal)
+    return flash_attention_plain(q, k, v, valid, rotary, causal, return_lse=True)
 
 
-def _backward(q, k, v, out, lse, g, valid):
+def _backward(q, k, v, out, lse, g, valid, causal):
     """(dq, dk, dv) at already rotated q, k: the two backward kernels on CUDA
     tensors, the plain version on CPU tensors."""
     g = g.contiguous()
     if not q.is_cuda:
-        return flash_attention_bwd_plain(q, k, v, out, lse, g, valid)
+        return flash_attention_bwd_plain(q, k, v, out, lse, g, valid, causal)
     delta = flash_delta(g, out)
-    dq = KERNEL.bwd_dq(q, k, v, g, lse, delta, valid)
-    dk, dv = KERNEL.bwd_dkv(q, k, v, g, lse, delta, valid)
+    dq = KERNEL.bwd_dq(q, k, v, g, lse, delta, valid, causal)
+    dk, dv = KERNEL.bwd_dkv(q, k, v, g, lse, delta, valid, causal)
     return dq, dk, dv
 
 
 class _FlashCore(torch.autograd.Function):
-    """Differentiable flash attention without rotary (`_flash_core`)."""
+    """Differentiable flash attention without rotary (`_flash_core`);
+    `causal` is a constant."""
 
     @staticmethod
-    def forward(ctx, q, k, v, valid):
-        out, lse = _forward_lse(q, k, v, valid, None)
+    def forward(ctx, q, k, v, valid, causal):
+        out, lse = _forward_lse(q, k, v, valid, None, causal)
         ctx.save_for_backward(q, k, v, out, lse, valid)
+        ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse, valid = ctx.saved_tensors
-        return (*_backward(q, k, v, out, lse, g, valid), None)
+        return (*_backward(q, k, v, out, lse, g, valid, ctx.causal), None, None)
 
 
 class _FlashCoreRot(torch.autograd.Function):
     """Differentiable flash attention with fused halfsplit rotary
-    (`_flash_core_rot`); the tables are constants. Saves the unrotated q and
-    k; the backward re-rotates them with the kernel's arithmetic, runs dQ and
-    dK/dV on the rotated tensors and counter-rotates dq and dk."""
+    (`_flash_core_rot`); the tables and `causal` are constants. Saves the
+    unrotated q and k; the backward re-rotates them with the kernel's
+    arithmetic, runs dQ and dK/dV on the rotated tensors and counter-rotates
+    dq and dk."""
 
     @staticmethod
-    def forward(ctx, q, k, v, valid, cos, sin):
-        out, lse = _forward_lse(q, k, v, valid, (cos, sin))
+    def forward(ctx, q, k, v, valid, cos, sin, causal):
+        out, lse = _forward_lse(q, k, v, valid, (cos, sin), causal)
         ctx.save_for_backward(q, k, v, out, lse, valid, cos, sin)
+        ctx.causal = causal
         return out
 
     @staticmethod
@@ -382,20 +410,23 @@ class _FlashCoreRot(torch.autograd.Function):
         q, k, v, out, lse, valid, cos, sin = ctx.saved_tensors
         t = q.shape[2]
         cos, sin = cos[:t], sin[:t]
-        dqr, dkr, dv = _backward(_rotary_plain(q, cos, sin), _rotary_plain(k, cos, sin), v, out, lse, g, valid)
-        return _rotary_transpose(dqr, cos, sin), _rotary_transpose(dkr, cos, sin), dv, None, None, None
+        dqr, dkr, dv = _backward(_rotary_plain(q, cos, sin), _rotary_plain(k, cos, sin), v, out, lse, g, valid,
+                                 ctx.causal)
+        return _rotary_transpose(dqr, cos, sin), _rotary_transpose(dkr, cos, sin), dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, valid_len=None, causal: bool = False, rotary=None):
     """q/k/v [B, H, T, dh] -> [B, H, T, dh]: softmax(q k^T dh^-0.5) v over the
-    keys < valid_len (int, or one per row). `rotary`: optional (cos,
+    keys < valid_len (int, or one per row), and with `causal` over the keys
+    j <= i (queries and keys of one length). `rotary`: optional (cos,
     sin_signed) [>=T, dh] halfsplit tables applied to q and k inside the
     kernel. CUDA tensors launch the kernels, CPU tensors run the plain
     versions. Differentiable in q, k, v: with grad enabled and an input that
     requires it, the forward keeps the logsumexp for the backward kernels;
     otherwise the forward without it runs."""
-    if causal:
-        raise NotImplementedError(f"causal flash attention is not ported yet ({_CAUSAL_ITEM})")
+    if causal and q.shape[-2] != k.shape[-2]:
+        raise ValueError(f"causal flash requires tq == tk (training self-attention); got "
+                         f"{q.shape[-2]} and {k.shape[-2]}")
     b, h, t, dh = q.shape
     valid = _valid_array(valid_len, b, t, q.device)
     if rotary is not None:
@@ -403,11 +434,11 @@ def flash_attention(q, k, v, *, valid_len=None, causal: bool = False, rotary=Non
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         if rotary is not None:
-            return _FlashCoreRot.apply(q, k, v, valid, *rotary)
-        return _FlashCore.apply(q, k, v, valid)
+            return _FlashCoreRot.apply(q, k, v, valid, *rotary, causal)
+        return _FlashCore.apply(q, k, v, valid, causal)
     if q.is_cuda:
-        return KERNEL(q, k, v, valid, rotary)
-    return flash_attention_plain(q, k, v, valid, rotary)
+        return KERNEL(q, k, v, valid, rotary, causal=causal)
+    return flash_attention_plain(q, k, v, valid, rotary, causal)
 
 
 def use_flash_kernel(*, on_cuda: bool, tq: int, tk: int, dh: int, has_key_mask: bool,

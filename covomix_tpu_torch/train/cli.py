@@ -1,13 +1,16 @@
 """Training CLI of the port: `python -m covomix_tpu_torch.train ...`.
 
 The flags of the JAX package's train.py plus `--device` (default cuda; bf16
-compute with `--bf16`). This slice trains the acoustic model (VoSingle /
-VoMix) on one device: the step loop, logging cadence, eval cadence with the
-EMA parameters, and the top-10-on-'l2' checkpoints follow train.py for one
+compute with `--bf16`). It trains the acoustic model (VoSingle / VoMix) or,
+with `--text2semantic`, the T2S model (CoSingle / CoMix; the tokenizer from
+`--bert_vocab`, refusing the char-level fallback vocab unless
+`--allow_fallback_vocab`) on one device: the step loop, logging cadence, eval
+cadence with the EMA parameters (`evaluate_acoustic`, or `evaluate_t2s`'s
+token WER), and the top-10-on-'l2' checkpoints follow train.py for one
 device. Flags for what is not ported raise NotImplementedError naming their
-ROADMAP item: `--text2semantic`; `--tp/--pp/--sp > 1`, `--fsdp`,
-`--bmuf_sync`, `--multihost`, `--coordinator_address`, `--dp > 1`;
-`--steps_per_dispatch > 1`. `--dp 0` ("all devices") is the one device."""
+ROADMAP item: `--tp/--pp/--sp > 1`, `--fsdp`, `--bmuf_sync`, `--multihost`,
+`--coordinator_address`, `--dp > 1`; `--steps_per_dispatch > 1`. `--dp 0`
+("all devices") is the one device."""
 
 from __future__ import annotations
 
@@ -21,13 +24,14 @@ import torch
 
 from covomix_tpu_torch import resolve_device
 from covomix_tpu_torch.checkpoint import io as cio
-from covomix_tpu_torch.data.datasets import CoVoMixDataset, collate_acoustic, data_loader, stack_microbatches
-from covomix_tpu_torch.models import acoustic as A
+from covomix_tpu_torch.data.datasets import (CoVoMixDataset, collate_acoustic, collate_t2s, data_loader,
+                                             stack_microbatches)
+from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
+from covomix_tpu_torch.models import acoustic as A, text2semantic as T
 from covomix_tpu_torch.train import evaluate as E, loop
 from covomix_tpu_torch.util.logging_utils import MetricsLogger
 from covomix_tpu_torch.util.watchdog import Watchdog
 
-_T2S_ITEM = "ROADMAP.md 'Modules to port': T2S training (causal flash)"
 _PARALLEL_ITEM = "ROADMAP.md 'Modules to port': Parallelism"
 _MULTI_STEP_NOTE = ("ROADMAP.md section 3, reference behaviours: make_multi_step unrolls K optimizer steps "
                     "into one jitted XLA dispatch, which has no eager counterpart")
@@ -106,8 +110,8 @@ def build_argparser():
 
 
 def _refuse_unported(args) -> None:
-    if args.text2semantic:
-        raise NotImplementedError(f"--text2semantic: T2S training is not ported yet ({_T2S_ITEM})")
+    if (args.pp > 1 or args.sp > 1) and args.text2semantic:
+        sys.exit("--pp/--sp apply to the acoustic model only")
     parallel = [flag for flag, on in (("--tp", args.tp > 1), ("--pp", args.pp > 1), ("--sp", args.sp > 1),
                                       ("--fsdp", args.fsdp), ("--bmuf_sync", args.bmuf_sync > 0),
                                       ("--multihost", args.multihost),
@@ -150,7 +154,7 @@ def main(argv=None) -> None:
     _refuse_unported(args)
     device = resolve_device(args.device)
 
-    run_name = args.run_name or f"acoustic_{int(time.time())}"
+    run_name = args.run_name or f"{'t2s' if args.text2semantic else 'acoustic'}_{int(time.time())}"
     run_dir = os.path.join(args.log_dir, run_name)
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "args.txt"), "w") as f:
@@ -158,18 +162,36 @@ def main(argv=None) -> None:
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    mode = "two_one" if args.twocondition_oneoutput else ("two_two" if args.twocondition_twooutput else "single")
-    model_cfg = A.AcousticConfig(dim_in=args.CoVoMix_dim, dim=args.CoVoMix_dim_transformer, depth=args.CoVoMix_depth,
-                                 dim_head=args.CoVoMix_dim_head, heads=args.CoVoMix_heads,
-                                 num_phoneme_tokens=args.CoVoMix_num_phoneme_tokens, mode=mode)
-    params = A.init(gen, model_cfg)
-    loss_fn = loop.acoustic_loss_fn(model_cfg, cond_drop_prob=args.cond_drop_prob, dtype=dtype)
+    if args.text2semantic:
+        model_cfg = T.T2SConfig(
+            dim=args.CoVoMix_dim_transformer, source_depth=args.text2semantic_source_depth,
+            target_depth=args.text2semantic_target_depth, heads=args.text2semantic_head,
+            num_text_tokens=args.num_text_token_ids, num_semantic_tokens=args.text2semantic_tokens,
+            target_dim=args.target_transformer_dim or args.CoVoMix_dim_transformer,
+            two_output=args.text2semantic_two_output, no_source_transformer=args.no_source_transformer,
+            cond_drop_prob=args.cond_drop_prob)
+        params = T.init(gen, model_cfg)
+        loss_fn = loop.t2s_loss_fn(model_cfg, dtype=dtype)
+    else:
+        mode = "two_one" if args.twocondition_oneoutput else ("two_two" if args.twocondition_twooutput else "single")
+        model_cfg = A.AcousticConfig(dim_in=args.CoVoMix_dim, dim=args.CoVoMix_dim_transformer,
+                                     depth=args.CoVoMix_depth, dim_head=args.CoVoMix_dim_head,
+                                     heads=args.CoVoMix_heads, num_phoneme_tokens=args.CoVoMix_num_phoneme_tokens,
+                                     mode=mode)
+        params = A.init(gen, model_cfg)
+        loss_fn = loop.acoustic_loss_fn(model_cfg, cond_drop_prob=args.cond_drop_prob, dtype=dtype)
 
     dataset, val_dataset = _datasets(args)
     ga = max(1, args.grad_accum)
     steps_per_epoch = args.steps_per_epoch or max(1, len(dataset) // (args.batch_size * ga))
-    loader = data_loader(dataset, args.batch_size, collate_acoustic, seed=args.seed,
-                         num_workers=args.num_workers)
+    if args.text2semantic:
+        # strict: a model trained on the fallback vocab's ids decodes garbage under the real one
+        tok = load_covomix_tokenizer(args.bert_vocab, strict=not args.allow_fallback_vocab)
+        collate = lambda items: collate_t2s(items, tok)
+        evaluate = E.evaluate_t2s
+    else:
+        collate, evaluate = collate_acoustic, E.evaluate_acoustic
+    loader = data_loader(dataset, args.batch_size, collate, seed=args.seed, num_workers=args.num_workers)
     train_cfg = loop.TrainConfig(lr=args.lr, ema_decay=args.ema_decay, use_lr_schedule=args.lr_scheduler,
                                  total_epochs=args.total_epochs, wake_up_epochs=args.wake_up_epochs,
                                  decay_start_epoch=args.decay_start_epoch, steps_per_epoch=steps_per_epoch,
@@ -210,9 +232,8 @@ def main(argv=None) -> None:
                 if args.num_eval_files and args.eval_every > 0 and done % args.eval_every == 0:
                     items = [val_dataset[i % len(val_dataset)]
                              for i in range(min(args.num_eval_files, len(val_dataset)))]
-                    batches = [collate_acoustic(items[i:i + args.batch_size])
-                               for i in range(0, len(items), args.batch_size)]
-                    ev = E.evaluate_acoustic(state.ema_params, model_cfg, batches, gen, dtype=dtype)
+                    batches = [collate(items[i:i + args.batch_size]) for i in range(0, len(items), args.batch_size)]
+                    ev = evaluate(state.ema_params, model_cfg, batches, gen, dtype=dtype)
                     print("eval:", json.dumps(ev), flush=True)
                     logger.log(done, ev, prefix="eval_")
                     eval_metric = ev["l2"]

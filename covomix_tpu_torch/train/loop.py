@@ -181,3 +181,15 @@ def acoustic_loss_fn(cfg_model, *, cond_drop_prob: float = 0.0, dtype=torch.floa
                           cond_drop_prob=cond_drop_prob, dtype=dtype)
 
     return loss
+
+
+def t2s_loss_fn(cfg_model, dtype=torch.float32):
+    """Batch: {'text_ids': [B, S], 'semantic_ids': [B, T(, 2)]}. The
+    generator is passed on for the loss's cond_drop draw."""
+    from covomix_tpu_torch.models import text2semantic as T
+
+    def loss(params, batch, generator):
+        return T.forward_loss(params, cfg_model, batch["text_ids"], batch["semantic_ids"], generator=generator,
+                              dtype=dtype)
+
+    return loss

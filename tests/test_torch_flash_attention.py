@@ -133,14 +133,23 @@ def test_dispatcher_on_cpu_matches_jax_dispatcher():
 
 
 def test_training_variants_raise():
-    """The causal form (T2S training) is not ported and names its ROADMAP
-    item, with or without grad; the lse form and the backward are
-    (tests/test_torch_flash_backward.py)."""
-    q = torch.zeros(1, 1, 8, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*T2S training"):
-        PF.flash_attention(q, q, q, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*T2S training"):
-        PF.flash_attention(q.clone().requires_grad_(), q, q, causal=True)
+    """The causal form (T2S training) runs, with and without grad, and equals
+    the JAX kernel in interpret mode (its gradients:
+    tests/test_torch_flash_backward.py); what the JAX package refuses, causal
+    with tq != tk, raises."""
+    q, k, v = _qkv(600, 11)
+    valid = np.array([600, 433], np.int32)
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(JF.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                            valid_len=jnp.asarray(valid), causal=True, interpret=True))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out = PF.flash_attention(tq, tk, tv, valid_len=torch.from_numpy(valid), causal=True)
+    assert out.grad_fn is None and np.abs(out.numpy() - ref).max() < TOL
+    out = PF.flash_attention(tq.clone().requires_grad_(), tk, tv, valid_len=torch.from_numpy(valid), causal=True)
+    assert type(out.grad_fn).__name__ == "_FlashCoreBackward"
+    assert np.abs(out.detach().numpy() - ref).max() < TOL
+    with pytest.raises(ValueError, match="tq == tk"):
+        PF.flash_attention(tq, tk[:, :, :500], tv[:, :, :500], causal=True)
 
 
 def test_kernel_wrapper_takes_only_cuda_tensors():

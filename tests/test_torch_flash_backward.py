@@ -5,7 +5,8 @@ plain versions there). Here, on CPU tensors, the plain forward's logsumexp is
 held against `_flash_forward(..., with_lse=True)` in interpret mode, and the
 gradients through the port's autograd Functions (`_FlashCore`,
 `_FlashCoreRot`, with the plain versions) against `jax.grad` through the
-Pallas `flash_attention(interpret=True)`. f32 on both sides at 'highest'
+Pallas `flash_attention(interpret=True)`, in the non-causal form and in the
+causal one (the T2S training decoder's). f32 on both sides at 'highest'
 precision: the two differ only in summation order, so gradients agree to
 about 1e-5 of their scale."""
 
@@ -46,38 +47,54 @@ CASES = [  # (T, valid_len, rotary): scalar and [B] valid_len, rotary on/off, T 
 ]
 
 
-@pytest.mark.parametrize("t,valid,rotary", CASES)
-def test_plain_lse_matches_jax(t, valid, rotary):
+CAUSAL_CASES = [  # (T, valid_len, rotary): the causal form; T = 513 leaves one row in the last 64-tile
+    (513, None, False),
+    (513, np.array([513, 300], np.int32), True),
+    (600, np.int32(450), False),
+    (600, np.array([600, 1], np.int32), True),
+]
+
+
+def _check_lse(t, valid, rotary, causal):
     q, k, v, _ = _arrays(t, t)
     vl = t if valid is None else valid
-    cfg = (JF.DEFAULT_BLOCK_Q, JF.DEFAULT_BLOCK_K, JF.DEFAULT_HEAD_BLOCK, True, False)
+    cfg = (JF.DEFAULT_BLOCK_Q, JF.DEFAULT_BLOCK_K, JF.DEFAULT_HEAD_BLOCK, True, causal)
     with jax.default_matmul_precision("highest"):
         out_j, lse_j = JF._flash_forward(cfg, jnp.maximum(jnp.asarray(vl, jnp.int32).reshape(-1), 1),
                                          jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), with_lse=True,
                                          rotary=_tables(t, True) if rotary else None)
     out_p, lse_p = PF.flash_attention_plain(*(torch.from_numpy(x) for x in (q, k, v)),
                                             PF._valid_array(vl, B, t, "cpu"),
-                                            _tables(t, False) if rotary else None, return_lse=True)
+                                            _tables(t, False) if rotary else None, return_lse=True, causal=causal)
     assert lse_p.shape == (B, H, t) and lse_p.dtype == torch.float32
     assert np.abs(lse_p.numpy() - np.asarray(lse_j)[..., 0]).max() < FWD_TOL
     assert np.abs(out_p.numpy() - np.asarray(out_j)).max() < FWD_TOL
 
 
 @pytest.mark.parametrize("t,valid,rotary", CASES)
-def test_gradients_match_jax_grad(t, valid, rotary):
+def test_plain_lse_matches_jax(t, valid, rotary):
+    _check_lse(t, valid, rotary, False)
+
+
+@pytest.mark.parametrize("t,valid,rotary", CAUSAL_CASES)
+def test_causal_plain_lse_matches_jax(t, valid, rotary):
+    _check_lse(t, valid, rotary, True)
+
+
+def _check_gradients(t, valid, rotary, causal):
     """d/d(q, k, v) of sum(out * w) through the port's autograd Functions
     (plain versions on the CPU) against jax.grad through the Pallas kernels."""
     q, k, v, w = _arrays(t, 10 + t)
 
     def jax_loss(q, k, v):
-        out = JF.flash_attention(q, k, v, valid_len=None if valid is None else jnp.asarray(valid),
+        out = JF.flash_attention(q, k, v, valid_len=None if valid is None else jnp.asarray(valid), causal=causal,
                                  rotary=_tables(t, True) if rotary else None, interpret=True)
         return jnp.sum(out * w)
 
     with jax.default_matmul_precision("highest"):
         ref = jax.grad(jax_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
-    out = PF.flash_attention(*leaves, valid_len=None if valid is None else torch.as_tensor(valid),
+    out = PF.flash_attention(*leaves, valid_len=None if valid is None else torch.as_tensor(valid), causal=causal,
                              rotary=_tables(t, False) if rotary else None)
     expect = PF._FlashCoreRot if rotary else PF._FlashCore
     assert type(out.grad_fn).__name__ == f"{expect.__name__}Backward"
@@ -87,8 +104,17 @@ def test_gradients_match_jax_grad(t, valid, rotary):
         assert np.abs(leaf.grad.numpy() - r).max() <= GRAD_TOL * max(1.0, np.abs(r).max())
 
 
-@pytest.mark.parametrize("rotary", [False, True])
-def test_plain_backward_matches_autograd_of_plain_forward(rotary):
+@pytest.mark.parametrize("t,valid,rotary", CASES)
+def test_gradients_match_jax_grad(t, valid, rotary):
+    _check_gradients(t, valid, rotary, False)
+
+
+@pytest.mark.parametrize("t,valid,rotary", CAUSAL_CASES)
+def test_causal_gradients_match_jax_grad(t, valid, rotary):
+    _check_gradients(t, valid, rotary, True)
+
+
+def _check_plain_backward(rotary, causal):
     """The hand-derived backward (flash_attention_bwd_plain, with the rotary
     transpose) against torch autograd through the plain forward, f32."""
     t = 150
@@ -96,16 +122,30 @@ def test_plain_backward_matches_autograd_of_plain_forward(rotary):
     valid = PF._valid_array(torch.tensor([150, 61]), B, t, "cpu")
     tables = _tables(t, False) if rotary else None
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    (PF.flash_attention_plain(*leaves, valid, tables) * w).sum().backward()
+    (PF.flash_attention_plain(*leaves, valid, tables, causal=causal) * w).sum().backward()
     qr, kr = (PF._rotary_plain(x, *tables) for x in (q, k)) if rotary else (q, k)
-    out, lse = PF.flash_attention_plain(qr, kr, v, valid, return_lse=True)
-    dq, dk, dv = PF.flash_attention_bwd_plain(qr, kr, v, out, lse, w, valid)
+    out, lse = PF.flash_attention_plain(qr, kr, v, valid, return_lse=True, causal=causal)
+    dq, dk, dv = PF.flash_attention_bwd_plain(qr, kr, v, out, lse, w, valid, causal)
     if rotary:
         dq, dk = PF._rotary_transpose(dq, *tables), PF._rotary_transpose(dk, *tables)
     for mine, leaf in zip((dq, dk, dv), leaves):
         assert (mine - leaf.grad).abs().max().item() < 1e-5
     # key rows past valid_len get exact zeros
     assert bool((dk[1, :, 61:] == 0).all()) and bool((dv[1, :, 61:] == 0).all())
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("rotary", [False, True])
+def test_plain_backward_matches_autograd_of_plain_forward(rotary):
+    _check_plain_backward(rotary, False)
+
+
+@pytest.mark.parametrize("rotary", [False, True])
+def test_causal_plain_backward_matches_autograd_of_plain_forward(rotary):
+    """The same with causal. Row 0's last key (149) is seen by query 149
+    alone, and still takes a gradient."""
+    _, dk, dv = _check_plain_backward(rotary, True)
+    assert bool((dk[0, :, -1] != 0).all()) and bool((dv[0, :, -1] != 0).all())
 
 
 def test_no_grad_runs_the_forward_without_lse(monkeypatch):
@@ -131,17 +171,34 @@ def test_no_grad_runs_the_forward_without_lse(monkeypatch):
     assert out.grad_fn is not None and calls == [False, False, True]
 
 
-def test_backward_wrappers_take_only_cuda_tensors():
-    """The backward wrappers launch their kernel or raise; they never compute
-    on the CPU, and a refused call counts no launch."""
+def _counts():
+    k = PF.KERNEL
+    return (k.launches, k.lse_launches, k.dq_launches, k.dkv_launches, k.causal_launches, k.causal_lse_launches,
+            k.causal_dq_launches, k.causal_dkv_launches)
+
+
+def _refuse_cpu_tensors(causal):
     q = torch.zeros(1, 1, 8, 64)
     rows = torch.zeros(1, 1, 8)
     valid = torch.ones(1, dtype=torch.int32)
-    counts = (PF.KERNEL.launches, PF.KERNEL.lse_launches, PF.KERNEL.dq_launches, PF.KERNEL.dkv_launches)
+    counts = _counts()
     with pytest.raises(ValueError, match="CUDA"):
-        PF.KERNEL.bwd_dq(q, q, q, q, rows, rows, valid)
+        PF.KERNEL.bwd_dq(q, q, q, q, rows, rows, valid, causal=causal)
     with pytest.raises(ValueError, match="CUDA"):
-        PF.KERNEL.bwd_dkv(q, q, q, q, rows, rows, valid)
+        PF.KERNEL.bwd_dkv(q, q, q, q, rows, rows, valid, causal=causal)
     with pytest.raises(ValueError, match="CUDA"):
-        PF.KERNEL(q, q, q, valid, return_lse=True)
-    assert counts == (PF.KERNEL.launches, PF.KERNEL.lse_launches, PF.KERNEL.dq_launches, PF.KERNEL.dkv_launches)
+        PF.KERNEL(q, q, q, valid, return_lse=True, causal=causal)
+    with pytest.raises(ValueError, match="CUDA"):
+        PF.KERNEL(q, q, q, valid, causal=causal)
+    assert counts == _counts()
+
+
+def test_backward_wrappers_take_only_cuda_tensors():
+    """The backward wrappers launch their kernel or raise; they never compute
+    on the CPU, and a refused call counts no launch."""
+    _refuse_cpu_tensors(False)
+
+
+def test_causal_wrappers_take_only_cuda_tensors():
+    """The same for the causal form of the three kernels."""
+    _refuse_cpu_tensors(True)

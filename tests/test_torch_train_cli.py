@@ -141,7 +141,7 @@ def test_train_state_round_trip_continues_identically(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--text2semantic"], "T2S training"),
+    (["--sp", "2"], "Parallelism"),
     (["--tp", "2"], "Parallelism"),
     (["--dp", "2"], "Parallelism"),
     (["--fsdp"], "Parallelism"),
