@@ -7,14 +7,15 @@ Phases (any failure exits non-zero, nothing is passed over):
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel of the ported paths from the checkout's sources
      (nvcc, sm_90a) into covomix_tpu_torch/_build/: the flash kernels (non-
-     causal and causal) for the head dim 64 and for the edge head dims
-     checked below (one nvcc per head dim) and the fused vocoder stage/tail
-     library (both dtypes), all started together; log ptxas's registers and
-     spills and hold the non-causal dh-64 bf16 flash kernels to the
-     register counts they had before the causal form (NONCAUSAL_REGS);
+     causal and causal, the rotary pre-pass) for the head dim 64 and for the
+     edge head dims checked below (one nvcc per head dim) and the fused
+     vocoder stage/tail library (both dtypes), all started together; log
+     ptxas's registers, spills and wgmma notes, and hold the dh-64 bf16
+     flash kernels to FLASH_REGS with no spills;
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and at edge shapes, with stated tolerances:
-     the inference forward; the training forms (forward with lse, dQ,
+     the rotary pre-pass bit for bit against `_rotary_plain`; the inference
+     forward; the training forms (forward with lse, dQ,
      dK/dV); their causal forms (the T2S decoder's: [6, 8, 1026, 64], odd
      and even T 513-2050, T under 512, valid_len [1] < T and [B], rotary off
      and on, head dims 16-256, also the causal forward without lse); autograd
@@ -23,15 +24,23 @@ Phases (any failure exits non-zero, nothing is passed over):
   4. run batched dialogue serving at full width (CoMix T2S -> VoMix flow ->
      HiFi-GAN, bf16, B=4, prompt 400, decode 512) with random weights from a
      seed: one warm-up batch, then timed batches; the flash kernel's launch
-     count over one batch must be 8 layers x 16 steps x 2 evals = 256;
+     count over one batch must be 8 layers x 16 steps x 2 evals = 256, and
+     as many rotary pre-passes;
   5. time the kernels at the paths' shapes beside their plain versions, and
-     hold each timed output against its plain version on the same inputs;
+     hold each timed output against its plain version on the same inputs.
+     Each kernel's `ms` is CUDA events around calls issued back to back, as
+     a path issues them (a call's host side shows where it outlasts the
+     kernel); `device_ms` the same calls queued behind a sleep kernel (the
+     card's time alone). The forward's entry is the attention kernel alone;
+     with the rotary pre-pass, as the flow sampler calls it, it is logged as
+     `ms_with_prepass`. The host microseconds per call of the forward's
+     wrapper are logged at the serving shape;
   6. per-file generation: full-width random checkpoints written with the
      port's save_params, two dialogue scripts with 400-frame prompts, and
      `covomix_tpu_torch.dialogue_generation.main([... --mode covomix
      --fuse_tail --device cuda ...])` in-process; every vocode must launch the
-     fused stage and tail once each, every flow sample the flash kernel 256
-     times, and every wav be finite int16 of 160 x generated frames; the
+     fused stage and tail once each, every flow sample the flash kernel and
+     the rotary pre-pass 256 times, and every wav be finite int16 of 160 x generated frames; the
      fused kernels are then checked and timed on the very inputs the last
      vocode gave them, and the flash kernel at the flow sample's shape;
   7. check small f32 runs on the card against the same runs on the CPU, with
@@ -42,8 +51,8 @@ Phases (any failure exits non-zero, nothing is passed over):
      bf16, B=8, T=832) through `covomix_tpu_torch.train.cli.main` on random
      data: 12 optimizer steps, one eval on 8 dev files and its top-k save,
      then `--resume` for one more step; every step must launch the forward
-     with lse, dQ and dK/dV 8 times each (and nothing else), the eval only
-     the forward without lse; then the step's forward / backward / optimizer
+     with lse, dQ, dK/dV and the rotary pre-pass 8 times each (and nothing
+     else), the eval only the forward without lse and the pre-pass; then the step's forward / backward / optimizer
      split, the three training kernels timed at [8, 16, 832, 64] beside
      their plain versions, bounds and PyTorch yardsticks, and two f32 steps
      of a tiny model on the card against the CPU;
@@ -129,19 +138,35 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3, behind_sleep: bool = False) -> float:
+    """ms per call of fn, by CUDA events around `iters` calls issued back to
+    back, as a path issues them: where a call's host side (Python, checks,
+    allocation, launch) outlasts its kernels, the card waits and the host's
+    time is what shows. With `behind_sleep`, the calls are first queued
+    behind a ~50 ms sleep kernel, so that the events time the card's work
+    alone (the device time)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if behind_sleep:
+        torch.cuda._sleep(100_000_000)   # SM cycles: ~50 ms at 1.98 GHz
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def both_times(results, key, fn, iters: int = 20) -> float:
+    """results[f"{key}_ms"] (back to back) and results[f"{key}_device_ms"]
+    (behind a sleep) of fn; returns the first."""
+    results[f"{key}_device_ms"] = cuda_time_ms(fn, iters, behind_sleep=True)
+    results[f"{key}_ms"] = cuda_time_ms(fn, iters)
+    return results[f"{key}_ms"]
 
 
 # ---------------------------------------------------------------------------
@@ -242,11 +267,12 @@ def check_flash_training_case(b, h, t, dh, dtype, seed, valid, rotary, causal=Fa
                                       out_tol)
     if tables is not None:
         # the backward re-rotates with _rotary_plain: it must give the very
-        # operands the kernel rotated in shared memory, bit for bit
+        # operands the kernel rotated (bf16: the pre-pass; f32: in shared
+        # memory), bit for bit
         q, k = FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables)
         out2, lse2 = FA.KERNEL(q, k, v, valid_arr, None, return_lse=True, causal=causal)
         same = torch.equal(out2, out) and torch.equal(lse2, lse)
-        log(f"  in-kernel rotary == _rotary_plain then the kernel, bit for bit: {same}")
+        log(f"  kernel's rotary == _rotary_plain then the kernel, bit for bit: {same}")
         if not same:
             raise AssertionError("the kernel's rotary differs from _rotary_plain")
     delta = FA.flash_delta(dout, ref)
@@ -358,11 +384,40 @@ def check_flash_causal(results):
             flash_agreement(name, a, r, tol)
 
 
+def check_rotary_prepass(results):
+    """The bf16 rotary pre-pass against `_rotary_plain`, bit for bit
+    (torch.equal): at the serving shape [8, 16, 912, 64], at odd T, with
+    tables longer than T, and at the edge head dims."""
+    import torch
+    from covomix_tpu_torch.models import layers as L
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    for b, h, t, dh in ((8, 16, 912, 64), (2, 3, 301, 64), (1, 2, 1027, 64), (2, 2, 77, 16), (1, 2, 99, 48),
+                        (1, 2, 65, 128), (1, 1, 33, 256)):
+        q, k, _, _, tables = flash_inputs(b, h, t, dh, torch.bfloat16, 40 + t, t, True)
+        if t == 1027:   # tables of 1100 positions, the first T of them used
+            tables = FA.rotary_tables_halfsplit(torch.arange(1100, device="cuda"),
+                                                L.rotary_freqs(dh, device="cuda"), torch.bfloat16)
+        before = FA.KERNEL.rotary_launches
+        qr, kr = FA.KERNEL.rotary(q, k, *tables)
+        torch.cuda.synchronize()
+        cos, sin = tables[0][:t], tables[1][:t]
+        same = torch.equal(qr, FA._rotary_plain(q, cos, sin)) and torch.equal(kr, FA._rotary_plain(k, cos, sin))
+        log(f"rotary pre-pass [{b},{h},{t},{dh}] == _rotary_plain, bit for bit: {same}")
+        if not same or FA.KERNEL.rotary_launches != before + 1:
+            raise AssertionError(f"the rotary pre-pass differs from _rotary_plain at [{b},{h},{t},{dh}]")
+    results["rotary_check_bit_equal"] = True
+
+
 def time_flash(results, key, b, t, valid):
-    """Kernel, plain version and SDPA yardstick at [b, 16, t, 64] bf16 with
-    rotary and a run's own valid lengths (one per row, or one for all), into
-    results[f"{key}_ms"] etc.; the kernel's output on the timed inputs is
-    held against the plain version's (BF16_TOL)."""
+    """The forward at [b, 16, t, 64] bf16 with rotary and a run's own valid
+    lengths (one per row, or one for all): the attention kernel alone on the
+    pre-rotated inputs (results[f"{key}_ms"] etc., the kernel's own entry),
+    the rotary pre-pass (f"{key}_rotary_*"), the two together as the path
+    calls them (f"{key}_with_prepass_ms": the gated number), each back to
+    back and behind a sleep (`both_times`), beside the plain version and the
+    SDPA yardstick on the pre-rotated inputs. The forward's output on the
+    timed inputs is held against the plain version's (BF16_TOL)."""
     import torch
     import torch.nn.functional as F
     from covomix_tpu_torch.ops import flash_attention as FA
@@ -378,24 +433,105 @@ def time_flash(results, key, b, t, valid):
     if not ok:
         raise AssertionError(f"flash kernel disagrees with its plain version at [{b},{h},{t},{dh}]")
     del out, ref
-    ms = results[f"{key}_ms"] = cuda_time_ms(lambda: FA.KERNEL(q, k, v, valid_arr, tables))
-    results[f"{key}_plain_ms"] = cuda_time_ms(lambda: FA.flash_attention_plain(q, k, v, valid_arr, tables),
-                                              iters=5)
-    # yardstick: one SDPA call on the pre-rotated inputs (the rotation is not timed)
+    both = both_times(results, f"{key}_with_prepass", lambda: FA.KERNEL(q, k, v, valid_arr, tables))
     qr, kr = FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables)
+    time_rotary_prepass(results, f"{key}_rotary", q, k, tables)
+    ms = both_times(results, key, lambda: FA.KERNEL(qr, kr, v, valid_arr, None))
+    results[f"{key}_plain_ms"] = cuda_time_ms(lambda: FA.flash_attention_plain(qr, kr, v, valid_arr, None),
+                                              iters=5)
     mask = None
     if int(valid_arr.min()) < t:
         mask = (torch.arange(t, device="cuda")[None, :] < valid_arr[:, None])[:, None, None, :]
-    results[f"{key}_sdpa_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=mask))
+    both_times(results, f"{key}_library", lambda: F.scaled_dot_product_attention(qr, kr, v, attn_mask=mask))
     live = valid_arr.long().expand(b).sum().item()
     flops = 4.0 * h * dh * t * live
-    nbytes = 4 * b * h * t * dh * 2 + 2 * t * dh * 2 + valid_arr.numel() * 4
+    nbytes = 4 * b * h * t * dh * 2 + valid_arr.numel() * 4   # q, k, v read, out written; valid
     bound_flops_ms, bound_bytes_ms = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     bound = results[f"{key}_bound_ms"] = max(bound_flops_ms, bound_bytes_ms)
     by = results[f"{key}_bound_by"] = "operations" if bound_flops_ms >= bound_bytes_ms else "bytes"
-    log(f"flash timing [{b},{h},{t},{dh}] bf16 rotary, valid={valid_arr.tolist()}: kernel {ms:.4f} ms, plain "
-        f"{results[f'{key}_plain_ms']:.4f} ms, SDPA {results[f'{key}_sdpa_ms']:.4f} ms, bound {bound:.4f} ms "
-        f"({by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) -> {flops / ms / 1e9:.1f} TFLOP/s")
+    r = {name: results[f"{key}{part}"] for name, part in (
+        ("prepass", "_rotary_ms"), ("prepass_dev", "_rotary_device_ms"), ("dev", "_device_ms"),
+        ("both_dev", "_with_prepass_device_ms"), ("sdpa", "_library_ms"), ("sdpa_dev", "_library_device_ms"))}
+    log(f"flash timing [{b},{h},{t},{dh}] bf16 rotary, valid={valid_arr.tolist()} (ms back to back / behind a "
+        f"sleep): pre-pass + attention {both:.4f} / {r['both_dev']:.4f}; pre-pass {r['prepass']:.4f} / "
+        f"{r['prepass_dev']:.4f}; attention {ms:.4f} / {r['dev']:.4f}; SDPA {r['sdpa']:.4f} / {r['sdpa_dev']:.4f}; "
+        f"plain {results[f'{key}_plain_ms']:.4f}; bound {bound:.4f} ({by}: {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB) -> attention {flops / r['dev'] / 1e9:.1f} TFLOP/s on the card")
+
+
+def time_rotary_prepass(results, key, q, k, tables):
+    """The rotary pre-pass on q, k (bf16 [B, H, T, dh]) beside `_rotary_plain`
+    of both (its plain version, and the one PyTorch call per tensor that
+    computes the same function, timed once for both fields) and its bound:
+    bytes, each of q, k read and each of their rotated copies written once,
+    the tables read once."""
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    t = q.shape[2]
+    cos, sin = tables[0][:t], tables[1][:t]
+    ms = both_times(results, key, lambda: FA.KERNEL.rotary(q, k, cos, sin), iters=50)
+    plain = cuda_time_ms(lambda: (FA._rotary_plain(q, cos, sin), FA._rotary_plain(k, cos, sin)), iters=20)
+    results[f"{key}_plain_ms"] = results[f"{key}_library_ms"] = plain
+    nbytes = 4 * q.numel() * 2 + 2 * cos.numel() * 2
+    results[f"{key}_bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
+    results[f"{key}_bound_by"] = "bytes"
+    qr, kr = FA.KERNEL.rotary(q, k, cos, sin)
+    same = bool((qr == FA._rotary_plain(q, cos, sin)).all() and (kr == FA._rotary_plain(k, cos, sin)).all())
+    results[f"{key}_max_abs_err"] = 0.0 if same else float("inf")
+    log(f"rotary pre-pass timing {list(q.shape)} bf16: {ms:.4f} ms back to back, "
+        f"{results[f'{key}_device_ms']:.4f} ms behind a sleep, _rotary_plain of q and k {plain:.4f} ms, bound "
+        f"{results[f'{key}_bound_ms']:.4f} ms (bytes: {nbytes / 1e6:.1f} MB) -> "
+        f"{nbytes / results[f'{key}_device_ms'] / 1e6:.1f} GB/s on the card; bit-equal on the timed inputs {same}")
+    if not same:
+        raise AssertionError("the rotary pre-pass differs from _rotary_plain on the timed inputs")
+
+
+def flash_host_us(b=8, h=16, t=912, dh=64, iters=100) -> dict:
+    """Host microseconds per call of the bf16 forward's wrapper
+    (`flash_attention.KERNEL`: checks, allocations, ctypes launches) at
+    [b, h, t, dh]: the host clock around `iters` calls while the card is kept
+    busy behind a sleep kernel, so no call waits for the card. "forward with
+    rotary" is the call the flow sampler makes (tables given); "attention
+    alone" the same call on pre-rotated q and k, without tables."""
+    import torch
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    q, k, v, valid_arr, tables = flash_inputs(b, h, t, dh, torch.bfloat16, 98, t, True)
+    qr, kr = FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables)
+    calls = {"forward with rotary": lambda: FA.KERNEL(q, k, v, valid_arr, tables),
+             "attention alone": lambda: FA.KERNEL(qr, kr, v, valid_arr, None)}
+    out = {}
+    for name, fn in calls.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)   # ~100 ms: longer than the host takes to issue the calls
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        out[name] = (time.perf_counter() - t0) / iters * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
+def time_flash_host(results):
+    us = results["flash_host_us"] = flash_host_us()
+    log("flash forward wrapper, host us per call at [8,16,912,64] bf16: "
+        + ", ".join(f"{name} {v:.1f}" for name, v in us.items()))
+
+
+def bound_and_log(results, key, shape, flops, nbytes):
+    """results[f"{key}_bound_ms"] / f"{key}_bound_by" from the work's operations
+    and bytes, and one log line of the kernel's, plain version's and library
+    call's times (back to back / behind a sleep)."""
+    bf_ms, bb_ms = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    bound = results[f"{key}_bound_ms"] = max(bf_ms, bb_ms)
+    by = results[f"{key}_bound_by"] = "operations" if bf_ms >= bb_ms else "bytes"
+    dev = results[f"{key}_device_ms"]
+    log(f"{key} timing {shape} bf16 (ms back to back / behind a sleep): kernel {results[f'{key}_ms']:.4f} / "
+        f"{dev:.4f}, library {results[f'{key}_library_ms']:.4f} / {results[f'{key}_library_device_ms']:.4f}, "
+        f"plain {results[f'{key}_plain_ms']:.4f}, bound {bound:.4f} ({by}: {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB) -> {flops / dev / 1e9:.1f} TFLOP/s on the card")
 
 
 def time_flash_training(results, b=8, h=16, t=832, dh=64):
@@ -427,43 +563,40 @@ def time_flash_training(results, b=8, h=16, t=832, dh=64):
                                          flash_agreement("dv", dv, dv_p, BWD_BF16_TOL))
     del out, ref, dk, dv, dk_p, dv_p
 
-    timed = {
-        "fwd_lse": (lambda: FA.KERNEL(q, k, v, valid_arr, tables, return_lse=True),
-                    lambda: FA.flash_attention_plain(q, k, v, valid_arr, tables, return_lse=True)),
+    timed = {   # the forward's entry is the attention kernel alone, on the pre-rotated inputs
+        "fwd_lse": (lambda: FA.KERNEL(qr, kr, v, valid_arr, None, return_lse=True),
+                    lambda: FA.flash_attention_plain(qr, kr, v, valid_arr, None, return_lse=True)),
         "bwd_dq": (lambda: FA.KERNEL.bwd_dq(*bwd), lambda: FA.flash_bwd_dq_plain(*bwd)),
         "bwd_dkv": (lambda: FA.KERNEL.bwd_dkv(*bwd), lambda: FA.flash_bwd_dkv_plain(*bwd)),
     }
     for key, (kern, plain) in timed.items():
-        results[f"{key}_ms"] = cuda_time_ms(kern)
+        both_times(results, key, kern)
         results[f"{key}_plain_ms"] = cuda_time_ms(plain, iters=5)
-    # what the lse output and the in-kernel rotary cost the forward, on these inputs
-    variants = {"no lse": cuda_time_ms(lambda: FA.KERNEL(q, k, v, valid_arr, tables)),
-                "lse, pre-rotated inputs": cuda_time_ms(lambda: FA.KERNEL(qr, kr, v, valid_arr, None,
-                                                                          return_lse=True))}
-    log(f"forward variants at [{b},{h},{t},{dh}] bf16 (ms): with lse and rotary {results['fwd_lse_ms']:.4f}, "
+    # the call the path makes (pre-pass + attention: the gated number), and
+    # what the lse output and the pre-pass cost, on these inputs
+    both_times(results, "fwd_lse_with_prepass", lambda: FA.KERNEL(q, k, v, valid_arr, tables, return_lse=True))
+    variants = {"no lse, with the pre-pass": cuda_time_ms(lambda: FA.KERNEL(q, k, v, valid_arr, tables)),
+                "the rotary pre-pass alone": cuda_time_ms(lambda: FA.KERNEL.rotary(q, k, *tables))}
+    log(f"forward with lse at [{b},{h},{t},{dh}] bf16 (ms back to back / behind a sleep): with the pre-pass "
+        f"{results['fwd_lse_with_prepass_ms']:.4f} / {results['fwd_lse_with_prepass_device_ms']:.4f}, "
+        f"attention alone {results['fwd_lse_ms']:.4f} / {results['fwd_lse_device_ms']:.4f}; "
         + ", ".join(f"{name} {ms:.4f}" for name, ms in variants.items()))
-    results["fwd_lse_library_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v))
+    both_times(results, "fwd_lse_library", lambda: F.scaled_dot_product_attention(qr, kr, v))
     leaves = [x.detach().clone().requires_grad_() for x in (qr, kr, v)]
     o = F.scaled_dot_product_attention(*leaves)
-    results["bwd_dq_library_ms"] = results["bwd_dkv_library_ms"] = cuda_time_ms(
-        lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True))
+    both_times(results, "bwd_library", lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True))
+    for key in ("bwd_dq", "bwd_dkv"):   # one call computes dQ, dK and dV
+        results[f"{key}_library_ms"] = results["bwd_library_ms"]
+        results[f"{key}_library_device_ms"] = results["bwd_library_device_ms"]
     del o, leaves
 
     n, rows = b * h * t * dh * 2, b * h * t * 4          # one [B,H,T,dh] bf16 tensor; one f32 [B,H,T] row array
     live = valid_arr.long().expand(b).sum().item()
-    work = {"fwd_lse": (4.0 * h * dh * t * live, 4 * n + rows + 2 * t * dh * 2),     # q,k,v,out; lse; tables
+    work = {"fwd_lse": (4.0 * h * dh * t * live, 4 * n + rows),                       # q,k,v,out; lse
             "bwd_dq": (6.0 * h * dh * t * live, 5 * n + 2 * rows),                    # q,k,v,dO,dq; lse,delta
             "bwd_dkv": (8.0 * h * dh * t * live, 6 * n + 2 * rows)}                   # q,k,v,dO,dk,dv; lse,delta
     for key, (flops, nbytes) in work.items():
-        nbytes += valid_arr.numel() * 4
-        bf_ms, bb_ms = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-        results[f"{key}_bound_ms"] = max(bf_ms, bb_ms)
-        results[f"{key}_bound_by"] = "operations" if bf_ms >= bb_ms else "bytes"
-        ms = results[f"{key}_ms"]
-        log(f"{key} timing [{b},{h},{t},{dh}] bf16: kernel {ms:.4f} ms, plain {results[f'{key}_plain_ms']:.4f} ms, "
-            f"library {results[f'{key}_library_ms']:.4f} ms, bound {results[f'{key}_bound_ms']:.4f} ms "
-            f"({results[f'{key}_bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) -> "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        bound_and_log(results, key, [b, h, t, dh], flops, nbytes + valid_arr.numel() * 4)
 
 
 # ---------------------------------------------------------------------------
@@ -574,7 +707,7 @@ def time_vocoder(results, key, kind, x, up, blocks, post=None):
         lambda: VT.fused_stage_plain(x, up, blocks))
     results[f"{key}_max_abs_err"] = vocoder_agreement(f"fused {kind} at the timed inputs", x, kern(x, packed),
                                                       plain())
-    ms = results[f"{key}_ms"] = cuda_time_ms(lambda: kern(x, packed))
+    ms = both_times(results, key, lambda: kern(x, packed))
     results[f"{key}_plain_ms"] = cuda_time_ms(plain, iters=5)
     results[f"{key}_unfused_ms"] = cuda_time_ms(lambda: unfused_stage(x, up, blocks, post), iters=10)
     n_out = (2 if tail else 4) * b * t
@@ -586,7 +719,8 @@ def time_vocoder(results, key, kind, x, up, blocks, post=None):
     bf, bb = 2 * macs / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     results[f"{key}_bound_ms"] = max(bf, bb)
     results[f"{key}_bound_by"] = "operations" if bf >= bb else "bytes"
-    log(f"fused {kind} timing x{list(x.shape)} {str(x.dtype)[6:]}: kernel {ms:.4f} ms, plain "
+    log(f"fused {kind} timing x{list(x.shape)} {str(x.dtype)[6:]}: kernel {ms:.4f} ms ("
+        f"{results[f'{key}_device_ms']:.4f} behind a sleep), plain "
         f"{results[f'{key}_plain_ms']:.4f} ms, unfused generator ops {results[f'{key}_unfused_ms']:.4f} ms, "
         f"bound {results[f'{key}_bound_ms']:.4f} ms ({results[f'{key}_bound_by']}: {2 * macs / 1e9:.2f} GFLOP, "
         f"{nbytes / 1e6:.2f} MB) -> {2 * macs / ms / 1e9:.1f} TFLOP/s")
@@ -651,12 +785,15 @@ def run_serving(results, batch=4, prompt=400, decode=512, timed=2):
     walls = []
     launches = []
     for _ in range(timed):
-        FA.KERNEL.launches = 0
+        FA.KERNEL.launches = FA.KERNEL.rotary_launches = 0
         t0 = time.time()
         wav, res = pipe(gen, *placed)
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
         launches.append(FA.KERNEL.launches)
+        if FA.KERNEL.rotary_launches != FA.KERNEL.launches:
+            raise AssertionError(f"{FA.KERNEL.rotary_launches} rotary pre-pass launches for {FA.KERNEL.launches} "
+                                 f"forwards with rotary in a serving batch")
     expect = ac_cfg.depth * 16 * 2
     audio_s = batch * decode * 0.02
     wall = min(walls)
@@ -823,7 +960,7 @@ def run_dialogue_cli(results, root):
             "--fuse_tail", "--device", "cuda", "--allow_fallback_vocab"]
     (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer.dialogue, T.generate, VT.fused_stage,
      VT.fused_tail) = (flow_sample, vocode, dialogue, generate, fused_stage, fused_tail)
-    FA.KERNEL.launches = VT.STAGE.launches = VT.TAIL.launches = 0
+    FA.KERNEL.launches = FA.KERNEL.rotary_launches = VT.STAGE.launches = VT.TAIL.launches = 0
     try:
         t0 = time.time()
         dialogue_generation.main(argv)
@@ -831,7 +968,8 @@ def run_dialogue_cli(results, root):
     finally:
         (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer.dialogue, T.generate, VT.fused_stage,
          VT.fused_tail) = orig
-    launches = {"flash": FA.KERNEL.launches, "stage": VT.STAGE.launches, "tail": VT.TAIL.launches}
+    launches = {"flash": FA.KERNEL.launches, "rotary": FA.KERNEL.rotary_launches, "stage": VT.STAGE.launches,
+                "tail": VT.TAIL.launches}
     log(f"dialogue CLI: {total:.2f} s for {len(calls['dialogue'])} scripts incl. loading; per script "
         f"(wall s, samples) {calls['dialogue']}; decode steps {calls['steps']}; flow (flash launches, frames) "
         f"{calls['flow']}; vocode (stage, tail launches, frames, samples) {calls['vocode']}; totals {launches}")
@@ -844,7 +982,7 @@ def run_dialogue_cli(results, root):
                                  f"tail launches (expected 1 each)")
         if frames < 400 or samples != 160 * mel_frames:
             raise AssertionError(f"flow over {frames} frames, vocode {mel_frames} frames -> {samples} samples")
-    if launches != {"flash": 256 * n, "stage": n, "tail": n}:
+    if launches != {"flash": 256 * n, "rotary": 256 * n, "stage": n, "tail": n}:
         raise AssertionError(f"launch totals {launches} do not add up over {n} scripts")
     for i, (_, _, mel_frames, samples) in enumerate(calls["vocode"]):
         sr, wav = wavfile.read(os.path.join(out, f"dlg{i}.wav"))
@@ -964,7 +1102,8 @@ def write_vomix_items(root, n, seed):
 
 COUNTS = {"fwd": "launches", "fwd_lse": "lse_launches", "bwd_dq": "dq_launches", "bwd_dkv": "dkv_launches",
           "fwd_causal": "causal_launches", "fwd_lse_causal": "causal_lse_launches",
-          "bwd_dq_causal": "causal_dq_launches", "bwd_dkv_causal": "causal_dkv_launches"}
+          "bwd_dq_causal": "causal_dq_launches", "bwd_dkv_causal": "causal_dkv_launches",
+          "rotary": "rotary_launches"}
 
 
 def flash_counts():
@@ -1087,14 +1226,15 @@ def run_training(results, root):
             "--log_every", "1", "--eval_every", str(TRAIN_STEPS), "--num_eval_files", "8", "--ckpt_every", "1000",
             "--no_wandb", "--log_dir", logs, "--run_name", "vomix", "--seed", "0"]
     steps, evals, totals, peak_gb, first_s, resume_s = run_train_cli(argv, "evaluate_acoustic", TRAIN_STEPS)
-    per_step = launches(fwd_lse=8, bwd_dq=8, bwd_dkv=8)
+    per_step = launches(fwd_lse=8, bwd_dq=8, bwd_dkv=8, rotary=8)   # the VoMix layers take rotary
     bad = [s["shapes"]["x"] for s in steps if s["shapes"]["x"] != (8, 832, 240)]
     if bad:
         raise AssertionError(f"VoMix batches {bad}, expected (8, 832, 240)")
     median = check_train_run("VoMix train", steps, evals, os.path.join(logs, "vomix", "checkpoints"), TRAIN_STEPS,
-                             8, per_step, launches(fwd=256 * evals[0]["batches"]))
+                             8, per_step, launches(fwd=256 * evals[0]["batches"], rotary=256 * evals[0]["batches"]))
     expect = {k: v * len(steps) for k, v in per_step.items()}
     expect["fwd"] = evals[0]["launches"]["fwd"]
+    expect["rotary"] += evals[0]["launches"]["rotary"]
     if totals != expect:
         raise AssertionError(f"launch totals {totals} over the training run, expected {expect}")
     results.update(train_launches=totals, train_steps=len(steps), train_step_ms=median,
@@ -1320,17 +1460,18 @@ def time_flash_causal(results, b=6, h=8, t=1026, dh=64):
         "bwd_dkv_causal": (lambda: FA.KERNEL.bwd_dkv(*bwd), lambda: FA.flash_bwd_dkv_plain(*bwd)),
     }
     for key, (kern, plain) in timed.items():
-        results[f"{key}_ms"] = cuda_time_ms(kern)
+        both_times(results, key, kern)
         results[f"{key}_plain_ms"] = cuda_time_ms(plain, iters=5)
-    noncausal = cuda_time_ms(lambda: FA.KERNEL(q, k, v, valid_arr, None, return_lse=True))
-    log(f"forward with lse at [{b},{h},{t},{dh}] bf16: causal {results['fwd_lse_causal_ms']:.4f} ms, non-causal "
-        f"{noncausal:.4f} ms")
-    results["fwd_lse_causal_library_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                                                               is_causal=True))
+    noncausal = cuda_time_ms(lambda: FA.KERNEL(q, k, v, valid_arr, None, return_lse=True), behind_sleep=True)
+    log(f"forward with lse at [{b},{h},{t},{dh}] bf16 behind a sleep: causal "
+        f"{results['fwd_lse_causal_device_ms']:.4f} ms, non-causal {noncausal:.4f} ms")
+    both_times(results, "fwd_lse_causal_library", lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     o = F.scaled_dot_product_attention(*leaves, is_causal=True)
-    results["bwd_dq_causal_library_ms"] = results["bwd_dkv_causal_library_ms"] = cuda_time_ms(
-        lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True))
+    both_times(results, "bwd_causal_library", lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True))
+    for key in ("bwd_dq_causal", "bwd_dkv_causal"):   # one call computes dQ, dK and dV
+        results[f"{key}_library_ms"] = results["bwd_causal_library_ms"]
+        results[f"{key}_library_device_ms"] = results["bwd_causal_library_device_ms"]
     del o, leaves
 
     n, rows = b * h * t * dh * 2, b * h * t * 4
@@ -1339,15 +1480,7 @@ def time_flash_causal(results, b=6, h=8, t=1026, dh=64):
             "bwd_dq_causal": (6.0 * dh * pairs, 5 * n + 2 * rows),   # q,k,v,dO,dq; lse,delta
             "bwd_dkv_causal": (8.0 * dh * pairs, 6 * n + 2 * rows)}  # q,k,v,dO,dk,dv; lse,delta
     for key, (flops, nbytes) in work.items():
-        nbytes += valid_arr.numel() * 4
-        bf_ms, bb_ms = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-        results[f"{key}_bound_ms"] = max(bf_ms, bb_ms)
-        results[f"{key}_bound_by"] = "operations" if bf_ms >= bb_ms else "bytes"
-        ms = results[f"{key}_ms"]
-        log(f"{key} timing [{b},{h},{t},{dh}] bf16: kernel {ms:.4f} ms, plain {results[f'{key}_plain_ms']:.4f} ms, "
-            f"library {results[f'{key}_library_ms']:.4f} ms, bound {results[f'{key}_bound_ms']:.4f} ms "
-            f"({results[f'{key}_bound_by']}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) -> "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        bound_and_log(results, key, [b, h, t, dh], flops, nbytes + valid_arr.numel() * 4)
 
 
 def check_small_t2s_training_against_cpu():
@@ -1393,20 +1526,25 @@ def check_small_t2s_training_against_cpu():
         raise AssertionError("card and CPU T2S training steps differ")
 
 
-# registers per thread of the dh-64 bf16 flash kernels in their non-causal
-# forms before the causal form existed (ptxas, CUDA 12.8): the causal form
-# is a template argument and must leave these instantiations as they were
-# (one register more can cost a resident block per SM)
-NONCAUSAL_REGS = {"flash_fwd_bf16<Li64ELb0ELb0E>": 122, "flash_fwd_bf16<Li64ELb1ELb0E>": 106,
-                  "flash_bwd_dq_bf16<Li64ELb0E>": 133, "flash_bwd_dkv_bf16<Li64ELb0E>": 200}
+# registers per thread of the dh-64 bf16 flash kernels (ptxas, CUDA 12.8).
+# The backward pair keeps the counts it had before the causal form and the
+# forward's redesign (causal is a template argument); the TMA + wgmma
+# forward's four forms (<dh, lse, causal>) and the rotary pre-pass are held
+# to the counts of their first build: at most 204, so that two blocks of 160
+# threads share an SM. None of them may spill.
+FLASH_REGS = {"flash_fwd_wgmma<Li64ELb0ELb0E>": 155, "flash_fwd_wgmma<Li64ELb1ELb0E>": 155,
+              "flash_fwd_wgmma<Li64ELb0ELb1E>": 162, "flash_fwd_wgmma<Li64ELb1ELb1E>": 162,
+              "flash_rotary_halfsplit_bf16<Li64E>": 48,
+              "flash_bwd_dq_bf16<Li64ELb0E>": 133, "flash_bwd_dkv_bf16<Li64ELb0E>": 200}
 
 
 def build_kernels():
     """Build every kernel library from the checkout's sources, all nvcc runs
     started together: the flash kernels for the serving / training head dim
     and the edge head dims checked below, and the fused vocoder library. Logs
-    ptxas's registers and spills per kernel of the dh-64 flash library and
-    the vocoder library; returns {kernel: registers} of those."""
+    ptxas's registers, spills and wgmma notes per kernel of the dh-64 flash
+    library and the vocoder library; returns ({kernel: registers},
+    {kernel: spill bytes}) of those."""
     from covomix_tpu_torch.ops import flash_attention as FA, vocoder_tail as VT
 
     t0 = time.time()
@@ -1423,7 +1561,7 @@ def build_kernels():
     libs = [FA.KERNEL.lib_path(dh) for dh in dhs] + [VT.LIBRARY.lib_path()]
     log(f"built {[os.path.relpath(p, REPO) for p in libs]} in {time.time() - t0:.1f} s, each (s): "
         + ", ".join(f"{os.path.basename(p)} {t:.1f}" for p, t in zip(libs, seconds)))
-    regs = {}
+    regs, spills = {}, {}
     for name, build_log in ((f"flash dh {SERVING_DH}", FA.KERNEL.build_logs.get(SERVING_DH, "")),
                             ("vocoder_tail", VT.LIBRARY.build_log)):
         kernel = "?"
@@ -1431,20 +1569,41 @@ def build_kernels():
             if "Compiling entry function" in line:   # the kernel's name, length-prefixed in the mangled one
                 m = re.search(r"\d+((?:flash|vocoder)_[a-z_0-9]+)I(.*?)EEv", line)
                 kernel = f"{m.group(1)}<{m.group(2)}>" if m else line.split("'")[1]
-            elif "Used" in line or "spill" in line:
+            elif "Used" in line or "spill" in line or "wgmma.mma_async" in line:
                 log(f"  ptxas {name} {kernel}: " + line.strip().replace("ptxas info    : ", ""))
                 m = re.search(r"Used (\d+) registers", line)
                 if m:
                     regs[kernel] = int(m.group(1))
-    return regs
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if m:
+                    spills[kernel] = int(m.group(1)) + int(m.group(2))
+    return regs, spills
 
 
-def check_registers(regs):
-    """The non-causal dh-64 bf16 flash kernels keep NONCAUSAL_REGS."""
-    found = {k: regs.get(k) for k in NONCAUSAL_REGS}
-    log(f"non-causal dh-64 bf16 flash registers {found} (expected {NONCAUSAL_REGS})")
-    if found != NONCAUSAL_REGS:
-        raise AssertionError("a non-causal flash kernel's register count changed with the causal form")
+def check_registers(regs, spills):
+    """The dh-64 bf16 flash kernels keep FLASH_REGS, with no spills."""
+    found = {k: regs.get(k) for k in FLASH_REGS}
+    spilled = {k: spills.get(k) for k in FLASH_REGS}
+    log(f"dh-64 bf16 flash registers {found} (expected {FLASH_REGS}), spill bytes {spilled}")
+    if found != FLASH_REGS or any(v != 0 for v in spilled.values()):
+        raise AssertionError("a dh-64 bf16 flash kernel's register count changed, or it spills")
+
+
+def kernel_entry(results, key, name, source, replaces, launches, with_prepass=False, **extra) -> dict:
+    """One entry of the `kernels` line from results[f"{key}_*"]: `ms` back to
+    back, `device_ms` behind a sleep (the same for the library call where
+    there is one), and with `with_prepass` the forward's time with the rotary
+    pre-pass, as the path calls it."""
+    entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+             "max_abs_err": results[f"{key}_max_abs_err"], "ms": results[f"{key}_ms"],
+             "plain_ms": results[f"{key}_plain_ms"], "bound_ms": results[f"{key}_bound_ms"],
+             "bound_by": results[f"{key}_bound_by"], "library_ms": results.get(f"{key}_library_ms"),
+             "device_ms": results[f"{key}_device_ms"],
+             "library_device_ms": results.get(f"{key}_library_device_ms")}
+    if with_prepass:
+        entry["ms_with_prepass"] = results[f"{key}_with_prepass_ms"]
+        entry["device_ms_with_prepass"] = results[f"{key}_with_prepass_device_ms"]
+    return {**entry, **extra}
 
 
 def main() -> int:
@@ -1468,15 +1627,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    regs = build_kernels()
-    check_registers(regs)
+    regs, spills = build_kernels()
+    check_registers(regs, spills)
 
     results = {}
+    check_rotary_prepass(results)
     check_flash(results)
     check_flash_training(results)
     check_vocoder(results)
     valid_rows = run_serving(results)
     time_flash(results, "flash_serving", 8, 912, valid_rows)
+    time_flash_host(results)
     time_vocoder_t512(results)
     root = os.path.join(VT.BUILD_DIR, "smoke_dialogue")
     shutil.rmtree(root, ignore_errors=True)
@@ -1514,50 +1675,32 @@ def main() -> int:
     check_small_t2s_training_against_cpu()
 
     launches = results["dialogue_launches"]     # this slice's main path: the per-file dialogue CLI
-    kernels = [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "covomix_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "covomix_tpu/ops/flash_attention.py:162",
-        "launches": launches["flash"], "max_abs_err": results["flash_max_abs_err"],
-        "ms": results["flash_ms"], "plain_ms": results["flash_plain_ms"],
-        "bound_ms": results["flash_bound_ms"], "bound_by": results["flash_bound_by"],
-        "library_ms": results["flash_sdpa_ms"],
-    }]
+    flash_src, voc_src = "covomix_tpu_torch/csrc/flash_attention.cu", "covomix_tpu_torch/csrc/vocoder_tail.cu"
+    kernels = [
+        # the attention kernel alone; with the pre-pass, as the path calls it, in ms_with_prepass
+        kernel_entry(results, "flash", "flash_attention_fwd", flash_src, "covomix_tpu/ops/flash_attention.py:162",
+                     launches["flash"], with_prepass=True),
+        # the rotary half of the TPU kernel's fused rotary (`if fused_rotary:` in _flash_kernel), once per call
+        kernel_entry(results, "flash_rotary", "flash_rotary_halfsplit", flash_src,
+                     "covomix_tpu/ops/flash_attention.py:213", launches["rotary"]),
+    ]
     for kind, replaces in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                            ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):
-        kernels.append({
-            "name": f"vocoder_fused_{kind}", "route": "cuda",
-            "source": "covomix_tpu_torch/csrc/vocoder_tail.cu", "replaces": replaces,
-            "launches": launches[kind], "max_abs_err": results[f"{kind}_max_abs_err"],
-            "ms": results[f"{kind}_ms"], "plain_ms": results[f"{kind}_plain_ms"],
-            "bound_ms": results[f"{kind}_bound_ms"], "bound_by": results[f"{kind}_bound_by"],
-            "library_ms": None, "unfused_ms": results[f"{kind}_unfused_ms"],
-        })
+        kernels.append(kernel_entry(results, kind, f"vocoder_fused_{kind}", voc_src, replaces, launches[kind],
+                                    unfused_ms=results[f"{kind}_unfused_ms"]))
+    replaces = {"fwd_lse": "covomix_tpu/ops/flash_attention.py:162",
+                "bwd_dq": "covomix_tpu/ops/flash_attention.py:502",
+                "bwd_dkv": "covomix_tpu/ops/flash_attention.py:544"}
     train = results["train_launches"]     # this slice's main path: full-width VoMix training
-    for key, replaces in (("fwd_lse", "covomix_tpu/ops/flash_attention.py:162"),
-                          ("bwd_dq", "covomix_tpu/ops/flash_attention.py:502"),
-                          ("bwd_dkv", "covomix_tpu/ops/flash_attention.py:544")):
-        kernels.append({
-            "name": f"flash_attention_{key}", "route": "cuda",
-            "source": "covomix_tpu_torch/csrc/flash_attention.cu", "replaces": replaces,
-            "launches": train[key], "launches_per_train_step": train[key] // results["train_steps"],
-            "max_abs_err": results[f"{key}_max_abs_err"], "ms": results[f"{key}_ms"],
-            "plain_ms": results[f"{key}_plain_ms"], "bound_ms": results[f"{key}_bound_ms"],
-            "bound_by": results[f"{key}_bound_by"], "library_ms": results[f"{key}_library_ms"],
-        })
+    for key, where in replaces.items():
+        kernels.append(kernel_entry(results, key, f"flash_attention_{key}", flash_src, where, train[key],
+                                    with_prepass=key == "fwd_lse",
+                                    launches_per_train_step=train[key] // results["train_steps"]))
     t2s = results["t2s_launches"]     # this slice's main path: full-width CoMix T2S training
-    for key, replaces in (("fwd_lse", "covomix_tpu/ops/flash_attention.py:162"),
-                          ("bwd_dq", "covomix_tpu/ops/flash_attention.py:502"),
-                          ("bwd_dkv", "covomix_tpu/ops/flash_attention.py:544")):
+    for key, where in replaces.items():
         key = f"{key}_causal"
-        kernels.append({
-            "name": f"flash_attention_{key}", "route": "cuda",
-            "source": "covomix_tpu_torch/csrc/flash_attention.cu", "replaces": replaces,
-            "launches": t2s[key], "launches_per_train_step": t2s[key] // results["t2s_steps"],
-            "max_abs_err": results[f"{key}_max_abs_err"], "ms": results[f"{key}_ms"],
-            "plain_ms": results[f"{key}_plain_ms"], "bound_ms": results[f"{key}_bound_ms"],
-            "bound_by": results[f"{key}_bound_by"], "library_ms": results[f"{key}_library_ms"],
-        })
+        kernels.append(kernel_entry(results, key, f"flash_attention_{key}", flash_src, where, t2s[key],
+                                    launches_per_train_step=t2s[key] // results["t2s_steps"]))
     log(f"total chip_smoke time {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

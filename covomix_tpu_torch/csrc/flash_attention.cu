@@ -1,7 +1,7 @@
 // Flash attention for Hopper (sm_90a), with a per-row key-prefix mask
-// (valid_len), an optional causal mask and optional in-kernel halfsplit
-// rotary: the forward (with an optional per-row logsumexp output) and the two
-// backward kernels.
+// (valid_len), an optional causal mask and optional halfsplit rotary (a
+// pre-pass kernel in bf16, in the kernel in f32): the forward (with an
+// optional per-row logsumexp output) and the two backward kernels.
 //
 // Replaces, in covomix_tpu/ops/flash_attention.py:
 //   * `_flash_kernel` (reached through `_flash_forward`) in all its forms:
@@ -39,47 +39,82 @@
 //
 // What bounds it on the card: at the training shape [8, 16, 832, 64] bf16 the
 // forward does 4*B*H*T^2*dh = 22.7 GFLOP, dQ 6x and dK/dV 8x that over
-// B*H*T^2*dh, against 54-82 MB of q/k/v/dO/out/lse/delta traffic: all three
-// are bound by the tensor cores, not by memory. The TPU kernels held whole key
-// rows in VMEM and carried sums across a sequential grid; an SM has 227 KB of
-// shared memory and blocks run in parallel with nothing carried between them.
-// So every kernel here owns one (b, h, row tile) and walks 64-wide tiles of
-// the other axis through shared memory:
-//   * forward: 64 query rows per block, online softmax (running max m,
-//     running sum l, rescaled accumulator), the [T, T] scores never written;
-//   * dQ: one block per 64 query rows walks the key tiles below valid_len,
-//     recomputing s and p from lse;
-//   * dK/dV: one block per 64 key rows walks every query tile.
-// Keeping the TPU's two-kernel split means no block writes what another
-// block writes: there are no atomics, and the gradients are deterministic.
-// The products run on the tensor cores with mma.sync m16n8k16 (bf16 in, f32
-// accumulate); p and ds are re-packed in registers as A operands (no shared
-// memory round trip); the B operands that need the other orientation (K for
-// dQ, Q and dO for dK/dV, V for the forward) are stored transposed in shared
-// memory. Head dims above 64 split each 16-row group's output columns over
-// two warps (32 rows per block) so the f32 accumulators stay in registers,
-// and above 128 the A fragments are read from shared memory instead of being
-// held in registers. No TMA, wgmma or double buffering yet: this is the
-// simple, right version.
+// B*H*T^2*dh, against 54-82 MB of q/k/v/dO/out/lse/delta traffic: at the
+// non-causal shapes all three are bound by the tensor cores, not by memory;
+// the causal forward at [6, 8, 1026, 64] (half the pairs, no rotary) is
+// bound by its 25 MB of bytes. The TPU kernels held whole key rows in VMEM
+// and carried sums across a sequential grid; an SM has 227 KB of shared
+// memory and blocks run in parallel with nothing carried between them. So
+// every kernel here owns one (b, h, row tile) and walks tiles of the other
+// axis through shared memory, with an online softmax in the forward (running
+// max m, running sum l, rescaled accumulator; the [T, T] scores never
+// written). Keeping the TPU's two-kernel backward means no block writes what
+// another block writes: no atomics, deterministic gradients.
+//
+// The bf16 forward:
+//   * rotary once per call: `flash_rotary_halfsplit_bf16` writes rotated
+//     copies of q and k (one read and one write of each, byte-bound), and the
+//     attention kernels take q and k already rotated (rotating each key tile
+//     in every query block, behind two barriers, cost 47 % of the time).
+//   * head dims 64 and 128 (`flash_fwd_wgmma`, WgCfg): one block per 64
+//     query rows, 160 threads. One producer warp loads the Q tile and walks
+//     the K/V tiles (128 keys at dh 64, 64 at dh 128) through a ring of
+//     three (dh 64) or two (dh 128) shared-memory stages with TMA (3-D
+//     tensor maps [B*H, T, dh], boxes of 64 columns with the 128-byte
+//     swizzle, rows past T zero-filled; three maps encoded on the host per
+//     launch with cuTensorMapEncodeTiled, fetched through
+//     cudaGetDriverEntryPoint; TMA rather than cp.async, whose per-thread
+//     copies and address math would sit in the consumers' instruction
+//     stream; the tile sizes are held to the card's limits by the
+//     static_asserts beside WgCfg), each
+//     stage guarded by a "full" and an "empty" mbarrier, so the next tiles'
+//     loads run under the current tile's products. One consumer warpgroup
+//     runs S = Q K^T as wgmma m64nBNk16 from shared memory (both K-major),
+//     the online softmax on the accumulator registers (2^x with the scale
+//     folded in), then O += P V as wgmma with P as register A fragments
+//     (rounded to bf16) and V read MN-major in its natural [keys, dh] layout
+//     (no transposed copy, no bank conflicts). Tile j's scores and softmax
+//     run while tile j-1's P V is in flight, and two blocks share an SM, so
+//     one block's softmax also runs under the other's products. Causal row
+//     blocks are launched longest first.
+//   * the other head dims (16, 32, 48, 80-112, 144-256; no configuration in
+//     the repo uses them) keep the mma.sync m16n8k16 forward (Bf16Cfg):
+//     64-key tiles loaded with 16-byte loads, V stored transposed.
+// What still bounds the wgmma forward: the scores of a tile wait for their
+// own wgmma (only the P V overlaps the softmax), each K/V tile feeds only 64
+// query rows (two consumer warpgroups sharing a tile measured slower), and
+// the rotary pre-pass is a second pass over q and k (byte-bound, a quarter
+// of the forward at the serving shape).
+//
+// dQ and dK/dV: one block per 64 query rows (dQ) or key rows (dK/dV) walks
+// 64-wide tiles of the other axis with mma.sync m16n8k16 (bf16 in, f32
+// accumulate); p and ds are re-packed in registers as A operands; the B
+// operands that need the other orientation (K for dQ, Q and dO for dK/dV)
+// are stored transposed in shared memory. Head dims above 64 split each
+// 16-row group's output columns over two warps (32 rows per block) so the
+// f32 accumulators stay in registers, and above 128 the A fragments are read
+// from shared memory instead of being held in registers.
 //
 // f32 inputs (tests, comparisons) take scalar-FMA kernels with the same
 // masking and the same arithmetic in f32, one row per thread.
 //
-// Rotary: rot(x)[j] = x[j]*cos[j] + x[(j+d)%dh]*sin_signed[j], two f32
-// products and one f32 sum, each rounded (no FMA contraction), then rounded
-// once to the input type: the same operations as the plain version's
-// `_rotary_plain`, so the backward's re-rotation in PyTorch gives the very
-// scores the forward's lse was computed on.
+// Rotary (the bf16 pre-pass, and in place in the f32 forward): rot(x)[j] =
+// x[j]*cos[j] + x[(j+d)%dh]*sin_signed[j], two f32 products and one f32 sum,
+// each rounded (no FMA contraction), then rounded once to the input type:
+// the same operations as the plain version's `_rotary_plain`, so the
+// backward's re-rotation in PyTorch gives the very scores the forward's lse
+// was computed on.
 //
 // One library per head dim: build with -DFLASH_DH=<dh>, a multiple of 16 (the
 // mma k-step) in [16, 256] (the dispatch rule's limit).
 //
-// C interface (ctypes): each covomix_flash_attention_* function returns the
-// CUDA error code of its launch (0 on success), -1 for a head dim other than
-// the one the library was built for.
+// C interface (ctypes): each covomix_flash_* launch function returns the
+// CUDA error code of its launch (0 on success), or one of this library's
+// negative codes (covomix_cuda_error_string names each).
 
-#include <cuda_runtime.h>
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #ifndef FLASH_DH
@@ -187,7 +222,486 @@ __device__ __forceinline__ int clamp_valid(const int* valid, int valid_n, int b,
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// rotary pre-pass (bf16): q and k rotated once per call
+
+// qr/kr[r] = rot(q/k[r]) for the rows r of [rows, DH] (row r at position
+// r % T), 8 pairs (j, j + DH/2) per thread with 16-byte loads and stores;
+// blockIdx.y picks q (0) or k (1). rotate_rows's arithmetic: two f32
+// products and one f32 sum, each rounded, then one rounding to bf16.
+template <int DH>
+__global__ void __launch_bounds__(256)
+flash_rotary_halfsplit_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ cos_t, const __nv_bfloat16* __restrict__ sin_t,
+                            __nv_bfloat16* __restrict__ qr, __nv_bfloat16* __restrict__ kr, long long rows,
+                            int T) {
+  constexpr int D = DH / 2, VPH = D / 8;  // 8-element vectors per half row
+  const __nv_bfloat16* src = blockIdx.y == 0 ? q : k;
+  __nv_bfloat16* dst = blockIdx.y == 0 ? qr : kr;
+  const long long n = rows * VPH;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / VPH;
+    const int j = (int)(i % VPH) * 8, t = (int)(r % T);
+    const uint4 a4 = *reinterpret_cast<const uint4*>(src + r * DH + j);
+    const uint4 b4 = *reinterpret_cast<const uint4*>(src + r * DH + j + D);
+    const uint4 c_lo4 = *reinterpret_cast<const uint4*>(cos_t + (size_t)t * DH + j);
+    const uint4 c_hi4 = *reinterpret_cast<const uint4*>(cos_t + (size_t)t * DH + j + D);
+    const uint4 s_lo4 = *reinterpret_cast<const uint4*>(sin_t + (size_t)t * DH + j);
+    const uint4 s_hi4 = *reinterpret_cast<const uint4*>(sin_t + (size_t)t * DH + j + D);
+    const __nv_bfloat16* a = reinterpret_cast<const __nv_bfloat16*>(&a4);
+    const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(&b4);
+    const __nv_bfloat16* c_lo = reinterpret_cast<const __nv_bfloat16*>(&c_lo4);
+    const __nv_bfloat16* c_hi = reinterpret_cast<const __nv_bfloat16*>(&c_hi4);
+    const __nv_bfloat16* s_lo = reinterpret_cast<const __nv_bfloat16*>(&s_lo4);
+    const __nv_bfloat16* s_hi = reinterpret_cast<const __nv_bfloat16*>(&s_hi4);
+    uint4 lo4, hi4;
+    __nv_bfloat16* lo = reinterpret_cast<__nv_bfloat16*>(&lo4);
+    __nv_bfloat16* hi = reinterpret_cast<__nv_bfloat16*>(&hi4);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float x = __bfloat162float(a[e]), y = __bfloat162float(b[e]);
+      lo[e] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(x, __bfloat162float(c_lo[e])),
+                                            __fmul_rn(y, __bfloat162float(s_lo[e]))));
+      hi[e] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(y, __bfloat162float(c_hi[e])),
+                                            __fmul_rn(x, __bfloat162float(s_hi[e]))));
+    }
+    *reinterpret_cast<uint4*>(dst + r * DH + j) = lo4;
+    *reinterpret_cast<uint4*>(dst + r * DH + j + D) = hi4;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward, bf16, head dims 64 and 128: TMA + mbarrier ring + wgmma
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the phase of the given parity has completed. A wait of more
+// than 2^34 SM cycles (seconds) can only be a lost arrival: it traps, so
+// that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1LL << 34)) __trap();
+}
+
+// One box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (the layout a
+// TMA box of 64 bf16 columns with CU_TENSOR_MAP_SWIZZLE_128B writes, the box
+// 1024-byte aligned): start address, leading / stride byte offsets.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the wgmma issue / wait (the asm above does not name them).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for register A fragments: a wgmma reads them until its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D (64 x N, f32, the m16n8 C-fragment layout per warp: warp w holds rows
+// 16w..16w+15) = A (64 x 16) * B (16 x N) + (scale_d ? D : 0), bf16 inputs.
+// ss: A and B from shared memory, both K-major (the rows of Q and of K).
+// rs: A from registers (the m16n8k16 A-fragment layout), B from shared
+// memory MN-major (V's rows in their natural [keys, dh] order).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+// S = Q K^T for one K tile: DH/16 k steps of 16 columns (32 bytes into the
+// 128-byte swizzled rows; the next 64-column chunk past 4 steps).
+template <int DH, int BN, int BM>
+__device__ __forceinline__ void fwd_scores(float (&sc)[BN / 2], uint32_t sq, uint32_t sk) {
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+    const uint32_t off = (ks % 4) * 32;
+    Wgmma<BN>::ss(sc, wgmma_desc(sq + (ks / 4) * BM * 128 + off, 16, 1024),
+                  wgmma_desc(sk + (ks / 4) * BN * 128 + off, 16, 1024), ks);
+  }
+}
+
+// O += P V for one V tile: BN/16 k steps of 16 keys (two 8-row swizzle
+// groups, 2048 bytes); V MN-major, its 64-column chunks BN*128 bytes apart.
+template <int DH, int BN>
+__device__ __forceinline__ void fwd_pv(float (&acc)[DH / 2], const uint32_t (&pa)[BN / 16][4], uint32_t sv) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) Wgmma<DH>::rs(acc, pa[kk], wgmma_desc(sv + kk * 2048, BN * 128, 1024), 1);
+}
+
+// The online softmax of one score tile (rows qr and qr+8 of each warp's 16;
+// keys k0..k0+BN-1), in place: dead keys (j >= lim) at -1e30, the running
+// max m (of raw scores) and sum l updated, sc becomes p = exp((s - m) *
+// scale) = 2^(s*c2 - m*c2), and (a0, a1) the factors that rescale the old
+// accumulators. l takes p before its rounding to bf16.
+template <int BN>
+__device__ __forceinline__ void fwd_softmax(float (&sc)[BN / 2], float& m0, float& m1, float& l0, float& l1,
+                                            float& a0, float& a1, int k0, int lim0, int lim1, bool mask,
+                                            float c2, int qc) {
+  if (mask) {
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      const int col = k0 + nt * 8 + qc;
+      if (col >= lim0) sc[nt * 4 + 0] = kMaskValue;
+      if (col + 1 >= lim0) sc[nt * 4 + 1] = kMaskValue;
+      if (col >= lim1) sc[nt * 4 + 2] = kMaskValue;
+      if (col + 1 >= lim1) sc[nt * 4 + 3] = kMaskValue;
+    }
+  }
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt) {
+    mx0 = fmaxf(mx0, fmaxf(sc[nt * 4 + 0], sc[nt * 4 + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[nt * 4 + 2], sc[nt * 4 + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a quad share a row
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mc0 = mx0 * c2, mc1 = mx1 * c2;
+  a0 = ex2(fmaf(m0, c2, -mc0));
+  a1 = ex2(fmaf(m1, c2, -mc1));
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt) {
+    sc[nt * 4 + 0] = ex2(fmaf(sc[nt * 4 + 0], c2, -mc0));
+    sc[nt * 4 + 1] = ex2(fmaf(sc[nt * 4 + 1], c2, -mc0));
+    sc[nt * 4 + 2] = ex2(fmaf(sc[nt * 4 + 2], c2, -mc1));
+    sc[nt * 4 + 3] = ex2(fmaf(sc[nt * 4 + 3], c2, -mc1));
+    rs0 += sc[nt * 4 + 0] + sc[nt * 4 + 1];
+    rs1 += sc[nt * 4 + 2] + sc[nt * 4 + 3];
+  }
+  m0 = mx0;
+  m1 = mx1;
+  l0 = l0 * a0 + rs0;  // per-lane partial sums; the quad is summed at the end
+  l1 = l1 * a1 + rs1;
+}
+
+template <int DH>
+__device__ __forceinline__ void fwd_rescale(float (&acc)[DH / 2], float a0, float a1) {
+#pragma unroll
+  for (int dt = 0; dt < DH / 8; ++dt) {
+    acc[dt * 4 + 0] *= a0;
+    acc[dt * 4 + 1] *= a0;
+    acc[dt * 4 + 2] *= a1;
+    acc[dt * 4 + 3] *= a1;
+  }
+}
+
+// p rounded to bf16 as the A fragments of P V: the C fragments of key
+// columns 16kk..16kk+15 (two 8-column tiles) are the A fragment of k step kk.
+template <int BN>
+__device__ __forceinline__ void fwd_pack(uint32_t (&pa)[BN / 16][4], const float (&sc)[BN / 2]) {
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt) {
+    pa[nt / 2][(nt % 2) * 2 + 0] = pack_bf16(sc[nt * 4 + 0], sc[nt * 4 + 1]);
+    pa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(sc[nt * 4 + 2], sc[nt * 4 + 3]);
+  }
+}
+
+template <int DH>
+struct WgCfg {
+  static constexpr int BM = 64;                   // query rows per block: one consumer warpgroup
+  static constexpr int BN = DH <= 64 ? 128 : 64;  // keys per tile
+  // K/V tiles in flight; two blocks of 2 x 3 x 16 KB (dh 64) or 2 x 2 x 16 KB
+  // (dh 128) plus Q share an SM's 228 KB
+  static constexpr int STAGES = DH <= 64 ? 3 : 2;
+  static constexpr int CH = DH / 64;              // 64-column (128-byte) chunks of a row
+  static constexpr int NT = 160;                  // 4 consumer warps + 1 producer warp
+  static constexpr int Q_BYTES = BM * DH * 2, KV_BYTES = BN * DH * 2;
+  // 1024 bytes of slack to align the tiles (the swizzle's period)
+  static constexpr size_t smem = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + (1 + 2 * STAGES) * 8;
+
+  // wgmma: M 64 (one warpgroup); N of S (keys) and of O (dh) multiples of 8
+  // up to 256; K steps of 16 over dh and over the keys
+  static_assert(BM == 64 && NT == 4 * 32 + 32, "one consumer warpgroup and one producer warp");
+  static_assert(BN % 16 == 0 && BN <= 256 && DH % 16 == 0 && DH <= 256, "wgmma N / K rules");
+  // TMA boxes: one 128-byte swizzle row (64 bf16 columns) wide, at most 256 rows
+  static_assert(DH % 64 == 0 && BM <= 256 && BN <= 256, "TMA box rules");
+  // every tile is whole 1024-byte swizzle periods, so its swizzle phase is the TMA's
+  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0 && (BM * 128) % 1024 == 0 && (BN * 128) % 1024 == 0,
+                "tiles must be 1024-byte aligned");
+  // two blocks per SM: 228 KB of shared memory, 1 KB of it reserved per block
+  static_assert(smem <= 232448 && 2 * (smem + 1024) <= 233472, "two blocks must share an SM's shared memory");
+  // the f32 accumulators of S (BN/2) and O (DH/2) and P's bf16 A fragments
+  // (BN/4) in at most 128 of the 200 registers a thread has at two blocks of
+  // 160 threads per SM (__launch_bounds__(160, 2))
+  static_assert(DH / 2 + BN / 2 + BN / 4 <= 128, "accumulators must fit the register budget");
+};
+
+// One block per (b, h, 64-query-row tile). Warp 4 (one thread) is the
+// producer: it loads the Q tile, then walks the K/V tiles through a ring of
+// STAGES shared-memory stages with TMA, each stage guarded by a "full"
+// (bytes arrived) and an "empty" (consumed) mbarrier. Warps 0-3, one
+// warpgroup, consume: S = Q K^T with wgmma from shared memory, the online
+// softmax on the accumulator registers, O += P V with P as register A
+// fragments and V read MN-major; tile j's scores and softmax run while tile
+// j-1's P V is in flight, so the exps overlap the tensor cores. Rows past T
+// are zero-filled by TMA (the map is 3-D, [B*H, T, DH]) and never written.
+template <int DH, bool LSE, bool CAUSAL>
+__global__ void __launch_bounds__(160, 2)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, const int* __restrict__ valid, int valid_n, int H, int T,
+                float scale) {
+  using C = WgCfg<DH>;
+  constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES, CH = C::CH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;   // Q [CH][BM][64]
+  const uint32_t sk = sq + C::Q_BYTES;                          // K stages [ST][CH][BN][64]
+  const uint32_t sv = sk + ST * C::KV_BYTES;                    // V stages [ST][CH][BN][64]
+  const uint32_t bar_q = sv + ST * C::KV_BYTES;                 // then full[ST], empty[ST]
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * ST;
+
+  const int bh = blockIdx.x, b = bh / H;
+  // causal: the longest row blocks start first
+  const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;
+  const int vl = clamp_valid(valid, valid_n, b, T);
+  const int n_tiles = ((CAUSAL ? min(vl, q0 + BM) : vl) + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // producer warp; it never meets the consumers at a barrier again
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(bar_q, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) tma_load_3d(sq + c * BM * 128, &tm_q, bar_q, c * 64, q0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        if (j >= ST) mbar_wait(bar_empty + 8 * s, (j / ST - 1) & 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          tma_load_3d(sk + s * C::KV_BYTES + c * BN * 128, &tm_k, bar_full + 8 * s, c * 64, j * BN, bh);
+          tma_load_3d(sv + s * C::KV_BYTES + c * BN * 128, &tm_v, bar_full + 8 * s, c * 64, j * BN, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qr = lane / 4, qc = (lane % 4) * 2;  // fragment row / column pair
+  const float c2 = scale * 1.4426950408889634f;  // exp(x * scale) = 2^(x * c2)
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  // running max of the raw scores (s, not s * scale) of rows qr and qr+8
+  float m0 = kMaskValue, m1 = kMaskValue, l0 = 0.f, l1 = 0.f;
+  int lim0 = vl, lim1 = vl;  // the live keys of the two rows are j < lim
+  if constexpr (CAUSAL) {
+    const int r0 = q0 + warp * 16 + qr;
+    lim0 = min(vl, r0 + 1);
+    lim1 = min(vl, r0 + 9);
+  }
+  // a tile holds a dead key of some row when it reaches past the smallest limit
+  const int lim_min = CAUSAL ? min(vl, q0 + 1) : vl;
+
+  mbar_wait(bar_q, 0);
+  float sc[BN / 2];
+  uint32_t pa[BN / 16][4];
+  float a0, a1;
+  // tile j's scores and softmax run while tile j-1's P V is in flight: the
+  // exps (SFU) overlap the tensor cores inside the warpgroup
+  mbar_wait(bar_full, 0);
+  wgmma_fence();
+  fwd_scores<DH, BN, BM>(sc, sq, sk);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fwd_softmax<BN>(sc, m0, m1, l0, l1, a0, a1, 0, lim0, lim1, BN > lim_min, c2, qc);
+  fwd_pack<BN>(pa, sc);
+  for (int j = 1; j < n_tiles; ++j) {
+    const int s = j % ST, sp = (j - 1) % ST;
+    mbar_wait(bar_full + 8 * s, (j / ST) & 1);
+    wgmma_fence();
+    fwd_scores<DH, BN, BM>(sc, sq, sk + s * C::KV_BYTES);
+    wgmma_commit();
+    fwd_pv<DH, BN>(acc, pa, sv + sp * C::KV_BYTES);
+    wgmma_commit();
+    wgmma_wait<1>();  // the scores (the older group) are in
+    fence_regs(sc);
+    fwd_softmax<BN>(sc, m0, m1, l0, l1, a0, a1, j * BN, lim0, lim1, j * BN + BN > lim_min, c2, qc);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    mbar_arrive(bar_empty + 8 * sp);  // tile j-1's stage may be refilled
+    fwd_rescale<DH>(acc, a0, a1);
+    fwd_pack<BN>(pa, sc);
+  }
+  wgmma_fence();
+  fwd_pv<DH, BN>(acc, pa, sv + ((n_tiles - 1) % ST) * C::KV_BYTES);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(pa);
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const int row0 = q0 + warp * 16 + qr, row1 = row0 + 8;
+  const size_t base = (size_t)bh * T * DH;
+#pragma unroll
+  for (int dt = 0; dt < DH / 8; ++dt) {
+    if (row0 < T)
+      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row0 * DH + dt * 8 + qc) =
+          __floats2bfloat162_rn(acc[dt * 4 + 0] * inv0, acc[dt * 4 + 1] * inv0);
+    if (row1 < T)
+      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)row1 * DH + dt * 8 + qc) =
+          __floats2bfloat162_rn(acc[dt * 4 + 2] * inv1, acc[dt * 4 + 3] * inv1);
+  }
+  if constexpr (LSE) {
+    if (qc == 0) {  // m and l are the same in the 4 lanes of a quad
+      const size_t rbase = (size_t)bh * T;
+      if (row0 < T) lse[rbase + row0] = m0 * scale + logf(fmaxf(l0, 1e-30f));
+      if (row1 < T) lse[rbase + row1] = m1 * scale + logf(fmaxf(l1, 1e-30f));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward, bf16, the other head dims (16, 32, 48, 80-112, 144-256): mma.sync
 
 template <int DH>
 struct Bf16Cfg {
@@ -195,18 +709,18 @@ struct Bf16Cfg {
   static constexpr int LQ = DH + 8;                  // padded row stride (q, k)
   static constexpr int LV = BN + 8;                  // padded row stride (v^T)
   static constexpr size_t smem = (size_t)(BM * LQ + BN * LQ + DH * LV) * 2;
+  static_assert(smem <= 232448, "one block may take at most 227 KB of shared memory");
 };
 
-// LSE: write the per-row logsumexp (the training form). A template argument,
-// so that the inference form compiles to the code it had before the lse
-// output existed. CAUSAL: also mask key j > query i.
+// q and k arrive rotated (the pre-pass). LSE: write the per-row logsumexp
+// (the training form); CAUSAL: also mask key j > query i. Both are template
+// arguments: a run-time flag costs registers.
 template <int DH, bool LSE, bool CAUSAL>
 __global__ void __launch_bounds__(128)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-               float* __restrict__ lse, const int* __restrict__ valid, int valid_n,
-               const __nv_bfloat16* __restrict__ cos_t, const __nv_bfloat16* __restrict__ sin_t,
-               int H, int T, float scale) {
+               float* __restrict__ lse, const int* __restrict__ valid, int valid_n, int H, int T,
+               float scale) {
   using C = Bf16Cfg<DH>;
   constexpr int BM = C::BM, BN = C::BN, NT = C::NT, LQ = C::LQ, LV = C::LV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -223,10 +737,6 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 
   load_rows_bf16<BM, DH, LQ, NT>(Qs, q + base, q0, T);
   __syncthreads();
-  if (cos_t != nullptr) {
-    rotate_rows<BM, DH, LQ, NT>(Qs, cos_t, sin_t, q0, T);
-    __syncthreads();
-  }
   uint32_t qf[DH / 16][4];
   {
     const __nv_bfloat16* qw = Qs + (warp * 16 + qr) * LQ + qc;
@@ -267,10 +777,6 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
       for (int i = 0; i < 8; ++i) Vt[(c + i) * LV + r] = e[i];
     }
     __syncthreads();
-    if (cos_t != nullptr) {
-      rotate_rows<BN, DH, LQ, NT>(Ks, cos_t, sin_t, k0, T);
-      __syncthreads();
-    }
 
     // s = q k^T for this warp's 16 rows x BN keys
     float s[BN / 8][4];
@@ -862,6 +1368,53 @@ int allow_smem(Kern kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// Error codes of this library besides CUDA's own (which are positive).
+constexpr int kErrHeadDim = -1, kErrTables = -2, kErrNoEncoder = -3, kErrEncode = -4;
+
+// The head dims the TMA + wgmma forward serves: a row is whole 128-byte
+// swizzle rows (64 bf16 columns each), and the accumulators of O (DH/2 f32)
+// and S (BN/2) fit in registers at two blocks per SM. The others take the
+// mma.sync forward.
+constexpr bool wgmma_fwd(int dh) { return dh % 64 == 0 && dh <= 128; }
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// (the library links no libcuda).
+EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                     &status);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (e == cudaSuccess && status == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A TMA map over a contiguous bf16 [BH, T, DH] tensor, viewed 3-D so that a
+// box reaching past T is zero-filled (a 2-D [BH*T, DH] view would fill it
+// with the next head's rows); boxes of 64 columns x `rows` rows, 128-byte
+// swizzle (the layout the wgmma descriptors read).
+int encode_bf16_map(CUtensorMap* map, const void* ptr, int BH, int T, int DH, int rows) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)T, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2, (cuuint64_t)T * DH * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1}, elem[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
 template <int DH, bool CAUSAL>
 int run_fwd(int is_f32, const void* q, const void* k, const void* v, void* o, float* lse,
             const int* valid, int valid_n, const void* cos_t, const void* sin_t, int B, int H, int T,
@@ -875,6 +1428,22 @@ int run_fwd(int is_f32, const void* q, const void* k, const void* v, void* o, fl
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<float*>(o), lse, valid, valid_n, static_cast<const float*>(cos_t),
         static_cast<const float*>(sin_t), H, T, scale);
+    return (int)cudaGetLastError();
+  }
+  if (cos_t != nullptr || sin_t != nullptr) return kErrTables;   // bf16: q, k come rotated
+  if constexpr (wgmma_fwd(DH)) {
+    using C = WgCfg<DH>;
+    CUtensorMap mq, mk, mv;
+    int e = encode_bf16_map(&mq, q, B * H, T, DH, C::BM);
+    if (!e) e = encode_bf16_map(&mk, k, B * H, T, DH, C::BN);
+    if (!e) e = encode_bf16_map(&mv, v, B * H, T, DH, C::BN);
+    if (e) return e;
+    const dim3 grid(B * H, (T + C::BM - 1) / C::BM);
+    auto kernel = lse != nullptr ? flash_fwd_wgmma<DH, true, CAUSAL> : flash_fwd_wgmma<DH, false, CAUSAL>;
+    e = allow_smem(kernel, C::smem);
+    if (e) return e;
+    kernel<<<grid, C::NT, C::smem, stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, valid, valid_n,
+                                             H, T, scale);
   } else {
     using C = Bf16Cfg<DH>;
     const dim3 grid((T + C::BM - 1) / C::BM, H, B);
@@ -883,8 +1452,7 @@ int run_fwd(int is_f32, const void* q, const void* k, const void* v, void* o, fl
     if (e) return e;
     kernel<<<grid, C::NT, C::smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, valid, valid_n,
-        static_cast<const __nv_bfloat16*>(cos_t), static_cast<const __nv_bfloat16*>(sin_t), H, T,
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, valid, valid_n, H, T,
         scale);
   }
   return (int)cudaGetLastError();
@@ -949,14 +1517,15 @@ extern "C" {
 // q/k/v/o (and dout/dq/dk/dv): contiguous [B, H, T, dh], bf16 (is_f32 == 0)
 // or f32 (is_f32 == 1), 16-byte aligned. lse, delta: contiguous f32 [B, H, T].
 // valid: int32 device array of valid_n (1 or B) entries. cos_t/sin_t:
-// [>= T, dh] rotary tables of the input type, or both null. lse may be null
-// in the forward (no logsumexp output). causal != 0 picks the causal
+// [>= T, dh] f32 rotary tables, or both null; the bf16 forward takes q and k
+// already rotated (covomix_flash_rotary_bf16) and refuses tables. lse may be
+// null in the forward (no logsumexp output). causal != 0 picks the causal
 // instantiation (key j <= query i).
 int covomix_flash_attention_fwd(int is_f32, int causal, const void* q, const void* k, const void* v,
                                 void* o, float* lse, const int* valid, int valid_n, const void* cos_t,
                                 const void* sin_t, int B, int H, int T, int dh, float scale,
                                 void* stream) {
-  if (dh != FLASH_DH) return -1;
+  if (dh != FLASH_DH) return kErrHeadDim;
   auto run = causal ? run_fwd<FLASH_DH, true> : run_fwd<FLASH_DH, false>;
   return run(is_f32, q, k, v, o, lse, valid, valid_n, cos_t, sin_t, B, H, T, scale,
              static_cast<cudaStream_t>(stream));
@@ -966,7 +1535,7 @@ int covomix_flash_attention_bwd_dq(int is_f32, int causal, const void* q, const 
                                    const void* dout, const float* lse, const float* delta, void* dq,
                                    const int* valid, int valid_n, int B, int H, int T, int dh,
                                    float scale, void* stream) {
-  if (dh != FLASH_DH) return -1;
+  if (dh != FLASH_DH) return kErrHeadDim;
   auto run = causal ? run_bwd_dq<FLASH_DH, true> : run_bwd_dq<FLASH_DH, false>;
   return run(is_f32, q, k, v, dout, lse, delta, dq, valid, valid_n, B, H, T, scale,
              static_cast<cudaStream_t>(stream));
@@ -976,15 +1545,34 @@ int covomix_flash_attention_bwd_dkv(int is_f32, int causal, const void* q, const
                                     const void* dout, const float* lse, const float* delta, void* dk,
                                     void* dv, const int* valid, int valid_n, int B, int H, int T,
                                     int dh, float scale, void* stream) {
-  if (dh != FLASH_DH) return -1;
+  if (dh != FLASH_DH) return kErrHeadDim;
   auto run = causal ? run_bwd_dkv<FLASH_DH, true> : run_bwd_dkv<FLASH_DH, false>;
   return run(is_f32, q, k, v, dout, lse, delta, dk, dv, valid, valid_n, B, H, T, scale,
              static_cast<cudaStream_t>(stream));
 }
 
+// The rotary pre-pass: qr = rot(q), kr = rot(k) for contiguous bf16
+// [B, H, T, dh] q, k, qr, kr (16-byte aligned) and [>= T, dh] bf16 tables.
+int covomix_flash_rotary_bf16(const void* q, const void* k, const void* cos_t, const void* sin_t, void* qr,
+                              void* kr, int B, int H, int T, int dh, void* stream) {
+  if (dh != FLASH_DH) return kErrHeadDim;
+  const long long rows = (long long)B * H * T, vectors = rows * (FLASH_DH / 16);
+  const int blocks = (int)(vectors + 255 < 132LL * 8 * 256 ? (vectors + 255) / 256 : 132 * 8);
+  flash_rotary_halfsplit_bf16<FLASH_DH><<<dim3(blocks, 2), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(cos_t), static_cast<const __nv_bfloat16*>(sin_t),
+      static_cast<__nv_bfloat16*>(qr), static_cast<__nv_bfloat16*>(kr), rows, T);
+  return (int)cudaGetLastError();
+}
+
 const char* covomix_cuda_error_string(int code) {
-  if (code == -1) return "head dim differs from the FLASH_DH this library was built for";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  switch (code) {
+    case kErrHeadDim: return "head dim differs from the FLASH_DH this library was built for";
+    case kErrTables: return "the bf16 forward takes q and k already rotated (the rotary pre-pass), not tables";
+    case kErrNoEncoder: return "cuTensorMapEncodeTiled not found through cudaGetDriverEntryPoint";
+    case kErrEncode: return "cuTensorMapEncodeTiled refused the tensor map";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(code));
+  }
 }
 
 }  // extern "C"

@@ -11,6 +11,24 @@ the query row) set to -1e30 before the exp, `valid_len` clamped to >= 1, the
 output divided by max(l, 1e-30), p and ds rounded to the input type before
 their products. There is no fallback from one to the other.
 
+The bf16 forward (`FlashKernel.__call__`), against what held its first
+version back:
+- rotary runs once per call, in its own pre-pass kernel (`FlashKernel.rotary`,
+  `_rotary_plain`'s arithmetic bit for bit, counted in `rotary_launches`),
+  not once per key tile in every query block;
+- at head dims 64 and 128 (`WgCfg` in the source, whose static_asserts
+  hold the tiles to the card's limits) the K/V tiles come through a ring of
+  three (dh 64) or two shared-memory stages, loaded by TMA from a producer
+  warp while the consumer warpgroup's products run;
+- both products are wgmma (S = Q K^T from shared memory; O += P V with P in
+  registers and V read in its natural layout: no transposed, bank-conflicted
+  V copy);
+- each block is one warpgroup of 64 query rows with 128-key tiles (dh 64),
+  two blocks per SM; a tile's softmax runs under the previous tile's P V.
+The other head dims keep the mma.sync forward. At the repo's shapes the
+forward is bound by the tensor cores' operations, the causal form by its
+bytes. The f32 forward rotates inside its kernel.
+
 `flash_attention` is differentiable. With grad enabled and an input that
 requires it, it runs a `torch.autograd.Function` (`_FlashCore`, or
 `_FlashCoreRot` with rotary tables), the counterparts of the JAX package's two
@@ -64,10 +82,12 @@ class FlashKernel:
     `lse_launches` (forward with logsumexp, the training form),
     `dq_launches` and `dkv_launches` (the backward kernels); the causal
     launches are counted apart, in `causal_launches`, `causal_lse_launches`,
-    `causal_dq_launches` and `causal_dkv_launches`."""
+    `causal_dq_launches` and `causal_dkv_launches`; `rotary_launches` counts
+    the bf16 rotary pre-pass, which runs before a forward given tables."""
 
     def __init__(self):
         self.build_logs = {}
+        self.rotary_launches = 0
         self.launches = 0
         self.lse_launches = 0
         self.dq_launches = 0
@@ -106,8 +126,9 @@ class FlashKernel:
                                                            ci, ci, ci, ci, cf, vp]
             lib.covomix_flash_attention_bwd_dkv.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
                                                             ci, ci, ci, ci, cf, vp]
+            lib.covomix_flash_rotary_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
             for fn in (lib.covomix_flash_attention_fwd, lib.covomix_flash_attention_bwd_dq,
-                       lib.covomix_flash_attention_bwd_dkv):
+                       lib.covomix_flash_attention_bwd_dkv, lib.covomix_flash_rotary_bf16):
                 fn.restype = ci
             lib.covomix_cuda_error_string.argtypes = [ci]
             lib.covomix_cuda_error_string.restype = ctypes.c_char_p
@@ -150,19 +171,52 @@ class FlashKernel:
         if err != 0:
             raise RuntimeError(f"flash {what} launch failed: {lib.covomix_cuda_error_string(err).decode()}")
 
+    @staticmethod
+    def _check_tables(q, rotary):
+        t, dh = q.shape[2:]
+        for r in rotary:
+            if (r.dtype != q.dtype or r.dim() != 2 or r.shape[0] < t or r.shape[1] != dh
+                    or r.device != q.device or not r.is_contiguous() or r.data_ptr() % 16):
+                raise ValueError(f"flash kernel: rotary tables must be contiguous, 16-byte aligned [>=T, dh] {q.dtype} on "
+                                 f"{q.device}; got {r.dtype} {tuple(r.shape)}")
+
+    def rotary(self, q, k, cos, sin):
+        """The rotary pre-pass: (rot(q), rot(k)) for bf16 [B, H, T, dh] CUDA
+        q, k and [>=T, dh] tables, `_rotary_plain`'s arithmetic bit for bit."""
+        if not (q.is_cuda and k.device == q.device):
+            raise ValueError("flash rotary pre-pass: q and k must be on the same CUDA device")
+        if q.dtype != torch.bfloat16 or k.dtype != q.dtype or q.dim() != 4 or k.shape != q.shape:
+            raise ValueError(f"flash rotary pre-pass takes bf16 q, k of one [B, H, T, dh] shape; got "
+                             f"{q.dtype} {tuple(q.shape)}, {k.dtype} {tuple(k.shape)}")
+        if not (q.is_contiguous() and k.is_contiguous()) or q.data_ptr() % 16 or k.data_ptr() % 16:
+            raise ValueError("flash rotary pre-pass: q and k must be contiguous and 16-byte aligned")
+        self._check_tables(q, (cos, sin))
+        return self._rotate(q, k, cos, sin)
+
+    def _rotate(self, q, k, cos, sin):
+        """The pre-pass's launch, on inputs already checked."""
+        b, h, t, dh = q.shape
+        lib = self.build(dh)
+        qr, kr = torch.empty_like(q), torch.empty_like(k)
+        err = lib.covomix_flash_rotary_bf16(q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                                            qr.data_ptr(), kr.data_ptr(), b, h, t, dh, _stream(q))
+        self._raise_on(lib, err, "rotary pre-pass")
+        self.rotary_launches += 1
+        return qr, kr
+
     def __call__(self, q, k, v, valid, rotary=None, return_lse=False, causal=False):
         """Forward. q/k/v [B, H, T, dh] contiguous CUDA bf16 or f32; valid
         int32 [1] or [B] on the same device; rotary (cos, sin_signed)
         [>=T, dh] or None; `causal` masks key j > query i. Returns out, or
-        (out, lse f32 [B, H, T]) with `return_lse`."""
+        (out, lse f32 [B, H, T]) with `return_lse`. bf16 with rotary runs
+        the rotary pre-pass first; the f32 kernel rotates in place."""
         self._check(q, k, v, valid)
         b, h, t, dh = q.shape
         if rotary is not None:
-            for r in rotary:
-                if (r.dtype != q.dtype or r.dim() != 2 or r.shape[0] < t or r.shape[1] != dh
-                        or r.device != q.device or not r.is_contiguous()):
-                    raise ValueError(f"flash kernel: rotary tables must be contiguous [>=T, dh] {q.dtype} on "
-                                     f"{q.device}; got {r.dtype} {tuple(r.shape)}")
+            self._check_tables(q, rotary)
+            if q.dtype == torch.bfloat16:
+                q, k = self._rotate(q, k, *rotary)
+                rotary = None
         lib = self.build(dh)
         out = torch.empty_like(q)
         lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if return_lse else None

@@ -132,7 +132,7 @@ def test_dispatcher_on_cpu_matches_jax_dispatcher():
     assert np.abs(out - ref).max() < TOL
 
 
-def test_training_variants_raise():
+def test_causal_form_runs_and_matches_jax():
     """The causal form (T2S training) runs, with and without grad, and equals
     the JAX kernel in interpret mode (its gradients:
     tests/test_torch_flash_backward.py); what the JAX package refuses, causal
@@ -167,3 +167,46 @@ def test_plain_version_keeps_bf16_output_type():
     ref = PF.flash_attention(q.float(), k.float(), v.float(), valid_len=20)
     assert out.dtype == torch.bfloat16
     assert (out.float() - ref).abs().max().item() < 2e-2   # p and out rounded to bf16
+
+
+def test_rotary_prepass_takes_only_cuda_tensors():
+    """The rotary pre-pass launches its kernel or raises, like the forward;
+    a refused call counts no launch."""
+    q = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16)
+    tables = PF.rotary_tables_halfsplit(torch.arange(8), PL.rotary_freqs(64), torch.bfloat16)
+    before = (PF.KERNEL.rotary_launches, PF.KERNEL.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        PF.KERNEL.rotary(q, q, *tables)
+    with pytest.raises(ValueError, match="CUDA"):
+        PF.KERNEL(q, q, q, torch.ones(1, dtype=torch.int32), tables)
+    assert (PF.KERNEL.rotary_launches, PF.KERNEL.launches) == before
+
+
+def test_bf16_rotary_forward_is_plain_rotation_then_attention():
+    """On the card a bf16 forward with tables is the pre-pass (`_rotary_plain`'s
+    arithmetic) then the attention kernel on the rotated q and k; the plain
+    version is that composition, bit for bit, output and lse."""
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(96, 12))
+    valid = PF._valid_array(torch.tensor([96, 40]), B, 96, "cpu")
+    cos, sin = PF.rotary_tables_halfsplit(torch.arange(96), PL.rotary_freqs(DH), torch.bfloat16)
+    out, lse = PF.flash_attention_plain(q, k, v, valid, (cos, sin), return_lse=True)
+    ref, ref_lse = PF.flash_attention_plain(PF._rotary_plain(q, cos, sin), PF._rotary_plain(k, cos, sin), v, valid,
+                                            return_lse=True)
+    assert torch.equal(out, ref) and torch.equal(lse, ref_lse)
+
+
+@pytest.mark.parametrize("dh", [dh for dh in range(16, PF.MAX_DH + 1, 16) if PF.kernel_supports_dh(dh)])
+def test_rotary_plain_and_transpose_match_jax(dh):
+    """At every head dim the rotary pre-pass is built for, its plain version
+    (`_rotary_plain`, which the pre-pass equals bit for bit on the card and
+    the backward re-rotates with) and the backward's counter-rotation equal
+    the JAX package's `_rotary_xla` and `_rotary_xla_transpose` (f32)."""
+    t = 24
+    rs = np.random.RandomState(dh)
+    x, g = (rs.randn(B, H, t, dh).astype(np.float32) for _ in range(2))
+    jc, js = JF.rotary_tables_halfsplit(jnp.arange(t), JL.rotary_freqs(dh), jnp.float32)
+    pc, ps = PF.rotary_tables_halfsplit(torch.arange(t), PL.rotary_freqs(dh), torch.float32)
+    out = PF._rotary_plain(torch.from_numpy(x), pc, ps).numpy()
+    np.testing.assert_allclose(out, np.asarray(JF._rotary_xla(jnp.asarray(x), jc, js)), atol=1e-5)
+    back = PF._rotary_transpose(torch.from_numpy(g), pc, ps).numpy()
+    np.testing.assert_allclose(back, np.asarray(JF._rotary_xla_transpose(jnp.asarray(g), jc, js)), atol=1e-5)
