@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
+    python3 chip_smoke.py --ab-training DIR   # the two training cells, DIR's tree against this one
 
 Phases (any failure exits non-zero, nothing is passed over):
   1. print the card's name and power limit (nvidia-smi);
@@ -18,9 +19,12 @@ Phases (any failure exits non-zero, nothing is passed over):
      forward; the training forms (forward with lse, dQ,
      dK/dV); their causal forms (the T2S decoder's: [6, 8, 1026, 64], odd
      and even T 513-2050, T under 512, valid_len [1] < T and [B], rotary off
-     and on, head dims 16-256, also the causal forward without lse); autograd
-     through the kernels against autograd through the plain version, in
-     both forms; the fused vocoder stage and tail;
+     and on, head dims 16-256, also the causal forward without lse); with
+     the rotary tables, dQ and dK bit for bit against `_rotary_transpose` of
+     the kernels' untabled outputs and within tolerance of the plain
+     versions with the tables; autograd through the kernels against
+     autograd through the plain version, in both forms; the fused vocoder
+     stage and tail;
   4. run batched dialogue serving at full width (CoMix T2S -> VoMix flow ->
      HiFi-GAN, bf16, B=4, prompt 400, decode 512) with random weights from a
      seed: one warm-up batch, then timed batches; the flash kernel's launch
@@ -54,8 +58,11 @@ Phases (any failure exits non-zero, nothing is passed over):
      with lse, dQ, dK/dV and the rotary pre-pass 8 times each (and nothing
      else), the eval only the forward without lse and the pre-pass; then the step's forward / backward / optimizer
      split, the three training kernels timed at [8, 16, 832, 64] beside
-     their plain versions, bounds and PyTorch yardsticks, and two f32 steps
-     of a tiny model on the card against the CPU;
+     their plain versions, bounds and PyTorch yardsticks (dQ and dK/dV with
+     the rotary tables, as the step calls them; the pair against one SDPA
+     gradient call; the PyTorch re-rotation and counter-rotation that the
+     tables replaced), and two f32 steps of a tiny model on the card against
+     the CPU;
   9. full-width CoMix T2S training (running_command/T2S_CoMix.sh on one card,
      bf16, B=6, the tokenizer's fallback vocab) through
      `covomix_tpu_torch.train.cli.main` on 24 + 6 random items of 520-1000
@@ -266,9 +273,10 @@ def check_flash_training_case(b, h, t, dh, dtype, seed, valid, rotary, causal=Fa
         errs["fwd"] = flash_agreement("out without lse", FA.KERNEL(q, k, v, valid_arr, tables, causal=True), ref,
                                       out_tol)
     if tables is not None:
-        # the backward re-rotates with _rotary_plain: it must give the very
-        # operands the kernel rotated (bf16: the pre-pass; f32: in shared
-        # memory), bit for bit
+        # _FlashCoreRot rotates with the pre-pass (bf16) or _rotary_plain
+        # (f32) and the backward reads what it saved: the kernel's own rotary
+        # (bf16: the pre-pass; f32: in shared memory) must give the very
+        # operands _rotary_plain gives, bit for bit
         q, k = FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables)
         out2, lse2 = FA.KERNEL(q, k, v, valid_arr, None, return_lse=True, causal=causal)
         same = torch.equal(out2, out) and torch.equal(lse2, lse)
@@ -285,6 +293,23 @@ def check_flash_training_case(b, h, t, dh, dtype, seed, valid, rotary, causal=Fa
         vl = int(valid_arr[bi if valid_arr.numel() > 1 else 0])
         if not (bool((dk[bi, :, vl:] == 0).all()) and bool((dv[bi, :, vl:] == 0).all())):
             raise AssertionError(f"key rows past valid_len {vl} did not get exact zeros")
+    if tables is not None and bf16:
+        # with the tables, dq and dk leave through the rotary's transpose (in
+        # the epilogue, or a pass after the kernels that have none): bit-equal
+        # to _rotary_transpose of the untabled outputs, and held to the plain
+        # versions with the tables
+        dq_t = FA.KERNEL.bwd_dq(*bwd, rotary=tables)
+        dk_t, dv_t = FA.KERNEL.bwd_dkv(*bwd, rotary=tables)
+        dq = FA.KERNEL.bwd_dq(*bwd)
+        same = (torch.equal(dq_t, FA._rotary_transpose(dq, *tables))
+                and torch.equal(dk_t, FA._rotary_transpose(dk, *tables)) and torch.equal(dv_t, dv))
+        log(f"  with tables: dq, dk == _rotary_transpose of the untabled kernels', dv unchanged, bit for bit: {same}")
+        if not same:
+            raise AssertionError("the backward's rotary transpose differs from _rotary_transpose")
+        errs["bwd_dq"] = max(errs["bwd_dq"], flash_agreement("dq with tables", dq_t,
+                                                             FA.flash_bwd_dq_plain(*bwd, rotary=tables), tol))
+        errs["bwd_dkv"] = max(errs["bwd_dkv"], flash_agreement("dk with tables", dk_t,
+                                                               FA.flash_bwd_dkv_plain(*bwd, rotary=tables)[0], tol))
     return errs
 
 
@@ -300,6 +325,7 @@ def check_flash_training(results):
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(8, 16, 832, 64, bf, 832, True),                     # the training shape
              (2, 4, 832, 64, f32, 832, True),
+             (2, 4, 300, 64, bf, [300, 1], True), (2, 4, 1026, 64, bf, [1026, 700], True),   # 2-row last tile
              (2, 4, 1000, 64, bf, [1000, 613], True), (2, 4, 1000, 64, f32, [1000, 613], False),
              (1, 2, 2100, 64, bf, 2100, False), (1, 2, 2100, 64, f32, 1500, True),
              (2, 2, 2304, 64, bf, 1999, True),
@@ -317,8 +343,8 @@ def check_flash_training(results):
     for key, e in worst.items():
         results[f"{key}_check_max_abs_err"] = e
 
-    # gradients of _FlashCoreRot (kernel forward with lse, re-rotation, dQ,
-    # dK/dV, counter-rotation) against torch autograd through the plain version
+    # gradients of _FlashCoreRot (rotary, kernel forward with lse, dQ and
+    # dK/dV with the tables) against torch autograd through the plain version
     for b, h, t, dtype, valid, tol in ((2, 4, 1000, f32, [1000, 613], F32_TOL),
                                        (8, 16, 832, bf, 832, AUTOGRAD_BF16_TOL)):
         q, k, v, valid_arr, tables = flash_inputs(b, h, t, 64, dtype, 300 + t, valid, True)
@@ -555,10 +581,13 @@ def time_flash_training(results, b=8, h=16, t=832, dh=64):
                                          flash_agreement("lse", lse, ref_lse, LSE_TOL))
     qr, kr = FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables)
     delta = FA.flash_delta(dout, ref)
-    bwd = (qr, kr, v, dout, ref_lse, delta, valid_arr)
-    results["bwd_dq_max_abs_err"] = flash_agreement("dq", FA.KERNEL.bwd_dq(*bwd), FA.flash_bwd_dq_plain(*bwd),
-                                                         BWD_BF16_TOL)
-    (dk, dv), (dk_p, dv_p) = FA.KERNEL.bwd_dkv(*bwd), FA.flash_bwd_dkv_plain(*bwd)
+    bwd = (qr, kr, v, dout, ref_lse, delta, valid_arr, False)
+    # as the VoMix step calls them: rotated q and k, the tables (dq and dk
+    # leave through the rotary's transpose)
+    dq = FA.KERNEL.bwd_dq(*bwd, rotary=tables)
+    results["bwd_dq_max_abs_err"] = flash_agreement("dq", dq, FA.flash_bwd_dq_plain(*bwd, rotary=tables),
+                                                    BWD_BF16_TOL)
+    (dk, dv), (dk_p, dv_p) = FA.KERNEL.bwd_dkv(*bwd, rotary=tables), FA.flash_bwd_dkv_plain(*bwd, rotary=tables)
     results["bwd_dkv_max_abs_err"] = max(flash_agreement("dk", dk, dk_p, BWD_BF16_TOL),
                                          flash_agreement("dv", dv, dv_p, BWD_BF16_TOL))
     del out, ref, dk, dv, dk_p, dv_p
@@ -566,12 +595,27 @@ def time_flash_training(results, b=8, h=16, t=832, dh=64):
     timed = {   # the forward's entry is the attention kernel alone, on the pre-rotated inputs
         "fwd_lse": (lambda: FA.KERNEL(qr, kr, v, valid_arr, None, return_lse=True),
                     lambda: FA.flash_attention_plain(qr, kr, v, valid_arr, None, return_lse=True)),
-        "bwd_dq": (lambda: FA.KERNEL.bwd_dq(*bwd), lambda: FA.flash_bwd_dq_plain(*bwd)),
-        "bwd_dkv": (lambda: FA.KERNEL.bwd_dkv(*bwd), lambda: FA.flash_bwd_dkv_plain(*bwd)),
+        "bwd_dq": (lambda: FA.KERNEL.bwd_dq(*bwd, rotary=tables),
+                   lambda: FA.flash_bwd_dq_plain(*bwd, rotary=tables)),
+        "bwd_dkv": (lambda: FA.KERNEL.bwd_dkv(*bwd, rotary=tables),
+                    lambda: FA.flash_bwd_dkv_plain(*bwd, rotary=tables)),
     }
     for key, (kern, plain) in timed.items():
         both_times(results, key, kern)
         results[f"{key}_plain_ms"] = cuda_time_ms(plain, iters=5)
+    untabled = {key: cuda_time_ms(fn, behind_sleep=True) for key, fn in (
+        ("dq", lambda: FA.KERNEL.bwd_dq(*bwd)), ("dk/dv", lambda: FA.KERNEL.bwd_dkv(*bwd)))}
+    # what a backward that saves the unrotated q and k runs in PyTorch
+    # around the kernels, per layer: the re-rotation of q and k, then the
+    # counter-rotation of dq and dk
+    old_rot = both_times(results, "old_rotary_bwd", lambda: (
+        FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables),
+        FA._rotary_transpose(qr, *tables), FA._rotary_transpose(kr, *tables)))
+    log(f"backward at [{b},{h},{t},{dh}] bf16, behind a sleep: with the tables (the VoMix step's form) dq "
+        f"{results['bwd_dq_device_ms']:.4f} / dk-dv {results['bwd_dkv_device_ms']:.4f} ms, without "
+        f"{untabled['dq']:.4f} / {untabled['dk/dv']:.4f} ms; the re-rotation and counter-rotation in PyTorch "
+        f"that the tables replace: {old_rot:.4f} / {results['old_rotary_bwd_device_ms']:.4f} ms per layer "
+        f"(back to back / behind a sleep)")
     # the call the path makes (pre-pass + attention: the gated number), and
     # what the lse output and the pre-pass cost, on these inputs
     both_times(results, "fwd_lse_with_prepass", lambda: FA.KERNEL(q, k, v, valid_arr, tables, return_lse=True))
@@ -592,11 +636,24 @@ def time_flash_training(results, b=8, h=16, t=832, dh=64):
 
     n, rows = b * h * t * dh * 2, b * h * t * 4          # one [B,H,T,dh] bf16 tensor; one f32 [B,H,T] row array
     live = valid_arr.long().expand(b).sum().item()
+    tab = 2 * t * dh * 2                                  # the two bf16 rotary tables the backward reads
     work = {"fwd_lse": (4.0 * h * dh * t * live, 4 * n + rows),                       # q,k,v,out; lse
-            "bwd_dq": (6.0 * h * dh * t * live, 5 * n + 2 * rows),                    # q,k,v,dO,dq; lse,delta
-            "bwd_dkv": (8.0 * h * dh * t * live, 6 * n + 2 * rows)}                   # q,k,v,dO,dk,dv; lse,delta
+            "bwd_dq": (6.0 * h * dh * t * live, 5 * n + 2 * rows + tab),              # q,k,v,dO,dq; lse,delta
+            "bwd_dkv": (8.0 * h * dh * t * live, 6 * n + 2 * rows + tab)}             # q,k,v,dO,dk,dv; lse,delta
     for key, (flops, nbytes) in work.items():
         bound_and_log(results, key, [b, h, t, dh], flops, nbytes + valid_arr.numel() * 4)
+    log_backward_pair(results, "", [b, h, t, dh])
+
+
+def log_backward_pair(results, suffix, shape):
+    """The dQ + dK/dV pair's time beside one SDPA gradient call (dQ, dK and
+    dV), both ways."""
+    pair = {way: results[f"bwd_dq{suffix}{way}"] + results[f"bwd_dkv{suffix}{way}"] for way in ("_ms", "_device_ms")}
+    lib = {way: results[f"bwd{suffix}_library{way}"] for way in ("_ms", "_device_ms")}
+    results[f"bwd_pair{suffix}_device_ms"] = pair["_device_ms"]
+    log(f"backward pair{suffix.replace('_', ' ')} at {shape}: dQ + dK/dV {pair['_ms']:.4f} / {pair['_device_ms']:.4f} "
+        f"ms, SDPA gradient {lib['_ms']:.4f} / {lib['_device_ms']:.4f} ms (back to back / behind a sleep): "
+        f"{pair['_device_ms'] / lib['_device_ms']:.2f}x by device time")
 
 
 # ---------------------------------------------------------------------------
@@ -1481,6 +1538,7 @@ def time_flash_causal(results, b=6, h=8, t=1026, dh=64):
             "bwd_dkv_causal": (8.0 * dh * pairs, 6 * n + 2 * rows)}  # q,k,v,dO,dk,dv; lse,delta
     for key, (flops, nbytes) in work.items():
         bound_and_log(results, key, [b, h, t, dh], flops, nbytes + valid_arr.numel() * 4)
+    log_backward_pair(results, "_causal", [b, h, t, dh])
 
 
 def check_small_t2s_training_against_cpu():
@@ -1526,16 +1584,19 @@ def check_small_t2s_training_against_cpu():
         raise AssertionError("card and CPU T2S training steps differ")
 
 
-# registers per thread of the dh-64 bf16 flash kernels (ptxas, CUDA 12.8).
-# The backward pair keeps the counts it had before the causal form and the
-# forward's redesign (causal is a template argument); the TMA + wgmma
-# forward's four forms (<dh, lse, causal>) and the rotary pre-pass are held
-# to the counts of their first build: at most 204, so that two blocks of 160
-# threads share an SM. None of them may spill.
+# registers per thread of the dh-64 bf16 flash kernels (ptxas, CUDA 12.8),
+# held to the counts of their first build: the TMA + wgmma forward's four
+# forms (<dh, lse, causal>), the rotary pre-pass, the TMA + wgmma backward
+# pair's three forms each (<dh, causal, tables>) and the rotary transpose
+# that follows a backward kernel without the fused epilogue. ptxas caps the
+# wgmma kernels at 168 (two blocks of 160 threads per SM); none may spill.
 FLASH_REGS = {"flash_fwd_wgmma<Li64ELb0ELb0E>": 155, "flash_fwd_wgmma<Li64ELb1ELb0E>": 155,
               "flash_fwd_wgmma<Li64ELb0ELb1E>": 162, "flash_fwd_wgmma<Li64ELb1ELb1E>": 162,
               "flash_rotary_halfsplit_bf16<Li64E>": 48,
-              "flash_bwd_dq_bf16<Li64ELb0E>": 133, "flash_bwd_dkv_bf16<Li64ELb0E>": 200}
+              "flash_bwd_dq_wgmma<Li64ELb0ELb0E>": 122, "flash_bwd_dq_wgmma<Li64ELb1ELb0E>": 124,
+              "flash_bwd_dq_wgmma<Li64ELb0ELb1E>": 122,
+              "flash_bwd_dkv_wgmma<Li64ELb0ELb0E>": 168, "flash_bwd_dkv_wgmma<Li64ELb1ELb0E>": 168,
+              "flash_bwd_dkv_wgmma<Li64ELb0ELb1E>": 168, "flash_rotary_transpose_bf16<Li64E>": 48}
 
 
 def build_kernels():
@@ -1708,5 +1769,84 @@ def main() -> int:
     return 0
 
 
+# One tree's two training cells, run from the root of that tree's checkout
+# (the names exist in every chip_smoke.py since the T2S cell came in): the
+# dh-64 flash library, the VoMix training run and its step split, the CoMix
+# T2S training run and its split; prints one "AB {json}" line.
+AB_CELLS = """
+import json, os, shutil, sys
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as CS
+from covomix_tpu_torch.ops import flash_attention as FA
+FA.KERNEL.build(64)
+root = os.path.join(os.getcwd(), "covomix_tpu_torch", "_build", "ab")
+shutil.rmtree(root, ignore_errors=True)
+r = {}
+try:
+    CS.split_vomix_step(r, CS.run_training(r, os.path.join(root, "vomix")))
+    CS.run_t2s_training(r, os.path.join(root, "t2s"))
+    CS.split_t2s_step(r)
+finally:
+    shutil.rmtree(root, ignore_errors=True)
+print("AB " + json.dumps({k: r[k] for k in ("train_step_ms", "train_split_ms", "t2s_step_ms", "t2s_split_ms")}),
+      flush=True)
+"""
+AB_ORDER = ("other", "this", "this", "other") * 5   # ten pairs, each side first in half of them
+
+
+def ab_training(other: str) -> int:
+    """`python3 chip_smoke.py --ab-training DIR`: the VoMix and CoMix T2S
+    training cells of the checkout at DIR (another commit, unpacked with git
+    archive) and of this one, one process per run, in the order AB_ORDER on
+    one card (both trees' dh-64 libraries built first, in parallel); logs
+    every run's median step time and step split (forward / backward /
+    optimizer), then per cell each tree's medians, the pairs (runs 2i and
+    2i + 1) this tree won, and the spread between the other tree's quartiles:
+    a gain is resolved when this tree wins nine tenths of the pairs and the
+    medians differ by more than that spread."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    trees = {"other": os.path.abspath(other), "this": REPO}
+    log(card_line())
+    build = ("import os, sys; sys.path.insert(0, os.getcwd()); "
+             "from covomix_tpu_torch.ops import flash_attention as FA; FA.KERNEL.build(64)")
+    procs = [subprocess.Popen([sys.executable, "-c", build], cwd=d) for d in trees.values()]
+    if any(p.wait() for p in procs):
+        raise RuntimeError("a tree's flash library did not build")
+    runs = []
+    for name in AB_ORDER:
+        res = subprocess.run([sys.executable, "-c", AB_CELLS], cwd=trees[name], capture_output=True, text=True)
+        line = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
+        if res.returncode != 0 or not line:
+            raise RuntimeError(f"{name} tree's training cells failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        runs.append((name, json.loads(line[0][3:])))
+        log(f"A/B run {len(runs)} ({name}, {trees[name]}): {runs[-1][1]}")
+
+    def quantile(xs, f):
+        xs = sorted(xs)
+        i = f * (len(xs) - 1)
+        return xs[int(i)] + (xs[min(int(i) + 1, len(xs) - 1)] - xs[int(i)]) * (i - int(i))
+
+    for cell in ("train", "t2s"):
+        for part in ("step", "backward"):
+            get = (lambda r: r[f"{cell}_step_ms"]) if part == "step" else (lambda r: r[f"{cell}_split_ms"][part])
+            times = {n: [get(r) for m, r in runs if m == n] for n in trees}
+            pairs = [dict(runs[i:i + 2]) for i in range(0, len(runs), 2)]
+            wins = sum(get(p["this"]) < get(p["other"]) for p in pairs)
+            med = {n: quantile(t, 0.5) for n, t in times.items()}
+            spread = quantile(times["other"], 0.75) - quantile(times["other"], 0.25)
+            resolved = wins >= 0.9 * len(pairs) and abs(med["this"] - med["other"]) > spread
+            log(f"A/B {cell} {part} ms: median other {med['other']:.2f}, this {med['this']:.2f} "
+                f"({med['this'] - med['other']:+.2f}); this tree faster in {wins} of {len(pairs)} pairs; other's "
+                f"quartile spread {spread:.2f}; gain {'resolved' if resolved else 'unresolved'}")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab-training"]:
+        sys.exit(ab_training(sys.argv[2]))
     sys.exit(main())

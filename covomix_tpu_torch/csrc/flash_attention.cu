@@ -86,14 +86,38 @@
 // the rotary pre-pass is a second pass over q and k (byte-bound, a quarter
 // of the forward at the serving shape).
 //
-// dQ and dK/dV: one block per 64 query rows (dQ) or key rows (dK/dV) walks
-// 64-wide tiles of the other axis with mma.sync m16n8k16 (bf16 in, f32
-// accumulate); p and ds are re-packed in registers as A operands; the B
-// operands that need the other orientation (K for dQ, Q and dO for dK/dV)
-// are stored transposed in shared memory. Head dims above 64 split each
-// 16-row group's output columns over two warps (32 rows per block) so the
-// f32 accumulators stay in registers, and above 128 the A fragments are read
-// from shared memory instead of being held in registers.
+// The bf16 backward (dQ, and dK / dV):
+//   * dQ at head dims 64 and 128, dK/dV at 64 (`flash_bwd_dq_wgmma`,
+//     `flash_bwd_dkv_wgmma`, BwdWgCfg): the forward's design. One block per
+//     (b, h, 64 query rows) for dQ or 64 key rows for dK/dV, 160 threads: a
+//     producer warp loads the block's own two tiles once (Q and dO, or K and
+//     V) and streams 64-row tiles of the other axis (K and V, or Q and dO
+//     with their lse and delta) through a three-stage (dh 64) or two-stage
+//     TMA + mbarrier ring; one consumer warpgroup runs all five products as
+//     wgmma. S = Q K^T, dP = dO V^T (dQ) and S^T = K Q^T, dP^T = V dO^T
+//     (dK/dV) read both operands K-major; dQ += dS K, dV += P^T dO and
+//     dK += dS^T Q take P / dS as bf16 register fragments and read K, dO and
+//     Q MN-major (the transpose bit) from the very swizzled tiles the scores
+//     read K-major, so no operand is copied transposed. A tile's products
+//     run one after another (scores, then P / dS on the registers, then the
+//     accumulating products), and the SM's other block keeps the tensor
+//     cores busy meanwhile: overlapping the two inside the warpgroup, as the
+//     forward does, needs more than the 168 registers ptxas gives a thread
+//     at two blocks per SM, and measured slower. The non-causal kernels take the halfsplit rotary tables as a template
+//     form and apply the rotary's transpose to dQ and dK in their epilogue
+//     (the forward's pre-pass output is what autograd saves, so the
+//     backward neither re-rotates q and k nor counter-rotates in PyTorch).
+//     dK/dV at dh 128 would need 224 accumulator registers (kBwdAccRegs) and
+//     keeps mma.sync.
+//   * the other head dims (no configuration in the repo uses them): one block
+//     per 64 query rows (dQ) or key rows (dK/dV) walks 64-wide tiles of the
+//     other axis with mma.sync m16n8k16; p and ds are re-packed in registers
+//     as A operands; the B operands that need the other orientation (K for
+//     dQ, Q and dO for dK/dV) are stored transposed in shared memory. Head
+//     dims above 64 split each 16-row group's output columns over two warps
+//     (32 rows per block), and above 128 the A fragments are read from
+//     shared memory. With tables, `flash_rotary_transpose_bf16` follows them
+//     (and the causal wgmma kernels) in place.
 //
 // f32 inputs (tests, comparisons) take scalar-FMA kernels with the same
 // masking and the same arithmetic in f32, one row per thread.
@@ -101,9 +125,10 @@
 // Rotary (the bf16 pre-pass, and in place in the f32 forward): rot(x)[j] =
 // x[j]*cos[j] + x[(j+d)%dh]*sin_signed[j], two f32 products and one f32 sum,
 // each rounded (no FMA contraction), then rounded once to the input type:
-// the same operations as the plain version's `_rotary_plain`, so the
-// backward's re-rotation in PyTorch gives the very scores the forward's lse
-// was computed on.
+// the same operations as the plain version's `_rotary_plain`, so every
+// path (the pre-pass, the f32 kernel, `_rotary_plain` on the CPU) scores the
+// same rotated q and k. Its transpose (the backward's epilogue with tables,
+// and `flash_rotary_transpose_bf16`) is `_rotary_transpose`'s arithmetic.
 //
 // One library per head dim: build with -DFLASH_DH=<dh>, a multiple of 16 (the
 // mma k-step) in [16, 256] (the dispatch rule's limit).
@@ -559,6 +584,14 @@ struct WgCfg {
   static_assert(DH / 2 + BN / 2 + BN / 4 <= 128, "accumulators must fit the register budget");
 };
 
+// The head dims the TMA + wgmma forward serves: a row is whole 128-byte
+// swizzle rows (64 bf16 columns each), and the accumulators of O (DH/2 f32)
+// and S (BN/2) fit in registers at two blocks per SM. The others take the
+// mma.sync forward. The backward: dQ takes its wgmma kernel at the same head
+// dims, dK/dV only where its accumulators fit too (`wgmma_bwd_dkv`: dh 64);
+// the others keep the mma.sync backward.
+constexpr bool wgmma_fwd(int dh) { return dh % 64 == 0 && dh <= 128; }
+
 // One block per (b, h, 64-query-row tile). Warp 4 (one thread) is the
 // producer: it loads the Q tile, then walks the K/V tiles through a ring of
 // STAGES shared-memory stages with TMA, each stage guarded by a "full"
@@ -968,7 +1001,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward, bf16 (tensor cores)
+// backward, bf16, the head dims without the wgmma kernels: mma.sync
 
 template <int DH>
 struct BwdCfg {
@@ -1241,6 +1274,467 @@ flash_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
 }
 
 // ---------------------------------------------------------------------------
+// backward, bf16, head dims 64 and 128: TMA + mbarrier ring + wgmma
+
+// The accumulator registers (f32 accumulators and bf16 A fragments) a
+// backward thread may name. At two blocks of 160 threads per SM
+// (__launch_bounds__(160, 2)) ptxas gives a thread at most 168 registers; a
+// tile's products run one after another, so not all of these are live at
+// once, and the rest go to addresses, limits, lse / delta and loop state
+// (dK/dV at dh 64 uses all 168, without spills; a loop that overlapped a
+// tile's scores with the previous tile's products held them all live at
+// once and spilled).
+constexpr int kBwdAccRegs = 160;
+
+template <int DH>
+struct BwdWgCfg {
+  static constexpr int BM = 64;  // rows per block: query rows (dQ) or key rows (dK/dV); one consumer warpgroup
+  static constexpr int BN = 64;  // rows per streamed tile: keys (dQ) or queries (dK/dV)
+  // streamed tiles in flight; two blocks of ~66 KB (dh 64) or ~97 KB (dh 128) share an SM's 228 KB
+  static constexpr int STAGES = DH <= 64 ? 3 : 2;
+  static constexpr int CH = DH / 64;  // 64-column (128-byte) chunks of a row
+  static constexpr int NT = 160;      // 4 consumer warps + 1 producer warp
+  static constexpr int TILE = BN * DH * 2;  // bytes of one [64, DH] bf16 tile
+  // 1024 bytes of slack to align the tiles (the swizzle's period)
+  // dQ: Q, dO once; K, V per stage
+  static constexpr size_t smem_dq = 1024 + 2 * TILE + 2 * STAGES * TILE + (1 + 2 * STAGES) * 8;
+  // dK/dV: K, V once; Q, dO and the tile's lse / delta (f32) per stage
+  static constexpr size_t smem_dkv = 1024 + 2 * TILE + STAGES * (2 * TILE + 2 * BN * 4) + (1 + 2 * STAGES) * 8;
+  // dQ: the S and dP accumulators (BN/2 each), dQ's (DH/2), dS's bf16 fragments (BN/4)
+  static constexpr int DQ_REGS = BN + DH / 2 + BN / 4;
+  // dK/dV: the dK and dV accumulators (DH/2 each), S^T's and dP^T's (BN/2
+  // each), and the bf16 fragments of P^T and dS^T (BN/4 each)
+  static constexpr int DKV_REGS = DH + BN + BN / 2;
+
+  // wgmma: M 64 (one warpgroup); N of S (BN) and of dQ / dK / dV (DH)
+  // multiples of 8 up to 256; K steps of 16 over DH and over BN
+  static_assert(BM == 64 && BN == BM && NT == 4 * 32 + 32, "one consumer warpgroup and one producer warp");
+  static_assert(BN % 16 == 0 && BN <= 256 && DH % 16 == 0 && DH <= 256, "wgmma N / K rules");
+  // TMA boxes: one 128-byte swizzle row (64 bf16 columns) wide, at most 256 rows
+  static_assert(DH % 64 == 0 && BN <= 256, "TMA box rules");
+  // every tile is whole 1024-byte swizzle periods, so its swizzle phase is the TMA's
+  static_assert(TILE % 1024 == 0 && (BN * 128) % 1024 == 0 && (2 * BN * 4 * STAGES) % 16 == 0,
+                "tiles must be 1024-byte aligned");
+  // two blocks per SM: 228 KB of shared memory, 1 KB of it reserved per block
+  static_assert(smem_dq <= 232448 && 2 * (smem_dq + 1024) <= 233472 && smem_dkv <= 232448 &&
+                    2 * (smem_dkv + 1024) <= 233472,
+                "two blocks must share an SM's shared memory");
+  static_assert(DQ_REGS <= kBwdAccRegs, "dQ's accumulators must fit the register budget");
+};
+
+// Whether dK/dV at head dim DH takes the wgmma kernel: its accumulators must
+// fit the register budget (dh 64: 160; dh 128: 224 does not, and keeps
+// mma.sync). dQ takes it wherever the forward does (dh 64 and 128: 112 and
+// 144).
+template <int DH>
+constexpr bool wgmma_bwd_dkv() {
+  if constexpr (wgmma_fwd(DH))
+    return BwdWgCfg<DH>::DKV_REGS <= kBwdAccRegs;
+  else
+    return false;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+// dS = P (dP - delta) in place of the score tile (rows qr, qr+8 of each
+// warp's 16 query rows; keys k0..k0+BN-1): P = exp(s * scale - lse) =
+// 2^(s*c2 - lse*log2e) (l0, l1: the rows' lse in log2 units), 0 for a dead
+// key (j >= lim, checked only where `mask`: a select, so a dead key's
+// overflowing exp never reaches dS).
+template <int BN>
+__device__ __forceinline__ void bwd_ds(float (&sc)[BN / 2], const float (&dp)[BN / 2], int k0, int lim0, int lim1,
+                                       bool mask, float c2, float l0, float l1, float d0, float d1, int qc) {
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt) {
+    float p0 = ex2(fmaf(sc[nt * 4 + 0], c2, -l0)), p1 = ex2(fmaf(sc[nt * 4 + 1], c2, -l0));
+    float p2 = ex2(fmaf(sc[nt * 4 + 2], c2, -l1)), p3 = ex2(fmaf(sc[nt * 4 + 3], c2, -l1));
+    if (mask) {
+      const int col = k0 + nt * 8 + qc;
+      if (col >= lim0) p0 = 0.f;
+      if (col + 1 >= lim0) p1 = 0.f;
+      if (col >= lim1) p2 = 0.f;
+      if (col + 1 >= lim1) p3 = 0.f;
+    }
+    sc[nt * 4 + 0] = p0 * (dp[nt * 4 + 0] - d0);
+    sc[nt * 4 + 1] = p1 * (dp[nt * 4 + 1] - d0);
+    sc[nt * 4 + 2] = p2 * (dp[nt * 4 + 2] - d1);
+    sc[nt * 4 + 3] = p3 * (dp[nt * 4 + 3] - d1);
+  }
+}
+
+// P^T and dS^T = P^T (dP^T - delta) in place of the transposed tiles (rows:
+// key0 = the thread's key row and key0 + 8; columns: query rows i0 + c of the
+// tile, whose lse (log2 units) and delta are ls[c], es[c] in shared memory).
+// A pair is dead when its key row is past valid_len (live0 / live1), its
+// query row is past T (TMA zero-fills those rows, and a zero row still gives
+// p = exp(-lse) != 0), or, causal, the query precedes the key; checked only
+// where `mask`.
+template <int BN, bool CAUSAL>
+__device__ __forceinline__ void bwd_pt_dst(float (&st)[BN / 2], float (&dpt)[BN / 2], const float* ls,
+                                           const float* es, int i0, int key0, bool live0, bool live1, int T,
+                                           bool mask, float c2, int qc) {
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt) {
+    const int c = nt * 8 + qc;
+    const float2 la = *reinterpret_cast<const float2*>(ls + c), ea = *reinterpret_cast<const float2*>(es + c);
+    float p0 = ex2(fmaf(st[nt * 4 + 0], c2, -la.x)), p1 = ex2(fmaf(st[nt * 4 + 1], c2, -la.y));
+    float p2 = ex2(fmaf(st[nt * 4 + 2], c2, -la.x)), p3 = ex2(fmaf(st[nt * 4 + 3], c2, -la.y));
+    if (mask) {
+      const int qi = i0 + c;
+      const bool ok0 = qi < T, ok1 = qi + 1 < T;
+      if (!(live0 && ok0 && (!CAUSAL || qi >= key0))) p0 = 0.f;
+      if (!(live0 && ok1 && (!CAUSAL || qi + 1 >= key0))) p1 = 0.f;
+      if (!(live1 && ok0 && (!CAUSAL || qi >= key0 + 8))) p2 = 0.f;
+      if (!(live1 && ok1 && (!CAUSAL || qi + 1 >= key0 + 8))) p3 = 0.f;
+    }
+    st[nt * 4 + 0] = p0;
+    st[nt * 4 + 1] = p1;
+    st[nt * 4 + 2] = p2;
+    st[nt * 4 + 3] = p3;
+    dpt[nt * 4 + 0] = p0 * (dpt[nt * 4 + 0] - ea.x);
+    dpt[nt * 4 + 1] = p1 * (dpt[nt * 4 + 1] - ea.y);
+    dpt[nt * 4 + 2] = p2 * (dpt[nt * 4 + 2] - ea.x);
+    dpt[nt * 4 + 3] = p3 * (dpt[nt * 4 + 3] - ea.y);
+  }
+}
+
+// Rows row0 and row0 + 8 (< T) of a [T, DH] bf16 output from a wgmma
+// accumulator (C-fragment layout: columns dt*8 + qc, +1): bf16(acc * scale).
+// ROT: then the transpose of the halfsplit rotary, `_rotary_transpose`'s
+// arithmetic on those bf16 values (x'[j] = x[j] cos[j] + x[j+d] sin[j+d],
+// x'[j+d] = x[j+d] cos[j+d] + x[j] sin[j], each product and the sum rounded
+// in f32, then one rounding to bf16), so the result is bit-equal to
+// `_rotary_transpose` of the output without tables. A thread holds column c
+// and c + DH/2 of its rows, so the rotation needs no exchange.
+template <int DH, bool ROT>
+__device__ __forceinline__ void bwd_store(__nv_bfloat16* out, const float (&acc)[DH / 2], float scale, int row0,
+                                          int T, int qc, const __nv_bfloat16* cos_t, const __nv_bfloat16* sin_t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= T) continue;
+    __nv_bfloat16* o = out + (size_t)row * DH;
+    if constexpr (ROT) {
+      constexpr int D = DH / 2, DT = DH / 16;  // 8-column tiles per half row
+      const __nv_bfloat16* cr = cos_t + (size_t)row * DH;
+      const __nv_bfloat16* sr = sin_t + (size_t)row * DH;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const int col = dt * 8 + qc;
+        const float2 cl = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cr + col));
+        const float2 ch = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(cr + col + D));
+        const float2 sl = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sr + col));
+        const float2 sh = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sr + col + D));
+        const float a0 = bf16_round(acc[dt * 4 + 2 * h] * scale), a1 = bf16_round(acc[dt * 4 + 2 * h + 1] * scale);
+        const float b0 = bf16_round(acc[(dt + DT) * 4 + 2 * h] * scale);
+        const float b1 = bf16_round(acc[(dt + DT) * 4 + 2 * h + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(o + col) = __floats2bfloat162_rn(
+            __fadd_rn(__fmul_rn(a0, cl.x), __fmul_rn(b0, sh.x)), __fadd_rn(__fmul_rn(a1, cl.y), __fmul_rn(b1, sh.y)));
+        *reinterpret_cast<__nv_bfloat162*>(o + col + D) = __floats2bfloat162_rn(
+            __fadd_rn(__fmul_rn(b0, ch.x), __fmul_rn(a0, sl.x)), __fadd_rn(__fmul_rn(b1, ch.y), __fmul_rn(a1, sl.y)));
+      }
+    } else {
+#pragma unroll
+      for (int dt = 0; dt < DH / 8; ++dt)
+        *reinterpret_cast<__nv_bfloat162*>(o + dt * 8 + qc) =
+            __floats2bfloat162_rn(acc[dt * 4 + 2 * h] * scale, acc[dt * 4 + 2 * h + 1] * scale);
+    }
+  }
+}
+
+// dQ for one (b, h, 64-query-row tile). Warp 4 (one thread) is the producer:
+// it loads the Q and dO tiles once, then walks the K/V tiles through a ring
+// of STAGES shared-memory stages with TMA, each stage guarded by a "full"
+// and an "empty" mbarrier. Warps 0-3, one warpgroup, consume: S = Q K^T and
+// dP = dO V^T with wgmma from shared memory (all K-major), dS = P (dP - delta)
+// on the accumulator registers, then dQ += dS K with dS as register A
+// fragments (rounded to bf16) and K read MN-major from the same swizzled tile
+// that S read K-major (no K^T copy). Causal row blocks are launched longest
+// first and stop at their last query row; rows past T are zero-filled and
+// never written. ROT: dQ leaves through the rotary transpose (`bwd_store`).
+template <int DH, bool CAUSAL, bool ROT>
+__global__ void __launch_bounds__(160, 2)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                   const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+                   const int* __restrict__ valid, int valid_n, const __nv_bfloat16* __restrict__ cos_t,
+                   const __nv_bfloat16* __restrict__ sin_t, int H, int T, float scale) {
+  using C = BwdWgCfg<DH>;
+  constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES, CH = C::CH, TILE = C::TILE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // Q [CH][BM][64]
+  const uint32_t sdo = sq + TILE;                               // dO [CH][BM][64]
+  const uint32_t sk = sdo + TILE;                               // K stages [ST][CH][BN][64]
+  const uint32_t sv = sk + ST * TILE;                           // V stages [ST][CH][BN][64]
+  const uint32_t bar_q = sv + ST * TILE;                        // then full[ST], empty[ST]
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * ST;
+
+  const int bh = blockIdx.x, b = bh / H;
+  const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BM;  // causal: longest first
+  const int vl = clamp_valid(valid, valid_n, b, T);
+  // tiles wholly past valid_len (causal: past the block's last row) hold only p = 0
+  const int n_tiles = ((CAUSAL ? min(vl, q0 + BM) : vl) + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // producer warp; it never meets the consumers at a barrier again
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(bar_q, 2 * TILE);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        tma_load_3d(sq + c * BM * 128, &tm_q, bar_q, c * 64, q0, bh);
+        tma_load_3d(sdo + c * BM * 128, &tm_do, bar_q, c * 64, q0, bh);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % ST;
+        if (j >= ST) mbar_wait(bar_empty + 8 * s, (j / ST - 1) & 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * TILE);
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          tma_load_3d(sk + s * TILE + c * BN * 128, &tm_k, bar_full + 8 * s, c * 64, j * BN, bh);
+          tma_load_3d(sv + s * TILE + c * BN * 128, &tm_v, bar_full + 8 * s, c * 64, j * BN, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qr = lane / 4, qc = (lane % 4) * 2;  // fragment row / column pair
+  const float c2 = scale * kLog2e;               // exp(x * scale) = 2^(x * c2)
+  const int row0 = q0 + warp * 16 + qr, row1 = row0 + 8;
+  const size_t rbase = (size_t)bh * T;
+  const float l0 = row0 < T ? lse[rbase + row0] * kLog2e : 0.f, l1 = row1 < T ? lse[rbase + row1] * kLog2e : 0.f;
+  const float d0 = row0 < T ? delta[rbase + row0] : 0.f, d1 = row1 < T ? delta[rbase + row1] : 0.f;
+  int lim0 = vl, lim1 = vl;  // the live keys of the two rows are j < lim
+  if constexpr (CAUSAL) {
+    lim0 = min(vl, row0 + 1);
+    lim1 = min(vl, row1 + 1);
+  }
+  // a tile holds a dead key of some row when it reaches past the smallest limit
+  const int lim_min = CAUSAL ? min(vl, q0 + 1) : vl;
+
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  float sc[BN / 2], dp[BN / 2];
+  uint32_t da[BN / 16][4];
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % ST;
+    mbar_wait(bar_full + 8 * s, (j / ST) & 1);
+    wgmma_fence();
+    fwd_scores<DH, BN, BM>(sc, sq, sk + s * TILE);
+    fwd_scores<DH, BN, BM>(dp, sdo, sv + s * TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    bwd_ds<BN>(sc, dp, j * BN, lim0, lim1, j * BN + BN > lim_min, c2, l0, l1, d0, d1, qc);
+    fwd_pack<BN>(da, sc);
+    wgmma_fence();
+    fwd_pv<DH, BN>(acc, da, sk + s * TILE);  // dQ += dS K, K MN-major
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(da);
+    mbar_arrive(bar_empty + 8 * s);
+  }
+  bwd_store<DH, ROT>(dq + rbase * DH, acc, scale, row0, T, qc, cos_t, sin_t);
+}
+
+// dK and dV for one (b, h, 64-key-row tile). The producer warp loads the K
+// and V tiles once (TMA), then walks the Q and dO tiles through the ring;
+// its 32 lanes also copy each tile's 64 lse (times log2 e) and delta values
+// into the stage, zero past T (finite, so a select masks the row), and
+// arrive on the stage's "full" mbarrier beside the TMA bytes (a bulk copy
+// would need 16-byte aligned rows, which T 1026 does not give). The
+// consumer warpgroup: S^T = K Q^T and dP^T = V dO^T (both operands K-major),
+// P^T and dS^T on the accumulator registers, then dV += bf16(P^T) dO and
+// dK += bf16(dS^T) Q with the fragments from registers and dO and Q read
+// MN-major from the same swizzled tiles the scores read K-major (no Q^T or
+// dO^T copy). A block wholly past valid_len writes exact zeros; causal blocks start at
+// the query tile of their first key. ROT: dK leaves through the rotary
+// transpose (`bwd_store`).
+template <int DH, bool CAUSAL, bool ROT>
+__global__ void __launch_bounds__(160, 2)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, const int* __restrict__ valid, int valid_n,
+                    const __nv_bfloat16* __restrict__ cos_t, const __nv_bfloat16* __restrict__ sin_t, int H, int T,
+                    float scale) {
+  using C = BwdWgCfg<DH>;
+  constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES, CH = C::CH, TILE = C::TILE;
+  static_assert(C::DKV_REGS <= kBwdAccRegs, "dK/dV's accumulators must fit the register budget");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t sk = smem_u32(base);     // K [CH][BM][64]
+  const uint32_t sv = sk + TILE;          // V [CH][BM][64]
+  const uint32_t sq = sv + TILE;          // Q stages [ST][CH][BN][64]
+  const uint32_t sdo = sq + ST * TILE;    // dO stages [ST][CH][BN][64]
+  float* ls = reinterpret_cast<float*>(base + (2 + 2 * ST) * TILE);  // lse * log2 e [ST][BN]
+  float* es = ls + ST * BN;                                           // delta [ST][BN]
+  const uint32_t bar_kv = smem_u32(es + ST * BN);                     // then full[ST], empty[ST]
+  const uint32_t bar_full = bar_kv + 8, bar_empty = bar_full + 8 * ST;
+
+  const int bh = blockIdx.x, b = bh / H, k0 = blockIdx.y * BM;
+  const int vl = clamp_valid(valid, valid_n, b, T);
+  const size_t rbase = (size_t)bh * T;
+  if (k0 >= vl) {  // every key of the block is past valid_len: exact zeros
+    const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
+    for (int i = threadIdx.x; i < BM * DH / 2; i += C::NT) {
+      const int r = k0 + i / (DH / 2), c = (i % (DH / 2)) * 2;
+      if (r < T) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + (rbase + r) * DH + c) = z;
+        *reinterpret_cast<__nv_bfloat162*>(dv + (rbase + r) * DH + c) = z;
+      }
+    }
+    return;
+  }
+  // every query row < T takes part (causal: from the tile of the block's first key on)
+  const int it0 = CAUSAL ? k0 / BN : 0, n_tiles = (T + BN - 1) / BN - it0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_full + 8 * s, 32);  // the producer warp's lanes (lane 0's with the TMA bytes)
+      mbar_init(bar_empty + 8 * s, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // producer warp; it never meets the consumers at a barrier again
+    const int lane = threadIdx.x - 128;
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * TILE);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        tma_load_3d(sk + c * BM * 128, &tm_k, bar_kv, c * 64, k0, bh);
+        tma_load_3d(sv + c * BM * 128, &tm_v, bar_kv, c * 64, k0, bh);
+      }
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % ST, i0 = (it0 + j) * BN;
+      if (j >= ST) mbar_wait(bar_empty + 8 * s, (j / ST - 1) & 1);
+      for (int r = lane; r < BN; r += 32) {
+        const bool in = i0 + r < T;
+        ls[s * BN + r] = in ? lse[rbase + i0 + r] * kLog2e : 0.f;
+        es[s * BN + r] = in ? delta[rbase + i0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(bar_full + 8 * s, 2 * TILE);  // also this lane's arrival
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          tma_load_3d(sq + s * TILE + c * BN * 128, &tm_q, bar_full + 8 * s, c * 64, i0, bh);
+          tma_load_3d(sdo + s * TILE + c * BN * 128, &tm_do, bar_full + 8 * s, c * 64, i0, bh);
+        }
+      } else {
+        mbar_arrive(bar_full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int qr = lane / 4, qc = (lane % 4) * 2;
+  const float c2 = scale * kLog2e;
+  const int key0 = k0 + warp * 16 + qr;
+  const bool live0 = key0 < vl, live1 = key0 + 8 < vl;
+  // a tile holds a dead pair when it reaches past T, the block holds a key
+  // past valid_len, or (causal) a query of the tile precedes a key of the block
+  const bool dead_keys = k0 + BM > vl;
+
+  float ak[DH / 2], av[DH / 2];  // dK, dV accumulators
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) ak[i] = av[i] = 0.f;
+  float st[BN / 2], dpt[BN / 2];
+  uint32_t pa[BN / 16][4], sa[BN / 16][4];
+  mbar_wait(bar_kv, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % ST, i0 = (it0 + j) * BN;
+    mbar_wait(bar_full + 8 * s, (j / ST) & 1);
+    wgmma_fence();
+    fwd_scores<DH, BN, BM>(st, sk, sq + s * TILE);
+    fwd_scores<DH, BN, BM>(dpt, sv, sdo + s * TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    bwd_pt_dst<BN, CAUSAL>(st, dpt, ls + s * BN, es + s * BN, i0, key0, live0, live1, T,
+                           dead_keys || i0 + BN > T || (CAUSAL && i0 < k0 + BM - 1), c2, qc);
+    fwd_pack<BN>(pa, st);
+    fwd_pack<BN>(sa, dpt);
+    wgmma_fence();
+    fwd_pv<DH, BN>(av, pa, sdo + s * TILE);  // dV += P^T dO, dO MN-major
+    fwd_pv<DH, BN>(ak, sa, sq + s * TILE);   // dK += dS^T Q, Q MN-major
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(av);
+    fence_regs(ak);
+    fence_regs(pa);
+    fence_regs(sa);
+    mbar_arrive(bar_empty + 8 * s);
+  }
+  bwd_store<DH, ROT>(dk + rbase * DH, ak, scale, key0, T, qc, cos_t, sin_t);
+  bwd_store<DH, false>(dv + rbase * DH, av, 1.f, key0, T, qc, nullptr, nullptr);
+}
+
+// x[r] = the halfsplit rotary's transpose of x[r], in place, for the rows r
+// of [rows, DH] (row r at position r % T): `bwd_store`'s (and
+// `_rotary_transpose`'s) arithmetic, 8 pairs (j, j + DH/2) per thread (each
+// pair owned by one thread, so in place is safe). It follows the backward
+// kernels that do not rotate in their epilogue (the causal ones, and the
+// mma.sync ones at the other head dims).
+template <int DH>
+__global__ void __launch_bounds__(256)
+flash_rotary_transpose_bf16(__nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ cos_t,
+                            const __nv_bfloat16* __restrict__ sin_t, long long rows, int T) {
+  constexpr int D = DH / 2, VPH = D / 8;  // 8-element vectors per half row
+  const long long n = rows * VPH;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / VPH;
+    const int j = (int)(i % VPH) * 8, t = (int)(r % T);
+    uint4 a4 = *reinterpret_cast<const uint4*>(x + r * DH + j);
+    uint4 b4 = *reinterpret_cast<const uint4*>(x + r * DH + j + D);
+    const uint4 c_lo4 = *reinterpret_cast<const uint4*>(cos_t + (size_t)t * DH + j);
+    const uint4 c_hi4 = *reinterpret_cast<const uint4*>(cos_t + (size_t)t * DH + j + D);
+    const uint4 s_lo4 = *reinterpret_cast<const uint4*>(sin_t + (size_t)t * DH + j);
+    const uint4 s_hi4 = *reinterpret_cast<const uint4*>(sin_t + (size_t)t * DH + j + D);
+    __nv_bfloat16* a = reinterpret_cast<__nv_bfloat16*>(&a4);
+    __nv_bfloat16* b = reinterpret_cast<__nv_bfloat16*>(&b4);
+    const __nv_bfloat16* c_lo = reinterpret_cast<const __nv_bfloat16*>(&c_lo4);
+    const __nv_bfloat16* c_hi = reinterpret_cast<const __nv_bfloat16*>(&c_hi4);
+    const __nv_bfloat16* s_lo = reinterpret_cast<const __nv_bfloat16*>(&s_lo4);
+    const __nv_bfloat16* s_hi = reinterpret_cast<const __nv_bfloat16*>(&s_hi4);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float u = __bfloat162float(a[e]), w = __bfloat162float(b[e]);
+      a[e] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(u, __bfloat162float(c_lo[e])),
+                                           __fmul_rn(w, __bfloat162float(s_hi[e]))));
+      b[e] = __float2bfloat16_rn(__fadd_rn(__fmul_rn(w, __bfloat162float(c_hi[e])),
+                                           __fmul_rn(u, __bfloat162float(s_lo[e]))));
+    }
+    *reinterpret_cast<uint4*>(x + r * DH + j) = a4;
+    *reinterpret_cast<uint4*>(x + r * DH + j + D) = b4;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // backward, f32 (scalar FMA, one row per thread)
 
 template <int DH, bool CAUSAL>
@@ -1369,13 +1863,7 @@ int allow_smem(Kern kernel, size_t smem) {
 }
 
 // Error codes of this library besides CUDA's own (which are positive).
-constexpr int kErrHeadDim = -1, kErrTables = -2, kErrNoEncoder = -3, kErrEncode = -4;
-
-// The head dims the TMA + wgmma forward serves: a row is whole 128-byte
-// swizzle rows (64 bf16 columns each), and the accumulators of O (DH/2 f32)
-// and S (BN/2) fit in registers at two blocks per SM. The others take the
-// mma.sync forward.
-constexpr bool wgmma_fwd(int dh) { return dh % 64 == 0 && dh <= 128; }
+constexpr int kErrHeadDim = -1, kErrTables = -2, kErrNoEncoder = -3, kErrEncode = -4, kErrBwdTables = -5;
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
@@ -1458,11 +1946,35 @@ int run_fwd(int is_f32, const void* q, const void* k, const void* v, void* o, fl
   return (int)cudaGetLastError();
 }
 
+// The rotary transpose in place on a bf16 [B*H*T, DH] gradient (after a
+// backward kernel that does not rotate in its epilogue).
+int rotary_transpose(void* x, const void* cos_t, const void* sin_t, int B, int H, int T, cudaStream_t stream) {
+  const long long rows = (long long)B * H * T, vectors = rows * (FLASH_DH / 16);
+  const int blocks = (int)(vectors + 255 < 132LL * 8 * 256 ? (vectors + 255) / 256 : 132 * 8);
+  flash_rotary_transpose_bf16<FLASH_DH><<<blocks, 256, 0, stream>>>(
+      static_cast<__nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(cos_t),
+      static_cast<const __nv_bfloat16*>(sin_t), rows, T);
+  return (int)cudaGetLastError();
+}
+
+// The four TMA maps of a wgmma backward kernel (boxes of 64 rows).
+int encode_bwd_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, const void* dout, int BH,
+                    int T, int DH) {
+  const void* ptrs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int e = encode_bf16_map(&m[i], ptrs[i], BH, T, DH, 64);
+    if (e) return e;
+  }
+  return 0;
+}
+
 template <int DH, bool CAUSAL>
 int run_bwd_dq(int is_f32, const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dq, const int* valid, int valid_n, int B,
-               int H, int T, float scale, cudaStream_t stream) {
+               const float* lse, const float* delta, void* dq, const int* valid, int valid_n, const void* cos_t,
+               const void* sin_t, int B, int H, int T, float scale, cudaStream_t stream) {
+  const bool rot = cos_t != nullptr && sin_t != nullptr;
   if (is_f32) {
+    if (cos_t != nullptr || sin_t != nullptr) return kErrBwdTables;
     using C = F32Cfg<DH>;
     const dim3 grid((T + C::BM - 1) / C::BM, H, B);
     int e = allow_smem(flash_bwd_dq_f32<DH, CAUSAL>, C::smem);
@@ -1471,6 +1983,26 @@ int run_bwd_dq(int is_f32, const void* q, const void* k, const void* v, const vo
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), valid, valid_n, H, T,
         scale);
+    return (int)cudaGetLastError();
+  }
+  bool fused = false;  // the kernel applied the rotary transpose in its epilogue
+  if constexpr (wgmma_fwd(DH)) {
+    using C = BwdWgCfg<DH>;
+    CUtensorMap m[4];
+    int e = encode_bwd_maps(m, q, k, v, dout, B * H, T, DH);
+    if (e) return e;
+    auto kernel = flash_bwd_dq_wgmma<DH, CAUSAL, false>;
+    if constexpr (!CAUSAL) {
+      if (rot) {
+        kernel = flash_bwd_dq_wgmma<DH, false, true>;
+        fused = true;
+      }
+    }
+    e = allow_smem(kernel, C::smem_dq);
+    if (e) return e;
+    kernel<<<dim3(B * H, (T + C::BM - 1) / C::BM), C::NT, C::smem_dq, stream>>>(
+        m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dq), valid, valid_n,
+        static_cast<const __nv_bfloat16*>(cos_t), static_cast<const __nv_bfloat16*>(sin_t), H, T, scale);
   } else {
     using C = BwdCfg<DH>;
     const dim3 grid((T + C::BM - 1) / C::BM, H, B);
@@ -1481,14 +2013,19 @@ int run_bwd_dq(int is_f32, const void* q, const void* k, const void* v, const vo
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
         static_cast<__nv_bfloat16*>(dq), valid, valid_n, H, T, scale);
   }
-  return (int)cudaGetLastError();
+  int e = (int)cudaGetLastError();
+  if (!e && rot && !fused) e = rotary_transpose(dq, cos_t, sin_t, B, H, T, stream);
+  return e;
 }
 
 template <int DH, bool CAUSAL>
 int run_bwd_dkv(int is_f32, const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, void* dk, void* dv, const int* valid,
-                int valid_n, int B, int H, int T, float scale, cudaStream_t stream) {
+                int valid_n, const void* cos_t, const void* sin_t, int B, int H, int T, float scale,
+                cudaStream_t stream) {
+  const bool rot = cos_t != nullptr && sin_t != nullptr;
   if (is_f32) {
+    if (cos_t != nullptr || sin_t != nullptr) return kErrBwdTables;
     using C = F32Cfg<DH>;
     const dim3 grid((T + C::BM - 1) / C::BM, H, B);
     int e = allow_smem(flash_bwd_dkv_f32<DH, CAUSAL>, C::smem);
@@ -1497,6 +2034,27 @@ int run_bwd_dkv(int is_f32, const void* q, const void* k, const void* v, const v
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
         valid, valid_n, H, T, scale);
+    return (int)cudaGetLastError();
+  }
+  bool fused = false;
+  if constexpr (wgmma_bwd_dkv<DH>()) {
+    using C = BwdWgCfg<DH>;
+    CUtensorMap m[4];
+    int e = encode_bwd_maps(m, q, k, v, dout, B * H, T, DH);
+    if (e) return e;
+    auto kernel = flash_bwd_dkv_wgmma<DH, CAUSAL, false>;
+    if constexpr (!CAUSAL) {
+      if (rot) {
+        kernel = flash_bwd_dkv_wgmma<DH, false, true>;
+        fused = true;
+      }
+    }
+    e = allow_smem(kernel, C::smem_dkv);
+    if (e) return e;
+    kernel<<<dim3(B * H, (T + C::BM - 1) / C::BM), C::NT, C::smem_dkv, stream>>>(
+        m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+        valid, valid_n, static_cast<const __nv_bfloat16*>(cos_t), static_cast<const __nv_bfloat16*>(sin_t), H, T,
+        scale);
   } else {
     using C = BwdCfg<DH>;
     const dim3 grid((T + C::BM - 1) / C::BM, H, B);
@@ -1507,7 +2065,9 @@ int run_bwd_dkv(int is_f32, const void* q, const void* k, const void* v, const v
         static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
         static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), valid, valid_n, H, T, scale);
   }
-  return (int)cudaGetLastError();
+  int e = (int)cudaGetLastError();
+  if (!e && rot && !fused) e = rotary_transpose(dk, cos_t, sin_t, B, H, T, stream);
+  return e;
 }
 
 }  // namespace
@@ -1517,10 +2077,13 @@ extern "C" {
 // q/k/v/o (and dout/dq/dk/dv): contiguous [B, H, T, dh], bf16 (is_f32 == 0)
 // or f32 (is_f32 == 1), 16-byte aligned. lse, delta: contiguous f32 [B, H, T].
 // valid: int32 device array of valid_n (1 or B) entries. cos_t/sin_t:
-// [>= T, dh] f32 rotary tables, or both null; the bf16 forward takes q and k
-// already rotated (covomix_flash_rotary_bf16) and refuses tables. lse may be
-// null in the forward (no logsumexp output). causal != 0 picks the causal
-// instantiation (key j <= query i).
+// [>= T, dh] rotary tables of the input type, or both null; the bf16
+// forward takes q and k already rotated (covomix_flash_rotary_bf16) and
+// refuses tables, the f32 forward rotates with them; the bf16 backward takes
+// rotated q and k and, with tables, returns dq and dk through the rotary's
+// transpose (the gradients of the unrotated q and k); the f32 backward
+// refuses tables. lse may be null in the forward (no logsumexp output).
+// causal != 0 picks the causal instantiation (key j <= query i).
 int covomix_flash_attention_fwd(int is_f32, int causal, const void* q, const void* k, const void* v,
                                 void* o, float* lse, const int* valid, int valid_n, const void* cos_t,
                                 const void* sin_t, int B, int H, int T, int dh, float scale,
@@ -1533,21 +2096,21 @@ int covomix_flash_attention_fwd(int is_f32, int causal, const void* q, const voi
 
 int covomix_flash_attention_bwd_dq(int is_f32, int causal, const void* q, const void* k, const void* v,
                                    const void* dout, const float* lse, const float* delta, void* dq,
-                                   const int* valid, int valid_n, int B, int H, int T, int dh,
-                                   float scale, void* stream) {
+                                   const int* valid, int valid_n, const void* cos_t, const void* sin_t, int B,
+                                   int H, int T, int dh, float scale, void* stream) {
   if (dh != FLASH_DH) return kErrHeadDim;
   auto run = causal ? run_bwd_dq<FLASH_DH, true> : run_bwd_dq<FLASH_DH, false>;
-  return run(is_f32, q, k, v, dout, lse, delta, dq, valid, valid_n, B, H, T, scale,
+  return run(is_f32, q, k, v, dout, lse, delta, dq, valid, valid_n, cos_t, sin_t, B, H, T, scale,
              static_cast<cudaStream_t>(stream));
 }
 
 int covomix_flash_attention_bwd_dkv(int is_f32, int causal, const void* q, const void* k, const void* v,
                                     const void* dout, const float* lse, const float* delta, void* dk,
-                                    void* dv, const int* valid, int valid_n, int B, int H, int T,
-                                    int dh, float scale, void* stream) {
+                                    void* dv, const int* valid, int valid_n, const void* cos_t, const void* sin_t,
+                                    int B, int H, int T, int dh, float scale, void* stream) {
   if (dh != FLASH_DH) return kErrHeadDim;
   auto run = causal ? run_bwd_dkv<FLASH_DH, true> : run_bwd_dkv<FLASH_DH, false>;
-  return run(is_f32, q, k, v, dout, lse, delta, dk, dv, valid, valid_n, B, H, T, scale,
+  return run(is_f32, q, k, v, dout, lse, delta, dk, dv, valid, valid_n, cos_t, sin_t, B, H, T, scale,
              static_cast<cudaStream_t>(stream));
 }
 
@@ -1571,6 +2134,7 @@ const char* covomix_cuda_error_string(int code) {
     case kErrTables: return "the bf16 forward takes q and k already rotated (the rotary pre-pass), not tables";
     case kErrNoEncoder: return "cuTensorMapEncodeTiled not found through cudaGetDriverEntryPoint";
     case kErrEncode: return "cuTensorMapEncodeTiled refused the tensor map";
+    case kErrBwdTables: return "the f32 backward kernels take no rotary tables";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

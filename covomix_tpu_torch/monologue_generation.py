@@ -25,9 +25,7 @@ import torch
 
 from covomix_tpu_torch import resolve_device
 from covomix_tpu_torch.audio import save_wav
-from covomix_tpu_torch.pipeline import SPECULATIVE_ITEM, Synthesizer, load_synthesizer
-
-TORCH_CKPT_ITEM = "ROADMAP.md 'Modules to port': torch_convert + hifigan_inference"
+from covomix_tpu_torch.pipeline import SPECULATIVE_ITEM, Synthesizer, load_synthesizer, require_npz
 
 
 def add_args(parser: argparse.ArgumentParser, *, mode: str, prompt_dir: str) -> None:
@@ -57,11 +55,7 @@ def add_args(parser: argparse.ArgumentParser, *, mode: str, prompt_dir: str) -> 
 def load_models(args) -> Synthesizer:
     if args.speculative:
         raise NotImplementedError(f"--speculative: speculative T2S decode is not ported yet ({SPECULATIVE_ITEM})")
-    for path in (args.t2s_ckpt, args.acous_ckpt, args.hifigan_ckpt):
-        if not path.endswith(".npz"):
-            raise ValueError(f"{path}: the port reads .npz checkpoints only; convert PyTorch checkpoints "
-                             f"(.ckpt, HiFi-GAN g_<step>) with convert_checkpoint.py first "
-                             f"(reading them directly waits for {TORCH_CKPT_ITEM})")
+    require_npz(args.t2s_ckpt, args.acous_ckpt, args.hifigan_ckpt)
     device = resolve_device(args.device)
     if args.f32:
         dtype = torch.float32

@@ -33,11 +33,18 @@ bytes. The f32 forward rotates inside its kernel.
 requires it, it runs a `torch.autograd.Function` (`_FlashCore`, or
 `_FlashCoreRot` with rotary tables), the counterparts of the JAX package's two
 `custom_vjp`s: the forward keeps the logsumexp, the backward computes
-delta = rowsum(dO * O) in f32 and runs dQ and dK/dV. `_FlashCoreRot` saves the
-unrotated q and k; its backward re-rotates them with the kernel's own
-arithmetic (`_rotary_plain`) and counter-rotates dq and dk
-(`_rotary_transpose`). Otherwise (`torch.no_grad()`, inference) it launches the
-forward without the logsumexp.
+delta = rowsum(dO * O) in f32 and runs dQ and dK/dV. `_FlashCoreRot` rotates q
+and k once in its forward (the bf16 pre-pass on CUDA) and saves the rotated
+pair; its backward gives the tables to dQ and dK/dV, which return the
+gradients of the unrotated q and k (the bf16 kernels apply the rotary's
+transpose, `_rotary_transpose`'s arithmetic, in their epilogue). Otherwise
+(`torch.no_grad()`, inference) it launches the forward without the
+logsumexp.
+
+The bf16 backward at head dim 64 (dQ also at 128) is the forward's design:
+one warpgroup per 64 rows, the other axis streamed through a TMA ring, all
+five products as wgmma, with K, Q and dO read MN-major from the same tiles
+the scores read K-major (no transposed copies; `BwdWgCfg` in the source).
 
 The kernels are built once per head dim (`-DFLASH_DH`), for the head dims
 `kernel_supports_dh` admits: multiples of 16 up to 256. The dispatcher uses
@@ -122,10 +129,10 @@ class FlashKernel:
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.covomix_flash_attention_fwd.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, ci, vp, vp,
                                                         ci, ci, ci, ci, cf, vp]
-            lib.covomix_flash_attention_bwd_dq.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+            lib.covomix_flash_attention_bwd_dq.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp, vp,
                                                            ci, ci, ci, ci, cf, vp]
-            lib.covomix_flash_attention_bwd_dkv.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                                                            ci, ci, ci, ci, cf, vp]
+            lib.covomix_flash_attention_bwd_dkv.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp,
+                                                            vp, ci, ci, ci, ci, cf, vp]
             lib.covomix_flash_rotary_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
             for fn in (lib.covomix_flash_attention_fwd, lib.covomix_flash_attention_bwd_dq,
                        lib.covomix_flash_attention_bwd_dkv, lib.covomix_flash_rotary_bf16):
@@ -238,17 +245,29 @@ class FlashKernel:
             self.launches += 1
         return out
 
-    def bwd_dq(self, q, k, v, dout, lse, delta, valid, causal=False):
-        """dQ from the already rotated q, k, the output gradient dout, the
-        forward's lse and delta = rowsum(dout * out) (f32 [B, H, T])."""
+    def _check_bwd(self, q, k, v, dout, lse, delta, valid, rotary):
         self._check(q, k, v, valid, (dout,))
         self._check_rows(q, (lse, delta))
+        if rotary is None:
+            return None, None
+        if q.dtype != torch.bfloat16:
+            raise ValueError("flash backward: the f32 kernels take no rotary tables")
+        self._check_tables(q, rotary)
+        return rotary[0].data_ptr(), rotary[1].data_ptr()
+
+    def bwd_dq(self, q, k, v, dout, lse, delta, valid, causal=False, rotary=None):
+        """dQ from the already rotated q, k, the output gradient dout, the
+        forward's lse and delta = rowsum(dout * out) (f32 [B, H, T]). With
+        bf16 `rotary` tables (cos, sin_signed) [>=T, dh], dQ leaves through
+        the rotary's transpose: the gradient of the unrotated q,
+        `_rotary_transpose` of the dQ without tables, bit for bit."""
+        cos, sin = self._check_bwd(q, k, v, dout, lse, delta, valid, rotary)
         b, h, t, dh = q.shape
         lib = self.build(dh)
         dq = torch.empty_like(q)
         err = lib.covomix_flash_attention_bwd_dq(
             int(q.dtype == torch.float32), int(causal), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), valid.data_ptr(), valid.shape[0],
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), valid.data_ptr(), valid.shape[0], cos, sin,
             b, h, t, dh, dh ** -0.5, _stream(q))
         self._raise_on(lib, err, "dQ")
         if causal:
@@ -257,17 +276,17 @@ class FlashKernel:
             self.dq_launches += 1
         return dq
 
-    def bwd_dkv(self, q, k, v, dout, lse, delta, valid, causal=False):
-        """(dK, dV), with the same inputs as `bwd_dq`."""
-        self._check(q, k, v, valid, (dout,))
-        self._check_rows(q, (lse, delta))
+    def bwd_dkv(self, q, k, v, dout, lse, delta, valid, causal=False, rotary=None):
+        """(dK, dV), with the same inputs as `bwd_dq`; with tables, dK leaves
+        through the rotary's transpose."""
+        cos, sin = self._check_bwd(q, k, v, dout, lse, delta, valid, rotary)
         b, h, t, dh = q.shape
         lib = self.build(dh)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         err = lib.covomix_flash_attention_bwd_dkv(
             int(q.dtype == torch.float32), int(causal), q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), valid.data_ptr(),
-            valid.shape[0], b, h, t, dh, dh ** -0.5, _stream(q))
+            valid.shape[0], cos, sin, b, h, t, dh, dh ** -0.5, _stream(q))
         self._raise_on(lib, err, "dK/dV")
         if causal:
             self.causal_dkv_launches += 1
@@ -380,21 +399,30 @@ def flash_delta(dout, out):
     return torch.sum(dout.float() * out.float(), dim=-1)
 
 
-def flash_bwd_dq_plain(q, k, v, dout, lse, delta, valid, causal: bool = False):
+def _unrotate(x, rotary):
+    """x through the rotary's transpose when tables are given (the gradient
+    of the unrotated input), else x."""
+    if rotary is None:
+        return x
+    t = x.shape[2]
+    return _rotary_transpose(x, rotary[0][:t], rotary[1][:t])
+
+
+def flash_bwd_dq_plain(q, k, v, dout, lse, delta, valid, causal: bool = False, rotary=None):
     """The dQ kernel's function: dq = dh^-0.5 * bf16(ds) k, for q, k already
-    rotated."""
+    rotated; with `rotary` tables, then `_rotary_transpose` of that."""
     _, ds = _probs_and_ds(q, k, v, dout, lse, delta, valid, causal)
     dq = torch.einsum("bhij,bhjd->bhid", ds.to(k.dtype).float(), k.float())
-    return (dq * q.shape[-1] ** -0.5).to(q.dtype)
+    return _unrotate((dq * q.shape[-1] ** -0.5).to(q.dtype), rotary)
 
 
-def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, valid, causal: bool = False):
+def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, valid, causal: bool = False, rotary=None):
     """The dK/dV kernel's function: dv = bf16(p)^T dO, dk = dh^-0.5 *
-    bf16(ds)^T q."""
+    bf16(ds)^T q; with `rotary` tables, dk then through `_rotary_transpose`."""
     p, ds = _probs_and_ds(q, k, v, dout, lse, delta, valid, causal)
     dv = torch.einsum("bhij,bhid->bhjd", p.to(dout.dtype).float(), dout.float())
     dk = torch.einsum("bhij,bhid->bhjd", ds.to(q.dtype).float(), q.float())
-    return (dk * q.shape[-1] ** -0.5).to(k.dtype), dv.to(v.dtype)
+    return _unrotate((dk * q.shape[-1] ** -0.5).to(k.dtype), rotary), dv.to(v.dtype)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, g, valid, causal: bool = False):
@@ -416,15 +444,21 @@ def _forward_lse(q, k, v, valid, rotary, causal):
     return flash_attention_plain(q, k, v, valid, rotary, causal, return_lse=True)
 
 
-def _backward(q, k, v, out, lse, g, valid, causal):
-    """(dq, dk, dv) at already rotated q, k: the two backward kernels on CUDA
-    tensors, the plain version on CPU tensors."""
+def _backward(q, k, v, out, lse, g, valid, causal, rotary=None):
+    """(dq, dk, dv) at already rotated q, k (with `rotary` tables, dq and dk
+    of the unrotated ones): the two backward kernels on CUDA tensors, the
+    plain version on CPU tensors. The bf16 kernels apply the rotary's
+    transpose themselves; after the f32 ones it runs in PyTorch."""
     g = g.contiguous()
     if not q.is_cuda:
-        return flash_attention_bwd_plain(q, k, v, out, lse, g, valid, causal)
+        dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, g, valid, causal)
+        return _unrotate(dq, rotary), _unrotate(dk, rotary), dv
     delta = flash_delta(g, out)
-    dq = KERNEL.bwd_dq(q, k, v, g, lse, delta, valid, causal)
-    dk, dv = KERNEL.bwd_dkv(q, k, v, g, lse, delta, valid, causal)
+    tables = rotary if q.dtype == torch.bfloat16 else None
+    dq = KERNEL.bwd_dq(q, k, v, g, lse, delta, valid, causal, tables)
+    dk, dv = KERNEL.bwd_dkv(q, k, v, g, lse, delta, valid, causal, tables)
+    if tables is None:
+        dq, dk = _unrotate(dq, rotary), _unrotate(dk, rotary)
     return dq, dk, dv
 
 
@@ -447,14 +481,19 @@ class _FlashCore(torch.autograd.Function):
 
 class _FlashCoreRot(torch.autograd.Function):
     """Differentiable flash attention with fused halfsplit rotary
-    (`_flash_core_rot`); the tables and `causal` are constants. Saves the
-    unrotated q and k; the backward re-rotates them with the kernel's
-    arithmetic, runs dQ and dK/dV on the rotated tensors and counter-rotates
-    dq and dk."""
+    (`_flash_core_rot`); the tables and `causal` are constants. The forward
+    rotates q and k once (bf16 on CUDA: the rotary pre-pass, `KERNEL.rotary`;
+    otherwise `_rotary_plain`, the f32 kernel's and the plain version's
+    arithmetic) and saves the rotated pair; the backward hands the tables to
+    dQ and dK/dV, which return the gradients of the unrotated q and k."""
 
     @staticmethod
     def forward(ctx, q, k, v, valid, cos, sin, causal):
-        out, lse = _forward_lse(q, k, v, valid, (cos, sin), causal)
+        if q.is_cuda and q.dtype == torch.bfloat16:
+            q, k = KERNEL.rotary(q, k, cos, sin)
+        else:
+            q, k = _rotary_plain(q, cos, sin), _rotary_plain(k, cos, sin)
+        out, lse = _forward_lse(q, k, v, valid, None, causal)
         ctx.save_for_backward(q, k, v, out, lse, valid, cos, sin)
         ctx.causal = causal
         return out
@@ -462,11 +501,8 @@ class _FlashCoreRot(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse, valid, cos, sin = ctx.saved_tensors
-        t = q.shape[2]
-        cos, sin = cos[:t], sin[:t]
-        dqr, dkr, dv = _backward(_rotary_plain(q, cos, sin), _rotary_plain(k, cos, sin), v, out, lse, g, valid,
-                                 ctx.causal)
-        return _rotary_transpose(dqr, cos, sin), _rotary_transpose(dkr, cos, sin), dv, None, None, None, None
+        dq, dk, dv = _backward(q, k, v, out, lse, g, valid, ctx.causal, (cos, sin))
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, valid_len=None, causal: bool = False, rotary=None):

@@ -48,6 +48,18 @@ TOKEN_CLAMP = 501            # clamp ceiling incl. EOS
 PROMPT_MAX_FRAMES = 400      # 8 s at 20 ms hop
 MEL_PAD = -15.0              # collate pad value
 SPECULATIVE_ITEM = "ROADMAP.md 'Modules to port': speculative decode"
+PARALLEL_ITEM = "ROADMAP.md 'Modules to port': Parallelism"
+TORCH_CKPT_ITEM = "ROADMAP.md 'Modules to port': torch_convert + hifigan_inference"
+
+
+def require_npz(*paths: str) -> None:
+    """Refuse checkpoints other than `.npz` (Lightning `.ckpt`, HiFi-GAN
+    `g_<step>`), naming the converter: the port reads `.npz` only."""
+    for path in paths:
+        if not path.endswith(".npz"):
+            raise ValueError(f"{path}: the port reads .npz checkpoints only; convert PyTorch checkpoints "
+                             f"(.ckpt, HiFi-GAN g_<step>) with convert_checkpoint.py first "
+                             f"(reading them directly waits for {TORCH_CKPT_ITEM})")
 
 
 def _tupled(v):

@@ -23,7 +23,8 @@ from covomix_tpu_torch import resolve_device
 from covomix_tpu_torch.audio import MelConfig, save_wav
 from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
 from covomix_tpu_torch.models import acoustic as A, text2semantic as T, vocoder as V
-from covomix_tpu_torch.pipeline import clean_text, load_checkpoint, prepare_prompt
+from covomix_tpu_torch.pipeline import (PARALLEL_ITEM, SPECULATIVE_ITEM, clean_text, load_checkpoint,
+                                        prepare_prompt, require_npz)
 from covomix_tpu_torch.serving import SILENCE_TOKEN, BatchedPipeline
 
 
@@ -45,11 +46,24 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true", help="force bfloat16 compute (default on cuda)")
     p.add_argument("--f32", action="store_true", help="force float32 compute (default on cpu)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu must be asked for)")
+    p.add_argument("--staged", action="store_true",
+                   help="run the stages one after another (the eager port always does)")
+    p.add_argument("--speculative", action="store_true",
+                   help="greedy self-speculative T2S decode (not ported yet: raises)")
+    p.add_argument("--spec_gamma", type=int, default=None,
+                   help="speculative drafts per verify round (not ported yet: raises)")
+    p.add_argument("--multihost", action="store_true", help="multi-host serving (not ported yet: raises)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.speculative or args.spec_gamma is not None:
+        raise NotImplementedError(f"--speculative / --spec_gamma: speculative decode is not ported yet "
+                                  f"({SPECULATIVE_ITEM})")
+    if args.multihost:
+        raise NotImplementedError(f"--multihost: multi-host serving is not ported yet ({PARALLEL_ITEM})")
+    require_npz(args.t2s_ckpt, args.acous_ckpt, args.hifigan_ckpt)
     device = resolve_device(args.device)
     if args.f32:
         dtype = torch.float32

@@ -117,13 +117,16 @@ class BatchedPipeline:
         [B, P, cond_dim]; prompt_lens [B] (default P). `noise` [B, P+L, 80]
         overrides the flow sampler's y0. Returns (wav [B, samples] over the
         generated region, GenerateResult)."""
+        two = self.acoustic_cfg.n_phoneme_streams == 2
         if not isinstance(prompt_tokens, torch.Tensor):
             text_ids, prompt_tokens, prompt_mels, prompt_lens = self.place(
                 text_ids, prompt_tokens, prompt_mels, prompt_lens)
-        elif prompt_lens is None:
-            prompt_lens = torch.full((prompt_tokens.shape[0],), prompt_tokens.shape[1],
-                                     dtype=torch.int32, device=prompt_tokens.device)
-        two = self.acoustic_cfg.n_phoneme_streams == 2
+        else:
+            if two and prompt_tokens.dim() == 2:   # one prompt row for both streams, as place() does
+                prompt_tokens = torch.stack([prompt_tokens, prompt_tokens], dim=-1)
+            if prompt_lens is None:
+                prompt_lens = torch.full((prompt_tokens.shape[0],), prompt_tokens.shape[1],
+                                         dtype=torch.int32, device=prompt_tokens.device)
         L = self.decode_len
         gen = self._gen(self.t2s_params, generator, text_ids)
         gen_lens = (torch.minimum(gen.lengths, gen.lengths2) if two else gen.lengths).to(torch.int32)

@@ -28,11 +28,11 @@ from covomix_tpu_torch.data.datasets import (CoVoMixDataset, collate_acoustic, c
                                              stack_microbatches)
 from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
 from covomix_tpu_torch.models import acoustic as A, text2semantic as T
+from covomix_tpu_torch.pipeline import PARALLEL_ITEM
 from covomix_tpu_torch.train import evaluate as E, loop
 from covomix_tpu_torch.util.logging_utils import MetricsLogger
 from covomix_tpu_torch.util.watchdog import Watchdog
 
-_PARALLEL_ITEM = "ROADMAP.md 'Modules to port': Parallelism"
 _MULTI_STEP_NOTE = ("ROADMAP.md section 3, reference behaviours: make_multi_step unrolls K optimizer steps "
                     "into one jitted XLA dispatch, which has no eager counterpart")
 
@@ -119,7 +119,7 @@ def _refuse_unported(args) -> None:
                                       ("--dp", args.dp > 1)) if on]
     if parallel:
         raise NotImplementedError(f"{', '.join(parallel)}: the port trains on one device; parallel training "
-                                  f"is not ported yet ({_PARALLEL_ITEM})")
+                                  f"is not ported yet ({PARALLEL_ITEM})")
     if args.steps_per_dispatch > 1:
         raise NotImplementedError(f"--steps_per_dispatch > 1 is not ported ({_MULTI_STEP_NOTE})")
 

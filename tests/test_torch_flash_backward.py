@@ -148,6 +148,49 @@ def test_causal_plain_backward_matches_autograd_of_plain_forward(rotary):
     assert bool((dk[0, :, -1] != 0).all()) and bool((dv[0, :, -1] != 0).all())
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_backward_with_tables_is_the_rotary_transpose(causal):
+    """dQ and dK with the rotary tables are `_rotary_transpose` of dQ and dK
+    without them, bit for bit (the kernels' epilogue is held to the same
+    on the card); dV does not change. bf16, as the kernels take tables."""
+    t = 200
+    q, k, v, g = (torch.from_numpy(x).to(torch.bfloat16) for x in _arrays(t, 21))
+    valid = PF._valid_array(torch.tensor([200, 97]), B, t, "cpu")
+    tables = tuple(x.to(torch.bfloat16) for x in _tables(t + 16, False))   # longer than T, as the kernel takes
+    out, lse = PF.flash_attention_plain(q, k, v, valid, return_lse=True, causal=causal)
+    delta = PF.flash_delta(g, out)
+    args = (q, k, v, g, lse, delta, valid, causal)
+    cos, sin = tables[0][:t], tables[1][:t]
+    assert torch.equal(PF.flash_bwd_dq_plain(*args, rotary=tables),
+                       PF._rotary_transpose(PF.flash_bwd_dq_plain(*args), cos, sin))
+    (dk_r, dv_r), (dk, dv) = PF.flash_bwd_dkv_plain(*args, rotary=tables), PF.flash_bwd_dkv_plain(*args)
+    assert torch.equal(dk_r, PF._rotary_transpose(dk, cos, sin)) and torch.equal(dv_r, dv)
+
+
+def test_rotary_backward_reads_the_saved_rotated_pair(monkeypatch):
+    """`_FlashCoreRot` rotates q and k once, in its forward; its backward
+    re-rotates nothing and hands the tables to the backward, whose rotary
+    transpose runs once for dq and once for dk."""
+    calls = {"rotate": 0, "transpose": 0}
+    rotate, transpose = PF._rotary_plain, PF._rotary_transpose
+
+    def spy_rotate(*a):
+        calls["rotate"] += 1
+        return rotate(*a)
+
+    def spy_transpose(*a):
+        calls["transpose"] += 1
+        return transpose(*a)
+
+    monkeypatch.setattr(PF, "_rotary_plain", spy_rotate)
+    monkeypatch.setattr(PF, "_rotary_transpose", spy_transpose)
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _arrays(96, 4, 3))
+    out = PF.flash_attention(q, k, v, rotary=_tables(96, False))
+    assert type(out.grad_fn).__name__ == "_FlashCoreRotBackward" and calls == {"rotate": 2, "transpose": 0}
+    out.sum().backward()
+    assert calls == {"rotate": 2, "transpose": 2}
+
+
 def test_no_grad_runs_the_forward_without_lse(monkeypatch):
     """Under torch.no_grad (inference) the forward without the logsumexp
     runs; with grad on and an input that requires it, the lse forward inside

@@ -114,3 +114,19 @@ def test_cuda_requested_without_cuda_raises():
         resolve_device(None)
     with pytest.raises(RuntimeError, match="cuda"):
         BatchedPipeline({}, P_T2S, {}, P_AC, {}, P_VOC)   # the default device is cuda
+
+
+def test_two_stream_prompt_tensor_of_two_dims_is_stacked():
+    """A 2-D prompt_tokens tensor [B, P] for the two-stream model serves both
+    streams, as the same numpy array does through place()."""
+    jt, ja, jv = (jax.tree_util.tree_map(np.asarray, p) for p in jax_params(1))
+    pipe = BatchedPipeline(jt, P_T2S, ja, P_AC, jv, P_VOC, decode_len=L, dtype=torch.float32,
+                           top_k_thres=GREEDY_THRES, device="cpu")
+    rs = np.random.RandomState(8)
+    text = rs.randint(1, 200, (2, 6)).astype(np.int32)
+    ptok = rs.randint(0, 500, (2, 5)).astype(np.int32)
+    pmel = (rs.randn(2, 5, 160) * 0.1).astype(np.float32)
+    noise = torch.from_numpy(rs.randn(2, 5 + L, 80).astype(np.float32))
+    ref, _ = pipe(torch.Generator().manual_seed(0), text, ptok, pmel, noise=noise)
+    out, _ = pipe(torch.Generator().manual_seed(0), *(torch.as_tensor(a) for a in (text, ptok, pmel)), noise=noise)
+    assert out.shape == ref.shape and torch.equal(out, ref)
