@@ -3,6 +3,15 @@
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
     python3 chip_smoke.py --ab-training DIR   # the two training cells, DIR's tree against this one
+    python3 chip_smoke.py --vocoder           # the fused vocoder kernels alone
+
+`--vocoder` is the quick loop for the fused stage / tail kernels: it builds
+only their library, logs ptxas's registers and spills, runs check_vocoder's
+cases, times both kernels at T=512 and at the per-file main path's shapes
+([1,40964,125] stage, [1,163856,62] tail, seeded random inputs, full-width
+weights), each timed output held against its plain version and each
+launch's block plan logged, holds VOC_REGS, and ends with the same `ok`
+line. It does not replace the default run.
 
 Phases (any failure exits non-zero, nothing is passed over):
   1. print the card's name and power limit (nvidia-smi);
@@ -12,7 +21,8 @@ Phases (any failure exits non-zero, nothing is passed over):
      edge head dims checked below (one nvcc per head dim) and the fused
      vocoder stage/tail library (both dtypes), all started together; log
      ptxas's registers, spills and wgmma notes, and hold the dh-64 bf16
-     flash kernels to FLASH_REGS with no spills;
+     flash kernels to FLASH_REGS and the fused vocoder kernels to VOC_REGS,
+     with no spills;
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and at edge shapes, with stated tolerances:
      the rotary pre-pass bit for bit against `_rotary_plain`; the inference
@@ -760,6 +770,7 @@ def time_vocoder(results, key, kind, x, up, blocks, post=None):
     c = up["w"].shape[2]
     packed = VT.pack_weights(up, blocks, post, (3, 7, 11), ((1, 3, 5),) * 3, x.dtype, x.device)
     kern = VT.TAIL if tail else VT.STAGE
+    log_vocoder_plan(results, key, kern, x, packed)
     plain = (lambda: VT.fused_tail_plain(x, up, blocks, post)) if tail else (
         lambda: VT.fused_stage_plain(x, up, blocks))
     results[f"{key}_max_abs_err"] = vocoder_agreement(f"fused {kind} at the timed inputs", x, kern(x, packed),
@@ -781,6 +792,20 @@ def time_vocoder(results, key, kind, x, up, blocks, post=None):
         f"{results[f'{key}_plain_ms']:.4f} ms, unfused generator ops {results[f'{key}_unfused_ms']:.4f} ms, "
         f"bound {results[f'{key}_bound_ms']:.4f} ms ({results[f'{key}_bound_by']}: {2 * macs / 1e9:.2f} GFLOP, "
         f"{nbytes / 1e6:.2f} MB) -> {2 * macs / ms / 1e9:.1f} TFLOP/s")
+
+
+def log_vocoder_plan(results, key, kern, x, packed):
+    """The block plan the library gives a fused bf16 kernel on x (tile,
+    blocks, waves on this card's SMs, shared memory) and, per MRF conv, the
+    busiest warp's units against the mean over the 16 warps and the idlest
+    warp's units; into results[f"{key}_plan"]."""
+    p = kern.plan(x, packed)
+    ratios = [round(busiest / (units / 16), 3) for _, units, busiest, _ in p.convs]
+    idlest = min((c[3] for c in p.convs), default=None)   # no units in the f32 kernels
+    results[f"{key}_plan"] = {**p._asdict(), "unit_max_over_mean": ratios, "idlest_warp_units": idlest}
+    log(f"fused {'tail' if kern.tail else 'stage'} plan x{list(x.shape)}: tile {p.tile}, {p.blocks} blocks = "
+        f"{p.waves:.3f} waves, {p.smem} B shared, busiest warp / mean units per conv {ratios}, "
+        f"idlest warp's units in any conv {idlest}")
 
 
 def time_vocoder_t512(results):
@@ -1599,6 +1624,47 @@ FLASH_REGS = {"flash_fwd_wgmma<Li64ELb0ELb0E>": 155, "flash_fwd_wgmma<Li64ELb1EL
               "flash_bwd_dkv_wgmma<Li64ELb0ELb1E>": 168, "flash_rotary_transpose_bf16<Li64E>": 48}
 
 
+# The fused vocoder kernels (`<type, channel padding, tail>`, all eight the
+# library instantiates): 512 threads per block cap a thread at 128
+# registers, and ptxas spills beyond; none may spill.
+VOC_REGS = {"vocoder_fused_kernel<13__nv_bfloat16Li64ELb0E>": 124, "vocoder_fused_kernel<13__nv_bfloat16Li32ELb1E>": 123,
+            "vocoder_fused_kernel<13__nv_bfloat16Li32ELb0E>": 128, "vocoder_fused_kernel<13__nv_bfloat16Li64ELb1E>": 121,
+            "vocoder_fused_kernel<fLi64ELb0E>": 96, "vocoder_fused_kernel<fLi32ELb1E>": 103,
+            "vocoder_fused_kernel<fLi32ELb0E>": 96, "vocoder_fused_kernel<fLi64ELb1E>": 103}
+
+
+def parse_ptxas(name, build_log, regs, spills):
+    """Log ptxas's registers, spills and wgmma notes per kernel of one
+    library's build log into regs / spills ({kernel: count})."""
+    kernel = "?"
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:   # the kernel's name, length-prefixed in the mangled one
+            m = re.search(r"\d+((?:flash|vocoder)_[a-z_0-9]+)I(.*?)EEv", line)
+            kernel = f"{m.group(1)}<{m.group(2)}>" if m else line.split("'")[1]
+        elif "Used" in line or "spill" in line or "wgmma.mma_async" in line:
+            log(f"  ptxas {name} {kernel}: " + line.strip().replace("ptxas info    : ", ""))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                regs[kernel] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spills[kernel] = int(m.group(1)) + int(m.group(2))
+
+
+def parallel_builds(builds, libs):
+    """Run the build callables all at once; log each library's seconds."""
+    def timed(build):
+        start = time.time()
+        build()
+        return time.time() - start
+
+    t0 = time.time()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        seconds = list(pool.map(timed, builds))
+    log(f"built {[os.path.relpath(p, REPO) for p in libs]} in {time.time() - t0:.1f} s, each (s): "
+        + ", ".join(f"{os.path.basename(p)} {t:.1f}" for p, t in zip(libs, seconds)))
+
+
 def build_kernels():
     """Build every kernel library from the checkout's sources, all nvcc runs
     started together: the flash kernels for the serving / training head dim
@@ -1608,46 +1674,24 @@ def build_kernels():
     {kernel: spill bytes}) of those."""
     from covomix_tpu_torch.ops import flash_attention as FA, vocoder_tail as VT
 
-    t0 = time.time()
     dhs = (SERVING_DH,) + EDGE_DH
-    builds = [lambda dh=dh: FA.KERNEL.build(dh) for dh in dhs] + [VT.LIBRARY.build]
-
-    def timed(build):
-        start = time.time()
-        build()
-        return time.time() - start
-
-    with ThreadPoolExecutor(len(builds)) as pool:
-        seconds = list(pool.map(timed, builds))
-    libs = [FA.KERNEL.lib_path(dh) for dh in dhs] + [VT.LIBRARY.lib_path()]
-    log(f"built {[os.path.relpath(p, REPO) for p in libs]} in {time.time() - t0:.1f} s, each (s): "
-        + ", ".join(f"{os.path.basename(p)} {t:.1f}" for p, t in zip(libs, seconds)))
+    parallel_builds([lambda dh=dh: FA.KERNEL.build(dh) for dh in dhs] + [VT.LIBRARY.build],
+                    [FA.KERNEL.lib_path(dh) for dh in dhs] + [VT.LIBRARY.lib_path()])
     regs, spills = {}, {}
-    for name, build_log in ((f"flash dh {SERVING_DH}", FA.KERNEL.build_logs.get(SERVING_DH, "")),
-                            ("vocoder_tail", VT.LIBRARY.build_log)):
-        kernel = "?"
-        for line in build_log.splitlines():
-            if "Compiling entry function" in line:   # the kernel's name, length-prefixed in the mangled one
-                m = re.search(r"\d+((?:flash|vocoder)_[a-z_0-9]+)I(.*?)EEv", line)
-                kernel = f"{m.group(1)}<{m.group(2)}>" if m else line.split("'")[1]
-            elif "Used" in line or "spill" in line or "wgmma.mma_async" in line:
-                log(f"  ptxas {name} {kernel}: " + line.strip().replace("ptxas info    : ", ""))
-                m = re.search(r"Used (\d+) registers", line)
-                if m:
-                    regs[kernel] = int(m.group(1))
-                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if m:
-                    spills[kernel] = int(m.group(1)) + int(m.group(2))
+    parse_ptxas(f"flash dh {SERVING_DH}", FA.KERNEL.build_logs.get(SERVING_DH, ""), regs, spills)
+    parse_ptxas("vocoder_tail", VT.LIBRARY.build_log, regs, spills)
     return regs, spills
 
 
-def check_registers(regs, spills):
-    """The dh-64 bf16 flash kernels keep FLASH_REGS, with no spills."""
-    found = {k: regs.get(k) for k in FLASH_REGS}
-    spilled = {k: spills.get(k) for k in FLASH_REGS}
-    log(f"dh-64 bf16 flash registers {found} (expected {FLASH_REGS}), spill bytes {spilled}")
-    if found != FLASH_REGS or any(v != 0 for v in spilled.values()):
-        raise AssertionError("a dh-64 bf16 flash kernel's register count changed, or it spills")
+def check_registers(regs, spills, expected=None):
+    """The kernels of `expected` ({kernel: registers}; default FLASH_REGS and
+    VOC_REGS) keep their register counts, with no spills."""
+    expected = expected or {**FLASH_REGS, **VOC_REGS}
+    found = {k: regs.get(k) for k in expected}
+    spilled = {k: spills.get(k) for k in expected}
+    log(f"registers {found} (expected {expected}), spill bytes {spilled}")
+    if found != expected or any(v != 0 for v in spilled.values()):
+        raise AssertionError("a flash or vocoder kernel's register count changed, or it spills")
 
 
 def kernel_entry(results, key, name, source, replaces, launches, with_prepass=False, **extra) -> dict:
@@ -1846,7 +1890,66 @@ def ab_training(other: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# python3 chip_smoke.py --vocoder: the fused vocoder kernels alone
+
+
+MAIN_PATH_VOCODER = {"stage": (1, 40964, 125), "tail": (1, 163856, 62)}   # x of the per-file run's vocode
+
+
+def main_path_vocoder_inputs(kind):
+    """Seeded random x at the per-file main path's shape of the stage or
+    tail, bf16, and the full-width weights of that stage (x, up, blocks,
+    post)."""
+    import torch
+
+    up, blocks, post = vocoder_stage_params(500, kind == "tail", 7)
+    x = torch.randn(MAIN_PATH_VOCODER[kind], generator=torch.Generator(device="cuda").manual_seed(9),
+                    device="cuda").to(torch.bfloat16)
+    return x, up, blocks, post
+
+
+def vocoder_mode() -> int:
+    """`python3 chip_smoke.py --vocoder`: build only the fused vocoder
+    library, log ptxas's registers and spills, run check_vocoder's cases,
+    time both kernels at T=512 and at the per-file main path's shapes on
+    seeded random inputs with full-width weights (each timed output held
+    against its plain version); hold VOC_REGS last, so that a build with
+    new counts still prints every timing."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if os.path.exists(VT.LIBRARY.lib_path()):   # ptxas's counts come from the build's log: always build
+        os.remove(VT.LIBRARY.lib_path())
+    parallel_builds([VT.LIBRARY.build], [VT.LIBRARY.lib_path()])
+    regs, spills = {}, {}
+    parse_ptxas("vocoder_tail", VT.LIBRARY.build_log, regs, spills)
+    results = {}
+    check_vocoder(results)
+    time_vocoder_t512(results)
+    for kind in MAIN_PATH_VOCODER:
+        time_vocoder(results, kind, kind, *main_path_vocoder_inputs(kind))
+    check_registers(regs, spills, VOC_REGS)
+    log(f"total chip_smoke --vocoder time {time.time() - t_start:.1f} s")
+    log(json.dumps({"vocoder": {k: v for k, v in results.items() if k.startswith(("stage", "tail"))}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab-training"]:
         sys.exit(ab_training(sys.argv[2]))
+    if sys.argv[1:2] == ["--vocoder"]:
+        sys.exit(vocoder_mode())
     sys.exit(main())

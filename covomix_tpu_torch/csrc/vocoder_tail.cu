@@ -1,39 +1,74 @@
 // Fused HiFi-GAN upsample stage and tail for Hopper (sm_90a).
 //
 // Replaces: the Pallas TPU kernels of covomix_tpu/ops/vocoder_tail.py,
-//   `_stage_kernel` (reached through `fused_stage`):
+//   `_stage_kernel` (:369, reached through `fused_stage` :428):
 //       lrelu(0.1) -> ConvTranspose1d(rate 4, kernel 4, padding 0) ->
 //       3-branch ResBlock1 MRF (18 convs) / 3            [B, T1, Cin] -> [B, 4*T1, C]
-//   `_tail_kernel` (reached through `fused_tail`):
+//   `_tail_kernel` (:209, reached through `fused_tail` :270):
 //       lrelu(0.1) -> ConvTranspose1d(rate 2, kernel 4, padding 1) -> MRF / 3 ->
 //       lrelu(0.01) -> conv_post(kernel 7, C -> 1) -> tanh  [B, T2, Cin] -> [B, 2*T2] f32
 //
-// What bounds it on the card: at the covomix shapes (C = 62 / 31, B = 1,
-// T = 512 mel frames) the stage does ~20 G MAC on ~9 MB of input and output
-// and the tail ~10 G MAC on ~5 MB, so both are bound by the tensor cores, not
-// by memory, as long as the 20 convs' intermediates never go to device
-// memory. That is what the TPU kernel did too, and what this kernel keeps: one
-// block owns a tile of output positions of one row plus a halo (the worst
-// branch's cumulative reach, e.g. 5+5+15+5+25+5 = 60 for kernel 11 with
-// dilations 1/3/5, plus 3 for conv_post), loads its input frames once, and
-// runs the upsample and all 18 MRF convs out of three shared-memory buffers
-// (upsample output, residual state, conv1 output), with the branch sum in
-// f32 in shared memory. Each conv is computed only on the rows that later
-// convs still read (the margin shrinks by the conv's reach), and only the
-// centre of the tile is written out.
+// What bounds it on the card: the operations. At the covomix shapes (C = 62 /
+// 31) the stage does ~4 k MAC per byte of input and output and the tail ~2 k,
+// far above the card's ~150 MAC per byte, as long as the 20 convs'
+// intermediates never go to device memory. So one block owns a tile of output
+// positions of one row plus a halo (the worst branch's cumulative reach, e.g.
+// 5+5+15+5+25+5 = 60 for kernel 11 with dilations 1/3/5, plus 3 for
+// conv_post), loads its input frames once, and runs the upsample and all 18
+// MRF convs out of four shared-memory buffers (upsample output `up`,
+// residual state `st`, its activation `ab`, conv1 output `hb`). Each conv
+// runs only on the rows that later convs still read (the margin shrinks by
+// the conv's reach), and only the centre of the tile is written out. The f32
+// branch sum of the first two branches goes to a scratch area in device
+// memory (it stays in L2); the last branch's last conv finishes it in its
+// stores (the stage writes its output there, the tail conv_post's input).
 //
-// The TPU kernel's space-to-depth lane packing (4 samples x 31 channels in
-// 124 lanes) is not carried over: here activations are [rows, channels] with
-// the channels padded to CP = 32 or 64 and a row stride that keeps the
-// tensor-core operand loads free of bank conflicts.
+// The TPU kernel's space-to-depth lane packing is not carried over:
+// activations are [rows, channels] with the channels padded to CP = 32 or 64
+// and a row stride that keeps the tensor-core operand loads free of bank
+// conflicts.
 //
-// The MRF convs run on the tensor cores in bf16 (mma.sync m16n8k16, f32
-// accumulate): a conv is sum over taps of [rows x CP] x [CP x CP] products,
-// with the A operand read from the shared buffer at a row offset of
-// dilation*(tap - k/2) and the weights pre-packed by the caller in fragment
-// order and staged in shared memory one tap at a time (a conv's weights, up
-// to 88 KB, would not stay in the L1 left beside the buffers). The upsample, conv_post and the whole f32 variant use scalar FMAs.
-// No TMA, wgmma or pipelining yet: this is the simple, right version.
+// The bf16 MRF (mma.sync m16n8k16, f32 accumulate) is a sum over taps of
+// [rows x CP] x [CP x CP] products. Its design, against what held the first
+// version at 5-11 % of its bound (two block barriers per tap, 4-9 idle warps
+// in every conv, the activation redone at every tap):
+//  - weights by the copy engine: the 126 taps of the 18 convs stream in
+//    order, one bulk copy of a whole tap (8 KB at CP 64, 2 KB at CP 32,
+//    packed tap-major in fragment order by the wrapper) into a ring of 3 / 8
+//    shared-memory stages, each with a "full" mbarrier (bytes in) and a
+//    release count; the last of the 16 warps to release a stage refills it
+//    with the tap NS further on, so the next conv's first taps arrive while
+//    the current conv ends. (A producer warp of its own would make 17 warps,
+//    and ptxas then caps a thread at 96 registers: the loop spilled.)
+//  - no block barrier inside a conv: each of the 16 warps owns a fixed set of
+//    units (a 16-row m-tile x a 32-channel slice) for the whole conv, keeps
+//    their accumulators in registers and walks the taps once, waiting on
+//    "full" and releasing each stage. The only block barriers left are the
+//    18 between convs (conv2 reads all of conv1's output) and one per branch
+//    after the pass that activates `up`; the first version had two per tap;
+//  - every warp busy in every conv: units of 16 rows x 32 channels spread
+//    the conv's 200-600 rows over all 16 warps (the first version's 32-row x
+//    64-channel units left 4-9 warps idle), at most 3 units a warp;
+//  - A fragments by ldmatrix.x4 from the tap-shifted rows of an activated
+//    buffer (row strides 144 / 80 bytes, multiples of 16): conv2 stores the
+//    new state's activation beside the state, so conv1 never activates in its
+//    tap loop (the first version did it 2k times per element);
+//  - the stores: a unit's residual and branch-sum pairs are loaded before its
+//    outputs are stored, as packed bf16 pairs;
+//  - the prologue: the upsample weights come into `st` / `ab` (free until the
+//    MRF) by bulk copy, the input frames in 16-byte chunks;
+//  - the grid: covomix_vocoder_plan picks the tile from the card's SM count
+//    so that the last wave of one-block-per-SM blocks is not mostly empty;
+//    the launch checks the tile it is given against the same limits.
+// Measured with chip_smoke.py (NVIDIA H100 80GB HBM3, 700.00 W, bf16, time
+// on the card): stage [1, 40964, 125] 0.99 ms, tail [1, 163856, 62] 0.75 ms,
+// at 16 % / 11 % of their bounds; the first version took 1.53 / 1.36 ms on
+// the same card.
+// What bounds the MRF loop now is the SM's shared-memory bandwidth beside its
+// mma.sync rate: each k-step of a warp reads ~2.5 KB of fragments for 12
+// products. The upsample, conv_post and the whole f32 variant use scalar
+// FMAs; wgmma for the MRF (B read by the tensor cores once per warpgroup)
+// and the upsample on the tensor cores are the next steps.
 //
 // Rounding follows the TPU kernel: the activated input, the upsample output,
 // each conv1 output, its activation and each residual state are rounded to
@@ -53,18 +88,54 @@
 
 #include <type_traits>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;          // 16 warps; __launch_bounds__ keeps them within 128 registers
 constexpr int kWarps = kThreads / 32;
-constexpr int kUpRows = 4;             // frames per upsample item
-constexpr int kSlackRows = 32;         // rows read past a region by the last 2 x 16-row m-tiles
+// Frames per upsample item: bf16 6 (stage) / 5 (tail), so that one round
+// of the 512 threads covers a block's frames at the planned tiles with few
+// threads idle (and each weight load feeds that many frames); f32 4.
+template <typename T, bool TAIL>
+__host__ __device__ constexpr int up_rows() { return sizeof(T) == 2 ? (TAIL ? 5 : 6) : 4; }
+constexpr int kSlackRows = 16;         // rows read past a region by a conv's last 16-row m-tile
 constexpr int kMaxSmem = 232448;       // 227 KB: the most a block may opt in to on sm_90
 constexpr int kPostTaps = 7;
 constexpr float kSlope = 0.1f;
 constexpr float kPostSlope = 0.01f;
+constexpr int kUnitRows = 16;          // a bf16 MRF unit: one m-tile of rows ...
+constexpr int kUnitChannels = 32;      // ... by one slice of output channels
+constexpr int kMaxUnits = 3;           // per warp and conv (accumulators in registers)
 
 typedef __nv_bfloat16 bf16;
+
+// The bf16 weight ring: one tap a stage; after the stages, each stage's
+// "full" mbarrier (8 bytes) and release count (4 bytes), 16 bytes a stage
+// with the padding; then the upsample weights' mbarrier in 16 bytes of its
+// own. The activation buffers start right after (16-byte aligned).
+template <int CP>
+__host__ __device__ constexpr int ring_stages() { return CP == 64 ? 3 : 8; }
+template <int CP>
+__host__ __device__ constexpr int tap_bytes() { return CP * CP * 2; }
+template <int CP>
+__host__ __device__ constexpr int ring_full_offset() { return ring_stages<CP>() * tap_bytes<CP>(); }
+template <int CP>
+__host__ __device__ constexpr int ring_released_offset() { return ring_full_offset<CP>() + 8 * ring_stages<CP>(); }
+template <int CP>
+__host__ __device__ constexpr int wup_bar_offset() { return ring_full_offset<CP>() + 16 * ring_stages<CP>(); }
+template <typename T, int CP>
+__host__ __device__ constexpr size_t ring_bytes() {
+  return std::is_same<T, bf16>::value ? (size_t)wup_bar_offset<CP>() + 16 : 0;
+}
+template <int CP>
+constexpr bool ring_layout_ok() {
+  return ring_released_offset<CP>() + 4 * ring_stages<CP>() <= wup_bar_offset<CP>() &&
+         wup_bar_offset<CP>() % 8 == 0 && (size_t)wup_bar_offset<CP>() + 8 <= ring_bytes<bf16, CP>() &&
+         ring_bytes<bf16, CP>() % 16 == 0;
+}
+static_assert(ring_layout_ok<64>() && ring_layout_ok<32>(),
+              "every ring mbarrier and count lies before the activation buffers, which start 16-byte aligned");
 
 struct Taps {
   int k[3];
@@ -80,6 +151,7 @@ struct Params {
   const T* w_mrf;      // 18 convs of k * CP * CP (bf16: mma fragment order; f32: [k][ci][co])
   const float* b_mrf;  // [18, CP]
   const T* w_post;     // tail: [7, CP]
+  float* scratch;      // [B, blocks per row, tile + 2 * post, CP] f32: each block's branch sum
   float b_post;
   int t_in, cin, c, U;
   int tile, halo;
@@ -114,8 +186,8 @@ __device__ __forceinline__ void load8(const float* w, float (&o)[8]) {
   o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
-__device__ __forceinline__ void load8(const bf16* w, float (&o)[8]) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(w));
+__device__ __forceinline__ void load8(const bf16* w, float (&o)[8]) {   // w in global or shared memory
+  const uint4 v = *reinterpret_cast<const uint4*>(w);
   const uint32_t u[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -123,15 +195,6 @@ __device__ __forceinline__ void load8(const bf16* w, float (&o)[8]) {
     o[2 * i] = f.x;
     o[2 * i + 1] = f.y;
   }
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// round(lrelu(v, 0.1)) of a pair of bf16 values, computed in f32.
-__device__ __forceinline__ uint32_t act_bf16x2(uint32_t v) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-  const __nv_bfloat162 r = __floats2bfloat162_rn(lrelu(f.x, kSlope), lrelu(f.y, kSlope));
-  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulators.
@@ -143,58 +206,98 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-enum ConvMode { kConv1 = 0, kConv2 = 1 };
+// Two consecutive activations (the first at an even index) as f32, and back.
+__device__ __forceinline__ float2 load_pair(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store_pair_to(float* p, float y0, float y1) {
+  *reinterpret_cast<float2*>(p) = make_float2(y0, y1);
+}
+__device__ __forceinline__ void store_pair_to(bf16* p, float y0, float y1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(y0, y1);
+}
 
-// One MRF conv from shared buffer `in` to shared buffer `out` over the rows
-// [row0, row0 + n). With ACT the conv reads round(lrelu(in)) (conv1 reads the
-// raw residual state); without it `in` is already activated (conv2 reads the
-// stored conv1 output). kConv1 stores round(lrelu(round(acc + b))), the conv2
-// input; kConv2 stores round((acc + b) + resid) and, at a branch's last level,
-// adds that to the f32 branch sum (or sets it, for the first branch).
+// What a conv stores. kAct (conv1): round(lrelu(round(acc + b))), the conv2
+// input. kState (conv2 with a next level): the new residual state
+// round((acc + b) + resid) and its activation round(lrelu(state)) into
+// `act_out`, the next conv1's input. kSum (a branch's last conv2): the state,
+// added to the f32 branch sum (set, for the first branch). kFinal (the last
+// branch's last conv2): the state added to the branch sum, which is then
+// final: the stage writes sum / 3 to its output, the tail
+// round(lrelu(sum / 3, 0.01)) into `post_in`, conv_post's input rows.
+enum StoreMode { kAct = 0, kState = 1, kSum = 2, kFinal = 3 };
+
+// One MRF conv from shared buffer `in` (activated rows) to shared buffer
+// `out` over the rows [row0, row0 + n); rows outside [0, U) are stored as 0.
 template <typename T, int CP>
 struct Conv {
   const T* in;
   T* out;
-  const T* resid;
-  float* bsum;         // null unless this is a branch's last conv2
-  int bsum_row0;
+  T* act_out;          // kState
+  const T* resid;      // kState, kSum
+  float* bsum;         // kSum, kFinal: the block's [tile + 2 post, CP] in device memory
+  int bsum_row0;       // buffer row of bsum's row 0
   bool assign;         // first branch: bsum = state instead of +=
+  T* post_in;          // kFinal, tail: [tile + 2 post, S] rows in shared memory
+  T* out_g;            // kFinal, stage: the output row [U, c] in device memory
+  int c;               // kFinal, stage: output channels
   int row0, n, k, d;
   const T* w;
   const float* bias;
   int a0, U;           // absolute position of buffer row 0; sequence length
 
-  __device__ __forceinline__ void store_pair(int mode, int r, int co, float v0, float v1) const {
+  __device__ __forceinline__ bool inside(int r) const { return a0 + r >= 0 && a0 + r < U; }
+  __device__ __forceinline__ float2* bsum_at(int r, int co) const {
+    return reinterpret_cast<float2*>(bsum + (r - bsum_row0) * CP + co);
+  }
+
+  // kFinal: the pair (co, co + 1) of row r's final branch sum.
+  __device__ __forceinline__ void finish(int r, int co, float s0, float s1) const {
     constexpr int S = row_stride<T, CP>();
-    const int a = a0 + r;
+    if (post_in != nullptr) {
+      store_pair_to(post_in + (r - bsum_row0) * S + co, round_to<T>(lrelu(s0 / 3.0f, kPostSlope)),
+                    round_to<T>(lrelu(s1 / 3.0f, kPostSlope)));
+    } else if (inside(r)) {
+      T* o = out_g + (size_t)(a0 + r) * c + co;
+      if (co < c) o[0] = from_f<T>(s0 / 3.0f);
+      if (co + 1 < c) o[1] = from_f<T>(s1 / 3.0f);
+    }
+  }
+
+  // The scalar path's store of the pair (co, co + 1) of row r from the conv
+  // sums v and the biases b.
+  template <int MODE>
+  __device__ __forceinline__ void put(int r, int co, float v0, float v1, float2 b) const {
+    constexpr int S = row_stride<T, CP>();
     float y0 = 0.f, y1 = 0.f;
-    if (a >= 0 && a < U) {
-      if (mode == kConv1) {
-        y0 = round_to<T>(lrelu(round_to<T>(v0 + bias[co]), kSlope));
-        y1 = round_to<T>(lrelu(round_to<T>(v1 + bias[co + 1]), kSlope));
+    if (inside(r)) {
+      if (MODE == kAct) {
+        y0 = round_to<T>(lrelu(round_to<T>(v0 + b.x), kSlope));
+        y1 = round_to<T>(lrelu(round_to<T>(v1 + b.y), kSlope));
       } else {
-        y0 = round_to<T>((v0 + bias[co]) + to_f(resid[r * S + co]));
-        y1 = round_to<T>((v1 + bias[co + 1]) + to_f(resid[r * S + co + 1]));
+        const float2 res = load_pair(resid + r * S + co);
+        y0 = round_to<T>((v0 + b.x) + res.x);
+        y1 = round_to<T>((v1 + b.y) + res.y);
       }
     }
-    out[r * S + co] = from_f<T>(y0);
-    out[r * S + co + 1] = from_f<T>(y1);
-    if (bsum != nullptr) {
-      float* s = bsum + (r - bsum_row0) * CP + co;
-      if (assign) {
-        s[0] = y0;
-        s[1] = y1;
-      } else {
-        s[0] += y0;
-        s[1] += y1;
-      }
+    store_pair_to(out + r * S + co, y0, y1);
+    if (MODE == kState)
+      store_pair_to(act_out + r * S + co, round_to<T>(lrelu(y0, kSlope)), round_to<T>(lrelu(y1, kSlope)));
+    if (MODE == kSum || MODE == kFinal) {
+      float2* sum = bsum_at(r, co);
+      const float2 o = assign ? make_float2(0.f, 0.f) : *sum;
+      if (MODE == kSum)
+        *sum = make_float2(o.x + y0, o.y + y1);
+      else
+        finish(r, co, o.x + y0, o.y + y1);
     }
   }
 };
 
 // Scalar conv: one thread per (row, group of 8 output channels).
-template <typename T, int CP, bool ACT>
-__device__ void conv_scalar(const Conv<T, CP>& cv, int mode, int c) {
+template <typename T, int CP, int MODE>
+__device__ void conv_scalar(const Conv<T, CP>& cv, int c) {
   constexpr int S = row_stride<T, CP>();
   constexpr int G = CP / 8;
   for (int item = threadIdx.x; item < cv.n * G; item += kThreads) {
@@ -204,7 +307,7 @@ __device__ void conv_scalar(const Conv<T, CP>& cv, int mode, int c) {
       const T* in = cv.in + (r + cv.d * (tau - cv.k / 2)) * S;
       const T* w = cv.w + (size_t)tau * CP * CP + cg * 8;
       for (int ci = 0; ci < c; ++ci) {
-        const float a = ACT ? round_to<T>(lrelu(to_f(in[ci]), kSlope)) : to_f(in[ci]);
+        const float a = to_f(in[ci]);
         float wv[8];
         load8(w + ci * CP, wv);
 #pragma unroll
@@ -212,122 +315,199 @@ __device__ void conv_scalar(const Conv<T, CP>& cv, int mode, int c) {
       }
     }
 #pragma unroll
-    for (int e = 0; e < 8; e += 2) cv.store_pair(mode, r, cg * 8 + e, acc[e], acc[e + 1]);
+    for (int e = 0; e < 8; e += 2) {
+      const int co = cg * 8 + e;
+      cv.template put<MODE>(r, co, acc[e], acc[e + 1], __ldg(reinterpret_cast<const float2*>(cv.bias + co)));
+    }
   }
 }
 
-// Tensor-core conv (bf16): each warp owns units of MT 16-row m-tiles and all
-// CP output channels; for every tap and 16-channel k-step it loads the A
-// fragments from the shifted rows and the B fragments (pre-packed, 8 bytes a
-// lane) from `wsm`, the tap's weights staged in shared memory by the whole
-// block. The next tap's weights are loaded into registers while this tap
-// computes, so the taps walk in step across the warps (two barriers a tap);
-// a warp without a unit in the last round only helps stage the weights.
-template <int CP, bool ACT>
-__device__ void conv_mma(const Conv<bf16, CP>& cv, int mode, uint2* wsm) {
+// bf16 pairs packed in 32 bits: round two f32 to it, widen it, and
+// round(lrelu(y)) of it as max(y, round(0.1 y)) (equal for bf16 y: rounding
+// is monotone and y itself representable).
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+__device__ __forceinline__ float2 widen_bf16x2(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+__device__ __forceinline__ uint32_t act_bf16x2(uint32_t v) {
+  const float2 f = widen_bf16x2(v);
+  const uint32_t s = pack_bf16x2(f.x * kSlope, f.y * kSlope);
+  const __nv_bfloat162 r = __hmax2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&s));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 0-15 give the addresses of
+// rows 0-15 at k-columns 0-7, lanes 16-31 the same rows at k-columns 8-15,
+// which leaves the m16n8k16 A fragment in a[0..3].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The bf16 weight ring of a block: stage s holds MRF tap j (the taps of the
+// 18 convs in order) for j = s, s + NS, ...; `full` counts a tap's bytes in,
+// `released` the warps done with it.
+struct Ring {
+  const unsigned char* stages;
+  uint32_t full;         // shared address of full[0]; full[s] at full + 8 s
+  unsigned* released;    // [NS]
+  const unsigned char* w;   // the packed taps in device memory
+  int n_taps;
+};
+
+// Tap j into its stage by one bulk copy (one thread).
+template <int CP>
+__device__ __forceinline__ void fill_stage(const Ring& ring, int j) {
+  constexpr int NS = ring_stages<CP>(), TB = tap_bytes<CP>();
+  const int s = j % NS;
+  mbar_expect_tx(ring.full + 8 * s, TB);
+  bulk_copy_g2s(smem_u32(ring.stages + s * TB), ring.w + (size_t)j * TB, TB, ring.full + 8 * s);
+}
+
+// Tensor-core conv (bf16). Warp w owns the channel slice w % (CP / 32) and
+// every (16 / slices)-th 16-row m-tile from w / slices on, for the whole
+// conv (at most kMaxUnits; tile_fits keeps the widest conv within
+// that), with those units' accumulators in registers. It walks the conv's
+// taps (ring indices tap0 ...) once: wait on the stage's "full" mbarrier,
+// load the slice's B fragments (pre-packed, 8 bytes a lane) and the A
+// fragment of each unit by ldmatrix from the tap-shifted rows, then release
+// the stage; the last of the 16 warps to release it refills it with the tap
+// NS further on. No block barrier inside the conv.
+template <int CP, int MODE>
+__device__ void conv_mma(const Conv<bf16, CP>& cv, const Ring& ring, int tap0) {
   constexpr int S = row_stride<bf16, CP>();
-  constexpr int NT = CP / 8, KS = CP / 16, MT = 2;
-  constexpr int kTapVecs = CP * CP * 2 / 16;                  // one tap's weights in 16-byte vectors
-  constexpr int kPer = (kTapVecs + kThreads - 1) / kThreads;
+  constexpr int NT = CP / 8, KS = CP / 16, SLICES = CP / kUnitChannels, PER_SLICE = kWarps / SLICES;
+  constexpr int NS = ring_stages<CP>(), TB = tap_bytes<CP>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int n_units = (cv.n + 16 * MT - 1) / (16 * MT);
-  const int rounds = (n_units + kWarps - 1) / kWarps;
-  const uint4* wg = reinterpret_cast<const uint4*>(cv.w);
-  uint4* ws4 = reinterpret_cast<uint4*>(wsm);
-  for (int round = 0; round < rounds; ++round) {
-    const int u = warp + round * kWarps;
-    const bool active = u < n_units;
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-    uint4 pre[kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      if (idx < kTapVecs) pre[i] = __ldg(wg + idx);
-    }
+  const int slice = warp % SLICES, wm = warp / SLICES;
+  const int n_mt = (cv.n + kUnitRows - 1) / kUnitRows;
+  const int nu = n_mt > wm ? (n_mt - wm + PER_SLICE - 1) / PER_SLICE : 0;
+  if (nu > kMaxUnits) __trap();
+  float acc[kMaxUnits][4][4] = {};
+  const uint32_t a_lane = smem_u32(cv.in) + ((cv.row0 + wm * kUnitRows + (lane & 15)) * S + (lane >> 4) * 8) * 2;
+  const uint2* w_lane = reinterpret_cast<const uint2*>(ring.stages) + slice * 4 * 32 + lane;
 #pragma unroll 1
-    for (int tau = 0; tau < cv.k; ++tau) {
-      __syncthreads();                      // every warp is done with the previous tap
+  for (int tau = 0; tau < cv.k; ++tau) {
+    const int j = tap0 + tau, s = j % NS;
+    mbar_wait(ring.full + 8 * s, (j / NS) & 1);
+    const uint2* w = w_lane + s * (TB / 8);
+    const uint32_t a_tap = a_lane + cv.d * (tau - cv.k / 2) * S * 2;
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int idx = threadIdx.x + i * kThreads;
-        if (idx < kTapVecs) ws4[idx] = pre[i];
-      }
-      __syncthreads();
-      if (tau + 1 < cv.k) {
+    for (int ks = 0; ks < KS; ++ks) {   // a k-step's fragments are all loaded before its products
+      uint2 b[4];
+      uint32_t a[kMaxUnits][4];
 #pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const int idx = threadIdx.x + i * kThreads;
-          if (idx < kTapVecs) pre[i] = __ldg(wg + (size_t)(tau + 1) * kTapVecs + idx);
-        }
-      }
-      if (!active) continue;
-      const int off = cv.d * (tau - cv.k / 2);
+      for (int nt = 0; nt < 4; ++nt) b[nt] = w[(ks * NT + nt) * 32];
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t a[MT][4];
+      for (int u = 0; u < kMaxUnits; ++u)
+        if (u < nu) ldmatrix_x4(a[u], a_tap + (u * PER_SLICE * kUnitRows * S + ks * 16) * 2);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const bf16* base = cv.in + (cv.row0 + (u * MT + mt) * 16 + g + off) * S + ks * 16 + 2 * t;
-          a[mt][0] = ld32(base);
-          a[mt][1] = ld32(base + 8 * S);
-          a[mt][2] = ld32(base + 8);
-          a[mt][3] = ld32(base + 8 * S + 8);
-          if (ACT) {
+      for (int u = 0; u < kMaxUnits; ++u) {
+        if (u < nu) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) a[mt][e] = act_bf16x2(a[mt][e]);
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint2 b = wsm[(ks * NT + nt) * 32 + lane];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b.x, b.y);
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[u][nt], a[u], b[nt].x, b[nt].y);
         }
       }
     }
-    if (!active) continue;
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();   // this warp's reads of the stage before its release
+      if (atomicAdd(ring.released + s, 1u) == kWarps - 1) {
+        ring.released[s] = 0;   // read again only after the refill lands
+        if (j + NS < ring.n_taps) {
+          __threadfence_block();
+          fence_proxy_async();   // every warp's reads before the copy engine's writes
+          fill_stage<CP>(ring, j + NS);
+        }
+      }
+    }
+  }
+  // a unit's stores, row r then row r + 8 (h): the row's residual and
+  // branch-sum pairs loaded first (all in flight at once), then the outputs,
+  // as packed bf16 pairs; acc[u][nt][2h], [2h + 1] hold the row's pair nt
+  float2 bias[4];   // of the lane's output channel pairs
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int r = (u * MT + mt) * 16 + g;
+  for (int nt = 0; nt < 4; ++nt)
+    bias[nt] = __ldg(reinterpret_cast<const float2*>(cv.bias + slice * kUnitChannels + nt * 8 + 2 * t));
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int co = nt * 8 + 2 * t;
-        if (r < cv.n) cv.store_pair(mode, cv.row0 + r, co, acc[mt][nt][0], acc[mt][nt][1]);
-        if (r + 8 < cv.n) cv.store_pair(mode, cv.row0 + r + 8, co, acc[mt][nt][2], acc[mt][nt][3]);
+  for (int u = 0; u < kMaxUnits; ++u) {
+    if (u >= nu) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (wm + u * PER_SLICE) * kUnitRows + g + 8 * h;
+      if (r >= cv.n) break;
+      const int row = cv.row0 + r;
+      uint32_t res[4];
+      float2 old[4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int co = slice * kUnitChannels + nt * 8 + 2 * t;
+        if (MODE != kAct) res[nt] = *reinterpret_cast<const uint32_t*>(cv.resid + row * S + co);
+        if (MODE >= kSum) old[nt] = cv.assign ? make_float2(0.f, 0.f) : *cv.bsum_at(row, co);
+      }
+      const bool inside = cv.inside(row);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int co = slice * kUnitChannels + nt * 8 + 2 * t;
+        float x0 = acc[u][nt][2 * h] + bias[nt].x, x1 = acc[u][nt][2 * h + 1] + bias[nt].y;
+        if (MODE != kAct) {
+          const float2 rf = widen_bf16x2(res[nt]);
+          x0 += rf.x;
+          x1 += rf.y;
+        }
+        const uint32_t y = inside ? pack_bf16x2(x0, x1) : 0u;
+        *reinterpret_cast<uint32_t*>(cv.out + row * S + co) = MODE == kAct ? act_bf16x2(y) : y;
+        if (MODE == kState) *reinterpret_cast<uint32_t*>(cv.act_out + row * S + co) = act_bf16x2(y);
+        if (MODE >= kSum) {
+          const float2 yf = widen_bf16x2(y);
+          const float s0 = old[nt].x + yf.x, s1 = old[nt].y + yf.y;
+          if (MODE == kSum)
+            *cv.bsum_at(row, co) = make_float2(s0, s1);
+          else
+            cv.finish(row, co, s0, s1);
+        }
       }
     }
   }
 }
 
-template <typename T, int CP, bool ACT>
-__device__ __forceinline__ void run_conv(const Conv<T, CP>& cv, int mode, int c, uint2* wsm) {
+template <typename T, int CP, int MODE>
+__device__ __forceinline__ void run_conv(const Conv<T, CP>& cv, int c, const Ring& ring, int tap0) {
   if constexpr (std::is_same<T, bf16>::value) {
-    conv_mma<CP, ACT>(cv, mode, wsm);
+    conv_mma<CP, MODE>(cv, ring, tap0);
   } else {
-    conv_scalar<T, CP, ACT>(cv, mode, c);
+    conv_scalar<T, CP, MODE>(cv, c);
   }
 }
 
-__host__ __device__ inline int post_reach(bool tail) { return tail ? kPostTaps / 2 : 0; }
+__host__ __device__ constexpr int post_reach(bool tail) { return tail ? kPostTaps / 2 : 0; }
 
-// Shared memory of one block: three activation buffers of (E + slack) rows,
-// the f32 branch sum of (tile + 2 * post reach) rows and, for bf16, one tap's
-// MRF weights.
+// Shared memory of one block: for bf16 the weight ring and its mbarriers,
+// then four activation buffers of (E + slack) rows (upsample output,
+// residual state, its activation, conv1 output). The f32 branch sum lives in
+// device memory (the caller's scratch), where it stays in L2.
 template <typename T, int CP, bool TAIL>
-__host__ __device__ inline size_t buffer_elems(int tile, int halo) {
+__host__ __device__ constexpr size_t buffer_elems(int tile, int halo) {
   return (size_t)(tile + 2 * halo + kSlackRows) * row_stride<T, CP>();
 }
 template <typename T, int CP, bool TAIL>
-__host__ __device__ inline size_t smem_bytes(int tile, int halo) {
-  return 3 * buffer_elems<T, CP, TAIL>(tile, halo) * sizeof(T) +
-         (size_t)(tile + 2 * post_reach(TAIL)) * CP * sizeof(float) + (sizeof(T) == 2 ? CP * CP * 2 : 0);
+__host__ __device__ constexpr size_t smem_bytes(int tile, int halo) {
+  return ring_bytes<T, CP>() + 4 * buffer_elems<T, CP, TAIL>(tile, halo) * sizeof(T);
 }
+// The budget the ring depths were picked for: at the default taps' halos
+// (60 stage, 64 tail) the bf16 stage keeps a 208-row tile beside its 3
+// stages of 8 KB, the tail a 480-row tile beside its 8 stages of 2 KB.
+static_assert(smem_bytes<bf16, 64, false>(208, 60) <= kMaxSmem, "stage: 3 ring stages and a 208-row tile");
+static_assert(smem_bytes<bf16, 32, true>(480, 64) <= kMaxSmem, "tail: 8 ring stages and a 480-row tile");
 // Input frames a block reads (they are staged in the conv1 buffer first).
 template <bool TAIL>
 __host__ __device__ inline int frames_per_block(int tile, int halo) {
@@ -336,55 +516,106 @@ __host__ __device__ inline int frames_per_block(int tile, int halo) {
 }
 
 template <typename T, int CP, bool TAIL>
-__global__ void __launch_bounds__(kThreads) vocoder_fused_kernel(Params<T> p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr bool kMma = std::is_same<T, bf16>::value;
+  constexpr int NS = kMma ? ring_stages<CP>() : 0;
   constexpr int S = row_stride<T, CP>();
   constexpr int G = CP / 8;
   const int post = post_reach(TAIL);
   const int E = p.tile + 2 * p.halo;
   const size_t nbuf = buffer_elems<T, CP, TAIL>(p.tile, p.halo);
-  T* up = reinterpret_cast<T*>(smem);
+  Ring ring;
+  ring.stages = smem;
+  ring.full = smem_u32(smem + ring_full_offset<CP>());
+  ring.released = reinterpret_cast<unsigned*>(smem + ring_released_offset<CP>());
+  ring.w = reinterpret_cast<const unsigned char*>(p.w_mrf);
+  ring.n_taps = 6 * (p.taps.k[0] + p.taps.k[1] + p.taps.k[2]);
+  T* up = reinterpret_cast<T*>(smem + ring_bytes<T, CP>());
   T* st = up + nbuf;
-  T* hb = st + nbuf;
-  float* bsum = reinterpret_cast<float*>(hb + nbuf);
-  uint2* wsm = reinterpret_cast<uint2*>(bsum + (p.tile + 2 * post) * CP);
+  T* ab = st + nbuf;
+  T* hb = ab + nbuf;
+  float* bsum = p.scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (p.tile + 2 * post) * CP;
   const int b = blockIdx.y;
   const int p0 = blockIdx.x * p.tile;
   const int a0 = p0 - p.halo;          // absolute position of buffer row 0 (a multiple of 4)
 
-  // 1. zero the buffers: padded channels and slack rows must read as 0
-  {
-    uint32_t* z = reinterpret_cast<uint32_t*>(smem);
-    const int nz = (int)(3 * nbuf * sizeof(T) / 4);
-    for (int i = threadIdx.x; i < nz; i += kThreads) z[i] = 0u;
+  // bf16: the upsample weights [4, cin, CP] come into st and ab (free until
+  // the MRF) by four bulk copies, the first taps of the ring after them
+  const T* w_up = p.w_up;
+  if constexpr (kMma) {
+    const uint32_t bar_wup = smem_u32(smem + wup_bar_offset<CP>());
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        mbar_init(ring.full + 8 * s, 1);
+        ring.released[s] = 0;
+      }
+      mbar_init(bar_wup, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    const uint32_t phase_bytes = p.cin * CP * sizeof(T);
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_wup, 4 * phase_bytes);
+      for (int j = 0; j < 4; ++j)
+        bulk_copy_g2s(smem_u32(st) + j * phase_bytes, p.w_up + (size_t)j * p.cin * CP, phase_bytes, bar_wup);
+      for (int j = 0; j < NS && j < ring.n_taps; ++j) fill_stage<CP>(ring, j);   // under the upsample
+    }
+    w_up = st;
   }
-  __syncthreads();
 
-  // 2. the block's input frames, activated and rounded, staged in hb
+  // 1. the block's input frames, activated and rounded, staged in hb. No
+  //    buffer is zeroed: every row a kept output reads is written first (the
+  //    rows a conv's last m-tile reads past its region only feed rows that
+  //    are not stored).
   const int nf = frames_per_block<TAIL>(p.tile, p.halo);
   const int f0 = TAIL ? a0 / 2 - 1 : a0 / 4;
+  //    The frames are one flat range of x; it is read in 16-byte chunks
+  //    aligned in x (whose start is 16-byte aligned; the last chunk, if x
+  //    ends inside it, element by element), each element of the range's
+  //    live part [0, t_in) stored once, the frames outside as 0.
   {
-    const T* x = p.x + (size_t)b * p.t_in * p.cin;
-    for (int idx = threadIdx.x; idx < nf * p.cin; idx += kThreads) {
-      const int f = f0 + idx / p.cin;
-      float v = 0.f;
-      if (f >= 0 && f < p.t_in) v = round_to<T>(lrelu(to_f(x[(size_t)f * p.cin + idx % p.cin]), kSlope));
-      hb[idx] = from_f<T>(v);
+    constexpr int V = 16 / sizeof(T);   // elements a chunk
+    const long long n_x = (long long)gridDim.y * p.t_in * p.cin;   // x's elements
+    const long long row = (long long)b * p.t_in * p.cin;   // x's element index of row b's first frame
+    const long long lo = (long long)f0 * p.cin, hi = lo + (long long)nf * p.cin;   // the range, in row b
+    const long long live_lo = lo > 0 ? lo : 0, live_hi = hi < (long long)p.t_in * p.cin ? hi : (long long)p.t_in * p.cin;
+    if (live_lo < live_hi) {
+      const long long c0 = (row + live_lo) / V, c1 = (row + live_hi + V - 1) / V;
+      for (long long ch = c0 + threadIdx.x; ch < c1; ch += kThreads) {
+        T v[V];
+        if ((ch + 1) * V <= n_x) {
+          *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p.x + ch * V);
+        } else {
+          for (int i = 0; i < V; ++i) v[i] = ch * V + i < n_x ? p.x[ch * V + i] : from_f<T>(0.f);
+        }
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const long long e = ch * V + i - row;
+          if (e >= live_lo && e < live_hi) hb[e - lo] = from_f<T>(round_to<T>(lrelu(to_f(v[i]), kSlope)));
+        }
+      }
     }
+    for (long long e = lo + threadIdx.x; e < live_lo && e < hi; e += kThreads) hb[e - lo] = from_f<T>(0.f);
+    for (long long e = (live_hi > lo ? live_hi : lo) + threadIdx.x; e < hi; e += kThreads) hb[e - lo] = from_f<T>(0.f);
   }
   __syncthreads();
 
-  // 3. upsample into `up` on all E rows (scalar FMAs). One item: a phase j,
-  //    kUpRows consecutive frames and 8 output channels, so each 8-wide
-  //    weight vector is loaded once for kUpRows frames. Row i = F * fr + j
+  if constexpr (kMma) mbar_wait(smem_u32(smem + wup_bar_offset<CP>()), 0);
+
+  // 2. upsample into `up` on all E rows (scalar FMAs). One item: a phase j,
+  //    R consecutive frames and 8 output channels, so each 8-wide
+  //    weight vector is loaded once for R frames. Row i = F * fr + j
   //    reads hb frame rows fr + off. Stage: y[4t+j] = w[j] x[t], hb row fr is
   //    frame t. Tail: y[2t] = w[1] x[t] + w[3] x[t-1], y[2t+1] = w[0] x[t+1] +
   //    w[2] x[t], and hb row fr + 1 is frame t (f0 = a0/2 - 1).
   {
     constexpr int F = TAIL ? 2 : 4;                   // upsampled rows per input frame
-    const int n_groups = (E / F + kUpRows - 1) / kUpRows;
+    constexpr int R = up_rows<T, TAIL>();
+    const int n_groups = (E / F + R - 1) / R;
     for (int item = threadIdx.x; item < n_groups * F * G; item += kThreads) {
-      const int cg = item % G, j = (item / G) % F, fr0 = item / (G * F) * kUpRows;
+      const int cg = item % G, j = (item / G) % F, fr0 = item / (G * F) * R;
       int taps[2] = {j, 0}, offs[2] = {0, 0};
       if (TAIL) {
         taps[0] = j == 0 ? 1 : 0;
@@ -392,19 +623,21 @@ __global__ void __launch_bounds__(kThreads) vocoder_fused_kernel(Params<T> p) {
         taps[1] = j == 0 ? 3 : 2;
         offs[1] = j == 0 ? 0 : 1;
       }
-      float acc[kUpRows][8];
+      float acc[R][8];
 #pragma unroll
-      for (int q = 0; q < kUpRows; ++q)
+      for (int q = 0; q < R; ++q)
 #pragma unroll
         for (int e = 0; e < 8; ++e) acc[q][e] = 0.f;
+#pragma unroll
       for (int pr = 0; pr < (TAIL ? 2 : 1); ++pr) {
         const T* xs = hb + (fr0 + offs[pr]) * p.cin;
-        const T* w = p.w_up + (size_t)taps[pr] * p.cin * CP + cg * 8;
+        const T* w = w_up + (size_t)taps[pr] * p.cin * CP + cg * 8;
+#pragma unroll(TAIL ? 1 : 2)
         for (int ci = 0; ci < p.cin; ++ci) {
           float wv[8];
           load8(w + (size_t)ci * CP, wv);
 #pragma unroll
-          for (int q = 0; q < kUpRows; ++q) {
+          for (int q = 0; q < R; ++q) {
             const float xv = to_f(xs[q * p.cin + ci]);
 #pragma unroll
             for (int e = 0; e < 8; ++e) acc[q][e] = fmaf(xv, wv[e], acc[q][e]);
@@ -412,7 +645,7 @@ __global__ void __launch_bounds__(kThreads) vocoder_fused_kernel(Params<T> p) {
         }
       }
 #pragma unroll
-      for (int q = 0; q < kUpRows; ++q) {
+      for (int q = 0; q < R; ++q) {
         const int i = F * (fr0 + q) + j;
         const int a = a0 + i;
         if (i >= E) break;
@@ -427,12 +660,23 @@ __global__ void __launch_bounds__(kThreads) vocoder_fused_kernel(Params<T> p) {
   }
   __syncthreads();
 
-  // 4. the MRF: 3 branches x 3 levels x (conv1, conv2), each conv on the rows
-  //    the later convs still read (margin m around the tile)
+  // 3. the MRF: 3 branches x 3 levels x (conv1, conv2), each conv on the rows
+  //    the later convs still read (margin m around the tile); bf16 convs take
+  //    their taps from the ring in order (tap: the ring index of a conv's
+  //    first). conv1 reads `ab`, the activated state: the upsample output's
+  //    at a branch's start (one pass), then what the previous conv2 stored.
   size_t w_off = 0;
-  int conv_idx = 0;
+  int conv_idx = 0, tap = 0;
   for (int br = 0; br < 3; ++br) {
     const int k = p.taps.k[br];
+    if constexpr (kMma) {
+      const uint32_t* u32 = reinterpret_cast<const uint32_t*>(up);
+      uint32_t* a32 = reinterpret_cast<uint32_t*>(ab);
+      for (int i = threadIdx.x; i < (int)nbuf / 2; i += kThreads) a32[i] = act_bf16x2(u32[i]);
+    } else {
+      for (int i = threadIdx.x; i < (int)nbuf; i += kThreads) ab[i] = round_to<T>(lrelu(up[i], kSlope));
+    }
+    __syncthreads();
     int m = post;
     for (int l = 0; l < 3; ++l) m += p.taps.d[br][l] * (k / 2) + k / 2;
     for (int l = 0; l < 3; ++l) {
@@ -440,51 +684,60 @@ __global__ void __launch_bounds__(kThreads) vocoder_fused_kernel(Params<T> p) {
       const T* src = l == 0 ? up : st;
       Conv<T, CP> c1;
       const int m1 = m - d * (k / 2);
-      c1.in = src; c1.out = hb; c1.resid = nullptr; c1.bsum = nullptr; c1.bsum_row0 = 0; c1.assign = false;
-      c1.row0 = p.halo - m1; c1.n = p.tile + 2 * m1; c1.k = k; c1.d = d;
+      c1.in = ab; c1.out = hb; c1.act_out = nullptr; c1.resid = nullptr; c1.bsum = nullptr; c1.bsum_row0 = 0;
+      c1.assign = false; c1.post_in = nullptr; c1.out_g = nullptr; c1.c = p.c; c1.row0 = p.halo - m1; c1.n = p.tile + 2 * m1; c1.k = k; c1.d = d;
       c1.w = p.w_mrf + w_off; c1.bias = p.b_mrf + conv_idx * CP; c1.a0 = a0; c1.U = p.U;
-      run_conv<T, CP, true>(c1, kConv1, p.c, wsm);
+      run_conv<T, CP, kAct>(c1, p.c, ring, tap);
       w_off += (size_t)k * CP * CP;
+      tap += k;
       ++conv_idx;
       __syncthreads();
 
       Conv<T, CP> c2;
       const int m2 = m1 - k / 2;
-      c2.in = hb; c2.out = st; c2.resid = src;
+      c2.in = hb; c2.out = st; c2.act_out = l < 2 ? ab : nullptr; c2.resid = src;
       c2.bsum = l == 2 ? bsum : nullptr; c2.bsum_row0 = p.halo - post; c2.assign = br == 0;
+      c2.post_in = TAIL ? ab : nullptr; c2.out_g = TAIL ? nullptr : static_cast<T*>(p.out) + (size_t)b * p.U * p.c;
+      c2.c = p.c;
       c2.row0 = p.halo - m2; c2.n = p.tile + 2 * m2; c2.k = k; c2.d = 1;
       c2.w = p.w_mrf + w_off; c2.bias = p.b_mrf + conv_idx * CP; c2.a0 = a0; c2.U = p.U;
-      run_conv<T, CP, false>(c2, kConv2, p.c, wsm);
+      if (l < 2)
+        run_conv<T, CP, kState>(c2, p.c, ring, tap);
+      else if (br < 2)
+        run_conv<T, CP, kSum>(c2, p.c, ring, tap);
+      else
+        run_conv<T, CP, kFinal>(c2, p.c, ring, tap);
       w_off += (size_t)k * CP * CP;
+      tap += k;
       ++conv_idx;
       __syncthreads();
       m = m2;
     }
   }
 
-  // 5. epilogue: only the centre of the tile is written
-  if (!TAIL) {
-    T* out = static_cast<T*>(p.out) + (size_t)b * p.U * p.c;
-    for (int idx = threadIdx.x; idx < p.tile * p.c; idx += kThreads) {
-      const int i = idx / p.c, co = idx % p.c;
-      if (p0 + i < p.U) out[(size_t)(p0 + i) * p.c + co] = from_f<T>(bsum[i * CP + co] / 3.0f);
-    }
-  } else {
-    // m = round(lrelu(bsum / 3, 0.01)) on tile + 2*3 rows (into hb), then conv_post + tanh
-    const int nr = p.tile + 2 * post;
-    for (int idx = threadIdx.x; idx < nr * CP; idx += kThreads) {
-      const int i = idx / CP, co = idx % CP;
-      hb[i * S + co] = from_f<T>(lrelu(bsum[idx] / 3.0f, kPostSlope));
-    }
+  // 4. epilogue: the stage's output was written by its last conv; the tail
+  //    runs conv_post + tanh on the post-lrelu rows the last conv left in
+  //    `ab`, with conv_post's weights in `up` (free after the MRF)
+  if (TAIL) {
+    T* w_post = up;
+    for (int idx = threadIdx.x; idx < kPostTaps * CP; idx += kThreads) w_post[idx] = p.w_post[idx];
     __syncthreads();
+    // one thread per output row, over all CP channels in pairs (the padded
+    // channels hold zeros on both sides, so the sum is that of the c channels)
     float* out = static_cast<float*>(p.out) + (size_t)b * p.U;
     for (int i = threadIdx.x; i < p.tile; i += kThreads) {
       if (p0 + i >= p.U) continue;
       float acc = 0.f;
+#pragma unroll
       for (int tau = 0; tau < kPostTaps; ++tau) {
-        const T* mrow = hb + (i + tau) * S;
-        const T* w = p.w_post + tau * CP;
-        for (int ci = 0; ci < p.c; ++ci) acc = fmaf(to_f(mrow[ci]), to_f(w[ci]), acc);
+        const T* mrow = ab + (i + tau) * S;
+        const T* w = w_post + tau * CP;
+#pragma unroll 8
+        for (int ci = 0; ci < CP; ci += 2) {
+          const float2 m = load_pair(mrow + ci), wv = load_pair(w + ci);
+          acc = fmaf(m.x, wv.x, acc);
+          acc = fmaf(m.y, wv.y, acc);
+        }
       }
       out[p0 + i] = tanhf(acc + p.b_post);
     }
@@ -494,6 +747,21 @@ __global__ void __launch_bounds__(kThreads) vocoder_fused_kernel(Params<T> p) {
 constexpr int kErrChannels = -1;
 constexpr int kErrSmem = -2;
 constexpr int kErrTaps = -3;
+constexpr int kErrTile = -4;
+constexpr int kErrAlign = -5;
+constexpr int kMrfConvs = 18;
+
+int read_taps(const int* taps, Taps* out) {
+  for (int br = 0; br < 3; ++br) {
+    out->k[br] = taps[br];
+    if (taps[br] < 1) return kErrTaps;
+    for (int l = 0; l < 3; ++l) {
+      out->d[br][l] = taps[3 + 3 * br + l];
+      if (taps[3 + 3 * br + l] < 1) return kErrTaps;
+    }
+  }
+  return 0;
+}
 
 // The block halo: the worst branch's cumulative reach (+ conv_post's),
 // rounded up to a multiple of 4 so buffer rows keep the upsample phases.
@@ -507,25 +775,147 @@ int block_halo(const Taps& taps, bool tail) {
   return (worst + post_reach(tail) + 3) / 4 * 4;
 }
 
+// The kernel size and margin of each MRF conv in the kernel's order: a conv
+// runs on tile + 2 * margin rows, the rows the later convs still read.
+void conv_margins(const Taps& taps, bool tail, int (&k)[kMrfConvs], int (&margin)[kMrfConvs]) {
+  int i = 0;
+  for (int br = 0; br < 3; ++br) {
+    const int kb = taps.k[br];
+    int m = post_reach(tail);
+    for (int l = 0; l < 3; ++l) m += taps.d[br][l] * (kb / 2) + kb / 2;
+    for (int l = 0; l < 3; ++l) {
+      m -= taps.d[br][l] * (kb / 2);
+      k[i] = kb, margin[i++] = m;   // conv1
+      m -= kb / 2;
+      k[i] = kb, margin[i++] = m;   // conv2
+    }
+  }
+}
+
+// The bf16 MRF units (16-row m-tile x 32-channel slice) of a conv on n rows:
+// warp w owns slice w % slices and every (16 / slices)-th m-tile from
+// w / slices on (conv_mma). The busiest warp is warp 0.
+template <int CP>
+int warp_units(int n, int warp) {
+  constexpr int slices = CP / kUnitChannels, per_slice = kWarps / slices;
+  const int n_mt = (n + kUnitRows - 1) / kUnitRows, wm = warp / slices;
+  return n_mt > wm ? (n_mt - wm + per_slice - 1) / per_slice : 0;
+}
+
+// 0 if a block of `tile` output rows fits: a positive multiple of 4, the
+// buffers and the staged input frames within shared memory, and for bf16
+// room for the upsample weights in two buffers and no warp with more than
+// kMaxUnits units in the widest conv.
+template <typename T, int CP, bool TAIL>
+int tile_fits(int tile, int halo, int cin, const Taps& taps) {
+  if (tile < 4 || tile % 4 != 0) return kErrTile;
+  const size_t buffer = buffer_elems<T, CP, TAIL>(tile, halo);
+  if (smem_bytes<T, CP, TAIL>(tile, halo) > (size_t)kMaxSmem ||
+      (size_t)frames_per_block<TAIL>(tile, halo) * cin > buffer)
+    return kErrSmem;
+  if (std::is_same<T, bf16>::value) {
+    if (2 * buffer < (size_t)4 * cin * CP) return kErrSmem;   // w_up in st, ab
+    int k[kMrfConvs], margin[kMrfConvs];
+    conv_margins(taps, TAIL, k, margin);
+    for (int i = 0; i < kMrfConvs; ++i)
+      if (warp_units<CP>(tile + 2 * margin[i], 0) > kMaxUnits) return kErrTile;
+  }
+  return 0;
+}
+
+// An estimate of a bf16 block's time in SM cycles, used only to weigh one
+// tile against another (the constants are weights, not measurements): the
+// busiest warp's unit k-steps over the 18 convs at ~128 cycles each while
+// 16 warps share the tensor cores, plus the upsample's rounds of items
+// (each SM sub-partition issues one warp-instruction of FMAs a cycle).
+template <int CP, bool TAIL>
+long long block_cycles(int tile, int halo, int cin, const Taps& taps) {
+  constexpr long long kKstepCycles = 128;
+  constexpr int R = up_rows<bf16, TAIL>(), F = TAIL ? 2 : 4;
+  int k[kMrfConvs], margin[kMrfConvs];
+  conv_margins(taps, TAIL, k, margin);
+  long long ksteps = 0;
+  for (int i = 0; i < kMrfConvs; ++i) ksteps += (long long)k[i] * warp_units<CP>(tile + 2 * margin[i], 0) * (CP / 16);
+  const int e = tile + 2 * halo;
+  const long long items = (long long)(((e + F - 1) / F + R - 1) / R) * F * (CP / 8);
+  const long long up = (items + kThreads - 1) / kThreads * 4 * R * 8 * cin * (TAIL ? 2 : 1);
+  return ksteps * kKstepCycles + up;
+}
+
+// The tile for B rows of U outputs on `sms` SMs. bf16: of the multiples of
+// 16 that fit, the one with the least estimated time, full waves x block
+// cycles (one block per SM), so that the last wave is not mostly empty
+// (the larger tile on a tie); f32: the largest multiple of 32 up to 256
+// that fits. 0 if none fits.
+template <typename T, int CP, bool TAIL>
+int pick_tile(int halo, int cin, const Taps& taps, int B, int U, int sms) {
+  if (!std::is_same<T, bf16>::value) {
+    for (int tile = 256; tile > 0; tile -= 32)
+      if (tile_fits<T, CP, TAIL>(tile, halo, cin, taps) == 0) return tile;
+    return 0;
+  }
+  int best = 0;
+  long long best_cost = 0;
+  for (int tile = 16; tile < 1024; tile += 16) {
+    if (tile_fits<T, CP, TAIL>(tile, halo, cin, taps) != 0) continue;
+    const long long blocks = (long long)B * ((U + tile - 1) / tile);
+    const long long cost = (blocks + sms - 1) / sms * block_cycles<CP, TAIL>(tile, halo, cin, taps);
+    if (best == 0 || cost <= best_cost) best = tile, best_cost = cost;
+  }
+  return best;
+}
+
+// f32 branch sums of all blocks in the caller's scratch.
+size_t scratch_floats(int B, int U, int tile, int cp, bool tail) {
+  return (size_t)B * ((U + tile - 1) / tile) * (tile + 2 * post_reach(tail)) * cp;
+}
+
+// Launch with the tile the caller planned (covomix_vocoder_plan) after
+// checking it (tile_fits), x 16-byte aligned, and for bf16 16-byte aligned
+// weights.
 template <typename T, int CP, bool TAIL>
 int launch(Params<T> p, int B, cudaStream_t stream) {
-  // the largest tile (a multiple of 32, at most 256) whose buffers fit
-  int tile = 256;
-  size_t smem = 0;
-  for (; tile >= 32; tile -= 32) {
-    smem = smem_bytes<T, CP, TAIL>(tile, p.halo);
-    const bool frames_fit =
-        (size_t)frames_per_block<TAIL>(tile, p.halo) * p.cin <= buffer_elems<T, CP, TAIL>(tile, p.halo);
-    if (smem <= (size_t)kMaxSmem && frames_fit) break;
-  }
-  if (tile < 32) return kErrSmem;
-  p.tile = tile;
+  const int fit = tile_fits<T, CP, TAIL>(p.tile, p.halo, p.cin, p.taps);
+  if (fit != 0) return fit;
+  if (reinterpret_cast<uintptr_t>(p.x) % 16 != 0) return kErrAlign;
+  if (std::is_same<T, bf16>::value &&
+      (reinterpret_cast<uintptr_t>(p.w_mrf) % 16 != 0 || reinterpret_cast<uintptr_t>(p.w_up) % 16 != 0))
+    return kErrAlign;
+  const size_t smem = smem_bytes<T, CP, TAIL>(p.tile, p.halo);
   auto kernel = vocoder_fused_kernel<T, CP, TAIL>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.U + tile - 1) / tile, B);
+  const dim3 grid((p.U + p.tile - 1) / p.tile, B);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// The plan of one launch into plan[6] = {tile, halo, shared bytes, blocks,
+// SMs, scratch floats} and, for bf16 and a non-null convs, convs[18][4] =
+// per MRF conv {rows, units, busiest warp's units, idlest warp's units}.
+template <typename T, int CP, bool TAIL>
+int plan_launch(const Taps& taps, int B, int U, int cin, int sms, long long* plan, int* convs) {
+  const int halo = block_halo(taps, TAIL);
+  const int tile = pick_tile<T, CP, TAIL>(halo, cin, taps, B, U, sms);
+  if (tile == 0) return kErrSmem;
+  plan[0] = tile;
+  plan[1] = halo;
+  plan[2] = (int)smem_bytes<T, CP, TAIL>(tile, halo);
+  plan[3] = (long long)B * ((U + tile - 1) / tile);
+  plan[4] = sms;
+  plan[5] = (long long)scratch_floats(B, U, tile, CP, TAIL);
+  if (convs != nullptr && std::is_same<T, bf16>::value) {
+    int k[kMrfConvs], margin[kMrfConvs];
+    conv_margins(taps, TAIL, k, margin);
+    for (int i = 0; i < kMrfConvs; ++i) {
+      const int n = tile + 2 * margin[i];
+      convs[4 * i] = n;
+      convs[4 * i + 1] = (n + kUnitRows - 1) / kUnitRows * (CP / kUnitChannels);
+      convs[4 * i + 2] = warp_units<CP>(n, 0);
+      convs[4 * i + 3] = warp_units<CP>(n, kWarps - 1);
+    }
+  }
+  return 0;
 }
 
 template <typename T, bool TAIL>
@@ -538,7 +928,7 @@ int dispatch_cp(int cp, const Params<T>& p, int B, cudaStream_t stream) {
 template <typename T>
 int run(int tail, int cp, const void* x, void* out, const void* w_up, const float* b_up, const void* w_mrf,
         const float* b_mrf, const void* w_post, float b_post, const int* taps, int B, int t_in, int cin, int c,
-        cudaStream_t stream) {
+        int tile, float* scratch, cudaStream_t stream) {
   if (c < 1 || c > cp || cin < 1) return kErrChannels;
   Params<T> p;
   p.x = static_cast<const T*>(x);
@@ -548,46 +938,77 @@ int run(int tail, int cp, const void* x, void* out, const void* w_up, const floa
   p.w_mrf = static_cast<const T*>(w_mrf);
   p.b_mrf = b_mrf;
   p.w_post = static_cast<const T*>(w_post);
+  p.scratch = scratch;
   p.b_post = b_post;
   p.t_in = t_in;
   p.cin = cin;
   p.c = c;
   p.U = tail ? 2 * t_in : 4 * t_in;
-  for (int br = 0; br < 3; ++br) {
-    p.taps.k[br] = taps[br];
-    if (taps[br] < 1) return kErrTaps;
-    for (int l = 0; l < 3; ++l) {
-      p.taps.d[br][l] = taps[3 + 3 * br + l];
-      if (taps[3 + 3 * br + l] < 1) return kErrTaps;
-    }
-  }
+  const int err = read_taps(taps, &p.taps);
+  if (err != 0) return err;
   p.halo = block_halo(p.taps, tail != 0);
-  p.tile = 0;
+  p.tile = tile;
   return tail ? dispatch_cp<T, true>(cp, p, B, stream) : dispatch_cp<T, false>(cp, p, B, stream);
+}
+
+template <typename T>
+int plan_typed(int tail, int cp, const Taps& taps, int B, int U, int cin, int sms, long long* plan, int* convs) {
+  if (cp == 32)
+    return tail ? plan_launch<T, 32, true>(taps, B, U, cin, sms, plan, convs)
+                : plan_launch<T, 32, false>(taps, B, U, cin, sms, plan, convs);
+  if (cp == 64)
+    return tail ? plan_launch<T, 64, true>(taps, B, U, cin, sms, plan, convs)
+                : plan_launch<T, 64, false>(taps, B, U, cin, sms, plan, convs);
+  return kErrChannels;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The block plan of a launch on card `device` (its SM count read from the
+// card): plan[6] = {tile, halo, shared bytes, blocks, SMs, scratch floats};
+// with bf16 and a non-null convs also convs[18 * 4], per MRF conv {rows,
+// units, busiest warp's units, idlest warp's units}. Arguments as for
+// covomix_vocoder_fused; returns 0 or an error code.
+int covomix_vocoder_plan(int tail, int is_f32, int cp, const int* taps, int B, int t_in, int cin, int device,
+                         long long* plan, int* convs) {
+  Taps tp;
+  const int err = read_taps(taps, &tp);
+  if (err != 0) return err;
+  if (cin < 1) return kErrChannels;
+  int sms = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  const int U = tail ? 2 * t_in : 4 * t_in;
+  return is_f32 ? plan_typed<float>(tail, cp, tp, B, U, cin, sms, plan, convs)
+                : plan_typed<bf16>(tail, cp, tp, B, U, cin, sms, plan, convs);
+}
+
 // tail == 0: fused stage, x [B, t_in, cin] -> out [B, 4*t_in, c] of x's type.
 // tail == 1: fused tail,  x [B, t_in, cin] -> out [B, 2*t_in] f32.
 // is_f32 picks the type of x, w_up, w_mrf, w_post (bf16 otherwise). cp: the
 // channel padding (32 or 64) the weights were packed with. taps: host array
-// of 12 ints, the 3 kernel sizes then the 3x3 dilations by branch.
+// of 12 ints, the 3 kernel sizes then the 3x3 dilations by branch. tile:
+// output rows per block, as covomix_vocoder_plan chose it. scratch: the
+// plan's scratch floats (f32) in device memory, the blocks' branch sums.
 int covomix_vocoder_fused(int tail, int is_f32, int cp, const void* x, void* out, const void* w_up,
                           const float* b_up, const void* w_mrf, const float* b_mrf, const void* w_post,
-                          float b_post, const int* taps, int B, int t_in, int cin, int c, void* stream) {
+                          float b_post, const int* taps, int B, int t_in, int cin, int c, int tile, void* scratch,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
   if (is_f32)
-    return run<float>(tail, cp, x, out, w_up, b_up, w_mrf, b_mrf, w_post, b_post, taps, B, t_in, cin, c, s);
-  return run<bf16>(tail, cp, x, out, w_up, b_up, w_mrf, b_mrf, w_post, b_post, taps, B, t_in, cin, c, s);
+    return run<float>(tail, cp, x, out, w_up, b_up, w_mrf, b_mrf, w_post, b_post, taps, B, t_in, cin, c, tile, sc, s);
+  return run<bf16>(tail, cp, x, out, w_up, b_up, w_mrf, b_mrf, w_post, b_post, taps, B, t_in, cin, c, tile, sc, s);
 }
 
 const char* covomix_vocoder_error_string(int code) {
   if (code == kErrChannels) return "channels must be in [1, cp] with cp 32 or 64, and cin >= 1";
-  if (code == kErrSmem) return "the block's buffers do not fit in shared memory at any tile size";
+  if (code == kErrSmem) return "the block's buffers do not fit in shared memory at this tile (or at any)";
   if (code == kErrTaps) return "kernel sizes and dilations must be >= 1";
+  if (code == kErrTile) return "the tile must be a positive multiple of 4 giving no warp more than 3 units a conv";
+  if (code == kErrAlign) return "x (and the bf16 upsample and MRF weights) must be 16-byte aligned";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

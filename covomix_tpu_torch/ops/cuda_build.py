@@ -3,6 +3,7 @@ with a plain C interface (loaded with ctypes by the kernel modules)."""
 
 from __future__ import annotations
 
+import glob
 import os
 import shutil
 import subprocess
@@ -17,10 +18,12 @@ def csrc(name: str) -> str:
 
 def build_library(source: str, path: str, flags=()) -> str:
     """Compile `source` into the shared library `path` with nvcc unless it
-    exists and is newer than the source. Returns nvcc's output ('' when the
-    library was up to date); raises with that output if nvcc fails. Builds
-    into distinct paths may run in parallel threads."""
-    if os.path.exists(path) and os.path.getmtime(path) >= os.path.getmtime(source):
+    exists and is newer than the source and the headers (`*.cuh`) beside
+    it. Returns nvcc's output ('' when the library was up to date); raises
+    with that output if nvcc fails. Builds into distinct paths may run in
+    parallel threads."""
+    inputs = [source, *glob.glob(os.path.join(os.path.dirname(source), "*.cuh"))]
+    if os.path.exists(path) and os.path.getmtime(path) >= max(map(os.path.getmtime, inputs)):
         return ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):

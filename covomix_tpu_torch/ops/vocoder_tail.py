@@ -19,7 +19,12 @@ dtype, biases stay f32.
 The parameters are the generator's own (`ups[i]`, the stage's three
 ResBlock1 dicts, `conv_post`); the wrapper packs them for the kernel once per
 parameter set (channels padded to 32 or 64, MRF weights in tensor-core
-fragment order for bf16)."""
+fragment order for bf16, tap-major, so that each tap is one 16-byte aligned
+slice the kernel's weight ring copies whole). Per launch it asks the
+library for the block plan (`covomix_vocoder_plan`: the tile, chosen in the
+C code from the card's SM count so that the last wave of blocks is not
+mostly empty) and allocates the f32 scratch that holds each block's branch
+sum."""
 
 from __future__ import annotations
 
@@ -65,8 +70,10 @@ class VocoderTailLibrary:
             lib = ctypes.CDLL(path)
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.covomix_vocoder_fused.argtypes = [ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, ctypes.c_float, vp,
-                                                  ci, ci, ci, ci, vp]
+                                                  ci, ci, ci, ci, ci, vp, vp]
             lib.covomix_vocoder_fused.restype = ci
+            lib.covomix_vocoder_plan.argtypes = [ci, ci, ci, vp, ci, ci, ci, ci, vp, vp]
+            lib.covomix_vocoder_plan.restype = ci
             lib.covomix_vocoder_error_string.argtypes = [ci]
             lib.covomix_vocoder_error_string.restype = ctypes.c_char_p
             self._lib = lib
@@ -74,6 +81,17 @@ class VocoderTailLibrary:
 
 
 LIBRARY = VocoderTailLibrary()
+
+
+class Plan(NamedTuple):
+    """A launch's block plan, as covomix_vocoder_plan chose it."""
+    tile: int        # output rows per block
+    halo: int        # rows a block reads beyond each side of its tile
+    smem: int        # shared memory bytes per block (one block per SM)
+    blocks: int
+    waves: float     # blocks / SMs
+    scratch: int     # f32 elements of the blocks' branch sums
+    convs: tuple     # bf16, per MRF conv: (rows, units, busiest warp's units, idlest warp's units)
 
 
 class Packed(NamedTuple):
@@ -163,8 +181,25 @@ class FusedKernel:
         self.tail = tail
         self.launches = 0
 
+    def plan(self, x, packed: Packed) -> Plan:
+        """The block plan the kernel is launched with on x (CUDA)."""
+        b, t, _ = x.shape
+        lib = LIBRARY.build()
+        plan, convs = (ctypes.c_longlong * 6)(), (ctypes.c_int * 72)()
+        err = lib.covomix_vocoder_plan(int(self.tail), int(x.dtype == torch.float32), packed.cp,
+                                       (ctypes.c_int * 12)(*packed.taps), b, t, packed.cin,
+                                       x.device.index if x.device.index is not None else torch.cuda.current_device(),
+                                       plan, convs)
+        if err != 0:
+            raise RuntimeError(f"fused {'tail' if self.tail else 'stage'} plan failed: "
+                               f"{lib.covomix_vocoder_error_string(err).decode()}")
+        tile, halo, smem, blocks, sms, scratch = plan
+        rows = tuple(tuple(convs[4 * i:4 * i + 4]) for i in range(18)) if x.dtype == torch.bfloat16 else ()
+        return Plan(tile, halo, smem, blocks, blocks / sms, scratch, rows)
+
     def __call__(self, x, packed: Packed):
-        """x [B, T, cin] contiguous CUDA bf16 or f32; packed: its weights."""
+        """x [B, T, cin] contiguous CUDA bf16 or f32, 16-byte aligned;
+        packed: its weights."""
         name = "fused tail" if self.tail else "fused stage"
         if x.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(f"{name} kernel takes bf16 or f32, got {x.dtype}")
@@ -177,7 +212,11 @@ class FusedKernel:
                 raise ValueError(f"{name} kernel: tensors must be contiguous")
         if packed.w_up.dtype != x.dtype or packed.w_mrf.dtype != x.dtype:
             raise ValueError(f"{name} kernel: weights packed as {packed.w_up.dtype}, input is {x.dtype}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: x must start 16-byte aligned (the kernel reads it in 16-byte chunks)")
         b, t, _ = x.shape
+        grid = self.plan(x, packed)
+        scratch = torch.empty(grid.scratch, dtype=torch.float32, device=x.device)
         if self.tail:
             out = torch.empty((b, 2 * t), dtype=torch.float32, device=x.device)
         else:
@@ -187,7 +226,7 @@ class FusedKernel:
             int(self.tail), int(x.dtype == torch.float32), packed.cp, x.data_ptr(), out.data_ptr(),
             packed.w_up.data_ptr(), packed.b_up.data_ptr(), packed.w_mrf.data_ptr(), packed.b_mrf.data_ptr(),
             packed.w_post.data_ptr(), packed.b_post, (ctypes.c_int * 12)(*packed.taps), b, t, packed.cin,
-            packed.c, torch.cuda.current_stream(x.device).cuda_stream)
+            packed.c, grid.tile, scratch.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: {lib.covomix_vocoder_error_string(err).decode()}")
         self.launches += 1
@@ -250,12 +289,18 @@ def fused_tail_plain(x2, up_p, resblocks, post_p, kernels=(3, 7, 11), dilations=
     return torch.tanh(_conv_f32(m, post_p, 1, dt))[..., 0]
 
 
+def _aligned(x):
+    """x contiguous and starting 16-byte aligned (a copy if it is not)."""
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
 def fused_stage(x1, up_p, resblocks, kernels=(3, 7, 11), dilations=((1, 3, 5),) * 3):
     """x1 [B, T1, Cin] (pre-activation input of the rate-4 stage) -> the MRF
     output [B, 4*T1, C] in x1's dtype. CUDA tensors launch the kernel, CPU
     tensors run the plain version."""
     if x1.is_cuda:
-        return STAGE(x1.contiguous(), _packed(up_p, resblocks, None, kernels, dilations, x1.dtype, x1.device))
+        return STAGE(_aligned(x1), _packed(up_p, resblocks, None, kernels, dilations, x1.dtype, x1.device))
     return fused_stage_plain(x1, up_p, resblocks, kernels, dilations)
 
 
@@ -264,5 +309,5 @@ def fused_tail(x2, up_p, resblocks, post_p, kernels=(3, 7, 11), dilations=((1, 3
     [B, 2*T2] f32. CUDA tensors launch the kernel, CPU tensors run the plain
     version."""
     if x2.is_cuda:
-        return TAIL(x2.contiguous(), _packed(up_p, resblocks, post_p, kernels, dilations, x2.dtype, x2.device))
+        return TAIL(_aligned(x2), _packed(up_p, resblocks, post_p, kernels, dilations, x2.dtype, x2.device))
     return fused_tail_plain(x2, up_p, resblocks, post_p, kernels, dilations)

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from covomix_tpu.models import layers as JL
 from covomix_tpu.models import vocoder as JV
@@ -209,6 +210,43 @@ def test_pack_weights_layout():
     assert tail.cp == 32 and tail.w_post.shape == (7, 32)
     with pytest.raises(ValueError, match="3 ResBlock1 branches"):
         PVT.pack_weights(pu, pb, None, (3, 7), DILS[:2], torch.float32, "cpu")
+
+
+@pytest.mark.parametrize("cin,c,cp", [(125, 62, 64), (62, 31, 32)])
+def test_packed_mrf_taps_are_whole_aligned_slices(cin, c, cp):
+    """The kernel's weight ring copies one tap per bulk copy: the bf16
+    `w_mrf` holds the 126 taps of the default convs back to back, conv c
+    starting at (sum of the earlier convs' k) * cp * cp, each tap one
+    contiguous cp * cp slice at a 16-byte multiple, in fragment order (the
+    stage's padding 64 and the tail's 32)."""
+    up, blocks, _ = _stage_params(11, cin, c)
+    pu, pb = to_port(up), to_port(blocks)
+    pk = PVT.pack_weights(pu, pb, None, KERNELS, DILS, torch.bfloat16, "cpu")
+    assert pk.cp == cp and pk.w_mrf.numel() == 126 * cp * cp == 6 * sum(KERNELS) * cp * cp
+    assert pk.w_mrf.is_contiguous() and pk.w_mrf.data_ptr() % 16 == 0
+    start = 0
+    for j, k in enumerate(KERNELS):
+        for l in range(3):
+            for which in ("convs1", "convs2"):
+                w = F.pad(pb[j][which][l]["w"].float(), (0, cp - c, 0, cp - c)).to(torch.bfloat16)
+                for tau in range(k):
+                    off = (start + tau) * cp * cp
+                    assert off * 2 % 16 == 0
+                    assert torch.equal(pk.w_mrf[off:off + cp * cp], PVT._mma_fragment_order(w[tau:tau + 1]))
+                start += k
+    assert start == 126
+
+
+def test_inputs_reach_the_kernel_16_byte_aligned():
+    """The kernel reads x in 16-byte chunks: the wrapper hands it x as is
+    when x starts 16-byte aligned, else a contiguous aligned copy."""
+    x = torch.zeros(4 * 1000 + 1, dtype=torch.bfloat16)
+    aligned = x[:4000].view(1, 40, 100)
+    assert PVT._aligned(aligned) is aligned
+    odd = x[1:].view(1, 40, 100)
+    assert odd.data_ptr() % 16 != 0
+    y = PVT._aligned(odd)
+    assert y.data_ptr() % 16 == 0 and y.is_contiguous() and torch.equal(y, odd)
 
 
 def test_fused_functions_take_the_plain_version_on_cpu():
