@@ -85,7 +85,33 @@ Phases (any failure exits non-zero, nothing is passed over):
      [6, 8, 1026, 64] beside their plain versions, bounds and
      `scaled_dot_product_attention(is_causal=True)` and its gradient, and two
      f32 steps of a tiny CoMix T2S model on the card against the CPU;
- 10. print a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
+ 10. the released checkpoint formats (run after phase 7, on phase 6's
+     full-width trees): Lightning `.ckpt` files (hyper_parameters, an EMA
+     shadow) of the CoMix T2S and VoMix models and a weight-normed HiFi-GAN
+     `g_<step>` + vocoder_config.json, written by tests/_torch_ckpt.py and
+     converted back by `python -m covomix_tpu_torch.convert_checkpoint`
+     (every leaf equal to its source: bit for bit, the folded vocoder within
+     CKPT_WN_RTOL); then one `serve_batch --device cuda` batch at the
+     serving shape read straight from the `.ckpt` / `g_` files (256 flash
+     launches and pre-passes, finite wavs of the expected lengths);
+ 11. `hifigan_inference --device cuda` from the `g_` file over four 8 kHz
+     wavs (3, 10.24, 20, 41 s), f32, with --metrics_csv, with and without
+     --fuse_tail: per file one f32 fused stage and tail launch with it and
+     none without, finite wavs of output_length(T), finite CSV values, the
+     two runs' wavs within HIFI_FUSED_TOL outside the generator's reach from
+     the valid end; then the f32 stage and tail timed (and held to their
+     plain versions) on the inputs the 41 s file gave them;
+ 12. HuBERT: `extract_semantic_tokens --device cuda` at full width (random
+     seeded weights written to `.npz`) over twelve 16 kHz wavs of 3-60 s, in
+     f32 and with --bf16: per batch 12 non-causal forwards without lse when
+     its padded frames are >= 512 and none below (both routes occur), no
+     rotary pre-pass, no other flash kernel; string arrays of
+     num_output_frames ids in [0, 500); tokens/s and x realtime; one padded
+     batch at 2 encoder layers card vs CPU in f32 (features within
+     HUBERT_FEAT_TOL, the share of equal ids printed); the forward at the
+     largest flash batch's shape in f32 and bf16, held to its plain version
+     and timed beside it, SDPA in the same dtype and its bound;
+ 13. print a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -102,6 +128,7 @@ from concurrent.futures import ThreadPoolExecutor
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak (H100 SXM data sheet)
+H100_F32_FLOPS = 67e12        # float32 outside the tensor cores (the f32 kernels' scalar FMAs; same sheet)
 H100_BYTES_PER_S = 3.35e12    # HBM3 bandwidth (H100 SXM data sheet)
 BF16_TOL = 1e-2               # |out| <~ 1: a few bf16 ulps (2^-8 at 1) of p and out rounding
 F32_TOL = 1e-4                # f32: summation order and __expf vs expf only
@@ -141,6 +168,18 @@ SMALL_SYNTH_WAV_TOL = 1e-5
 # few thousandths of the learning rate (1e-3): parameters to 1e-2 of it
 SMALL_TRAIN_LOSS_TOL = 1e-5
 SMALL_TRAIN_PARAM_TOL = 1e-5
+# a Lightning / HiFi-GAN file converted back to .npz against its source
+# tree: weight-norm folding g * v / |v| with g = |v| computed in another
+# order gives w back within a few f32 roundings (3e-7 measured on the CPU)
+CKPT_WN_RTOL = 1e-6
+# hifigan_inference, --fuse_tail against the exact (valid_len) path, f32
+# with TF32 off: the fused kernels against cuDNN's convs differ by summation
+# order only (the small Synthesizer run read 3e-8 end to end)
+HIFI_FUSED_TOL = 1e-5
+# HuBERT features (full width, 2 encoder layers, post-LN so |x| ~ 1) card vs
+# CPU in f32 with TF32 off: sums of up to 3072 terms in another order through
+# 7 convs, 2 layers and 4 layernorms; a wrong mask or route shows as O(1)
+HUBERT_FEAT_TOL = 1e-3
 DIALOGUE_SCRIPT = ("hello there, how are you doing today? [spkchange] i am fine, thank you. "
                    "[spkchange] good to hear [laughter] see you soon")
 
@@ -762,7 +801,10 @@ def time_vocoder(results, key, kind, x, up, blocks, post=None):
     (kind "stage") or tail ("tail") on input x [B, T, Cin] with the default
     taps, into results[f"{key}_ms"] etc.; the kernel's output on these inputs
     is held against the plain version's. No single PyTorch call computes
-    either function, so there is no library yardstick."""
+    either function, so there is no library yardstick. The bound counts the
+    operations at the peak of x's type (bf16: tensor cores; f32: the f32
+    kernels' scalar FMAs)."""
+    import torch
     from covomix_tpu_torch.ops import vocoder_tail as VT
 
     tail = kind == "tail"
@@ -784,7 +826,8 @@ def time_vocoder(results, key, kind, x, up, blocks, post=None):
     w_bytes = ((4 * cin * c + 126 * c * c + (7 * c if tail else 0)) * x.element_size()
                + (19 * c + 1) * 4)
     nbytes = b * t * cin * x.element_size() + n_out * (4 if tail else c * x.element_size()) + w_bytes
-    bf, bb = 2 * macs / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    peak = H100_BF16_FLOPS if x.dtype == torch.bfloat16 else H100_F32_FLOPS
+    bf, bb = 2 * macs / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     results[f"{key}_bound_ms"] = max(bf, bb)
     results[f"{key}_bound_by"] = "operations" if bf >= bb else "bytes"
     log(f"fused {kind} timing x{list(x.shape)} {str(x.dtype)[6:]}: kernel {ms:.4f} ms ("
@@ -1609,6 +1652,473 @@ def check_small_t2s_training_against_cpu():
         raise AssertionError("card and CPU T2S training steps differ")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the released checkpoint formats, converted and served directly
+
+
+def zero_counts():
+    """Every launch count of the flash and fused vocoder kernels set to 0."""
+    from covomix_tpu_torch.ops import flash_attention as FA, vocoder_tail as VT
+
+    for attr in COUNTS.values():
+        setattr(FA.KERNEL, attr, 0)
+    VT.STAGE.launches = VT.TAIL.launches = 0
+
+
+def write_torch_checkpoints(root):
+    """Full-width files in the reference's formats, written from the trees of
+    the `.npz` checkpoints in `root` by tests/_torch_ckpt.py (the inverse of
+    torch_convert): Lightning `.ckpt` files of the CoMix T2S and the VoMix
+    model (hyper_parameters, the raw weights + 1 in `state_dict`, the tree as
+    the EMA shadow) and a weight-normed HiFi-GAN `g_<step>` with the
+    vocoder_config.json beside it, under `root`/torch. Each is converted back
+    by `python -m covomix_tpu_torch.convert_checkpoint` (three processes at
+    once, CPU only) and every converted leaf held to its source: the T2S and
+    acoustic trees (linear, embedding and EMA-swapped leaves) bit for bit,
+    the folded vocoder weights within CKPT_WN_RTOL relative. Returns
+    {kind: path of the torch-format file}."""
+    import numpy as np
+    from covomix_tpu_torch.checkpoint.io import load_params
+    from covomix_tpu_torch.util.misc import named_leaves
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import _torch_ckpt as CK
+
+    t2s_cfg, ac_cfg, voc_cfg = full_width_configs()
+    tdir = os.path.join(root, "torch")
+    os.makedirs(tdir)
+    paths = {"t2s": os.path.join(tdir, "t2s.ckpt"), "acoustic": os.path.join(tdir, "acoustic.ckpt"),
+             "vocoder": os.path.join(tdir, "g_00400000")}
+    t0 = time.time()
+    CK.write_lightning_ckpt(paths["t2s"], load_params(os.path.join(root, "t2s.npz")), t2s_cfg, "t2s")
+    CK.write_lightning_ckpt(paths["acoustic"], load_params(os.path.join(root, "acoustic.npz")), ac_cfg, "acoustic")
+    CK.write_hifigan_ckpt(paths["vocoder"], load_params(os.path.join(root, "vocoder.npz")), voc_cfg)
+    log(f"torch-format checkpoints written in {time.time() - t0:.1f} s: "
+        + ", ".join(f"{os.path.basename(p)} {os.path.getsize(p) / 1e6:.1f} MB" for p in paths.values()))
+    t0 = time.time()
+    jobs = {kind: subprocess.Popen([sys.executable, "-m", "covomix_tpu_torch.convert_checkpoint",
+                                    "hifigan" if kind == "vocoder" else "lightning", src,
+                                    os.path.join(tdir, f"{kind}_converted.npz")],
+                                   cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for kind, src in paths.items()}
+    for kind, proc in jobs.items():
+        out = proc.communicate(timeout=900)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"convert_checkpoint of the {kind} file failed:\n{out[-3000:]}")
+    log(f"convert_checkpoint x3 (in parallel): {time.time() - t0:.1f} s")
+    for kind in paths:
+        src = dict(named_leaves(load_params(os.path.join(root, f"{kind}.npz"))))
+        got = dict(named_leaves(load_params(os.path.join(tdir, f"{kind}_converted.npz"))))
+        if src.keys() != got.keys():
+            raise AssertionError(f"converted {kind} tree has other leaves: {sorted(set(src) ^ set(got))[:8]}")
+        if kind == "vocoder":
+            rel = max(float((np.abs(got[k] - v) / np.maximum(np.abs(v), 1e-30)).max()) for k, v in src.items())
+            ok = rel <= CKPT_WN_RTOL
+            log(f"converted {kind}: {len(src)} leaves, folded weight norm max relative error {rel:.3e} "
+                f"(tol {CKPT_WN_RTOL:g}) {'ok' if ok else 'FAIL'}")
+        else:
+            bad = [k for k, v in src.items() if not np.array_equal(got[k], v)]
+            ok = not bad
+            log(f"converted {kind}: {len(src)} leaves, bit-equal to the source tree: {ok} {bad[:5]}")
+        if not ok:
+            raise AssertionError(f"the converted {kind} checkpoint differs from its source tree")
+    return paths
+
+
+def run_serve_batch_from_torch(results, root, paths, batch=4, decode=512, text_len=64):
+    """`covomix_tpu_torch.serve_batch.main([... --device cuda])` reading the
+    `.ckpt` / `g_<step>` files directly, one batch at the serving shape (B=4,
+    the two dialogue scripts repeated to fill it, 400-frame prompts, decode
+    512, bf16): 256 flash launches and as many rotary pre-passes in the run,
+    a finite [4, output_length(512)] wav, every saved wav 160 x its
+    generated frames long."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+    from covomix_tpu_torch import serve_batch, serving
+    from covomix_tpu_torch.models import vocoder as V
+
+    out = os.path.join(root, "served")
+    seen = []
+    orig = serving.BatchedPipeline.__call__
+
+    def call(self, *args, **kwargs):
+        wav, res = orig(self, *args, **kwargs)
+        seen.append((wav.detach().clone(), torch.minimum(res.lengths, res.lengths2).cpu().numpy()))
+        return wav, res
+
+    argv = ["--t2s_ckpt", paths["t2s"], "--acous_ckpt", paths["acoustic"], "--hifigan_ckpt", paths["vocoder"],
+            "--text_dir", os.path.join(root, "texts"), "--prompt_dir", os.path.join(root, "prompts"),
+            "--saved_dir", out, "--batch", str(batch), "--decode_len", str(decode), "--max_text_tokens",
+            str(text_len), "--allow_fallback_vocab", "--device", "cuda"]
+    serving.BatchedPipeline.__call__ = call
+    zero_counts()
+    try:
+        t0 = time.time()
+        serve_batch.main(argv)
+        wall = time.time() - t0
+    finally:
+        serving.BatchedPipeline.__call__ = orig
+    counts = flash_counts()
+    log(f"serve_batch from .ckpt / g_ files: {wall:.2f} s incl. reading and converting them; launches {counts}")
+    if len(seen) != 1 or counts != launches(fwd=256, rotary=256):
+        raise AssertionError(f"expected one batch with 256 flash forwards and pre-passes, got {len(seen)} "
+                             f"batches, {counts}")
+    wav, lengths = seen[0]
+    if tuple(wav.shape) != (batch, V.output_length(V.VocoderConfig(), decode)) or not bool(torch.isfinite(wav).all()):
+        raise AssertionError(f"bad served wav: {tuple(wav.shape)}, finite {bool(torch.isfinite(wav).all())}")
+    for i, name in enumerate(sorted(os.listdir(os.path.join(root, "texts")))):
+        sr, w = wavfile.read(os.path.join(out, name.replace(".txt", ".wav")))
+        if sr != 8000 or len(w) != max(int(lengths[i]) * 160, 160):
+            raise AssertionError(f"served {name}: {sr} Hz, {len(w)} samples for {lengths[i]} frames")
+    results.update(serve_torch_wall_s=wall, serve_torch_launches=counts)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: HiFi-GAN inference (copy synthesis with metrics) from the g_ file
+
+
+HIFI_SECONDS = (3.0, 10.24, 20.0, 41.0)
+
+
+def write_hifigan_wavs(wav_dir, seed=3):
+    """8 kHz speech-like inputs of HIFI_SECONDS: harmonics of a gliding f0
+    under a syllable-rate envelope, plus a little noise."""
+    import numpy as np
+    from covomix_tpu_torch.audio import save_wav
+
+    os.makedirs(wav_dir)
+    rs = np.random.RandomState(seed)
+    for i, s in enumerate(HIFI_SECONDS):
+        t = np.arange(int(8000 * s)) / 8000
+        f0 = 110 + 40 * np.sin(2 * np.pi * 0.3 * t + rs.rand())
+        phase = 2 * np.pi * np.cumsum(f0) / 8000
+        x = sum(np.sin(h * phase) / h for h in range(1, 12)) * (0.55 + 0.45 * np.sin(2 * np.pi * 4 * t)) ** 2
+        save_wav(os.path.join(wav_dir, f"f{i}.wav"), (0.25 * x + 0.005 * rs.randn(len(t))).astype(np.float32), 8000)
+
+
+def generator_right_reach(cfg) -> float:
+    """Mel frames to the left of the valid end that bucket padding can reach
+    through the generator: conv_pre's 3 frames, each upsample's padding, each
+    stage's widest ResBlock1 branch (sum of (k-1)/2 x dilation + (k-1)/2 per
+    pair) at that stage's rate, conv_post's 3 samples. 19.45 for the covomix
+    config."""
+    reach, rate = 3.0, 1
+    for u, k in zip(cfg.upsample_rates, cfg.upsample_kernel_sizes):
+        reach += ((k - u) // 2) / (rate * u)
+        rate *= u
+        reach += max((kr - 1) // 2 * (sum(d) + len(d)) for kr, d in
+                     zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)) / rate
+    return reach + 3 / rate
+
+
+def run_hifigan_inference(results, root, g_path):
+    """`covomix_tpu_torch.hifigan_inference.main([... --device cuda])` from the
+    full-width `g_<step>` over the HIFI_SECONDS wavs, f32, with --metrics_csv,
+    once with --fuse_tail and once without. Counts set to 0 before each run
+    and read after: with --fuse_tail each file launches the f32 fused stage
+    and tail once, without them neither; every wav finite and
+    output_length(T) long; every CSV value finite; the two runs' wavs equal
+    within HIFI_FUSED_TOL outside the generator's reach from the valid end
+    (the fused kernels are static-length, the exact path masks padding).
+    Then the f32 stage and tail timed on the inputs the longest file gave
+    them."""
+    import csv
+
+    import numpy as np
+    import torch
+    from covomix_tpu_torch import hifigan_inference as HI
+    from covomix_tpu_torch.models import vocoder as V
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    wav_dir = os.path.join(root, "hifi_wavs")
+    write_hifigan_wavs(wav_dir)
+    cfg = V.VocoderConfig()
+    orig = (HI.vocode, VT.fused_stage, VT.fused_tail)
+    runs = {}
+    for fuse in (True, False):
+        calls, inputs = [], {}
+
+        def vocode(params, cfg_, mel, fuse_tail, _calls=calls):
+            s0, n0 = VT.STAGE.launches, VT.TAIL.launches
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = orig[0](params, cfg_, mel, fuse_tail)
+            torch.cuda.synchronize()
+            _calls.append({"frames": mel.shape[1], "wall_s": time.time() - t0, "stage": VT.STAGE.launches - s0,
+                           "tail": VT.TAIL.launches - n0, "wav": out[0].float().cpu().numpy()})
+            return out
+
+        def fused_stage(x, up_p, resblocks, kernels, dilations, _inputs=inputs):
+            _inputs["stage"] = (x.contiguous().clone(), up_p, resblocks, None)
+            return orig[1](x, up_p, resblocks, kernels, dilations)
+
+        def fused_tail(x, up_p, resblocks, post_p, kernels, dilations, _inputs=inputs):
+            _inputs["tail"] = (x.contiguous().clone(), up_p, resblocks, post_p)
+            return orig[2](x, up_p, resblocks, post_p, kernels, dilations)
+
+        csv_path = os.path.join(root, f"hifi_{'fused' if fuse else 'exact'}.csv")
+        argv = ["--checkpoint_file", g_path, "--input_wavs_dir", wav_dir, "--output_dir",
+                os.path.join(root, f"hifi_out_{fuse}"), "--metrics_csv", csv_path, "--device", "cuda"]
+        HI.vocode, VT.fused_stage, VT.fused_tail = vocode, fused_stage, fused_tail
+        zero_counts()
+        try:
+            t0 = time.time()
+            HI.main(argv + (["--fuse_tail"] if fuse else []))
+            wall = time.time() - t0
+        finally:
+            HI.vocode, VT.fused_stage, VT.fused_tail = orig
+        counts = {"stage": VT.STAGE.launches, "tail": VT.TAIL.launches, **flash_counts()}
+        with open(csv_path) as f:
+            rows = list(csv.DictReader(f))
+        per_file = [(c["frames"], round(c["wall_s"], 6), c["stage"], c["tail"]) for c in calls]
+        log(f"hifigan_inference {'--fuse_tail' if fuse else 'exact (valid_len)'} f32: {wall:.2f} s for "
+            f"{len(calls)} files incl. metrics; per file (frames, vocode wall s, stage, tail launches) {per_file}; "
+            f"launches {counts}; CSV {rows}")
+        want = 1 if fuse else 0
+        if len(calls) != len(HIFI_SECONDS) or any(c["stage"] != want or c["tail"] != want for c in calls):
+            raise AssertionError(f"per file stage / tail launches {per_file}, expected {want} each")
+        if counts != {"stage": want * len(calls), "tail": want * len(calls), **launches()}:
+            raise AssertionError(f"launch totals {counts}")
+        for c in calls:
+            if len(c["wav"]) != V.output_length(cfg, c["frames"]) or not np.isfinite(c["wav"]).all():
+                raise AssertionError(f"wav of {c['frames']} frames: {len(c['wav'])} samples, finite "
+                                     f"{np.isfinite(c['wav']).all()}")
+        if len(rows) != len(HIFI_SECONDS) or not all(np.isfinite(float(r[k])) for r in rows for k in r
+                                                     if k != "file"):
+            raise AssertionError(f"metrics CSV not complete and finite: {rows}")
+        runs[fuse] = (calls, inputs, rows, counts)
+    reach = int(np.ceil(generator_right_reach(cfg)))
+    worst = 0.0
+    for a, b in zip(runs[True][0], runs[False][0]):
+        n = 160 * (a["frames"] - reach)
+        diff = np.abs(a["wav"] - b["wav"])
+        worst = max(worst, float(diff[:n].max()))
+        log(f"  {a['frames']} frames: fused vs exact max |diff| {diff[:n].max():.3e} before the last {reach} "
+            f"frames, {diff[n:].max():.3e} within them")
+    log(f"hifigan_inference fused vs exact (f32, TF32 off): max |diff| {worst:.3e} outside the last {reach} frames "
+        f"(the generator's reach, {generator_right_reach(cfg):.2f}) (tol {HIFI_FUSED_TOL:g}) "
+        f"{'ok' if worst <= HIFI_FUSED_TOL else 'FAIL'}")
+    if not worst <= HIFI_FUSED_TOL:
+        raise AssertionError("the fused and exact hifigan_inference wavs differ")
+    for fuse, (calls, _, rows, _) in runs.items():
+        rtf = [c["wall_s"] / (len(c["wav"]) / 8000) for c in calls]
+        results[f"hifi_{'fused' if fuse else 'exact'}"] = {
+            "rtf_per_file": rtf, "audio_s": [len(c["wav"]) / 8000 for c in calls],
+            "metrics_mean": {k: float(np.mean([float(r[k]) for r in rows])) for k in rows[0] if k != "file"}}
+    results["hifi_launches"] = {kind: runs[True][3][kind] for kind in ("stage", "tail")}
+    for kind, (x, up, blocks, post) in runs[True][1].items():   # the longest file's, f32
+        time_vocoder(results, f"{kind}_f32", kind, x, up, blocks, post)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: HuBERT semantic tokens through the extraction CLI
+
+
+HUBERT_SECONDS = (3, 4, 5, 6, 8, 9.5, 20, 22, 30, 45, 50, 60)
+
+
+def write_hubert_assets(root, seed=4):
+    """Full-width random HuBERT weights (HubertConfig(), seeded, on the card)
+    written as an `.npz` by the port's save_params, and 16 kHz wavs of
+    HUBERT_SECONDS (harmonics under an envelope plus noise) in two
+    subdirectories."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.audio import save_wav
+    from covomix_tpu_torch.checkpoint.io import save_params
+    from covomix_tpu_torch.models import hubert as H
+
+    save_params(os.path.join(root, "hubert.npz"), H.init(torch.Generator(device="cuda").manual_seed(seed),
+                                                         H.HubertConfig()), meta={"kind": "hubert", "config": {}})
+    rs = np.random.RandomState(seed)
+    for i, s in enumerate(HUBERT_SECONDS):
+        t = np.arange(int(16000 * s)) / 16000
+        x = sum(np.sin(2 * np.pi * h * (140 + 20 * i) * t) / h for h in range(1, 9))
+        x = 0.2 * x * (0.5 + 0.5 * np.sin(2 * np.pi * 3.5 * t)) + 0.02 * rs.randn(len(t))
+        sub = os.path.join(root, "wavs", f"spk{i % 2}")
+        os.makedirs(sub, exist_ok=True)
+        save_wav(os.path.join(sub, f"u{i}.wav"), x.astype(np.float32), 16000)
+
+
+def run_extract_semantic_tokens(results, root, bf16: bool):
+    """`covomix_tpu_torch.extract_semantic_tokens.main([... --device cuda])`
+    at full width over the HUBERT_SECONDS wavs (f32, or bf16 with --bf16),
+    counts set to 0 before and read after: each batch launches exactly 12
+    non-causal forwards without lse (one per encoder layer) when its padded
+    frame count is >= 512 and none below, no rotary pre-pass and no other
+    flash kernel; every output a string array of num_output_frames ids in
+    [0, 500). Returns the batches' (rows, padded frames, valid frames)."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch import extract_semantic_tokens as EST
+    from covomix_tpu_torch.audio import load_wav
+    from covomix_tpu_torch.models import hubert as H
+
+    cfg = H.HubertConfig()
+    key = "bf16" if bf16 else "f32"
+    out = os.path.join(root, f"codes_{key}")
+    batches = []
+    orig = H.wav2units_batch
+
+    def wav2units_batch(params, cfg_, wav, padding_mask=None, valid_samples=None, dtype=torch.float32):
+        c0 = flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ids = orig(params, cfg_, wav, padding_mask=padding_mask, valid_samples=valid_samples, dtype=dtype)
+        torch.cuda.synchronize()
+        batches.append({"rows": wav.shape[0], "frames": padding_mask.shape[1], "wall_s": time.time() - t0,
+                        "valid": padding_mask.sum(dim=1).tolist(),
+                        "launches": {k: v - c0[k] for k, v in flash_counts().items()}})
+        return ids
+
+    argv = ["--data_dir", os.path.join(root, "wavs"), "--hubert_ckpt", os.path.join(root, "hubert.npz"),
+            "--out_dir", out, "--device", "cuda"] + (["--bf16"] if bf16 else [])
+    H.wav2units_batch = wav2units_batch
+    zero_counts()
+    try:
+        t0 = time.time()
+        EST.main(argv)
+        wall = time.time() - t0
+    finally:
+        H.wav2units_batch = orig
+    counts = flash_counts()
+    log(f"extract_semantic_tokens {key}: {wall:.2f} s incl. reading the wavs; batches (rows, frames, s, flash "
+        f"forwards) {[(b['rows'], b['frames'], round(b['wall_s'], 6), b['launches']['fwd']) for b in batches]}; "
+        f"launches {counts}")
+    for b in batches:
+        want = cfg.encoder_layers if b["frames"] >= 512 else 0
+        if b["launches"] != launches(fwd=want):
+            raise AssertionError(f"a batch of {b['rows']} x {b['frames']} frames launched {b['launches']}, "
+                                 f"expected {want} forwards and nothing else")
+    if counts != launches(fwd=sum(cfg.encoder_layers for b in batches if b["frames"] >= 512)):
+        raise AssertionError(f"launch totals {counts}")
+    if not any(b["frames"] >= 512 for b in batches) or not any(b["frames"] < 512 for b in batches):
+        raise AssertionError("the batches did not exercise both attention routes")
+    frames = 0
+    for i, s in enumerate(HUBERT_SECONDS):
+        wav, _ = load_wav(os.path.join(root, "wavs", f"spk{i % 2}", f"u{i}.wav"), sr=16000)
+        codes = np.load(os.path.join(out, f"spk{i % 2}", f"u{i}.hubert_code.npy"))
+        ids = codes.astype(int)
+        if codes.dtype.kind != "U" or len(ids) != H.num_output_frames(cfg, len(wav)) or not (
+                (ids >= 0) & (ids < cfg.num_units)).all():
+            raise AssertionError(f"u{i}: {codes.dtype}, {len(ids)} ids, range [{ids.min()}, {ids.max()}]")
+        frames += len(ids)
+    ext = sum(b["wall_s"] for b in batches)
+    audio_s = sum(HUBERT_SECONDS)
+    results[f"hubert_{key}"] = {"tokens": frames, "audio_s": audio_s, "batch_s": ext, "tokens_per_s": frames / ext,
+                                "x_realtime": audio_s / ext, "cli_wall_s": wall, "launches": counts["fwd"],
+                                "batches": [{k: v for k, v in b.items() if k != "launches"} for b in batches]}
+    log(f"HuBERT {key}: {frames} tokens from {audio_s:.1f} s of audio in {ext:.4f} s of batches: "
+        f"{frames / ext:.1f} tokens/s, {audio_s / ext:.1f}x realtime")
+    return batches
+
+
+def check_hubert_against_cpu(root):
+    """One padded batch (11 s and 8 s, padded to 15 s: 749 frames, the flash
+    route on the card) through the full-width HuBERT cut to 2 encoder layers,
+    f32, TF32 off, on the card and on the CPU (layers.attend there): the
+    features within HUBERT_FEAT_TOL; the share of equal k-means ids printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.checkpoint.io import load_params, params_from_numpy
+    from covomix_tpu_torch.models import hubert as H
+
+    cfg = dataclasses.replace(H.HubertConfig(), output_layer=2)
+    tree = load_params(os.path.join(root, "hubert.npz"))
+    lens = [11 * 16000, 8 * 16000]
+    rs = np.random.RandomState(6)
+    batch = np.zeros((2, 15 * 16000), np.float32)
+    for i, n in enumerate(lens):
+        batch[i, :n] = 0.1 * rs.randn(n)
+    fv = [H.num_output_frames(cfg, n) for n in lens]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        params = params_from_numpy(tree, dev)
+        mask = torch.arange(H.num_output_frames(cfg, batch.shape[1]), device=dev)[None, :] < torch.tensor(
+            fv, device=dev)[:, None]
+        c0 = flash_counts()["fwd"]
+        with torch.no_grad():
+            feats = H.extract_features(params, cfg, torch.from_numpy(batch).to(dev), padding_mask=mask,
+                                       valid_samples=torch.tensor(lens, device=dev),
+                                       valid_frames=mask.sum(dim=1).to(torch.int32))
+            ids = H.kmeans_assign(params, feats)
+        outs[dev] = (feats.cpu(), ids.cpu(), flash_counts()["fwd"] - c0)
+    (fc, ic, nc), (fh, ih, nh) = outs["cuda"], outs["cpu"]
+    err = max(float((fc[i, :n] - fh[i, :n]).abs().max()) for i, n in enumerate(fv))
+    agree = sum(int((ic[i, :n] == ih[i, :n]).sum()) for i, n in enumerate(fv)) / sum(fv)
+    log(f"HuBERT (full width, 2 layers) card vs CPU, f32, batch [2, {batch.shape[1]}] ({mask.shape[1]} frames, "
+        f"valid {fv}): features max_abs_err {err:.3e} (tol {HUBERT_FEAT_TOL:g}), |features| max "
+        f"{float(fh.abs().max()):.3g}; k-means ids equal on {agree:.4%} of the valid frames; flash forwards card "
+        f"{nc} / cpu {nh}")
+    if nc != cfg.output_layer or nh != 0:
+        raise AssertionError("the card run did not take the flash kernel in every layer, or the CPU run did")
+    if not err <= HUBERT_FEAT_TOL:
+        raise AssertionError(f"HuBERT features differ between the card and the CPU by {err}")
+    return agree
+
+
+def time_flash_hubert(results, key, dtype, b, t, valid, h=12, dh=64):
+    """The forward at a HuBERT batch's shape [b, 12, t, 64] (no rotary, the
+    batch's per-row valid frames) in `dtype`: the kernel's output on the
+    timed inputs held against the plain version (F32_TOL / BF16_TOL), the
+    kernel back to back and behind a sleep, the plain version, SDPA in the
+    same dtype with the key mask, and the bound (operations over the peak
+    of the dtype: f32 outside the tensor cores, bf16 on them)."""
+    import torch
+    import torch.nn.functional as F
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    q, k, v, valid_arr, _ = flash_inputs(b, h, t, dh, dtype, 97, valid, False)
+    out = FA.KERNEL(q, k, v, valid_arr, None)
+    ref = FA.flash_attention_plain(q, k, v, valid_arr, None)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    err = results[f"{key}_max_abs_err"] = (out.float() - ref.float()).abs().max().item()
+    ok = bool(torch.isfinite(out).all()) and err <= tol
+    log(f"flash check at the HuBERT batch's shape [{b},{h},{t},{dh}] {str(dtype)[6:]} valid={valid_arr.tolist()}: "
+        f"max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash kernel disagrees with its plain version at [{b},{h},{t},{dh}] {dtype}")
+    del out, ref
+    ms = both_times(results, key, lambda: FA.KERNEL(q, k, v, valid_arr, None), iters=10)
+    results[f"{key}_plain_ms"] = cuda_time_ms(lambda: FA.flash_attention_plain(q, k, v, valid_arr, None),
+                                              iters=3, warmup=1)
+    mask = (torch.arange(t, device="cuda")[None, :] < valid_arr[:, None])[:, None, None, :]
+    both_times(results, f"{key}_library", lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), iters=10)
+    flops = 4.0 * h * dh * t * valid_arr.long().sum().item()
+    nbytes = 4 * b * h * t * dh * q.element_size() + valid_arr.numel() * 4
+    peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+    bf_ms, bb_ms = flops / peak * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    results[f"{key}_bound_ms"] = max(bf_ms, bb_ms)
+    results[f"{key}_bound_by"] = "operations" if bf_ms >= bb_ms else "bytes"
+    log(f"flash timing at the HuBERT batch's shape [{b},{h},{t},{dh}] {str(dtype)[6:]} (ms back to back / behind a "
+        f"sleep): kernel {ms:.4f} / {results[f'{key}_device_ms']:.4f}; SDPA {results[f'{key}_library_ms']:.4f} / "
+        f"{results[f'{key}_library_device_ms']:.4f}; plain {results[f'{key}_plain_ms']:.4f}; bound "
+        f"{results[f'{key}_bound_ms']:.4f} ({results[f'{key}_bound_by']}: {flops / 1e9:.2f} GFLOP at "
+        f"{peak / 1e12:g} TFLOP/s, {nbytes / 1e6:.1f} MB) -> {flops / results[f'{key}_device_ms'] / 1e9:.1f} "
+        f"TFLOP/s on the card")
+
+
+def run_hubert(results, root):
+    """Phase 12: the HuBERT assets, the extraction CLI in f32 and in bf16,
+    the card-vs-CPU check, and the forward timed at the largest flash
+    batch's shape (most query-key pairs) in both dtypes."""
+    t0 = time.time()
+    write_hubert_assets(root)
+    log(f"HuBERT assets (full-width .npz, {len(HUBERT_SECONDS)} wavs of {sum(HUBERT_SECONDS)} s) written in "
+        f"{time.time() - t0:.1f} s")
+    batches = run_extract_semantic_tokens(results, root, bf16=False)
+    run_extract_semantic_tokens(results, root, bf16=True)
+    results["hubert_ids_agree_cpu"] = check_hubert_against_cpu(root)
+    import torch
+
+    big = max((b for b in batches if b["frames"] >= 512), key=lambda b: b["rows"] * b["frames"] ** 2)
+    for dtype, key in ((torch.float32, "hubert_fwd_f32"), (torch.bfloat16, "hubert_fwd_bf16")):
+        time_flash_hubert(results, key, dtype, big["rows"], big["frames"], big["valid"])
+
+
 # registers per thread of the dh-64 bf16 flash kernels (ptxas, CUDA 12.8),
 # held to the counts of their first build: the TMA + wgmma forward's four
 # forms (<dh, lse, causal>), the rotary pre-pass, the TMA + wgmma backward
@@ -1758,6 +2268,16 @@ def main() -> int:
             time_vocoder(results, kind, kind, x, up, blocks, post)   # the main path's own inputs
         check_small_against_cpu()
         check_small_synth_against_cpu(os.path.join(root, "prompts"))
+        paths = write_torch_checkpoints(root)
+        run_serve_batch_from_torch(results, root, paths)
+        run_hifigan_inference(results, root, paths["vocoder"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    root = os.path.join(VT.BUILD_DIR, "smoke_hubert")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        run_hubert(results, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     root = os.path.join(VT.BUILD_DIR, "smoke_train")
@@ -1801,6 +2321,13 @@ def main() -> int:
         kernels.append(kernel_entry(results, key, f"flash_attention_{key}", flash_src, where, train[key],
                                     with_prepass=key == "fwd_lse",
                                     launches_per_train_step=train[key] // results["train_steps"]))
+    for dt in ("f32", "bf16"):     # this slice's main path: HuBERT extraction (f32, and --bf16)
+        kernels.append(kernel_entry(results, f"hubert_fwd_{dt}", f"flash_attention_fwd_hubert_{dt}", flash_src,
+                                    "covomix_tpu/ops/flash_attention.py:162", results[f"hubert_{dt}"]["launches"]))
+    for kind, where in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
+                        ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):   # hifigan_inference --fuse_tail, f32
+        kernels.append(kernel_entry(results, f"{kind}_f32", f"vocoder_fused_{kind}_f32", voc_src, where,
+                                    results["hifi_launches"][kind], unfused_ms=results[f"{kind}_f32_unfused_ms"]))
     t2s = results["t2s_launches"]     # this slice's main path: full-width CoMix T2S training
     for key, where in replaces.items():
         key = f"{key}_causal"

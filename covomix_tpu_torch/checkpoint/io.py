@@ -240,7 +240,7 @@ def params_from_numpy(tree: Any, device, dtype=torch.float32) -> Any:
     if isinstance(tree, torch.Tensor):
         t = tree
     else:
-        t = torch.from_numpy(np.array(tree, copy=True))   # own, writable, contiguous
+        t = torch.from_numpy(np.array(tree, copy=True, order="C"))   # own, writable, contiguous
     if t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)

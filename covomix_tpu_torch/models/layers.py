@@ -111,6 +111,34 @@ def adaptive_rmsnorm(p, x, cond):
     return (normed * gamma + beta).to(x.dtype)
 
 
+def layernorm(p, x, eps: float = 1e-5):
+    """LayerNorm over the last dim, computed in f32 (gamma / beta affine)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["gamma"] + p["beta"]).to(x.dtype)
+
+
+def groupnorm(p, x, num_groups: int, eps: float = 1e-5, length_mask=None):
+    """x [B, T, C]; statistics per group over time and the group's channels,
+    in f32, affine per channel (fairseq Fp32GroupNorm). `length_mask` [B, T]
+    bool restricts the statistics to the valid timesteps, so a padded row
+    gives what its exact-length run gives."""
+    b, t, c = x.shape
+    xf = x.float().reshape(b, t, num_groups, c // num_groups)
+    if length_mask is None:
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    else:
+        m = length_mask[:, :, None, None].float()
+        count = torch.clamp(m.sum(dim=(1, 3), keepdim=True), min=1.0) * (c // num_groups)
+        mean = (xf * m).sum(dim=(1, 3), keepdim=True) / count
+        var = (((xf - mean) ** 2) * m).sum(dim=(1, 3), keepdim=True) / count
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, t, c)
+    return (y * p["gamma"] + p["beta"]).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings: halfsplit (acoustic) and interleaved (T2S) conventions
 

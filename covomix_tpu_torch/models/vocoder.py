@@ -47,6 +47,22 @@ class VocoderConfig:
         return out
 
 
+def config_from_json(h: dict) -> VocoderConfig:
+    """A HiFi-GAN `vocoder_config.json` (or an `.npz` sidecar's "config") ->
+    VocoderConfig, with the covomix defaults for missing keys (the JAX CLIs'
+    mapping; keys of the mel analysis are not read here)."""
+    return VocoderConfig(
+        num_mels=int(h.get("num_mels", 80)),
+        upsample_initial_channel=int(h.get("upsample_initial_channel", 500)),
+        upsample_rates=tuple(h.get("upsample_rates", [5, 4, 4, 2])),
+        upsample_kernel_sizes=tuple(h.get("upsample_kernel_sizes", [8, 8, 4, 4])),
+        resblock_kernel_sizes=tuple(h.get("resblock_kernel_sizes", [3, 7, 11])),
+        resblock_dilation_sizes=tuple(tuple(d) for d in h.get("resblock_dilation_sizes", [[1, 3, 5]] * 3)),
+        resblock=str(h.get("resblock", "1")),
+        sampling_rate=int(h.get("sampling_rate", 8000)),
+    )
+
+
 def get_padding(kernel: int, dilation: int = 1) -> int:
     return (kernel * dilation - dilation) // 2
 

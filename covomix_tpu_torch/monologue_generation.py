@@ -10,9 +10,11 @@ prompt `<name>.hubert_code.npy` (+ sibling `.wav` or `.mel.npy`) in
 config.txt provenance file. `--device` (default cuda) picks the device; bf16
 is the default on cuda, f32 on cpu.
 
-Checkpoints are `.npz` files with a `.json` config sidecar, as the JAX
-package's `checkpoint.io.save_params` and convert_checkpoint.py write them;
-the vocoder's config comes from its sidecar."""
+Checkpoints are `.npz` files with a `.json` config sidecar (as the
+`checkpoint.io.save_params` of either package and `convert_checkpoint` write
+them), or the released PyTorch files, read directly as the JAX CLIs read
+them: Lightning `.ckpt` for the T2S and acoustic models, HiFi-GAN
+`g_<step>` with the `vocoder_config.json` beside it."""
 
 from __future__ import annotations
 
@@ -25,14 +27,17 @@ import torch
 
 from covomix_tpu_torch import resolve_device
 from covomix_tpu_torch.audio import save_wav
-from covomix_tpu_torch.pipeline import SPECULATIVE_ITEM, Synthesizer, load_synthesizer, require_npz
+from covomix_tpu_torch.pipeline import SPECULATIVE_ITEM, Synthesizer, load_synthesizer
 
 
 def add_args(parser: argparse.ArgumentParser, *, mode: str, prompt_dir: str) -> None:
     """The flags both generation CLIs share (the JAX CLIs' plus --device)."""
-    parser.add_argument("--t2s_ckpt", type=str, required=True, help="text2semantic checkpoint (.npz)")
-    parser.add_argument("--acous_ckpt", type=str, required=True, help="acoustic model checkpoint (.npz)")
-    parser.add_argument("--hifigan_ckpt", type=str, required=True, help="HiFi-GAN vocoder checkpoint (.npz)")
+    parser.add_argument("--t2s_ckpt", type=str, required=True,
+                        help="text2semantic checkpoint (.npz or Lightning .ckpt)")
+    parser.add_argument("--acous_ckpt", type=str, required=True,
+                        help="acoustic model checkpoint (.npz or Lightning .ckpt)")
+    parser.add_argument("--hifigan_ckpt", type=str, required=True,
+                        help="HiFi-GAN vocoder checkpoint (.npz or g_<step>)")
     parser.add_argument("--text_dir", type=str, default="test/test_dir")
     parser.add_argument("--prompt_dir", type=str, default=prompt_dir)
     parser.add_argument("--saved_dir", type=str, default=".saved_dir")
@@ -55,7 +60,6 @@ def add_args(parser: argparse.ArgumentParser, *, mode: str, prompt_dir: str) -> 
 def load_models(args) -> Synthesizer:
     if args.speculative:
         raise NotImplementedError(f"--speculative: speculative T2S decode is not ported yet ({SPECULATIVE_ITEM})")
-    require_npz(args.t2s_ckpt, args.acous_ckpt, args.hifigan_ckpt)
     device = resolve_device(args.device)
     if args.f32:
         dtype = torch.float32

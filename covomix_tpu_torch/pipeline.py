@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import os
 from typing import Optional, Tuple
 
@@ -36,6 +37,7 @@ import torch
 from covomix_tpu_torch import resolve_device
 from covomix_tpu_torch.audio import MelConfig, load_wav, mel_spectrogram
 from covomix_tpu_torch.checkpoint import io as cio
+from covomix_tpu_torch.checkpoint import torch_convert as tc
 from covomix_tpu_torch.checkpoint.io import params_from_numpy
 from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer, remove_punctuation
 from covomix_tpu_torch.models import acoustic as A
@@ -49,17 +51,6 @@ PROMPT_MAX_FRAMES = 400      # 8 s at 20 ms hop
 MEL_PAD = -15.0              # collate pad value
 SPECULATIVE_ITEM = "ROADMAP.md 'Modules to port': speculative decode"
 PARALLEL_ITEM = "ROADMAP.md 'Modules to port': Parallelism"
-TORCH_CKPT_ITEM = "ROADMAP.md 'Modules to port': torch_convert + hifigan_inference"
-
-
-def require_npz(*paths: str) -> None:
-    """Refuse checkpoints other than `.npz` (Lightning `.ckpt`, HiFi-GAN
-    `g_<step>`), naming the converter: the port reads `.npz` only."""
-    for path in paths:
-        if not path.endswith(".npz"):
-            raise ValueError(f"{path}: the port reads .npz checkpoints only; convert PyTorch checkpoints "
-                             f"(.ckpt, HiFi-GAN g_<step>) with convert_checkpoint.py first "
-                             f"(reading them directly waits for {TORCH_CKPT_ITEM})")
 
 
 def _tupled(v):
@@ -70,13 +61,30 @@ def _tupled(v):
 
 
 def load_checkpoint(path: str, cfg_cls):
-    """(numpy parameter tree, config) from a `.npz` checkpoint whose `.json`
-    sidecar carries the model config under "config"."""
-    params = cio.load_params(path)
-    meta = cio.load_meta(path)
-    fields = {f.name for f in dataclasses.fields(cfg_cls)}
-    cfg = cfg_cls(**{k: _tupled(v) for k, v in meta.get("config", {}).items() if k in fields})
-    return params, cfg
+    """(numpy parameter tree, config) of a checkpoint in any of the formats
+    the JAX generation CLIs read (their `load_any`):
+      * `.npz` whose `.json` sidecar carries the model config under "config";
+      * a Lightning `.ckpt` of the T2S or acoustic model (`cfg_cls` says
+        which), EMA weights, the config from its hyper_parameters;
+      * a HiFi-GAN `g_<step>` (`cfg_cls` VocoderConfig), weight norm folded,
+        the config from the `vocoder_config.json` beside it (defaults
+        without one)."""
+    if path.endswith(".npz"):
+        params = cio.load_params(path)
+        meta = cio.load_meta(path)
+        fields = {f.name for f in dataclasses.fields(cfg_cls)}
+        cfg = cfg_cls(**{k: _tupled(v) for k, v in meta.get("config", {}).items() if k in fields})
+        return params, cfg
+    if cfg_cls is V.VocoderConfig:
+        cfg_file = os.path.join(os.path.dirname(path), "vocoder_config.json")
+        h = {}
+        if os.path.isfile(cfg_file):
+            with open(cfg_file) as f:
+                h = json.load(f)
+        return tc.convert_hifigan_ckpt(path, h), V.config_from_json(h)
+    kind = "t2s" if cfg_cls is T.T2SConfig else "acoustic"
+    params, hparams = tc.convert_lightning_ckpt(path)
+    return params, cfg_cls(**tc.cfg_kwargs_from_hparams(hparams, kind=kind))
 
 
 def extract_mel(wav_path: str, mel_cfg: MelConfig = MelConfig(), device=None,
@@ -323,10 +331,10 @@ class Synthesizer:
 
 def load_synthesizer(t2s_path: str, acoustic_path: str, vocoder_path: str, *,
                      vocab_path: Optional[str] = None, strict: bool = True, **kwargs) -> Synthesizer:
-    """A Synthesizer from `.npz` checkpoints, each with a `.json` sidecar
-    carrying the model config (`checkpoint.io.save_params`,
-    convert_checkpoint.py). `strict=False` permits the tokenizer's fallback
-    vocab; `mel_cfg` defaults to the vocoder's sample rate."""
+    """A Synthesizer from three checkpoints in any format `load_checkpoint`
+    reads (`.npz` + `.json`, Lightning `.ckpt`, HiFi-GAN `g_<step>`).
+    `strict=False` permits the tokenizer's fallback vocab; `mel_cfg` defaults
+    to the vocoder's sample rate."""
     t2s_params, t2s_cfg = load_checkpoint(t2s_path, T.T2SConfig)
     ac_params, ac_cfg = load_checkpoint(acoustic_path, A.AcousticConfig)
     voc_params, voc_cfg = load_checkpoint(vocoder_path, V.VocoderConfig)

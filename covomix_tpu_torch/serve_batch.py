@@ -3,8 +3,9 @@
     python -m covomix_tpu_torch.serve_batch --t2s_ckpt t2s.npz --acous_ckpt ac.npz \
         --hifigan_ckpt voc.npz --text_dir scripts/ --prompt_dir prompts/ [--device cuda]
 
-Checkpoints are the `.npz` + `.json` files that covomix_tpu's
-`checkpoint.io.save_params` (or convert_checkpoint.py) writes. Scripts follow
+Checkpoints are the `.npz` + `.json` files that `checkpoint.io.save_params`
+(or `convert_checkpoint`) writes, or the released PyTorch files (Lightning
+`.ckpt`, HiFi-GAN `g_<step>` + `vocoder_config.json`), read directly. Scripts follow
 dialogue_generation.py's conventions: `<name>.txt` with
 `<name>_1.hubert_code.npy` / `<name>_2.hubert_code.npy` prompts (+ sibling wavs
 or `.mel.npy` caches)."""
@@ -24,7 +25,7 @@ from covomix_tpu_torch.audio import MelConfig, save_wav
 from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
 from covomix_tpu_torch.models import acoustic as A, text2semantic as T, vocoder as V
 from covomix_tpu_torch.pipeline import (PARALLEL_ITEM, SPECULATIVE_ITEM, clean_text, load_checkpoint,
-                                        prepare_prompt, require_npz)
+                                        prepare_prompt)
 from covomix_tpu_torch.serving import SILENCE_TOKEN, BatchedPipeline
 
 
@@ -63,7 +64,6 @@ def main(argv=None):
                                   f"({SPECULATIVE_ITEM})")
     if args.multihost:
         raise NotImplementedError(f"--multihost: multi-host serving is not ported yet ({PARALLEL_ITEM})")
-    require_npz(args.t2s_ckpt, args.acous_ckpt, args.hifigan_ckpt)
     device = resolve_device(args.device)
     if args.f32:
         dtype = torch.float32

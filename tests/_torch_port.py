@@ -24,6 +24,11 @@ J_T2S = JT.T2SConfig(dim=32, source_depth=1, target_depth=1, heads=2, dim_head=1
 J_AC = JA.AcousticConfig(dim_in=160, dim=32, depth=2, heads=2, dim_head=16, dim_phoneme_emb=16,
                          num_phoneme_tokens=502, mode="two_one")
 J_VOC = JV.VocoderConfig(upsample_initial_channel=16)
+# tiny configs that a Lightning checkpoint's hyper_parameters map back to
+# (`cfg_kwargs_from_hparams` reads no T2S head dim and no phoneme-embedding
+# width, so those stay at their defaults)
+J_T2S_CKPT = dataclasses.replace(J_T2S, dim_head=64)
+J_AC_CKPT = dataclasses.replace(J_AC, dim_phoneme_emb=1024)
 
 GREEDY_THRES = 1e-3   # ceil(1e-3 * 502) == 1: top-k keeps only the argmax, sampling is greedy
 

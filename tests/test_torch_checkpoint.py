@@ -178,11 +178,13 @@ def test_serve_batch_cli_on_cpu(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_reference_package():
-    """Every port module and chip_smoke.py import with jax and covomix_tpu
-    blocked; chip_smoke.py without a card exits non-zero and prints no result."""
+    """Every port module and chip_smoke.py import with jax, covomix_tpu and
+    joblib / scikit-learn (which only `load_kmeans` needs, inside the call)
+    blocked; chip_smoke.py without a card exits non-zero and prints no
+    result."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
-        for name in ("jax", "jaxlib", "covomix_tpu"):
+        for name in ("jax", "jaxlib", "covomix_tpu", "joblib", "sklearn"):
             sys.modules[name] = None          # any import of them raises ImportError
         sys.path.insert(0, {REPO!r})
         import covomix_tpu_torch
@@ -190,7 +192,10 @@ def test_port_imports_neither_jax_nor_reference_package():
         for m in mods:
             importlib.import_module(m)
         import chip_smoke
-        assert len(mods) >= 14, mods
+        assert len(mods) >= 42, mods
+        for m in ("checkpoint.torch_convert", "convert_checkpoint", "hifigan_inference", "util.metrics",
+                  "util.pesq_nb", "data.batching", "models.hubert", "extract_semantic_tokens"):
+            assert "covomix_tpu_torch." + m in mods, m
         print("imported", len(mods))
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,

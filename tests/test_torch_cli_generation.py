@@ -13,6 +13,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+from scipy.io import wavfile
 
 from covomix_tpu.audio import save_wav
 from covomix_tpu.checkpoint import io as jio
@@ -21,7 +22,8 @@ from covomix_tpu_torch.audio.wav import load_wav
 from covomix_tpu_torch import dialogue_generation, monologue_generation
 from covomix_tpu_torch import pipeline as P
 
-import _torch_port  # noqa: F401  (one torch thread beside the XLA client; see there)
+import _torch_ckpt as CK
+from _torch_port import J_AC_CKPT, J_T2S_CKPT   # importing it sets one torch thread beside the XLA client
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAX_LEN = 64      # 30 prompt frames + 64 fit one 128-frame bucket
@@ -104,12 +106,31 @@ def test_dialogue_cli_as_module(assets, tmp_path):
 
 
 def test_torch_checkpoint_and_speculative_refused(assets, tmp_path):
-    with pytest.raises(ValueError, match="convert_checkpoint.py"):
-        monologue_generation.main(_args(assets, tmp_path, extra=["--mode", "covosingle"])[:1]
-                                  + ["model.ckpt"] + _args(assets, tmp_path)[2:])
-    with pytest.raises(ValueError, match="convert_checkpoint.py"):
-        dialogue_generation.main(_args(assets, tmp_path)[:5] + [str(assets / "g_00400000")]
-                                 + _args(assets, tmp_path)[6:])
+    """The released PyTorch formats are read directly: the dialogue CLI run
+    from Lightning `.ckpt` files (T2S and acoustic, EMA weights) and a
+    HiFi-GAN `g_<step>` gives the wav of the run from the `.npz` files they
+    were made from, within one int16 step (the T2S and acoustic trees come
+    back bit for bit, the folded vocoder to f32 rounding). --speculative
+    still raises."""
+    key = jax.random.PRNGKey(7)
+    for name, init, cfg, kind in (("t2s", JT.init, J_T2S_CKPT, "t2s"), ("acoustic", JA.init, J_AC_CKPT, "acoustic")):
+        tree = jax.tree_util.tree_map(np.asarray, jax.jit(init, static_argnums=1)(jax.random.fold_in(key, len(name)),
+                                                                                    cfg))
+        jio.save_params(str(tmp_path / f"{name}.npz"), tree, meta={"config": cfg.__dict__})
+        CK.write_lightning_ckpt(str(tmp_path / f"{name}.ckpt"), tree, cfg, kind)
+    (tmp_path / "voc").mkdir()
+    CK.write_hifigan_ckpt(str(tmp_path / "voc" / "g_00400000"), jio.load_params(str(assets / "vocoder.npz")),
+                          JV.VocoderConfig(upsample_initial_channel=32))
+    wavs = []
+    for ckpts in ((tmp_path / "t2s.npz", tmp_path / "acoustic.npz", assets / "vocoder.npz"),
+                  (tmp_path / "t2s.ckpt", tmp_path / "acoustic.ckpt", tmp_path / "voc" / "g_00400000")):
+        argv = _args(assets, tmp_path / f"out{len(wavs)}", extra=["--mode", "covomix"])
+        for flag, path in zip(("--t2s_ckpt", "--acous_ckpt", "--hifigan_ckpt"), ckpts):
+            argv[argv.index(flag) + 1] = str(path)
+        dialogue_generation.main(argv)
+        wavs.append(wavfile.read(str(tmp_path / f"out{len(wavs)}" / "utt1.wav"))[1].astype(np.int32))
+    assert len(wavs[0]) > 0 and wavs[0].shape == wavs[1].shape
+    assert np.abs(wavs[0] - wavs[1]).max() <= 1
     with pytest.raises(NotImplementedError, match="speculative"):
         dialogue_generation.main(_args(assets, tmp_path, extra=["--speculative"]))
 

@@ -1,19 +1,25 @@
 """The port's serving CLI (`python -m covomix_tpu_torch.serve_batch`) takes the
 JAX CLI's flags: `--staged` runs (the eager port runs the stages one after
-another anyway), and the flags of parts not ported yet, or checkpoints it
-cannot read, are refused with a message that names what is missing."""
+another anyway), the flags of parts not ported yet are refused with a
+message that names what is missing, and the released PyTorch checkpoint
+formats are read as the `.npz` files they convert to."""
 
 import dataclasses
 import json
+import os
 
+import jax
 import numpy as np
 import pytest
+from scipy.io import wavfile
 
 from covomix_tpu.checkpoint import io as jio
+from covomix_tpu.models import text2semantic as JT
 from covomix_tpu_torch import serve_batch
 from covomix_tpu_torch.audio.wav import load_wav
 
-from _torch_port import J_AC, J_T2S, J_VOC, jax_params
+import _torch_ckpt as CK
+from _torch_port import J_AC, J_T2S, J_T2S_CKPT, J_VOC, jax_params
 
 
 def _assets(tmp_path):
@@ -55,8 +61,30 @@ def test_multihost_raises(tmp_path):
 
 @pytest.mark.parametrize("flag,path", [("--t2s_ckpt", "last.ckpt"), ("--hifigan_ckpt", "g_02500000")])
 def test_torch_checkpoints_are_refused(tmp_path, flag, path):
-    """The message the generation CLIs give: convert them first."""
+    """The released PyTorch formats are read directly: a run from a
+    Lightning `.ckpt` (EMA weights) or a HiFi-GAN `g_<step>` (weight norm
+    folded) gives the wavs of the run from the `.npz` they were made from:
+    the T2S tree comes back bit for bit, so the wavs are equal; the folded
+    vocoder to f32 rounding, so the int16 wavs agree within one step."""
     argv = _assets(tmp_path)
+    if flag == "--t2s_ckpt":   # a T2S whose hyper_parameters map back to its config
+        tree = jax.tree_util.tree_map(np.asarray, jax.jit(JT.init, static_argnums=1)(jax.random.PRNGKey(5),
+                                                                                       J_T2S_CKPT))
+        jio.save_params(str(tmp_path / "t2s.npz"), tree,
+                        meta={"config": json.loads(json.dumps(dataclasses.asdict(J_T2S_CKPT)))})
+        CK.write_lightning_ckpt(str(tmp_path / path), tree, J_T2S_CKPT, "t2s")
+    else:
+        os.makedirs(tmp_path / "torch")
+        CK.write_hifigan_ckpt(str(tmp_path / "torch" / path), jio.load_params(str(tmp_path / "voc.npz")), J_VOC)
+        path = os.path.join("torch", path)
+    serve_batch.main(argv)
+    ref = wavfile.read(str(tmp_path / "out" / "a.wav"))[1]
     argv[argv.index(flag) + 1] = str(tmp_path / path)
-    with pytest.raises(ValueError, match="convert_checkpoint.py"):
-        serve_batch.main(argv)
+    argv[argv.index("--saved_dir") + 1] = str(tmp_path / "out_torch")
+    serve_batch.main(argv)
+    got = wavfile.read(str(tmp_path / "out_torch" / "a.wav"))[1]
+    assert got.shape == ref.shape and len(ref) > 0
+    if flag == "--t2s_ckpt":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        assert np.abs(got.astype(np.int32) - ref.astype(np.int32)).max() <= 1
