@@ -4,14 +4,18 @@
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
     python3 chip_smoke.py --ab-training DIR   # the two training cells, DIR's tree against this one
     python3 chip_smoke.py --vocoder           # the fused vocoder kernels alone
+    python3 chip_smoke.py --flash-f32         # the f32 flash forward at head dim 64 alone
+    python3 chip_smoke.py --vocoder-split DIR # the fused kernels' time split, DIR's tree against this one
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
 only their library, logs ptxas's registers and spills, runs check_vocoder's
 cases, times both kernels at T=512 and at the per-file main path's shapes
-([1,40964,125] stage, [1,163856,62] tail, seeded random inputs, full-width
-weights), each timed output held against its plain version and each
-launch's block plan logged, holds VOC_REGS, and ends with the same `ok`
-line. It does not replace the default run.
+([1,40964,125] stage, [1,163856,62] tail, bf16) and the 41 s
+hifigan_inference file's ([1,42244,125] / [1,168976,62], f32), on seeded
+random inputs with full-width weights, each timed output held against its
+plain version and each launch's block plan logged, holds VOC_REGS, and ends
+with the same `ok` line. `--flash-f32` does the same for the f32 forward
+(flash_f32_mode). Neither replaces the default run.
 
 Phases (any failure exits non-zero, nothing is passed over):
   1. print the card's name and power limit (nvidia-smi);
@@ -20,9 +24,9 @@ Phases (any failure exits non-zero, nothing is passed over):
      causal and causal, the rotary pre-pass) for the head dim 64 and for the
      edge head dims checked below (one nvcc per head dim) and the fused
      vocoder stage/tail library (both dtypes), all started together; log
-     ptxas's registers, spills and wgmma notes, and hold the dh-64 bf16
-     flash kernels to FLASH_REGS and the fused vocoder kernels to VOC_REGS,
-     with no spills;
+     ptxas's registers, spills and wgmma notes, and hold the dh-64 flash
+     kernels to FLASH_REGS and the fused vocoder kernels to VOC_REGS, with
+     no spills;
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and at edge shapes, with stated tolerances:
      the rotary pre-pass bit for bit against `_rotary_plain`; the inference
@@ -244,7 +248,15 @@ def flash_inputs(b, h, t, dh, dtype, seed, valid, rotary):
     return q, k, v, valid_arr, tables
 
 
-def check_flash(results):
+def quick_case(f32_dh64: bool, dh, dtype) -> bool:
+    """Whether a flash check case runs: every case, or with `f32_dh64` (the
+    `--flash-f32` loop) only the f32 cases at head dim 64."""
+    import torch
+
+    return not f32_dh64 or (dh == 64 and dtype == torch.float32)
+
+
+def check_flash(results, f32_dh64=False):
     import torch
     from covomix_tpu_torch.ops import flash_attention as FA
 
@@ -265,6 +277,8 @@ def check_flash(results):
               (1, 2, 520, 256, torch.float32, 400, True)]
     worst = 0.0
     for i, (b, h, t, dh, dtype, valid, rotary) in enumerate(cases):
+        if not quick_case(f32_dh64, dh, dtype):
+            continue
         q, k, v, valid_arr, tables = flash_inputs(b, h, t, dh, dtype, i, valid, rotary)
         out = FA.KERNEL(q, k, v, valid_arr, tables)
         ref = FA.flash_attention_plain(q, k, v, valid_arr, tables)
@@ -362,7 +376,7 @@ def check_flash_training_case(b, h, t, dh, dtype, seed, valid, rotary, causal=Fa
     return errs
 
 
-def check_flash_training(results):
+def check_flash_training(results, f32_dh64=False):
     """The training form of the flash kernels against their plain versions,
     in bf16 and f32: the training shape [8, 16, 832, 64], a ragged T, T above
     2048, valid_len [1] < T and [B], rotary on and off, the edge head dims;
@@ -385,6 +399,8 @@ def check_flash_training(results):
              (2, 2, 700, 256, bf, [650, 700], True), (1, 2, 520, 256, f32, 400, True)]
     worst = {}
     for i, (b, h, t, dh, dtype, valid, rotary) in enumerate(cases):
+        if not quick_case(f32_dh64, dh, dtype):
+            continue
         errs = check_flash_training_case(b, h, t, dh, dtype, 200 + i, valid, rotary)
         if dtype == bf:
             for key, e in errs.items():
@@ -396,6 +412,8 @@ def check_flash_training(results):
     # dK/dV with the tables) against torch autograd through the plain version
     for b, h, t, dtype, valid, tol in ((2, 4, 1000, f32, [1000, 613], F32_TOL),
                                        (8, 16, 832, bf, 832, AUTOGRAD_BF16_TOL)):
+        if not quick_case(f32_dh64, 64, dtype):
+            continue
         q, k, v, valid_arr, tables = flash_inputs(b, h, t, 64, dtype, 300 + t, valid, True)
         w = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(7), device="cuda").to(dtype)
         grads = []
@@ -410,7 +428,7 @@ def check_flash_training(results):
             flash_agreement(name, a, r, tol)
 
 
-def check_flash_causal(results):
+def check_flash_causal(results, f32_dh64=False):
     """The causal form of the three kernels (the T2S training decoder's) against
     their plain versions, in bf16 and f32: the T2S step's shape [6, 8, 1026,
     64], odd T 513 / 1025 / 2049 and even 2050 (one live row in the last
@@ -437,6 +455,8 @@ def check_flash_causal(results):
              (2, 2, 700, 256, bf, [650, 700], False), (1, 2, 520, 256, f32, 400, True)]
     worst = {}
     for i, (b, h, t, dh, dtype, valid, rotary) in enumerate(cases):
+        if not quick_case(f32_dh64, dh, dtype):
+            continue
         errs = check_flash_training_case(b, h, t, dh, dtype, 500 + i, valid, rotary, causal=True)
         if dtype == bf:
             for key, e in errs.items():
@@ -446,6 +466,8 @@ def check_flash_causal(results):
 
     for b, h, t, dtype, valid, tol in ((2, 4, 1025, f32, [1025, 613], AUTOGRAD_F32_TOL),
                                        (6, 8, 1026, bf, 1026, AUTOGRAD_BF16_TOL)):
+        if not quick_case(f32_dh64, 64, dtype):
+            continue
         q, k, v, valid_arr, _ = flash_inputs(b, h, t, 64, dtype, 600 + t, valid, False)
         w = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(8), device="cuda").to(dtype)
         grads = []
@@ -838,13 +860,14 @@ def time_vocoder(results, key, kind, x, up, blocks, post=None):
 
 
 def log_vocoder_plan(results, key, kern, x, packed):
-    """The block plan the library gives a fused bf16 kernel on x (tile,
-    blocks, waves on this card's SMs, shared memory) and, per MRF conv, the
-    busiest warp's units against the mean over the 16 warps and the idlest
-    warp's units; into results[f"{key}_plan"]."""
+    """The block plan the library gives a fused kernel on x (tile, blocks,
+    waves on this card's SMs, shared memory) and, per MRF conv, the busiest
+    warp's units against the mean over the 16 warps and the idlest warp's
+    units (bf16 units: 16-row x 32-channel m-tiles; f32: one row x 8
+    channels); into results[f"{key}_plan"]."""
     p = kern.plan(x, packed)
     ratios = [round(busiest / (units / 16), 3) for _, units, busiest, _ in p.convs]
-    idlest = min((c[3] for c in p.convs), default=None)   # no units in the f32 kernels
+    idlest = min(c[3] for c in p.convs)
     results[f"{key}_plan"] = {**p._asdict(), "unit_max_over_mean": ratios, "idlest_warp_units": idlest}
     log(f"fused {'tail' if kern.tail else 'stage'} plan x{list(x.shape)}: tile {p.tile}, {p.blocks} blocks = "
         f"{p.waves:.3f} waves, {p.smem} B shared, busiest warp / mean units per conv {ratios}, "
@@ -2119,28 +2142,32 @@ def run_hubert(results, root):
         time_flash_hubert(results, key, dtype, big["rows"], big["frames"], big["valid"])
 
 
-# registers per thread of the dh-64 bf16 flash kernels (ptxas, CUDA 12.8),
-# held to the counts of their first build: the TMA + wgmma forward's four
+# registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
+# to the counts of their first build: the bf16 TMA + wgmma forward's four
 # forms (<dh, lse, causal>), the rotary pre-pass, the TMA + wgmma backward
-# pair's three forms each (<dh, causal, tables>) and the rotary transpose
-# that follows a backward kernel without the fused epilogue. ptxas caps the
-# wgmma kernels at 168 (two blocks of 160 threads per SM); none may spill.
+# pair's three forms each (<dh, causal, tables>), the rotary transpose that
+# follows a backward kernel without the fused epilogue, and the f32 tiled
+# forward's two forms (<dh, causal>). ptxas caps the wgmma kernels at 168
+# (two blocks of 160 threads per SM) and the f32 tiled forward at 255 (two
+# blocks of 128); none may spill.
 FLASH_REGS = {"flash_fwd_wgmma<Li64ELb0ELb0E>": 155, "flash_fwd_wgmma<Li64ELb1ELb0E>": 155,
               "flash_fwd_wgmma<Li64ELb0ELb1E>": 162, "flash_fwd_wgmma<Li64ELb1ELb1E>": 162,
               "flash_rotary_halfsplit_bf16<Li64E>": 48,
               "flash_bwd_dq_wgmma<Li64ELb0ELb0E>": 122, "flash_bwd_dq_wgmma<Li64ELb1ELb0E>": 124,
               "flash_bwd_dq_wgmma<Li64ELb0ELb1E>": 122,
               "flash_bwd_dkv_wgmma<Li64ELb0ELb0E>": 168, "flash_bwd_dkv_wgmma<Li64ELb1ELb0E>": 168,
-              "flash_bwd_dkv_wgmma<Li64ELb0ELb1E>": 168, "flash_rotary_transpose_bf16<Li64E>": 48}
+              "flash_bwd_dkv_wgmma<Li64ELb0ELb1E>": 168, "flash_rotary_transpose_bf16<Li64E>": 48,
+              "flash_fwd_f32_tile<Li64ELb0E>": 209, "flash_fwd_f32_tile<Li64ELb1E>": 217}
 
 
 # The fused vocoder kernels (`<type, channel padding, tail>`, all eight the
 # library instantiates): 512 threads per block cap a thread at 128
-# registers, and ptxas spills beyond; none may spill.
+# registers, and ptxas spills beyond; none may spill. The f32 forms hold
+# their conv's R x 8 accumulators (R up to 4) at that cap.
 VOC_REGS = {"vocoder_fused_kernel<13__nv_bfloat16Li64ELb0E>": 124, "vocoder_fused_kernel<13__nv_bfloat16Li32ELb1E>": 123,
             "vocoder_fused_kernel<13__nv_bfloat16Li32ELb0E>": 128, "vocoder_fused_kernel<13__nv_bfloat16Li64ELb1E>": 121,
-            "vocoder_fused_kernel<fLi64ELb0E>": 96, "vocoder_fused_kernel<fLi32ELb1E>": 103,
-            "vocoder_fused_kernel<fLi32ELb0E>": 96, "vocoder_fused_kernel<fLi64ELb1E>": 103}
+            "vocoder_fused_kernel<fLi64ELb0E>": 128, "vocoder_fused_kernel<fLi32ELb1E>": 127,
+            "vocoder_fused_kernel<fLi32ELb0E>": 128, "vocoder_fused_kernel<fLi64ELb1E>": 128}
 
 
 def parse_ptxas(name, build_log, regs, spills):
@@ -2219,6 +2246,13 @@ def kernel_entry(results, key, name, source, replaces, launches, with_prepass=Fa
         entry["ms_with_prepass"] = results[f"{key}_with_prepass_ms"]
         entry["device_ms_with_prepass"] = results[f"{key}_with_prepass_device_ms"]
     return {**entry, **extra}
+
+
+def plan_summary(results, key) -> dict:
+    """The timed launch's block plan for the `kernels` line: tile, waves,
+    shared bytes."""
+    p = results[f"{key}_plan"]
+    return {"tile": p["tile"], "waves": p["waves"], "smem": p["smem"]}
 
 
 def main() -> int:
@@ -2312,7 +2346,7 @@ def main() -> int:
     for kind, replaces in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                            ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):
         kernels.append(kernel_entry(results, kind, f"vocoder_fused_{kind}", voc_src, replaces, launches[kind],
-                                    unfused_ms=results[f"{kind}_unfused_ms"]))
+                                    unfused_ms=results[f"{kind}_unfused_ms"], plan=plan_summary(results, kind)))
     replaces = {"fwd_lse": "covomix_tpu/ops/flash_attention.py:162",
                 "bwd_dq": "covomix_tpu/ops/flash_attention.py:502",
                 "bwd_dkv": "covomix_tpu/ops/flash_attention.py:544"}
@@ -2327,7 +2361,8 @@ def main() -> int:
     for kind, where in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                         ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):   # hifigan_inference --fuse_tail, f32
         kernels.append(kernel_entry(results, f"{kind}_f32", f"vocoder_fused_{kind}_f32", voc_src, where,
-                                    results["hifi_launches"][kind], unfused_ms=results[f"{kind}_f32_unfused_ms"]))
+                                    results["hifi_launches"][kind], unfused_ms=results[f"{kind}_f32_unfused_ms"],
+                                    plan=plan_summary(results, f"{kind}_f32")))
     t2s = results["t2s_launches"]     # this slice's main path: full-width CoMix T2S training
     for key, where in replaces.items():
         key = f"{key}_causal"
@@ -2422,17 +2457,20 @@ def ab_training(other: str) -> int:
 
 
 MAIN_PATH_VOCODER = {"stage": (1, 40964, 125), "tail": (1, 163856, 62)}   # x of the per-file run's vocode
+# x of hifigan_inference's 41 s file (f32; phase 11 times the kernels on the captured inputs)
+HIFI_VOCODER = {"stage": (1, 42244, 125), "tail": (1, 168976, 62)}
 
 
-def main_path_vocoder_inputs(kind):
-    """Seeded random x at the per-file main path's shape of the stage or
-    tail, bf16, and the full-width weights of that stage (x, up, blocks,
-    post)."""
+def main_path_vocoder_inputs(kind, dtype=None):
+    """Seeded random x of the stage or tail and the full-width weights of
+    that stage (x, up, blocks, post): bf16 at the per-file main path's shape,
+    or f32 at the 41 s hifigan_inference file's."""
     import torch
 
+    dtype = dtype or torch.bfloat16
+    shape = (MAIN_PATH_VOCODER if dtype == torch.bfloat16 else HIFI_VOCODER)[kind]
     up, blocks, post = vocoder_stage_params(500, kind == "tail", 7)
-    x = torch.randn(MAIN_PATH_VOCODER[kind], generator=torch.Generator(device="cuda").manual_seed(9),
-                    device="cuda").to(torch.bfloat16)
+    x = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(9), device="cuda").to(dtype)
     return x, up, blocks, post
 
 
@@ -2466,6 +2504,7 @@ def vocoder_mode() -> int:
     time_vocoder_t512(results)
     for kind in MAIN_PATH_VOCODER:
         time_vocoder(results, kind, kind, *main_path_vocoder_inputs(kind))
+        time_vocoder(results, f"{kind}_f32", kind, *main_path_vocoder_inputs(kind, torch.float32))
     check_registers(regs, spills, VOC_REGS)
     log(f"total chip_smoke --vocoder time {time.time() - t_start:.1f} s")
     log(json.dumps({"vocoder": {k: v for k, v in results.items() if k.startswith(("stage", "tail"))}}))
@@ -2474,9 +2513,171 @@ def vocoder_mode() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# python3 chip_smoke.py --flash-f32: the f32 forward at head dim 64 alone
+
+HUBERT_FLASH_BATCH = (2, 2499, [2249, 2499])   # rows, frames, valid frames of the largest HuBERT flash batch
+
+
+def flash_f32_mode() -> int:
+    """`python3 chip_smoke.py --flash-f32`: build only the dh-64 flash
+    library (always, since ptxas's counts come from the build log), log its
+    kernels' registers and spills, run every f32 dh-64 case of check_flash,
+    check_flash_training and check_flash_causal (the forward in each form,
+    the in-kernel rotary bit for bit; the f32 backward and autograd ride
+    along), time the forward at the largest HuBERT batch's shape in f32 and
+    bf16 beside SDPA (seeded inputs), and hold FLASH_REGS last, so that a
+    build with new counts still prints every timing."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if os.path.exists(FA.KERNEL.lib_path(SERVING_DH)):
+        os.remove(FA.KERNEL.lib_path(SERVING_DH))
+    parallel_builds([lambda: FA.KERNEL.build(SERVING_DH)], [FA.KERNEL.lib_path(SERVING_DH)])
+    regs, spills = {}, {}
+    parse_ptxas(f"flash dh {SERVING_DH}", FA.KERNEL.build_logs[SERVING_DH], regs, spills)
+    results = {}
+    check_flash(results, f32_dh64=True)
+    check_flash_training(results, f32_dh64=True)
+    check_flash_causal(results, f32_dh64=True)
+    b, t, valid = HUBERT_FLASH_BATCH
+    for dtype, key in ((torch.float32, "hubert_fwd_f32"), (torch.bfloat16, "hubert_fwd_bf16")):
+        time_flash_hubert(results, key, dtype, b, t, valid)
+    check_registers(regs, spills, FLASH_REGS)
+    log(f"total chip_smoke --flash-f32 time {time.time() - t_start:.1f} s")
+    log(json.dumps({"flash_f32": {k: v for k, v in results.items() if k.startswith("hubert")}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# python3 chip_smoke.py --vocoder-split DIR: where the fused kernels' time goes
+
+
+def split_sources(text: str) -> dict:
+    """The fused vocoder source `text` as three variants: "full" as it is;
+    "no_mrf" without the MRF (`// 3. the MRF` up to `// 4. epilogue`, and the
+    weight ring's first fills in the kernel's prologue, whose copies the MRF
+    would have waited for); "staging" without the MRF and the epilogue (the
+    input frames and the upsample alone). The kernels' times of the three
+    split each into staging + upsample / MRF / epilogue."""
+    head, rest = text.split("  // 3. the MRF", 1)
+    _, epilogue = rest.split("  // 4. epilogue", 1)
+    _, end = epilogue.split("\n}\n\nconstexpr int kErrChannels", 1)
+    before, kernel = head.split("vocoder_fused_kernel(Params<T> p) {", 1)
+    prologue, body = kernel.split("  // 1. the block's input frames", 1)
+    prologue = "\n".join(line for line in prologue.split("\n") if "fill_stage<" not in line)
+    head = f"{before}vocoder_fused_kernel(Params<T> p) {{{prologue}  // 1. the block's input frames{body}"
+    return {"full": text, "no_mrf": f"{head}  // 4. epilogue{epilogue}",
+            "staging": f"{head}\n}}\n\nconstexpr int kErrChannels{end}"}
+
+
+# One tree's split, run from the root of that tree's checkout with this
+# file's split_sources output written into the tree's (git-ignored) build
+# directory, compiled against the tree's own headers: each variant
+# built into its own library (in parallel), then the stage and tail timed on
+# the card alone (behind a sleep) at the per-file shapes in bf16 and the 41 s
+# hifigan_inference file's in f32, seeded random inputs, full-width weights;
+# prints one "SPLIT {json}" line.
+SPLIT_CELL = """
+import json, os, sys
+from concurrent.futures import ThreadPoolExecutor
+sys.path.insert(0, os.getcwd())
+import torch
+from covomix_tpu_torch.models import vocoder as V
+from covomix_tpu_torch.ops import vocoder_tail as VT
+from covomix_tpu_torch.ops.cuda_build import build_library
+variants, shapes = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+def build(name):
+    path = os.path.join(VT.BUILD_DIR, f"libvocoder_split_{name}.so")
+    build_library(os.path.join(VT.BUILD_DIR, f"_split_{name}.cu"), path, ["-I" + os.path.dirname(VT.SOURCE)])
+    return path
+with ThreadPoolExecutor(len(variants)) as pool:
+    paths = dict(zip(variants, pool.map(build, variants)))
+cfg = V.VocoderConfig()
+p = V.init_generator(torch.Generator(device="cuda").manual_seed(7), cfg, device="cuda")
+n = len(cfg.resblock_kernel_sizes)
+def time_ms(fn, iters):
+    fn(); torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000); a.record()
+    for _ in range(iters): fn()
+    b.record(); torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+out = {}
+for name in variants:
+    VT.LIBRARY = VT.VocoderTailLibrary()
+    VT.LIBRARY.lib_path = lambda path=paths[name]: path
+    for kind, dt, shape in shapes:
+        i = len(cfg.upsample_rates) - (1 if kind == "tail" else 2)
+        up, blocks, post = p["ups"][i], p["resblocks"][i * n:(i + 1) * n], p["conv_post"] if kind == "tail" else None
+        dtype = getattr(torch, dt)
+        x = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(9), device="cuda").to(dtype)
+        packed = VT.pack_weights(up, blocks, post, (3, 7, 11), ((1, 3, 5),) * 3, dtype, x.device)
+        kern = VT.TAIL if kind == "tail" else VT.STAGE
+        out[f"{kind}_{dt}_{name}"] = time_ms(lambda: kern(x, packed), 10 if dt == "float32" else 20)
+print("SPLIT " + json.dumps(out), flush=True)
+"""
+
+
+def vocoder_split(other: str) -> int:
+    """`python3 chip_smoke.py --vocoder-split DIR`: the fused stage and tail
+    of the checkout at DIR (another commit, unpacked with git archive) and of
+    this one split into staging + upsample / MRF / epilogue by timing the
+    split_sources variants (one process per tree, in the order other, this,
+    this, other; ms on the card alone); logs each run and each tree's means."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    trees = {"other": os.path.abspath(other), "this": REPO}
+    log(card_line())
+    for tree in trees.values():
+        build = os.path.join(tree, "covomix_tpu_torch", "_build")
+        os.makedirs(build, exist_ok=True)
+        with open(os.path.join(tree, "covomix_tpu_torch", "csrc", "vocoder_tail.cu")) as f:
+            for name, text in split_sources(f.read()).items():
+                with open(os.path.join(build, f"_split_{name}.cu"), "w") as g:
+                    g.write(text)
+    shapes = [(kind, "float32", HIFI_VOCODER[kind]) for kind in HIFI_VOCODER] + [
+        (kind, "bfloat16", MAIN_PATH_VOCODER[kind]) for kind in MAIN_PATH_VOCODER]
+    args = [json.dumps(["full", "no_mrf", "staging"]), json.dumps(shapes)]
+    runs = []
+    for name in ("other", "this", "this", "other"):
+        res = subprocess.run([sys.executable, "-c", SPLIT_CELL, *args], cwd=trees[name], capture_output=True,
+                             text=True)
+        line = [x for x in res.stdout.splitlines() if x.startswith("SPLIT ")]
+        if res.returncode != 0 or not line:
+            raise RuntimeError(f"{name} tree's split failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        runs.append((name, json.loads(line[0][6:])))
+        log(f"split run {len(runs)} ({name}, {trees[name]}): {runs[-1][1]}")
+    for name in trees:
+        ms = {k: sum(r[k] for n, r in runs if n == name) / 2 for k in runs[0][1]}
+        for kind, dt, _ in shapes:
+            full, no_mrf, staging = (ms[f"{kind}_{dt}_{v}"] for v in ("full", "no_mrf", "staging"))
+            log(f"split {name} {kind} {dt} (device ms, mean of 2 runs): total {full:.4f} = staging + upsample "
+                f"{staging:.4f} + MRF {full - no_mrf:.4f} + epilogue {no_mrf - staging:.4f}")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab-training"]:
         sys.exit(ab_training(sys.argv[2]))
     if sys.argv[1:2] == ["--vocoder"]:
         sys.exit(vocoder_mode())
+    if sys.argv[1:2] == ["--flash-f32"]:
+        sys.exit(flash_f32_mode())
+    if sys.argv[1:2] == ["--vocoder-split"]:
+        sys.exit(vocoder_split(sys.argv[2]))
     sys.exit(main())

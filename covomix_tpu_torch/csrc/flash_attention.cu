@@ -119,8 +119,11 @@
 //     shared memory. With tables, `flash_rotary_transpose_bf16` follows them
 //     (and the causal wgmma kernels) in place.
 //
-// f32 inputs (tests, comparisons) take scalar-FMA kernels with the same
-// masking and the same arithmetic in f32, one row per thread.
+// f32 inputs (HuBERT extraction's default, tests, comparisons) take CUDA-core
+// FMA kernels (no TF32) with the same masking and the same arithmetic in f32:
+// at head dim 64 the forward is `flash_fwd_f32_tile` (F32TileCfg: SIMT
+// register tiles of 8 rows x 4 keys per thread, as in an SGEMM); the other
+// head dims' forward and every f32 backward keep one row per thread.
 //
 // Rotary (the bf16 pre-pass, and in place in the f32 forward): rot(x)[j] =
 // x[j]*cos[j] + x[(j+d)%dh]*sin_signed[j], two f32 products and one f32 sum,
@@ -963,6 +966,224 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int d = 0; d < DH; ++d) o[base + (size_t)row * DH + d] = acc[d] * inv;
     if (lse != nullptr) lse[((size_t)b * H + h) * (size_t)T + row] = m + logf(fmaxf(l, 1e-30f));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward, f32, head dim 64: SIMT register tiles (F32TileCfg)
+//
+// The f32 forward takes true f32 FMAs on the CUDA cores (no TF32), so it is
+// bound by the card's f32 FMA rate (67 TFLOP/s), and what keeps a scalar
+// kernel from it is everything that is not an FMA. One row per thread (the
+// kernel above) held q and the accumulator as 128 registers (spilled), read
+// every K or V operand of an FMA from shared memory and took two or three
+// block barriers per 32 keys. Here, as in an SGEMM:
+//   * one block per 64 query rows, 128 threads; thread (rg, c) owns rows
+//     8 rg .. 8 rg + 7 and, of each 64-key tile, the scores of keys c + 16 i
+//     (i < 4), then the output columns 4 c .. 4 c + 3: 32 accumulators for S
+//     and 32 for O, 8 + 4 operands loaded per 32 FMAs (S: Q^T two float4
+//     per d, a key's row one float4 per 4 d; O: P^T two float4 and V one
+//     float4 per key), so at most a quarter of the issue goes to loads;
+//   * Q rotated once per block into a d-major copy Q^T (rows padded to 68
+//     floats, so the 16 lanes of a row's key slots read distinct banks);
+//     K (rows of 68 floats) and V tiles double-buffered by cp.async, the
+//     next tile in flight during the current one's products; with rotary
+//     tables the K tile is rotated in shared memory (rotate_rows), the very
+//     arithmetic of `_rotary_plain`;
+//   * the row max over the 16 lanes of a row by warp shuffles (each row's
+//     16 key slots lie in one half-warp), the row sum kept per lane and
+//     summed once at the end; scores pre-scaled by scale * log2(e) and
+//     exponentiated with ex2; P goes through a [keys][rows] shared tile
+//     into the P V product, each half-warp reading only the rows it wrote
+//     (a warp barrier): one block barrier per 64 keys (two with rotary);
+//   * 100 KB of shared memory: two blocks per SM; causal blocks stop the key
+//     loop at their last row, as the other kernels do.
+// Its masking and output (out = acc / max(l, 1e-30), lse = m + log(max(l,
+// 1e-30))) are those of the kernel above.
+struct F32TileCfg {
+  static constexpr int DH = 64, BM = 64, BN = 64, NT = 128;
+  static constexpr int LQ = BM + 4;    // row stride of Q^T [DH][BM] and P^T [BN][BM]
+  static constexpr int LK = DH + 4;    // row stride of a K tile [BN][DH]
+  static constexpr int LV = DH;        // row stride of a V tile [BN][DH]
+  static constexpr size_t smem = (size_t)(DH * LQ + 2 * BN * LK + 2 * BN * LV + BN * LQ) * 4;
+};
+static_assert(2 * (F32TileCfg::smem + 1024) <= 233472, "two f32 tile blocks per SM");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <int DH, bool CAUSAL>
+__global__ void __launch_bounds__(128, 2)
+flash_fwd_f32_tile(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                   const int* __restrict__ valid, int valid_n,
+                   const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                   int H, int T, float scale) {
+  using C = F32TileCfg;
+  static_assert(DH == C::DH, "the tiled f32 forward is written for head dim 64");
+  constexpr int BM = C::BM, BN = C::BN, NT = C::NT, LQ = C::LQ, LK = C::LK, LV = C::LV, D = DH / 2;
+  constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qt = reinterpret_cast<float*>(smem_raw);   // [DH][LQ]
+  float* Ks = Qt + DH * LQ;                         // 2 x [BN][LK]
+  float* Vs = Ks + 2 * BN * LK;                     // 2 x [BN][LV]
+  float* Pt = Vs + 2 * BN * LV;                     // [BN][LQ]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
+  const size_t base = ((size_t)b * H + h) * (size_t)T * DH;
+  const int vl = clamp_valid(valid, valid_n, b, T);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int rg = (tid >> 5) * 2 + (lane >> 4), c = lane & 15;   // rows 8 rg .., key slot / column group c
+  const int n_tiles = ((CAUSAL ? min(vl, q0 + BM) : vl) + BN - 1) / BN;
+
+  // K / V rows [k0, k0 + BN) into buffer `buf` (rows past T zero-filled)
+  auto load_tile = [&](int k0, int buf) {
+#pragma unroll
+    for (int i = 0; i < BN * DH / 4 / NT; ++i) {
+      const int idx = tid + i * NT, r = idx / (DH / 4), c4 = (idx % (DH / 4)) * 4;
+      const bool in = k0 + r < T;
+      const size_t g = base + (size_t)(in ? k0 + r : 0) * DH + c4;
+      cp_async16(Ks + buf * BN * LK + r * LK + c4, k + g, in);
+      cp_async16(Vs + buf * BN * LV + r * LV + c4, v + g, in);
+    }
+    cp_async_commit();
+  };
+  load_tile(0, 0);
+
+  // Q^T: the block's rows, rotated, d-major (rows past T zero)
+  for (int idx = tid; idx < BM * D; idx += NT) {
+    const int r = idx / D, j = idx % D, row = q0 + r;
+    float a = 0.f, bb = 0.f;
+    if (row < T) {
+      a = q[base + (size_t)row * DH + j];
+      bb = q[base + (size_t)row * DH + j + D];
+      if (cos_t != nullptr) {
+        const float* cr = cos_t + (size_t)row * DH;
+        const float* sr = sin_t + (size_t)row * DH;
+        const float a2 = __fadd_rn(__fmul_rn(a, cr[j]), __fmul_rn(bb, sr[j]));
+        bb = __fadd_rn(__fmul_rn(bb, cr[j + D]), __fmul_rn(a, sr[j + D]));
+        a = a2;
+      }
+    }
+    Qt[j * LQ + r] = a;
+    Qt[(j + D) * LQ + r] = bb;
+  }
+
+  float m[8], l[8], acc[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    m[r] = kMaskValue;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+  }
+  const float sl2 = scale * kLog2e;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BN, buf = kt & 1;
+    float* Kb = Ks + buf * BN * LK;
+    const float* Vb = Vs + buf * BN * LV;
+    cp_async_wait_all();
+    __syncthreads();   // tile kt (and Q^T) in; every thread done with tile kt - 1
+    if (kt + 1 < n_tiles) load_tile(k0 + BN, buf ^ 1);
+    if (cos_t != nullptr) {
+      rotate_rows<BN, DH, LK, NT>(Kb, cos_t, sin_t, k0, T);
+      __syncthreads();
+    }
+    // S = Q K^T on the thread's 8 rows x 4 keys
+    float s[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
+    const float* qp = Qt + rg * 8;
+    const float* kp = Kb + c * LK;
+#pragma unroll 4
+    for (int d4 = 0; d4 < DH / 4; ++d4) {
+      float4 kf[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) kf[i] = *reinterpret_cast<const float4*>(kp + 16 * i * LK + 4 * d4);
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        const float4 qa = *reinterpret_cast<const float4*>(qp + (4 * d4 + dd) * LQ);
+        const float4 qb = *reinterpret_cast<const float4*>(qp + (4 * d4 + dd) * LQ + 4);
+        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float kv = lane_of(kf[i], dd);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) s[r][i] = fmaf(qv[r], kv, s[r][i]);
+        }
+      }
+    }
+    // online softmax in base 2; P^T [key][row]
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + rg * 8 + r;
+      const int lim = CAUSAL ? min(vl, row + 1) : vl;
+      float mx = m[r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[r][i] = k0 + c + 16 * i < lim ? s[r][i] * sl2 : kMaskValue;
+        mx = fmaxf(mx, s[r][i]);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float alpha = ex2(m[r] - mx);
+      m[r] = mx;
+      l[r] *= alpha;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][e] *= alpha;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[r][i] = ex2(s[r][i] - mx);
+        l[r] += s[r][i];
+      }
+    }
+    __syncwarp();   // the half-warp's reads of the last tile's P^T rows are done
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* pp = Pt + (c + 16 * i) * LQ + rg * 8;
+      *reinterpret_cast<float4*>(pp) = make_float4(s[0][i], s[1][i], s[2][i], s[3][i]);
+      *reinterpret_cast<float4*>(pp + 4) = make_float4(s[4][i], s[5][i], s[6][i], s[7][i]);
+    }
+    __syncwarp();   // P^T in: a half-warp reads only the rows it wrote
+    // O += P V on the thread's 8 rows x 4 columns
+    const float* pp = Pt + rg * 8;
+    const float* vp = Vb + 4 * c;
+#pragma unroll 16
+    for (int j = 0; j < BN; ++j) {
+      const float4 pa = *reinterpret_cast<const float4*>(pp + j * LQ);
+      const float4 pb = *reinterpret_cast<const float4*>(pp + j * LQ + 4);
+      const float4 vv = *reinterpret_cast<const float4*>(vp + j * LV);
+      const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        acc[r][0] = fmaf(pv[r], vv.x, acc[r][0]);
+        acc[r][1] = fmaf(pv[r], vv.y, acc[r][1]);
+        acc[r][2] = fmaf(pv[r], vv.z, acc[r][2]);
+        acc[r][3] = fmaf(pv[r], vv.w, acc[r][3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+    const int row = q0 + rg * 8 + r;
+    if (row >= T) continue;
+    const float ll = fmaxf(l[r], 1e-30f), inv = 1.f / ll;
+    *reinterpret_cast<float4*>(o + base + (size_t)row * DH + 4 * c) =
+        make_float4(acc[r][0] * inv, acc[r][1] * inv, acc[r][2] * inv, acc[r][3] * inv);
+    if (lse != nullptr && c == 0) lse[((size_t)b * H + h) * (size_t)T + row] = m[r] * kLn2 + logf(ll);
   }
 }
 
@@ -1874,14 +2095,25 @@ int run_fwd(int is_f32, const void* q, const void* k, const void* v, void* o, fl
             const int* valid, int valid_n, const void* cos_t, const void* sin_t, int B, int H, int T,
             float scale, cudaStream_t stream) {
   if (is_f32) {
-    using C = F32Cfg<DH>;
-    const dim3 grid((T + C::BM - 1) / C::BM, H, B);
-    int e = allow_smem(flash_fwd_f32<DH, CAUSAL>, C::smem);
-    if (e) return e;
-    flash_fwd_f32<DH, CAUSAL><<<grid, C::NT, C::smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), lse, valid, valid_n, static_cast<const float*>(cos_t),
-        static_cast<const float*>(sin_t), H, T, scale);
+    if constexpr (DH == F32TileCfg::DH) {
+      using C = F32TileCfg;
+      const dim3 grid((T + C::BM - 1) / C::BM, H, B);
+      int e = allow_smem(flash_fwd_f32_tile<DH, CAUSAL>, C::smem);
+      if (e) return e;
+      flash_fwd_f32_tile<DH, CAUSAL><<<grid, C::NT, C::smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+          static_cast<float*>(o), lse, valid, valid_n, static_cast<const float*>(cos_t),
+          static_cast<const float*>(sin_t), H, T, scale);
+    } else {
+      using C = F32Cfg<DH>;
+      const dim3 grid((T + C::BM - 1) / C::BM, H, B);
+      int e = allow_smem(flash_fwd_f32<DH, CAUSAL>, C::smem);
+      if (e) return e;
+      flash_fwd_f32<DH, CAUSAL><<<grid, C::NT, C::smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+          static_cast<float*>(o), lse, valid, valid_n, static_cast<const float*>(cos_t),
+          static_cast<const float*>(sin_t), H, T, scale);
+    }
     return (int)cudaGetLastError();
   }
   if (cos_t != nullptr || sin_t != nullptr) return kErrTables;   // bf16: q, k come rotated

@@ -15,8 +15,8 @@
 // positions of one row plus a halo (the worst branch's cumulative reach, e.g.
 // 5+5+15+5+25+5 = 60 for kernel 11 with dilations 1/3/5, plus 3 for
 // conv_post), loads its input frames once, and runs the upsample and all 18
-// MRF convs out of four shared-memory buffers (upsample output `up`,
-// residual state `st`, its activation `ab`, conv1 output `hb`). Each conv
+// MRF convs out of shared-memory buffers (upsample output `up`, residual
+// state `st`, its activation `ab` (bf16 only), conv1 output `hb`). Each conv
 // runs only on the rows that later convs still read (the margin shrinks by
 // the conv's reach), and only the centre of the tile is written out. The f32
 // branch sum of the first two branches goes to a scratch area in device
@@ -66,9 +66,28 @@
 // the same card.
 // What bounds the MRF loop now is the SM's shared-memory bandwidth beside its
 // mma.sync rate: each k-step of a warp reads ~2.5 KB of fragments for 12
-// products. The upsample, conv_post and the whole f32 variant use scalar
-// FMAs; wgmma for the MRF (B read by the tensor cores once per warpgroup)
-// and the upsample on the tensor cores are the next steps.
+// products. The upsample and conv_post use scalar FMAs; wgmma for the MRF
+// (B read by the tensor cores once per warpgroup) and the upsample on the
+// tensor cores are the next steps.
+//
+// The f32 form (hifigan_inference's default) keeps true f32 FMAs on the CUDA
+// cores (no TF32), so it is bound by the card's f32 FMA rate. Its first
+// version ran at 6 % of that bound (chip_smoke.py, NVIDIA H100 80GB HBM3,
+// 700.00 W; 28 % now): one thread per (row, 8 channels) loaded 8
+// weights from L1/L2 per input channel for 8 FMAs, and four f32 buffers left
+// a 64-row tile whose halo made the convs do 1.69x the output rows' work.
+// Now (conv_f32):
+//  - the weights come by the copy engine through the same ring (2 x 16 KB /
+//    8 x 4 KB), packed [ci][h][g][4] so that a warp's channel groups read one
+//    contiguous run;
+//  - register blocking: a thread owns R rows x 8 output channels for the
+//    whole conv (R = 1-4 from the conv's rows), 8 + R shared loads per 32 R
+//    FMAs; no block barrier inside a conv;
+//  - three buffers: conv1 activates the state as it loads it (2 ops per
+//    loaded value, which feeds 8 FMAs), so there is no activated copy, and
+//    rows are clamped into the conv's region (no slack rows): the stage
+//    keeps a 112-row tile, the tail up to 304, picked by the same cost model
+//    as bf16 (full waves x the busiest thread's issue slots).
 //
 // Rounding follows the TPU kernel: the activated input, the upsample output,
 // each conv1 output, its activation and each residual state are rounded to
@@ -99,7 +118,10 @@ constexpr int kWarps = kThreads / 32;
 // threads idle (and each weight load feeds that many frames); f32 4.
 template <typename T, bool TAIL>
 __host__ __device__ constexpr int up_rows() { return sizeof(T) == 2 ? (TAIL ? 5 : 6) : 4; }
-constexpr int kSlackRows = 16;         // rows read past a region by a conv's last 16-row m-tile
+// Rows a bf16 conv's last 16-row m-tile reads past its region (the f32
+// conv clamps its rows into the region and reads none).
+template <typename T>
+__host__ __device__ constexpr int slack_rows() { return sizeof(T) == 2 ? 16 : 0; }
 constexpr int kMaxSmem = 232448;       // 227 KB: the most a block may opt in to on sm_90
 constexpr int kPostTaps = 7;
 constexpr float kSlope = 0.1f;
@@ -110,31 +132,33 @@ constexpr int kMaxUnits = 3;           // per warp and conv (accumulators in reg
 
 typedef __nv_bfloat16 bf16;
 
-// The bf16 weight ring: one tap a stage; after the stages, each stage's
+// The weight ring: one MRF tap a stage (bf16: 3 x 8 KB at CP 64, 8 x 2 KB
+// at CP 32; f32: 2 x 16 KB, 8 x 4 KB); after the stages, each stage's
 // "full" mbarrier (8 bytes) and release count (4 bytes), 16 bytes a stage
-// with the padding; then the upsample weights' mbarrier in 16 bytes of its
-// own. The activation buffers start right after (16-byte aligned).
-template <int CP>
-__host__ __device__ constexpr int ring_stages() { return CP == 64 ? 3 : 8; }
-template <int CP>
-__host__ __device__ constexpr int tap_bytes() { return CP * CP * 2; }
-template <int CP>
-__host__ __device__ constexpr int ring_full_offset() { return ring_stages<CP>() * tap_bytes<CP>(); }
-template <int CP>
-__host__ __device__ constexpr int ring_released_offset() { return ring_full_offset<CP>() + 8 * ring_stages<CP>(); }
-template <int CP>
-__host__ __device__ constexpr int wup_bar_offset() { return ring_full_offset<CP>() + 16 * ring_stages<CP>(); }
+// with the padding; then the bf16 upsample weights' mbarrier in 16 bytes of
+// its own. The activation buffers start right after (16-byte aligned).
 template <typename T, int CP>
-__host__ __device__ constexpr size_t ring_bytes() {
-  return std::is_same<T, bf16>::value ? (size_t)wup_bar_offset<CP>() + 16 : 0;
+__host__ __device__ constexpr int ring_stages() { return CP == 64 ? (sizeof(T) == 2 ? 3 : 2) : 8; }
+template <typename T, int CP>
+__host__ __device__ constexpr int tap_bytes() { return CP * CP * (int)sizeof(T); }
+template <typename T, int CP>
+__host__ __device__ constexpr int ring_full_offset() { return ring_stages<T, CP>() * tap_bytes<T, CP>(); }
+template <typename T, int CP>
+__host__ __device__ constexpr int ring_released_offset() {
+  return ring_full_offset<T, CP>() + 8 * ring_stages<T, CP>();
 }
-template <int CP>
+template <typename T, int CP>
+__host__ __device__ constexpr int wup_bar_offset() { return ring_full_offset<T, CP>() + 16 * ring_stages<T, CP>(); }
+template <typename T, int CP>
+__host__ __device__ constexpr size_t ring_bytes() { return (size_t)wup_bar_offset<T, CP>() + 16; }
+template <typename T, int CP>
 constexpr bool ring_layout_ok() {
-  return ring_released_offset<CP>() + 4 * ring_stages<CP>() <= wup_bar_offset<CP>() &&
-         wup_bar_offset<CP>() % 8 == 0 && (size_t)wup_bar_offset<CP>() + 8 <= ring_bytes<bf16, CP>() &&
-         ring_bytes<bf16, CP>() % 16 == 0;
+  return ring_released_offset<T, CP>() + 4 * ring_stages<T, CP>() <= wup_bar_offset<T, CP>() &&
+         wup_bar_offset<T, CP>() % 8 == 0 && (size_t)wup_bar_offset<T, CP>() + 8 <= ring_bytes<T, CP>() &&
+         ring_bytes<T, CP>() % 16 == 0;
 }
-static_assert(ring_layout_ok<64>() && ring_layout_ok<32>(),
+static_assert(ring_layout_ok<bf16, 64>() && ring_layout_ok<bf16, 32>() && ring_layout_ok<float, 64>() &&
+                  ring_layout_ok<float, 32>(),
               "every ring mbarrier and count lies before the activation buffers, which start 16-byte aligned");
 
 struct Taps {
@@ -148,7 +172,7 @@ struct Params {
   void* out;           // stage: T [B, U, c]; tail: float [B, U]
   const T* w_up;       // [4, cin, CP]: stage phase j / tail tap j
   const float* b_up;   // [CP]
-  const T* w_mrf;      // 18 convs of k * CP * CP (bf16: mma fragment order; f32: [k][ci][co])
+  const T* w_mrf;      // 18 convs of k * CP * CP (bf16: mma fragment order; f32: [k][ci][h][g][4], co = 8g + 4h + e)
   const float* b_mrf;  // [18, CP]
   const T* w_post;     // tail: [7, CP]
   float* scratch;      // [B, blocks per row, tile + 2 * post, CP] f32: each block's branch sum
@@ -234,7 +258,7 @@ template <typename T, int CP>
 struct Conv {
   const T* in;
   T* out;
-  T* act_out;          // kState
+  T* act_out;          // kState, bf16 (f32 keeps no activated copy)
   const T* resid;      // kState, kSum
   float* bsum;         // kSum, kFinal: the block's [tile + 2 post, CP] in device memory
   int bsum_row0;       // buffer row of bsum's row 0
@@ -265,8 +289,9 @@ struct Conv {
     }
   }
 
-  // The scalar path's store of the pair (co, co + 1) of row r from the conv
-  // sums v and the biases b.
+  // The f32 conv's store of the pair (co, co + 1) of row r from the conv
+  // sums v and the biases b (f32 keeps no activated copy of the state: the
+  // next conv1 activates it as it loads it).
   template <int MODE>
   __device__ __forceinline__ void put(int r, int co, float v0, float v1, float2 b) const {
     constexpr int S = row_stride<T, CP>();
@@ -282,8 +307,6 @@ struct Conv {
       }
     }
     store_pair_to(out + r * S + co, y0, y1);
-    if (MODE == kState)
-      store_pair_to(act_out + r * S + co, round_to<T>(lrelu(y0, kSlope)), round_to<T>(lrelu(y1, kSlope)));
     if (MODE == kSum || MODE == kFinal) {
       float2* sum = bsum_at(r, co);
       const float2 o = assign ? make_float2(0.f, 0.f) : *sum;
@@ -294,33 +317,6 @@ struct Conv {
     }
   }
 };
-
-// Scalar conv: one thread per (row, group of 8 output channels).
-template <typename T, int CP, int MODE>
-__device__ void conv_scalar(const Conv<T, CP>& cv, int c) {
-  constexpr int S = row_stride<T, CP>();
-  constexpr int G = CP / 8;
-  for (int item = threadIdx.x; item < cv.n * G; item += kThreads) {
-    const int r = cv.row0 + item / G, cg = item % G;
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int tau = 0; tau < cv.k; ++tau) {
-      const T* in = cv.in + (r + cv.d * (tau - cv.k / 2)) * S;
-      const T* w = cv.w + (size_t)tau * CP * CP + cg * 8;
-      for (int ci = 0; ci < c; ++ci) {
-        const float a = to_f(in[ci]);
-        float wv[8];
-        load8(w + ci * CP, wv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[e] = fmaf(a, wv[e], acc[e]);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 8; e += 2) {
-      const int co = cg * 8 + e;
-      cv.template put<MODE>(r, co, acc[e], acc[e + 1], __ldg(reinterpret_cast<const float2*>(cv.bias + co)));
-    }
-  }
-}
 
 // bf16 pairs packed in 32 bits: round two f32 to it, widen it, and
 // round(lrelu(y)) of it as max(y, round(0.1 y)) (equal for bf16 y: rounding
@@ -365,12 +361,110 @@ struct Ring {
 };
 
 // Tap j into its stage by one bulk copy (one thread).
-template <int CP>
+template <typename T, int CP>
 __device__ __forceinline__ void fill_stage(const Ring& ring, int j) {
-  constexpr int NS = ring_stages<CP>(), TB = tap_bytes<CP>();
+  constexpr int NS = ring_stages<T, CP>(), TB = tap_bytes<T, CP>();
   const int s = j % NS;
   mbar_expect_tx(ring.full + 8 * s, TB);
   bulk_copy_g2s(smem_u32(ring.stages + s * TB), ring.w + (size_t)j * TB, TB, ring.full + 8 * s);
+}
+
+// A warp done with tap j's stage releases it; the last of the 16 warps to
+// release it refills it with the tap NS further on.
+template <typename T, int CP>
+__device__ __forceinline__ void release_stage(const Ring& ring, int j, int lane) {
+  constexpr int NS = ring_stages<T, CP>();
+  const int s = j % NS;
+  __syncwarp();
+  if (lane == 0) {
+    __threadfence_block();   // this warp's reads of the stage before its release
+    if (atomicAdd(ring.released + s, 1u) == kWarps - 1) {
+      ring.released[s] = 0;   // read again only after the refill lands
+      if (j + NS < ring.n_taps) {
+        __threadfence_block();
+        fence_proxy_async();   // every warp's reads before the copy engine's writes
+        fill_stage<T, CP>(ring, j + NS);
+      }
+    }
+  }
+}
+
+// The f32 conv (CUDA-core FMAs, true f32): thread t owns the 8 output
+// channels 8 g .. 8 g + 7 (g = t % G) of the rows row0 + t / G + SLOTS i
+// (i < R, R = ceil(n / SLOTS) picked per conv by run_conv), clamped into the
+// conv's n rows (a clamped row is computed and not stored), so it reads no
+// row past the region. It walks the conv's taps from the weight ring once,
+// with no block barrier: per 4 input channels it loads a float4 of each of
+// its R rows (conv1 applies lrelu to it: its input is the raw state) and two
+// float4 of weights per channel, 8 + R loads for 32 R FMAs; each weight feeds
+// R rows and each activation 8 channels. The ring's taps are packed
+// [ci][h][g][4] (co = 8 g + 4 h + e), so the 8 (4) channel groups of a warp
+// read one contiguous 128-byte (64-byte) run, and the warp's 4 (8) rows of a
+// float4 lie on distinct banks (row stride CP + 4).
+template <int CP, int MODE, int R>
+__device__ void conv_f32(const Conv<float, CP>& cv, const Ring& ring, int tap0) {
+  constexpr int S = row_stride<float, CP>(), G = CP / 8, SLOTS = kThreads / G;
+  constexpr int NS = ring_stages<float, CP>(), TB = tap_bytes<float, CP>();
+  const int lane = threadIdx.x & 31, g = threadIdx.x % G, slot = threadIdx.x / G;
+  int rows[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) rows[i] = cv.row0 + min(slot + SLOTS * i, cv.n - 1);
+  float acc[R][8];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+#pragma unroll 1
+  for (int tau = 0; tau < cv.k; ++tau) {
+    const int j = tap0 + tau, s = j % NS;
+    mbar_wait(ring.full + 8 * s, (j / NS) & 1);
+    const float* w = reinterpret_cast<const float*>(ring.stages + s * TB) + 4 * g;
+    const int shift = cv.d * (tau - cv.k / 2);
+    const float* a[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i] = cv.in + (rows[i] + shift) * S;
+#pragma unroll 8
+    for (int ci = 0; ci < CP; ci += 4) {
+      float4 x[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        x[i] = *reinterpret_cast<const float4*>(a[i] + ci);
+        if (MODE == kAct) {   // lrelu(x) = max(x, 0.1 x), its product rounded as lrelu rounds it
+          x[i].x = fmaxf(x[i].x, x[i].x * kSlope);
+          x[i].y = fmaxf(x[i].y, x[i].y * kSlope);
+          x[i].z = fmaxf(x[i].z, x[i].z * kSlope);
+          x[i].w = fmaxf(x[i].w, x[i].w * kSlope);
+        }
+      }
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float4 w0 = *reinterpret_cast<const float4*>(w + (ci + cc) * CP);
+        const float4 w1 = *reinterpret_cast<const float4*>(w + (ci + cc) * CP + CP / 2);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float xv = cc == 0 ? x[i].x : cc == 1 ? x[i].y : cc == 2 ? x[i].z : x[i].w;
+          acc[i][0] = fmaf(xv, w0.x, acc[i][0]);
+          acc[i][1] = fmaf(xv, w0.y, acc[i][1]);
+          acc[i][2] = fmaf(xv, w0.z, acc[i][2]);
+          acc[i][3] = fmaf(xv, w0.w, acc[i][3]);
+          acc[i][4] = fmaf(xv, w1.x, acc[i][4]);
+          acc[i][5] = fmaf(xv, w1.y, acc[i][5]);
+          acc[i][6] = fmaf(xv, w1.z, acc[i][6]);
+          acc[i][7] = fmaf(xv, w1.w, acc[i][7]);
+        }
+      }
+    }
+    release_stage<float, CP>(ring, j, lane);
+  }
+  float2 bias[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) bias[e] = __ldg(reinterpret_cast<const float2*>(cv.bias + 8 * g + 2 * e));
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (slot + SLOTS * i >= cv.n) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cv.template put<MODE>(rows[i], 8 * g + 2 * e, acc[i][2 * e], acc[i][2 * e + 1], bias[e]);
+  }
 }
 
 // Tensor-core conv (bf16). Warp w owns the channel slice w % (CP / 32) and
@@ -386,7 +480,7 @@ template <int CP, int MODE>
 __device__ void conv_mma(const Conv<bf16, CP>& cv, const Ring& ring, int tap0) {
   constexpr int S = row_stride<bf16, CP>();
   constexpr int NT = CP / 8, KS = CP / 16, SLICES = CP / kUnitChannels, PER_SLICE = kWarps / SLICES;
-  constexpr int NS = ring_stages<CP>(), TB = tap_bytes<CP>();
+  constexpr int NS = ring_stages<bf16, CP>(), TB = tap_bytes<bf16, CP>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int slice = warp % SLICES, wm = warp / SLICES;
   const int n_mt = (cv.n + kUnitRows - 1) / kUnitRows;
@@ -418,18 +512,7 @@ __device__ void conv_mma(const Conv<bf16, CP>& cv, const Ring& ring, int tap0) {
         }
       }
     }
-    __syncwarp();
-    if (lane == 0) {
-      __threadfence_block();   // this warp's reads of the stage before its release
-      if (atomicAdd(ring.released + s, 1u) == kWarps - 1) {
-        ring.released[s] = 0;   // read again only after the refill lands
-        if (j + NS < ring.n_taps) {
-          __threadfence_block();
-          fence_proxy_async();   // every warp's reads before the copy engine's writes
-          fill_stage<CP>(ring, j + NS);
-        }
-      }
-    }
+    release_stage<bf16, CP>(ring, j, lane);
   }
   // a unit's stores, row r then row r + 8 (h): the row's residual and
   // branch-sum pairs loaded first (all in flight at once), then the outputs,
@@ -480,34 +563,55 @@ __device__ void conv_mma(const Conv<bf16, CP>& cv, const Ring& ring, int tap0) {
   }
 }
 
+// The f32 conv's row slots (threads per 8-channel group) and the most rows a
+// slot takes (tile_fits holds every conv to SLOTS x kMaxRowsF32 rows).
+template <int CP>
+__host__ __device__ constexpr int f32_slots() { return kThreads / (CP / 8); }
+constexpr int kMaxRowsF32 = 4;
+
 template <typename T, int CP, int MODE>
-__device__ __forceinline__ void run_conv(const Conv<T, CP>& cv, int c, const Ring& ring, int tap0) {
+__device__ __forceinline__ void run_conv(const Conv<T, CP>& cv, const Ring& ring, int tap0) {
   if constexpr (std::is_same<T, bf16>::value) {
     conv_mma<CP, MODE>(cv, ring, tap0);
   } else {
-    conv_scalar<T, CP, MODE>(cv, c);
+    switch ((cv.n + f32_slots<CP>() - 1) / f32_slots<CP>()) {
+      case 1: conv_f32<CP, MODE, 1>(cv, ring, tap0); break;
+      case 2: conv_f32<CP, MODE, 2>(cv, ring, tap0); break;
+      case 3: conv_f32<CP, MODE, 3>(cv, ring, tap0); break;
+      case kMaxRowsF32: conv_f32<CP, MODE, kMaxRowsF32>(cv, ring, tap0); break;
+      default: __trap();
+    }
   }
 }
 
 __host__ __device__ constexpr int post_reach(bool tail) { return tail ? kPostTaps / 2 : 0; }
 
-// Shared memory of one block: for bf16 the weight ring and its mbarriers,
-// then four activation buffers of (E + slack) rows (upsample output,
-// residual state, its activation, conv1 output). The f32 branch sum lives in
-// device memory (the caller's scratch), where it stays in L2.
+// Shared memory of one block: the weight ring and its mbarriers, then the
+// activation buffers of (E + slack) rows: bf16 four (upsample output,
+// residual state, its activation, conv1 output), f32 three (no activated
+// copy: conv1 activates the state as it loads it, which buys f32 the tile
+// the fourth buffer would take). The f32 branch sum lives in device memory
+// (the caller's scratch), where it stays in L2.
+template <typename T>
+__host__ __device__ constexpr int n_buffers() { return sizeof(T) == 2 ? 4 : 3; }
 template <typename T, int CP, bool TAIL>
 __host__ __device__ constexpr size_t buffer_elems(int tile, int halo) {
-  return (size_t)(tile + 2 * halo + kSlackRows) * row_stride<T, CP>();
+  return (size_t)(tile + 2 * halo + slack_rows<T>()) * row_stride<T, CP>();
 }
 template <typename T, int CP, bool TAIL>
 __host__ __device__ constexpr size_t smem_bytes(int tile, int halo) {
-  return ring_bytes<T, CP>() + 4 * buffer_elems<T, CP, TAIL>(tile, halo) * sizeof(T);
+  return ring_bytes<T, CP>() + n_buffers<T>() * buffer_elems<T, CP, TAIL>(tile, halo) * sizeof(T);
 }
 // The budget the ring depths were picked for: at the default taps' halos
 // (60 stage, 64 tail) the bf16 stage keeps a 208-row tile beside its 3
 // stages of 8 KB, the tail a 480-row tile beside its 8 stages of 2 KB.
 static_assert(smem_bytes<bf16, 64, false>(208, 60) <= kMaxSmem, "stage: 3 ring stages and a 208-row tile");
 static_assert(smem_bytes<bf16, 32, true>(480, 64) <= kMaxSmem, "tail: 8 ring stages and a 480-row tile");
+// f32: the stage keeps a 112-row tile beside its 2 stages of 16 KB (its 18
+// convs then do 1.39x the output rows' work, 1.69x at the old 64 rows), the
+// tail 304 rows beside its 8 stages of 4 KB.
+static_assert(smem_bytes<float, 64, false>(112, 60) <= kMaxSmem, "f32 stage: 2 ring stages and a 112-row tile");
+static_assert(smem_bytes<float, 32, true>(304, 64) <= kMaxSmem, "f32 tail: 8 ring stages and a 304-row tile");
 // Input frames a block reads (they are staged in the conv1 buffer first).
 template <bool TAIL>
 __host__ __device__ inline int frames_per_block(int tile, int halo) {
@@ -519,7 +623,7 @@ template <typename T, int CP, bool TAIL>
 __global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr bool kMma = std::is_same<T, bf16>::value;
-  constexpr int NS = kMma ? ring_stages<CP>() : 0;
+  constexpr int NS = ring_stages<T, CP>();
   constexpr int S = row_stride<T, CP>();
   constexpr int G = CP / 8;
   const int post = post_reach(TAIL);
@@ -527,14 +631,14 @@ __global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p)
   const size_t nbuf = buffer_elems<T, CP, TAIL>(p.tile, p.halo);
   Ring ring;
   ring.stages = smem;
-  ring.full = smem_u32(smem + ring_full_offset<CP>());
-  ring.released = reinterpret_cast<unsigned*>(smem + ring_released_offset<CP>());
+  ring.full = smem_u32(smem + ring_full_offset<T, CP>());
+  ring.released = reinterpret_cast<unsigned*>(smem + ring_released_offset<T, CP>());
   ring.w = reinterpret_cast<const unsigned char*>(p.w_mrf);
   ring.n_taps = 6 * (p.taps.k[0] + p.taps.k[1] + p.taps.k[2]);
   T* up = reinterpret_cast<T*>(smem + ring_bytes<T, CP>());
   T* st = up + nbuf;
-  T* ab = st + nbuf;
-  T* hb = ab + nbuf;
+  T* ab = kMma ? st + nbuf : nullptr;   // bf16 only: the activated state
+  T* hb = (kMma ? ab : st) + nbuf;
   float* bsum = p.scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * (p.tile + 2 * post) * CP;
   const int b = blockIdx.y;
   const int p0 = blockIdx.x * p.tile;
@@ -544,7 +648,7 @@ __global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p)
   // the MRF) by four bulk copies, the first taps of the ring after them
   const T* w_up = p.w_up;
   if constexpr (kMma) {
-    const uint32_t bar_wup = smem_u32(smem + wup_bar_offset<CP>());
+    const uint32_t bar_wup = smem_u32(smem + wup_bar_offset<T, CP>());
     if (threadIdx.x == 0) {
 #pragma unroll
       for (int s = 0; s < NS; ++s) {
@@ -560,9 +664,21 @@ __global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p)
       mbar_expect_tx(bar_wup, 4 * phase_bytes);
       for (int j = 0; j < 4; ++j)
         bulk_copy_g2s(smem_u32(st) + j * phase_bytes, p.w_up + (size_t)j * p.cin * CP, phase_bytes, bar_wup);
-      for (int j = 0; j < NS && j < ring.n_taps; ++j) fill_stage<CP>(ring, j);   // under the upsample
+      for (int j = 0; j < NS && j < ring.n_taps; ++j) fill_stage<T, CP>(ring, j);   // under the upsample
     }
     w_up = st;
+  } else {
+    // f32: the upsample reads its weights from device memory; the ring's
+    // first taps arrive under the staging and the upsample
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        mbar_init(ring.full + 8 * s, 1);
+        ring.released[s] = 0;
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int j = 0; j < NS && j < ring.n_taps; ++j) fill_stage<T, CP>(ring, j);
+    }
   }
 
   // 1. the block's input frames, activated and rounded, staged in hb. No
@@ -602,7 +718,7 @@ __global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p)
   }
   __syncthreads();
 
-  if constexpr (kMma) mbar_wait(smem_u32(smem + wup_bar_offset<CP>()), 0);
+  if constexpr (kMma) mbar_wait(smem_u32(smem + wup_bar_offset<T, CP>()), 0);
 
   // 2. upsample into `up` on all E rows (scalar FMAs). One item: a phase j,
   //    R consecutive frames and 8 output channels, so each 8-wide
@@ -661,10 +777,12 @@ __global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p)
   __syncthreads();
 
   // 3. the MRF: 3 branches x 3 levels x (conv1, conv2), each conv on the rows
-  //    the later convs still read (margin m around the tile); bf16 convs take
+  //    the later convs still read (margin m around the tile); the convs take
   //    their taps from the ring in order (tap: the ring index of a conv's
-  //    first). conv1 reads `ab`, the activated state: the upsample output's
-  //    at a branch's start (one pass), then what the previous conv2 stored.
+  //    first). bf16 conv1 reads `ab`, the activated state: the upsample
+  //    output's at a branch's start (one pass), then what the previous conv2
+  //    stored; f32 conv1 reads the state itself (`up`, then `st`) and
+  //    activates it as it loads it.
   size_t w_off = 0;
   int conv_idx = 0, tap = 0;
   for (int br = 0; br < 3; ++br) {
@@ -673,10 +791,8 @@ __global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p)
       const uint32_t* u32 = reinterpret_cast<const uint32_t*>(up);
       uint32_t* a32 = reinterpret_cast<uint32_t*>(ab);
       for (int i = threadIdx.x; i < (int)nbuf / 2; i += kThreads) a32[i] = act_bf16x2(u32[i]);
-    } else {
-      for (int i = threadIdx.x; i < (int)nbuf; i += kThreads) ab[i] = round_to<T>(lrelu(up[i], kSlope));
+      __syncthreads();
     }
-    __syncthreads();
     int m = post;
     for (int l = 0; l < 3; ++l) m += p.taps.d[br][l] * (k / 2) + k / 2;
     for (int l = 0; l < 3; ++l) {
@@ -684,10 +800,10 @@ __global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p)
       const T* src = l == 0 ? up : st;
       Conv<T, CP> c1;
       const int m1 = m - d * (k / 2);
-      c1.in = ab; c1.out = hb; c1.act_out = nullptr; c1.resid = nullptr; c1.bsum = nullptr; c1.bsum_row0 = 0;
+      c1.in = kMma ? ab : src; c1.out = hb; c1.act_out = nullptr; c1.resid = nullptr; c1.bsum = nullptr; c1.bsum_row0 = 0;
       c1.assign = false; c1.post_in = nullptr; c1.out_g = nullptr; c1.c = p.c; c1.row0 = p.halo - m1; c1.n = p.tile + 2 * m1; c1.k = k; c1.d = d;
       c1.w = p.w_mrf + w_off; c1.bias = p.b_mrf + conv_idx * CP; c1.a0 = a0; c1.U = p.U;
-      run_conv<T, CP, kAct>(c1, p.c, ring, tap);
+      run_conv<T, CP, kAct>(c1, ring, tap);
       w_off += (size_t)k * CP * CP;
       tap += k;
       ++conv_idx;
@@ -695,18 +811,20 @@ __global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p)
 
       Conv<T, CP> c2;
       const int m2 = m1 - k / 2;
-      c2.in = hb; c2.out = st; c2.act_out = l < 2 ? ab : nullptr; c2.resid = src;
+      c2.in = hb; c2.out = st; c2.act_out = kMma && l < 2 ? ab : nullptr; c2.resid = src;
       c2.bsum = l == 2 ? bsum : nullptr; c2.bsum_row0 = p.halo - post; c2.assign = br == 0;
-      c2.post_in = TAIL ? ab : nullptr; c2.out_g = TAIL ? nullptr : static_cast<T*>(p.out) + (size_t)b * p.U * p.c;
+      // f32 tail: the post-lrelu rows go to `up`, free after the last branch's level 0
+      c2.post_in = TAIL ? (kMma ? ab : up) : nullptr;
+      c2.out_g = TAIL ? nullptr : static_cast<T*>(p.out) + (size_t)b * p.U * p.c;
       c2.c = p.c;
       c2.row0 = p.halo - m2; c2.n = p.tile + 2 * m2; c2.k = k; c2.d = 1;
       c2.w = p.w_mrf + w_off; c2.bias = p.b_mrf + conv_idx * CP; c2.a0 = a0; c2.U = p.U;
       if (l < 2)
-        run_conv<T, CP, kState>(c2, p.c, ring, tap);
+        run_conv<T, CP, kState>(c2, ring, tap);
       else if (br < 2)
-        run_conv<T, CP, kSum>(c2, p.c, ring, tap);
+        run_conv<T, CP, kSum>(c2, ring, tap);
       else
-        run_conv<T, CP, kFinal>(c2, p.c, ring, tap);
+        run_conv<T, CP, kFinal>(c2, ring, tap);
       w_off += (size_t)k * CP * CP;
       tap += k;
       ++conv_idx;
@@ -717,9 +835,11 @@ __global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p)
 
   // 4. epilogue: the stage's output was written by its last conv; the tail
   //    runs conv_post + tanh on the post-lrelu rows the last conv left in
-  //    `ab`, with conv_post's weights in `up` (free after the MRF)
+  //    `ab` (f32: `up`), with conv_post's weights in `up` (f32: `hb`), free
+  //    after the MRF
   if (TAIL) {
-    T* w_post = up;
+    T* w_post = kMma ? up : hb;
+    const T* post_rows = kMma ? ab : up;
     for (int idx = threadIdx.x; idx < kPostTaps * CP; idx += kThreads) w_post[idx] = p.w_post[idx];
     __syncthreads();
     // one thread per output row, over all CP channels in pairs (the padded
@@ -730,7 +850,7 @@ __global__ void __launch_bounds__(kThreads, 1) vocoder_fused_kernel(Params<T> p)
       float acc = 0.f;
 #pragma unroll
       for (int tau = 0; tau < kPostTaps; ++tau) {
-        const T* mrow = ab + (i + tau) * S;
+        const T* mrow = post_rows + (i + tau) * S;
         const T* w = w_post + tau * CP;
 #pragma unroll 8
         for (int ci = 0; ci < CP; ci += 2) {
@@ -802,10 +922,23 @@ int warp_units(int n, int warp) {
   return n_mt > wm ? (n_mt - wm + per_slice - 1) / per_slice : 0;
 }
 
+// The f32 conv's units (one row x 8 output channels, a thread's item) of a
+// conv on n rows that warp w holds: its lanes' row slots (conv_f32) times
+// the rows each slot takes. The busiest warp is warp 0.
+template <int CP>
+int f32_warp_units(int n, int warp) {
+  constexpr int slots = f32_slots<CP>(), per_warp = 32 / (CP / 8);
+  int units = 0;
+  for (int slot = warp * per_warp; slot < (warp + 1) * per_warp; ++slot)
+    units += slot < n ? (n - slot + slots - 1) / slots : 0;
+  return units * (CP / 8);
+}
+
 // 0 if a block of `tile` output rows fits: a positive multiple of 4, the
-// buffers and the staged input frames within shared memory, and for bf16
-// room for the upsample weights in two buffers and no warp with more than
-// kMaxUnits units in the widest conv.
+// buffers and the staged input frames within shared memory; for bf16 room
+// for the upsample weights in two buffers and no warp with more than
+// kMaxUnits units in the widest conv; for f32 no thread with more than
+// kMaxRowsF32 rows in the widest conv.
 template <typename T, int CP, bool TAIL>
 int tile_fits(int tile, int halo, int cin, const Taps& taps) {
   if (tile < 4 || tile % 4 != 0) return kErrTile;
@@ -819,6 +952,11 @@ int tile_fits(int tile, int halo, int cin, const Taps& taps) {
     conv_margins(taps, TAIL, k, margin);
     for (int i = 0; i < kMrfConvs; ++i)
       if (warp_units<CP>(tile + 2 * margin[i], 0) > kMaxUnits) return kErrTile;
+  } else {
+    int k[kMrfConvs], margin[kMrfConvs];
+    conv_margins(taps, TAIL, k, margin);
+    for (int i = 0; i < kMrfConvs; ++i)
+      if (tile + 2 * margin[i] > kMaxRowsF32 * f32_slots<CP>()) return kErrTile;
   }
   return 0;
 }
@@ -842,24 +980,40 @@ long long block_cycles(int tile, int halo, int cin, const Taps& taps) {
   return ksteps * kKstepCycles + up;
 }
 
-// The tile for B rows of U outputs on `sms` SMs. bf16: of the multiples of
-// 16 that fit, the one with the least estimated time, full waves x block
+// The same estimate for an f32 block, in issue slots of the busiest thread
+// (16 warps on 4 schedulers): per conv and tap, per 4 input channels, its R
+// rows' 32 R FMAs, 8 + R loads and, in conv1, 8 R activation ops; plus the
+// upsample's rounds of items.
+template <int CP, bool TAIL>
+long long block_cycles_f32(int tile, int halo, int cin, const Taps& taps) {
+  constexpr int Ru = up_rows<float, TAIL>(), F = TAIL ? 2 : 4;
+  int k[kMrfConvs], margin[kMrfConvs];
+  conv_margins(taps, TAIL, k, margin);
+  long long slots = 0;
+  for (int i = 0; i < kMrfConvs; ++i) {
+    const long long r = (tile + 2 * margin[i] + f32_slots<CP>() - 1) / f32_slots<CP>();
+    slots += (long long)k[i] * (CP / 4) * (32 * r + 8 + r + (i % 2 == 0 ? 8 * r : 0));
+  }
+  const int e = tile + 2 * halo;
+  const long long items = (long long)(((e + F - 1) / F + Ru - 1) / Ru) * F * (CP / 8);
+  const long long up = (items + kThreads - 1) / kThreads * (2 + Ru + 8 * Ru) * cin * (TAIL ? 2 : 1);
+  return 4 * (slots + up);
+}
+
+// The tile for B rows of U outputs on `sms` SMs: of the multiples of 16
+// that fit, the one with the least estimated time, full waves x block
 // cycles (one block per SM), so that the last wave is not mostly empty
-// (the larger tile on a tie); f32: the largest multiple of 32 up to 256
-// that fits. 0 if none fits.
+// (the larger tile on a tie). 0 if none fits.
 template <typename T, int CP, bool TAIL>
 int pick_tile(int halo, int cin, const Taps& taps, int B, int U, int sms) {
-  if (!std::is_same<T, bf16>::value) {
-    for (int tile = 256; tile > 0; tile -= 32)
-      if (tile_fits<T, CP, TAIL>(tile, halo, cin, taps) == 0) return tile;
-    return 0;
-  }
   int best = 0;
   long long best_cost = 0;
   for (int tile = 16; tile < 1024; tile += 16) {
     if (tile_fits<T, CP, TAIL>(tile, halo, cin, taps) != 0) continue;
     const long long blocks = (long long)B * ((U + tile - 1) / tile);
-    const long long cost = (blocks + sms - 1) / sms * block_cycles<CP, TAIL>(tile, halo, cin, taps);
+    const long long cycles = std::is_same<T, bf16>::value ? block_cycles<CP, TAIL>(tile, halo, cin, taps)
+                                                          : block_cycles_f32<CP, TAIL>(tile, halo, cin, taps);
+    const long long cost = (blocks + sms - 1) / sms * cycles;
     if (best == 0 || cost <= best_cost) best = tile, best_cost = cost;
   }
   return best;
@@ -871,16 +1025,15 @@ size_t scratch_floats(int B, int U, int tile, int cp, bool tail) {
 }
 
 // Launch with the tile the caller planned (covomix_vocoder_plan) after
-// checking it (tile_fits), x 16-byte aligned, and for bf16 16-byte aligned
-// weights.
+// checking it (tile_fits), x and the MRF weights (the ring's bulk copies)
+// 16-byte aligned, and for bf16 the upsample weights too.
 template <typename T, int CP, bool TAIL>
 int launch(Params<T> p, int B, cudaStream_t stream) {
   const int fit = tile_fits<T, CP, TAIL>(p.tile, p.halo, p.cin, p.taps);
   if (fit != 0) return fit;
-  if (reinterpret_cast<uintptr_t>(p.x) % 16 != 0) return kErrAlign;
-  if (std::is_same<T, bf16>::value &&
-      (reinterpret_cast<uintptr_t>(p.w_mrf) % 16 != 0 || reinterpret_cast<uintptr_t>(p.w_up) % 16 != 0))
+  if (reinterpret_cast<uintptr_t>(p.x) % 16 != 0 || reinterpret_cast<uintptr_t>(p.w_mrf) % 16 != 0)
     return kErrAlign;
+  if (std::is_same<T, bf16>::value && reinterpret_cast<uintptr_t>(p.w_up) % 16 != 0) return kErrAlign;
   const size_t smem = smem_bytes<T, CP, TAIL>(p.tile, p.halo);
   auto kernel = vocoder_fused_kernel<T, CP, TAIL>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -891,8 +1044,9 @@ int launch(Params<T> p, int B, cudaStream_t stream) {
 }
 
 // The plan of one launch into plan[6] = {tile, halo, shared bytes, blocks,
-// SMs, scratch floats} and, for bf16 and a non-null convs, convs[18][4] =
-// per MRF conv {rows, units, busiest warp's units, idlest warp's units}.
+// SMs, scratch floats} and, for a non-null convs, convs[18][4] = per MRF
+// conv {rows, units, busiest warp's units, idlest warp's units} (bf16 units:
+// 16-row x 32-channel m-tiles; f32: one row x 8 channels, a thread's item).
 template <typename T, int CP, bool TAIL>
 int plan_launch(const Taps& taps, int B, int U, int cin, int sms, long long* plan, int* convs) {
   const int halo = block_halo(taps, TAIL);
@@ -904,15 +1058,16 @@ int plan_launch(const Taps& taps, int B, int U, int cin, int sms, long long* pla
   plan[3] = (long long)B * ((U + tile - 1) / tile);
   plan[4] = sms;
   plan[5] = (long long)scratch_floats(B, U, tile, CP, TAIL);
-  if (convs != nullptr && std::is_same<T, bf16>::value) {
+  if (convs != nullptr) {
+    constexpr bool mma = std::is_same<T, bf16>::value;
     int k[kMrfConvs], margin[kMrfConvs];
     conv_margins(taps, TAIL, k, margin);
     for (int i = 0; i < kMrfConvs; ++i) {
       const int n = tile + 2 * margin[i];
       convs[4 * i] = n;
-      convs[4 * i + 1] = (n + kUnitRows - 1) / kUnitRows * (CP / kUnitChannels);
-      convs[4 * i + 2] = warp_units<CP>(n, 0);
-      convs[4 * i + 3] = warp_units<CP>(n, kWarps - 1);
+      convs[4 * i + 1] = mma ? (n + kUnitRows - 1) / kUnitRows * (CP / kUnitChannels) : n * (CP / 8);
+      convs[4 * i + 2] = mma ? warp_units<CP>(n, 0) : f32_warp_units<CP>(n, 0);
+      convs[4 * i + 3] = mma ? warp_units<CP>(n, kWarps - 1) : f32_warp_units<CP>(n, kWarps - 1);
     }
   }
   return 0;
@@ -968,8 +1123,8 @@ extern "C" {
 
 // The block plan of a launch on card `device` (its SM count read from the
 // card): plan[6] = {tile, halo, shared bytes, blocks, SMs, scratch floats};
-// with bf16 and a non-null convs also convs[18 * 4], per MRF conv {rows,
-// units, busiest warp's units, idlest warp's units}. Arguments as for
+// with a non-null convs also convs[18 * 4], per MRF conv {rows, units,
+// busiest warp's units, idlest warp's units}. Arguments as for
 // covomix_vocoder_fused; returns 0 or an error code.
 int covomix_vocoder_plan(int tail, int is_f32, int cp, const int* taps, int B, int t_in, int cin, int device,
                          long long* plan, int* convs) {
@@ -1007,8 +1162,10 @@ const char* covomix_vocoder_error_string(int code) {
   if (code == kErrChannels) return "channels must be in [1, cp] with cp 32 or 64, and cin >= 1";
   if (code == kErrSmem) return "the block's buffers do not fit in shared memory at this tile (or at any)";
   if (code == kErrTaps) return "kernel sizes and dilations must be >= 1";
-  if (code == kErrTile) return "the tile must be a positive multiple of 4 giving no warp more than 3 units a conv";
-  if (code == kErrAlign) return "x (and the bf16 upsample and MRF weights) must be 16-byte aligned";
+  if (code == kErrTile)
+    return "the tile must be a positive multiple of 4 giving no warp more than 3 units (bf16) or no thread more than "
+           "4 rows (f32) a conv";
+  if (code == kErrAlign) return "x, the MRF weights (and the bf16 upsample weights) must be 16-byte aligned";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

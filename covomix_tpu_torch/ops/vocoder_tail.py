@@ -18,9 +18,11 @@ dtype, biases stay f32.
 
 The parameters are the generator's own (`ups[i]`, the stage's three
 ResBlock1 dicts, `conv_post`); the wrapper packs them for the kernel once per
-parameter set (channels padded to 32 or 64, MRF weights in tensor-core
-fragment order for bf16, tap-major, so that each tap is one 16-byte aligned
-slice the kernel's weight ring copies whole). Per launch it asks the
+parameter set (channels padded to 32 or 64, MRF weights tap-major, so that
+each tap is one 16-byte aligned slice the kernel's weight ring copies whole:
+in tensor-core fragment order for bf16, and for f32 [ci][h][g][4] with
+co = 8 g + 4 h + e, so that the 8-channel groups of a warp read one
+contiguous run). Per launch it asks the
 library for the block plan (`covomix_vocoder_plan`: the tile, chosen in the
 C code from the card's SM count so that the last wave of blocks is not
 mostly empty) and allocates the f32 scratch that holds each block's branch
@@ -91,7 +93,9 @@ class Plan(NamedTuple):
     blocks: int
     waves: float     # blocks / SMs
     scratch: int     # f32 elements of the blocks' branch sums
-    convs: tuple     # bf16, per MRF conv: (rows, units, busiest warp's units, idlest warp's units)
+    # per MRF conv: (rows, units, busiest warp's units, idlest warp's units); a
+    # bf16 unit is a 16-row x 32-channel m-tile, an f32 unit one row x 8 channels
+    convs: tuple
 
 
 class Packed(NamedTuple):
@@ -101,7 +105,7 @@ class Packed(NamedTuple):
     c: int
     w_up: torch.Tensor      # [4, cin, cp] dtype
     b_up: torch.Tensor      # [cp] f32
-    w_mrf: torch.Tensor     # 18 convs of k * cp * cp, flat, dtype
+    w_mrf: torch.Tensor     # 18 convs of k * cp * cp, flat, dtype (tap-major; see pack_weights)
     b_mrf: torch.Tensor     # [18, cp] f32
     w_post: torch.Tensor    # [7, cp] dtype (tail; zeros for the stage)
     b_post: float
@@ -123,6 +127,14 @@ def _mma_fragment_order(w):
     return w.permute(0, 1, 5, 6, 3, 2, 4).reshape(-1)      # tau, ks, nt, g, t, half, pair
 
 
+def _f32_tap_order(w):
+    """[k, cp, cp] (ci, co) -> flat, in the order conv_f32 reads a tap: per
+    (tap, ci), the first 4 channels of each 8-channel group g, then their
+    last 4 ([ci][h][g][4], co = 8 g + 4 h + e)."""
+    k, cp, _ = w.shape
+    return w.reshape(k, cp, cp // 8, 2, 4).permute(0, 1, 3, 2, 4).reshape(-1)
+
+
 def pack_weights(up_p, resblocks, post_p, kernels, dilations, dtype, device) -> Packed:
     """The kernel's layout of one stage's parameters (post_p None for the stage)."""
     _check_taps(kernels, dilations)
@@ -142,7 +154,7 @@ def pack_weights(up_p, resblocks, post_p, kernels, dilations, dtype, device) -> 
             for which in ("convs1", "convs2"):
                 p = resblocks[j][which][l]
                 w = pad(p["w"], 0, cp - c, 0, cp - c).to(dtype)          # [k, cp, cp]
-                mrf_w.append(_mma_fragment_order(w) if dtype == torch.bfloat16 else w.reshape(-1))
+                mrf_w.append(_mma_fragment_order(w) if dtype == torch.bfloat16 else _f32_tap_order(w))
                 mrf_b.append(pad(p["b"], 0, cp - c))
     if post_p is not None:
         w_post = pad(post_p["w"][:, :, 0], 0, cp - c).to(dtype)
@@ -194,7 +206,7 @@ class FusedKernel:
             raise RuntimeError(f"fused {'tail' if self.tail else 'stage'} plan failed: "
                                f"{lib.covomix_vocoder_error_string(err).decode()}")
         tile, halo, smem, blocks, sms, scratch = plan
-        rows = tuple(tuple(convs[4 * i:4 * i + 4]) for i in range(18)) if x.dtype == torch.bfloat16 else ()
+        rows = tuple(tuple(convs[4 * i:4 * i + 4]) for i in range(18))
         return Plan(tile, halo, smem, blocks, blocks / sms, scratch, rows)
 
     def __call__(self, x, packed: Packed):

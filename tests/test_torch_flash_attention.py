@@ -61,6 +61,41 @@ def test_plain_matches_jax_flash(t, rotary, valid):
     assert np.abs(out - ref).max() < TOL
 
 
+# The forms the card's f32 forward at head dim 64 takes (chip_smoke.py holds
+# it to flash_attention_plain there): T off the 64-key tile, per-row
+# valid_len down to 1, with and without the logsumexp, causal or not,
+# rotary or not.
+F32_FORMS = [  # (T, valid_len, causal, lse, rotary)
+    (130, np.array([130, 1], np.int32), False, False, False),
+    (130, np.array([1, 77], np.int32), False, True, False),
+    (193, np.array([193, 64], np.int32), True, True, False),
+    (193, np.int32(1), True, False, True),
+    (257, np.array([100, 257], np.int32), False, True, True),
+    (257, np.array([257, 1], np.int32), True, True, False),
+    (65, np.array([65, 1], np.int32), True, False, False),
+    (65, np.int32(65), False, True, True),
+]
+
+
+@pytest.mark.parametrize("t,valid,causal,lse,rotary", F32_FORMS)
+def test_plain_f32_forms_match_jax(t, valid, causal, lse, rotary):
+    q, k, v = _qkv(t, 40 + t)
+    cfg = (JF.DEFAULT_BLOCK_Q, JF.DEFAULT_BLOCK_K, JF.DEFAULT_HEAD_BLOCK, True, causal)
+    jtab = JF.rotary_tables_halfsplit(jnp.arange(t), JL.rotary_freqs(DH), jnp.float32) if rotary else None
+    ptab = PF.rotary_tables_halfsplit(torch.arange(t), PL.rotary_freqs(DH), torch.float32) if rotary else None
+    with jax.default_matmul_precision("highest"):
+        ref = JF._flash_forward(cfg, jnp.maximum(jnp.asarray(valid, jnp.int32).reshape(-1), 1), jnp.asarray(q),
+                                jnp.asarray(k), jnp.asarray(v), with_lse=lse, rotary=jtab)
+    out = PF.flash_attention_plain(*(torch.from_numpy(x) for x in (q, k, v)), PF._valid_array(valid, B, t, "cpu"),
+                                   ptab, causal=causal, return_lse=lse)
+    if lse:
+        (ref, ref_lse), (out, out_lse) = ref, out
+        assert out_lse.shape == (B, H, t) and out_lse.dtype == torch.float32
+        assert np.abs(out_lse.numpy() - np.asarray(ref_lse)[:, :, :t, 0]).max() < TOL
+    assert out.shape == (B, H, t, DH) and out.dtype == torch.float32
+    assert np.abs(out.numpy() - np.asarray(ref)[:, :, :t]).max() < TOL
+
+
 def test_valid_len_zero_clamps_to_one():
     """valid_len 0 attends key 0 only (the -1e30 mask with the >= 1 clamp),
     exactly as the TPU kernel does; layers.attend would give zeros there."""

@@ -203,8 +203,15 @@ def test_pack_weights_layout():
             ci = 16 * ks + 2 * t + dci
             want = w[tau, ci, co] if ci < c and co < c else 0.0
             assert frag[tau, ks, nt, g, t, e] == want
+    # f32: per tap and input channel, the first 4 channels of each 8-channel
+    # group g, then their last 4: w[ci][co = 8g + 4h + e] at [tau, ci, h, g, e]
     f32 = PVT.pack_weights(pu, pb, None, KERNELS, DILS, torch.float32, "cpu")
-    assert torch.equal(f32.w_mrf[: 3 * 64 * 64].reshape(3, 64, 64)[:, :c, :c], pb[0]["convs1"][0]["w"])
+    w32 = pb[0]["convs1"][0]["w"]
+    blk = f32.w_mrf[: 3 * 64 * 64].reshape(3, 64, 2, 8, 4)
+    for tau, ci, h, g, e in ((0, 0, 0, 0, 0), (2, 61, 1, 7, 1), (1, 5, 1, 3, 3), (2, 63, 0, 7, 3)):
+        co = 8 * g + 4 * h + e
+        assert blk[tau, ci, h, g, e] == (w32[tau, ci, co] if ci < c and co < c else 0.0)
+    assert torch.equal(blk.permute(0, 1, 3, 2, 4).reshape(3, 64, 64)[:, :c, :c], w32)   # unpacked: the weights back
     tail = PVT.pack_weights(*(to_port(p) for p in _stage_params(6, 62, 31, post=True)), KERNELS, DILS,
                             torch.float32, "cpu")
     assert tail.cp == 32 and tail.w_post.shape == (7, 32)
@@ -235,6 +242,57 @@ def test_packed_mrf_taps_are_whole_aligned_slices(cin, c, cp):
                     assert torch.equal(pk.w_mrf[off:off + cp * cp], PVT._mma_fragment_order(w[tau:tau + 1]))
                 start += k
     assert start == 126
+
+
+@pytest.mark.parametrize("cin,c,cp", [(125, 62, 64), (62, 31, 32)])
+def test_packed_f32_mrf_taps_are_whole_aligned_slices(cin, c, cp):
+    """The f32 ring copies one tap per bulk copy too: `w_mrf` holds the 126
+    f32 taps back to back, each one contiguous cp * cp slice at a 16-byte
+    multiple ([ci][h][g][4]), and unpacking each gives the conv's weights
+    back."""
+    up, blocks, _ = _stage_params(12, cin, c)
+    pu, pb = to_port(up), to_port(blocks)
+    pk = PVT.pack_weights(pu, pb, None, KERNELS, DILS, torch.float32, "cpu")
+    assert pk.cp == cp and pk.w_mrf.dtype == torch.float32 and pk.w_mrf.numel() == 126 * cp * cp
+    assert pk.w_mrf.is_contiguous() and pk.w_mrf.data_ptr() % 16 == 0
+    start = 0
+    for j, k in enumerate(KERNELS):
+        for l in range(3):
+            for which in ("convs1", "convs2"):
+                w = pb[j][which][l]["w"]
+                for tau in range(k):
+                    off = (start + tau) * cp * cp
+                    assert off * 4 % 16 == 0
+                    tap = pk.w_mrf[off:off + cp * cp]
+                    assert torch.equal(tap, PVT._f32_tap_order(F.pad(w[tau:tau + 1], (0, cp - c, 0, cp - c))))
+                    unpacked = tap.reshape(cp, 2, cp // 8, 4).permute(0, 2, 1, 3).reshape(cp, cp)
+                    assert torch.equal(unpacked[:c, :c], w[tau]) and not unpacked[c:].any() and not unpacked[:, c:].any()
+                start += k
+    assert start == 126
+
+
+def test_split_probe_cuts_the_mrf_and_the_epilogue():
+    """`chip_smoke.py --vocoder-split` times copies of the kernel source: one
+    without the MRF (and without the weight ring's first fills, whose copies
+    only the MRF waits for), one without the MRF and the epilogue. The
+    markers it cuts at must stay in the source."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    with open(PVT.SOURCE) as f:
+        text = f.read()
+    v = chip_smoke.split_sources(text)
+    assert v["full"] == text
+    kernel = lambda t: t.split("vocoder_fused_kernel(Params<T> p) {", 1)[1].split("constexpr int kErrChannels", 1)[0]
+    assert "run_conv<" in kernel(text) and "fill_stage<" in kernel(text)
+    for name in ("no_mrf", "staging"):
+        body = kernel(v[name])
+        assert "run_conv<" not in body and "fill_stage<" not in body and "// 1. the block's input frames" in body
+        assert v[name].endswith(text.split("constexpr int kErrChannels", 1)[1])
+    assert "conv_post" in kernel(v["no_mrf"]) and "// 4. epilogue" not in kernel(v["staging"])
 
 
 def test_inputs_reach_the_kernel_16_byte_aligned():
