@@ -2,9 +2,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
-    python3 chip_smoke.py --ab-training DIR   # the two training cells, DIR's tree against this one
+    python3 chip_smoke.py --ab-training DIR   # the training cells (bf16, f32), DIR's tree against this one
     python3 chip_smoke.py --vocoder           # the fused vocoder kernels alone
-    python3 chip_smoke.py --flash-f32         # the f32 flash forward at head dim 64 alone
+    python3 chip_smoke.py --flash-f32         # the f32 flash kernels at head dim 64 alone
     python3 chip_smoke.py --vocoder-split DIR # the fused kernels' time split, DIR's tree against this one
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
@@ -15,7 +15,8 @@ hifigan_inference file's ([1,42244,125] / [1,168976,62], f32), on seeded
 random inputs with full-width weights, each timed output held against its
 plain version and each launch's block plan logged, holds VOC_REGS, and ends
 with the same `ok` line. `--flash-f32` does the same for the f32 forward
-(flash_f32_mode). Neither replaces the default run.
+(flash_f32_mode: the forward at HuBERT's shape, and the forward with lse,
+dQ and dK/dV at both training shapes). Neither replaces the default run.
 
 Phases (any failure exits non-zero, nothing is passed over):
   1. print the card's name and power limit (nvidia-smi);
@@ -89,6 +90,19 @@ Phases (any failure exits non-zero, nothing is passed over):
      [6, 8, 1026, 64] beside their plain versions, bounds and
      `scaled_dot_product_attention(is_causal=True)` and its gradient, and two
      f32 steps of a tiny CoMix T2S model on the card against the CPU;
+  9b. full-width training at the recipes' own precision (f32, the recipes
+     of phases 8 and 9 without --bf16) on the same random items: 8
+     optimizer steps each, no eval, no resume; every VoMix step must launch
+     exactly 8 f32 forwards with lse, 8 dQ and 8 dK/dV (the tiled f32
+     kernels; the backward takes the rotary tables, no pre-pass), every T2S
+     step 4 causal ones of each, nothing else; finite losses; the median ms
+     per step, samples/s, the forward / backward / optimizer split and the
+     peak memory. Phases 8 and 9 also time the f32 forms of the three
+     kernels (time_flash_f32: [8, 16, 832, 64] with the tables, [6, 8,
+     1026, 64] causal) beside their plain versions, their bounds at the f32
+     peak, f32 SDPA and its gradient, and the `_unrotate` passes the tables
+     replace; with the tables dq and dk bit for bit against
+     `_rotary_transpose` of the untabled kernels';
  10. the released checkpoint formats (run after phase 7, on phase 6's
      full-width trees): Lightning `.ckpt` files (hyper_parameters, an EMA
      shadow) of the CoMix T2S and VoMix models and a weight-normed HiFi-GAN
@@ -356,11 +370,11 @@ def check_flash_training_case(b, h, t, dh, dtype, seed, valid, rotary, causal=Fa
         vl = int(valid_arr[bi if valid_arr.numel() > 1 else 0])
         if not (bool((dk[bi, :, vl:] == 0).all()) and bool((dv[bi, :, vl:] == 0).all())):
             raise AssertionError(f"key rows past valid_len {vl} did not get exact zeros")
-    if tables is not None and bf16:
-        # with the tables, dq and dk leave through the rotary's transpose (in
-        # the epilogue, or a pass after the kernels that have none): bit-equal
-        # to _rotary_transpose of the untabled outputs, and held to the plain
-        # versions with the tables
+    if tables is not None and FA.backward_takes_tables(q):
+        # with the tables (bf16, and f32 at head dim 64), dq and dk leave
+        # through the rotary's transpose (in the epilogue, or a pass after the
+        # kernels that have none): bit-equal to _rotary_transpose of the
+        # untabled outputs, and held to the plain versions with the tables
         dq_t = FA.KERNEL.bwd_dq(*bwd, rotary=tables)
         dk_t, dv_t = FA.KERNEL.bwd_dkv(*bwd, rotary=tables)
         dq = FA.KERNEL.bwd_dq(*bwd)
@@ -617,15 +631,17 @@ def time_flash_host(results):
         + ", ".join(f"{name} {v:.1f}" for name, v in us.items()))
 
 
-def bound_and_log(results, key, shape, flops, nbytes):
+def bound_and_log(results, key, shape, flops, nbytes, f32=False):
     """results[f"{key}_bound_ms"] / f"{key}_bound_by" from the work's operations
-    and bytes, and one log line of the kernel's, plain version's and library
+    (over the bf16 tensor-core peak, or with `f32` the f32 FMA peak) and
+    bytes, and one log line of the kernel's, plain version's and library
     call's times (back to back / behind a sleep)."""
-    bf_ms, bb_ms = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    bf_ms, bb_ms = flops / (H100_F32_FLOPS if f32 else H100_BF16_FLOPS) * 1e3, nbytes / H100_BYTES_PER_S * 1e3
     bound = results[f"{key}_bound_ms"] = max(bf_ms, bb_ms)
     by = results[f"{key}_bound_by"] = "operations" if bf_ms >= bb_ms else "bytes"
     dev = results[f"{key}_device_ms"]
-    log(f"{key} timing {shape} bf16 (ms back to back / behind a sleep): kernel {results[f'{key}_ms']:.4f} / "
+    log(f"{key} timing {shape} {'f32' if f32 else 'bf16'} (ms back to back / behind a sleep): kernel "
+        f"{results[f'{key}_ms']:.4f} / "
         f"{dev:.4f}, library {results[f'{key}_library_ms']:.4f} / {results[f'{key}_library_device_ms']:.4f}, "
         f"plain {results[f'{key}_plain_ms']:.4f}, bound {bound:.4f} ({by}: {flops / 1e9:.2f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB) -> {flops / dev / 1e9:.1f} TFLOP/s on the card")
@@ -714,6 +730,127 @@ def time_flash_training(results, b=8, h=16, t=832, dh=64):
     for key, (flops, nbytes) in work.items():
         bound_and_log(results, key, [b, h, t, dh], flops, nbytes + valid_arr.numel() * 4)
     log_backward_pair(results, "", [b, h, t, dh])
+
+
+def time_flash_f32(results, suffix, b, h, t, causal, rotary, dh=64):
+    """The f32 training forms (the recipes' own precision) of the forward
+    with lse, dQ and dK/dV at a training path's shape: VoMix [8, 16, 832, 64]
+    with the rotary tables (suffix "_f32"), CoMix T2S [6, 8, 1026, 64] causal
+    ("_causal_f32"), all keys live. The backward is called as the step calls
+    it: rotated q and k (`_rotary_plain`, what `_FlashCoreRot` saves) and the
+    tables, so dq and dk leave through the rotary's transpose in the kernels.
+    Each output on the timed inputs is held against its plain version
+    (F32_TOL), dq and dk with the tables also bit for bit against
+    `_rotary_transpose` of the untabled kernels'; each kernel is timed back
+    to back and behind a sleep beside its plain version, its bound at the f32
+    peak and one PyTorch call of the same function on the pre-rotated inputs
+    (f32 SDPA; the gradient of f32 SDPA, which computes dQ, dK and dV). Also
+    logged: the untabled kernels and the `_unrotate` passes of dq and dk that
+    a backward without the tables runs in PyTorch."""
+    import torch
+    import torch.nn.functional as F
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    f32 = torch.float32
+    q, k, v, valid_arr, tables = flash_inputs(b, h, t, dh, f32, 411 + t, t, rotary)
+    dout = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(412), device="cuda")
+    if rotary:
+        q, k = FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables)
+    log(f"f32 flash training kernels at the timed inputs [{b},{h},{t},{dh}] rotary={rotary} causal={causal}:")
+    out, lse = FA.KERNEL(q, k, v, valid_arr, None, return_lse=True, causal=causal)
+    ref, ref_lse = FA.flash_attention_plain(q, k, v, valid_arr, None, causal, return_lse=True)
+    results[f"fwd_lse{suffix}_max_abs_err"] = max(flash_agreement("out", out, ref, F32_TOL),
+                                                 flash_agreement("lse", lse, ref_lse, LSE_TOL))
+    bwd = (q, k, v, dout, ref_lse, FA.flash_delta(dout, ref), valid_arr, causal)
+    dq, (dk, dv) = FA.KERNEL.bwd_dq(*bwd, rotary=tables), FA.KERNEL.bwd_dkv(*bwd, rotary=tables)
+    results[f"bwd_dq{suffix}_max_abs_err"] = flash_agreement(
+        "dq", dq, FA.flash_bwd_dq_plain(*bwd, rotary=tables), F32_TOL)
+    dk_p, dv_p = FA.flash_bwd_dkv_plain(*bwd, rotary=tables)
+    results[f"bwd_dkv{suffix}_max_abs_err"] = max(flash_agreement("dk", dk, dk_p, F32_TOL),
+                                                  flash_agreement("dv", dv, dv_p, F32_TOL))
+    if rotary:
+        dq0, (dk0, _) = FA.KERNEL.bwd_dq(*bwd), FA.KERNEL.bwd_dkv(*bwd)
+        same = torch.equal(dq, FA._rotary_transpose(dq0, *tables)) and torch.equal(dk, FA._rotary_transpose(dk0, *tables))
+        log(f"  with tables: dq, dk == _rotary_transpose of the untabled kernels', bit for bit: {same}")
+        if not same:
+            raise AssertionError("the f32 backward's rotary transpose differs from _rotary_transpose")
+        del dq0, dk0
+    del out, ref, dq, dk, dv, dk_p, dv_p
+
+    timed = {
+        f"fwd_lse{suffix}": (lambda: FA.KERNEL(q, k, v, valid_arr, None, return_lse=True, causal=causal),
+                             lambda: FA.flash_attention_plain(q, k, v, valid_arr, None, causal, return_lse=True)),
+        f"bwd_dq{suffix}": (lambda: FA.KERNEL.bwd_dq(*bwd, rotary=tables),
+                            lambda: FA.flash_bwd_dq_plain(*bwd, rotary=tables)),
+        f"bwd_dkv{suffix}": (lambda: FA.KERNEL.bwd_dkv(*bwd, rotary=tables),
+                             lambda: FA.flash_bwd_dkv_plain(*bwd, rotary=tables)),
+    }
+    for key, (kern, plain) in timed.items():
+        both_times(results, key, kern, iters=10)
+        results[f"{key}_plain_ms"] = cuda_time_ms(plain, iters=3, warmup=1)
+    if rotary:
+        untabled = {name: cuda_time_ms(fn, 10, behind_sleep=True) for name, fn in (
+            ("dq", lambda: FA.KERNEL.bwd_dq(*bwd)), ("dk/dv", lambda: FA.KERNEL.bwd_dkv(*bwd)))}
+        dq0, (dk0, _) = FA.KERNEL.bwd_dq(*bwd), FA.KERNEL.bwd_dkv(*bwd)
+        unrot = both_times(results, f"unrotate{suffix}",
+                           lambda: (FA._unrotate(dq0, tables), FA._unrotate(dk0, tables)))
+        log(f"f32 backward at [{b},{h},{t},{dh}] behind a sleep: with the tables (the step's form) dq "
+            f"{results[f'bwd_dq{suffix}_device_ms']:.4f} / dk-dv {results[f'bwd_dkv{suffix}_device_ms']:.4f} ms, "
+            f"without {untabled['dq']:.4f} / {untabled['dk/dv']:.4f} ms; the _unrotate of dq and dk in PyTorch that "
+            f"the tables replace: {unrot:.4f} / {results[f'unrotate{suffix}_device_ms']:.4f} ms per layer "
+            f"(back to back / behind a sleep)")
+        del dq0, dk0
+    both_times(results, f"fwd_lse{suffix}_library",
+               lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), iters=10)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    both_times(results, f"bwd{suffix}_library", lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True),
+               iters=10)
+    for key in (f"bwd_dq{suffix}", f"bwd_dkv{suffix}"):   # one call computes dQ, dK and dV
+        results[f"{key}_library_ms"] = results[f"bwd{suffix}_library_ms"]
+        results[f"{key}_library_device_ms"] = results[f"bwd{suffix}_library_device_ms"]
+    del o, leaves
+
+    n, rows = b * h * t * dh * 4, b * h * t * 4           # one [B,H,T,dh] f32 tensor; one f32 [B,H,T] row array
+    pairs = b * h * t * (t + 1) / 2 if causal else b * h * t * t   # live (query, key) pairs, all keys valid
+    tab = 2 * t * dh * 4 if rotary else 0                 # the two f32 rotary tables the backward reads
+    work = {f"fwd_lse{suffix}": (4.0 * dh * pairs, 4 * n + rows),                  # q,k,v,out; lse
+            f"bwd_dq{suffix}": (6.0 * dh * pairs, 5 * n + 2 * rows + tab),         # q,k,v,dO,dq; lse,delta
+            f"bwd_dkv{suffix}": (8.0 * dh * pairs, 6 * n + 2 * rows + tab)}        # q,k,v,dO,dk,dv; lse,delta
+    for key, (flops, nbytes) in work.items():
+        bound_and_log(results, key, [b, h, t, dh], flops, nbytes + valid_arr.numel() * 4, f32=True)
+    log_backward_pair(results, suffix, [b, h, t, dh])
+    pair_bound = results[f"bwd_dq{suffix}_bound_ms"] + results[f"bwd_dkv{suffix}_bound_ms"]
+    log(f"f32 backward pair{suffix.replace('_', ' ')}: {results[f'bwd_pair{suffix}_device_ms']:.4f} ms on the card, "
+        f"{pair_bound / results[f'bwd_pair{suffix}_device_ms'] * 100:.1f} % of its {pair_bound:.4f} ms bound")
+
+
+def f32_backward_times(results, iters=10):
+    """Device ms of the f32 backward at the two training shapes, with the
+    calls every tree since the causal form has (for --ab-training): the
+    untabled dQ and dK/dV kernels, and `_backward` as the step calls it
+    (delta, both kernels and, where the kernels take no tables, the
+    `_unrotate` of dq and dk)."""
+    import torch
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    for suffix, (b, h, t, causal, rotary) in F32_SHAPES.items():
+        q, k, v, valid_arr, tables = flash_inputs(b, h, t, 64, torch.float32, 421 + t, t, rotary)
+        g = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(422), device="cuda")
+        if rotary:
+            q, k = FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables)
+        out, lse = FA.KERNEL(q, k, v, valid_arr, None, return_lse=True, causal=causal)
+        bwd = (q, k, v, g, lse, FA.flash_delta(g, out), valid_arr, causal)
+        results[f"bwd_dq{suffix}_untabled_device_ms"] = cuda_time_ms(lambda: FA.KERNEL.bwd_dq(*bwd), iters,
+                                                                     behind_sleep=True)
+        results[f"bwd_dkv{suffix}_untabled_device_ms"] = cuda_time_ms(lambda: FA.KERNEL.bwd_dkv(*bwd), iters,
+                                                                      behind_sleep=True)
+        results[f"backward{suffix}_device_ms"] = cuda_time_ms(
+            lambda: FA._backward(q, k, v, out, lse, g, valid_arr, causal, tables), iters, behind_sleep=True)
+
+
+# the f32 training shapes: suffix -> (B, H, T, causal, rotary)
+F32_SHAPES = {"_f32": (8, 16, 832, False, True), "_causal_f32": (6, 8, 1026, True, False)}
 
 
 def log_backward_pair(results, suffix, shape):
@@ -1266,13 +1403,14 @@ def launches(**nonzero):
     return {key: nonzero.get(key, 0) for key in COUNTS}
 
 
-def run_train_cli(argv, evaluate_name, steps_total):
+def run_train_cli(argv, evaluate_name, steps_total, resume=True):
     """`covomix_tpu_torch.train.cli.main(argv)` for `steps_total` steps, then
-    with `--resume` for one more, with every optimizer step timed (host clock
-    ended by a synchronize) and the eval `train.evaluate.<evaluate_name>`
-    recorded, each with the flash launches it made. The launch counts are set
-    to 0 just before and read just after. Returns (steps, evals, totals,
-    peak GiB, seconds of the first run, seconds of the resumed one)."""
+    (with `resume`) with `--resume` for one more, with every optimizer step
+    timed (host clock ended by a synchronize) and the eval
+    `train.evaluate.<evaluate_name>` recorded, each with the flash launches
+    it made. The launch counts are set to 0 just before and read just after.
+    Returns (steps, evals, totals, peak GiB, seconds of the first run,
+    seconds of the resumed one or None)."""
     import numpy as np
     import torch
     from covomix_tpu_torch.ops import flash_attention as FA
@@ -1314,13 +1452,29 @@ def run_train_cli(argv, evaluate_name, steps_total):
         t0 = time.time()
         cli.main(argv + ["--max_steps", str(steps_total)])
         first_s = time.time() - t0
-        t0 = time.time()
-        cli.main(argv + ["--max_steps", str(steps_total + 1), "--resume"])
-        resume_s = time.time() - t0
+        resume_s = None
+        if resume:
+            t0 = time.time()
+            cli.main(argv + ["--max_steps", str(steps_total + 1), "--resume"])
+            resume_s = time.time() - t0
     finally:
         loop.make_train_step = orig[0]
         setattr(E, evaluate_name, orig[1])
     return steps, evals, flash_counts(), torch.cuda.max_memory_allocated() / 2 ** 30, first_s, resume_s
+
+
+def check_steps(what, steps, per_step):
+    """Every optimizer step logged, with a finite loss and grad norm and
+    exactly the flash launches `per_step`."""
+    import numpy as np
+
+    for i, s in enumerate(steps):
+        log(f"{what} step {i + 1}: {s['ms']:.1f} ms, batch {s['shapes']}, loss {s['loss']:.5f}, "
+            f"grad_norm {s['grad_norm']:.4f}, launches {s['launches']}")
+        if not (np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])):
+            raise AssertionError(f"{what} step {i + 1}: loss {s['loss']}, grad_norm {s['grad_norm']}")
+        if s["launches"] != per_step:
+            raise AssertionError(f"{what} step {i + 1}: launches {s['launches']} (expected {per_step})")
 
 
 def check_train_run(what, steps, evals, ckpt, steps_total, rows, per_step, eval_launches):
@@ -1331,13 +1485,7 @@ def check_train_run(what, steps, evals, ckpt, steps_total, rows, per_step, eval_
     Returns the median ms per step over steps 3..steps_total."""
     import numpy as np
 
-    for i, s in enumerate(steps):
-        log(f"{what} step {i + 1}: {s['ms']:.1f} ms, batch {s['shapes']}, loss {s['loss']:.5f}, "
-            f"grad_norm {s['grad_norm']:.4f}, launches {s['launches']}")
-        if not (np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])):
-            raise AssertionError(f"{what} step {i + 1}: loss {s['loss']}, grad_norm {s['grad_norm']}")
-        if s["launches"] != per_step:
-            raise AssertionError(f"{what} step {i + 1}: launches {s['launches']} (expected {per_step})")
+    check_steps(what, steps, per_step)
     if len(steps) != steps_total + 1:
         raise AssertionError(f"{len(steps)} optimizer steps over the run and its resume, expected "
                              f"{steps_total} + 1: the resume did not start from step {steps_total}")
@@ -1429,7 +1577,7 @@ def split_training_step(results, key, params, loss_fn, batch, n=5):
         f"(median of {n}, ms): {json.dumps(split)}")
 
 
-def split_vomix_step(results, train_dir):
+def split_vomix_step(results, train_dir, key="train_split_ms", f32=False):
     import torch
     from covomix_tpu_torch.data.datasets import CoVoMixDataset, collate_acoustic
     from covomix_tpu_torch.models import acoustic as A
@@ -1438,8 +1586,8 @@ def split_vomix_step(results, train_dir):
     cfg = A.AcousticConfig(dim_in=160, dim=1024, depth=8, heads=16, dim_head=64, num_phoneme_tokens=502,
                            mode="two_one")
     ds = CoVoMixDataset(train_dir, format="hubert_overlap_two_input_one_output", random_mask=True)
-    split_training_step(results, "train_split_ms", A.init(torch.Generator(device="cuda").manual_seed(5), cfg),
-                        loop.acoustic_loss_fn(cfg, cond_drop_prob=0.3, dtype=torch.bfloat16),
+    split_training_step(results, key, A.init(torch.Generator(device="cuda").manual_seed(5), cfg),
+                        loop.acoustic_loss_fn(cfg, cond_drop_prob=0.3, dtype=torch.float32 if f32 else torch.bfloat16),
                         collate_acoustic([ds[i] for i in range(8)]))
 
 
@@ -1556,10 +1704,10 @@ def run_t2s_training(results, root):
         f"{evals[0]['s']:.2f} s, resume run {resume_s:.1f} s; launch totals {totals}")
 
 
-def split_t2s_step(results):
+def split_t2s_step(results, key="t2s_split_ms", f32=False):
     """The T2S step's split at the shape the causal kernels are timed at: a
     random batch of 6 texts of 64 ids and semantic targets bucketed to 1024
-    (decoder T = 1026)."""
+    (decoder T = 1026), bf16 or with `f32` in f32."""
     import numpy as np
     import torch
     from covomix_tpu_torch.models import text2semantic as T
@@ -1570,8 +1718,8 @@ def split_t2s_step(results):
     rs = np.random.RandomState(6)
     batch = {"text_ids": rs.randint(1, 180, (6, 64)).astype(np.int32),
              "semantic_ids": rs.randint(0, 500, (6, 1024, 2)).astype(np.int32)}
-    split_training_step(results, "t2s_split_ms", T.init(torch.Generator(device="cuda").manual_seed(5), cfg),
-                        loop.t2s_loss_fn(cfg, dtype=torch.bfloat16), batch)
+    split_training_step(results, key, T.init(torch.Generator(device="cuda").manual_seed(5), cfg),
+                        loop.t2s_loss_fn(cfg, dtype=torch.float32 if f32 else torch.bfloat16), batch)
 
 
 def time_flash_causal(results, b=6, h=8, t=1026, dh=64):
@@ -1673,6 +1821,58 @@ def check_small_t2s_training_against_cpu():
         raise AssertionError("the small card run did not go through the causal kernels, or the CPU run did")
     if not (loss_err <= SMALL_TRAIN_LOSS_TOL and param_err <= SMALL_TRAIN_PARAM_TOL):
         raise AssertionError("card and CPU T2S training steps differ")
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: full-width f32 training, the recipes' own precision
+
+
+F32_TRAIN_STEPS = 8
+F32_CELLS = ("vomix", "t2s")
+
+
+def run_f32_training(results, root, cell):
+    """`covomix_tpu_torch.train.cli.main` with the VoMix (cell "vomix") or
+    CoMix T2S ("t2s") recipe as running_command/ gives it, without --bf16 (the
+    recipes train in f32), at full width on the items phases 8 / 9 write (24
+    train items): F32_TRAIN_STEPS optimizer steps, no eval, no resume (the
+    bf16 phases cover those). Every VoMix step must launch exactly 8 f32
+    forwards with lse, 8 dQ and 8 dK/dV (and no rotary pre-pass: the f32
+    kernels take q and k rotated, dq and dk through the tables), every T2S
+    step 4 causal ones of each, nothing else; finite losses. Then the step's
+    forward / backward / optimizer split in f32 (VoMix at B=8, T=832; T2S at
+    decoder T 1026). Logs the median ms per step over steps 3-8, samples/s,
+    the split and the peak device memory into results[f"{cell}_f32_*"]."""
+    train_dir, logs = os.path.join(root, "train"), os.path.join(root, "logs")
+    if cell == "vomix":
+        write_vomix_items(train_dir, 24, 0)
+        recipe, b, evaluate_name = VOMIX_RECIPE, 8, "evaluate_acoustic"
+        per_step = launches(fwd_lse=8, bwd_dq=8, bwd_dkv=8)
+    else:
+        write_t2s_items(train_dir, 24, 0)
+        recipe, b, evaluate_name = COMIX_T2S_RECIPE, 6, "evaluate_t2s"
+        per_step = launches(fwd_lse_causal=4, bwd_dq_causal=4, bwd_dkv_causal=4)
+    argv = ["--base_dir", train_dir, "--dev_base_dir", train_dir, *[a for a in recipe if a != "--bf16"],
+            "--device", "cuda", "--log_every", "1", "--num_eval_files", "0", "--ckpt_every", "1000", "--no_wandb",
+            "--log_dir", logs, "--run_name", f"{cell}_f32", "--seed", "0"]
+    steps, evals, totals, peak_gb, first_s, _ = run_train_cli(argv, evaluate_name, F32_TRAIN_STEPS, resume=False)
+    what = f"{cell} f32 train"
+    check_steps(what, steps, per_step)
+    if len(steps) != F32_TRAIN_STEPS or evals or totals != {key: n * F32_TRAIN_STEPS for key, n in per_step.items()}:
+        raise AssertionError(f"{what}: {len(steps)} steps, {len(evals)} evals, launch totals {totals}")
+    ms = sorted(st["ms"] for st in steps[2:])
+    median = (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
+    if cell == "vomix":
+        split_vomix_step(results, train_dir, f"{cell}_f32_split_ms", f32=True)
+    else:
+        split_t2s_step(results, f"{cell}_f32_split_ms", f32=True)
+    results.update({f"{cell}_f32_launches": totals, f"{cell}_f32_steps": len(steps), f"{cell}_f32_step_ms": median,
+                    f"{cell}_f32_samples_per_s": b / (median / 1e3), f"{cell}_f32_peak_gb": peak_gb})
+    shapes = sorted({st["shapes"]["x" if cell == "vomix" else "semantic_ids"] for st in steps})
+    log(f"full-width {cell} training in f32 (B={b}, batches {shapes}): median {median:.2f} ms per optimizer step "
+        f"over steps 3-{F32_TRAIN_STEPS}, {b / (median / 1e3):.2f} samples/s, peak device memory {peak_gb:.2f} GiB, "
+        f"split {json.dumps(results[f'{cell}_f32_split_ms'])}; run {first_s:.1f} s incl. init and "
+        f"{F32_TRAIN_STEPS} steps; launch totals {totals}")
 
 
 # ---------------------------------------------------------------------------
@@ -2146,10 +2346,11 @@ def run_hubert(results, root):
 # to the counts of their first build: the bf16 TMA + wgmma forward's four
 # forms (<dh, lse, causal>), the rotary pre-pass, the TMA + wgmma backward
 # pair's three forms each (<dh, causal, tables>), the rotary transpose that
-# follows a backward kernel without the fused epilogue, and the f32 tiled
-# forward's two forms (<dh, causal>). ptxas caps the wgmma kernels at 168
-# (two blocks of 160 threads per SM) and the f32 tiled forward at 255 (two
-# blocks of 128); none may spill.
+# follows a backward kernel without the fused epilogue, the f32 tiled
+# forward's two forms and the f32 tiled dQ and dK/dV's two forms each
+# (<dh, causal>; the tables are a run-time argument). ptxas caps the wgmma
+# kernels at 168 (two blocks of 160 threads per SM) and the f32 tiled
+# kernels at 255 (two blocks of 128); none may spill.
 FLASH_REGS = {"flash_fwd_wgmma<Li64ELb0ELb0E>": 155, "flash_fwd_wgmma<Li64ELb1ELb0E>": 155,
               "flash_fwd_wgmma<Li64ELb0ELb1E>": 162, "flash_fwd_wgmma<Li64ELb1ELb1E>": 162,
               "flash_rotary_halfsplit_bf16<Li64E>": 48,
@@ -2157,7 +2358,9 @@ FLASH_REGS = {"flash_fwd_wgmma<Li64ELb0ELb0E>": 155, "flash_fwd_wgmma<Li64ELb1EL
               "flash_bwd_dq_wgmma<Li64ELb0ELb1E>": 122,
               "flash_bwd_dkv_wgmma<Li64ELb0ELb0E>": 168, "flash_bwd_dkv_wgmma<Li64ELb1ELb0E>": 168,
               "flash_bwd_dkv_wgmma<Li64ELb0ELb1E>": 168, "flash_rotary_transpose_bf16<Li64E>": 48,
-              "flash_fwd_f32_tile<Li64ELb0E>": 209, "flash_fwd_f32_tile<Li64ELb1E>": 217}
+              "flash_fwd_f32_tile<Li64ELb0E>": 209, "flash_fwd_f32_tile<Li64ELb1E>": 217,
+              "flash_bwd_dq_f32_tile<Li64ELb0E>": 168, "flash_bwd_dq_f32_tile<Li64ELb1E>": 168,
+              "flash_bwd_dkv_f32_tile<Li64ELb0E>": 211, "flash_bwd_dkv_f32_tile<Li64ELb1E>": 215}
 
 
 # The fused vocoder kernels (`<type, channel padding, tail>`, all eight the
@@ -2322,6 +2525,7 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     time_flash_training(results)
+    time_flash_f32(results, "_f32", *F32_SHAPES["_f32"])
     check_small_training_against_cpu()
     root = os.path.join(VT.BUILD_DIR, "smoke_t2s")
     shutil.rmtree(root, ignore_errors=True)
@@ -2331,7 +2535,15 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     split_t2s_step(results)
     time_flash_causal(results)
+    time_flash_f32(results, "_causal_f32", *F32_SHAPES["_causal_f32"])
     check_small_t2s_training_against_cpu()
+    for cell in F32_CELLS:
+        root = os.path.join(VT.BUILD_DIR, f"smoke_{cell}_f32")
+        shutil.rmtree(root, ignore_errors=True)
+        try:
+            run_f32_training(results, root, cell)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
 
     launches = results["dialogue_launches"]     # this slice's main path: the per-file dialogue CLI
     flash_src, voc_src = "covomix_tpu_torch/csrc/flash_attention.cu", "covomix_tpu_torch/csrc/vocoder_tail.cu"
@@ -2368,6 +2580,12 @@ def main() -> int:
         key = f"{key}_causal"
         kernels.append(kernel_entry(results, key, f"flash_attention_{key}", flash_src, where, t2s[key],
                                     launches_per_train_step=t2s[key] // results["t2s_steps"]))
+    for cell, suffix in (("vomix", "_f32"), ("t2s", "_causal_f32")):   # f32 training at the recipes' precision
+        runs = results[f"{cell}_f32_launches"]
+        for key, where in replaces.items():
+            count = runs[f"{key}_causal" if cell == "t2s" else key]
+            kernels.append(kernel_entry(results, f"{key}{suffix}", f"flash_attention_{key}{suffix}", flash_src, where,
+                                        count, launches_per_train_step=count // results[f"{cell}_f32_steps"]))
     log(f"total chip_smoke time {time.time() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2375,15 +2593,19 @@ def main() -> int:
     return 0
 
 
-# One tree's two training cells, run from the root of that tree's checkout
-# (the names exist in every chip_smoke.py since the T2S cell came in): the
-# dh-64 flash library, the VoMix training run and its step split, the CoMix
-# T2S training run and its split; prints one "AB {json}" line.
+# One tree's training cells, run from the root of that tree's checkout with
+# this chip_smoke.py (its path the first argument), so both trees are driven
+# and gated by the same code: the dh-64 flash library, the bf16 VoMix
+# training run and its step split, the bf16 CoMix T2S run and its split, the
+# two f32 cells (the recipes' own precision: run and split), then the f32
+# backward's device times at both training shapes; prints one "AB {json}"
+# line.
 AB_CELLS = """
-import json, os, shutil, sys
+import importlib.util, json, os, shutil, sys
 sys.path.insert(0, os.getcwd())
-import torch
-import chip_smoke as CS
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[1])
+CS = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(CS)
 from covomix_tpu_torch.ops import flash_attention as FA
 FA.KERNEL.build(64)
 root = os.path.join(os.getcwd(), "covomix_tpu_torch", "_build", "ab")
@@ -2393,24 +2615,32 @@ try:
     CS.split_vomix_step(r, CS.run_training(r, os.path.join(root, "vomix")))
     CS.run_t2s_training(r, os.path.join(root, "t2s"))
     CS.split_t2s_step(r)
+    for cell in CS.F32_CELLS:
+        CS.run_f32_training(r, os.path.join(root, cell + "_f32"), cell)
 finally:
     shutil.rmtree(root, ignore_errors=True)
-print("AB " + json.dumps({k: r[k] for k in ("train_step_ms", "train_split_ms", "t2s_step_ms", "t2s_split_ms")}),
-      flush=True)
+CS.f32_backward_times(r)
+keys = [f"{c}_{p}_ms" for c in CS.AB_STEP_CELLS for p in ("step", "split")] + CS.AB_KERNEL_KEYS
+print("AB " + json.dumps({k: r[k] for k in keys}), flush=True)
 """
+AB_STEP_CELLS = ("train", "t2s", "vomix_f32", "t2s_f32")
+AB_KERNEL_KEYS = [f"{name}{suffix}_{what}" for suffix in F32_SHAPES for name, what in (
+    ("bwd_dq", "untabled_device_ms"), ("bwd_dkv", "untabled_device_ms"), ("backward", "device_ms"))]
 AB_ORDER = ("other", "this", "this", "other") * 5   # ten pairs, each side first in half of them
 
 
 def ab_training(other: str) -> int:
-    """`python3 chip_smoke.py --ab-training DIR`: the VoMix and CoMix T2S
-    training cells of the checkout at DIR (another commit, unpacked with git
-    archive) and of this one, one process per run, in the order AB_ORDER on
-    one card (both trees' dh-64 libraries built first, in parallel); logs
-    every run's median step time and step split (forward / backward /
-    optimizer), then per cell each tree's medians, the pairs (runs 2i and
-    2i + 1) this tree won, and the spread between the other tree's quartiles:
-    a gain is resolved when this tree wins nine tenths of the pairs and the
-    medians differ by more than that spread."""
+    """`python3 chip_smoke.py --ab-training DIR`: the training cells (VoMix and
+    CoMix T2S in bf16 and in f32, AB_CELLS) of the checkout at DIR (another
+    commit, unpacked with git archive) and of this one, one process per run,
+    in the order AB_ORDER on one card (both trees' dh-64 libraries built
+    first, in parallel; both driven by this script); logs every run's median
+    step times, step splits (forward / backward / optimizer) and f32
+    backward device times, then per cell and per backward time each tree's
+    medians, the pairs (runs 2i and 2i + 1) this tree won, and the spread
+    between the other tree's quartiles: a gain is resolved when this tree
+    wins nine tenths of the pairs and the medians differ by more than that
+    spread."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2425,7 +2655,8 @@ def ab_training(other: str) -> int:
         raise RuntimeError("a tree's flash library did not build")
     runs = []
     for name in AB_ORDER:
-        res = subprocess.run([sys.executable, "-c", AB_CELLS], cwd=trees[name], capture_output=True, text=True)
+        res = subprocess.run([sys.executable, "-c", AB_CELLS, os.path.abspath(__file__)], cwd=trees[name],
+                             capture_output=True, text=True)
         line = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
         if res.returncode != 0 or not line:
             raise RuntimeError(f"{name} tree's training cells failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
@@ -2437,18 +2668,20 @@ def ab_training(other: str) -> int:
         i = f * (len(xs) - 1)
         return xs[int(i)] + (xs[min(int(i) + 1, len(xs) - 1)] - xs[int(i)]) * (i - int(i))
 
-    for cell in ("train", "t2s"):
-        for part in ("step", "backward"):
-            get = (lambda r: r[f"{cell}_step_ms"]) if part == "step" else (lambda r: r[f"{cell}_split_ms"][part])
-            times = {n: [get(r) for m, r in runs if m == n] for n in trees}
-            pairs = [dict(runs[i:i + 2]) for i in range(0, len(runs), 2)]
-            wins = sum(get(p["this"]) < get(p["other"]) for p in pairs)
-            med = {n: quantile(t, 0.5) for n, t in times.items()}
-            spread = quantile(times["other"], 0.75) - quantile(times["other"], 0.25)
-            resolved = wins >= 0.9 * len(pairs) and abs(med["this"] - med["other"]) > spread
-            log(f"A/B {cell} {part} ms: median other {med['other']:.2f}, this {med['this']:.2f} "
-                f"({med['this'] - med['other']:+.2f}); this tree faster in {wins} of {len(pairs)} pairs; other's "
-                f"quartile spread {spread:.2f}; gain {'resolved' if resolved else 'unresolved'}")
+    measures = [(f"{cell} {part}", (lambda r, c=cell: r[f"{c}_step_ms"]) if part == "step" else
+                 (lambda r, c=cell: r[f"{c}_split_ms"]["backward"])) for cell in AB_STEP_CELLS
+                for part in ("step", "backward")]
+    measures += [(key, lambda r, k=key: r[k]) for key in AB_KERNEL_KEYS]
+    for what, get in measures:
+        times = {n: [get(r) for m, r in runs if m == n] for n in trees}
+        pairs = [dict(runs[i:i + 2]) for i in range(0, len(runs), 2)]
+        wins = sum(get(p["this"]) < get(p["other"]) for p in pairs)
+        med = {n: quantile(t, 0.5) for n, t in times.items()}
+        spread = quantile(times["other"], 0.75) - quantile(times["other"], 0.25)
+        resolved = wins >= 0.9 * len(pairs) and abs(med["this"] - med["other"]) > spread
+        log(f"A/B {what} ms: median other {med['other']:.4f}, this {med['this']:.4f} "
+            f"({med['this'] - med['other']:+.4f}); this tree faster in {wins} of {len(pairs)} pairs; other's "
+            f"quartile spread {spread:.4f}; gain {'resolved' if resolved else 'unresolved'}")
     return 0
 
 
@@ -2523,11 +2756,12 @@ def flash_f32_mode() -> int:
     """`python3 chip_smoke.py --flash-f32`: build only the dh-64 flash
     library (always, since ptxas's counts come from the build log), log its
     kernels' registers and spills, run every f32 dh-64 case of check_flash,
-    check_flash_training and check_flash_causal (the forward in each form,
-    the in-kernel rotary bit for bit; the f32 backward and autograd ride
-    along), time the forward at the largest HuBERT batch's shape in f32 and
-    bf16 beside SDPA (seeded inputs), and hold FLASH_REGS last, so that a
-    build with new counts still prints every timing."""
+    check_flash_training and check_flash_causal (every form of the forward,
+    dQ and dK/dV, the in-kernel rotary and the backward's rotary transpose
+    bit for bit, autograd), time the forward at the largest HuBERT batch's
+    shape in f32 and bf16 beside SDPA (seeded inputs) and the f32 training
+    kernels at both training shapes (time_flash_f32), and hold FLASH_REGS
+    last, so that a build with new counts still prints every timing."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2552,9 +2786,12 @@ def flash_f32_mode() -> int:
     b, t, valid = HUBERT_FLASH_BATCH
     for dtype, key in ((torch.float32, "hubert_fwd_f32"), (torch.bfloat16, "hubert_fwd_bf16")):
         time_flash_hubert(results, key, dtype, b, t, valid)
+    for suffix, shape in F32_SHAPES.items():
+        time_flash_f32(results, suffix, *shape)
     check_registers(regs, spills, FLASH_REGS)
     log(f"total chip_smoke --flash-f32 time {time.time() - t_start:.1f} s")
-    log(json.dumps({"flash_f32": {k: v for k, v in results.items() if k.startswith("hubert")}}))
+    log(json.dumps({"flash_f32": {k: v for k, v in results.items() if k.startswith("hubert") or k.endswith(
+        tuple(f"{suffix}_{what}" for suffix in F32_SHAPES for what in ("ms", "device_ms", "bound_ms")))}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

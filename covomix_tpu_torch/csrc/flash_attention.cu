@@ -119,11 +119,13 @@
 //     shared memory. With tables, `flash_rotary_transpose_bf16` follows them
 //     (and the causal wgmma kernels) in place.
 //
-// f32 inputs (HuBERT extraction's default, tests, comparisons) take CUDA-core
-// FMA kernels (no TF32) with the same masking and the same arithmetic in f32:
-// at head dim 64 the forward is `flash_fwd_f32_tile` (F32TileCfg: SIMT
-// register tiles of 8 rows x 4 keys per thread, as in an SGEMM); the other
-// head dims' forward and every f32 backward keep one row per thread.
+// f32 inputs (HuBERT extraction's default, f32 training: the recipes' own
+// precision, tests, comparisons) take CUDA-core FMA kernels (no TF32) with the
+// same masking and the same arithmetic in f32: at head dim 64 the forward is
+// `flash_fwd_f32_tile` (F32TileCfg) and the backward `flash_bwd_dq_f32_tile`
+// and `flash_bwd_dkv_f32_tile` (F32BwdCfg), SIMT register tiles of 8 rows x 4
+// columns per thread, as in an SGEMM, the backward with the rotary's
+// transpose in its epilogue; the other head dims keep one row per thread.
 //
 // Rotary (the bf16 pre-pass, and in place in the f32 forward): rot(x)[j] =
 // x[j]*cos[j] + x[(j+d)%dh]*sin_signed[j], two f32 products and one f32 sum,
@@ -1922,7 +1924,8 @@ flash_rotary_transpose_bf16(__nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
 }
 
 // ---------------------------------------------------------------------------
-// backward, f32 (scalar FMA, one row per thread)
+// backward, f32, the head dims without the tiled kernels (scalar FMA, one
+// row per thread)
 
 template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(128)
@@ -2037,6 +2040,362 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k, cons
       dv[base + (size_t)row * DH + d] = av[d];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// backward, f32, head dim 64: SIMT register tiles (F32BwdCfg)
+//
+// The f32 training path (the recipes train in f32 unless --bf16 is given)
+// runs these at [8, 16, 832, 64] (VoMix, rotary) and [6, 8, 1026-1794, 64]
+// (CoMix T2S, causal). True f32 FMAs on the CUDA cores (no TF32), so they are
+// bound by the card's f32 FMA rate (67 TFLOP/s): dQ does 3 and dK/dV 4 dh-long
+// products per live (query, key) pair. The one-row kernels above held q, dO
+// and the accumulator (dQ) or k, v and two accumulators (dK/dV) as 192-256
+// live floats a thread (255 registers, spilled), read every operand of an
+// FMA from shared memory and took two block barriers per 32 rows with no
+// copy in flight. Here, as in `flash_fwd_f32_tile`:
+//   * one block per 64 rows of its own axis (query rows for dQ, key rows for
+//     dK/dV), 128 threads; thread (rg, c) owns rows 8 rg .. 8 rg + 7 and, of
+//     each 64-row tile of the other axis, the columns c + 16 i (i < 4) of the
+//     two score products (S and dP, or S^T and dP^T: 32 + 32 accumulators),
+//     then the output columns 4 c .. 4 c + 3 of the accumulating products
+//     (dQ: 32; dK and dV: 64 accumulators); 8 + 4 operands loaded per 32
+//     FMAs, so at most a quarter of the issue goes to shared-memory loads;
+//   * the block's own two tiles (Q and dO, or K and V) loaded once, d-major,
+//     so that a half-warp reads its 8 rows' values of one d with two
+//     broadcast float4 loads; the streamed tiles (K and V, or Q and dO with
+//     their lse and delta) double-buffered by cp.async, the next tile in
+//     flight during the current one's products, rows past T zero-filled;
+//   * the streamed tiles and the P / dS tile are [64][64] f32 with rows of 16
+//     float4 chunks, chunk c4 of row r stored at c4 ^ (r & 7): the 8 lanes of
+//     a load phase read 8 rows at one chunk, or one row at 8 chunks, from
+//     distinct banks without padding, which keeps a block at 112-113 KB of
+//     shared memory: two blocks per SM;
+//   * P = 2^(s * scale * log2e - lse * log2e) and dS = P (dP - delta), a
+//     select to 0 for a dead pair, checked only in the tiles that hold one;
+//     dS (dQ), or P and then dS (dK/dV), goes through one shared tile, each
+//     half-warp reading only the columns it wrote (warp barriers): one block
+//     barrier per tile;
+//   * causal blocks skip the tiles without a live pair (dQ stops the key loop
+//     at its last query row, dK/dV starts the query loop at its first key
+//     row) and launch longest first; a dK/dV block of key rows past
+//     valid_len writes zeros without a loop;
+//   * with rotary tables, dQ and dK leave through the rotary's transpose
+//     (`_rotary_transpose`'s arithmetic; the column j ^ 32 a value pairs with
+//     lies in lane c ^ 8 of the same half-warp), so the f32 backward runs no
+//     counter-rotation in PyTorch.
+// The masking and the outputs (dq = scale * sum_j ds k_j, dk = scale *
+// sum_i ds q_i, dv = sum_i p dO_i; key rows past valid_len exact zeros) are
+// those of the one-row kernels, which keep the other head dims.
+struct F32BwdCfg {
+  static constexpr int DH = 64, BM = 64, BN = 64, NT = 128;
+  static constexpr int TILE = BM * DH;   // floats of one [64][64] tile
+  // Q^T, dO^T, 2 x K, 2 x V, dS^T
+  static constexpr size_t smem_dq = (size_t)7 * TILE * 4;
+  // K^T, V^T, 2 x Q, 2 x dO, the P / dS tile; 2 x lse and delta rows
+  static constexpr size_t smem_dkv = (size_t)7 * TILE * 4 + 4 * BN * 4;
+};
+static_assert(2 * (F32BwdCfg::smem_dq + 1024) <= 233472 && 2 * (F32BwdCfg::smem_dkv + 1024) <= 233472,
+              "two f32 backward blocks per SM");
+
+// Float offset of chunk c4 (4 floats) of row r in a swizzled [64][64] tile.
+__device__ __forceinline__ int swz(int r, int c4) { return r * 64 + ((c4 ^ (r & 7)) << 2); }
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool fill) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(fill ? 4 : 0)
+               : "memory");
+}
+
+// Rows [r0, r0 + 64) of a [T, 64] f32 matrix into a swizzled tile by
+// cp.async (rows past T zero-filled); the caller commits.
+__device__ __forceinline__ void cp_rows_f32(float* tile, const float* src, int r0, int T) {
+#pragma unroll
+  for (int i = 0; i < 64 * 16 / 128; ++i) {
+    const int idx = threadIdx.x + i * 128, r = idx >> 4, c4 = idx & 15;
+    const bool in = r0 + r < T;
+    cp_async16(tile + swz(r, c4), src + (size_t)(in ? r0 + r : 0) * 64 + 4 * c4, in);
+  }
+}
+
+// Rows [r0, r0 + 64) of a [T, 64] f32 matrix transposed into a d-major
+// [64][64] tile (zero past T); consecutive lanes take consecutive rows, so
+// the scalar stores hit distinct banks.
+__device__ __forceinline__ void load_rows_t_f32(float* tile_t, const float* src, int r0, int T) {
+  for (int idx = threadIdx.x; idx < 64 * 16; idx += 128) {
+    const int r = idx & 63, c4 = idx >> 6;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < T) x = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * 64 + 4 * c4);
+    tile_t[(4 * c4 + 0) * 64 + r] = x.x;
+    tile_t[(4 * c4 + 1) * 64 + r] = x.y;
+    tile_t[(4 * c4 + 2) * 64 + r] = x.z;
+    tile_t[(4 * c4 + 3) * 64 + r] = x.w;
+  }
+}
+
+// out[r][i] = sum_d at[d][r] b[c + 16 i][d] over d < 64, in the order of d:
+// `at` points at the thread's 8 columns of a d-major tile, `b` at row c of a
+// swizzled tile (rows c + 16 i share the swizzle cx = c & 7).
+__device__ __forceinline__ void tile_scores(float (&out)[8][4], const float* at, const float* b, int cx) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[r][i] = 0.f;
+#pragma unroll 4
+  for (int d4 = 0; d4 < 16; ++d4) {
+    float4 bf[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) bf[i] = *reinterpret_cast<const float4*>(b + 16 * i * 64 + ((d4 ^ cx) << 2));
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) {
+      const float4 xa = *reinterpret_cast<const float4*>(at + (4 * d4 + dd) * 64);
+      const float4 xb = *reinterpret_cast<const float4*>(at + (4 * d4 + dd) * 64 + 4);
+      const float av[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float bv = lane_of(bf[i], dd);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) out[r][i] = fmaf(av[r], bv, out[r][i]);
+      }
+    }
+  }
+}
+
+// The thread's 8 x 4 values x[r][i] into a swizzled tile at rows c + 16 i,
+// columns 8 rg .. 8 rg + 7 (chunks 2 rg and 2 rg + 1).
+__device__ __forceinline__ void store_cols(float* tile, const float (&x)[8][4], int rg, int c) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = c + 16 * i;
+    *reinterpret_cast<float4*>(tile + swz(row, 2 * rg)) = make_float4(x[0][i], x[1][i], x[2][i], x[3][i]);
+    *reinterpret_cast<float4*>(tile + swz(row, 2 * rg + 1)) = make_float4(x[4][i], x[5][i], x[6][i], x[7][i]);
+  }
+}
+
+// acc[r][e] += sum_j w[j][8 rg + r] m[j][4 c + e] over the 64 rows j of two
+// swizzled tiles: w (columns written by this half-warp's store_cols) and m.
+__device__ __forceinline__ void tile_accumulate(float (&acc)[8][4], const float* w, const float* m, int rg, int c) {
+#pragma unroll 16
+  for (int j = 0; j < 64; ++j) {
+    const float4 wa = *reinterpret_cast<const float4*>(w + swz(j, 2 * rg));
+    const float4 wb = *reinterpret_cast<const float4*>(w + swz(j, 2 * rg + 1));
+    const float4 mv = *reinterpret_cast<const float4*>(m + swz(j, c));
+    const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      acc[r][0] = fmaf(wv[r], mv.x, acc[r][0]);
+      acc[r][1] = fmaf(wv[r], mv.y, acc[r][1]);
+      acc[r][2] = fmaf(wv[r], mv.z, acc[r][2]);
+      acc[r][3] = fmaf(wv[r], mv.w, acc[r][3]);
+    }
+  }
+}
+
+// Rows row0 .. row0 + 7 (those < T) of a [T, 64] f32 gradient from the
+// thread's accumulators (columns 4 c .. 4 c + 3), times `scale`. With the
+// tables, then the rotary's transpose, `_rotary_transpose`'s arithmetic:
+// g'[j] = g[j] cos[j] + g[j ^ 32] sin[j ^ 32], both products and the sum
+// rounded (no contraction); column j ^ 32 lies in lane c ^ 8. So the result
+// is bit-equal to `_rotary_transpose` of the untabled output.
+__device__ __forceinline__ void store_grad_f32(float* out, const float (&acc)[8][4], float scale, int row0, int T,
+                                               int c, const float* cos_t, const float* sin_t) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = row0 + r;
+    float g[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) g[e] = acc[r][e] * scale;
+    if (cos_t != nullptr) {
+      float gp[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gp[e] = __shfl_xor_sync(0xffffffffu, g[e], 8);
+      if (row < T) {
+        const float4 cr = *reinterpret_cast<const float4*>(cos_t + (size_t)row * 64 + 4 * c);
+        const float4 sp = *reinterpret_cast<const float4*>(sin_t + (size_t)row * 64 + 4 * (c ^ 8));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          g[e] = __fadd_rn(__fmul_rn(g[e], lane_of(cr, e)), __fmul_rn(gp[e], lane_of(sp, e)));
+      }
+    }
+    if (row < T) *reinterpret_cast<float4*>(out + (size_t)row * 64 + 4 * c) = make_float4(g[0], g[1], g[2], g[3]);
+  }
+}
+
+// dQ for one (b, h, 64-query-row block). Grid: (row blocks, B*H); causal
+// (B*H, row blocks), the last rows (the most key tiles) first.
+template <int DH, bool CAUSAL>
+__global__ void __launch_bounds__(128, 2)
+flash_bwd_dq_f32_tile(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      const float* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dq, const int* __restrict__ valid,
+                      int valid_n, const float* __restrict__ cos_t, const float* __restrict__ sin_t, int H, int T,
+                      float scale) {
+  using C = F32BwdCfg;
+  static_assert(DH == C::DH, "the tiled f32 backward is written for head dim 64");
+  constexpr int BM = C::BM, BN = C::BN, TILE = C::TILE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qt = reinterpret_cast<float*>(smem_raw);  // [DH][BM], d-major
+  float* Dt = Qt + TILE;                           // dO^T [DH][BM]
+  float* Ks = Dt + TILE;                           // 2 x [BN][DH], swizzled
+  float* Vs = Ks + 2 * TILE;                       // 2 x [BN][DH], swizzled
+  float* St = Vs + 2 * TILE;                       // dS^T [BN][BM], swizzled
+
+  const int bh = CAUSAL ? blockIdx.x : blockIdx.y;
+  const int q0 = (CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.x) * BM;
+  const size_t rbase = (size_t)bh * T, base = rbase * DH;
+  const int vl = clamp_valid(valid, valid_n, bh / H, T);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int rg = (tid >> 5) * 2 + (lane >> 4), c = lane & 15, cx = c & 7;
+  const int n_tiles = ((CAUSAL ? min(vl, q0 + BM) : vl) + BN - 1) / BN;
+
+  auto load_tile = [&](int k0, int buf) {
+    cp_rows_f32(Ks + buf * TILE, k + base, k0, T);
+    cp_rows_f32(Vs + buf * TILE, v + base, k0, T);
+    cp_async_commit();
+  };
+  load_tile(0, 0);
+  load_rows_t_f32(Qt, q + base, q0, T);
+  load_rows_t_f32(Dt, dout + base, q0, T);
+
+  float l2[8], dl[8], acc[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = q0 + rg * 8 + r;
+    l2[r] = row < T ? lse[rbase + row] * kLog2e : 0.f;
+    dl[r] = row < T ? delta[rbase + row] : 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+  }
+  const float c2 = scale * kLog2e;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BN, buf = kt & 1;
+    const float* Kb = Ks + buf * TILE;
+    const float* Vb = Vs + buf * TILE;
+    cp_async_wait_all();
+    __syncthreads();   // tile kt (and Q^T, dO^T) in; every thread done with tile kt - 1
+    if (kt + 1 < n_tiles) load_tile(k0 + BN, buf ^ 1);
+    // P = 2^(S c2 - lse log2e) on the thread's 8 rows x 4 keys, 0 for a dead pair
+    float p[8][4], dp[8][4];
+    tile_scores(p, Qt + rg * 8, Kb + c * DH, cx);
+    const bool mask = k0 + BN > vl || (CAUSAL && k0 + BN - 1 > q0);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = q0 + rg * 8 + r, lim = CAUSAL ? min(vl, row + 1) : vl;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float e = ex2(fmaf(p[r][i], c2, -l2[r]));
+        p[r][i] = !mask || k0 + c + 16 * i < lim ? e : 0.f;
+      }
+    }
+    // dS = P (dP - delta), dP = dO V^T
+    tile_scores(dp, Dt + rg * 8, Vb + c * DH, cx);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[r][i] = p[r][i] * (dp[r][i] - dl[r]);
+    __syncwarp();   // the half-warp's reads of the last tile's dS^T columns are done
+    store_cols(St, p, rg, c);
+    __syncwarp();   // dS^T in: a half-warp reads only the columns it wrote
+    tile_accumulate(acc, St, Kb, rg, c);   // dQ += dS K
+  }
+  store_grad_f32(dq + base, acc, scale, q0 + rg * 8, T, c, cos_t, sin_t);
+}
+
+// dK and dV for one (b, h, 64-key-row block). Grid: (row blocks, B*H);
+// causal (B*H, row blocks), the first rows (the most query tiles) first.
+template <int DH, bool CAUSAL>
+__global__ void __launch_bounds__(128, 2)
+flash_bwd_dkv_f32_tile(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                       const float* __restrict__ dout, const float* __restrict__ lse,
+                       const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+                       const int* __restrict__ valid, int valid_n, const float* __restrict__ cos_t,
+                       const float* __restrict__ sin_t, int H, int T, float scale) {
+  using C = F32BwdCfg;
+  static_assert(DH == C::DH, "the tiled f32 backward is written for head dim 64");
+  constexpr int BM = C::BM, BN = C::BN, TILE = C::TILE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Kt = reinterpret_cast<float*>(smem_raw);  // [DH][BM], d-major
+  float* Vt = Kt + TILE;                           // V^T [DH][BM]
+  float* Qs = Vt + TILE;                           // 2 x [BN][DH], swizzled
+  float* Ds = Qs + 2 * TILE;                       // dO: 2 x [BN][DH], swizzled
+  float* Pb = Ds + 2 * TILE;                       // P, then dS: [BN][BM] (query rows), swizzled
+  float* Ls = Pb + TILE;                           // lse: 2 x [BN]
+  float* Es = Ls + 2 * BN;                         // delta: 2 x [BN]
+
+  const int bh = CAUSAL ? blockIdx.x : blockIdx.y;
+  const int k0 = (CAUSAL ? blockIdx.y : blockIdx.x) * BM;
+  const size_t rbase = (size_t)bh * T, base = rbase * DH;
+  const int vl = clamp_valid(valid, valid_n, bh / H, T);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int rg = (tid >> 5) * 2 + (lane >> 4), c = lane & 15, cx = c & 7;
+  // causal: the query tiles below the block's first key see none of its
+  // keys; a block of keys past valid_len only writes zeros
+  const int it0 = CAUSAL ? k0 / BN : 0, it_end = k0 < vl ? (T + BN - 1) / BN : it0;
+
+  auto load_tile = [&](int i0, int buf) {
+    cp_rows_f32(Qs + buf * TILE, q + base, i0, T);
+    cp_rows_f32(Ds + buf * TILE, dout + base, i0, T);
+    const int j = tid & (BN - 1);   // threads 0-63 copy lse, 64-127 delta
+    const bool in = i0 + j < T;
+    cp_async4((tid < BN ? Ls : Es) + buf * BN + j, (tid < BN ? lse : delta) + rbase + (in ? i0 + j : 0), in);
+    cp_async_commit();
+  };
+  if (it0 < it_end) load_tile(it0 * BN, 0);
+  load_rows_t_f32(Kt, k + base, k0, T);
+  load_rows_t_f32(Vt, v + base, k0, T);
+
+  float ak[8][4], av[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[r][e] = av[r][e] = 0.f;
+  const float c2 = scale * kLog2e;
+  for (int it = it0; it < it_end; ++it) {
+    const int i0 = it * BN, buf = (it - it0) & 1;
+    const float* Qb = Qs + buf * TILE;
+    const float* Db = Ds + buf * TILE;
+    cp_async_wait_all();
+    __syncthreads();   // tile it (and K^T, V^T) in; every thread done with tile it - 1
+    if (it + 1 < it_end) load_tile(i0 + BN, buf ^ 1);
+    float lq[4], eq[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      lq[i] = Ls[buf * BN + c + 16 * i] * kLog2e;
+      eq[i] = Es[buf * BN + c + 16 * i];
+    }
+    // P^T = 2^(S^T c2 - lse log2e) on the thread's 8 keys x 4 queries, 0 for
+    // a dead pair: a key past valid_len, a query past T (a zero-filled row
+    // still gives 2^-lse), causal a query before the key
+    float p[8][4], dp[8][4];
+    tile_scores(p, Kt + rg * 8, Qb + c * DH, cx);
+    const bool mask = k0 + BM > vl || i0 + BN > T || (CAUSAL && i0 < k0 + BM - 1);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int key = k0 + rg * 8 + r;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = i0 + c + 16 * i;
+        const float e = ex2(fmaf(p[r][i], c2, -lq[i]));
+        p[r][i] = !mask || (key < vl && qi < T && (!CAUSAL || qi >= key)) ? e : 0.f;
+      }
+    }
+    __syncwarp();   // the half-warp's reads of the last tile's dS columns are done
+    store_cols(Pb, p, rg, c);
+    // dS^T = P^T (dP^T - delta), dP^T = V dO^T
+    tile_scores(dp, Vt + rg * 8, Db + c * DH, cx);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dp[r][i] = p[r][i] * (dp[r][i] - eq[i]);
+    __syncwarp();   // P in: a half-warp reads only the columns it wrote
+    tile_accumulate(av, Pb, Db, rg, c);   // dV += P^T dO
+    __syncwarp();
+    store_cols(Pb, dp, rg, c);
+    __syncwarp();
+    tile_accumulate(ak, Pb, Qb, rg, c);   // dK += dS^T Q
+  }
+  store_grad_f32(dk + base, ak, scale, k0 + rg * 8, T, c, cos_t, sin_t);
+  store_grad_f32(dv + base, av, 1.f, k0 + rg * 8, T, c, nullptr, nullptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -2172,15 +2531,28 @@ int run_bwd_dq(int is_f32, const void* q, const void* k, const void* v, const vo
                const void* sin_t, int B, int H, int T, float scale, cudaStream_t stream) {
   const bool rot = cos_t != nullptr && sin_t != nullptr;
   if (is_f32) {
-    if (cos_t != nullptr || sin_t != nullptr) return kErrBwdTables;
-    using C = F32Cfg<DH>;
-    const dim3 grid((T + C::BM - 1) / C::BM, H, B);
-    int e = allow_smem(flash_bwd_dq_f32<DH, CAUSAL>, C::smem);
-    if (e) return e;
-    flash_bwd_dq_f32<DH, CAUSAL><<<grid, C::NT, C::smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), valid, valid_n, H, T,
-        scale);
+    if constexpr (DH == F32BwdCfg::DH) {
+      using C = F32BwdCfg;
+      const int blocks = (T + C::BM - 1) / C::BM;
+      const dim3 grid = CAUSAL ? dim3(B * H, blocks) : dim3(blocks, B * H);
+      int e = allow_smem(flash_bwd_dq_f32_tile<DH, CAUSAL>, C::smem_dq);
+      if (e) return e;
+      flash_bwd_dq_f32_tile<DH, CAUSAL><<<grid, C::NT, C::smem_dq, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+          static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), valid, valid_n,
+          rot ? static_cast<const float*>(cos_t) : nullptr, rot ? static_cast<const float*>(sin_t) : nullptr, H, T,
+          scale);
+    } else {
+      if (cos_t != nullptr || sin_t != nullptr) return kErrBwdTables;
+      using C = F32Cfg<DH>;
+      const dim3 grid((T + C::BM - 1) / C::BM, H, B);
+      int e = allow_smem(flash_bwd_dq_f32<DH, CAUSAL>, C::smem);
+      if (e) return e;
+      flash_bwd_dq_f32<DH, CAUSAL><<<grid, C::NT, C::smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+          static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), valid, valid_n, H, T,
+          scale);
+    }
     return (int)cudaGetLastError();
   }
   bool fused = false;  // the kernel applied the rotary transpose in its epilogue
@@ -2223,15 +2595,28 @@ int run_bwd_dkv(int is_f32, const void* q, const void* k, const void* v, const v
                 cudaStream_t stream) {
   const bool rot = cos_t != nullptr && sin_t != nullptr;
   if (is_f32) {
-    if (cos_t != nullptr || sin_t != nullptr) return kErrBwdTables;
-    using C = F32Cfg<DH>;
-    const dim3 grid((T + C::BM - 1) / C::BM, H, B);
-    int e = allow_smem(flash_bwd_dkv_f32<DH, CAUSAL>, C::smem);
-    if (e) return e;
-    flash_bwd_dkv_f32<DH, CAUSAL><<<grid, C::NT, C::smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
-        valid, valid_n, H, T, scale);
+    if constexpr (DH == F32BwdCfg::DH) {
+      using C = F32BwdCfg;
+      const int blocks = (T + C::BM - 1) / C::BM;
+      const dim3 grid = CAUSAL ? dim3(B * H, blocks) : dim3(blocks, B * H);
+      int e = allow_smem(flash_bwd_dkv_f32_tile<DH, CAUSAL>, C::smem_dkv);
+      if (e) return e;
+      flash_bwd_dkv_f32_tile<DH, CAUSAL><<<grid, C::NT, C::smem_dkv, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+          static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), valid,
+          valid_n, rot ? static_cast<const float*>(cos_t) : nullptr, rot ? static_cast<const float*>(sin_t) : nullptr,
+          H, T, scale);
+    } else {
+      if (cos_t != nullptr || sin_t != nullptr) return kErrBwdTables;
+      using C = F32Cfg<DH>;
+      const dim3 grid((T + C::BM - 1) / C::BM, H, B);
+      int e = allow_smem(flash_bwd_dkv_f32<DH, CAUSAL>, C::smem);
+      if (e) return e;
+      flash_bwd_dkv_f32<DH, CAUSAL><<<grid, C::NT, C::smem, stream>>>(
+          static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+          static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk), static_cast<float*>(dv),
+          valid, valid_n, H, T, scale);
+    }
     return (int)cudaGetLastError();
   }
   bool fused = false;
@@ -2279,8 +2664,9 @@ extern "C" {
 // forward takes q and k already rotated (covomix_flash_rotary_bf16) and
 // refuses tables, the f32 forward rotates with them; the bf16 backward takes
 // rotated q and k and, with tables, returns dq and dk through the rotary's
-// transpose (the gradients of the unrotated q and k); the f32 backward
-// refuses tables. lse may be null in the forward (no logsumexp output).
+// transpose (the gradients of the unrotated q and k), and so does the f32
+// backward at head dim 64 (the other head dims' f32 backward refuses
+// tables). lse may be null in the forward (no logsumexp output).
 // causal != 0 picks the causal instantiation (key j <= query i).
 int covomix_flash_attention_fwd(int is_f32, int causal, const void* q, const void* k, const void* v,
                                 void* o, float* lse, const int* valid, int valid_n, const void* cos_t,
@@ -2332,7 +2718,7 @@ const char* covomix_cuda_error_string(int code) {
     case kErrTables: return "the bf16 forward takes q and k already rotated (the rotary pre-pass), not tables";
     case kErrNoEncoder: return "cuTensorMapEncodeTiled not found through cudaGetDriverEntryPoint";
     case kErrEncode: return "cuTensorMapEncodeTiled refused the tensor map";
-    case kErrBwdTables: return "the f32 backward kernels take no rotary tables";
+    case kErrBwdTables: return "the f32 backward kernels take rotary tables at head dim 64 only";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

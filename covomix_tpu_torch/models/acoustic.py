@@ -139,22 +139,23 @@ def _time_embedding(params, times, dtype):
     return F.silu(L.linear(params["time_mlp"], fouriered.to(dtype)))
 
 
-def layer_core(lp, cfg: AcousticConfig, x, time_emb, valid_len=None):
+def layer_core(lp, cfg: AcousticConfig, x, time_emb, key_mask=None, valid_len=None):
     """One transformer layer (attention + FFN with adaptive RMSNorm), without
-    the U-Net skip combiner."""
+    the U-Net skip combiner. A `key_mask` sends attention through the masked
+    `layers.attend` path; `valid_len` keeps it on the flash kernel."""
     inv_freq = L.rotary_freqs(cfg.dim_head, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
     h = L.adaptive_rmsnorm(lp["attn_norm"], x, time_emb)
     q, k, v = torch.chunk(L.linear(lp["qkv"], h), 3, dim=-1)
     q, k, v = (L.split_heads(t, cfg.heads) for t in (q, k, v))
-    attn = attend_flash_or_xla(q, k, v, valid_len=valid_len, rotary=(positions, inv_freq))
+    attn = attend_flash_or_xla(q, k, v, key_mask=key_mask, valid_len=valid_len, rotary=(positions, inv_freq))
     x = L.linear(lp["attn_out"], L.merge_heads(attn)) + x
     h = L.adaptive_rmsnorm(lp["ff_norm"], x, time_emb)
     h = L.linear(lp["ff2"], L.gelu(L.linear(lp["ff1"], h)))
     return h + x
 
 
-def _transformer(params, cfg: AcousticConfig, x, time_emb, valid_len=None):
+def _transformer(params, cfg: AcousticConfig, x, time_emb, key_mask=None, valid_len=None):
     half = cfg.depth // 2
     skips = []
     for i, lp in enumerate(params["layers"]):
@@ -162,7 +163,7 @@ def _transformer(params, cfg: AcousticConfig, x, time_emb, valid_len=None):
             skips.append(x)
         else:
             x = L.linear(lp["skip"], torch.cat([x, skips.pop()], dim=-1))
-        x = layer_core(lp, cfg, x, time_emb, valid_len=valid_len)
+        x = layer_core(lp, cfg, x, time_emb, key_mask=key_mask, valid_len=valid_len)
     return L.rmsnorm(params["final_norm"], x)
 
 
@@ -190,24 +191,29 @@ def static_embed(params, cfg: AcousticConfig, phoneme_ids, cond, *, cond_drop_ma
 
 
 def forward(params, cfg: AcousticConfig, x, phoneme_ids, cond, times, *, cond_drop_mask=None,
-            precomputed_embed=None, valid_len=None, dtype=torch.float32):
-    """Vector-field prediction [B, T, mel_dim] (f32). `valid_len` (int, or
-    one per row): frames >= valid_len are padding, zeroed before the
-    depthwise conv and masked out of attention."""
+            precomputed_embed=None, key_mask=None, valid_len=None, dtype=torch.float32):
+    """Vector-field prediction [B, T, mel_dim] (f32). `key_mask` [B, T] bool
+    (False marks a padded frame) or `valid_len` (int, or one per row: frames
+    >= valid_len are padding): the padded frames are zeroed before the
+    depthwise conv and masked out of attention. `key_mask` takes precedence
+    for the conv, and sends attention through the masked `layers.attend`
+    path, as in JAX."""
     x = x.to(dtype)
     if precomputed_embed is None:
         precomputed_embed = static_embed(params, cfg, phoneme_ids, cond,
                                          cond_drop_mask=cond_drop_mask, dtype=dtype)
     h = x @ params["to_embed"]["w"].to(dtype)[: cfg.mel_dim] + precomputed_embed
     conv_in = h
-    if valid_len is not None:
+    if key_mask is not None:
+        conv_in = h * key_mask[..., None].to(dtype)
+    elif valid_len is not None:
         vl = torch.as_tensor(valid_len, dtype=torch.int32, device=h.device).reshape(-1)
         frame_keep = torch.arange(h.shape[1], device=h.device)[None, :] < vl[:, None]
         conv_in = h * frame_keep[..., None].to(dtype)
     conv = L.gelu(L.depthwise_conv1d(params["conv_embed"], conv_in, padding=cfg.conv_pos_kernel // 2))
     h = conv + h
     time_emb = _time_embedding(params, times, dtype)
-    h = _transformer(params, cfg, h, time_emb, valid_len=valid_len)
+    h = _transformer(params, cfg, h, time_emb, key_mask=key_mask, valid_len=valid_len)
     return L.linear(params["to_pred"], h).float()
 
 
@@ -285,11 +291,13 @@ def cfm_loss(params, cfg: AcousticConfig, gen, x1, phoneme_ids, cond, mask=None,
 
 @torch.no_grad()
 def sample(params, cfg: AcousticConfig, generator: Optional[torch.Generator], phoneme_ids, cond, *,
-           cond_scale: float = 1.0, step_size: float = 0.0625, valid_len=None,
+           cond_scale: float = 1.0, step_size: float = 0.0625, key_mask=None, valid_len=None,
            noise=None, dtype=torch.float32):
     """Midpoint ODE integration of the vector field from t=0 to t=1 (16 steps
     at the default step size). y0 ~ N(0, I) from `generator`, or `noise` when
-    given. CFG (cond_scale != 1) runs cond + null rows as one 2B batch."""
+    given. CFG (cond_scale != 1) runs cond + null rows as one 2B batch (and
+    doubles `key_mask` / a per-row `valid_len` for it). `key_mask` [B, T] /
+    `valid_len` exclude bucket padding as in `forward`."""
     n_steps = int(round(1.0 / step_size))
     b, t = cond.shape[0], cond.shape[1]
     dev = cond.device
@@ -304,6 +312,7 @@ def sample(params, cfg: AcousticConfig, generator: Optional[torch.Generator], ph
         drop = torch.cat([torch.zeros(b, dtype=torch.bool, device=dev),
                           torch.ones(b, dtype=torch.bool, device=dev)])
         emb2 = static_embed(params, cfg, ph2, c2, cond_drop_mask=drop, dtype=dtype)
+        km2 = None if key_mask is None else torch.cat([key_mask, key_mask], dim=0)
         vl2 = valid_len
         if valid_len is not None and torch.as_tensor(valid_len).dim() >= 1:
             vl = torch.as_tensor(valid_len, device=dev)
@@ -312,7 +321,7 @@ def sample(params, cfg: AcousticConfig, generator: Optional[torch.Generator], ph
         def field(y, tt):
             times = torch.full((2 * b,), tt, device=dev)
             out = forward(params, cfg, torch.cat([y, y], dim=0), ph2, c2, times, cond_drop_mask=drop,
-                          precomputed_embed=emb2, valid_len=vl2, dtype=dtype)
+                          precomputed_embed=emb2, key_mask=km2, valid_len=vl2, dtype=dtype)
             return out[:b] * (1 + cond_scale) - cond_scale * out[b:]
     else:
         emb1 = static_embed(params, cfg, phoneme_ids, cond,
@@ -321,7 +330,7 @@ def sample(params, cfg: AcousticConfig, generator: Optional[torch.Generator], ph
         def field(y, tt):
             times = torch.full((b,), tt, device=dev)
             return forward(params, cfg, y, phoneme_ids, cond, times, precomputed_embed=emb1,
-                           valid_len=valid_len, dtype=dtype)
+                           key_mask=key_mask, valid_len=valid_len, dtype=dtype)
 
     h = 1.0 / n_steps
     y = y0

@@ -36,8 +36,10 @@ requires it, it runs a `torch.autograd.Function` (`_FlashCore`, or
 delta = rowsum(dO * O) in f32 and runs dQ and dK/dV. `_FlashCoreRot` rotates q
 and k once in its forward (the bf16 pre-pass on CUDA) and saves the rotated
 pair; its backward gives the tables to dQ and dK/dV, which return the
-gradients of the unrotated q and k (the bf16 kernels apply the rotary's
-transpose, `_rotary_transpose`'s arithmetic, in their epilogue). Otherwise
+gradients of the unrotated q and k (the bf16 kernels and the f32 ones at
+head dim 64 apply the rotary's transpose, `_rotary_transpose`'s arithmetic,
+in their epilogue; after the f32 ones at other head dims `_unrotate` runs
+in PyTorch). Otherwise
 (`torch.no_grad()`, inference) it launches the forward without the
 logsumexp.
 
@@ -45,6 +47,13 @@ The bf16 backward at head dim 64 (dQ also at 128) is the forward's design:
 one warpgroup per 64 rows, the other axis streamed through a TMA ring, all
 five products as wgmma, with K, Q and dO read MN-major from the same tiles
 the scores read K-major (no transposed copies; `BwdWgCfg` in the source).
+
+The f32 backward at head dim 64 (`flash_bwd_dq_f32_tile`,
+`flash_bwd_dkv_f32_tile`; the VoMix and CoMix T2S recipes train in f32)
+carries the f32 forward's SIMT register tiles over: one block per 64 rows,
+8 rows x 4 columns of every product a thread, the streamed tiles
+double-buffered by cp.async, true f32 FMAs (no TF32); it takes the rotary
+tables as the bf16 kernels do. The other head dims keep one row per thread.
 
 The kernels are built once per head dim (`-DFLASH_DH`), for the head dims
 `kernel_supports_dh` admits: multiples of 16 up to 256. The dispatcher uses
@@ -70,6 +79,7 @@ from covomix_tpu_torch.ops.cuda_build import BUILD_DIR, build_library, csrc
 
 SOURCE = csrc("flash_attention.cu")
 MAX_DH = 256
+F32_TILE_DH = 64   # the head dim of the tiled f32 kernels (the f32 backward takes rotary tables there)
 
 
 def kernel_supports_dh(dh: int) -> bool:
@@ -250,17 +260,18 @@ class FlashKernel:
         self._check_rows(q, (lse, delta))
         if rotary is None:
             return None, None
-        if q.dtype != torch.bfloat16:
-            raise ValueError("flash backward: the f32 kernels take no rotary tables")
+        if not backward_takes_tables(q):
+            raise ValueError(f"flash backward: the f32 kernels take rotary tables at head dim {F32_TILE_DH} only")
         self._check_tables(q, rotary)
         return rotary[0].data_ptr(), rotary[1].data_ptr()
 
     def bwd_dq(self, q, k, v, dout, lse, delta, valid, causal=False, rotary=None):
         """dQ from the already rotated q, k, the output gradient dout, the
         forward's lse and delta = rowsum(dout * out) (f32 [B, H, T]). With
-        bf16 `rotary` tables (cos, sin_signed) [>=T, dh], dQ leaves through
-        the rotary's transpose: the gradient of the unrotated q,
-        `_rotary_transpose` of the dQ without tables, bit for bit."""
+        `rotary` tables (cos, sin_signed) [>=T, dh] (bf16, or f32 at head dim
+        64), dQ leaves through the rotary's transpose: the gradient of the
+        unrotated q, `_rotary_transpose` of the dQ without tables, bit for
+        bit."""
         cos, sin = self._check_bwd(q, k, v, dout, lse, delta, valid, rotary)
         b, h, t, dh = q.shape
         lib = self.build(dh)
@@ -296,6 +307,13 @@ class FlashKernel:
 
 
 KERNEL = FlashKernel()
+
+
+def backward_takes_tables(q) -> bool:
+    """Whether the backward kernels take the rotary tables for q's dtype and
+    head dim (and apply the rotary's transpose to dQ and dK themselves):
+    every bf16 kernel, and the tiled f32 ones at head dim 64."""
+    return q.dtype == torch.bfloat16 or q.shape[-1] == F32_TILE_DH
 
 
 # ---------------------------------------------------------------------------
@@ -447,14 +465,15 @@ def _forward_lse(q, k, v, valid, rotary, causal):
 def _backward(q, k, v, out, lse, g, valid, causal, rotary=None):
     """(dq, dk, dv) at already rotated q, k (with `rotary` tables, dq and dk
     of the unrotated ones): the two backward kernels on CUDA tensors, the
-    plain version on CPU tensors. The bf16 kernels apply the rotary's
-    transpose themselves; after the f32 ones it runs in PyTorch."""
+    plain version on CPU tensors. The bf16 kernels and the f32 ones at head
+    dim 64 apply the rotary's transpose themselves; after the f32 ones at
+    the other head dims it runs in PyTorch."""
     g = g.contiguous()
     if not q.is_cuda:
         dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, g, valid, causal)
         return _unrotate(dq, rotary), _unrotate(dk, rotary), dv
     delta = flash_delta(g, out)
-    tables = rotary if q.dtype == torch.bfloat16 else None
+    tables = rotary if backward_takes_tables(q) else None
     dq = KERNEL.bwd_dq(q, k, v, g, lse, delta, valid, causal, tables)
     dk, dv = KERNEL.bwd_dkv(q, k, v, g, lse, delta, valid, causal, tables)
     if tables is None:

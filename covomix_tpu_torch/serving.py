@@ -67,7 +67,12 @@ def pack_rows(tok1, tok2, gen_lens, prompt_tokens, prompt_mels, prompt_lens, two
 class BatchedPipeline:
     """Fixed-shape batched synthesis on one device: [B] text id rows -> [B]
     waveforms. Parameters may be numpy trees (as `checkpoint.io.load_params`
-    returns) or torch trees; they are carried onto `device` once."""
+    returns) or torch trees; they are carried onto `device` once.
+
+    `prompt_frames` and `fused` are the JAX pipeline's fields, accepted and
+    without effect: `prompt_frames` is informational there too (the prompt
+    length comes from the inputs), and the eager port always runs its stages
+    one after another, where JAX may jit the whole cascade as one program."""
 
     t2s_params: dict
     t2s_cfg: T.T2SConfig
@@ -82,6 +87,8 @@ class BatchedPipeline:
     top_k_thres: float = 0.1
     device: Optional[str] = None   # None -> cuda
     speculative: bool = False
+    prompt_frames: int = 400   # informational, as in JAX
+    fused: bool = True         # accepted for the JAX signature; no effect here
 
     def __post_init__(self):
         if self.speculative:

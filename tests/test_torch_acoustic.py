@@ -90,3 +90,63 @@ def test_sample_draws_noise_from_generator(params):
     run = lambda seed: PA.sample(pp, P_AC, torch.Generator().manual_seed(seed), torch.from_numpy(ph),
                                  torch.from_numpy(cond), cond_scale=0.7)
     assert torch.equal(run(1), run(1)) and not torch.equal(run(1), run(2))
+
+
+def _pad(arr, tb, value):
+    return np.pad(arr, [(0, 0), (0, tb - arr.shape[1])] + [(0, 0)] * (arr.ndim - 2), constant_values=value)
+
+
+def test_key_mask_removes_padding_skew(params):
+    """tests/test_bucket_skew.py's check on the port: bucket padding skews the
+    valid frames unless `key_mask` zeroes the padded frames before the conv
+    and masks them out of attention; the masked padded run matches the
+    exact-length run, and JAX's masked padded run."""
+    jp, pp = params
+    t, tb = 29, 40
+    rs = np.random.RandomState(5)
+    x = rs.randn(B, t, 80).astype(np.float32)
+    ph = rs.randint(0, 500, (B, t, 2)).astype(np.int32)
+    cond = rs.randn(B, t, 160).astype(np.float32)
+    times = np.array([0.2, 0.5, 0.8], np.float32)
+    xp, php, cp = _pad(x, tb, 0.0), _pad(ph, tb, 501), _pad(cond, tb, 0.0)
+    km = np.broadcast_to(np.arange(tb) < t, (B, tb)).copy()
+    run = lambda *a, **kw: PA.forward(pp, P_AC, *(torch.from_numpy(v) for v in (*a, times)), **kw).numpy()
+    exact = run(x, ph, cond)
+    unmasked = run(xp, php, cp)[:, :t]
+    masked = run(xp, php, cp, key_mask=torch.from_numpy(km))[:, :t]
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(JA.forward(jp, J_AC, jnp.asarray(xp), jnp.asarray(php), jnp.asarray(cp),
+                                    jnp.asarray(times), key_mask=jnp.asarray(km)))[:, :t]
+    assert np.abs(unmasked - exact).max() > 1e-3
+    assert np.abs(masked - exact).max() < 1e-4
+    assert np.abs(masked - ref).max() < 2e-5
+
+
+def test_key_mask_takes_precedence_over_valid_len(params):
+    """With both given, the key mask decides the conv's zeroing and the
+    attention, as in JAX: a per-row mask with a contradicting valid_len."""
+    jp, pp = params
+    ph, cond, x = _inputs(6)
+    times = np.array([0.3, 0.6, 0.9], np.float32)
+    km = np.arange(T)[None, :] < np.array([[35], [17], [40]])
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(JA.forward(jp, J_AC, jnp.asarray(x), jnp.asarray(ph), jnp.asarray(cond),
+                                    jnp.asarray(times), key_mask=jnp.asarray(km), valid_len=jnp.int32(5)))
+    out = PA.forward(pp, P_AC, *(torch.from_numpy(v) for v in (x, ph, cond, times)),
+                     key_mask=torch.from_numpy(km), valid_len=5).numpy()
+    assert np.abs(out - ref).max() < 2e-5
+
+
+@pytest.mark.parametrize("cond_scale", [0.7, 1.0])
+def test_sample_with_key_mask_matches_jax(params, cond_scale):
+    """`sample` with a per-row key mask (doubled for the CFG batch) against
+    JAX's on the same noise."""
+    jp, pp = params
+    ph, cond, noise = _inputs(7)
+    km = np.arange(T)[None, :] < np.array([[40], [26], [11]])
+    with jax.default_matmul_precision("highest"):
+        ref = np.asarray(JA.sample(jp, J_AC, jax.random.PRNGKey(0), jnp.asarray(ph), jnp.asarray(cond),
+                                   cond_scale=cond_scale, key_mask=jnp.asarray(km), noise=jnp.asarray(noise)))
+    out = PA.sample(pp, P_AC, None, torch.from_numpy(ph), torch.from_numpy(cond), cond_scale=cond_scale,
+                    key_mask=torch.from_numpy(km), noise=torch.from_numpy(noise)).numpy()
+    assert np.abs(out - ref).max() < 1e-4

@@ -245,3 +245,103 @@ def test_backward_wrappers_take_only_cuda_tensors():
 def test_causal_wrappers_take_only_cuda_tensors():
     """The same for the causal form of the three kernels."""
     _refuse_cpu_tensors(True)
+
+
+F32_DH = PF.F32_TILE_DH
+F32_FORMS = [  # (T, valid_len, causal, rotary) at head dim 64: T off the 64-row tile, valid_len 1 and ragged [B]
+    (100, None, False, True),
+    (130, np.array([130, 1], np.int32), False, True),
+    (130, np.array([97, 130], np.int32), False, False),
+    (100, np.int32(1), False, False),
+    (130, None, True, False),
+    (100, np.array([100, 61], np.int32), True, True),
+    (130, np.array([1, 130], np.int32), True, False),
+]
+
+
+@pytest.mark.parametrize("t,valid,causal,rotary", F32_FORMS)
+def test_plain_f32_backward_forms_match_jax(t, valid, causal, rotary):
+    """The f32 dh-64 backward forms the tiled kernels take (the plain versions
+    `flash_bwd_dq_plain` / `flash_bwd_dkv_plain` with the rotary tables, and
+    the autograd Functions) against jax.grad through the Pallas
+    flash_attention(interpret=True)."""
+    rs = np.random.RandomState(70 + t)
+    q, k, v, w = (rs.randn(B, H, t, F32_DH).astype(np.float32) for _ in range(4))
+    jtab = JF.rotary_tables_halfsplit(jnp.arange(t), JL.rotary_freqs(F32_DH), jnp.float32) if rotary else None
+    ptab = PF.rotary_tables_halfsplit(torch.arange(t), PL.rotary_freqs(F32_DH), torch.float32) if rotary else None
+
+    def jax_loss(q, k, v):
+        out = JF.flash_attention(q, k, v, valid_len=None if valid is None else jnp.asarray(valid), causal=causal,
+                                 rotary=jtab, interpret=True)
+        return jnp.sum(out * w)
+
+    with jax.default_matmul_precision("highest"):
+        ref = [np.asarray(r) for r in jax.grad(jax_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))]
+    tol = [GRAD_TOL * max(1.0, np.abs(r).max()) for r in ref]
+    # the plain versions as the kernels are called: rotated q and k, the tables
+    qt, kt, vt, wt = (torch.from_numpy(x) for x in (q, k, v, w))
+    vl = PF._valid_array(t if valid is None else valid, B, t, "cpu")
+    qr, kr = (PF._rotary_plain(x, *ptab) for x in (qt, kt)) if rotary else (qt, kt)
+    out, lse = PF.flash_attention_plain(qr, kr, vt, vl, causal=causal, return_lse=True)
+    args = (qr, kr, vt, wt, lse, PF.flash_delta(wt, out), vl, causal)
+    dq = PF.flash_bwd_dq_plain(*args, rotary=ptab)
+    dk, dv = PF.flash_bwd_dkv_plain(*args, rotary=ptab)
+    for mine, r, bound in zip((dq, dk, dv), ref, tol):
+        assert mine.dtype == torch.float32 and np.abs(mine.numpy() - r).max() <= bound
+    # the autograd Function
+    leaves = [x.clone().requires_grad_() for x in (qt, kt, vt)]
+    out = PF.flash_attention(*leaves, valid_len=None if valid is None else torch.as_tensor(valid), causal=causal,
+                             rotary=ptab)
+    (out * wt).sum().backward()
+    for leaf, r, bound in zip(leaves, ref, tol):
+        assert np.abs(leaf.grad.numpy() - r).max() <= bound
+
+
+@pytest.mark.parametrize("dtype,dh,in_kernel", [(torch.float32, F32_DH, True), (torch.bfloat16, F32_DH, True),
+                                                 (torch.float32, 32, False)])
+def test_cuda_backward_hands_the_tables_to_the_kernels(monkeypatch, dtype, dh, in_kernel):
+    """On CUDA tensors `_backward` hands the rotary tables to `KERNEL.bwd_dq`
+    / `bwd_dkv` where the kernels take them (bf16, and f32 at head dim 64) and
+    then runs no `_unrotate`; after the f32 kernels of the other head dims it
+    counter-rotates dq and dk in PyTorch. The wrappers and the device are
+    stood in for (CPU tensors reporting CUDA; the spies return the plain
+    versions)."""
+    seen, unrotated = [], []
+    transpose, dq_plain, dkv_plain = PF._rotary_transpose, PF.flash_bwd_dq_plain, PF.flash_bwd_dkv_plain
+    in_spy = [False]
+
+    def spy_transpose(*a):
+        if not in_spy[0]:
+            unrotated.append(tuple(a[0].shape))
+        return transpose(*a)
+
+    def spy(name, plain):
+        def wrapper(q, k, v, dout, lse, delta, valid, causal=False, rotary=None):
+            seen.append((name, rotary is not None))
+            in_spy[0] = True
+            try:
+                return plain(q, k, v, dout, lse, delta, valid, causal, rotary)
+            finally:
+                in_spy[0] = False
+        return wrapper
+
+    t = 70
+    rs = np.random.RandomState(3)
+    q, k, v, g = (torch.from_numpy(rs.randn(B, H, t, dh).astype(np.float32)).to(dtype) for _ in range(4))
+    tables = PF.rotary_tables_halfsplit(torch.arange(t), PL.rotary_freqs(dh), dtype)
+    valid = PF._valid_array(t, B, t, "cpu")
+    qr, kr = PF._rotary_plain(q, *tables), PF._rotary_plain(k, *tables)
+    out, lse = PF.flash_attention_plain(qr, kr, v, valid, return_lse=True)
+    expect = PF._backward(qr, kr, v, out, lse, g, valid, False, tables)   # CPU: the plain version
+    monkeypatch.setattr(PF.KERNEL, "bwd_dq", spy("dq", dq_plain))
+    monkeypatch.setattr(PF.KERNEL, "bwd_dkv", spy("dkv", dkv_plain))
+    monkeypatch.setattr(PF, "_rotary_transpose", spy_transpose)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    got = PF._backward(qr, kr, v, out, lse, g, valid, False, tables)
+    monkeypatch.undo()
+    assert PF.backward_takes_tables(q) == in_kernel
+    assert seen == [("dq", in_kernel), ("dkv", in_kernel)]
+    assert unrotated == ([] if in_kernel else [(B, H, t, dh)] * 2)   # `_unrotate` of dq and dk after the kernels
+    for a, b in zip(got, expect):
+        assert torch.equal(a, b)
+

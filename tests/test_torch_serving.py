@@ -130,3 +130,19 @@ def test_two_stream_prompt_tensor_of_two_dims_is_stacked():
     ref, _ = pipe(torch.Generator().manual_seed(0), text, ptok, pmel, noise=noise)
     out, _ = pipe(torch.Generator().manual_seed(0), *(torch.as_tensor(a) for a in (text, ptok, pmel)), noise=noise)
     assert out.shape == ref.shape and torch.equal(out, ref)
+
+
+def test_jax_only_fields_are_accepted_without_effect():
+    """`fused` and `prompt_frames`, the JAX pipeline's fields, build and change
+    nothing: the same tokens and wavs as without them."""
+    jt, ja, jv = (jax.tree_util.tree_map(np.asarray, p) for p in jax_params(1))
+    kw = dict(decode_len=L, dtype=torch.float32, top_k_thres=GREEDY_THRES, device="cpu")
+    text, ptok, pmel = _inputs(9)
+    noise = torch.from_numpy(np.random.RandomState(10).randn(B, PMAX + L, 80).astype(np.float32))
+    runs = []
+    for extra in ({}, {"fused": False, "prompt_frames": 400}):
+        pipe = BatchedPipeline(jt, P_T2S, ja, P_AC, jv, P_VOC, **kw, **extra)
+        runs.append(pipe(torch.Generator().manual_seed(0), text, ptok, pmel, prompt_lens=PROMPT_LENS, noise=noise))
+    (ref, ref_gen), (out, gen) = runs
+    assert torch.equal(gen.tokens, ref_gen.tokens) and torch.equal(gen.tokens2, ref_gen.tokens2)
+    assert torch.equal(out, ref)
