@@ -129,11 +129,29 @@ Phases (any failure exits non-zero, nothing is passed over):
      HUBERT_FEAT_TOL, the share of equal ids printed); the forward at the
      largest flash batch's shape in f32 and bf16, held to its plain version
      and timed beside it, SDPA in the same dtype and its bound;
- 13. print a `kernels` JSON line and, last, {"ok": true, "device": {...}}.
+ 13. speculative decode at full width (on phase 4's VoMix / HiFi-GAN and
+     phase 6's assets): (a) fit the draft heads of the serving CoMix T2S
+     with the early exit at layer 2 (`train.loop.make_train_step`,
+     `t2s_loss_fn`, bf16, Adam 3e-4, B=8, 24-id texts, targets of 576
+     codes: bench.py's positional pattern for 480, then EOS) for 400 steps,
+     each launching exactly 4 causal forwards with lse, 4 causal dQ and 4
+     causal dK/dV and no other flash kernel, with finite losses and the
+     first step's gradient on both draft heads; (b) greedy `generate`
+     against `generate_speculative` at gamma 2, 4, 8 on 8 texts, max_length
+     512: tokens equal in f32 (TF32 off), in bf16 equal up to a near-tie
+     (SPEC_BF16_TIE), at most tokens / 2 verify rounds; bf16 walls best of
+     3 and bench.py's t2s_spec_* keys; (c) BatchedPipeline(speculative=True,
+     spec_gamma=4) at phase 4's shape: 256 flash forwards and pre-passes per
+     batch, a finite wav, tokens a greedy decode's, the split beside phase
+     4's; (d) `dialogue_generation --speculative` on phase 6's assets with
+     the fitted T2S: phase 6's gates, tokens a greedy Synthesizer's;
+ 14. print a `kernels` JSON line (phase 13's launches as
+     `speculative_launches`) and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1050,7 +1068,7 @@ def run_serving(results, batch=4, prompt=400, decode=512, timed=2):
     import torch
     from covomix_tpu_torch.models import acoustic as A, text2semantic as T, vocoder as V
     from covomix_tpu_torch.ops import flash_attention as FA
-    from covomix_tpu_torch.serving import BatchedPipeline, pack_rows, slice_generated
+    from covomix_tpu_torch.serving import BatchedPipeline
 
     t2s_cfg, ac_cfg, voc_cfg = full_width_configs()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1089,9 +1107,23 @@ def run_serving(results, batch=4, prompt=400, decode=512, timed=2):
         raise AssertionError(f"flash kernel launched {launches} times per batch, expected {expect}")
     if tuple(wav.shape) != (batch, V.output_length(voc_cfg, decode)) or not bool(torch.isfinite(wav).all()):
         raise AssertionError(f"bad wav: shape {tuple(wav.shape)}, finite {bool(torch.isfinite(wav).all())}")
-    results.update(flash_launches=launches[0], serving_wall_s=wall, serving_rtf=wall / audio_s)
+    results.update(flash_launches=launches[0], serving_wall_s=wall, serving_rtf=wall / audio_s,
+                   serving_models=(pipe.acoustic_params, pipe.vocoder_params))   # phase 13 serves with them
+    stages, valid = split_serving_batch(pipe, gen, placed)
+    log("serving stage times (s): " + json.dumps(stages))
+    results["stages"] = stages
+    vrows = valid.tolist()
+    return vrows + vrows   # the CFG-doubled batch the flow model attends over
 
-    # stage breakdown: the same calls as BatchedPipeline.__call__, timed one by one
+
+def split_serving_batch(pipe, gen, placed):
+    """The stages of one BatchedPipeline batch (bf16, two streams): the same
+    calls as its __call__, each timed alone (host clock ended by a
+    synchronize). Returns ({stage: s}, per-row valid frames of the flow)."""
+    import torch
+    from covomix_tpu_torch.models import acoustic as A, vocoder as V
+    from covomix_tpu_torch.serving import pack_rows, slice_generated
+
     stages = {}
     text_ids, pt, pm, pl = placed
 
@@ -1106,14 +1138,12 @@ def run_serving(results, batch=4, prompt=400, decode=512, timed=2):
     r = timed_stage("t2s_decode_s", lambda: pipe._gen(pipe.t2s_params, gen, text_ids))
     gl = torch.minimum(r.lengths, r.lengths2).to(torch.int32)
     ph, cond = timed_stage("pack_s", lambda: pack_rows(r.tokens, r.tokens2, gl, pt, pm, pl, True))
-    mel = timed_stage("flow_s", lambda: A.sample(pipe.acoustic_params, ac_cfg, gen, ph, cond, cond_scale=0.7,
-                                                 valid_len=pl + gl, dtype=torch.bfloat16))
-    timed_stage("vocoder_s", lambda: V.generator(pipe.vocoder_params, voc_cfg, slice_generated(mel, pl, decode),
-                                                 dtype=torch.bfloat16, valid_len=gl))
-    log("serving stage times (s): " + json.dumps(stages))
-    results["stages"] = stages
-    vrows = (pl + gl).tolist()
-    return vrows + vrows   # the CFG-doubled batch the flow model attends over
+    mel = timed_stage("flow_s", lambda: A.sample(pipe.acoustic_params, pipe.acoustic_cfg, gen, ph, cond,
+                                                 cond_scale=pipe.cond_scale, valid_len=pl + gl, dtype=pipe.dtype))
+    timed_stage("vocoder_s", lambda: V.generator(pipe.vocoder_params, pipe.vocoder_cfg,
+                                                 slice_generated(mel, pl, pipe.decode_len), dtype=pipe.dtype,
+                                                 valid_len=gl))
+    return stages, pl + gl
 
 
 # ---------------------------------------------------------------------------
@@ -1190,19 +1220,24 @@ def write_dialogue_assets(root, n_scripts=2, seed=0):
             save_wav(base + ".wav", (rs.randn(8 * 8000) * 0.05).astype(np.float32), 8000)
 
 
-def run_dialogue_cli(results, root):
-    """The dialogue CLI over the assets in `root`, full width, bf16, covomix,
-    --fuse_tail. The launch counts are set to 0 just before and read just
-    after; per call, flow_sample and vocode record their own launches."""
+def run_dialogue_cli(results, root, t2s="t2s.npz", extra=(), key="dialogue"):
+    """The dialogue CLI over the assets in `root` (T2S checkpoint `t2s`, more
+    flags `extra`), full width, bf16, covomix, --fuse_tail. The launch counts
+    are set to 0 just before and read just after; per call, flow_sample and
+    vocode record their own launches. Results go to results[f"{key}_*"];
+    returns [(Synthesizer, GenerateResult)] of every T2S decode, through
+    `generate` or, with --speculative, `generate_speculative` (and then
+    never the other)."""
     import numpy as np
     from scipy.io import wavfile
     from covomix_tpu_torch import dialogue_generation, pipeline as P
     from covomix_tpu_torch.models import text2semantic as T
     from covomix_tpu_torch.ops import flash_attention as FA, vocoder_tail as VT
 
-    calls = {"flow": [], "vocode": [], "steps": [], "dialogue": [], "flow_s": [], "vocode_s": []}
-    orig = (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer.dialogue, T.generate,
-            VT.fused_stage, VT.fused_tail)
+    calls = {"flow": [], "vocode": [], "steps": [], "dialogue": [], "flow_s": [], "vocode_s": [], "decodes": []}
+    speculative = "--speculative" in extra
+    orig = (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer._decode, T.generate,
+            VT.fused_stage, VT.fused_tail, P.Synthesizer.dialogue)
     inputs = {}      # the last vocode's fused-kernel inputs (default taps), for the timing phase
 
     def fused_stage(x, up_p, resblocks, kernels, dilations):
@@ -1229,38 +1264,47 @@ def run_dialogue_cli(results, root):
 
     def dialogue(self, *args, **kwargs):
         t0 = time.time()
-        wav = orig[2](self, *args, **kwargs)          # numpy: the card has finished
+        wav = orig[6](self, *args, **kwargs)          # numpy: the card has finished
         calls["dialogue"].append((time.time() - t0, len(wav)))
         return wav
 
-    def generate(*args, **kwargs):
-        res = orig[3](*args, **kwargs)
+    def decode(self, text, generator):
+        res = orig[2](self, text, generator)
         calls["steps"].append(res.num_steps)
+        calls["decodes"].append((self, res))
         return res
 
-    out = os.path.join(root, "out")
-    argv = ["--t2s_ckpt", os.path.join(root, "t2s.npz"), "--acous_ckpt", os.path.join(root, "acoustic.npz"),
+    def generate(*args, **kwargs):
+        raise AssertionError("the sampling decode ran in a --speculative run")
+
+    out = os.path.join(root, f"{key}_out")
+    argv = ["--t2s_ckpt", os.path.join(root, t2s), "--acous_ckpt", os.path.join(root, "acoustic.npz"),
             "--hifigan_ckpt", os.path.join(root, "vocoder.npz"), "--text_dir", os.path.join(root, "texts"),
             "--prompt_dir", os.path.join(root, "prompts"), "--saved_dir", out, "--mode", "covomix",
-            "--fuse_tail", "--device", "cuda", "--allow_fallback_vocab"]
-    (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer.dialogue, T.generate, VT.fused_stage,
-     VT.fused_tail) = (flow_sample, vocode, dialogue, generate, fused_stage, fused_tail)
+            "--fuse_tail", "--device", "cuda", "--allow_fallback_vocab", *extra]
+    (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer._decode, VT.fused_stage, VT.fused_tail,
+     P.Synthesizer.dialogue) = (flow_sample, vocode, decode, fused_stage, fused_tail, dialogue)
+    if speculative:
+        T.generate = generate
     FA.KERNEL.launches = FA.KERNEL.rotary_launches = VT.STAGE.launches = VT.TAIL.launches = 0
     try:
         t0 = time.time()
         dialogue_generation.main(argv)
         total = time.time() - t0
     finally:
-        (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer.dialogue, T.generate, VT.fused_stage,
-         VT.fused_tail) = orig
+        (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer._decode, T.generate, VT.fused_stage,
+         VT.fused_tail, P.Synthesizer.dialogue) = orig
     launches = {"flash": FA.KERNEL.launches, "rotary": FA.KERNEL.rotary_launches, "stage": VT.STAGE.launches,
                 "tail": VT.TAIL.launches}
-    log(f"dialogue CLI: {total:.2f} s for {len(calls['dialogue'])} scripts incl. loading; per script "
-        f"(wall s, samples) {calls['dialogue']}; decode steps {calls['steps']}; flow (flash launches, frames) "
-        f"{calls['flow']}; vocode (stage, tail launches, frames, samples) {calls['vocode']}; totals {launches}")
+    log(f"dialogue CLI {' '.join(extra)}: {total:.2f} s for {len(calls['dialogue'])} scripts incl. loading; per "
+        f"script (wall s, samples) {calls['dialogue']}; decode steps {calls['steps']}; flow (flash launches, "
+        f"frames) {calls['flow']}; vocode (stage, tail launches, frames, samples) {calls['vocode']}; totals "
+        f"{launches}")
     n = len(calls["vocode"])
-    if n == 0 or len(calls["flow"]) != n or len(calls["dialogue"]) != n:
-        raise AssertionError(f"expected one flow sample and one vocode per script, got {calls}")
+    if n == 0 or len(calls["flow"]) != n or len(calls["dialogue"]) != n or len(calls["decodes"]) != n:
+        raise AssertionError(f"expected one decode, flow sample and vocode per script, got {calls}")
+    if any(synth.speculative != speculative for synth, _ in calls["decodes"]):
+        raise AssertionError(f"the CLI's Synthesizer decoded with speculative != {speculative}")
     for (flash, frames), (stage, tail, mel_frames, samples) in zip(calls["flow"], calls["vocode"]):
         if flash != 8 * 16 * 2 or stage != 1 or tail != 1:
             raise AssertionError(f"per call: {flash} flash launches (expected 256), {stage} stage and {tail} "
@@ -1278,14 +1322,16 @@ def run_dialogue_cli(results, root):
         raise AssertionError("the CLI wrote no config.txt")
     wall, samples = calls["dialogue"][-1]        # the last script: the first one warmed the card up
     audio_s = samples / 8000
-    results.update(dialogue_launches=launches, dialogue_wall_s=wall, dialogue_audio_s=audio_s,
-                   dialogue_rtf=wall / audio_s, dialogue_steps=calls["steps"][-1],
-                   dialogue_flow_frames=calls["flow"][-1][1], dialogue_vocoder_inputs=inputs)
     stages = {"flow_s": calls["flow_s"][-1], "vocode_s": calls["vocode_s"][-1]}
     stages["rest_s (prompts, T2S decode)"] = wall - sum(stages.values())
-    results["dialogue_stages"] = stages
-    log(f"per-file dialogue, full width bf16 --fuse_tail: wall {wall:.4f} s for {audio_s:.2f} s of audio, "
-        f"RTF {wall / audio_s:.5f}, T2S decode steps {calls['steps'][-1]}, stages (s) {json.dumps(stages)}")
+    results.update({f"{key}_launches": launches, f"{key}_wall_s": wall, f"{key}_audio_s": audio_s,
+                    f"{key}_rtf": wall / audio_s, f"{key}_steps": calls["steps"][-1],
+                    f"{key}_flow_frames": calls["flow"][-1][1], f"{key}_vocoder_inputs": inputs,
+                    f"{key}_stages": stages})
+    log(f"per-file dialogue {' '.join(extra)}, full width bf16 --fuse_tail: wall {wall:.4f} s for {audio_s:.2f} s "
+        f"of audio, RTF {wall / audio_s:.5f}, T2S decode steps {calls['steps'][-1]}, stages (s) "
+        f"{json.dumps(stages)}")
+    return calls["decodes"]
 
 
 # ---------------------------------------------------------------------------
@@ -2342,6 +2388,310 @@ def run_hubert(results, root):
         time_flash_hubert(results, key, dtype, big["rows"], big["frames"], big["valid"])
 
 
+# ---------------------------------------------------------------------------
+# phase 13: speculative decode at full width
+
+
+SPEC_FIT_STEPS = 400      # bench.py's BENCH_SPEC_FIT
+SPEC_FIT_BATCH = 8
+SPEC_TARGET = 576         # targets bucketed to 576: decoder T 578, on the causal flash kernels
+SPEC_PATTERN = 480        # pattern tokens before the trained EOS
+SPEC_GAMMAS = (2, 4, 8)
+SPEC_DECODE = 512
+# bf16 greedy [B, 1] steps and the verify's [B, gamma+1] forward may round
+# their products differently: a first divergence passes only where greedy's
+# top two logits lie within 2^-6 x max(1, |top logit|), a bf16 near-tie
+SPEC_BF16_TIE = 2 ** -6
+
+
+def spec_config():
+    """The serving CoMix T2S with the draft heads after decoder layer 2 of 4
+    (bench.py's spec_decode_stats config)."""
+    import dataclasses
+
+    return dataclasses.replace(full_width_configs()[0], target_early_exit_layer=2)
+
+
+def spec_batch(rs, b):
+    """bench.py's `synth` at the causal-kernel length: b texts of 24 ids in
+    [1, 200) (the fallback vocab's characters lie there), targets the
+    positional pattern (7 + j) % 501 for j < SPEC_PATTERN, then pad (-1, so
+    the CE trains EOS right after the pattern), on both streams."""
+    import numpy as np
+
+    j = np.arange(SPEC_TARGET)
+    tgt = np.where(j < SPEC_PATTERN, (7 + j) % 501, -1)
+    return {"text_ids": rs.randint(1, 200, (b, 24)).astype(np.int32),
+            "semantic_ids": np.ascontiguousarray(np.broadcast_to(np.stack([tgt, tgt], -1), (b, SPEC_TARGET, 2)))
+            .astype(np.int32)}
+
+
+def fit_draft_heads(results):
+    """SPEC_FIT_STEPS optimizer steps of `train.loop.make_train_step` with
+    `t2s_loss_fn` (bf16, Adam 3e-4, EMA on) over fresh spec_batch rows:
+    every step must launch exactly 4 causal forwards with lse, 4 causal dQ
+    and 4 causal dK/dV (the 4 decoder layers; the early-exit CE reuses the
+    hidden states) and no other flash kernel, with a finite loss; the first
+    step's gradient reaches both draft heads. Returns (config, parameters)."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.models import text2semantic as T
+    from covomix_tpu_torch.train import loop
+    from covomix_tpu_torch.util.misc import tree_map
+
+    cfg = spec_config()
+    tcfg = loop.TrainConfig(lr=3e-4)
+    state = loop.init_train_state(T.init(torch.Generator(device="cuda").manual_seed(21), cfg), tcfg)
+    step = loop.make_train_step(loop.t2s_loss_fn(cfg, dtype=torch.bfloat16), tcfg)
+    per_step = launches(fwd_lse_causal=4, bwd_dq_causal=4, bwd_dkv_causal=4)
+    rs = np.random.RandomState(100)
+    ms, losses = [], []
+    zero_counts()
+    for i in range(SPEC_FIT_STEPS):
+        batch = spec_batch(rs, SPEC_FIT_BATCH)
+        torch.cuda.synchronize()
+        c0, t0 = flash_counts(), time.time()
+        loss = float(step(state, batch, None)["loss"])      # waits for the card
+        ms.append((time.time() - t0) * 1e3)
+        losses.append(loss)
+        made = {k: v - c0[k] for k, v in flash_counts().items()}
+        if made != per_step or not np.isfinite(loss):
+            raise AssertionError(f"draft-head fit step {i + 1}: loss {loss}, launches {made} (expected {per_step})")
+        if i == 0:
+            ee = state.params["early_exit"]
+            heads = {h: float(ee[h]["w"].grad.abs().sum()) for h in ("to_logits", "to_logits2")}
+            if not all(g > 0 for g in heads.values()):
+                raise AssertionError(f"the first fit step's gradient does not reach the draft heads: {heads}")
+    median = float(np.median(ms[2:]))
+    totals = flash_counts()
+    log(f"draft-head fit (CoMix full width + early exit at layer 2, bf16, B={SPEC_FIT_BATCH}, decoder T "
+        f"{SPEC_TARGET + 2}): {SPEC_FIT_STEPS} steps, median {median:.2f} ms per step, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launch totals {totals}")
+    results.update(spec_fit_step_ms=median, spec_fit_loss=losses[-1], spec_fit_launches=totals)
+    return cfg, tree_map(lambda p: p.detach(), state.params)
+
+
+class GreedyLogits:
+    """Records the logits greedy `generate` samples from, per step and stream
+    (the port's `sampling.gumbel_sample` is wrapped while it is entered)."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        from covomix_tpu_torch.ops import sampling as S
+
+        self._orig = S.gumbel_sample
+
+        def gumbel_sample(generator, logits, *args, **kwargs):
+            self.steps.append(logits.detach().float().clone())
+            return self._orig(generator, logits, *args, **kwargs)
+
+        S.gumbel_sample = gumbel_sample
+        return self
+
+    def __exit__(self, *exc):
+        from covomix_tpu_torch.ops import sampling as S
+
+        S.gumbel_sample = self._orig
+
+    def margin(self, pos, stream, row, n_steps):
+        """Greedy's top-two gap at step `pos` (of n_steps) on `stream`, over
+        max(1, |top logit|)."""
+        import torch
+
+        per_step = len(self.steps) // n_steps      # one sample per stream and step
+        top = torch.topk(self.steps[pos * per_step + min(stream, per_step - 1)][row], 2).values
+        return float((top[0] - top[1]) / max(1.0, abs(float(top[0]))))
+
+
+def hold_tokens(what, greedy, spec, logits=None):
+    """The speculative tokens (both streams) against greedy's, row by row.
+    Without `logits` (f32, TF32 off) every position must be equal. With the
+    greedy run's GreedyLogits (bf16), a row may diverge where greedy's top
+    two logits are within SPEC_BF16_TIE; a row whose first difference is
+    pad against a token (the global stop moved) passes only beside such a
+    tie. Returns [(row, position, relative margin)] of the divergences."""
+    import numpy as np
+
+    g = [greedy.tokens.cpu().numpy(), greedy.tokens2.cpu().numpy()]
+    s = [spec.tokens.cpu().numpy(), spec.tokens2.cpu().numpy()]
+    found, stops = [], []
+    for r in range(g[0].shape[0]):
+        diff = np.nonzero((g[0][r] != s[0][r]) | (g[1][r] != s[1][r]))[0]
+        if not len(diff):
+            continue
+        p = int(diff[0])
+        if any(min(g[k][r, p], s[k][r, p]) < 0 for k in (0, 1)) or logits is None:
+            stops.append((r, p, float("inf")))
+            continue
+        found.append((r, p, max(logits.margin(p, k, r, greedy.num_steps) for k in (0, 1)
+                                if g[k][r, p] != s[k][r, p])))
+    ties = [d for d in found if d[2] < SPEC_BF16_TIE]
+    log(f"{what}: tokens equal in {g[0].shape[0] - len(found) - len(stops)} of {g[0].shape[0]} rows; "
+        f"divergences (row, position, top-two margin / max(1, |logit|)) {found + stops} (tie below "
+        f"{SPEC_BF16_TIE:g})")
+    if len(ties) != len(found) or (stops and not ties):
+        raise AssertionError(f"{what}: speculative tokens differ from greedy's beyond a bf16 near-tie: "
+                             f"{found + stops}")
+    return found + stops
+
+
+def spec_tokens(res):
+    """Decoded positions per row (the shorter stream's, EOS included)."""
+    import torch
+
+    return torch.minimum(res.lengths, res.lengths2).double().cpu().numpy()
+
+
+def run_spec_decode(results, cfg, params):
+    """Greedy `generate` (temperature 1e-10, top_k_thres 1.0) against
+    `generate_speculative` at every gamma of SPEC_GAMMAS on 8 seeded texts,
+    max_length 512: in f32 with TF32 off the tokens must be equal position
+    for position; in bf16 equal up to near-ties (hold_tokens). Every
+    speculative run must take at most tokens / 2 verify rounds. The bf16
+    decodes are timed as the best of 3, taken in turns; bench.py's keys are
+    logged for gamma 4."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.models import text2semantic as T
+
+    text = torch.as_tensor(spec_batch(np.random.RandomState(7), 8)["text_ids"], device="cuda")
+    gen = torch.Generator(device="cuda")
+    table = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        runs = 3 if dtype == torch.bfloat16 else 1     # the f32 walls: one run each, first calls included
+        decoders = {"greedy": lambda: T.generate(params, cfg, gen.manual_seed(0), text, max_length=SPEC_DECODE,
+                                                 temperature=1e-10, top_k_thres=1.0, dtype=dtype)}
+        for g in SPEC_GAMMAS:
+            decoders[g] = lambda g=g: T.generate_speculative(params, cfg, text, max_length=SPEC_DECODE, gamma=g,
+                                                             dtype=dtype)
+        logits, out, walls = GreedyLogits(), {}, {key: float("inf") for key in decoders}
+        # every decode once a turn, so that a slow spell of the shared host
+        # falls on all of them alike; greedy's logits are recorded in the
+        # first turn (its best of 3 is then one of the other two)
+        for turn in range(runs):
+            for key, fn in decoders.items():
+                torch.cuda.synchronize()
+                t0 = time.time()
+                with logits if key == "greedy" and turn == 0 else contextlib.nullcontext():
+                    out[key] = fn()
+                torch.cuda.synchronize()
+                walls[key] = min(walls[key], time.time() - t0)
+        greedy, wg = out["greedy"], walls["greedy"]
+        gtok = spec_tokens(greedy)
+        row = {"greedy_wall_s": wg, "greedy_steps": greedy.num_steps, "greedy_tokens": float(gtok.mean())}
+        for gamma in SPEC_GAMMAS:
+            spec, ws = out[gamma], walls[gamma]
+            hold_tokens(f"spec decode {name} gamma {gamma} vs greedy", greedy, spec,
+                        logits if dtype == torch.bfloat16 else None)
+            stok = spec_tokens(spec)
+            per_round = float(stok.mean()) / max(spec.num_steps, 1)
+            row[gamma] = {"wall_s": ws, "rounds": spec.num_steps, "tokens": float(stok.mean()),
+                          "tokens_per_round": per_round, "acceptance": max(0.0, (per_round - 1.0) / gamma),
+                          "speedup": (stok.sum() / ws) / (gtok.sum() / wg)}
+            if spec.num_steps > stok.mean() / 2:
+                raise AssertionError(f"spec decode {name} gamma {gamma}: {spec.num_steps} rounds for "
+                                     f"{stok.mean()} tokens (acceptance collapsed)")
+        table[name] = row
+        log(f"spec decode {name} (B=8, max_length {SPEC_DECODE}): " + json.dumps(row))
+    g4, bf = table["bf16"][4], table["bf16"]
+    bench_keys = {"t2s_spec_gamma": 4, "t2s_spec_tokens_per_round": g4["tokens_per_round"],
+                  "t2s_spec_acceptance": g4["acceptance"],
+                  "t2s_greedy_tok_per_s": bf["greedy_tokens"] * 8 / bf["greedy_wall_s"],
+                  "t2s_spec_tok_per_s": g4["tokens"] * 8 / g4["wall_s"], "t2s_spec_speedup": g4["speedup"]}
+    log("spec decode bench keys (bf16): " + json.dumps(bench_keys))
+    results.update(spec_decode=table, spec_bench=bench_keys)
+
+
+def run_spec_serving(results, cfg, params, models, batch=4, prompt=400, decode=SPEC_DECODE):
+    """BatchedPipeline(speculative=True, spec_gamma=4) at phase 4's shape
+    (B=4, prompt 400, decode 512, bf16) with the fitted T2S and phase 4's
+    VoMix and HiFi-GAN: one batch timed with the launch counts set to 0
+    just before (256 flash forwards and as many pre-passes, nothing
+    else), a finite wav of the expected shape, the tokens a greedy
+    `generate` of the same rows gives (hold_tokens' bf16 rule), and the
+    batch's split beside phase 4's."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.models import text2semantic as T, vocoder as V
+    from covomix_tpu_torch.serving import BatchedPipeline
+
+    _, ac_cfg, voc_cfg = full_width_configs()
+    pipe = BatchedPipeline(params, cfg, models[0], ac_cfg, models[1], voc_cfg, decode_len=decode, cond_scale=0.7,
+                           dtype=torch.bfloat16, device="cuda", speculative=True, spec_gamma=4)
+    _, pt, pm = serving_inputs(batch, prompt, 24, ac_cfg.dim_in, 1)
+    placed = pipe.place(spec_batch(np.random.RandomState(8), batch)["text_ids"], pt, pm)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.time()
+    wav, res = pipe(gen, *placed)     # no warm-up: run_spec_decode and phase 4 ran every stage before
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = flash_counts()
+    if counts != launches(fwd=256, rotary=256):
+        raise AssertionError(f"speculative serving batch launched {counts}, expected 256 forwards and pre-passes")
+    if tuple(wav.shape) != (batch, V.output_length(voc_cfg, decode)) or not bool(torch.isfinite(wav).all()):
+        raise AssertionError(f"bad wav: shape {tuple(wav.shape)}, finite {bool(torch.isfinite(wav).all())}")
+    with GreedyLogits() as logits:
+        greedy = T.generate(pipe.t2s_params, cfg, gen, placed[0], max_length=decode, temperature=1e-10,
+                            top_k_thres=1.0, dtype=torch.bfloat16)
+    hold_tokens("speculative serving vs greedy", greedy, res, logits)
+
+    stages, valid = split_serving_batch(pipe, gen, placed)
+    audio_s = float(spec_tokens(res).sum()) * 0.02
+    log(f"speculative serving B={batch} prompt={prompt} decode={decode} gamma 4 bf16: wall {wall:.4f} s for "
+        f"{audio_s:.2f} s of generated audio (RTF {wall / audio_s:.5f}), verify rounds {res.num_steps}, tokens "
+        f"{spec_tokens(res).tolist()}; split (s) {json.dumps(stages)}; phase 4 (sampling, EOS masked, 512 "
+        f"frames each): {json.dumps(results['stages'])}")
+    results.update(spec_serving_wall_s=wall, spec_serving_rtf=wall / audio_s, spec_serving_stages=stages,
+                   spec_serving_launches=counts, spec_serving_rounds=res.num_steps)
+
+
+def run_spec_dialogue(results, root, cfg, params):
+    """The fitted T2S saved with save_params, then the dialogue CLI with
+    --speculative on phase 6's prompts and scripts (run_dialogue_cli's gates:
+    one fused stage and tail per vocode, 256 flash forwards and pre-passes
+    per flow sample, int16 wavs of 160 x generated frames), and the decoded
+    tokens against a greedy Synthesizer's (temperature 1e-10) decode of the
+    same script."""
+    import dataclasses
+
+    import torch
+    from covomix_tpu_torch import pipeline as P
+    from covomix_tpu_torch.checkpoint.io import save_params
+
+    save_params(os.path.join(root, "t2s_spec.npz"), params, meta={"config": dataclasses.asdict(cfg)})
+    decodes = run_dialogue_cli(results, root, t2s="t2s_spec.npz", extra=["--speculative"], key="spec_dialogue")
+    results.pop("spec_dialogue_vocoder_inputs")
+    spec_synth, spec = decodes[-1]
+    greedy_synth = dataclasses.replace(spec_synth, speculative=False, temperature=1e-10)
+    with GreedyLogits() as logits:
+        greedy = greedy_synth._decode(P.clean_text(DIALOGUE_SCRIPT), torch.Generator(device="cuda").manual_seed(0))
+    hold_tokens("speculative per-file decode vs a greedy Synthesizer", greedy, spec, logits)
+    log(f"per-file dialogue RTF with --speculative {results['spec_dialogue_rtf']:.5f} (verify rounds "
+        f"{results['spec_dialogue_steps']}), phase 6 (sampling) {results['dialogue_rtf']:.5f} "
+        f"(decode steps {results['dialogue_steps']})")
+
+
+def run_speculative(results, root, models):
+    """Phase 13 (a-d), each part's wall logged."""
+    walls = {}
+    t0 = time.time()
+    cfg, params = fit_draft_heads(results)
+    walls["fit_s"] = time.time() - t0
+    for name, fn in (("decode_s", lambda: run_spec_decode(results, cfg, params)),
+                     ("serving_s", lambda: run_spec_serving(results, cfg, params, models)),
+                     ("per_file_s", lambda: run_spec_dialogue(results, root, cfg, params))):
+        t0 = time.time()
+        fn()
+        walls[name] = time.time() - t0
+    log(f"phase 13 walls (s): {json.dumps(walls)}")
+    results["spec_walls"] = walls
+
+
 # registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
 # to the counts of their first build: the bf16 TMA + wgmma forward's four
 # forms (<dh, lse, causal>), the rotary pre-pass, the TMA + wgmma backward
@@ -2508,6 +2858,7 @@ def main() -> int:
         paths = write_torch_checkpoints(root)
         run_serve_batch_from_torch(results, root, paths)
         run_hifigan_inference(results, root, paths["vocoder"])
+        run_speculative(results, root, results.pop("serving_models"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     root = os.path.join(VT.BUILD_DIR, "smoke_hubert")
@@ -2546,19 +2897,27 @@ def main() -> int:
             shutil.rmtree(root, ignore_errors=True)
 
     launches = results["dialogue_launches"]     # this slice's main path: the per-file dialogue CLI
+    # phase 13's path (speculative decode): the fit's causal kernels, the
+    # speculative serving batch's and per-file run's forwards, pre-passes and
+    # fused vocoder kernels
+    spec_file, spec_serving, spec_fit = (results["spec_dialogue_launches"], results["spec_serving_launches"],
+                                         results["spec_fit_launches"])
     flash_src, voc_src = "covomix_tpu_torch/csrc/flash_attention.cu", "covomix_tpu_torch/csrc/vocoder_tail.cu"
     kernels = [
         # the attention kernel alone; with the pre-pass, as the path calls it, in ms_with_prepass
         kernel_entry(results, "flash", "flash_attention_fwd", flash_src, "covomix_tpu/ops/flash_attention.py:162",
-                     launches["flash"], with_prepass=True),
+                     launches["flash"], with_prepass=True,
+                     speculative_launches=spec_file["flash"] + spec_serving["fwd"]),
         # the rotary half of the TPU kernel's fused rotary (`if fused_rotary:` in _flash_kernel), once per call
         kernel_entry(results, "flash_rotary", "flash_rotary_halfsplit", flash_src,
-                     "covomix_tpu/ops/flash_attention.py:213", launches["rotary"]),
+                     "covomix_tpu/ops/flash_attention.py:213", launches["rotary"],
+                     speculative_launches=spec_file["rotary"] + spec_serving["rotary"]),
     ]
     for kind, replaces in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                            ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):
         kernels.append(kernel_entry(results, kind, f"vocoder_fused_{kind}", voc_src, replaces, launches[kind],
-                                    unfused_ms=results[f"{kind}_unfused_ms"], plan=plan_summary(results, kind)))
+                                    unfused_ms=results[f"{kind}_unfused_ms"], plan=plan_summary(results, kind),
+                                    speculative_launches=spec_file[kind]))
     replaces = {"fwd_lse": "covomix_tpu/ops/flash_attention.py:162",
                 "bwd_dq": "covomix_tpu/ops/flash_attention.py:502",
                 "bwd_dkv": "covomix_tpu/ops/flash_attention.py:544"}
@@ -2579,7 +2938,8 @@ def main() -> int:
     for key, where in replaces.items():
         key = f"{key}_causal"
         kernels.append(kernel_entry(results, key, f"flash_attention_{key}", flash_src, where, t2s[key],
-                                    launches_per_train_step=t2s[key] // results["t2s_steps"]))
+                                    launches_per_train_step=t2s[key] // results["t2s_steps"],
+                                    speculative_launches=spec_fit[key]))
     for cell, suffix in (("vomix", "_f32"), ("t2s", "_causal_f32")):   # f32 training at the recipes' precision
         runs = results[f"{cell}_f32_launches"]
         for key, where in replaces.items():
@@ -2587,6 +2947,12 @@ def main() -> int:
             kernels.append(kernel_entry(results, f"{key}{suffix}", f"flash_attention_{key}{suffix}", flash_src, where,
                                         count, launches_per_train_step=count // results[f"{cell}_f32_steps"]))
     log(f"total chip_smoke time {time.time() - t_start:.1f} s")
+    log("speculative decode: " + json.dumps({"bench": results["spec_bench"], "decode": results["spec_decode"],
+                                              "serving_wall_s": results["spec_serving_wall_s"],
+                                              "serving_stages": results["spec_serving_stages"],
+                                              "per_file_rtf": results["spec_dialogue_rtf"],
+                                              "fit_step_ms": results["spec_fit_step_ms"],
+                                              "walls": results["spec_walls"]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

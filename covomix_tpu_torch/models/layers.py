@@ -160,8 +160,9 @@ def rotary_halfsplit(positions, inv_freq, t):
 
 def rotary_interleaved(positions, inv_freq, t):
     """Pairwise-repeated freqs; rotate_half maps (x0, x1) -> (-x1, x0).
-    positions [T]; t [..., T, dh]."""
-    freqs = positions[:, None].float() * inv_freq[None, :]
+    positions [T], or any shape that broadcasts against t's leading dims
+    with T last (per-row positions: [B, 1, T]); t [..., T, dh]."""
+    freqs = positions[..., None].float() * inv_freq
     freqs = torch.repeat_interleave(freqs, 2, dim=-1)
     cos, sin = torch.cos(freqs).to(t.dtype), torch.sin(freqs).to(t.dtype)
     tp = t.reshape(t.shape[:-1] + (t.shape[-1] // 2, 2))
@@ -173,17 +174,19 @@ def rotary_interleaved(positions, inv_freq, t):
 # attention
 
 
-def attend(q, k, v, *, key_mask: Optional[torch.Tensor] = None, causal: bool = False):
+def attend(q, k, v, *, key_mask: Optional[torch.Tensor] = None, causal: bool = False,
+           q_offset: Optional[int] = None):
     """Scaled dot-product attention, softmax in f32. key_mask [B, Tk] True =
     attend; masked logits are -inf and a fully masked row gives zeros (NaN ->
-    0). causal places the queries at the end of the key axis."""
+    0). causal places the queries at the end of the key axis, or from key
+    position `q_offset` on when it is given (cached-decode semantics)."""
     scale = q.shape[-1] ** -0.5
     sim = torch.einsum("bhid,bhjd->bhij", q, k).float() * scale
     tq, tk = q.shape[-2], k.shape[-2]
     if key_mask is not None:
         sim = sim.masked_fill(~key_mask[:, None, None, :], float("-inf"))
     if causal:
-        qpos = torch.arange(tq, device=q.device) + (tk - tq)
+        qpos = torch.arange(tq, device=q.device) + ((tk - tq) if q_offset is None else q_offset)
         kpos = torch.arange(tk, device=q.device)
         sim = sim.masked_fill(~(kpos[None, :] <= qpos[:, None]), float("-inf"))
     attn = torch.softmax(sim, dim=-1)

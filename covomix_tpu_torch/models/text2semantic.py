@@ -6,17 +6,26 @@ covomix_tpu/models/text2semantic.py.
     GEGLU feed-forward, weight-tied token embedding / logit projection
   * training forward with teacher forcing and the CE (`forward_loss`), the
     two-stream CE sum for CoMix
+  * the early-exit draft head (`early_exit`: residual GEGLU feed-forward ->
+    RMSNorm -> logits, a second head for CoMix's stream 2) and its CE
   * autoregressive decode with per-layer KV caches, top-k + Gumbel sampling,
     EOS stop, mask-after-EOS cleanup; CoMix two-stream decode (`two_output`)
-    splits the decoder hidden in half, one logit head per stream.
+    splits the decoder hidden in half, one logit head per stream
+  * greedy self-speculative decode (`generate_speculative`): the early-exit
+    head drafts, one full-depth forward verifies; the tokens of greedy
+    `generate`
+  * the auxiliary losses `semantic_to_text_loss` (back-translation) and
+    `speech_speech_pretrain_loss` (denoising pretraining).
 
 In training the batches are right-padded, so the key masks are prefix masks:
 `forward_loss` hands them on as per-row lengths, and the full-sequence
 self-attention goes through `attend_flash_or_xla`, which takes the flash
 kernels (the decoder's causal form) on CUDA from 512 positions on and
-`layers.attend` otherwise. `generate` is a Python loop that stops as soon as
-the JAX package's while_loop condition would; it attends through
-`layers.attend` (the JAX package's decode path uses no kernel either)."""
+`layers.attend` otherwise. `generate` and `generate_speculative` are Python
+loops that stop as soon as the JAX package's while_loop conditions would,
+with one read of a device flag per iteration; they attend through
+`layers.attend` / einsum (the JAX package's decode paths use no kernel
+either)."""
 
 from __future__ import annotations
 
@@ -29,9 +38,6 @@ from covomix_tpu_torch.models import layers as L
 from covomix_tpu_torch.models.acoustic import linear_init
 from covomix_tpu_torch.ops import sampling as S
 from covomix_tpu_torch.ops.flash_attention import attend_flash_or_xla
-
-_SPECULATIVE_ITEM = "ROADMAP.md 'Modules to port': speculative decode"
-
 
 @dataclasses.dataclass(frozen=True)
 class T2SConfig:
@@ -104,8 +110,8 @@ def _ff_init(gen, dim, inner, device=None):
 
 
 def init(gen: torch.Generator, cfg: T2SConfig, device=None):
-    """Random parameters drawn from `gen`. The early-exit draft head is not
-    created: speculative decode is not ported yet."""
+    """Random parameters drawn from `gen`, with the early-exit draft head
+    when `target_early_exit_layer > 0`."""
     device = device or gen.device
     rn = lambda *s: torch.randn(s, generator=gen, device=device)
     p = {
@@ -129,6 +135,17 @@ def init(gen: torch.Generator, cfg: T2SConfig, device=None):
                                   null_kv=True, device=device),
          "ff": _ff_init(gen, cfg.target_dim, cfg.target_ff_inner, device=device)}
         for _ in range(cfg.target_depth)]
+    if cfg.target_early_exit_layer > 0:
+        # Residual(FeedForward) -> RMSNorm -> Linear(V+1); the feed-forward's
+        # inner width follows the reference head (mult 4), not target_ff_inner
+        p["early_exit"] = {
+            "ff": _ff_init(gen, cfg.target_dim, int(cfg.target_dim * 4 * 2 / 3), device=device),
+            "norm": {"gamma": torch.ones(cfg.target_dim, device=device)},
+            "to_logits": linear_init(gen, cfg.target_dim, cfg.num_semantic_tokens + 1, bias=False, device=device),
+        }
+        if cfg.two_output:   # a second full-width head drafts stream 2
+            p["early_exit"]["to_logits2"] = linear_init(gen, cfg.target_dim, cfg.num_semantic_tokens + 1,
+                                                        bias=False, device=device)
     return p
 
 
@@ -236,11 +253,12 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
     two-stream loss is the sum of both streams' CE. `cond_drop` with
     `classifier_free_guidance` replaces a row's context by the null source
     embedding with probability cond_drop_prob, drawn from `generator`.
+    With `target_early_exit_layer` E > 0 and the `early_exit` head in
+    `params`, the head's CE at the residual stream after decoder layer E is
+    added (detached first with `detach_early_exit_embed`), and for
+    two_output with `to_logits2` a second CE against stream 2.
     Returns the loss (0-dim f32), or (loss, logits) with `return_logits`
     (two_output: a pair of logits)."""
-    if cfg.target_early_exit_layer > 0:
-        raise NotImplementedError(f"the early-exit CE of speculative decoding is not ported yet "
-                                  f"({_SPECULATIVE_ITEM})")
     # only masks derived here from right-padded ids are provably prefix masks
     mask_is_prefix = source_mask is None and source_emb is None
     if source_emb is not None:
@@ -285,11 +303,13 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
     b = t1.shape[0]
     start = params["start_speech"].to(dtype)[None, None, :].expand(b, 1, cfg.target_dim)
     x = torch.cat([start, _embed_target(params, cfg, t1, t2, dtype)], dim=1)
+    hiddens = []
     for lp in params["target_layers"]:
         x = _self_attn_full(lp["self_attn"], x, cfg.heads, causal=True, prefix_lens=dec_lens) + x
         ckv = _context_kv(lp["cross_attn"], context, cfg.heads)
         x = _cross_attn(lp["cross_attn"], x, ckv, cfg.heads, context_mask=source_mask) + x
         x = _ff(lp["ff"], x) + x
+        hiddens.append(x)
     x = L.rmsnorm(params["target_final_norm"], x)
 
     def ce(logits, tgt):
@@ -307,6 +327,17 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
     else:
         logits = _sem_logits(params, x, dtype)
         loss = ce(logits, t1)
+
+    # the early-exit draft head's CE, on the hidden states computed above
+    if cfg.target_early_exit_layer > 0 and "early_exit" in params:
+        early = hiddens[cfg.target_early_exit_layer - 1]
+        if cfg.detach_early_exit_embed:
+            early = early.detach()
+        ee = params["early_exit"]
+        hn = L.rmsnorm(ee["norm"], early + _ff(ee["ff"], early))
+        loss = loss + ce(L.linear(ee["to_logits"], hn).float(), t1)
+        if cfg.two_output and "to_logits2" in ee:
+            loss = loss + ce(L.linear(ee["to_logits2"], hn).float(), t2)
     if return_logits:
         return loss, logits
     return loss
@@ -328,14 +359,11 @@ class GenerateResult(NamedTuple):
 def generate(params, cfg: T2SConfig, generator: Optional[torch.Generator], source_ids, *,
              max_length: int = 2048, temperature: float = 1.0, top_k_thres: float = 0.1,
              cond_scale: float = 1.0, min_length: int = 0, no_repeat_ngram_size: int = 0,
-             source_emb=None, source_mask=None, dtype=torch.float32,
-             speculative: bool = False) -> GenerateResult:
+             source_emb=None, source_mask=None, dtype=torch.float32) -> GenerateResult:
     """Top-k + Gumbel AR decode of up to max_length steps. Stops when every
     row has emitted EOS (two_output: when either stream has). After a stop,
     positions after EOS become pad; positions never written are pad either way.
     `min_length` masks the EOS logit for the first min_length steps."""
-    if speculative:
-        raise NotImplementedError(f"speculative decode is not ported yet ({_SPECULATIVE_ITEM})")
     b = (source_ids if source_emb is None else source_emb).shape[0]
     heads, dh = cfg.heads, cfg.dim_head
     eos, pad = cfg.semantic_eos_id, cfg.semantic_pad_id
@@ -444,3 +472,234 @@ def generate(params, cfg: T2SConfig, generator: Optional[torch.Generator], sourc
     len1 = torch.sum(tokens1 != pad, dim=-1)
     len2 = torch.sum(tokens2 != pad, dim=-1)
     return GenerateResult(tokens1, tokens2, len1, len2, i)
+
+
+# ---------------------------------------------------------------------------
+# self-speculative decode through the early-exit head
+#
+# Draft gamma tokens with decoder layers 1..E and the early-exit head, then
+# verify every draft in ONE full-depth forward over gamma+1 positions and
+# accept the longest matching prefix plus the full model's bonus token. The
+# tokens are greedy `generate`'s; only the number of full-depth forwards
+# changes, with the draft's acceptance.
+
+
+def _write_cache_at(cache, new, offsets):
+    """cache [B, H, L, dh] <- new [B, H, S, dh] at positions offsets[b] +
+    [0..S) of each row b, in place: one scatter over a [B, S] index."""
+    b, h, s, dh = new.shape
+    pos = offsets[:, None] + torch.arange(s, device=new.device)[None, :]
+    return cache.scatter_(2, pos[:, None, :, None].expand(b, h, s, dh), new)
+
+
+@torch.no_grad()
+def generate_speculative(params, cfg: T2SConfig, source_ids, *, max_length: int = 2048, gamma: int = 4,
+                         dtype=torch.float32) -> GenerateResult:
+    """Greedy speculative decode through the early-exit head, single-stream
+    and CoMix two_output. Needs cfg.target_early_exit_layer E > 0 and
+    params['early_exit'] (for two_output also its 'to_logits2': released
+    checkpoints carry only the stream-1 head). Each round drafts gamma
+    tokens (pairs) one after another with decoder layers 1..E and the draft
+    head(s) (argmax), verifies them in one full-depth forward over gamma+1
+    positions per row, and accepts the longest prefix on which BOTH streams
+    match plus the full model's bonus token (joint acceptance: stream 2's
+    continuation reads stream 1's tokens through the concatenated
+    embedding). The tokens equal greedy `generate`'s; `num_steps` counts the
+    verify rounds. The loop reads one flag from the device per round."""
+    if cfg.two_input:
+        raise AssertionError("speculative decode: two_input not supported")
+    if not (cfg.target_early_exit_layer > 0 and "early_exit" in params):
+        raise AssertionError("needs the early-exit head")
+    two = cfg.two_output
+    if two and "to_logits2" not in params["early_exit"]:
+        raise AssertionError("two_output speculative decode needs the stream-2 draft head "
+                             "(train with this framework; reference checkpoints carry only stream 1)")
+    b, dev = source_ids.shape[0], source_ids.device
+    heads, dh = cfg.heads, cfg.dim_head
+    eos, pad = cfg.semantic_eos_id, cfg.semantic_pad_id
+    cl = max_length + gamma + 2  # cache length, with room for the drafts in flight
+
+    src = S.set_eos_id(source_ids, cfg.text_eos_id, cfg.text_pad_id)
+    source_mask = src != cfg.text_pad_id
+    context = encode_source(params, cfg, embed_source(params, cfg, src, dtype), source_mask, dtype)
+    layers, ee = params["target_layers"], params["early_exit"]
+    cross_kvs = [_context_kv(lp["cross_attn"], context, heads) for lp in layers]
+    inv = L.rotary_freqs(dh, device=dev)
+    cache_k = [torch.zeros((b, heads, cl, dh), dtype=dtype, device=dev) for _ in layers]
+    cache_v = [torch.zeros((b, heads, cl, dh), dtype=dtype, device=dev) for _ in layers]
+    tokens1 = torch.full((b, cl), pad, dtype=torch.int32, device=dev)
+    tokens2 = torch.full((b, cl), pad, dtype=torch.int32, device=dev) if two else tokens1
+    lens = torch.zeros(b, dtype=torch.long, device=dev)    # positions accepted per row
+    done1 = torch.zeros(b, dtype=torch.bool, device=dev)   # stream EOS flags (EOS only, as in generate)
+    done2 = torch.zeros(b, dtype=torch.bool, device=dev)
+    # first-EOS position per row and stream (cl = none yet), to rebuild
+    # generate's GLOBAL stop step I = min over streams of (max over rows of
+    # the first EOS) + 1 after the loop: rows that have no EOS by I are cut
+    # there, as the global loop cuts them
+    p1 = torch.full((b,), cl, dtype=torch.long, device=dev)
+    p2 = p1.clone()
+    pos_idx = torch.arange(cl, device=dev)
+    span_idx = torch.arange(gamma + 1, device=dev)
+    start = params["start_speech"].to(dtype)[None, :]
+
+    def layer(li, x, start_b):
+        """Decoder layer li over x [B, S, D] at positions start_b + [0..S)
+        per row. Writes those positions of the layer's cache, then attends
+        causally over the whole cache: a query at p sees keys <= p, so the
+        stale entries a rejected draft left past a row's position stay
+        masked until the verify overwrites them."""
+        lp = layers[li]
+        sa = lp["self_attn"]
+        h = L.rmsnorm(sa["norm"], x)
+        q = L.split_heads(L.linear(sa["q"], h), heads)
+        k_new, v_new = torch.chunk(L.linear(sa["kv"], h), 2, dim=-1)
+        k_new, v_new = L.split_heads(k_new, heads), L.split_heads(v_new, heads)
+        qpos = start_b[:, None] + torch.arange(x.shape[1], device=dev)[None, :]       # [B, S]
+        q = L.rotary_interleaved(qpos[:, None], inv, q)     # per-row positions (JAX: _rotary_at(_span))
+        ck = _write_cache_at(cache_k[li], L.rotary_interleaved(qpos[:, None], inv, k_new), start_b)
+        cv = _write_cache_at(cache_v[li], v_new, start_b)
+        kmask = pos_idx[None, None, :] <= qpos[:, :, None]                             # [B, S, cl]
+        sim = torch.einsum("bhid,bhjd->bhij", q, ck).float() * dh ** -0.5
+        att = torch.nan_to_num(torch.softmax(sim.masked_fill(~kmask[:, None], float("-inf")), dim=-1), nan=0.0)
+        x = L.linear(sa["out"], L.merge_heads(torch.einsum("bhij,bhjd->bhid", att.to(cv.dtype), cv))) + x
+        x = _cross_attn(lp["cross_attn"], x, cross_kvs[li], heads, context_mask=source_mask) + x
+        return _ff(lp["ff"], x) + x
+
+    def draft(prev1, prev2, pos_b):
+        """Layers 1..E and the draft head(s) at position pos_b [B] per row."""
+        e = _embed_target(params, cfg, prev1, prev2, dtype)
+        x = torch.where((pos_b == 0)[:, None], start, e)[:, None, :]
+        for li in range(cfg.target_early_exit_layer):
+            x = layer(li, x, pos_b)
+        hn = L.rmsnorm(ee["norm"], x + _ff(ee["ff"], x))
+        t1 = torch.argmax(L.linear(ee["to_logits"], hn).float()[:, 0], dim=-1).to(torch.int32)
+        if not two:
+            return t1, t1
+        return t1, torch.argmax(L.linear(ee["to_logits2"], hn).float()[:, 0], dim=-1).to(torch.int32)
+
+    def verify(in1, in2):
+        """The full depth over the gamma+1 positions lens..lens+gamma per row,
+        inputs [token at lens-1 (BOS at 0), drafts...]; overwrites every
+        layer's cache there. Returns the greedy tokens [B, gamma+1] per stream."""
+        x = _embed_target(params, cfg, in1, in2, dtype)
+        x[:, 0] = torch.where((lens == 0)[:, None], start, x[:, 0])
+        for li in range(len(layers)):
+            x = layer(li, x, lens)
+        x = L.rmsnorm(params["target_final_norm"], x)
+        if not two:
+            f1 = torch.argmax(_sem_logits(params, x, dtype), dim=-1).to(torch.int32)
+            return f1, f1
+        half = cfg.target_dim // 2
+        return (torch.argmax(_sem_logits(params, x[..., :half], dtype), dim=-1).to(torch.int32),
+                torch.argmax(_sem_logits(params, x[..., half:], dtype), dim=-1).to(torch.int32))
+
+    def first_eos(full, take, done, p):
+        hit = (full == eos) & take
+        any_hit = hit.any(dim=1)
+        first = torch.argmax(hit.to(torch.int32), dim=1)                    # the first True
+        return done | any_hit, torch.where(any_hit & ~done, lens + first, p)
+
+    it = 0
+    while it < max_length:
+        # a row is live until BOTH its streams emitted EOS (generate decodes
+        # both streams until its GLOBAL stop, which is rebuilt after the loop)
+        active = ~(done1 & done2) & (lens < max_length)
+        if not bool(active.any()):     # the round's one read from the device
+            break
+        prev_pos = torch.clamp(lens - 1, min=0)[:, None]
+        prev1, prev2 = torch.gather(tokens1, 1, prev_pos)[:, 0], torch.gather(tokens2, 1, prev_pos)[:, 0]
+        drafts1, drafts2, t1, t2 = [], [], prev1, prev2
+        for j in range(gamma):
+            t1, t2 = draft(t1, t2, lens + j)
+            drafts1.append(t1)
+            drafts2.append(t2)
+        drafts1, drafts2 = torch.stack(drafts1, dim=1), torch.stack(drafts2, dim=1)
+        full1, full2 = verify(torch.cat([prev1[:, None], drafts1], dim=1),
+                              torch.cat([prev2[:, None], drafts2], dim=1))
+        # the longest JOINTLY matching prefix, plus the bonus position
+        match = drafts1 == full1[:, :gamma]
+        if two:
+            match &= drafts2 == full2[:, :gamma]
+        n_acc = torch.sum(torch.cumprod(match.to(torch.int32), dim=1), dim=1)
+        take = (span_idx[None, :] <= n_acc[:, None]) & active[:, None]      # [B, gamma+1]
+        # the accepted drafts equal the verify's tokens, and the bonus is the
+        # verify's: write full[:, :n_acc+1] at lens.. (untaken slots unchanged)
+        idx = lens[:, None] + span_idx[None, :]
+        tokens1.scatter_(1, idx, torch.where(take, full1, torch.gather(tokens1, 1, idx)))
+        done1, p1 = first_eos(full1, take, done1, p1)
+        if two:
+            tokens2.scatter_(1, idx, torch.where(take, full2, torch.gather(tokens2, 1, idx)))
+            done2, p2 = first_eos(full2, take, done2, p2)
+        else:
+            done2, p2 = done1, p1
+        lens = torch.clamp(lens + torch.where(active, n_acc + 1, 0), max=max_length)
+        it += 1
+
+    # generate's global stop: it halts after the step where ALL rows emitted
+    # EOS on stream 1 OR all rows on stream 2, so positions >= I = min(max_r
+    # p1, max_r p2) + 1 were never decoded there
+    i1 = torch.where(done1.all(), p1.max() + 1, max_length)
+    i2 = torch.where(done2.all(), p2.max() + 1, max_length) if two else i1
+    valid = pos_idx[None, :max_length] < torch.clamp(torch.minimum(i1, i2), max=max_length)
+    tokens1 = torch.where(valid, tokens1[:, :max_length], pad)
+    tokens2 = torch.where(valid, tokens2[:, :max_length], pad)
+    stopped = (done1.all() | done2.all()) if two else done1.all()
+    # generate masks after EOS only when its loop stopped on EOS
+    tokens1 = torch.where(stopped, S.mask_after_eos(tokens1, eos, pad), tokens1)
+    tokens2 = torch.where(stopped, S.mask_after_eos(tokens2, eos, pad), tokens2)
+    return GenerateResult(tokens1, tokens2, torch.sum(tokens1 != pad, dim=-1), torch.sum(tokens2 != pad, dim=-1),
+                          it)
+
+
+# ---------------------------------------------------------------------------
+# auxiliary training losses
+
+
+def semantic_to_text_loss(params, cfg: T2SConfig, semantic_ids, text_ids, *, dtype=torch.float32):
+    """Back-translation: the speech tokens through the SPEECH embedding and
+    the encoder, the text through the text embedding, the decoder and the
+    weight-tied text logits; CE over the text (pad 0 ignored). Needs
+    target_dim == dim and neither two_output nor two_input."""
+    if cfg.target_dim != cfg.dim:
+        raise AssertionError("s2t decoding shares the decoder; set target_dim == dim")
+    if cfg.two_output or cfg.two_input:
+        raise AssertionError("s2t decoding takes one speech and one text stream")
+    src = S.set_eos_id(semantic_ids, cfg.semantic_eos_id, cfg.semantic_pad_id)
+    source_mask = src != cfg.semantic_pad_id
+    source_emb = L.embedding(params["sem_emb"], torch.clamp(src, 0, cfg.num_semantic_tokens), dtype)
+    context = encode_source(params, cfg, source_emb, source_mask, dtype)
+
+    tgt = S.set_eos_id(text_ids, cfg.text_eos_id, cfg.text_pad_id)
+    valid = tgt != cfg.text_pad_id
+    b = tgt.shape[0]
+    dec_mask = torch.cat([torch.ones((b, 1), dtype=torch.bool, device=tgt.device), valid], dim=-1)
+    start = params["start_text"].to(dtype)[None, None, :].expand(b, 1, cfg.dim)
+    x = torch.cat([start, L.embedding(params["text_emb"], torch.clamp(tgt, 0, cfg.num_text_tokens), dtype)], dim=1)
+    for lp in params["target_layers"]:
+        x = _self_attn_full(lp["self_attn"], x, cfg.heads, mask=dec_mask, causal=True) + x
+        ckv = _context_kv(lp["cross_attn"], context, cfg.heads)
+        x = _cross_attn(lp["cross_attn"], x, ckv, cfg.heads, context_mask=source_mask) + x
+        x = _ff(lp["ff"], x) + x
+    x = L.rmsnorm(params["target_final_norm"], x)
+    logits = (x @ params["text_emb"]["w"].to(dtype).T).float()[:, :-1]
+    tgt_c = torch.clamp(tgt, 0, cfg.num_text_tokens).long()
+    nll = -torch.gather(torch.log_softmax(logits, dim=-1), -1, tgt_c[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+
+
+def speech_speech_pretrain_loss(params, cfg: T2SConfig, generator: Optional[torch.Generator], semantic_ids, *,
+                                deletion_prob: float = 0.6, dtype=torch.float32, drop=None):
+    """Denoising pretraining: a random `deletion_prob` share of the speech
+    tokens is replaced with the mask id (the last text id), and the model
+    reconstructs the whole sequence; the corrupted tokens go through the TEXT
+    path. The draw comes from `generator`, or is handed in as `drop` ([B, T]
+    bool, True = replace; pad positions are never replaced)."""
+    mask_id = cfg.num_text_tokens - 1
+    valid = semantic_ids != cfg.semantic_pad_id
+    if drop is None:
+        u = torch.rand(semantic_ids.shape, generator=generator, device=generator.device)
+        drop = u.to(semantic_ids.device) < deletion_prob
+    drop = drop & valid
+    source = torch.where(drop, mask_id, torch.clamp(semantic_ids, 0, cfg.num_text_tokens - 1))
+    return forward_loss(params, cfg, source, semantic_ids, dtype=dtype)

@@ -27,7 +27,7 @@ import torch
 
 from covomix_tpu_torch import resolve_device
 from covomix_tpu_torch.audio import save_wav
-from covomix_tpu_torch.pipeline import SPECULATIVE_ITEM, Synthesizer, load_synthesizer
+from covomix_tpu_torch.pipeline import Synthesizer, load_synthesizer
 
 
 def add_args(parser: argparse.ArgumentParser, *, mode: str, prompt_dir: str) -> None:
@@ -51,15 +51,15 @@ def add_args(parser: argparse.ArgumentParser, *, mode: str, prompt_dir: str) -> 
                         help="vocode without valid_len so the fused stage/tail kernels run on cuda "
                              "(the last ~0.3 s of each wav approximates exact-length inference)")
     parser.add_argument("--speculative", action="store_true",
-                        help="greedy self-speculative T2S decode (not ported yet: raises)")
+                        help="greedy self-speculative T2S decode (needs a checkpoint trained "
+                             "with an early-exit head; CoMix two-stream needs this "
+                             "framework's stream-2 draft head)")
     parser.add_argument("--bf16", action="store_true", help="force bfloat16 compute (default on cuda)")
     parser.add_argument("--f32", action="store_true", help="force float32 compute (default on cpu)")
     parser.add_argument("--device", default="cuda", help="torch device (default cuda; cpu must be asked for)")
 
 
 def load_models(args) -> Synthesizer:
-    if args.speculative:
-        raise NotImplementedError(f"--speculative: speculative T2S decode is not ported yet ({SPECULATIVE_ITEM})")
     device = resolve_device(args.device)
     if args.f32:
         dtype = torch.float32
@@ -69,7 +69,7 @@ def load_models(args) -> Synthesizer:
         dtype = torch.float32
     return load_synthesizer(args.t2s_ckpt, args.acous_ckpt, args.hifigan_ckpt, vocab_path=args.bert_vocab,
                             strict=not args.allow_fallback_vocab, dtype=dtype, fuse_tail=args.fuse_tail,
-                            device=device)
+                            speculative=args.speculative, device=device)
 
 
 def generate_all(args, kind: str, synthesize) -> None:

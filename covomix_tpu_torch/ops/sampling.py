@@ -37,6 +37,17 @@ def top_k_filter(logits, thres: float = 0.1, k: int | None = None):
     return torch.where(logits < kth, torch.full_like(logits, NEG_INF), logits)
 
 
+def top_p_filter(logits, thres: float = 0.9):
+    """Nucleus filter: over the logits sorted in descending order, drop every
+    token after the sorted cumulative softmax first exceeds `thres` (the
+    token that crosses is kept); dropped logits become NEG_INF."""
+    sorted_logits = torch.flip(torch.sort(logits, dim=-1).values, dims=(-1,))
+    cum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+    remove = torch.cat([torch.zeros_like(cum[..., :1], dtype=torch.bool), (cum > thres)[..., :-1]], dim=-1)
+    cutoff = torch.amin(sorted_logits.masked_fill(remove, float("inf")), dim=-1, keepdim=True)
+    return torch.where(logits < cutoff, torch.full_like(logits, NEG_INF), logits)
+
+
 def mask_after_eos(tokens, eos_id: int, pad_id: int):
     """Replace everything strictly after the first EOS with pad_id."""
     after = torch.cumsum((tokens == eos_id).int(), dim=-1) > 0

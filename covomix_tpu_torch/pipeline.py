@@ -49,7 +49,6 @@ SILENCE_TOKEN = 157          # silence unit id
 TOKEN_CLAMP = 501            # clamp ceiling incl. EOS
 PROMPT_MAX_FRAMES = 400      # 8 s at 20 ms hop
 MEL_PAD = -15.0              # collate pad value
-SPECULATIVE_ITEM = "ROADMAP.md 'Modules to port': speculative decode"
 PARALLEL_ITEM = "ROADMAP.md 'Modules to port': Parallelism"
 
 
@@ -141,19 +140,36 @@ class Synthesizer:
     # mel frames (~0.3 s) of each wav approximate exact-length vocoding.
     # False (default): exact, valid_len masking.
     fuse_tail: bool = False
+    # True: greedy self-speculative T2S decode (generate_speculative: the
+    # early-exit head drafts, the full depth verifies; the tokens of greedy
+    # generate). Needs a checkpoint trained with target_early_exit_layer > 0,
+    # for two_output also the stream-2 draft head, which the released
+    # checkpoints lack. The generator, temperature and T2S CFG do not apply.
     speculative: bool = False
     device: Optional[str] = None           # None -> cuda
 
     def __post_init__(self):
         if self.speculative:
-            raise NotImplementedError(f"speculative T2S decode is not ported yet ({SPECULATIVE_ITEM})")
+            if self.t2s_cfg.target_early_exit_layer <= 0:
+                raise ValueError("--speculative needs a T2S checkpoint trained "
+                                 "with an early-exit head (target_early_exit_layer > 0)")
+            if self.t2s_cfg.two_output and "to_logits2" not in self.t2s_params.get("early_exit", {}):
+                raise ValueError("--speculative on a two-stream (CoMix) checkpoint needs "
+                                 "the stream-2 draft head ('early_exit/to_logits2', trained "
+                                 "by this framework); reference checkpoints carry only the "
+                                 "stream-1 head")
         self.device = resolve_device(self.device)
         self.t2s_params = params_from_numpy(self.t2s_params, self.device)
         self.acoustic_params = params_from_numpy(self.acoustic_params, self.device)
         self.vocoder_params = params_from_numpy(self.vocoder_params, self.device)
-        self._gen_fn = functools.partial(T.generate, cfg=self.t2s_cfg, max_length=self.t2s_max_length,
-                                         temperature=self.temperature, cond_scale=self.t2s_cond_scale,
-                                         dtype=self.dtype)
+        if self.speculative:
+            spec = functools.partial(T.generate_speculative, cfg=self.t2s_cfg, max_length=self.t2s_max_length,
+                                     dtype=self.dtype)
+            self._gen_fn = lambda params, generator, source_ids: spec(params, source_ids=source_ids)
+        else:
+            self._gen_fn = functools.partial(T.generate, cfg=self.t2s_cfg, max_length=self.t2s_max_length,
+                                             temperature=self.temperature, cond_scale=self.t2s_cond_scale,
+                                             dtype=self.dtype)
         self._sample_fn = functools.partial(A.sample, cfg=self.acoustic_cfg, cond_scale=self.cond_scale,
                                             dtype=self.dtype)
         # fuse_tail=None: the generator's auto dispatch (fused kernels on CUDA

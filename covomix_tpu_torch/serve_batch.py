@@ -24,8 +24,7 @@ from covomix_tpu_torch import resolve_device
 from covomix_tpu_torch.audio import MelConfig, save_wav
 from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
 from covomix_tpu_torch.models import acoustic as A, text2semantic as T, vocoder as V
-from covomix_tpu_torch.pipeline import (PARALLEL_ITEM, SPECULATIVE_ITEM, clean_text, load_checkpoint,
-                                        prepare_prompt)
+from covomix_tpu_torch.pipeline import PARALLEL_ITEM, clean_text, load_checkpoint, prepare_prompt
 from covomix_tpu_torch.serving import SILENCE_TOKEN, BatchedPipeline
 
 
@@ -50,18 +49,16 @@ def parse_args(argv=None):
     p.add_argument("--staged", action="store_true",
                    help="run the stages one after another (the eager port always does)")
     p.add_argument("--speculative", action="store_true",
-                   help="greedy self-speculative T2S decode (not ported yet: raises)")
-    p.add_argument("--spec_gamma", type=int, default=None,
-                   help="speculative drafts per verify round (not ported yet: raises)")
+                   help="greedy self-speculative T2S decode (needs a checkpoint trained "
+                        "with the early-exit draft head(s); output == greedy decode)")
+    p.add_argument("--spec_gamma", type=int, default=4,
+                   help="speculative drafts per verify round")
     p.add_argument("--multihost", action="store_true", help="multi-host serving (not ported yet: raises)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.speculative or args.spec_gamma is not None:
-        raise NotImplementedError(f"--speculative / --spec_gamma: speculative decode is not ported yet "
-                                  f"({SPECULATIVE_ITEM})")
     if args.multihost:
         raise NotImplementedError(f"--multihost: multi-host serving is not ported yet ({PARALLEL_ITEM})")
     device = resolve_device(args.device)
@@ -77,7 +74,8 @@ def main(argv=None):
     tok = load_covomix_tokenizer(args.bert_vocab, strict=not args.allow_fallback_vocab)
     mel_cfg = MelConfig(sample_rate=voc_cfg.sampling_rate)
     pipe = BatchedPipeline(t2s_params, t2s_cfg, ac_params, ac_cfg, voc_params, voc_cfg,
-                           decode_len=args.decode_len, dtype=dtype, device=device)
+                           decode_len=args.decode_len, dtype=dtype, device=device,
+                           speculative=args.speculative, spec_gamma=args.spec_gamma)
 
     os.makedirs(args.saved_dir, exist_ok=True)
     scripts = sorted(glob.glob(os.path.join(args.text_dir, "*.txt")))

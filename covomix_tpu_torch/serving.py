@@ -72,7 +72,12 @@ class BatchedPipeline:
     `prompt_frames` and `fused` are the JAX pipeline's fields, accepted and
     without effect: `prompt_frames` is informational there too (the prompt
     length comes from the inputs), and the eager port always runs its stages
-    one after another, where JAX may jit the whole cascade as one program."""
+    one after another, where JAX may jit the whole cascade as one program.
+
+    `speculative` decodes the T2S stage greedily with `generate_speculative`
+    (`spec_gamma` drafts per verify round; the tokens of greedy `generate`).
+    It needs the early-exit draft head(s) in the checkpoint, and takes no
+    generator, `min_length` or `top_k_thres`: EOS stops the greedy model."""
 
     t2s_params: dict
     t2s_cfg: T.T2SConfig
@@ -86,19 +91,23 @@ class BatchedPipeline:
     min_length: int = 0        # mask EOS for the first N decode steps
     top_k_thres: float = 0.1
     device: Optional[str] = None   # None -> cuda
-    speculative: bool = False
+    speculative: bool = False  # greedy self-speculative T2S decode (early-exit draft heads)
+    spec_gamma: int = 4        # drafts per verify round when speculative
     prompt_frames: int = 400   # informational, as in JAX
     fused: bool = True         # accepted for the JAX signature; no effect here
 
     def __post_init__(self):
-        if self.speculative:
-            raise NotImplementedError("speculative serving is not ported yet (ROADMAP: speculative decode)")
+        if self.speculative and not (self.t2s_cfg.target_early_exit_layer > 0 and "early_exit" in self.t2s_params):
+            raise AssertionError("speculative serving needs a checkpoint with the early-exit draft head")
         self.device = resolve_device(self.device)
         self.t2s_params = params_from_numpy(self.t2s_params, self.device)
         self.acoustic_params = params_from_numpy(self.acoustic_params, self.device)
         self.vocoder_params = params_from_numpy(self.vocoder_params, self.device)
 
     def _gen(self, params, generator, source_ids):
+        if self.speculative:   # greedy: the generator is not drawn from
+            return T.generate_speculative(params, self.t2s_cfg, source_ids, max_length=self.decode_len,
+                                          gamma=self.spec_gamma, dtype=self.dtype)
         return T.generate(params, self.t2s_cfg, generator, source_ids, max_length=self.decode_len,
                           min_length=self.min_length, top_k_thres=self.top_k_thres, dtype=self.dtype)
 

@@ -110,8 +110,9 @@ def test_torch_checkpoint_and_speculative_refused(assets, tmp_path):
     from Lightning `.ckpt` files (T2S and acoustic, EMA weights) and a
     HiFi-GAN `g_<step>` gives the wav of the run from the `.npz` files they
     were made from, within one int16 step (the T2S and acoustic trees come
-    back bit for bit, the folded vocoder to f32 rounding). --speculative
-    still raises."""
+    back bit for bit, the folded vocoder to f32 rounding). --speculative on
+    a T2S checkpoint without the early-exit draft head is refused with the
+    JAX Synthesizer's ValueError, from the `.npz` and from the `.ckpt`."""
     key = jax.random.PRNGKey(7)
     for name, init, cfg, kind in (("t2s", JT.init, J_T2S_CKPT, "t2s"), ("acoustic", JA.init, J_AC_CKPT, "acoustic")):
         tree = jax.tree_util.tree_map(np.asarray, jax.jit(init, static_argnums=1)(jax.random.fold_in(key, len(name)),
@@ -131,8 +132,11 @@ def test_torch_checkpoint_and_speculative_refused(assets, tmp_path):
         wavs.append(wavfile.read(str(tmp_path / f"out{len(wavs)}" / "utt1.wav"))[1].astype(np.int32))
     assert len(wavs[0]) > 0 and wavs[0].shape == wavs[1].shape
     assert np.abs(wavs[0] - wavs[1]).max() <= 1
-    with pytest.raises(NotImplementedError, match="speculative"):
-        dialogue_generation.main(_args(assets, tmp_path, extra=["--speculative"]))
+    for t2s in ("t2s.npz", "t2s.ckpt"):
+        argv = _args(assets, tmp_path / "spec", extra=["--speculative"])
+        argv[argv.index("--t2s_ckpt") + 1] = str(tmp_path / t2s)
+        with pytest.raises(ValueError, match="early-exit head"):
+            dialogue_generation.main(argv)
 
 
 def test_cuda_is_the_default_device(assets, tmp_path):

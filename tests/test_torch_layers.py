@@ -127,6 +127,23 @@ def test_attend(mask, causal):
     assert torch.isfinite(out).all()
 
 
+@pytest.mark.parametrize("q_offset", [None, 0, 2, 5])
+def test_attend_q_offset(q_offset):
+    """Causal attention with the queries placed at key position q_offset
+    (None: at the end of the key axis, here 5); q_offset 0 leaves the first
+    query one key."""
+    q, k, v = _rand(2, 2, 4, 16, seed=4), _rand(2, 2, 9, 16, seed=5), _rand(2, 2, 9, 16, seed=6)
+    km = np.ones((2, 9), bool)
+    km[1, 7:] = False
+    ref = JL.attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), key_mask=jnp.asarray(km), causal=True,
+                    q_offset=q_offset)
+    out = PL.attend(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), key_mask=torch.from_numpy(km),
+                    causal=True, q_offset=q_offset)
+    _close(out, ref)
+    if q_offset == 0:
+        _close(out[:, :, 0], np.broadcast_to(v[:, :, :1], (2, 2, 1, 16))[:, :, 0])
+
+
 def test_split_merge_heads():
     x = _rand(2, 7, 12, seed=1)
     s = PL.split_heads(torch.from_numpy(x), 3)
@@ -171,6 +188,18 @@ def test_top_k_filter_keeps_ties():
     big = _rand(3, 502, seed=2)
     np.testing.assert_array_equal(PS.top_k_filter(torch.from_numpy(big), thres=0.1).numpy(),
                                   np.asarray(JS.top_k_filter(jnp.asarray(big), thres=0.1)))
+
+
+@pytest.mark.parametrize("thres", [0.3, 0.9, 0.99])
+def test_top_p_filter(thres):
+    """Nucleus filter: equal to JAX's (the crossing token kept, the rest
+    NEG_INF), on spread and on peaked logits."""
+    logits = np.concatenate([_rand(3, 502, seed=7, scale=2.0), _rand(1, 502, seed=8, scale=0.1)])
+    logits[3, 17] = 12.0                  # one token holds nearly all the mass
+    out = PS.top_p_filter(torch.from_numpy(logits), thres=thres).numpy()
+    np.testing.assert_array_equal(out, np.asarray(JS.top_p_filter(jnp.asarray(logits), thres=thres)))
+    kept = out > PS.NEG_INF
+    assert kept[3].sum() == 1 and kept[3, 17] and (kept.sum(-1) >= 1).all()
 
 
 def test_mask_after_eos_and_set_eos_id():

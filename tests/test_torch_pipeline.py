@@ -9,6 +9,7 @@ so both read the same prompt mel. f32 at 'highest' precision: tokens equal,
 wav within 1e-4 (the flow's 32 evaluations and the vocoder's conv stack carry
 summation-order differences of ~1e-6 into a ~0.1-scale wav)."""
 
+import dataclasses
 import functools
 import os
 
@@ -188,13 +189,28 @@ def test_check_mode_errors_match_jax(synths, mode, models, match):
 
 
 def test_default_device_and_speculative(synths):
-    """No device means cuda: without a card the constructor raises. The
-    speculative decode is not ported and says so."""
-    _, ps = synths["covomix"]
+    """No device means cuda: without a card the constructor raises. With
+    `speculative=True`, a T2S without the early-exit head, and a CoMix one
+    whose head lacks the stream-2 draft head (as the released checkpoints
+    do), raise the JAX Synthesizer's ValueErrors."""
+    js, ps = synths["covomix"]
     args = (ps.t2s_params, ps.t2s_cfg, ps.acoustic_params, ps.acoustic_cfg, ps.vocoder_params, ps.vocoder_cfg,
             ps.tokenizer)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    jargs = (js.t2s_params, js.t2s_cfg, js.acoustic_params, js.acoustic_cfg, js.vocoder_params, js.vocoder_cfg,
+             js.tokenizer)
+    with pytest.raises(ValueError, match="early-exit head") as jerr:
+        JSynth(*jargs, speculative=True)
+    with pytest.raises(ValueError, match="early-exit head") as perr:
         PSynth(*args, speculative=True, device="cpu")
+    assert str(perr.value) == str(jerr.value)
+    stream1_head = {"early_exit": {"to_logits": {"w": np.zeros((32, 502), np.float32)}}}
+    with pytest.raises(ValueError, match="stream-2 draft head") as jerr:
+        JSynth({**_numpy_params(0)["comix"], **stream1_head}, dataclasses.replace(js.t2s_cfg, target_early_exit_layer=1),
+               *jargs[2:], speculative=True)
+    with pytest.raises(ValueError, match="stream-2 draft head") as perr:
+        PSynth({**_numpy_params(0)["comix"], **stream1_head}, dataclasses.replace(ps.t2s_cfg, target_early_exit_layer=1),
+               *args[2:], speculative=True, device="cpu")
+    assert str(perr.value) == str(jerr.value)
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="cuda"):

@@ -48,10 +48,19 @@ def test_staged_is_accepted(tmp_path):
     assert sr == 8000 and 0 < len(wav) <= 16 * 160
 
 
-@pytest.mark.parametrize("flags", [["--speculative"], ["--spec_gamma", "4"]])
+@pytest.mark.parametrize("flags", [["--speculative"], ["--speculative", "--spec_gamma", "2"]])
 def test_speculative_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="speculative decode"):
+    """--speculative on a T2S checkpoint without the early-exit draft head
+    raises the JAX BatchedPipeline's AssertionError; nothing falls back to
+    sampling."""
+    from covomix_tpu.serving import BatchedPipeline as JPipe
+
+    t2s, ac, voc = jax_params(0)
+    with pytest.raises(AssertionError, match="early-exit draft head") as jerr:
+        JPipe(t2s, J_T2S, ac, J_AC, voc, J_VOC, speculative=True)
+    with pytest.raises(AssertionError, match="early-exit draft head") as perr:
         serve_batch.main(_assets(tmp_path) + flags)
+    assert str(perr.value) == str(jerr.value)
 
 
 def test_multihost_raises(tmp_path):

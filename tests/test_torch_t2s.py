@@ -87,5 +87,21 @@ def test_early_stop_masks_after_eos():
 
 
 def test_speculative_not_ported(params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Speculative decode is not a mode of `generate`: as in the JAX package,
+    `generate` takes no `speculative` argument, and `generate_speculative`
+    has the JAX signature. Without the draft head it raises JAX's error."""
+    import inspect
+
+    with pytest.raises(TypeError, match="speculative"):
         PT.generate(params[1], P_T2S, None, torch.from_numpy(_text(4)), max_length=4, speculative=True)
+    with pytest.raises(TypeError, match="speculative"):
+        JT.generate(params[0], J_T2S, jax.random.PRNGKey(0), jnp.asarray(_text(4)), max_length=4, speculative=True)
+    sig_j, sig_p = inspect.signature(JT.generate_speculative), inspect.signature(PT.generate_speculative)
+    assert list(sig_p.parameters) == list(sig_j.parameters)
+    assert [p.default for n, p in sig_p.parameters.items() if n != "dtype"] == \
+        [p.default for n, p in sig_j.parameters.items() if n != "dtype"]
+    with pytest.raises(AssertionError, match="early-exit head") as jerr:
+        JT.generate_speculative(params[0], J_T2S, jnp.asarray(_text(4)), max_length=4)
+    with pytest.raises(AssertionError, match="early-exit head") as perr:
+        PT.generate_speculative(params[1], P_T2S, torch.from_numpy(_text(4)), max_length=4)
+    assert str(perr.value) == str(jerr.value)

@@ -43,6 +43,11 @@ CONFIGS = {   # the tiny CoMix config of _torch_port, and its CoSingle and two-t
     "comix": J_T2S,
     "two_input_cfg_drop": dataclasses.replace(J_T2S, two_output=False, two_input=True,
                                               classifier_free_guidance=True, cond_drop_prob=1.0),
+    # the early-exit draft heads' CE at decoder layer 1 of 2 (CoMix: both heads)
+    "cosingle_early_exit": dataclasses.replace(J_T2S, two_output=False, target_depth=2, target_early_exit_layer=1),
+    "cosingle_early_exit_detach": dataclasses.replace(J_T2S, two_output=False, target_depth=2,
+                                                      target_early_exit_layer=1, detach_early_exit_embed=True),
+    "comix_early_exit": dataclasses.replace(J_T2S, target_depth=2, target_early_exit_layer=1),
 }
 
 
@@ -77,6 +82,10 @@ def _flash_dispatch_jax(q, k, v, *, key_mask=None, valid_len=None, causal=False,
     ("comix", 40, "dispatched"),
     ("two_input_cfg_drop", 40, "dispatched"),
     ("comix", 510, "flash"),       # decoder [BOS | 510 targets | EOS] = 512 positions
+    ("cosingle_early_exit", 40, "dispatched"),
+    ("cosingle_early_exit_detach", 40, "dispatched"),
+    ("comix_early_exit", 40, "dispatched"),
+    ("comix_early_exit", 510, "flash"),   # the early-exit CE adds no attention call
 ])
 def test_forward_loss_and_every_gradient_match_jax(name, t, route, monkeypatch):
     """forward_loss and the gradient of every parameter against
@@ -133,6 +142,10 @@ def test_forward_loss_and_every_gradient_match_jax(name, t, route, monkeypatch):
         assert float(np.abs(flat_j["null_source_embedding"]).max()) > 0
     else:
         assert float(np.abs(flat_j["text_emb/w"]).max()) > 0
+    if jcfg.target_early_exit_layer:
+        heads = ["to_logits", "to_logits2"] if jcfg.two_output else ["to_logits"]
+        assert sorted(k for k in flat_j if k.startswith("early_exit/to_logits")) == [f"early_exit/{h}/w" for h in heads]
+        assert all(float(np.abs(flat_j[f"early_exit/{h}/w"]).max()) > 0 for h in heads)
 
 
 def test_forward_loss_with_precomputed_source_emb_matches_jax():
@@ -168,9 +181,19 @@ def test_forward_loss_with_precomputed_source_emb_matches_jax():
 
 
 def test_early_exit_head_not_ported():
-    cfg = port_cfg(PT.T2SConfig, dataclasses.replace(J_T2S, target_early_exit_layer=1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*speculative"):
-        PT.forward_loss({}, cfg, torch.zeros(1, 4, dtype=torch.int32), torch.zeros(1, 8, 2, dtype=torch.int32))
+    """A tree without the `early_exit` head (a checkpoint trained without
+    it) under a config with target_early_exit_layer > 0: both packages add
+    no early-exit CE, so the loss is the loss without the head's config."""
+    jcfg = dataclasses.replace(J_T2S, target_early_exit_layer=1)
+    jp = _params(J_T2S, 6)
+    assert "early_exit" not in jp
+    text, sem = _batch(J_T2S, 24, 7)
+    with jax.default_matmul_precision("highest"):
+        ref = float(JT.forward_loss(jp, jcfg, jnp.asarray(text), jnp.asarray(sem)))
+        plain = float(JT.forward_loss(jp, J_T2S, jnp.asarray(text), jnp.asarray(sem)))
+    loss = PT.forward_loss(to_port(jp), port_cfg(PT.T2SConfig, jcfg), torch.from_numpy(text), torch.from_numpy(sem))
+    assert ref == plain
+    assert abs(loss.item() - ref) <= TOL * abs(ref)
 
 
 def test_t2s_loss_fn_matches_jax():
@@ -182,6 +205,68 @@ def test_t2s_loss_fn_matches_jax():
         ref = float(JLoop.t2s_loss_fn(J_T2S)(jp, jax.tree_util.tree_map(jnp.asarray, batch), jax.random.PRNGKey(0)))
     loss = PLoop.t2s_loss_fn(port_cfg(PT.T2SConfig, J_T2S))(to_port(jp), PLoop.to_device(batch, "cpu"), None)
     assert abs(loss.item() - ref) <= TOL * abs(ref)
+
+
+def _check_loss_and_grads(jax_loss, port_loss, jp):
+    """jax.value_and_grad(jax_loss) at jp against port_loss at the carried
+    parameters and its backward: the loss and every gradient leaf within TOL."""
+    with jax.default_matmul_precision("highest"):
+        loss_j, grads_j = jax.jit(jax.value_and_grad(jax_loss))(jp)
+    pp = to_port(jp)
+    for p in tree_leaves(pp):
+        p.requires_grad_(True)
+    loss_p = port_loss(pp)
+    loss_p.backward()
+    assert abs(loss_p.item() - float(loss_j)) <= TOL * abs(float(loss_j))
+    flat_j = dict(named_leaves(jax.tree_util.tree_map(np.asarray, grads_j)))
+    for leaf_name, p in named_leaves(pp):
+        grad = torch.zeros_like(p) if p.grad is None else p.grad
+        ref = flat_j[leaf_name]
+        assert np.abs(grad.numpy() - ref).max() <= TOL * max(1.0, np.abs(ref).max()), leaf_name
+    return flat_j
+
+
+def test_semantic_to_text_loss_matches_jax():
+    """Back-translation (speech tokens in, text out through the weight-tied
+    text logits): loss and every gradient; the JAX asserts on the config."""
+    jcfg = dataclasses.replace(J_T2S, two_output=False, target_dim=J_T2S.dim)
+    pcfg = port_cfg(PT.T2SConfig, jcfg)
+    rs = np.random.RandomState(11)
+    sem = rs.randint(0, 501, (3, 20)).astype(np.int32)
+    sem[1, 14:] = -1
+    text = rs.randint(1, 200, (3, 12)).astype(np.int32)
+    text[2, 5:] = 0
+    flat_j = _check_loss_and_grads(
+        lambda p: JT.semantic_to_text_loss(p, jcfg, jnp.asarray(sem), jnp.asarray(text)),
+        lambda p: PT.semantic_to_text_loss(p, pcfg, torch.from_numpy(sem), torch.from_numpy(text)),
+        _params(jcfg, 12))
+    assert float(np.abs(flat_j["start_text"]).max()) > 0 and float(np.abs(flat_j["sem_emb/w"]).max()) > 0
+    for bad in (J_T2S, dataclasses.replace(jcfg, two_input=True)):
+        with pytest.raises(AssertionError):
+            JT.semantic_to_text_loss({}, bad, jnp.asarray(sem), jnp.asarray(text))
+        with pytest.raises(AssertionError):
+            PT.semantic_to_text_loss({}, port_cfg(PT.T2SConfig, bad), torch.from_numpy(sem), torch.from_numpy(text))
+
+
+def test_speech_speech_pretrain_loss_matches_jax():
+    """Denoising pretraining with JAX's deletion draw handed to the port as
+    `drop`: loss and every gradient. Without `drop` the draw comes from the
+    generator, reproducibly."""
+    jcfg = dataclasses.replace(J_T2S, two_output=False)
+    pcfg = port_cfg(PT.T2SConfig, jcfg)
+    rs = np.random.RandomState(13)
+    sem = rs.randint(0, 501, (3, 18)).astype(np.int32)
+    sem[0, 11:] = -1
+    key = jax.random.PRNGKey(5)
+    drop = np.array(jax.random.uniform(key, sem.shape) < 0.6)
+    _check_loss_and_grads(
+        lambda p: JT.speech_speech_pretrain_loss(p, jcfg, key, jnp.asarray(sem)),
+        lambda p: PT.speech_speech_pretrain_loss(p, pcfg, None, torch.from_numpy(sem), drop=torch.from_numpy(drop)),
+        _params(jcfg, 14))
+    pp = to_port(_params(jcfg, 14))
+    a, b = (PT.speech_speech_pretrain_loss(pp, pcfg, torch.Generator().manual_seed(2), torch.from_numpy(sem))
+            for _ in range(2))
+    assert torch.isfinite(a) and a.item() == b.item()
 
 
 WORDS = ["hello", "there", "good", "morning", "yes", "no", "okay", "right", "sure", "well", "laugh"]
