@@ -145,7 +145,19 @@ Phases (any failure exits non-zero, nothing is passed over):
      batch, a finite wav, tokens a greedy decode's, the split beside phase
      4's; (d) `dialogue_generation --speculative` on phase 6's assets with
      the fitted T2S: phase 6's gates, tokens a greedy Synthesizer's;
- 14. print a `kernels` JSON line (phase 13's launches as
+ 14. the one-program T2S decode (after phase 13, on phase 4's T2S and
+     phase 13's fitted heads): `generate` as a captured CUDA graph against
+     the same step called directly (text2semantic.CAPTURE off) at the
+     serving shape (B=4, 512 steps, min_length 512, bf16 and f32) and the
+     per-file shape (B=1, 2048 steps, bf16), and greedy / speculative
+     (gamma 2 / 4 / 8) at B=8 in bf16: tokens equal (f32 exactly, bf16 up
+     to hold_tokens' near-tie), num_steps equal, the generator's next draw
+     equal; walls best of DECODE_TURNS in turns, ms per step or round, host
+     reads per call, each graph's capture time, peak memory, and
+     `util.profiling`'s device idle share of each decode window (phase 4
+     adds one serving batch's, phase 8 one bf16 VoMix step's). Phases 4, 6,
+     7, 9 and 13 decode through the graphs too, with their gates unchanged;
+ 15. print a `kernels` JSON line (phase 13's launches as
      `speculative_launches`) and, last, {"ok": true, "device": {...}}.
 """
 
@@ -1108,7 +1120,9 @@ def run_serving(results, batch=4, prompt=400, decode=512, timed=2):
     if tuple(wav.shape) != (batch, V.output_length(voc_cfg, decode)) or not bool(torch.isfinite(wav).all()):
         raise AssertionError(f"bad wav: shape {tuple(wav.shape)}, finite {bool(torch.isfinite(wav).all())}")
     results.update(flash_launches=launches[0], serving_wall_s=wall, serving_rtf=wall / audio_s,
-                   serving_models=(pipe.acoustic_params, pipe.vocoder_params))   # phase 13 serves with them
+                   serving_models=(pipe.acoustic_params, pipe.vocoder_params),   # phase 13 serves with them
+                   serving_t2s=pipe.t2s_params)                                  # phase 14 decodes with them
+    results["serving_idle"] = traced_idle_share("serving batch", lambda: pipe(gen, *placed), wall)
     stages, valid = split_serving_batch(pipe, gen, placed)
     log("serving stage times (s): " + json.dumps(stages))
     results["stages"] = stages
@@ -1588,10 +1602,12 @@ def run_training(results, root):
     return train_dir
 
 
-def split_training_step(results, key, params, loss_fn, batch, n=5):
+def split_training_step(results, key, params, loss_fn, batch, n=5, idle_key=None):
     """Where an optimizer step's time goes at full width: the loss forward,
     the backward and the optimizer (Adam + EMA), each ended by a synchronize,
-    the median of `n` steps after one warm-up, into results[key]."""
+    the median of `n` steps after one warm-up, into results[key]. With
+    `idle_key`, one more whole step traced: its device idle share into
+    results[idle_key]."""
     import torch
     from covomix_tpu_torch.train import loop
 
@@ -1619,11 +1635,19 @@ def split_training_step(results, key, params, loss_fn, batch, n=5):
             for part, a, b in zip(parts, [t0] + times[:2], times):
                 parts[part].append((b - a) * 1e3)
     split = results[key] = {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+    if idle_key is not None:
+        def whole_step():
+            loss_fn(state.params, batch, gen).backward()
+            state.optimizer.step()
+            loop.ema_update(state.ema_params, state.params, state.ema_num_updates, tcfg.ema_decay)
+            state.optimizer.zero_grad(set_to_none=True)
+
+        results[idle_key] = traced_idle_share(f"{key} step", whole_step, sum(split.values()) / 1e3)
     log(f"{key}: optimizer step split at full width, batch {[tuple(v.shape) for v in batch.values()]} "
         f"(median of {n}, ms): {json.dumps(split)}")
 
 
-def split_vomix_step(results, train_dir, key="train_split_ms", f32=False):
+def split_vomix_step(results, train_dir, key="train_split_ms", f32=False, idle_key=None):
     import torch
     from covomix_tpu_torch.data.datasets import CoVoMixDataset, collate_acoustic
     from covomix_tpu_torch.models import acoustic as A
@@ -1634,7 +1658,7 @@ def split_vomix_step(results, train_dir, key="train_split_ms", f32=False):
     ds = CoVoMixDataset(train_dir, format="hubert_overlap_two_input_one_output", random_mask=True)
     split_training_step(results, key, A.init(torch.Generator(device="cuda").manual_seed(5), cfg),
                         loop.acoustic_loss_fn(cfg, cond_drop_prob=0.3, dtype=torch.float32 if f32 else torch.bfloat16),
-                        collate_acoustic([ds[i] for i in range(8)]))
+                        collate_acoustic([ds[i] for i in range(8)]), idle_key=idle_key)
 
 
 def check_small_training_against_cpu():
@@ -2472,36 +2496,46 @@ def fit_draft_heads(results):
 
 
 class GreedyLogits:
-    """Records the logits greedy `generate` samples from, per step and stream
-    (the port's `sampling.gumbel_sample` is wrapped while it is entered)."""
+    """Records the scores `generate` samples from, per step and stream: the
+    logits plus temperature x the Gumbel noise (greedy, temperature 1e-10:
+    the logits). While it is entered, `sampling.gumbel_sample` is replaced
+    by a copy that records (the same operations), and the decode runs its
+    step directly (text2semantic.CAPTURE off): a captured graph would run
+    the Python of the step only once. `streams`: samples per step."""
 
-    def __init__(self):
-        self.steps = []
+    def __init__(self, streams=2):
+        self.steps, self.streams = [], streams
 
     def __enter__(self):
+        import torch
+        from covomix_tpu_torch.models import text2semantic as T
         from covomix_tpu_torch.ops import sampling as S
 
-        self._orig = S.gumbel_sample
+        self._orig, self._capture = S.gumbel_sample, T.CAPTURE
 
-        def gumbel_sample(generator, logits, *args, **kwargs):
-            self.steps.append(logits.detach().float().clone())
-            return self._orig(generator, logits, *args, **kwargs)
+        def gumbel_sample(generator, logits, temperature=1.0, dim=-1):
+            t = max(float(temperature), 1e-10)
+            noise = S.gumbel_noise(generator, logits.shape, logits.device)
+            self.steps.append((logits.detach().float() + t * noise).clone())
+            return torch.argmax(logits / t + noise, dim=dim)
 
-        S.gumbel_sample = gumbel_sample
+        S.gumbel_sample, T.CAPTURE = gumbel_sample, False
         return self
 
     def __exit__(self, *exc):
+        from covomix_tpu_torch.models import text2semantic as T
         from covomix_tpu_torch.ops import sampling as S
 
-        S.gumbel_sample = self._orig
+        S.gumbel_sample, T.CAPTURE = self._orig, self._capture
 
     def margin(self, pos, stream, row, n_steps):
-        """Greedy's top-two gap at step `pos` (of n_steps) on `stream`, over
-        max(1, |top logit|)."""
+        """The top-two gap of the score sampled at step `pos` on `stream`,
+        over max(1, |top score|). (The step function runs past the stop to
+        the end of its chunk, so the record may hold more than n_steps
+        steps; step `pos` is at pos * streams.)"""
         import torch
 
-        per_step = len(self.steps) // n_steps      # one sample per stream and step
-        top = torch.topk(self.steps[pos * per_step + min(stream, per_step - 1)][row], 2).values
+        top = torch.topk(self.steps[pos * self.streams + min(stream, self.streams - 1)][row], 2).values
         return float((top[0] - top[1]) / max(1.0, abs(float(top[0]))))
 
 
@@ -2550,8 +2584,9 @@ def run_spec_decode(results, cfg, params):
     max_length 512: in f32 with TF32 off the tokens must be equal position
     for position; in bf16 equal up to near-ties (hold_tokens). Every
     speculative run must take at most tokens / 2 verify rounds. The bf16
-    decodes are timed as the best of 3, taken in turns; bench.py's keys are
-    logged for gamma 4."""
+    decodes are timed as the best of 3, taken in turns (greedy's scores
+    recorded by one more, untimed call of the direct step); bench.py's keys
+    are logged for gamma 4."""
     import numpy as np
     import torch
     from covomix_tpu_torch.models import text2semantic as T
@@ -2568,15 +2603,16 @@ def run_spec_decode(results, cfg, params):
             decoders[g] = lambda g=g: T.generate_speculative(params, cfg, text, max_length=SPEC_DECODE, gamma=g,
                                                              dtype=dtype)
         logits, out, walls = GreedyLogits(), {}, {key: float("inf") for key in decoders}
+        if dtype == torch.bfloat16:
+            with logits:        # greedy's scores, recorded by the direct step, untimed
+                decoders["greedy"]()
         # every decode once a turn, so that a slow spell of the shared host
-        # falls on all of them alike; greedy's logits are recorded in the
-        # first turn (its best of 3 is then one of the other two)
+        # falls on all of them alike
         for turn in range(runs):
             for key, fn in decoders.items():
                 torch.cuda.synchronize()
                 t0 = time.time()
-                with logits if key == "greedy" and turn == 0 else contextlib.nullcontext():
-                    out[key] = fn()
+                out[key] = fn()
                 torch.cuda.synchronize()
                 walls[key] = min(walls[key], time.time() - t0)
         greedy, wg = out["greedy"], walls["greedy"]
@@ -2677,7 +2713,8 @@ def run_spec_dialogue(results, root, cfg, params):
 
 
 def run_speculative(results, root, models):
-    """Phase 13 (a-d), each part's wall logged."""
+    """Phase 13 (a-d), each part's wall logged; returns the fitted (config,
+    parameters)."""
     walls = {}
     t0 = time.time()
     cfg, params = fit_draft_heads(results)
@@ -2690,6 +2727,235 @@ def run_speculative(results, root, models):
         walls[name] = time.time() - t0
     log(f"phase 13 walls (s): {json.dumps(walls)}")
     results["spec_walls"] = walls
+    return cfg, params
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the one-program T2S decode, captured graphs against the direct step
+
+
+DECODE_TURNS = 3          # timed calls of each form, in turns (graph, direct, graph, ...)
+READ_METHODS = ("__bool__", "item", "__int__", "__float__", "__index__", "tolist", "numpy")
+
+
+def traced_idle_share(what, fn, untraced_s=None) -> dict:
+    """fn() once under `profiling.trace`, inside a scope that ends after a
+    synchronize; the scope's device idle share (1 - the union of the card's
+    kernels, copies and sets over its wall), logged. Tracing slows the
+    host's launches, so with `untraced_s`, the best wall of the same call
+    untraced, the share of that wall the traced device work leaves idle is
+    logged beside it. A trace that saw no device work fails."""
+    import torch
+    from covomix_tpu_torch.util import profiling
+
+    torch.cuda.synchronize()
+    with profiling.trace() as prof:
+        with profiling.scope("window"):
+            fn()
+            torch.cuda.synchronize()
+    share = profiling.device_idle_share(prof, "window")
+    if untraced_s is not None:
+        share.update(untraced_wall_ms=untraced_s * 1e3,
+                     idle_share_of_untraced_wall=max(0.0, 1.0 - share["busy_ms"] / (untraced_s * 1e3)))
+    log(f"device idle share, {what}: {json.dumps(share)}")
+    if share["device_events"] == 0:
+        raise AssertionError(f"{what}: the trace shows no device activity")
+    return share
+
+
+@contextlib.contextmanager
+def host_reads():
+    """Yields a list that gets one name per tensor read back to the host
+    (bool / item / int / float / index / tolist / numpy) while entered."""
+    import torch
+
+    orig = {name: getattr(torch.Tensor, name) for name in READ_METHODS}
+    reads = []
+
+    def counting(name):
+        def read(self, *args, **kwargs):
+            reads.append(name)
+            return orig[name](self, *args, **kwargs)
+        return read
+
+    for name in READ_METHODS:
+        setattr(torch.Tensor, name, counting(name))
+    try:
+        yield reads
+    finally:
+        for name, fn in orig.items():
+            setattr(torch.Tensor, name, fn)
+
+
+@contextlib.contextmanager
+def decode_form(graph: bool):
+    """The graph form (text2semantic.CAPTURE, the default) or the direct
+    step on the card, the yardstick the graphs are held and timed against."""
+    from covomix_tpu_torch.models import text2semantic as T
+
+    prev, T.CAPTURE = T.CAPTURE, graph
+    try:
+        yield
+    finally:
+        T.CAPTURE = prev
+
+
+def decode_forms(what, fn, seed=None) -> dict:
+    """fn(generator) -> GenerateResult, in both forms: the graph form's first
+    call (capture included on a new shape), then DECODE_TURNS turns of
+    graph, direct. Each call starts from a generator seeded `seed` (None:
+    no generator) and is followed by one draw from it. Returns per form the
+    last result, the walls, the host reads of the last call and the next
+    draw."""
+    import torch
+
+    out = {}
+    for turn in range(DECODE_TURNS + 1):
+        for form in ("graph", "direct"):
+            if turn == 0 and form == "direct":
+                continue
+            gen = None if seed is None else torch.Generator(device="cuda").manual_seed(seed)
+            torch.cuda.synchronize()
+            with decode_form(form == "graph"), host_reads() as reads:
+                t0 = time.time()
+                res = fn(gen)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            rec = out.setdefault(form, {"walls": []})
+            if turn == 0:
+                rec["first_call_s"] = wall
+            else:
+                rec["walls"].append(wall)
+            rec.update(res=res, reads=len(reads),
+                       next_draw=None if gen is None else torch.rand(8, generator=gen, device="cuda"))
+    log(f"{what}: walls (s) graph {out['graph']['walls']} (first call {out['graph']['first_call_s']:.4f}), "
+        f"direct {out['direct']['walls']}; steps {out['graph']['res'].num_steps} / "
+        f"{out['direct']['res'].num_steps}; host reads per call {out['graph']['reads']} / {out['direct']['reads']}")
+    return out
+
+
+def hold_forms(what, forms, exact, redo=None):
+    """The graph form's result against the direct form's: num_steps equal,
+    the generator's next draw equal, tokens equal (`exact`), or, in bf16,
+    equal up to the near-tie rule of hold_tokens, the margins recorded by
+    `redo()` (the direct form's decode again, under GreedyLogits). Returns
+    the divergences."""
+    import torch
+
+    g, d = forms["graph"], forms["direct"]
+    if g["res"].num_steps != d["res"].num_steps:
+        raise AssertionError(f"{what}: {g['res'].num_steps} steps captured, {d['res'].num_steps} direct")
+    if g["next_draw"] is not None and not torch.equal(g["next_draw"], d["next_draw"]):
+        raise AssertionError(f"{what}: the generator stands elsewhere after the captured decode")
+    same = all(torch.equal(getattr(g["res"], f), getattr(d["res"], f)) for f in ("tokens", "tokens2"))
+    if same:
+        log(f"{what}: graph == direct (tokens, steps, next draw)")
+        return []
+    if exact or redo is None:
+        raise AssertionError(f"{what}: the captured decode's tokens differ from the direct step's")
+    with GreedyLogits() as logits:
+        ref = redo()
+    return hold_tokens(f"{what}: graph vs direct", ref, g["res"], logits)
+
+
+def per_step_ms(forms, steps) -> dict:
+    return {form: {"best_s": min(rec["walls"]), "ms_per_step": min(rec["walls"]) / steps * 1e3,
+                   "host_reads": rec["reads"], **({"first_call_s": rec["first_call_s"]} if "first_call_s" in rec
+                                                   else {})}
+            for form, rec in forms.items()}
+
+
+def run_decode_graphs(results, serving_t2s, spec_cfg, spec_params):
+    """Phase 14: `generate` and `generate_speculative` as CUDA graphs against
+    the same step called directly, at full width with phase 4's T2S: the
+    serving shape (B=4, 512 steps, min_length 512, sampled, bf16 and f32),
+    the per-file shape (B=1, 2048 steps, sampled, bf16), and greedy /
+    speculative at B=8 on phase 13's fitted heads (gamma 2 / 4 / 8, bf16).
+    Tokens, steps and the generator's next draw must agree (f32 exactly,
+    bf16 up to hold_tokens' near-tie); walls best of DECODE_TURNS in turns,
+    ms per step or round, host reads per call, each graph's capture time,
+    the peak memory, and the device idle share of each decode window."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.models import text2semantic as T
+
+    cfg = full_width_configs()[0]
+    torch.cuda.reset_peak_memory_stats()
+    text_serving = torch.as_tensor(serving_inputs(4, 400, 64, 160, 1)[0], device="cuda")
+    text_file = torch.as_tensor(np.random.RandomState(2).randint(1, 30000, (1, 48)), dtype=torch.int32,
+                                device="cuda")
+    cells = {"serving_bf16": (text_serving, 512, 512, torch.bfloat16), "serving_f32": (text_serving, 512, 512,
+                                                                                       torch.float32),
+             "per_file_bf16": (text_file, 2048, 0, torch.bfloat16)}
+    table, idle = {}, {}
+    for name, (text, max_length, min_length, dtype) in cells.items():
+        def decode(gen, text=text, max_length=max_length, min_length=min_length, dtype=dtype):
+            return T.generate(serving_t2s, cfg, gen, text, max_length=max_length, min_length=min_length,
+                              dtype=dtype)
+
+        forms = decode_forms(f"decode {name}", decode, seed=10)
+        ties = hold_forms(f"decode {name}", forms, exact=dtype == torch.float32,
+                          redo=lambda: decode(torch.Generator(device="cuda").manual_seed(10)))
+        steps = forms["graph"]["res"].num_steps
+        table[name] = {"steps": steps, "ties": ties, **per_step_ms(forms, steps)}
+        if name != "serving_f32":
+            idle[f"{name}_graph"] = traced_idle_share(f"decode {name}, graph",
+                                                      lambda: decode(torch.Generator(device="cuda").manual_seed(10)),
+                                                      table[name]["graph"]["best_s"])
+        if name == "serving_bf16":
+            with decode_form(False):
+                idle[f"{name}_direct"] = traced_idle_share(
+                    f"decode {name}, direct", lambda: decode(torch.Generator(device="cuda").manual_seed(10)),
+                    table[name]["direct"]["best_s"])
+
+    text_spec = torch.as_tensor(spec_batch(np.random.RandomState(7), 8)["text_ids"], device="cuda")
+
+    def greedy(gen):
+        return T.generate(spec_params, spec_cfg, gen, text_spec, max_length=SPEC_DECODE, temperature=1e-10,
+                          top_k_thres=1.0, dtype=torch.bfloat16)
+
+    forms = {"greedy": decode_forms("greedy B=8 bf16", greedy, seed=0)}
+    hold_forms("greedy B=8 bf16", forms["greedy"], exact=False,
+               redo=lambda: greedy(torch.Generator(device="cuda").manual_seed(0)))
+    for gamma in SPEC_GAMMAS:
+        def spec(gen, gamma=gamma):
+            return T.generate_speculative(spec_params, spec_cfg, text_spec, max_length=SPEC_DECODE, gamma=gamma,
+                                          dtype=torch.bfloat16)
+
+        forms[gamma] = decode_forms(f"speculative gamma {gamma} B=8 bf16", spec)
+        hold_forms(f"speculative gamma {gamma} B=8 bf16", forms[gamma], exact=False,
+                   redo=lambda: greedy(torch.Generator(device="cuda").manual_seed(0)))
+    g = forms["greedy"]
+    gsteps = g["graph"]["res"].num_steps
+    tokens = float(spec_tokens(g["graph"]["res"]).mean())
+    spec_row = {"greedy": {"steps": gsteps, "tokens": tokens, **per_step_ms(g, gsteps)}}
+    for gamma in SPEC_GAMMAS:
+        rounds = forms[gamma]["graph"]["res"].num_steps
+        row = per_step_ms(forms[gamma], rounds)
+        for form in ("graph", "direct"):
+            row[form]["ms_per_round"] = row[form].pop("ms_per_step")
+            row[form]["speedup_over_greedy"] = min(g[form]["walls"]) / row[form]["best_s"]
+        spec_row[gamma] = {"rounds": rounds, **row}
+    idle["greedy_b8_graph"] = traced_idle_share("greedy B=8 bf16, graph",
+                                                lambda: greedy(torch.Generator(device="cuda").manual_seed(0)),
+                                                spec_row["greedy"]["graph"]["best_s"])
+    for form in ("graph", "direct"):
+        with decode_form(form == "graph"):
+            idle[f"spec_gamma4_{form}"] = traced_idle_share(
+                f"speculative gamma 4, {form}",
+                lambda: T.generate_speculative(spec_params, spec_cfg, text_spec, max_length=SPEC_DECODE, gamma=4,
+                                               dtype=torch.bfloat16), spec_row[4][form]["best_s"])
+    captures = [{"kind": key[0], "batch": key[2], "source": key[3][1], "dtype": str(key[5]), "max_length": key[6],
+                 "gamma": key[7] if key[0] == "speculative" else None, "capture_s": dec.capture_s}
+                for key, dec in T._GRAPHS.items()]
+    memory = {"peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30, "graphs_cached": len(T._GRAPHS)}
+    log(f"one-program decode (steps per read {T.STEPS_PER_READ}, rounds per read {T.ROUNDS_PER_READ}): "
+        + json.dumps({"decode": table, "speculative": spec_row}))
+    log("decode graphs captured: " + json.dumps(captures))
+    log("decode memory: " + json.dumps(memory))
+    results.update(decode_graphs=table, decode_spec=spec_row, decode_idle=idle, decode_captures=captures,
+                   decode_memory=memory)
 
 
 # registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
@@ -2858,7 +3124,10 @@ def main() -> int:
         paths = write_torch_checkpoints(root)
         run_serve_batch_from_torch(results, root, paths)
         run_hifigan_inference(results, root, paths["vocoder"])
-        run_speculative(results, root, results.pop("serving_models"))
+        spec_cfg, spec_params = run_speculative(results, root, results.pop("serving_models"))
+        t0 = time.time()
+        run_decode_graphs(results, results.pop("serving_t2s"), spec_cfg, spec_params)
+        log(f"phase 14 wall {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     root = os.path.join(VT.BUILD_DIR, "smoke_hubert")
@@ -2872,7 +3141,7 @@ def main() -> int:
     shutil.rmtree(root, ignore_errors=True)
     try:
         train_dir = run_training(results, root)
-        split_vomix_step(results, train_dir)
+        split_vomix_step(results, train_dir, idle_key="train_idle")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     time_flash_training(results)
@@ -2953,6 +3222,11 @@ def main() -> int:
                                               "per_file_rtf": results["spec_dialogue_rtf"],
                                               "fit_step_ms": results["spec_fit_step_ms"],
                                               "walls": results["spec_walls"]}))
+    log("one-program decode: " + json.dumps({"decode": results["decode_graphs"], "speculative": results["decode_spec"],
+                                               "idle": {**results["decode_idle"], "serving_batch": results["serving_idle"],
+                                                        "vomix_bf16_step": results["train_idle"]},
+                                               "captures": results["decode_captures"],
+                                               "memory": results["decode_memory"]}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -21,15 +21,18 @@ In training the batches are right-padded, so the key masks are prefix masks:
 `forward_loss` hands them on as per-row lengths, and the full-sequence
 self-attention goes through `attend_flash_or_xla`, which takes the flash
 kernels (the decoder's causal form) on CUDA from 512 positions on and
-`layers.attend` otherwise. `generate` and `generate_speculative` are Python
-loops that stop as soon as the JAX package's while_loop conditions would,
-with one read of a device flag per iteration; they attend through
-`layers.attend` / einsum (the JAX package's decode paths use no kernel
-either)."""
+`layers.attend` otherwise. `generate` and `generate_speculative` are, like
+the JAX package's while_loops, one step function over preallocated caches
+(attention over the whole cache under a position mask), run as a CUDA graph
+on the card and directly on the CPU, with one read of a device flag per
+chunk of steps; they attend through `layers.attend` / einsum (the JAX
+package's decode paths use no kernel either)."""
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import torch
@@ -38,6 +41,7 @@ from covomix_tpu_torch.models import layers as L
 from covomix_tpu_torch.models.acoustic import linear_init
 from covomix_tpu_torch.ops import sampling as S
 from covomix_tpu_torch.ops.flash_attention import attend_flash_or_xla
+from covomix_tpu_torch.util.misc import tree_leaves, tree_map
 
 @dataclasses.dataclass(frozen=True)
 class T2SConfig:
@@ -344,7 +348,27 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
 
 
 # ---------------------------------------------------------------------------
-# autoregressive decode
+# the one-program decode: one step over static buffers, driven in chunks
+#
+# `generate` and `generate_speculative` keep every tensor a step reads or
+# writes in buffers allocated before the loop (`_Decode`): the per-layer KV
+# caches, the token buffers, the stop flags and a device step counter. The
+# step attends over the whole cache under a position mask, as the JAX
+# while_loop does, and ends by writing `read` = [continue, count]. The host
+# runs the step STEPS_PER_READ times (ROUNDS_PER_READ speculative rounds)
+# between two reads of that pair; after the stop a step changes nothing the
+# result reads, so the extra steps of the last chunk are no-ops. On CUDA the
+# step is captured once per shape as a CUDA graph and replayed (a capture or
+# replay failure raises); on the CPU the same step function runs directly.
+
+STEPS_PER_READ = 8      # greedy steps between two host reads of the stop flag
+ROUNDS_PER_READ = 2     # speculative rounds between two host reads
+GRAPH_CACHE_SIZE = 16   # captured decodes kept, least recently used dropped
+# False runs the step uncaptured on CUDA too: the yardstick that
+# chip_smoke.py times the graphs against, never a fallback
+CAPTURE = True
+
+_GRAPHS: "collections.OrderedDict[tuple, _Decode]" = collections.OrderedDict()
 
 
 class GenerateResult(NamedTuple):
@@ -355,6 +379,195 @@ class GenerateResult(NamedTuple):
     num_steps: int             # decode iterations executed
 
 
+class _Decode:
+    """One decode's buffers and step. `inputs`: what a call brings (the
+    decoder's weights in the compute dtype, the cross-attention K/V, the
+    source mask); `state`: what the steps carry, reset by `reset` to
+    `initial` ({name: fill value}; caches to zero), with `read`, the
+    [continue, count] pair every step writes last. `generator` is the one
+    the step draws its noise from (None: no noise)."""
+
+    def __init__(self, step, inputs, state, initial, generator=None):
+        self.step, self.inputs, self.state, self.initial = step, inputs, state, initial
+        self.generator = generator
+        self.graph = None
+        self.capture_s = 0.0
+
+    def reset(self):
+        for name, value in self.initial.items():
+            for t in tree_leaves(self.state[name]):
+                t.fill_(value)
+
+    def capture(self):
+        """Warm the step up on a side stream, then capture it as a CUDA graph
+        with the generator's state registered, so every replay draws fresh
+        noise from where the generator stands."""
+        if self.generator is not None and not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError(f"torch {torch.__version__} cannot register a generator with a CUDA graph "
+                               "(CUDAGraph.register_generator_state); a captured decode would replay one draw")
+        dev = self.state["read"].device
+        with torch.cuda.device(dev):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.step()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            with torch.cuda.graph(graph):
+                self.step()
+            torch.cuda.synchronize()
+        self.graph, self.capture_s = graph, time.perf_counter() - t0
+
+
+def _cast_weights(tree, dtype):
+    """The decoder's parameters in the compute dtype, once per call; the norm
+    gains stay as they are (rmsnorm computes in f32). What `layers.linear`
+    and the embedding would cast at every use, cast once."""
+    if isinstance(tree, dict):
+        return {k: (v if k == "gamma" else _cast_weights(v, dtype)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cast_weights(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def _prepared(key, build, inputs, dtype, dev, generator):
+    """The decode for this call, its inputs in place and its state reset. On
+    the CPU (and on CUDA with CAPTURE off) `build(inputs, generator)` makes it
+    around this call's tensors. On CUDA the decode cached under `key` (the
+    call's shapes, dtype and flags) is reused, this call's inputs copied into
+    its static buffers; a new key is built on clones, warmed up and captured,
+    with a generator of its own when the step draws noise."""
+    w = inputs["w"]
+    if dev.type != "cuda" or not CAPTURE:
+        dec = build(dict(inputs, w=_cast_weights(w, dtype)), generator)
+    else:
+        dec = _GRAPHS.pop(key, None)
+        if dec is None:
+            static = tree_map(torch.clone, dict(inputs, w=_cast_weights(w, dtype)))
+            dec = build(static, None if generator is None else torch.Generator(device=dev))
+            dec.capture()
+            while len(_GRAPHS) >= GRAPH_CACHE_SIZE:
+                _GRAPHS.popitem(last=False)
+        else:
+            for buf, src in zip(tree_leaves(dec.inputs), tree_leaves(inputs)):
+                buf.copy_(src)          # the weights cast on the way in
+        _GRAPHS[key] = dec
+    dec.reset()
+    return dec
+
+
+def _drive(dec, per_read, redraw=None):
+    """Run the step `per_read` times between reads of `read` until one says
+    stop; returns the count. With `redraw(n)` (n steps' noise draws), the
+    generator ends where the steps taken leave it: each chunk starts from a
+    snapshot, and a chunk that stopped early restores it and redraws its
+    live steps."""
+    run = dec.step if dec.graph is None else dec.graph.replay
+    gen = dec.generator if redraw is not None else None
+    count = 0
+    while True:
+        snap = gen.get_state() if gen is not None else None
+        for _ in range(per_read):
+            run()
+        cont, now = dec.state["read"].tolist()      # the chunk's one host read
+        if not cont:
+            break
+        count = now
+    if gen is not None and now - count < per_read:
+        gen.set_state(snap)
+        redraw(now - count)
+    return now
+
+
+def _build_generate(cfg: T2SConfig, b, bb, max_length, dtype, use_cfg, cond_scale, temperature, top_k_thres,
+                    min_length, no_repeat_ngram_size, inputs, generator) -> _Decode:
+    """The greedy / top-k decode's buffers and step (the JAX body)."""
+    heads, dh = cfg.heads, cfg.dim_head
+    eos, pad, two = cfg.semantic_eos_id, cfg.semantic_pad_id, cfg.two_output
+    dev = inputs["mask"].device
+    w, cross, source_mask = inputs["w"], inputs["cross"], inputs["mask"]
+    inv = L.rotary_freqs(dh, device=dev)
+    key_pos = torch.arange(max_length, device=dev)
+    eos_col = torch.arange(cfg.num_semantic_tokens + 1, device=dev) == eos
+    st = {"k": [torch.zeros((bb, heads, max_length, dh), dtype=dtype, device=dev) for _ in w["target_layers"]],
+          "v": [torch.zeros((bb, heads, max_length, dh), dtype=dtype, device=dev) for _ in w["target_layers"]],
+          "tokens1": torch.full((b, max_length), pad, dtype=torch.int32, device=dev),
+          "done1": torch.zeros(b, dtype=torch.bool, device=dev),
+          "step": torch.zeros((), dtype=torch.long, device=dev),
+          "read": torch.zeros(2, dtype=torch.long, device=dev)}
+    st["tokens2"] = torch.full_like(st["tokens1"], pad) if two else st["tokens1"]
+    st["done2"] = torch.zeros_like(st["done1"]) if two else st["done1"]
+    dec = _Decode(None, inputs, st, {"k": 0, "v": 0, "tokens1": pad, "tokens2": pad, "done1": 0, "done2": 0,
+                                     "step": 0, "read": 0}, generator)
+
+    def stopped():
+        return (st["done1"].all() | st["done2"].all()) if two else st["done1"].all()
+
+    def put(tokens, at, live, s):
+        tokens.index_copy_(1, at, torch.where(live, s, tokens.index_select(1, at)[:, 0])[:, None])
+
+    def logits(h):
+        if two:
+            half = cfg.target_dim // 2
+            return _sem_logits(w, h[..., :half], dtype), _sem_logits(w, h[..., half:], dtype)
+        lg = _sem_logits(w, h, dtype)
+        return lg, lg
+
+    def step():
+        i = st["step"]
+        live = ~stopped() & (i < max_length)
+        at = torch.clamp(i, max=max_length - 1).view(1)       # a step past the end writes in bounds, gated
+        prev = torch.clamp(i - 1, min=0).view(1)
+        e = _embed_target(w, cfg, st["tokens1"].index_select(1, prev)[:, 0],
+                          st["tokens2"].index_select(1, prev)[:, 0], dtype)
+        x = torch.where(i == 0, w["start_speech"][None, :], e)
+        if use_cfg:
+            x = torch.cat([x, x], dim=0)
+        x = x[:, None, :]
+        pos = i.view(1)
+        kmask = (key_pos <= i)[None, :].expand(bb, -1)
+        for li, lp in enumerate(w["target_layers"]):
+            sa = lp["self_attn"]
+            h = L.rmsnorm(sa["norm"], x)
+            q = L.split_heads(L.linear(sa["q"], h), heads)
+            k_new, v_new = torch.chunk(L.linear(sa["kv"], h), 2, dim=-1)
+            k_new, v_new = L.split_heads(k_new, heads), L.split_heads(v_new, heads)
+            st["k"][li].index_copy_(2, at, L.rotary_interleaved(pos, inv, k_new))
+            st["v"][li].index_copy_(2, at, v_new)
+            att = L.attend(L.rotary_interleaved(pos, inv, q), st["k"][li], st["v"][li], key_mask=kmask)
+            x = L.linear(sa["out"], L.merge_heads(att)) + x
+            x = _cross_attn(lp["cross_attn"], x, cross[li], heads, context_mask=source_mask) + x
+            x = _ff(lp["ff"], x) + x
+        lg1, lg2 = logits(L.rmsnorm(w["target_final_norm"], x)[:, 0])
+        if use_cfg:
+            lg1 = lg1[b:] + (lg1[:b] - lg1[b:]) * cond_scale
+            lg2 = lg2[b:] + (lg2[:b] - lg2[b:]) * cond_scale
+        if min_length > 0:
+            ban = eos_col[None, :] & (i < min_length)
+            lg1, lg2 = lg1.masked_fill(ban, S.NEG_INF), lg2.masked_fill(ban, S.NEG_INF)
+        if no_repeat_ngram_size > 0:
+            lg1 = S.ban_repeated_ngrams(lg1, st["tokens1"], i, no_repeat_ngram_size)
+            if two:
+                lg2 = S.ban_repeated_ngrams(lg2, st["tokens2"], i, no_repeat_ngram_size)
+        s1 = S.gumbel_sample(dec.generator, S.top_k_filter(lg1, thres=top_k_thres), temperature).to(torch.int32)
+        put(st["tokens1"], at, live, s1)
+        st["done1"] |= live & (s1 == eos)
+        if two:
+            s2 = S.gumbel_sample(dec.generator, S.top_k_filter(lg2, thres=top_k_thres),
+                                 temperature).to(torch.int32)
+            put(st["tokens2"], at, live, s2)
+            st["done2"] |= live & (s2 == eos)
+        i += live
+        st["read"].copy_(torch.stack([(~stopped() & (i < max_length)).long(), i]))
+
+    dec.step = step
+    return dec
+
+
 @torch.no_grad()
 def generate(params, cfg: T2SConfig, generator: Optional[torch.Generator], source_ids, *,
              max_length: int = 2048, temperature: float = 1.0, top_k_thres: float = 0.1,
@@ -363,11 +576,11 @@ def generate(params, cfg: T2SConfig, generator: Optional[torch.Generator], sourc
     """Top-k + Gumbel AR decode of up to max_length steps. Stops when every
     row has emitted EOS (two_output: when either stream has). After a stop,
     positions after EOS become pad; positions never written are pad either way.
-    `min_length` masks the EOS logit for the first min_length steps."""
+    `min_length` masks the EOS logit for the first min_length steps. The
+    noise comes from `generator` (None: the device's default one), which the
+    call leaves where num_steps eager steps would. The source is encoded
+    eagerly; the decode runs as one captured step on CUDA (see `_Decode`)."""
     b = (source_ids if source_emb is None else source_emb).shape[0]
-    heads, dh = cfg.heads, cfg.dim_head
-    eos, pad = cfg.semantic_eos_id, cfg.semantic_pad_id
-
     if source_emb is not None:
         if source_mask is None:
             raise ValueError("precomputed source_emb requires source_mask")
@@ -389,89 +602,40 @@ def generate(params, cfg: T2SConfig, generator: Optional[torch.Generator], sourc
     use_cfg = cond_scale > 1.0
     if use_cfg:  # null-context branch folded into the batch
         context = torch.cat([context, context], dim=0)
-        source_mask_all = torch.cat([source_mask, torch.zeros_like(source_mask)], dim=0)
-        bb = 2 * b
-    else:
-        source_mask_all = source_mask
-        bb = b
-    cross_kvs = [_context_kv(lp["cross_attn"], context, heads) for lp in params["target_layers"]]
-    inv = L.rotary_freqs(dh, device=dev)
-    cache_k = [torch.zeros((bb, heads, max_length, dh), dtype=dtype, device=dev) for _ in params["target_layers"]]
-    cache_v = [torch.zeros((bb, heads, max_length, dh), dtype=dtype, device=dev) for _ in params["target_layers"]]
-    tokens1 = torch.full((b, max_length), pad, dtype=torch.int32, device=dev)
-    tokens2 = torch.full((b, max_length), pad, dtype=torch.int32, device=dev)
-    done1 = torch.zeros(b, dtype=torch.bool, device=dev)
-    done2 = torch.zeros(b, dtype=torch.bool, device=dev)
-    start = params["start_speech"].to(dtype)[None, :].expand(b, -1)
-    eos_col = torch.arange(cfg.num_semantic_tokens + 1, device=dev) == eos
+        source_mask = torch.cat([source_mask, torch.zeros_like(source_mask)], dim=0)
+    bb = context.shape[0]
+    if generator is None:
+        generator = torch.default_generator if dev.type == "cpu" else torch.cuda.default_generators[
+            dev.index if dev.index is not None else torch.cuda.current_device()]
+    inputs = {"w": {k: params[k] for k in ("target_layers", "target_final_norm", "sem_emb", "start_speech")},
+              "cross": [_context_kv(lp["cross_attn"], context, cfg.heads) for lp in params["target_layers"]],
+              "mask": source_mask}
+    flags = (max_length, temperature, top_k_thres, cond_scale, min_length, no_repeat_ngram_size)
+    key = ("generate", cfg, b, tuple(context.shape), str(dev), dtype) + flags
+    dec = _prepared(key, lambda inp, gen: _build_generate(cfg, b, bb, max_length, dtype, use_cfg, cond_scale,
+                                                          temperature, top_k_thres, min_length,
+                                                          no_repeat_ngram_size, inp, gen),
+                    inputs, dtype, dev, generator)
+    if dec.generator is not generator:      # a captured decode draws from its own generator
+        dec.generator.set_state(generator.get_state())
+    shape, draws = (b, cfg.num_semantic_tokens + 1), 2 if cfg.two_output else 1
 
-    def decode_step(i, prev1, prev2):
-        """Decoder forward for position i (writes the caches); [bb, tdim]."""
-        x = start if i == 0 else _embed_target(params, cfg, prev1, prev2, dtype)
-        if use_cfg:
-            x = torch.cat([x, x], dim=0)
-        x = x[:, None, :]
-        pos = torch.full((1,), i, device=dev)
-        for li, lp in enumerate(params["target_layers"]):
-            sa = lp["self_attn"]
-            h = L.rmsnorm(sa["norm"], x)
-            q = L.split_heads(L.linear(sa["q"], h), heads)
-            k_new, v_new = torch.chunk(L.linear(sa["kv"], h), 2, dim=-1)
-            k_new, v_new = L.split_heads(k_new, heads), L.split_heads(v_new, heads)
-            q = L.rotary_interleaved(pos, inv, q)
-            cache_k[li][:, :, i] = L.rotary_interleaved(pos, inv, k_new)[:, :, 0]
-            cache_v[li][:, :, i] = v_new[:, :, 0]
-            # keys past i are masked in the JAX decode; here they are not read
-            att = L.attend(q, cache_k[li][:, :, : i + 1], cache_v[li][:, :, : i + 1])
-            x = L.linear(sa["out"], L.merge_heads(att)) + x
-            x = _cross_attn(lp["cross_attn"], x, cross_kvs[li], heads, context_mask=source_mask_all) + x
-            x = _ff(lp["ff"], x) + x
-        return L.rmsnorm(params["target_final_norm"], x)[:, 0]
+    def redraw(n):
+        for _ in range(n * draws):
+            S.gumbel_noise(dec.generator, shape, dev)
 
-    def head_logits(h):
-        if cfg.two_output:
-            half = cfg.target_dim // 2
-            return _sem_logits(params, h[..., :half], dtype), _sem_logits(params, h[..., half:], dtype)
-        lg = _sem_logits(params, h, dtype)
-        return lg, lg
+    num_steps = _drive(dec, STEPS_PER_READ, redraw)
+    if dec.generator is not generator:
+        generator.set_state(dec.generator.get_state())
 
-    i = 0
-    stopped = False
-    while i < max_length:
-        prev1 = tokens1[:, max(i - 1, 0)]
-        prev2 = tokens2[:, max(i - 1, 0)]
-        lg1, lg2 = head_logits(decode_step(i, prev1, prev2))
-        if use_cfg:
-            lg1 = lg1[b:] + (lg1[:b] - lg1[b:]) * cond_scale
-            lg2 = lg2[b:] + (lg2[:b] - lg2[b:]) * cond_scale
-        if i < min_length:
-            lg1 = lg1.masked_fill(eos_col[None, :], S.NEG_INF)
-            lg2 = lg2.masked_fill(eos_col[None, :], S.NEG_INF)
-        if no_repeat_ngram_size > 0:
-            lg1 = S.ban_repeated_ngrams(lg1, tokens1, i, no_repeat_ngram_size)
-            if cfg.two_output:
-                lg2 = S.ban_repeated_ngrams(lg2, tokens2, i, no_repeat_ngram_size)
-        s1 = S.gumbel_sample(generator, S.top_k_filter(lg1, thres=top_k_thres), temperature).to(torch.int32)
-        tokens1[:, i] = s1
-        done1 = done1 | (s1 == eos)
-        if cfg.two_output:
-            s2 = S.gumbel_sample(generator, S.top_k_filter(lg2, thres=top_k_thres), temperature).to(torch.int32)
-            tokens2[:, i] = s2
-            done2 = done2 | (s2 == eos)
-        else:
-            tokens2 = tokens1
-            done2 = done1
-        i += 1
-        stopped = bool(done1.all()) or (cfg.two_output and bool(done2.all()))
-        if stopped:
-            break
-
-    if stopped:  # the reference masks after EOS only when the loop broke
-        tokens1 = S.mask_after_eos(tokens1, eos, pad)
-        tokens2 = S.mask_after_eos(tokens2, eos, pad)
-    len1 = torch.sum(tokens1 != pad, dim=-1)
-    len2 = torch.sum(tokens2 != pad, dim=-1)
-    return GenerateResult(tokens1, tokens2, len1, len2, i)
+    st = dec.state
+    # the reference masks after EOS only when the loop stopped on EOS
+    stopped = (st["done1"].all() | st["done2"].all()) if cfg.two_output else st["done1"].all()
+    eos, pad = cfg.semantic_eos_id, cfg.semantic_pad_id
+    tokens1 = torch.where(stopped, S.mask_after_eos(st["tokens1"], eos, pad), st["tokens1"])
+    tokens2 = torch.where(stopped, S.mask_after_eos(st["tokens2"], eos, pad), st["tokens2"])
+    return GenerateResult(tokens1, tokens2, torch.sum(tokens1 != pad, dim=-1), torch.sum(tokens2 != pad, dim=-1),
+                          num_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -492,55 +656,34 @@ def _write_cache_at(cache, new, offsets):
     return cache.scatter_(2, pos[:, None, :, None].expand(b, h, s, dh), new)
 
 
-@torch.no_grad()
-def generate_speculative(params, cfg: T2SConfig, source_ids, *, max_length: int = 2048, gamma: int = 4,
-                         dtype=torch.float32) -> GenerateResult:
-    """Greedy speculative decode through the early-exit head, single-stream
-    and CoMix two_output. Needs cfg.target_early_exit_layer E > 0 and
-    params['early_exit'] (for two_output also its 'to_logits2': released
-    checkpoints carry only the stream-1 head). Each round drafts gamma
-    tokens (pairs) one after another with decoder layers 1..E and the draft
-    head(s) (argmax), verifies them in one full-depth forward over gamma+1
-    positions per row, and accepts the longest prefix on which BOTH streams
-    match plus the full model's bonus token (joint acceptance: stream 2's
-    continuation reads stream 1's tokens through the concatenated
-    embedding). The tokens equal greedy `generate`'s; `num_steps` counts the
-    verify rounds. The loop reads one flag from the device per round."""
-    if cfg.two_input:
-        raise AssertionError("speculative decode: two_input not supported")
-    if not (cfg.target_early_exit_layer > 0 and "early_exit" in params):
-        raise AssertionError("needs the early-exit head")
-    two = cfg.two_output
-    if two and "to_logits2" not in params["early_exit"]:
-        raise AssertionError("two_output speculative decode needs the stream-2 draft head "
-                             "(train with this framework; reference checkpoints carry only stream 1)")
-    b, dev = source_ids.shape[0], source_ids.device
+def _build_speculative(cfg: T2SConfig, b, max_length, gamma, dtype, inputs, generator=None) -> _Decode:
+    """The speculative decode's buffers and round (the JAX body_fn)."""
     heads, dh = cfg.heads, cfg.dim_head
-    eos, pad = cfg.semantic_eos_id, cfg.semantic_pad_id
+    eos, pad, two = cfg.semantic_eos_id, cfg.semantic_pad_id, cfg.two_output
     cl = max_length + gamma + 2  # cache length, with room for the drafts in flight
-
-    src = S.set_eos_id(source_ids, cfg.text_eos_id, cfg.text_pad_id)
-    source_mask = src != cfg.text_pad_id
-    context = encode_source(params, cfg, embed_source(params, cfg, src, dtype), source_mask, dtype)
-    layers, ee = params["target_layers"], params["early_exit"]
-    cross_kvs = [_context_kv(lp["cross_attn"], context, heads) for lp in layers]
+    dev = inputs["mask"].device
+    w, cross, source_mask = inputs["w"], inputs["cross"], inputs["mask"]
+    layers, ee = w["target_layers"], w["early_exit"]
     inv = L.rotary_freqs(dh, device=dev)
-    cache_k = [torch.zeros((b, heads, cl, dh), dtype=dtype, device=dev) for _ in layers]
-    cache_v = [torch.zeros((b, heads, cl, dh), dtype=dtype, device=dev) for _ in layers]
-    tokens1 = torch.full((b, cl), pad, dtype=torch.int32, device=dev)
-    tokens2 = torch.full((b, cl), pad, dtype=torch.int32, device=dev) if two else tokens1
-    lens = torch.zeros(b, dtype=torch.long, device=dev)    # positions accepted per row
-    done1 = torch.zeros(b, dtype=torch.bool, device=dev)   # stream EOS flags (EOS only, as in generate)
-    done2 = torch.zeros(b, dtype=torch.bool, device=dev)
-    # first-EOS position per row and stream (cl = none yet), to rebuild
-    # generate's GLOBAL stop step I = min over streams of (max over rows of
-    # the first EOS) + 1 after the loop: rows that have no EOS by I are cut
-    # there, as the global loop cuts them
-    p1 = torch.full((b,), cl, dtype=torch.long, device=dev)
-    p2 = p1.clone()
     pos_idx = torch.arange(cl, device=dev)
     span_idx = torch.arange(gamma + 1, device=dev)
-    start = params["start_speech"].to(dtype)[None, :]
+    st = {"k": [torch.zeros((b, heads, cl, dh), dtype=dtype, device=dev) for _ in layers],
+          "v": [torch.zeros((b, heads, cl, dh), dtype=dtype, device=dev) for _ in layers],
+          "tokens1": torch.full((b, cl), pad, dtype=torch.int32, device=dev),
+          "lens": torch.zeros(b, dtype=torch.long, device=dev),     # positions accepted per row
+          "done1": torch.zeros(b, dtype=torch.bool, device=dev),    # stream EOS flags (EOS only, as in generate)
+          # first-EOS position per row and stream (cl = none yet), to rebuild
+          # generate's GLOBAL stop step I = min over streams of (max over rows
+          # of the first EOS) + 1 after the loop: rows that have no EOS by I
+          # are cut there, as the global loop cuts them
+          "p1": torch.full((b,), cl, dtype=torch.long, device=dev),
+          "it": torch.zeros((), dtype=torch.long, device=dev),
+          "read": torch.zeros(2, dtype=torch.long, device=dev)}
+    for name in ("tokens", "done", "p"):
+        st[f"{name}2"] = st[f"{name}1"].clone() if two else st[f"{name}1"]
+    dec = _Decode(None, inputs, st, {"k": 0, "v": 0, "tokens1": pad, "tokens2": pad, "lens": 0, "done1": 0,
+                                     "done2": 0, "p1": cl, "p2": cl, "it": 0, "read": 0})
+    start = w["start_speech"][None, :]
 
     def layer(li, x, start_b):
         """Decoder layer li over x [B, S, D] at positions start_b + [0..S)
@@ -556,18 +699,18 @@ def generate_speculative(params, cfg: T2SConfig, source_ids, *, max_length: int 
         k_new, v_new = L.split_heads(k_new, heads), L.split_heads(v_new, heads)
         qpos = start_b[:, None] + torch.arange(x.shape[1], device=dev)[None, :]       # [B, S]
         q = L.rotary_interleaved(qpos[:, None], inv, q)     # per-row positions (JAX: _rotary_at(_span))
-        ck = _write_cache_at(cache_k[li], L.rotary_interleaved(qpos[:, None], inv, k_new), start_b)
-        cv = _write_cache_at(cache_v[li], v_new, start_b)
+        ck = _write_cache_at(st["k"][li], L.rotary_interleaved(qpos[:, None], inv, k_new), start_b)
+        cv = _write_cache_at(st["v"][li], v_new, start_b)
         kmask = pos_idx[None, None, :] <= qpos[:, :, None]                             # [B, S, cl]
         sim = torch.einsum("bhid,bhjd->bhij", q, ck).float() * dh ** -0.5
         att = torch.nan_to_num(torch.softmax(sim.masked_fill(~kmask[:, None], float("-inf")), dim=-1), nan=0.0)
         x = L.linear(sa["out"], L.merge_heads(torch.einsum("bhij,bhjd->bhid", att.to(cv.dtype), cv))) + x
-        x = _cross_attn(lp["cross_attn"], x, cross_kvs[li], heads, context_mask=source_mask) + x
+        x = _cross_attn(lp["cross_attn"], x, cross[li], heads, context_mask=source_mask) + x
         return _ff(lp["ff"], x) + x
 
     def draft(prev1, prev2, pos_b):
         """Layers 1..E and the draft head(s) at position pos_b [B] per row."""
-        e = _embed_target(params, cfg, prev1, prev2, dtype)
+        e = _embed_target(w, cfg, prev1, prev2, dtype)
         x = torch.where((pos_b == 0)[:, None], start, e)[:, None, :]
         for li in range(cfg.target_early_exit_layer):
             x = layer(li, x, pos_b)
@@ -581,31 +724,36 @@ def generate_speculative(params, cfg: T2SConfig, source_ids, *, max_length: int 
         """The full depth over the gamma+1 positions lens..lens+gamma per row,
         inputs [token at lens-1 (BOS at 0), drafts...]; overwrites every
         layer's cache there. Returns the greedy tokens [B, gamma+1] per stream."""
-        x = _embed_target(params, cfg, in1, in2, dtype)
+        lens = st["lens"]
+        x = _embed_target(w, cfg, in1, in2, dtype)
         x[:, 0] = torch.where((lens == 0)[:, None], start, x[:, 0])
         for li in range(len(layers)):
             x = layer(li, x, lens)
-        x = L.rmsnorm(params["target_final_norm"], x)
+        x = L.rmsnorm(w["target_final_norm"], x)
         if not two:
-            f1 = torch.argmax(_sem_logits(params, x, dtype), dim=-1).to(torch.int32)
+            f1 = torch.argmax(_sem_logits(w, x, dtype), dim=-1).to(torch.int32)
             return f1, f1
         half = cfg.target_dim // 2
-        return (torch.argmax(_sem_logits(params, x[..., :half], dtype), dim=-1).to(torch.int32),
-                torch.argmax(_sem_logits(params, x[..., half:], dtype), dim=-1).to(torch.int32))
+        return (torch.argmax(_sem_logits(w, x[..., :half], dtype), dim=-1).to(torch.int32),
+                torch.argmax(_sem_logits(w, x[..., half:], dtype), dim=-1).to(torch.int32))
 
     def first_eos(full, take, done, p):
         hit = (full == eos) & take
         any_hit = hit.any(dim=1)
         first = torch.argmax(hit.to(torch.int32), dim=1)                    # the first True
-        return done | any_hit, torch.where(any_hit & ~done, lens + first, p)
+        p.copy_(torch.where(any_hit & ~done, st["lens"] + first, p))
+        done |= any_hit
 
-    it = 0
-    while it < max_length:
+    def live_rows():
         # a row is live until BOTH its streams emitted EOS (generate decodes
         # both streams until its GLOBAL stop, which is rebuilt after the loop)
-        active = ~(done1 & done2) & (lens < max_length)
-        if not bool(active.any()):     # the round's one read from the device
-            break
+        return ~(st["done1"] & st["done2"]) & (st["lens"] < max_length)
+
+    def round_():
+        lens, it, tokens1, tokens2 = st["lens"], st["it"], st["tokens1"], st["tokens2"]
+        active = live_rows()
+        go = active.any() & (it < max_length)       # the JAX cond_fn; a round after it is a no-op
+        active &= go
         prev_pos = torch.clamp(lens - 1, min=0)[:, None]
         prev1, prev2 = torch.gather(tokens1, 1, prev_pos)[:, 0], torch.gather(tokens2, 1, prev_pos)[:, 0]
         drafts1, drafts2, t1, t2 = [], [], prev1, prev2
@@ -626,29 +774,73 @@ def generate_speculative(params, cfg: T2SConfig, source_ids, *, max_length: int 
         # verify's: write full[:, :n_acc+1] at lens.. (untaken slots unchanged)
         idx = lens[:, None] + span_idx[None, :]
         tokens1.scatter_(1, idx, torch.where(take, full1, torch.gather(tokens1, 1, idx)))
-        done1, p1 = first_eos(full1, take, done1, p1)
+        first_eos(full1, take, st["done1"], st["p1"])
         if two:
             tokens2.scatter_(1, idx, torch.where(take, full2, torch.gather(tokens2, 1, idx)))
-            done2, p2 = first_eos(full2, take, done2, p2)
-        else:
-            done2, p2 = done1, p1
-        lens = torch.clamp(lens + torch.where(active, n_acc + 1, 0), max=max_length)
-        it += 1
+            first_eos(full2, take, st["done2"], st["p2"])
+        lens.copy_(torch.clamp(lens + torch.where(active, n_acc + 1, 0), max=max_length))
+        it += go
+        st["read"].copy_(torch.stack([(live_rows().any() & (it < max_length)).long(), it]))
 
+    dec.step = round_
+    return dec
+
+
+@torch.no_grad()
+def generate_speculative(params, cfg: T2SConfig, source_ids, *, max_length: int = 2048, gamma: int = 4,
+                         dtype=torch.float32) -> GenerateResult:
+    """Greedy speculative decode through the early-exit head, single-stream
+    and CoMix two_output. Needs cfg.target_early_exit_layer E > 0 and
+    params['early_exit'] (for two_output also its 'to_logits2': released
+    checkpoints carry only the stream-1 head). Each round drafts gamma
+    tokens (pairs) one after another with decoder layers 1..E and the draft
+    head(s) (argmax), verifies them in one full-depth forward over gamma+1
+    positions per row, and accepts the longest prefix on which BOTH streams
+    match plus the full model's bonus token (joint acceptance: stream 2's
+    continuation reads stream 1's tokens through the concatenated
+    embedding). The tokens equal greedy `generate`'s; `num_steps` counts the
+    verify rounds. The rounds run ROUNDS_PER_READ at a time between reads of
+    the stop flag, captured as one CUDA graph on CUDA (see `_Decode`)."""
+    if cfg.two_input:
+        raise AssertionError("speculative decode: two_input not supported")
+    if not (cfg.target_early_exit_layer > 0 and "early_exit" in params):
+        raise AssertionError("needs the early-exit head")
+    two = cfg.two_output
+    if two and "to_logits2" not in params["early_exit"]:
+        raise AssertionError("two_output speculative decode needs the stream-2 draft head "
+                             "(train with this framework; reference checkpoints carry only stream 1)")
+    b, dev = source_ids.shape[0], source_ids.device
+    eos, pad = cfg.semantic_eos_id, cfg.semantic_pad_id
+
+    src = S.set_eos_id(source_ids, cfg.text_eos_id, cfg.text_pad_id)
+    source_mask = src != cfg.text_pad_id
+    context = encode_source(params, cfg, embed_source(params, cfg, src, dtype), source_mask, dtype)
+    names = ("target_layers", "target_final_norm", "sem_emb", "start_speech", "early_exit")
+    inputs = {"w": {k: params[k] for k in names},
+              "cross": [_context_kv(lp["cross_attn"], context, cfg.heads) for lp in params["target_layers"]],
+              "mask": source_mask}
+    key = ("speculative", cfg, b, tuple(context.shape), str(dev), dtype, max_length, gamma)
+    dec = _prepared(key, lambda inp, gen: _build_speculative(cfg, b, max_length, gamma, dtype, inp),
+                    inputs, dtype, dev, None)
+    rounds = _drive(dec, ROUNDS_PER_READ)
+
+    st = dec.state
     # generate's global stop: it halts after the step where ALL rows emitted
     # EOS on stream 1 OR all rows on stream 2, so positions >= I = min(max_r
     # p1, max_r p2) + 1 were never decoded there
-    i1 = torch.where(done1.all(), p1.max() + 1, max_length)
-    i2 = torch.where(done2.all(), p2.max() + 1, max_length) if two else i1
-    valid = pos_idx[None, :max_length] < torch.clamp(torch.minimum(i1, i2), max=max_length)
-    tokens1 = torch.where(valid, tokens1[:, :max_length], pad)
-    tokens2 = torch.where(valid, tokens2[:, :max_length], pad)
+    done1, done2 = st["done1"], st["done2"]
+    i1 = torch.where(done1.all(), st["p1"].max() + 1, max_length)
+    i2 = torch.where(done2.all(), st["p2"].max() + 1, max_length) if two else i1
+    pos_idx = torch.arange(max_length, device=dev)
+    valid = pos_idx[None, :] < torch.clamp(torch.minimum(i1, i2), max=max_length)
+    tokens1 = torch.where(valid, st["tokens1"][:, :max_length], pad)
+    tokens2 = torch.where(valid, st["tokens2"][:, :max_length], pad)
     stopped = (done1.all() | done2.all()) if two else done1.all()
     # generate masks after EOS only when its loop stopped on EOS
     tokens1 = torch.where(stopped, S.mask_after_eos(tokens1, eos, pad), tokens1)
     tokens2 = torch.where(stopped, S.mask_after_eos(tokens2, eos, pad), tokens2)
     return GenerateResult(tokens1, tokens2, torch.sum(tokens1 != pad, dim=-1), torch.sum(tokens2 != pad, dim=-1),
-                          it)
+                          rounds)
 
 
 # ---------------------------------------------------------------------------

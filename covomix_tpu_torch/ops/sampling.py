@@ -55,27 +55,27 @@ def mask_after_eos(tokens, eos_id: int, pad_id: int):
     return torch.where(after, torch.full_like(tokens, pad_id), tokens)
 
 
-def ban_repeated_ngrams(logits, tokens, cur_len: int, n: int):
+def ban_repeated_ngrams(logits, tokens, cur_len, n: int):
     """No-repeat-ngram masking: for every earlier window equal to the last
     n-1 generated tokens, ban the token that followed it. `tokens` [B, L] is
-    the decode buffer, `cur_len` the number of tokens generated so far."""
-    if n <= 0 or cur_len < n:
+    the decode buffer, `cur_len` the number of tokens generated so far (an
+    int or a 0-dim tensor on the tokens' device). Fixed shapes and no host
+    read, so a captured decode step can run it: the bans are a scatter-add
+    of masked ones. No-op while cur_len < n."""
+    if n <= 0:
         return logits
     b, l = tokens.shape
-    start = max(cur_len - (n - 1), 0)
-    pref_idx = (start + torch.arange(n - 1, device=tokens.device)) % l
-    prefix = tokens[:, pref_idx]
+    cur = torch.as_tensor(cur_len, device=tokens.device)
+    start = torch.clamp(cur - (n - 1), min=0)
+    prefix = tokens.index_select(1, (start + torch.arange(n - 1, device=tokens.device)) % l)
     eq = torch.ones((b, l), dtype=torch.bool, device=tokens.device)
     for i in range(n - 1):
         eq &= torch.roll(tokens, -i, dims=1) == prefix[:, i][:, None]
     pos = torch.arange(l, device=tokens.device)[None, :]
-    match = eq & (pos + n - 1 < cur_len)
-    banned = torch.roll(tokens, -(n - 1), dims=1)
+    banned = torch.roll(tokens, -(n - 1), dims=1)                  # tokens[j+n-1] at column j
+    ok = eq & (pos + n - 1 < cur) & (cur >= n) & (banned >= 0) & (banned < logits.shape[-1])
     counts = torch.zeros(logits.shape, dtype=torch.int32, device=logits.device)
-    ok = match & (banned >= 0) & (banned < logits.shape[-1])
-    rows = torch.arange(b, device=tokens.device)[:, None].expand(b, l)
-    counts.index_put_((rows[ok], banned[ok].long()), torch.ones_like(banned[ok], dtype=torch.int32),
-                      accumulate=True)
+    counts.scatter_add_(1, torch.where(ok, banned, 0).long(), ok.to(torch.int32))
     return torch.where(counts > 0, torch.full_like(logits, NEG_INF), logits)
 
 

@@ -194,7 +194,7 @@ def test_port_imports_neither_jax_nor_reference_package():
         import chip_smoke
         assert len(mods) >= 42, mods
         for m in ("checkpoint.torch_convert", "convert_checkpoint", "hifigan_inference", "util.metrics",
-                  "util.pesq_nb", "data.batching", "models.hubert", "extract_semantic_tokens"):
+                  "util.pesq_nb", "data.batching", "models.hubert", "extract_semantic_tokens", "util.profiling"):
             assert "covomix_tpu_torch." + m in mods, m
         print("imported", len(mods))
     """)

@@ -182,9 +182,10 @@ def test_acceptance_on_fitted_decodable_pattern(fitted):
 
 
 def test_one_host_read_per_round(fitted, monkeypatch):
-    """The loop reads one flag from the device per round (the JAX cond_fn's
-    any(active)), plus the read that ends it; nothing else in the call
-    converts a tensor to a Python value."""
+    """The loop reads the device once per chunk of ROUNDS_PER_READ rounds
+    (the JAX cond_fn's any(active) with the round count, one `tolist`), the
+    last read ending it; nothing else in the call converts a tensor to a
+    Python value."""
     cfg = port_cfg(PT.T2SConfig, CFG2)
     params = pio.params_from_numpy(fitted[0], "cpu")
     text = torch.from_numpy(_pattern_batch(np.random.RandomState(8), 4)[0])
@@ -200,7 +201,8 @@ def test_one_host_read_per_round(fitted, monkeypatch):
         monkeypatch.setattr(torch.Tensor, name, counting(name, getattr(torch.Tensor, name)))
     out = PT.generate_speculative(params, cfg, text, max_length=24, gamma=3)
     monkeypatch.undo()
-    assert out.num_steps > 1 and reads == ["__bool__"] * (out.num_steps + 1)
+    chunks = -(-out.num_steps // PT.ROUNDS_PER_READ)
+    assert out.num_steps > 1 and reads == ["tolist"] * chunks
 
 
 @pytest.mark.parametrize("two_output", [False, True], ids=["single", "comix"])
