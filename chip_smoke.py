@@ -6,6 +6,7 @@
     python3 chip_smoke.py --vocoder           # the fused vocoder kernels alone
     python3 chip_smoke.py --flash-f32         # the f32 flash kernels at head dim 64 alone
     python3 chip_smoke.py --vocoder-split DIR # the fused kernels' time split, DIR's tree against this one
+    python3 chip_smoke.py --bench             # phase 15 alone: the port's serving benchmark and its gates
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
 only their library, logs ptxas's registers and spills, runs check_vocoder's
@@ -157,14 +158,34 @@ Phases (any failure exits non-zero, nothing is passed over):
      `util.profiling`'s device idle share of each decode window (phase 4
      adds one serving batch's, phase 8 one bf16 VoMix step's). Phases 4, 6,
      7, 9 and 13 decode through the graphs too, with their gates unchanged;
- 15. print a `kernels` JSON line (phase 13's launches as
-     `speculative_launches`) and, last, {"ok": true, "device": {...}}.
+ 15. the port's serving benchmark, `covomix_tpu_torch.bench`, in-process
+     with its defaults (the JAX bench.py's measurement at full width:
+     staged and one-call serving at B = 4, 16, 64, prompt 400, decode 512,
+     bf16; vocoder and HuBERT throughput; a VoMix and a CoMix T2S training
+     step; the draft heads fitted and speculative against greedy decode);
+     its JSON line printed and held: every key the JAX bench prints,
+     finite numbers, every MFU in (0, 1.05], 512 decoded steps at every B
+     in both paths, the card's name, power limit, peak memory per B and
+     idle share, and the launches per call of each part (256 forwards and
+     pre-passes per flow sample, none in the one call's valid_len vocoder,
+     one fused stage and tail per whole-mel generator call, 8 / 8 / 8 per
+     VoMix step, 4 causal of each per T2S step, 12 per HuBERT batch, none
+     in the decodes and the fit); then the fused stage and tail held to
+     their plain versions and timed on the inputs the bench's staged mels
+     give them at B = 4 and 64, one flow sample at B = 4 and 64 traced (the
+     card's time by kernel: flash, GEMMs, the rest), and the flash forward
+     held and timed at the flow's B=64 shape [128, 16, 912, 64];
+ 16. print a `kernels` JSON line (phase 13's launches as
+     `speculative_launches`, phase 15's as `bench_launches`, the fused
+     kernels' and the forward's phase-15 times as `bench_shapes`) and, last,
+     {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -2589,6 +2610,7 @@ def run_spec_decode(results, cfg, params):
     are logged for gamma 4."""
     import numpy as np
     import torch
+    from covomix_tpu_torch.bench import spec_stats
     from covomix_tpu_torch.models import text2semantic as T
 
     text = torch.as_tensor(spec_batch(np.random.RandomState(7), 8)["text_ids"], device="cuda")
@@ -2623,20 +2645,16 @@ def run_spec_decode(results, cfg, params):
             hold_tokens(f"spec decode {name} gamma {gamma} vs greedy", greedy, spec,
                         logits if dtype == torch.bfloat16 else None)
             stok = spec_tokens(spec)
-            per_round = float(stok.mean()) / max(spec.num_steps, 1)
+            stats = spec_stats(gamma, greedy, wg, spec, ws)
             row[gamma] = {"wall_s": ws, "rounds": spec.num_steps, "tokens": float(stok.mean()),
-                          "tokens_per_round": per_round, "acceptance": max(0.0, (per_round - 1.0) / gamma),
-                          "speedup": (stok.sum() / ws) / (gtok.sum() / wg)}
+                          "tokens_per_round": stats["t2s_spec_tokens_per_round"],
+                          "acceptance": stats["t2s_spec_acceptance"], "speedup": stats["t2s_spec_speedup"]}
             if spec.num_steps > stok.mean() / 2:
                 raise AssertionError(f"spec decode {name} gamma {gamma}: {spec.num_steps} rounds for "
                                      f"{stok.mean()} tokens (acceptance collapsed)")
         table[name] = row
         log(f"spec decode {name} (B=8, max_length {SPEC_DECODE}): " + json.dumps(row))
-    g4, bf = table["bf16"][4], table["bf16"]
-    bench_keys = {"t2s_spec_gamma": 4, "t2s_spec_tokens_per_round": g4["tokens_per_round"],
-                  "t2s_spec_acceptance": g4["acceptance"],
-                  "t2s_greedy_tok_per_s": bf["greedy_tokens"] * 8 / bf["greedy_wall_s"],
-                  "t2s_spec_tok_per_s": g4["tokens"] * 8 / g4["wall_s"], "t2s_spec_speedup": g4["speedup"]}
+    bench_keys = spec_stats(4, out["greedy"], walls["greedy"], out[4], walls[4])   # the bf16 decodes
     log("spec decode bench keys (bf16): " + json.dumps(bench_keys))
     results.update(spec_decode=table, spec_bench=bench_keys)
 
@@ -2734,7 +2752,10 @@ def run_speculative(results, root, models):
 # phase 14: the one-program T2S decode, captured graphs against the direct step
 
 
-DECODE_TURNS = 3          # timed calls of each form, in turns (graph, direct, graph, ...)
+# timed calls of each form, in turns (graph, direct, graph, ...); two keep
+# the whole script near half its time limit (the direct step's walls, the
+# yardstick, are ~10x the graph's: ~21 s per per-file call)
+DECODE_TURNS = 2
 READ_METHODS = ("__bool__", "item", "__int__", "__float__", "__index__", "tolist", "numpy")
 
 
@@ -2958,6 +2979,176 @@ def run_decode_graphs(results, serving_t2s, spec_cfg, spec_params):
                    decode_memory=memory)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the port's serving benchmark (covomix_tpu_torch.bench)
+
+# every key of the JAX bench's line at its default sweep 4,16,64, and of each
+# batch_scaling row
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "chip", "chip_peak_bf16_tflops", "rtf_staged", "t2s_wall_s",
+              "flow_wall_s", "vocoder_wall_s", "t2s_decoded_steps", "decode_len", "batch", "batch_scaling",
+              "vocoder_samples_per_sec_per_chip", "hubert_tokens_per_sec_per_chip",
+              "hubert_audio_s_per_sec_per_chip", "flow_model_tflops", "flow_mfu", "vocoder_mfu", "hubert_mfu",
+              "vocoder_samples_per_sec_b64", "acoustic_train_ms_per_step", "acoustic_train_mfu",
+              "acoustic_train_tflops_per_step", "t2s_train_ms_per_step", "t2s_train_mfu",
+              "t2s_train_tflops_per_step", "t2s_spec_gamma", "t2s_spec_tokens_per_round", "t2s_spec_acceptance",
+              "t2s_greedy_tok_per_s", "t2s_spec_tok_per_s", "t2s_spec_speedup", "rtf_b64")
+BENCH_ROW_KEYS = ("rtf", "t2s_wall_s", "flow_wall_s", "vocoder_wall_s", "audio_s", "decoded_steps", "rtf_fused",
+                  "fused_wall_s", "upload_s", "flow_mfu", "fused_mfu_lb")
+BENCH_MFU_MAX = 1.05     # a share above this means the FLOP count is wrong, not the kernel
+BENCH_DETAIL_B = (4, 64)  # the batches phase 15 looks into: fused stage / tail held and timed, flow traced
+
+
+def bench_part_launches(sweep) -> dict:
+    """The kernel launches each call of a bench part must make: 256 forwards
+    and 256 rotary pre-passes per flow sample (8 layers x 16 steps x 2
+    evaluations), staged or in the one call, whose valid_len vocoder runs
+    no fused kernel; one fused stage and tail per whole-mel generator call;
+    8 lse forwards / dQ / dK-dV (and pre-passes) per VoMix step; 4 causal
+    of each per T2S step (the encoder's 129 ids stay under 512); 12
+    forwards per HuBERT batch; nothing in the decodes and the draft fit
+    (under 512 positions)."""
+    flow = {"fwd": 256, "rotary": 256}
+    parts = {"hubert": {"fwd": 12}, "train_acoustic": {"fwd_lse": 8, "bwd_dq": 8, "bwd_dkv": 8, "rotary": 8},
+             "train_t2s": {"fwd_lse_causal": 4, "bwd_dq_causal": 4, "bwd_dkv_causal": 4},
+             "spec_fit": {}, "spec_greedy": {}, "spec_decode": {}}
+    for b in sweep:
+        parts.update({f"staged_t2s_b{b}": {}, f"staged_flow_b{b}": flow,
+                      f"staged_vocoder_b{b}": {"stage": 1, "tail": 1}, f"serving_b{b}": flow})
+    for b in (sweep[0], max(sweep)):
+        parts[f"vocoder_b{b}"] = {"stage": 1, "tail": 1}
+    return parts
+
+
+def check_bench_line(line, sweep, decode):
+    """Every JAX key, finite numbers, every MFU in (0, BENCH_MFU_MAX], the
+    whole decode at every B in both paths, the card's facts, and each part's
+    launches per call (bench_part_launches)."""
+    missing = [k for k in BENCH_KEYS if k not in line]
+    missing += [f"batch_scaling[{b}].{k}" for b in sweep for k in BENCH_ROW_KEYS + ("peak_mem_gib",)
+                if k not in line["batch_scaling"][str(b)]]
+    if missing:
+        raise AssertionError(f"bench line lacks {missing}")
+
+    def numbers(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from numbers(v, f"{path}.{k}")
+        elif isinstance(node, (int, float)) and not isinstance(node, bool):
+            yield path, node
+
+    bad = [p for p, v in numbers(line, "line") if not math.isfinite(v)]
+    mfus = {k: line[k] for k in ("flow_mfu", "vocoder_mfu", "hubert_mfu", "acoustic_train_mfu", "t2s_train_mfu")}
+    for b in sweep:
+        row = line["batch_scaling"][str(b)]
+        mfus.update({f"b{b}.flow_mfu": row["flow_mfu"], f"b{b}.fused_mfu_lb": row["fused_mfu_lb"]})
+        if row["decoded_steps"] != decode or row["fused_decoded_steps"] != decode:
+            bad.append(f"B={b}: decoded {row['decoded_steps']} staged, {row['fused_decoded_steps']} in one call")
+    bad += [f"{k}={v}" for k, v in mfus.items() if v is None or not 0 < v <= BENCH_MFU_MAX]
+    if line["platform"] != "gpu" or line["device"]["power_limit"] is None or not 0 <= line["device_idle_share"] <= 1:
+        bad.append(f"device facts {line['platform']} {line['device']} idle {line['device_idle_share']}")
+    for part, per_call in bench_part_launches(sweep).items():
+        rec = dict(line["launches"].get(part, {}))
+        calls = rec.pop("calls", 0)
+        if calls == 0 or rec != {k: n * calls for k, n in per_call.items()}:
+            bad.append(f"{part}: {calls} calls made {rec}, expected {per_call} per call")
+    if bad:
+        raise AssertionError(f"bench line: {bad}")
+
+
+def bench_vocoder_inputs(bench, b) -> dict:
+    """{kind: (x, up, blocks, post)}: the fused stage's and tail's inputs in
+    one generator call on the bench's staged mel of batch b."""
+    import torch
+    from covomix_tpu_torch.models import vocoder as V
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    inputs, orig = {}, (VT.fused_stage, VT.fused_tail)
+
+    def fused_stage(x, up_p, resblocks, kernels, dilations):
+        inputs["stage"] = (x.contiguous().clone(), up_p, resblocks, None)
+        return orig[0](x, up_p, resblocks, kernels, dilations)
+
+    def fused_tail(x, up_p, resblocks, post_p, kernels, dilations):
+        inputs["tail"] = (x.contiguous().clone(), up_p, resblocks, post_p)
+        return orig[1](x, up_p, resblocks, post_p, kernels, dilations)
+
+    p = bench.pipe
+    VT.fused_stage, VT.fused_tail = fused_stage, fused_tail
+    try:
+        V.generator(p.vocoder_params, p.vocoder_cfg, bench.mels[b], dtype=torch.bfloat16)
+    finally:
+        VT.fused_stage, VT.fused_tail = orig
+    return inputs
+
+
+def flow_device_breakdown(bench, b) -> dict:
+    """One staged flow sample at batch b (the bench's models and inputs,
+    bf16) under the profiler: the card's time by kernel, grouped
+    into the flash forward and its pre-pass, the GEMMs (cuBLAS / CUTLASS
+    kernels) and the rest (elementwise, norms, casts, copies), the top
+    kernels, and the window's wall and busy time. Tracing slows the host's
+    launches, so the window is not the untimed wall; the device sums are."""
+    import torch
+    from covomix_tpu_torch.models import acoustic as A
+    from covomix_tpu_torch.util import profiling
+
+    p = bench.pipe
+    _, ph, cond = bench.staged_inputs(b)
+    torch.cuda.synchronize()
+    with profiling.trace() as prof:
+        with profiling.scope("flow"):
+            A.sample(p.acoustic_params, p.acoustic_cfg, bench.gen(11), ph, cond, cond_scale=p.cond_scale,
+                     dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+    kernels = profiling.device_time_by_kernel(prof)
+    share = profiling.device_idle_share(prof, "flow")
+    groups = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, (_, ms) in kernels.items():
+        low = name.lower()
+        groups["flash" if "flash" in low else "gemm" if any(k in low for k in ("gemm", "nvjet", "cutlass", "xmma"))
+               else "other"] += ms
+    out = {"window_ms": share["window_ms"], "busy_ms": share["busy_ms"], "by_group_ms": groups,
+           "top": [[name[:100], n, ms] for name, (n, ms) in list(kernels.items())[:12]]}
+    log(f"flow sample B={b} on the card by kernel: " + json.dumps(out))
+    return out
+
+
+def run_bench(results):
+    """Phase 15: `covomix_tpu_torch.bench` in this process with its defaults
+    (full width, sweep 4, 16, 64, the JAX bench's runs, loops, fit and
+    HuBERT sizes; the bench itself raises on a non-finite or misshapen wav
+    or id array and on a non-finite loss), its line printed and held by
+    check_bench_line; then the fused stage and tail held to their plain
+    versions (phase 3b's tolerances) and timed on the inputs one generator
+    call on the bench's staged mel gives them at B = 4 and 64; the card's
+    time in one flow sample at B = 4 and 64 by kernel
+    (flow_device_breakdown); the flash forward (with and without its
+    pre-pass) held and timed at the flow's B=64 shape, [128, 16, 912, 64].
+    The launch counts are set to 0 just before the bench and read just
+    after."""
+    import torch
+    from covomix_tpu_torch import bench as BN
+
+    t0 = time.time()
+    settings = BN.Settings()
+    zero_counts()
+    bench = BN.Bench(settings, "cuda")
+    line = bench.run()
+    totals = BN.launch_counts()
+    log("bench line: " + json.dumps(line))
+    check_bench_line(line, settings.sweep, settings.decode_len)
+    results.update(bench_line=line, bench_launches=totals, bench_wall_s=time.time() - t0)
+    for b in BENCH_DETAIL_B:
+        for kind, (x, up, blocks, post) in bench_vocoder_inputs(bench, b).items():
+            time_vocoder(results, f"{kind}_bench_b{b}", kind, x, up, blocks, post)
+    results["bench_flow_breakdown"] = {b: flow_device_breakdown(bench, b) for b in BENCH_DETAIL_B}
+    del bench
+    torch.cuda.empty_cache()
+    frames = BN.PROMPT + settings.decode_len      # the flow at B=64: 128 rows (CFG), every frame live
+    time_flash(results, f"flash_bench_b{max(BENCH_DETAIL_B)}", 2 * max(BENCH_DETAIL_B), frames, frames)
+    log(f"phase 15 wall {time.time() - t0:.1f} s (the bench {results['bench_wall_s']:.1f} s)")
+
+
 # registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
 # to the counts of their first build: the bf16 TMA + wgmma forward's four
 # forms (<dh, lse, causal>), the rotary pre-pass, the TMA + wgmma backward
@@ -3067,6 +3258,13 @@ def kernel_entry(results, key, name, source, replaces, launches, with_prepass=Fa
     return {**entry, **extra}
 
 
+def bench_shape_entry(results, key, *extra) -> dict:
+    """A kernel's numbers at one of the bench's batched shapes (phase 15),
+    for the `kernels` line."""
+    return {k: results[f"{key}_{k}"] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                                                *extra)}
+
+
 def plan_summary(results, key) -> dict:
     """The timed launch's block plan for the `kernels` line: tile, waves,
     shared bytes."""
@@ -3164,6 +3362,7 @@ def main() -> int:
             run_f32_training(results, root, cell)
         finally:
             shutil.rmtree(root, ignore_errors=True)
+    run_bench(results)
 
     launches = results["dialogue_launches"]     # this slice's main path: the per-file dialogue CLI
     # phase 13's path (speculative decode): the fit's causal kernels, the
@@ -3172,21 +3371,32 @@ def main() -> int:
     spec_file, spec_serving, spec_fit = (results["spec_dialogue_launches"], results["spec_serving_launches"],
                                          results["spec_fit_launches"])
     flash_src, voc_src = "covomix_tpu_torch/csrc/flash_attention.cu", "covomix_tpu_torch/csrc/vocoder_tail.cu"
+    # phase 15's path (the bench, all bf16): its totals by kernel, HuBERT's forwards apart from the flow's
+    bench = results["bench_launches"]
+    bench_hubert = results["bench_line"]["launches"]["hubert"]["fwd"]
+    big = max(BENCH_DETAIL_B)
     kernels = [
         # the attention kernel alone; with the pre-pass, as the path calls it, in ms_with_prepass
         kernel_entry(results, "flash", "flash_attention_fwd", flash_src, "covomix_tpu/ops/flash_attention.py:162",
                      launches["flash"], with_prepass=True,
-                     speculative_launches=spec_file["flash"] + spec_serving["fwd"]),
+                     speculative_launches=spec_file["flash"] + spec_serving["fwd"],
+                     bench_launches=bench["fwd"] - bench_hubert,
+                     bench_shapes={f"b{big}": bench_shape_entry(results, f"flash_bench_b{big}", "with_prepass_ms",
+                                                                "library_ms")}),
         # the rotary half of the TPU kernel's fused rotary (`if fused_rotary:` in _flash_kernel), once per call
         kernel_entry(results, "flash_rotary", "flash_rotary_halfsplit", flash_src,
                      "covomix_tpu/ops/flash_attention.py:213", launches["rotary"],
-                     speculative_launches=spec_file["rotary"] + spec_serving["rotary"]),
+                     speculative_launches=spec_file["rotary"] + spec_serving["rotary"],
+                     bench_launches=bench["rotary"]),
     ]
     for kind, replaces in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                            ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):
         kernels.append(kernel_entry(results, kind, f"vocoder_fused_{kind}", voc_src, replaces, launches[kind],
                                     unfused_ms=results[f"{kind}_unfused_ms"], plan=plan_summary(results, kind),
-                                    speculative_launches=spec_file[kind]))
+                                    speculative_launches=spec_file[kind], bench_launches=bench[kind],
+                                    bench_shapes={f"b{b}": bench_shape_entry(results, f"{kind}_bench_b{b}",
+                                                                             "unfused_ms")
+                                                  for b in BENCH_DETAIL_B}))
     replaces = {"fwd_lse": "covomix_tpu/ops/flash_attention.py:162",
                 "bwd_dq": "covomix_tpu/ops/flash_attention.py:502",
                 "bwd_dkv": "covomix_tpu/ops/flash_attention.py:544"}
@@ -3194,27 +3404,30 @@ def main() -> int:
     for key, where in replaces.items():
         kernels.append(kernel_entry(results, key, f"flash_attention_{key}", flash_src, where, train[key],
                                     with_prepass=key == "fwd_lse",
-                                    launches_per_train_step=train[key] // results["train_steps"]))
+                                    launches_per_train_step=train[key] // results["train_steps"],
+                                    bench_launches=bench[key]))
     for dt in ("f32", "bf16"):     # this slice's main path: HuBERT extraction (f32, and --bf16)
         kernels.append(kernel_entry(results, f"hubert_fwd_{dt}", f"flash_attention_fwd_hubert_{dt}", flash_src,
-                                    "covomix_tpu/ops/flash_attention.py:162", results[f"hubert_{dt}"]["launches"]))
+                                    "covomix_tpu/ops/flash_attention.py:162", results[f"hubert_{dt}"]["launches"],
+                                    bench_launches=bench_hubert if dt == "bf16" else 0))
     for kind, where in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                         ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):   # hifigan_inference --fuse_tail, f32
         kernels.append(kernel_entry(results, f"{kind}_f32", f"vocoder_fused_{kind}_f32", voc_src, where,
                                     results["hifi_launches"][kind], unfused_ms=results[f"{kind}_f32_unfused_ms"],
-                                    plan=plan_summary(results, f"{kind}_f32")))
+                                    plan=plan_summary(results, f"{kind}_f32"), bench_launches=0))
     t2s = results["t2s_launches"]     # this slice's main path: full-width CoMix T2S training
     for key, where in replaces.items():
         key = f"{key}_causal"
         kernels.append(kernel_entry(results, key, f"flash_attention_{key}", flash_src, where, t2s[key],
                                     launches_per_train_step=t2s[key] // results["t2s_steps"],
-                                    speculative_launches=spec_fit[key]))
+                                    speculative_launches=spec_fit[key], bench_launches=bench[key]))
     for cell, suffix in (("vomix", "_f32"), ("t2s", "_causal_f32")):   # f32 training at the recipes' precision
         runs = results[f"{cell}_f32_launches"]
         for key, where in replaces.items():
             count = runs[f"{key}_causal" if cell == "t2s" else key]
             kernels.append(kernel_entry(results, f"{key}{suffix}", f"flash_attention_{key}{suffix}", flash_src, where,
-                                        count, launches_per_train_step=count // results[f"{cell}_f32_steps"]))
+                                        count, launches_per_train_step=count // results[f"{cell}_f32_steps"],
+                                        bench_launches=0))
     log(f"total chip_smoke time {time.time() - t_start:.1f} s")
     log("speculative decode: " + json.dumps({"bench": results["spec_bench"], "decode": results["spec_decode"],
                                               "serving_wall_s": results["spec_serving_wall_s"],
@@ -3345,6 +3558,30 @@ def main_path_vocoder_inputs(kind, dtype=None):
     up, blocks, post = vocoder_stage_params(500, kind == "tail", 7)
     x = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(9), device="cuda").to(dtype)
     return x, up, blocks, post
+
+
+def bench_mode() -> int:
+    """`python3 chip_smoke.py --bench`: phase 15 alone (run_bench: the
+    port's bench at full width and its gates, the fused kernels at the
+    bench's batched shapes, the traced flow samples, the forward at the
+    flow's B=64 shape), ending with the same `ok` line. The kernels build
+    on first use."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run_bench({})
+    log(f"total chip_smoke --bench time {time.time() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def vocoder_mode() -> int:
@@ -3551,6 +3788,8 @@ def vocoder_split(other: str) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab-training"]:
         sys.exit(ab_training(sys.argv[2]))
+    if sys.argv[1:2] == ["--bench"]:
+        sys.exit(bench_mode())
     if sys.argv[1:2] == ["--vocoder"]:
         sys.exit(vocoder_mode())
     if sys.argv[1:2] == ["--flash-f32"]:

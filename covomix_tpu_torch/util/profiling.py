@@ -14,7 +14,8 @@ covomix_tpu/util/profiling.py).
     memory and power limit
   * `idle_share` / `device_idle_share`: a window's device idle share, 1 minus
     the union of the card's activity intervals (kernels, copies, sets) over
-    the window's wall time."""
+    the window's wall time
+  * `device_time_by_kernel`: the card's time in a trace by kernel name."""
 
 from __future__ import annotations
 
@@ -137,7 +138,7 @@ def checkify_call(fn, *args, **kwargs):
     return CheckError(found[0] if found else None), value
 
 
-def _power_limits() -> list:
+def power_limits() -> list:
     """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` lines,
     or [] where there is no nvidia-smi."""
     if shutil.which("nvidia-smi") is None:
@@ -154,7 +155,7 @@ def device_report() -> str:
     if not torch.cuda.is_available():
         lines.append("  no CUDA device (cpu)")
         return "\n".join(lines)
-    limits = _power_limits()
+    limits = power_limits()
     for i in range(torch.cuda.device_count()):
         p = torch.cuda.get_device_properties(i)
         limit = limits[i].split(",")[-1].strip() if i < len(limits) else "power limit not read"
@@ -203,3 +204,16 @@ def device_idle_share(prof, window: Optional[str] = None) -> dict:
     return {"idle_share": share, "window_ms": (span[1] - span[0]) / 1e6,
             "busy_ms": (1.0 - share) * (span[1] - span[0]) / 1e6,
             "device_events": sum(1 for s, e in device if e > span[0] and s < span[1])}
+
+
+def device_time_by_kernel(prof) -> dict:
+    """{name: [launches, ms]} of the card's work (kernels, copies, sets) in a
+    finished `trace`, the most time first; empty where the trace saw no
+    device work."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU and not e.is_user_annotation():
+            rec = out.setdefault(e.name(), [0, 0.0])
+            rec[0] += 1
+            rec[1] += e.duration_ns() / 1e6
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][1]))

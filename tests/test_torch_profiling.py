@@ -26,6 +26,7 @@ def test_trace_writes_chrome_trace_with_scopes(tmp_path):
     # on the CPU the trace holds no device activity: the decode window is all idle
     share = P.device_idle_share(prof, "t2s_decode")
     assert share["device_events"] == 0 and share["idle_share"] == 1.0 and share["window_ms"] > 0
+    assert P.device_time_by_kernel(prof) == {}
     with pytest.raises(KeyError, match="vocoder"):
         P.device_idle_share(prof, "vocoder")
 
@@ -90,3 +91,22 @@ def test_idle_share_on_synthetic_intervals(intervals, window, expect):
     for s, e in intervals:
         busy |= (grid >= s) & (grid < e)
     assert P.idle_share(intervals, window) == pytest.approx(1.0 - busy.mean(), abs=1e-3)
+
+
+def test_device_time_by_kernel_sums_device_events():
+    """Device events summed by name, the most time first; host events and
+    a scope's projection onto the device timeline left out."""
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+
+    def event(name, dev, ns, annotation=False):
+        return SimpleNamespace(name=lambda: name, device_type=lambda: dev, duration_ns=lambda: ns,
+                               is_user_annotation=lambda: annotation)
+
+    events = [event("gemm", DeviceType.CUDA, 2_000_000), event("aten::mm", DeviceType.CPU, 9_000_000),
+              event("flash_fwd", DeviceType.CUDA, 1_500_000), event("gemm", DeviceType.CUDA, 1_000_000),
+              event("window", DeviceType.CUDA, 50_000_000, annotation=True)]
+    prof = SimpleNamespace(profiler=SimpleNamespace(kineto_results=SimpleNamespace(events=lambda: events)))
+    out = P.device_time_by_kernel(prof)
+    assert list(out) == ["gemm", "flash_fwd"]
+    assert out["gemm"] == [2, pytest.approx(3.0)] and out["flash_fwd"] == [1, pytest.approx(1.5)]
