@@ -7,6 +7,7 @@
     python3 chip_smoke.py --flash-f32         # the f32 flash kernels at head dim 64 alone
     python3 chip_smoke.py --vocoder-split DIR # the fused kernels' time split, DIR's tree against this one
     python3 chip_smoke.py --bench             # phase 15 alone: the port's serving benchmark and its gates
+    python3 chip_smoke.py --gan               # phase 16 alone: HiFi-GAN training at full width
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
 only their library, logs ptxas's registers and spills, runs check_vocoder's
@@ -175,10 +176,25 @@ Phases (any failure exits non-zero, nothing is passed over):
      give them at B = 4 and 64, one flow sample at B = 4 and 64 traced (the
      card's time by kernel: flash, GEMMs, the rest), and the flash forward
      held and timed at the flow's B=64 shape [128, 16, 912, 64];
- 16. print a `kernels` JSON line (phase 13's launches as
-     `speculative_launches`, phase 15's as `bench_launches`, the fused
-     kernels' and the forward's phase-15 times as `bench_shapes`) and, last,
-     {"ok": true, "device": {...}}.
+ 16. HiFi-GAN training at the covomix config's full width (batch 80,
+     segment 8032, initial channel 500; GAN_CONFIG writes
+     config_covomix.json) through `covomix_tpu_torch.hifigan_train.main`
+     in-process on 32 seeded synthetic 8 kHz wavs of 2-12 s: f32 for 5
+     steps (1 warm-up + 4 timed, the checkpoint and a validation at the
+     last), `--resume`d for one step (the counters continue from 5), --bf16
+     for 3 steps (1 + 2); every loss finite, MSD[0]'s spectral u / v of unit
+     norm; the median ms per step, the D step / G step split, peak GiB,
+     audio seconds trained per second and one traced step's device idle
+     share, f32 and bf16; the log-mel on the card with TF32 allowed globally
+     against the CPU's (MEL_TF32_TOL); one tiny f32 step (initial channel
+     16, segment 1600, B=2) card vs CPU (GAN_SMALL_LOSS_RTOL); then the
+     exported g_ through `hifigan_inference --fuse_tail --device cuda` on
+     two wavs: exactly one f32 fused stage and one tail launch per file,
+     each held to its plain version on the last file's inputs;
+ 17. print a `kernels` JSON line (phase 13's launches as
+     `speculative_launches`, phase 15's as `bench_launches`, phase 16's as
+     `gan_export_launches`, the fused kernels' and the forward's phase-15
+     times as `bench_shapes`) and, last, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -189,6 +205,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -2126,6 +2143,48 @@ def generator_right_reach(cfg) -> float:
     return reach + 3 / rate
 
 
+def run_hifi_cli(argv):
+    """`covomix_tpu_torch.hifigan_inference.main(argv)` in process, the
+    launch counts set to 0 just before and read just after. Returns (one
+    record per vocoded file: frames, vocode wall s, stage and tail
+    launches, wav; the inputs the last file gave the fused stage / tail;
+    the launch totals; the wall s)."""
+    import torch
+    from covomix_tpu_torch import hifigan_inference as HI
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    orig = (HI.vocode, VT.fused_stage, VT.fused_tail)
+    calls, inputs = [], {}
+
+    def vocode(params, cfg_, mel, fuse_tail):
+        s0, n0 = VT.STAGE.launches, VT.TAIL.launches
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = orig[0](params, cfg_, mel, fuse_tail)
+        torch.cuda.synchronize()
+        calls.append({"frames": mel.shape[1], "wall_s": time.time() - t0, "stage": VT.STAGE.launches - s0,
+                      "tail": VT.TAIL.launches - n0, "wav": out[0].float().cpu().numpy()})
+        return out
+
+    def fused_stage(x, up_p, resblocks, kernels, dilations):
+        inputs["stage"] = (x.contiguous().clone(), up_p, resblocks, None)
+        return orig[1](x, up_p, resblocks, kernels, dilations)
+
+    def fused_tail(x, up_p, resblocks, post_p, kernels, dilations):
+        inputs["tail"] = (x.contiguous().clone(), up_p, resblocks, post_p)
+        return orig[2](x, up_p, resblocks, post_p, kernels, dilations)
+
+    HI.vocode, VT.fused_stage, VT.fused_tail = vocode, fused_stage, fused_tail
+    zero_counts()
+    try:
+        t0 = time.time()
+        HI.main(argv)
+        wall = time.time() - t0
+    finally:
+        HI.vocode, VT.fused_stage, VT.fused_tail = orig
+    return calls, inputs, {"stage": VT.STAGE.launches, "tail": VT.TAIL.launches, **flash_counts()}, wall
+
+
 def run_hifigan_inference(results, root, g_path):
     """`covomix_tpu_torch.hifigan_inference.main([... --device cuda])` from the
     full-width `g_<step>` over the HIFI_SECONDS wavs, f32, with --metrics_csv,
@@ -2140,49 +2199,17 @@ def run_hifigan_inference(results, root, g_path):
     import csv
 
     import numpy as np
-    import torch
-    from covomix_tpu_torch import hifigan_inference as HI
     from covomix_tpu_torch.models import vocoder as V
-    from covomix_tpu_torch.ops import vocoder_tail as VT
 
     wav_dir = os.path.join(root, "hifi_wavs")
     write_hifigan_wavs(wav_dir)
     cfg = V.VocoderConfig()
-    orig = (HI.vocode, VT.fused_stage, VT.fused_tail)
     runs = {}
     for fuse in (True, False):
-        calls, inputs = [], {}
-
-        def vocode(params, cfg_, mel, fuse_tail, _calls=calls):
-            s0, n0 = VT.STAGE.launches, VT.TAIL.launches
-            torch.cuda.synchronize()
-            t0 = time.time()
-            out = orig[0](params, cfg_, mel, fuse_tail)
-            torch.cuda.synchronize()
-            _calls.append({"frames": mel.shape[1], "wall_s": time.time() - t0, "stage": VT.STAGE.launches - s0,
-                           "tail": VT.TAIL.launches - n0, "wav": out[0].float().cpu().numpy()})
-            return out
-
-        def fused_stage(x, up_p, resblocks, kernels, dilations, _inputs=inputs):
-            _inputs["stage"] = (x.contiguous().clone(), up_p, resblocks, None)
-            return orig[1](x, up_p, resblocks, kernels, dilations)
-
-        def fused_tail(x, up_p, resblocks, post_p, kernels, dilations, _inputs=inputs):
-            _inputs["tail"] = (x.contiguous().clone(), up_p, resblocks, post_p)
-            return orig[2](x, up_p, resblocks, post_p, kernels, dilations)
-
         csv_path = os.path.join(root, f"hifi_{'fused' if fuse else 'exact'}.csv")
         argv = ["--checkpoint_file", g_path, "--input_wavs_dir", wav_dir, "--output_dir",
                 os.path.join(root, f"hifi_out_{fuse}"), "--metrics_csv", csv_path, "--device", "cuda"]
-        HI.vocode, VT.fused_stage, VT.fused_tail = vocode, fused_stage, fused_tail
-        zero_counts()
-        try:
-            t0 = time.time()
-            HI.main(argv + (["--fuse_tail"] if fuse else []))
-            wall = time.time() - t0
-        finally:
-            HI.vocode, VT.fused_stage, VT.fused_tail = orig
-        counts = {"stage": VT.STAGE.launches, "tail": VT.TAIL.launches, **flash_counts()}
+        calls, inputs, counts, wall = run_hifi_cli(argv + (["--fuse_tail"] if fuse else []))
         with open(csv_path) as f:
             rows = list(csv.DictReader(f))
         per_file = [(c["frames"], round(c["wall_s"], 6), c["stage"], c["tail"]) for c in calls]
@@ -3149,6 +3176,317 @@ def run_bench(results):
     log(f"phase 15 wall {time.time() - t0:.1f} s (the bench {results['bench_wall_s']:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: HiFi-GAN training at the covomix config's full width
+
+# hifi-gan/config_covomix.json as SURVEY.md gives it (8 kHz, batch 80,
+# segment 8032 = 160 x 50 + 32, initial channel 500)
+GAN_CONFIG = {"resblock": "1", "batch_size": 80, "learning_rate": 0.0002, "adam_b1": 0.8, "adam_b2": 0.99,
+              "lr_decay": 0.999, "seed": 1234, "upsample_rates": [5, 4, 4, 2], "upsample_kernel_sizes": [8, 8, 4, 4],
+              "upsample_initial_channel": 500, "resblock_kernel_sizes": [3, 7, 11],
+              "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]], "segment_size": 8032, "num_mels": 80,
+              "num_freq": 241, "n_fft": 480, "hop_size": 160, "win_size": 480, "sampling_rate": 8000, "fmin": 0,
+              "fmax": 4000, "fmax_for_loss": None, "num_workers": 4}
+GAN_WAVS = 32                 # seeded 8 kHz training wavs of 2-12 s
+GAN_F32_STEPS = 5             # 1 warm-up + 4 timed, the checkpoint at the last
+GAN_BF16_STEPS = 3            # 1 warm-up + 2 timed
+GAN_SPLIT_STEPS = 3           # D step / G step split: median of these after the runs
+# card vs CPU, one f32 GAN step of a tiny generator at learning rate 0 (both
+# G steps see the same discriminators): the five losses from cuDNN's and the
+# CPU's convolutions, sums of up to 1024 x 41 f32 terms in another order
+GAN_SMALL_LOSS_RTOL = 1e-4
+# the log-mel on the card with TF32 allowed globally against the CPU's: the
+# STFT and the projection pin full f32 inside mel_spectrogram, so only the
+# summation order differs (TF32's 10-bit mantissa would show as ~1e-2)
+MEL_TF32_TOL = 1e-4
+
+
+def write_gan_assets(root, seed=6):
+    """The config JSON, GAN_WAVS training wavs of 2-12 s, two held-out wavs
+    and two wavs for the exported generator's vocode, speech-like as
+    write_hifigan_wavs makes them."""
+    import numpy as np
+    from covomix_tpu_torch.audio import save_wav
+
+    rs = np.random.RandomState(seed)
+    sets = {"wavs": rs.uniform(2.0, 12.0, GAN_WAVS), "val": (3.0, 5.0), "vocode": (3.0, 10.24)}
+    for d, secs in sets.items():
+        os.makedirs(os.path.join(root, d))
+        for i, s in enumerate(secs):
+            t = np.arange(int(8000 * s)) / 8000
+            f0 = 90 + 80 * rs.rand() + 40 * np.sin(2 * np.pi * 0.3 * t + rs.rand())
+            phase = 2 * np.pi * np.cumsum(f0) / 8000
+            x = sum(np.sin(h * phase) / h for h in range(1, 12)) * (0.55 + 0.45 * np.sin(2 * np.pi * 4 * t)) ** 2
+            save_wav(os.path.join(root, d, f"u{i}.wav"), (0.25 * x + 0.005 * rs.randn(len(t))).astype(np.float32),
+                     8000)
+    with open(os.path.join(root, "config_covomix.json"), "w") as f:
+        json.dump(GAN_CONFIG, f)
+
+
+class TimedGanStep:
+    """A GanStep whose every call is timed between synchronizes, its losses
+    kept as floats."""
+
+    def __init__(self, step):
+        self.step, self.calls = step, []
+
+    def __call__(self, state, batch):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.time()
+        metrics = self.step(state, batch)
+        torch.cuda.synchronize()
+        self.calls.append({"ms": (time.time() - t0) * 1e3, **{k: float(v) for k, v in metrics.items()}})
+        return metrics
+
+
+def run_gan_cli(root, ckpt, *extra):
+    """`covomix_tpu_torch.hifigan_train.main` in process on the card, its
+    steps timed. Returns (state, per-step records, stdout, peak GiB)."""
+    import io
+
+    import torch
+    from covomix_tpu_torch import hifigan_train as HT
+
+    made = []
+    orig = HT.make_gan_step
+    HT.make_gan_step = lambda *a, **k: made.append(TimedGanStep(orig(*a, **k))) or made[-1]
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with contextlib.redirect_stdout(out):
+            state = HT.main(["--input_wavs_dir", os.path.join(root, "wavs"), "--config",
+                             os.path.join(root, "config_covomix.json"), "--checkpoint_path", ckpt,
+                             "--stdout_interval", "1", "--num_workers", "4", "--device", "cuda", *extra])
+    finally:
+        HT.make_gan_step = orig
+    return state, made[0].calls, out.getvalue(), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def gan_step_flops(device="cuda") -> dict:
+    """FLOPs of one GAN step per sample at the covomix config's width, from
+    torch.utils.flop_counter over the port's plain forwards on one segment:
+    G (generator), D2 (MPD + MSD over the two signals). The D step is G +
+    3 D2 (the forward, then weight and input gradients through the
+    discriminators), the G step 3 G + 1.5 D2 (the forward and backward of
+    the generator, the discriminators' forward and the input gradient of the
+    generated half); the mels are left out (< 0.1 %)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from covomix_tpu_torch.models import vocoder as V
+
+    g = torch.Generator(device=device).manual_seed(0)
+    cfg = V.config_from_json(GAN_CONFIG)
+    gen, mpd, msd = V.init_generator(g, cfg), V.init_mpd(g), V.init_msd(g)
+    frames = GAN_CONFIG["segment_size"] // GAN_CONFIG["hop_size"]
+    mel = torch.randn(1, frames, 80, generator=g, device=device)
+    y = torch.randn(1, GAN_CONFIG["segment_size"], generator=g, device=device) * 0.1
+    counts = {}
+    with torch.no_grad():
+        for name, fn in (("G", lambda: V.generator(gen, cfg, mel, fuse_tail=False)),
+                         ("D2", lambda: (V.mpd(mpd, y, y), V.msd(msd, y, y)))):
+            with FlopCounterMode(display=False) as fc:
+                fn()
+            counts[name] = fc.get_total_flops()
+    counts["step"] = 4 * counts["G"] + 4.5 * counts["D2"]
+    return counts
+
+
+def check_gan_run(what, state, calls, steps):
+    """Every step's five losses finite, the step count, MSD[0]'s spectral
+    u / v of unit norm."""
+    import torch
+
+    if len(calls) != steps or not all(math.isfinite(c[k]) for c in calls for k in c):
+        raise AssertionError(f"{what}: {len(calls)} steps (expected {steps}) or a non-finite loss: {calls}")
+    d0 = state.msd_params["discriminators"][0]
+    norms = [torch.linalg.vector_norm(leaf[k]).item() for leaf in [*d0["convs"], d0["conv_post"]] for k in "uv"]
+    if not all(abs(n - 1.0) < 1e-4 for n in norms):
+        raise AssertionError(f"{what}: spectral buffers not of unit norm: {norms}")
+
+
+def gan_split(root, state, bf16=False):
+    """The D step / G step split at full width (batch 80, segment 8032) on
+    the trained state: the median of GAN_SPLIT_STEPS, each part ended by a
+    synchronize; then one whole step traced for the device idle share."""
+    import torch
+    from covomix_tpu_torch import hifigan_train as HT
+    from covomix_tpu_torch.audio import MelConfig
+    from covomix_tpu_torch.data.prefetch import device_transfer
+    from covomix_tpu_torch.models import vocoder as V
+    from covomix_tpu_torch.train import gan as G
+
+    h = GAN_CONFIG
+    files = sorted(os.path.join(root, "wavs", f) for f in os.listdir(os.path.join(root, "wavs")))
+    batch = device_transfer("cuda")(HT.make_sampler(h, files, None)(11))
+    mel_cfg = MelConfig(8000, 480, 80, 160, 480, 0.0, 4000.0)
+    step = G.make_gan_step(V.config_from_json(h), mel_cfg, mel_cfg, G.GanConfig(segment_size=h["segment_size"]),
+                           dtype=torch.bfloat16 if bf16 else torch.float32)
+    parts = {"inputs": [], "d_step": [], "g_step": []}
+    for _ in range(GAN_SPLIT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        y, mel, target = step.inputs(batch)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        step.d_step(state, y, mel)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        step.g_step(state, y, mel, target)
+        torch.cuda.synchronize()
+        t3 = time.time()
+        for part, a, b in zip(parts, (t0, t1, t2), (t1, t2, t3)):
+            parts[part].append((b - a) * 1e3)
+    split = {k: statistics.median(v) for k, v in parts.items()}
+    idle = traced_idle_share(f"GAN step ({'bf16' if bf16 else 'f32'})", lambda: step(state, batch),
+                             sum(split.values()) / 1e3)
+    return split, idle
+
+
+def check_gan_small_against_cpu():
+    """One f32 GAN step of a tiny generator (initial channel 16, segment
+    1600, B=2, learning rate 0) on the card and on the CPU from the same
+    state and batch: the five losses within GAN_SMALL_LOSS_RTOL."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.audio import MelConfig
+    from covomix_tpu_torch.checkpoint.io import params_from_numpy
+    from covomix_tpu_torch.models import vocoder as V
+    from covomix_tpu_torch.train import gan as G
+    from covomix_tpu_torch.util.misc import tree_map
+
+    voc = V.VocoderConfig(upsample_initial_channel=16)
+    cfg = G.GanConfig(segment_size=1600, learning_rate=0.0)
+    st = G.init_gan_state(torch.Generator().manual_seed(4), voc, cfg)
+    trees = [tree_map(lambda t: t.detach().numpy().copy(), t) for t in (st.gen_params, st.mpd_params, st.msd_params)]
+    y = (np.random.RandomState(5).randn(2, 1600) * 0.1).astype(np.float32)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        state = G.make_gan_state(*(params_from_numpy(t, dev) for t in trees), cfg)
+        step = G.make_gan_step(voc, MelConfig(), MelConfig(), cfg)
+        got[dev] = {k: float(v) for k, v in step(state, {"audio": torch.from_numpy(y).to(dev)}).items()}
+    rel = {k: abs(got["cuda"][k] - got["cpu"][k]) / max(abs(got["cpu"][k]), 1e-30) for k in got["cpu"]}
+    ok = all(r <= GAN_SMALL_LOSS_RTOL for r in rel.values())
+    log(f"small f32 GAN step card vs CPU: {json.dumps(got)} relative {json.dumps(rel)} "
+        f"(tol {GAN_SMALL_LOSS_RTOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the small GAN step's losses differ between the card and the CPU")
+    return max(rel.values())
+
+
+def check_mel_with_tf32_allowed():
+    """The log-mel of a full batch (80 x 8032, seeded) on the card with TF32
+    allowed globally, against the CPU's; the flags are put back after."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.audio import MelConfig, mel_spectrogram
+
+    y = torch.from_numpy((np.random.RandomState(8).randn(80, 8032) * 0.1).astype(np.float32))
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card = mel_spectrogram(y.cuda(), MelConfig()).cpu()
+        still = torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    err = (card - mel_spectrogram(y, MelConfig())).abs().max().item()
+    ok = err <= MEL_TF32_TOL and still
+    log(f"log-mel on the card with TF32 allowed vs the CPU: max |diff| {err:.3e} (tol {MEL_TF32_TOL:g}), "
+        f"global flags left allowed {still} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's log-mel is not full f32 under TF32-allowed flags")
+    return err
+
+
+def vocode_exported(results, root, g_path):
+    """`hifigan_inference --fuse_tail --device cuda` from the exported
+    generator over the two vocode wavs: exactly one f32 fused stage and one
+    tail launch per file, each kernel held against its plain version on the
+    inputs the last file gave it (phase 3b's f32 tolerance)."""
+    import torch
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    calls, inputs, counts, _ = run_hifi_cli(["--checkpoint_file", g_path, "--input_wavs_dir",
+                                             os.path.join(root, "vocode"), "--output_dir",
+                                             os.path.join(root, "vocoded"), "--fuse_tail", "--device", "cuda"])
+    per_file = [(c["frames"], c["stage"], c["tail"]) for c in calls]
+    log(f"exported generator, hifigan_inference --fuse_tail: per file (frames, stage, tail) {per_file}; "
+        f"launches {counts}")
+    if len(calls) != 2 or any(c["stage"] != 1 or c["tail"] != 1 for c in calls) or counts != {
+            "stage": 2, "tail": 2, **launches()}:
+        raise AssertionError(f"exported generator: launches per file {per_file}, totals {counts}")
+    errs = {}
+    with torch.no_grad():
+        for kind, (x, up, blocks, post) in inputs.items():
+            packed = VT.pack_weights(up, blocks, post, (3, 7, 11), ((1, 3, 5),) * 3, x.dtype, x.device)
+            plain = (VT.fused_tail_plain(x, up, blocks, post) if kind == "tail"
+                     else VT.fused_stage_plain(x, up, blocks))
+            errs[kind] = vocoder_agreement(f"exported generator's fused {kind}", x,
+                                           (VT.TAIL if kind == "tail" else VT.STAGE)(x, packed), plain)
+    results["gan_export_launches"] = {k: counts[k] for k in ("stage", "tail")}
+    results["gan_export_max_abs_err"] = errs
+
+
+def run_gan_training(results, root):
+    """Phase 16: `covomix_tpu_torch.hifigan_train.main` at the covomix
+    config's full width (batch 80, segment 8032, initial channel 500) on
+    seeded synthetic 8 kHz wavs: f32 for GAN_F32_STEPS steps with the
+    checkpoint and one validation at the last, `--resume`d for one step,
+    `--bf16` for GAN_BF16_STEPS; the gates (finite losses, unit-norm
+    spectral buffers, the resumed counters, the tiny card-vs-CPU step, the
+    log-mel under TF32-allowed flags); the median ms per step, the D / G
+    split, peak GiB, audio seconds trained per second and a traced step's
+    idle share; then the exported generator through `hifigan_inference
+    --fuse_tail`."""
+    import torch
+    from covomix_tpu_torch.train import gan as G
+
+    t_start = time.time()
+    write_gan_assets(root)
+    audio_s = GAN_CONFIG["batch_size"] * GAN_CONFIG["segment_size"] / GAN_CONFIG["sampling_rate"]
+    flops = gan_step_flops()
+    step_tflop = flops["step"] * GAN_CONFIG["batch_size"] / 1e12
+    gan = {"card": card_line(), "audio_s_per_step": audio_s, "flops_per_sample": flops, "tflop_per_step": step_tflop,
+           "mel_tf32_max_abs_err": check_mel_with_tf32_allowed()}
+    ckpt = os.path.join(root, "cp_f32")
+    val = ["--input_validation_dir", os.path.join(root, "val"), "--validation_interval", str(GAN_F32_STEPS)]
+    for dtype, steps, extra in (("f32", GAN_F32_STEPS, ["--checkpoint_interval", str(GAN_F32_STEPS), *val]),
+                                ("bf16", GAN_BF16_STEPS, ["--checkpoint_interval", "1000000", "--bf16"])):
+        t0 = time.time()
+        path = ckpt if dtype == "f32" else os.path.join(root, "cp_bf16")
+        state, calls, out, peak = run_gan_cli(root, path, "--training_steps", str(steps), *extra)
+        check_gan_run(f"GAN {dtype}", state, calls, steps)
+        med = statistics.median(c["ms"] for c in calls[1:])
+        split, idle = gan_split(root, state, bf16=dtype == "bf16")
+        gan[dtype] = {"ms_per_step_median": med, "ms_per_step": [c["ms"] for c in calls], "split_ms": split,
+                      "peak_gib": peak, "audio_s_per_s": audio_s / (med / 1e3), "idle": idle,
+                      "tflop_per_s": step_tflop / (med / 1e3),
+                      "losses_last": {k: v for k, v in calls[-1].items() if k != "ms"}, "wall_s": time.time() - t0}
+        log(f"GAN {dtype} at full width (batch {GAN_CONFIG['batch_size']} x {GAN_CONFIG['segment_size']}, "
+            f"{gan['card']}): {steps} steps, ms per step "
+            f"{[round(c['ms'], 2) for c in calls]}, median of the timed {med:.2f} ms, {audio_s / (med / 1e3):.1f} "
+            f"audio s per s, split {json.dumps(split)}, peak {peak:.2f} GiB; stdout {out.strip().splitlines()[-2:]}")
+        del state
+        torch.cuda.empty_cache()
+    if not os.path.isfile(os.path.join(ckpt, f"g_{GAN_F32_STEPS:08d}.npz")):
+        raise AssertionError("the f32 run wrote no g_ checkpoint")
+    state, calls, out, _ = run_gan_cli(root, ckpt, "--training_steps", str(GAN_F32_STEPS + 1), "--checkpoint_interval",
+                                       str(GAN_F32_STEPS))
+    check_gan_run("GAN resumed", state, calls, 1)
+    counts = (state.step, G.opt_count(state.opt_g), G.opt_count(state.opt_d))
+    if f"resumed from step {GAN_F32_STEPS}" not in out or counts != (GAN_F32_STEPS + 1,) * 3:
+        raise AssertionError(f"the resumed run's counters {counts} do not continue from {GAN_F32_STEPS}")
+    gan["resumed_counters"] = counts
+    del state
+    torch.cuda.empty_cache()
+    gan["small_card_vs_cpu_max_rel"] = check_gan_small_against_cpu()
+    vocode_exported(results, root, os.path.join(ckpt, f"g_{GAN_F32_STEPS:08d}.npz"))
+    gan["wall_s"] = time.time() - t_start
+    results["gan"] = gan
+    log(f"phase 16 wall {gan['wall_s']:.1f} s")
+
+
 # registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
 # to the counts of their first build: the bf16 TMA + wgmma forward's four
 # forms (<dh, lse, causal>), the rotary pre-pass, the TMA + wgmma backward
@@ -3363,6 +3701,13 @@ def main() -> int:
         finally:
             shutil.rmtree(root, ignore_errors=True)
     run_bench(results)
+    root = os.path.join(VT.BUILD_DIR, "smoke_gan")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        run_gan_training(results, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     launches = results["dialogue_launches"]     # this slice's main path: the per-file dialogue CLI
     # phase 13's path (speculative decode): the fit's causal kernels, the
@@ -3414,7 +3759,10 @@ def main() -> int:
                         ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):   # hifigan_inference --fuse_tail, f32
         kernels.append(kernel_entry(results, f"{kind}_f32", f"vocoder_fused_{kind}_f32", voc_src, where,
                                     results["hifi_launches"][kind], unfused_ms=results[f"{kind}_f32_unfused_ms"],
-                                    plan=plan_summary(results, f"{kind}_f32"), bench_launches=0))
+                                    plan=plan_summary(results, f"{kind}_f32"), bench_launches=0,
+                                    # phase 16: the trained generator's export, vocoded with --fuse_tail
+                                    gan_export_launches=results["gan_export_launches"][kind],
+                                    gan_export_max_abs_err=results["gan_export_max_abs_err"][kind]))
     t2s = results["t2s_launches"]     # this slice's main path: full-width CoMix T2S training
     for key, where in replaces.items():
         key = f"{key}_causal"
@@ -3440,6 +3788,7 @@ def main() -> int:
                                                         "vomix_bf16_step": results["train_idle"]},
                                                "captures": results["decode_captures"],
                                                "memory": results["decode_memory"]}, default=str))
+    log("gan training: " + json.dumps(results["gan"]))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -3579,6 +3928,40 @@ def bench_mode() -> int:
     torch.backends.cudnn.allow_tf32 = False
     run_bench({})
     log(f"total chip_smoke --bench time {time.time() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def gan_mode() -> int:
+    """`python3 chip_smoke.py --gan`: phase 16 alone (run_gan_training: the
+    covomix config's GAN training at full width through hifigan_train, its
+    gates and records, the exported generator's fused vocode), ending with
+    the same `ok` line. The fused vocoder library builds on first use."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    root = os.path.join(VT.BUILD_DIR, "smoke_gan")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        run_gan_training(results, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"total chip_smoke --gan time {time.time() - t_start:.1f} s")
+    log("gan training: " + json.dumps({**results["gan"], "export_launches": results["gan_export_launches"],
+                                       "export_max_abs_err": results["gan_export_max_abs_err"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -3792,6 +4175,8 @@ if __name__ == "__main__":
         sys.exit(bench_mode())
     if sys.argv[1:2] == ["--vocoder"]:
         sys.exit(vocoder_mode())
+    if sys.argv[1:2] == ["--gan"]:
+        sys.exit(gan_mode())
     if sys.argv[1:2] == ["--flash-f32"]:
         sys.exit(flash_f32_mode())
     if sys.argv[1:2] == ["--vocoder-split"]:

@@ -7,10 +7,15 @@
   4. Slaney mel filterbank (norm='slaney', htk=False) @ magnitude
   5. log(clamp(mel, min=1e-5))
 
-CoVoMix config: sr 8000, n_fft 480, hop 160, win 480, fmin 0, fmax 4000, 80 mels."""
+CoVoMix config: sr 8000, n_fft 480, hop 160, win 480, fmin 0, fmax 4000, 80 mels.
+
+The STFT and the projection run in full f32 whatever the global TF32 flags
+say (the JAX package pins Precision.HIGHEST there); their backward, where a
+loss differentiates through the mel, runs under the flags of the caller."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -85,15 +90,26 @@ def _bases(cfg: MelConfig):
     return basis, cos_k, sin_k
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN convolutions and cuBLAS matmuls in full f32 inside the block."""
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = cudnn.allow_tf32, mm.allow_tf32
+    cudnn.allow_tf32 = mm.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, mm.allow_tf32 = prev
+
+
 def mel_spectrogram(y: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
-    """Log-mel of waveform [B, T] in [-1, 1] -> [B, num_mels, frames], in f32
-    (run with TF32 off on the card for parity)."""
+    """Log-mel of waveform [B, T] in [-1, 1] -> [B, num_mels, frames], in f32."""
     basis, cos_k, sin_k = _bases(cfg)
     dev = y.device
     x = F.pad(y.float()[:, None, :], (cfg.pad, cfg.pad), mode="reflect")
-    re = F.conv1d(x, torch.from_numpy(cos_k).to(dev), stride=cfg.hop_size)
-    im = F.conv1d(x, torch.from_numpy(sin_k).to(dev), stride=cfg.hop_size)
-    mag = torch.sqrt(re * re + im * im + 1e-9)                       # [B, F, frames]
-    mel = torch.einsum("mf,bft->bmt", torch.from_numpy(basis).to(dev), mag)
+    with _no_tf32():
+        re = F.conv1d(x, torch.from_numpy(cos_k).to(dev), stride=cfg.hop_size)
+        im = F.conv1d(x, torch.from_numpy(sin_k).to(dev), stride=cfg.hop_size)
+        mag = torch.sqrt(re * re + im * im + 1e-9)                       # [B, F, frames]
+        mel = torch.einsum("mf,bft->bmt", torch.from_numpy(basis).to(dev), mag)
     return torch.log(torch.clamp(mel, min=1e-5))
-

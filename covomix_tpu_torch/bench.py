@@ -396,6 +396,7 @@ class Bench:
         cond = rs.randn(b, total, self.ac_cfg.dim_in).astype(np.float32)
         return tuple(torch.as_tensor(x, device=dev) for x in (self.inputs(b)[0], ph, cond))
 
+    @torch.no_grad()
     def measure_pipeline(self, b: int, runs: int):
         """Per-stage best walls at batch b: `generate` (max_length =
         min_length = the decode length), `sample` (CFG 0.7) over prompt +
@@ -462,6 +463,7 @@ class Bench:
             raise AssertionError("the traced serving call shows no device activity")
         return share
 
+    @torch.no_grad()
     def vocoder_throughput(self, b: int, nloop: int):
         """`nloop` generator calls on the staged mel of batch b back to back,
         then one synchronize. Returns (samples/s, s per call)."""

@@ -7,9 +7,10 @@ optional `.json` sidecar), `load_params` returns the tree as numpy arrays and
 `params_from_numpy` carries it (or the JAX package's own parameter pytree
 after `np.asarray`) onto a torch device under the same names.
 
-Training state (parameters, Adam moments, EMA, counters) is saved per step
-by `save_train_state` / `TopKCheckpointer` and read back by
-`load_train_state`."""
+Training state (parameters, Adam moments, EMA, counters; or a GAN state:
+generator, MPD, MSD with the spectral buffers, both AdamW moments and
+counts) is saved per step by `save_train_state` / `TopKCheckpointer` and
+read back by `load_train_state`."""
 
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from covomix_tpu_torch.train.gan import GanConfig, make_gan_state, opt_count, trainable_leaves
 from covomix_tpu_torch.util.misc import named_leaves
 
 
@@ -95,9 +97,23 @@ def _step_path(ckpt_dir: str, step: int) -> str:
 def save_train_state(ckpt_dir: str, state, step: int) -> None:
     """Write a `train.loop.TrainState` to `<ckpt_dir>/step_<step>/state.npz`:
     params/..., ema_params/..., adam_m/..., adam_v/... under the parameter
-    tree's names, and the counters step, ema_num_updates and adam_step. The
-    directory appears whole (written beside it, then renamed); an existing
-    one for the same step is replaced."""
+    tree's names, and the counters step, ema_num_updates and adam_step. A
+    `train.gan.GanState` is written as gen_params/..., mpd_params/...,
+    msd_params/... (the spectral u, v included), opt_g|opt_d/mu|nu/... over
+    the trained leaves, and step, opt_g_count, opt_d_count. The directory
+    appears whole (written beside it, then renamed); an existing one for the
+    same step is replaced."""
+    flat = _gan_flat(state) if hasattr(state, "opt_d") else _train_flat(state)
+    final = _step_path(ckpt_dir, step)
+    tmp = f"{final}.tmp-{os.getpid()}"
+    os.makedirs(tmp, exist_ok=True)
+    np.savez(os.path.join(tmp, STATE_FILE), **flat)
+    if os.path.isdir(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+
+
+def _train_flat(state) -> dict:
     flat = {}
     adam_step = 0
     for (name, p), (_, e) in zip(named_leaves(state.params), named_leaves(state.ema_params)):
@@ -109,33 +125,72 @@ def save_train_state(ckpt_dir: str, state, step: int) -> None:
             adam_step = int(st["step"])
     flat.update(step=np.int64(state.step), ema_num_updates=np.int64(state.ema_num_updates),
                 adam_step=np.int64(adam_step))
-    final = _step_path(ckpt_dir, step)
-    tmp = f"{final}.tmp-{os.getpid()}"
-    os.makedirs(tmp, exist_ok=True)
-    np.savez(os.path.join(tmp, STATE_FILE), **flat)
-    if os.path.isdir(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
+    return flat
+
+
+def _gan_params(state):
+    """(key, tree) of a GanState's three parameter trees."""
+    return ("gen_params", state.gen_params), ("mpd_params", state.mpd_params), ("msd_params", state.msd_params)
+
+
+def _gan_opts(state):
+    """(key, optimizer, the tree it trains) of a GanState's two optimizers."""
+    return ("opt_g", state.opt_g, state.gen_params), ("opt_d", state.opt_d, state.d_params)
+
+
+def _gan_flat(state) -> dict:
+    flat = {f"{key}/{name}": _numpy(p) for key, tree in _gan_params(state) for name, p in named_leaves(tree)}
+    for key, opt, tree in _gan_opts(state):
+        for name, p in trainable_leaves(tree):
+            st = opt.state.get(p, {})
+            for slot, src in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                flat[f"{key}/{slot}/{name}"] = _numpy(st[src]) if src in st else np.zeros(p.shape, np.float32)
+        flat[f"{key}_count"] = np.int64(opt_count(opt))
+    flat["step"] = np.int64(state.step)
+    return flat
+
+
+def _set_adam(opt, leaves, count: int, mu: dict, nu: dict) -> None:
+    """Adam moments (by leaf name) and the update count into `opt`'s state;
+    count 0 leaves it empty, as a fresh optimizer's."""
+    with torch.no_grad():
+        for name, p in leaves:
+            opt.state.pop(p, None)
+            if count > 0:
+                opt.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                                "exp_avg": torch.tensor(np.asarray(mu[name]), dtype=p.dtype, device=p.device),
+                                "exp_avg_sq": torch.tensor(np.asarray(nu[name]), dtype=p.dtype, device=p.device)}
 
 
 def load_train_state(ckpt_dir: str, step: int, state) -> Any:
-    """Read `step_<step>/state.npz` into `state` (a TrainState of the same
-    model, on any device) in place and return it."""
+    """Read `step_<step>/state.npz` into `state` (a TrainState or GanState of
+    the same model, on any device) in place and return it."""
     with np.load(os.path.join(_step_path(ckpt_dir, step), STATE_FILE)) as z:
         flat = {k: z[k] for k in z.files}
+    if hasattr(state, "opt_d"):
+        return _load_gan(flat, state)
     adam_step = int(flat["adam_step"])
     with torch.no_grad():
         for (name, p), (_, e) in zip(named_leaves(state.params), named_leaves(state.ema_params)):
             p.copy_(torch.from_numpy(flat[f"params/{name}"]))
             e.copy_(torch.from_numpy(flat[f"ema_params/{name}"]))
-            state.optimizer.state.pop(p, None)
-            if adam_step > 0:
-                state.optimizer.state[p] = {
-                    "step": torch.tensor(float(adam_step), dtype=torch.float32),
-                    "exp_avg": torch.from_numpy(flat[f"adam_m/{name}"]).to(p.device),
-                    "exp_avg_sq": torch.from_numpy(flat[f"adam_v/{name}"]).to(p.device)}
+        _set_adam(state.optimizer, named_leaves(state.params), adam_step,
+                  {n: flat[f"adam_m/{n}"] for n, _ in named_leaves(state.params)},
+                  {n: flat[f"adam_v/{n}"] for n, _ in named_leaves(state.params)})
     state.step = int(flat["step"])
     state.ema_num_updates = int(flat["ema_num_updates"])
+    return state
+
+
+def _load_gan(flat: dict, state):
+    with torch.no_grad():
+        for key, tree in _gan_params(state):
+            for name, p in named_leaves(tree):
+                p.copy_(torch.from_numpy(flat[f"{key}/{name}"]))
+    for key, opt, tree in _gan_opts(state):
+        mu, nu = ({n: flat[f"{key}/{slot}/{n}"] for n, _ in trainable_leaves(tree)} for slot in ("mu", "nu"))
+        _set_adam(opt, trainable_leaves(tree), int(flat[f"{key}_count"]), mu, nu)
+    state.step = int(flat["step"])
     return state
 
 
@@ -228,11 +283,18 @@ class TopKCheckpointer:
         return order[0][0]
 
 
-def params_from_numpy(tree: Any, device, dtype=torch.float32) -> Any:
+def params_from_numpy(tree: Any, device, dtype=torch.float32, gan_cfg=None) -> Any:
     """The weight carry: a tree of numpy arrays (or tensors on any device) ->
     the same tree of torch tensors on `device`. Floating arrays become `dtype` (parameters are kept
     in f32, compute casts per op as the JAX package does); integer and bool
-    arrays keep their type."""
+    arrays keep their type.
+
+    A JAX package GanState after `jax.device_get` (numpy trees, the optax
+    AdamW states and the step) becomes the port's `train.gan.GanState`: the
+    same leaves, each optimizer's moments and count carried over, the
+    optimizers set up from `gan_cfg` (default GanConfig())."""
+    if hasattr(tree, "opt_d"):
+        return _gan_state_from_numpy(tree, device, gan_cfg)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -244,3 +306,26 @@ def params_from_numpy(tree: Any, device, dtype=torch.float32) -> Any:
     if t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def _adam_moments(opt_state):
+    """(count, mu, nu) of an optax Adam state in numpy: the first node of the
+    chain / masked (named)tuples with `mu` and `nu` fields. A masked-out
+    leaf's moment is an empty tuple (optax's MaskedNode) and names no leaf."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return int(np.asarray(opt_state.count)), opt_state.mu, opt_state.nu
+    if isinstance(opt_state, tuple):
+        for s in opt_state:
+            found = _adam_moments(s)
+            if found is not None:
+                return found
+    return None
+
+
+def _gan_state_from_numpy(js, device, gan_cfg):
+    state = make_gan_state(*(params_from_numpy(t, device) for t in (js.gen_params, js.mpd_params, js.msd_params)),
+                           gan_cfg or GanConfig(), step=int(np.asarray(js.step)))
+    for (_, opt, tree), opt_np in zip(_gan_opts(state), (js.opt_g, js.opt_d)):
+        count, mu, nu = _adam_moments(opt_np)
+        _set_adam(opt, trainable_leaves(tree), count, dict(named_leaves(mu)), dict(named_leaves(nu)))
+    return state

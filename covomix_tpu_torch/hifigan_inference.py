@@ -66,6 +66,7 @@ def mel_config(c: dict, sr: int, num_mels: int) -> MelConfig:
                      int(c.get("win_size", 480)), float(c.get("fmin", 0)), float(c.get("fmax", sr / 2)))
 
 
+@torch.no_grad()
 def vocode(params, cfg: V.VocoderConfig, mel: torch.Tensor, fuse_tail: bool) -> torch.Tensor:
     """mel [1, T, num_mels] (on the parameters' device) -> wav
     [1, output_length(T)] f32, with the frames bucketed to a multiple of 64.

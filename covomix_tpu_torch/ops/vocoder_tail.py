@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from covomix_tpu_torch.models import layers as L
 from covomix_tpu_torch.ops.cuda_build import BUILD_DIR, build_library, csrc
+from covomix_tpu_torch.util.misc import tree_leaves
 
 SOURCE = csrc("vocoder_tail.cu")
 LRELU = 0.1
@@ -307,10 +308,19 @@ def _aligned(x):
     return x.clone() if x.data_ptr() % 16 else x
 
 
+def _refuse_grad(name, *inputs):
+    """Raise if grad mode is on and the input or a weight requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tree_leaves(inputs)):
+        raise RuntimeError(f"{name} has no backward: call it under torch.no_grad() (training runs the "
+                           f"generator with fuse_tail=False)")
+
+
 def fused_stage(x1, up_p, resblocks, kernels=(3, 7, 11), dilations=((1, 3, 5),) * 3):
     """x1 [B, T1, Cin] (pre-activation input of the rate-4 stage) -> the MRF
     output [B, 4*T1, C] in x1's dtype. CUDA tensors launch the kernel, CPU
-    tensors run the plain version."""
+    tensors run the plain version. Raises where autograd would record the
+    call: the kernel has no backward (the JAX package's has no VJP)."""
+    _refuse_grad("fused_stage", x1, up_p, resblocks)
     if x1.is_cuda:
         return STAGE(_aligned(x1), _packed(up_p, resblocks, None, kernels, dilations, x1.dtype, x1.device))
     return fused_stage_plain(x1, up_p, resblocks, kernels, dilations)
@@ -319,7 +329,8 @@ def fused_stage(x1, up_p, resblocks, kernels=(3, 7, 11), dilations=((1, 3, 5),) 
 def fused_tail(x2, up_p, resblocks, post_p, kernels=(3, 7, 11), dilations=((1, 3, 5),) * 3):
     """x2 [B, T2, Cin] (pre-activation input of the last stage) -> wav
     [B, 2*T2] f32. CUDA tensors launch the kernel, CPU tensors run the plain
-    version."""
+    version. Raises where autograd would record the call, as fused_stage."""
+    _refuse_grad("fused_tail", x2, up_p, resblocks, post_p)
     if x2.is_cuda:
         return TAIL(_aligned(x2), _packed(up_p, resblocks, post_p, kernels, dilations, x2.dtype, x2.device))
     return fused_tail_plain(x2, up_p, resblocks, post_p, kernels, dilations)

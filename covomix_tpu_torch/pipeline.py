@@ -231,6 +231,7 @@ class Synthesizer:
                               noise=None if noise is None else torch.as_tensor(noise, device=dev))
         return mel[0, :t].cpu().numpy()
 
+    @torch.no_grad()
     def vocode(self, mel: np.ndarray) -> np.ndarray:
         """[T, 80] mel -> waveform trimmed to T * hop. The mel is padded to the
         bucket with MEL_PAD; `valid_len` re-zeroes the pad frames after every

@@ -9,6 +9,8 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
+
 
 class MetricsLogger:
     def __init__(self, run_dir: str, tensorboard: bool = True, wandb: bool = False,
@@ -53,6 +55,11 @@ class MetricsLogger:
                 self._tb.add_scalar(k, v, step)
         if self._wandb is not None:
             self._wandb.log({k: v for k, v in rec.items() if k != "time" and isinstance(v, float)}, step=step)
+
+    def log_audio(self, step: int, tag: str, wav, sample_rate: int) -> None:
+        """A waveform to TensorBoard (no other sink takes audio)."""
+        if self._tb is not None:
+            self._tb.add_audio(tag, np.asarray(wav).reshape(1, -1), step, sample_rate=sample_rate)
 
     def close(self) -> None:
         if not self._jsonl.closed:

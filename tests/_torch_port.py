@@ -4,15 +4,18 @@ pytree to the port."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from covomix_tpu.models import acoustic as JA, text2semantic as JT, vocoder as JV
 from covomix_tpu_torch.checkpoint.io import params_from_numpy
 from covomix_tpu_torch.models import acoustic as PA, text2semantic as PT, vocoder as PV
+from covomix_tpu_torch.util.misc import tree_map
 
 # These tests run the port's tiny shapes on the CPU in a process whose XLA
 # client keeps its own threads busy; torch's intra-op pool then contends with
@@ -31,6 +34,19 @@ J_T2S_CKPT = dataclasses.replace(J_T2S, dim_head=64)
 J_AC_CKPT = dataclasses.replace(J_AC, dim_phoneme_emb=1024)
 
 GREEDY_THRES = 1e-3   # ceil(1e-3 * 502) == 1: top-k keeps only the argmax, sampling is greedy
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op pool at n threads inside the block (the port's GAN
+    steps update ~70 M discriminator parameters; nothing of XLA runs
+    meanwhile)."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
 
 
 def port_cfg(port_cls, jax_cfg):
@@ -52,6 +68,26 @@ def jax_params(seed: int = 0):
     return (jax.jit(JT.init, static_argnums=1)(k[0], J_T2S),
             jax.jit(JA.init, static_argnums=1)(k[1], J_AC),
             jax.jit(JV.init_generator, static_argnums=1)(k[2], J_VOC))
+
+
+def numpy_tree(tree):
+    """A tree of tensors -> numpy copies (the carry's source form)."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
+
+
+def jnp_tree(tree):
+    """A numpy tree -> jnp arrays with every dict's keys in their order
+    (jax.tree_util.tree_map would sort them, and sn_split draws in tree
+    order)."""
+    return tree_map(jnp.asarray, tree)
+
+
+def jax_gan_state(gen, mpd, msd, cfg):
+    """A JAX package GanState over numpy trees, with fresh optax states."""
+    from covomix_tpu.train import gan as JG
+
+    return JG.GanState(jnp_tree(gen), jnp_tree(mpd), jnp_tree(msd), JG._make_opt(cfg).init(jnp_tree(gen)),
+                       JG._make_opt_d(cfg).init(jnp_tree({"mpd": mpd, "msd": msd})), jnp.zeros((), jnp.int32))
 
 
 def tree_shapes(tree):

@@ -192,9 +192,10 @@ def test_port_imports_neither_jax_nor_reference_package():
         for m in mods:
             importlib.import_module(m)
         import chip_smoke
-        assert len(mods) >= 42, mods
+        assert len(mods) >= 44, mods
         for m in ("checkpoint.torch_convert", "convert_checkpoint", "hifigan_inference", "util.metrics",
-                  "util.pesq_nb", "data.batching", "models.hubert", "extract_semantic_tokens", "util.profiling"):
+                  "util.pesq_nb", "data.batching", "models.hubert", "extract_semantic_tokens", "util.profiling",
+                  "train.gan", "hifigan_train", "data.prefetch"):
             assert "covomix_tpu_torch." + m in mods, m
         print("imported", len(mods))
     """)
