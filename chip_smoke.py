@@ -8,6 +8,7 @@
     python3 chip_smoke.py --vocoder-split DIR # the fused kernels' time split, DIR's tree against this one
     python3 chip_smoke.py --bench             # phase 15 alone: the port's serving benchmark and its gates
     python3 chip_smoke.py --gan               # phase 16 alone: HiFi-GAN training at full width
+    python3 chip_smoke.py --dp                # phase 17 alone: data-parallel training at full width
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
 only their library, logs ptxas's registers and spills, runs check_vocoder's
@@ -191,10 +192,28 @@ Phases (any failure exits non-zero, nothing is passed over):
      exported g_ through `hifigan_inference --fuse_tail --device cuda` on
      two wavs: exactly one f32 fused stage and one tail launch per file,
      each held to its plain version on the last file's inputs;
- 17. print a `kernels` JSON line (phase 13's launches as
+ 17. data-parallel training at full width (parallel/, one process per
+     device): (a) the VoMix recipe (bf16, B=8, T=832) through the train CLI
+     for 4 steps in a process group of one over NCCL
+     (`--coordinator_address 127.0.0.1:<free port> --num_processes 1
+     --process_id 0`) and again without a group: losses, grad norms and the
+     final state bit for bit equal, one gradient all-reduce a step, phase
+     8's launches; (b) two ranks on the one card over gloo (NCCL refuses two
+     ranks on one device; gloo's all_reduce and broadcast on device tensors
+     are checked first): the VoMix recipe (global B 8, 4 rows a rank) and
+     the CoMix T2S recipe (global B 6, 3 a rank, the causal kernels), each
+     in bf16 and f32, for 2 steps, against one process on the same global
+     batches and draws (DP_RTOL, the parameter bounds, the two ranks' bit
+     for bit, 8 / 8 / 8 launches a VoMix step and 4 causal of each a T2S
+     step on every rank); (c) the GAN step at the covomix config (batch 80,
+     40 a rank, f32) for 2 steps the same way; ms per step at world 1 and
+     dp=2, the all-reduce's ms and bytes per step, each rank's peak GiB;
+ 18. print a `kernels` JSON line (phase 13's launches as
      `speculative_launches`, phase 15's as `bench_launches`, phase 16's as
-     `gan_export_launches`, the fused kernels' and the forward's phase-15
-     times as `bench_shapes`) and, last, {"ok": true, "device": {...}}.
+     `gan_export_launches`, phase 17's as `dp_world1_launches` and
+     `dp2_launches_per_rank_step`, the fused kernels' and the forward's
+     phase-15 times as `bench_shapes`) and, last, {"ok": true, "device":
+     {...}}.
 """
 
 from __future__ import annotations
@@ -1517,8 +1536,8 @@ def run_train_cli(argv, evaluate_name, steps_total, resume=True):
     steps, evals = [], []
     orig = (loop.make_train_step, getattr(E, evaluate_name))
 
-    def make_train_step(loss_fn, cfg):
-        step = orig[0](loss_fn, cfg)
+    def make_train_step(loss_fn, cfg, **kw):
+        step = orig[0](loss_fn, cfg, **kw)
 
         def timed_step(state, batch, generator):
             torch.cuda.synchronize()
@@ -1527,7 +1546,7 @@ def run_train_cli(argv, evaluate_name, steps_total, resume=True):
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])   # waits for the card
             torch.cuda.synchronize()
             steps.append({"ms": (time.time() - t0) * 1e3, "loss": loss, "grad_norm": gnorm,
-                          "shapes": {k: tuple(np.asarray(v).shape) for k, v in batch.items()},
+                          "shapes": {k: tuple(v.shape) for k, v in batch.items()},
                           "launches": {k: v - c0[k] for k, v in flash_counts().items()}})
             return metrics
 
@@ -3487,6 +3506,345 @@ def run_gan_training(results, root):
     log(f"phase 16 wall {gan['wall_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: data-parallel training at full width
+
+DP_WORLD1_STEPS = 4
+DP_STEPS = 2
+DP_CELLS = (("vomix", "bf16"), ("vomix", "f32"), ("t2s", "bf16"), ("t2s", "f32"))
+DP_GAN_STEPS = 2
+# dp=2 against one process on the same global batch with the same draws. A
+# rank runs its GEMMs and convolutions at half the rows, where cuBLAS and
+# cuDNN may pick other kernels (sums in another order), and the all-reduce
+# adds the two halves: the loss and the grad norm within DP_RTOL relative
+# (f32: rounding of ~1e-7 an op; bf16: a rounding of an activation to bf16
+# may flip and carry through the layers). After the steps every parameter
+# within DP_BOUND lr of the steps: an Adam update moves an element by at
+# most 1.0055 lr at these counts (|m_hat| / sqrt(v_hat) by Cauchy-Schwarz,
+# for the betas of Adam and of the GAN's AdamW), so two runs differ by at
+# most twice that a step, when a near-zero gradient changes sign; and in
+# f32 all but DP_TIGHT_SHARE of the elements within DP_TIGHT lr (in bf16
+# the share is logged).
+DP_RTOL = {"f32": 1e-4, "bf16": 2e-2}
+DP_TIGHT, DP_TIGHT_SHARE = 1e-2, 1e-3
+DP_BOUND = 2 * 1.0055
+DP_PER_STEP = {"vomix": {"bf16": launches(fwd_lse=8, bwd_dq=8, bwd_dkv=8, rotary=8),
+                         "f32": launches(fwd_lse=8, bwd_dq=8, bwd_dkv=8)},
+               "t2s": {dt: launches(fwd_lse_causal=4, bwd_dq_causal=4, bwd_dkv_causal=4) for dt in ("bf16", "f32")}}
+
+
+def dp_args(root, cell, dtype):
+    """The train CLI's flags of the VoMix or CoMix T2S recipe at full width,
+    in bf16 or f32, on phase 17's items."""
+    from covomix_tpu_torch.train import cli
+
+    recipe = [a for a in (VOMIX_RECIPE if cell == "vomix" else COMIX_T2S_RECIPE) if a != "--bf16"]
+    return cli.build_argparser().parse_args(["--base_dir", os.path.join(root, cell), *recipe, "--device", "cuda",
+                                             "--seed", "0", *(["--bf16"] if dtype == "bf16" else [])])
+
+
+def flat_params(tree):
+    import torch
+    from covomix_tpu_torch.util.misc import tree_leaves
+
+    return torch.cat([p.detach().reshape(-1) for p in tree_leaves(tree)])
+
+
+def timed_step(step, *args):
+    """One step between synchronizes, the launch counts set to 0 just before
+    it and read just after, with the gradient all-reduces it made."""
+    import torch
+    from covomix_tpu_torch.parallel import train_step as TS
+
+    zero_counts()
+    syncs, sync_bytes = TS.GRAD_SYNCS, TS.GRAD_SYNC_BYTES
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics = step(*args)
+    metrics = {k: float(v) for k, v in metrics.items()}      # waits for the card
+    torch.cuda.synchronize()
+    return {"ms": (time.time() - t0) * 1e3, **metrics, "launches": flash_counts(), "syncs": TS.GRAD_SYNCS - syncs,
+            "sync_bytes": TS.GRAD_SYNC_BYTES - sync_bytes}
+
+
+def dp_train_cell(args, steps, mesh=None):
+    """`steps` optimizer steps of the recipe `args` with the train CLI's
+    model, loss, loader and draws: in one process on the global batch
+    (mesh None) or as a rank of `mesh` on its rows. Returns (a record per
+    step, the state, the learning rates of the steps)."""
+    import torch
+    from covomix_tpu_torch.data.datasets import data_loader
+    from covomix_tpu_torch.parallel import train_step as TS
+    from covomix_tpu_torch.train import cli, loop
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    _, params, loss_fn = cli.build_model(args, gen, mesh)
+    dataset, _ = cli._datasets(args)
+    loader = data_loader(dataset, args.batch_size, cli.build_collate(args)[0], seed=args.seed)
+    tcfg = cli.train_config(args, max(1, len(dataset) // args.batch_size))
+    if mesh is None:
+        state, step = loop.init_train_state(params, tcfg), loop.make_train_step(loss_fn, tcfg)
+    else:
+        state, step = TS.init_sharded_state(params, tcfg, mesh), TS.make_sharded_train_step(loss_fn, tcfg, mesh)
+    recs = []
+    for _ in range(steps):
+        batch = next(loader)
+        if mesh is not None:
+            batch = TS.shard_batch(mesh, batch)
+        recs.append({**timed_step(step, state, batch, gen), "rows": len(next(iter(batch.values())))})
+    return recs, state, [loop.reference_lr_schedule(tcfg)(i) for i in range(steps)]
+
+
+def dp_gan(root, steps, mesh=None):
+    """`steps` GAN steps at the covomix config's full width with
+    hifigan_train's state, configs and sampler (batch 80, f32): in one
+    process, or as a rank of `mesh` on its rows of each batch."""
+    import glob
+
+    import torch
+    from covomix_tpu_torch import hifigan_train as HT
+    from covomix_tpu_torch.data.prefetch import device_transfer
+    from covomix_tpu_torch.parallel import train_step as TS
+    from covomix_tpu_torch.train import gan as G
+
+    cfg_path = os.path.join(root, "gan", "config_covomix.json")
+    args = HT.build_parser().parse_args(["--input_wavs_dir", os.path.join(root, "gan", "wavs"), "--config", cfg_path,
+                                         "--device", "cuda"])
+    files = sorted(glob.glob(os.path.join(args.input_wavs_dir, "*.wav")))
+    voc_cfg, mel_cfg, mel_loss_cfg, gan_cfg = HT.configs(GAN_CONFIG, len(files))
+    state = HT.initial_state(args, GAN_CONFIG, voc_cfg, gan_cfg, "cuda")
+    if mesh is not None:
+        TS.replicate_state(mesh, state)
+    step = G.make_gan_step(voc_cfg, mel_cfg, mel_loss_cfg, gan_cfg, mesh=mesh)
+    sample, to_device = HT.make_sampler(GAN_CONFIG, files, None), device_transfer("cuda")
+    recs = []
+    for i in range(steps):
+        batch = sample(args.seed + i)
+        if mesh is not None:
+            batch = TS.shard_batch(mesh, batch)
+        recs.append({**timed_step(step, state, to_device(batch)), "rows": len(batch["audio"])})
+    return recs, state, [G.learning_rate(gan_cfg, i) for i in range(steps)]
+
+
+def time_all_reduce(numel, iters=3) -> float:
+    """ms of one SUM all-reduce of `numel` f32 on the card in the current
+    process group, between synchronizes (and barriers), the median of
+    `iters` after one warm-up."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.zeros(numel, device="cuda")
+    times = []
+    for _ in range(iters + 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def param_agreement(flat, ref, lrs, dtype) -> dict:
+    """max |flat - ref|, its bound (DP_BOUND lr a step) and the share beyond DP_TIGHT lr."""
+    err = (flat - ref).abs()
+    lr = max(lrs)
+    return {"max_abs_err": float(err.max()), "bound": DP_BOUND * sum(lrs),
+            "tight_share": float((err > DP_TIGHT * lr).float().mean()), "numel": flat.numel(), "dtype": dtype}
+
+
+def dp_rank(root, ref_dir, out_dir):
+    """One of two ranks on the one card over gloo (phase 17b / c): gloo's
+    all_reduce and broadcast on device tensors checked first; then each
+    DP_CELLS recipe and the GAN step on its rows; the parameters held
+    against the one-process run's (saved in ref_dir) and bit for bit
+    against rank 0's; the step records, the all-reduce's ms and each
+    cell's peak GiB into out_dir/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from covomix_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # as the reference process runs
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(2, "cuda")
+    t = torch.full((4,), float(mesh.rank + 1), device="cuda")
+    dist.all_reduce(t)
+    b = torch.full((4,), float(mesh.rank + 7), device="cuda")
+    dist.broadcast(b, src=0)
+    if not (bool((t == 3).all()) and bool((b == 7).all())):
+        raise AssertionError(f"gloo collectives on device tensors: all_reduce {t.tolist()}, broadcast {b.tolist()}")
+    out = {"rank": mesh.rank, "device": str(mesh.device), "backend": dist.get_backend()}
+    cells = [(cell, dt) for cell, dt in DP_CELLS] + [("gan", "f32")]
+    for cell, dt in cells:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        if cell == "gan":
+            recs, state, lrs = dp_gan(root, DP_GAN_STEPS, mesh)
+            tensors = [state.gen_params, state.mpd_params, state.msd_params]
+        else:
+            recs, state, lrs = dp_train_cell(dp_args(root, cell, dt), DP_STEPS, mesh)
+            tensors = state.params
+        wall = time.time() - t0
+        flat = flat_params(tensors)
+        rank0 = flat.clone()
+        dist.broadcast(rank0, src=0)
+        ref = torch.load(os.path.join(ref_dir, f"{cell}_{dt}.pt")).to("cuda")
+        out[f"{cell}_{dt}"] = {"steps": recs, "lrs": lrs, "wall_s": wall,
+                               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                               "params_equal_rank0": bool(torch.equal(rank0, flat)),
+                               "params": param_agreement(flat, ref, lrs, dt),
+                               "all_reduce_ms": time_all_reduce(flat.numel(), iters=2)}
+        del state, flat, rank0, ref, tensors
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def write_dp_items(root):
+    """Phase 17's data: 24 VoMix and 24 CoMix T2S items (phases 8 / 9's
+    generators and seeds) and the GAN config with its 32 wavs."""
+    write_vomix_items(os.path.join(root, "vomix"), 24, 0)
+    write_t2s_items(os.path.join(root, "t2s"), 24, 0)
+    os.makedirs(os.path.join(root, "gan"))
+    write_gan_assets(os.path.join(root, "gan"))
+
+
+def run_dp_world1(results, root):
+    """Phase 17a: the VoMix recipe (bf16, B=8, T=832) through the train CLI
+    for DP_WORLD1_STEPS steps in a process group of one over NCCL
+    (`--coordinator_address`), then the same steps without a group: the
+    logged losses and grad norms and the final state (parameters, EMA,
+    Adam moments, counters) bit for bit equal, one gradient all-reduce a
+    step in the group and none without, the flash launches of phase 8 in
+    both. Then one NCCL all-reduce of the gradient bucket timed alone."""
+    import numpy as np
+    from covomix_tpu_torch.parallel import multihost as MH, train_step as TS
+
+    logs = os.path.join(root, "logs")
+    argv = ["--base_dir", os.path.join(root, "vomix"), *VOMIX_RECIPE, "--device", "cuda", "--log_every", "1",
+            "--num_eval_files", "0", "--ckpt_every", "1000", "--no_wandb", "--log_dir", logs, "--seed", "0"]
+    runs = {}
+    for name, extra in (("nccl_world1", ["--coordinator_address", f"127.0.0.1:{MH.free_port()}",
+                                         "--num_processes", "1", "--process_id", "0"]), ("no_group", [])):
+        syncs = TS.GRAD_SYNCS
+        steps, _, totals, peak, first_s, _ = run_train_cli(argv + ["--run_name", name, *extra], "evaluate_acoustic",
+                                                           DP_WORLD1_STEPS, resume=False)
+        check_steps(f"17a {name}", steps, DP_PER_STEP["vomix"]["bf16"])
+        with np.load(os.path.join(logs, name, "checkpoints", f"step_{DP_WORLD1_STEPS:08d}", "state.npz")) as z:
+            state = {k: z[k] for k in z.files}
+        runs[name] = {"steps": steps, "totals": totals, "syncs": TS.GRAD_SYNCS - syncs, "state": state,
+                      "peak_gib": peak, "run_s": first_s,
+                      "ms_per_step_median": statistics.median(s["ms"] for s in steps[1:])}
+    group, plain = runs["nccl_world1"], runs["no_group"]
+    if [(s["loss"], s["grad_norm"]) for s in group["steps"]] != [(s["loss"], s["grad_norm"]) for s in plain["steps"]]:
+        raise AssertionError("17a: the world-1 group's losses / grad norms differ from the run without a group")
+    if group["state"].keys() != plain["state"].keys() or any(
+            not np.array_equal(group["state"][k], plain["state"][k]) for k in plain["state"]):
+        raise AssertionError("17a: the world-1 group's final state differs from the run without a group")
+    if group["syncs"] != DP_WORLD1_STEPS or plain["syncs"] != 0:
+        raise AssertionError(f"17a: gradient all-reduces {group['syncs']} / {plain['syncs']}, expected "
+                             f"{DP_WORLD1_STEPS} / 0")
+    numel = sum(v.size for k, v in plain["state"].items() if k.startswith("params/"))
+    MH.initialize(f"127.0.0.1:{MH.free_port()}", 1, 0, device="cuda")
+    try:
+        ar_ms = time_all_reduce(numel + 1, iters=10)
+    finally:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    results["dp_world1_launches"] = group["totals"]
+    a = {name: {k: r[k] for k in ("syncs", "peak_gib", "run_s", "ms_per_step_median")} | {
+        "ms_per_step": [round(s["ms"], 3) for s in r["steps"]]} for name, r in runs.items()}
+    a.update(grad_bucket_numel=numel + 1, grad_bucket_bytes=4 * (numel + 1), nccl_world1_all_reduce_ms=ar_ms,
+             losses=[s["loss"] for s in plain["steps"]], state_arrays_equal=len(plain["state"]))
+    log(f"17a world 1 over NCCL vs no group (VoMix bf16 B=8, {card_line()}): " + json.dumps(a))
+    return a
+
+
+def run_dp_training(results, root):
+    """Phase 17: data-parallel training at full width. (a) run_dp_world1;
+    (b) each DP_CELLS recipe (global B 8 VoMix, 6 CoMix T2S, at bf16 and
+    f32) and (c) the GAN step (batch 80, f32) for DP_STEPS / DP_GAN_STEPS
+    steps in this process on the global batch, their parameters saved, then
+    two ranks on this card over gloo (dp_rank) on the same batches and
+    draws; held here: every rank's losses and grad norms within DP_RTOL of
+    the one-process run's, its parameters within the bounds, the two
+    ranks' bit for bit, one gradient all-reduce a VoMix / T2S step and two
+    a GAN step, the flash launches of a rank's step those of a one-process
+    step (the kernels run at the rank's rows). The kernel libraries are
+    built before the ranks start."""
+    import torch
+    from covomix_tpu_torch.parallel import multihost as MH
+
+    from covomix_tpu_torch.ops import flash_attention as FA
+
+    t_start = time.time()
+    FA.KERNEL.build(64)           # here, once: the ranks load the library this process built
+    write_dp_items(root)
+    dp = {"card": card_line(), "world1": run_dp_world1(results, root)}
+    ref_dir, out_dir = os.path.join(root, "ref"), os.path.join(root, "ranks")
+    os.makedirs(ref_dir)
+    os.makedirs(out_dir)
+    refs = {}
+    for cell, dt in [*DP_CELLS, ("gan", "f32")]:
+        if cell == "gan":
+            recs, state, lrs = dp_gan(root, DP_GAN_STEPS)
+            tensors = [state.gen_params, state.mpd_params, state.msd_params]
+        else:
+            recs, state, lrs = dp_train_cell(dp_args(root, cell, dt), DP_STEPS)
+            tensors = state.params
+        torch.save(flat_params(tensors).cpu(), os.path.join(ref_dir, f"{cell}_{dt}.pt"))
+        refs[f"{cell}_{dt}"] = recs
+        del state, tensors
+        torch.cuda.empty_cache()
+    t0 = time.time()
+    MH.spawn(dp_rank, 2, root, ref_dir, out_dir, device="cuda", backend="gloo")
+    spawn_s = time.time() - t0
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    cells = {}
+    for key, ref in refs.items():
+        cell, dt = key.split("_")
+        per_step = DP_PER_STEP[cell][dt] if cell != "gan" else launches()
+        syncs = 2 if cell == "gan" else 1
+        for rank in ranks:
+            got = rank[key]
+            what = f"17 dp=2 {key} rank {rank['rank']}"
+            for i, (s, r) in enumerate(zip(got["steps"], ref)):
+                for k in ("loss", "grad_norm") if cell != "gan" else ("loss_disc", "loss_gen", "mel_error", "loss_fm",
+                                                                      "loss_adv"):
+                    if not abs(s[k] - r[k]) <= DP_RTOL[dt] * abs(r[k]):
+                        raise AssertionError(f"{what} step {i + 1}: {k} {s[k]} vs one process {r[k]}")
+                if s["launches"] != per_step or s["syncs"] != syncs or s["rows"] * 2 != r["rows"]:
+                    raise AssertionError(f"{what} step {i + 1}: launches {s['launches']} (expected {per_step}), "
+                                         f"{s['syncs']} all-reduces, {s['rows']} rows of {r['rows']}")
+            if ref[0]["launches"] != per_step:
+                raise AssertionError(f"17 one-process {key}: launches {ref[0]['launches']}")
+            p = got["params"]
+            if not got["params_equal_rank0"] or not p["max_abs_err"] <= p["bound"] or (
+                    dt == "f32" and not p["tight_share"] <= DP_TIGHT_SHARE):
+                raise AssertionError(f"{what}: parameters {p}, equal to rank 0's: {got['params_equal_rank0']}")
+        r0 = ranks[0][key]
+        cells[key] = {"one_process_ms": [round(s["ms"], 3) for s in ref],
+                      "dp2_ms": [[round(s["ms"], 3) for s in rank[key]["steps"]] for rank in ranks],
+                      "all_reduce_ms": [rank[key]["all_reduce_ms"] for rank in ranks],
+                      "all_reduce_bytes_per_step": r0["steps"][0]["sync_bytes"],
+                      "peak_gib": [rank[key]["peak_gib"] for rank in ranks], "params": r0["params"],
+                      "loss_rel_err": max(abs(s["loss" if cell != "gan" else "loss_gen"] -
+                                              r["loss" if cell != "gan" else "loss_gen"]) /
+                                          abs(r["loss" if cell != "gan" else "loss_gen"])
+                                          for rank in ranks for s, r in zip(rank[key]["steps"], ref)),
+                      "launches_per_step": r0["steps"][0]["launches"], "rows_per_rank": r0["steps"][0]["rows"]}
+        log(f"17 dp=2 {key} ({dp['card']}): " + json.dumps(cells[key]))
+    dp.update(dp2=cells, spawn_s=spawn_s, wall_s=time.time() - t_start,
+              backend=ranks[0]["backend"], devices=[r["device"] for r in ranks])
+    results["dp"] = dp
+    results["dp2_launches"] = {key: c["launches_per_step"] for key, c in cells.items()}
+    log(f"phase 17 wall {dp['wall_s']:.1f} s (the two ranks {spawn_s:.1f} s)")
+
+
 # registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
 # to the counts of their first build: the bf16 TMA + wgmma forward's four
 # forms (<dh, lse, causal>), the rotary pre-pass, the TMA + wgmma backward
@@ -3708,6 +4066,13 @@ def main() -> int:
         run_gan_training(results, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    root = os.path.join(VT.BUILD_DIR, "smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        run_dp_training(results, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     launches = results["dialogue_launches"]     # this slice's main path: the per-file dialogue CLI
     # phase 13's path (speculative decode): the fit's causal kernels, the
@@ -3746,11 +4111,14 @@ def main() -> int:
                 "bwd_dq": "covomix_tpu/ops/flash_attention.py:502",
                 "bwd_dkv": "covomix_tpu/ops/flash_attention.py:544"}
     train = results["train_launches"]     # this slice's main path: full-width VoMix training
+    # phase 17's paths: the world-1 NCCL run (4 bf16 VoMix steps) and a dp=2 rank's step
+    dp1, dp2 = results["dp_world1_launches"], results["dp2_launches"]
     for key, where in replaces.items():
         kernels.append(kernel_entry(results, key, f"flash_attention_{key}", flash_src, where, train[key],
                                     with_prepass=key == "fwd_lse",
                                     launches_per_train_step=train[key] // results["train_steps"],
-                                    bench_launches=bench[key]))
+                                    bench_launches=bench[key], dp_world1_launches=dp1[key],
+                                    dp2_launches_per_rank_step=dp2["vomix_bf16"][key]))
     for dt in ("f32", "bf16"):     # this slice's main path: HuBERT extraction (f32, and --bf16)
         kernels.append(kernel_entry(results, f"hubert_fwd_{dt}", f"flash_attention_fwd_hubert_{dt}", flash_src,
                                     "covomix_tpu/ops/flash_attention.py:162", results[f"hubert_{dt}"]["launches"],
@@ -3768,14 +4136,16 @@ def main() -> int:
         key = f"{key}_causal"
         kernels.append(kernel_entry(results, key, f"flash_attention_{key}", flash_src, where, t2s[key],
                                     launches_per_train_step=t2s[key] // results["t2s_steps"],
-                                    speculative_launches=spec_fit[key], bench_launches=bench[key]))
+                                    speculative_launches=spec_fit[key], bench_launches=bench[key],
+                                    dp2_launches_per_rank_step=dp2["t2s_bf16"][key]))
     for cell, suffix in (("vomix", "_f32"), ("t2s", "_causal_f32")):   # f32 training at the recipes' precision
         runs = results[f"{cell}_f32_launches"]
         for key, where in replaces.items():
             count = runs[f"{key}_causal" if cell == "t2s" else key]
             kernels.append(kernel_entry(results, f"{key}{suffix}", f"flash_attention_{key}{suffix}", flash_src, where,
                                         count, launches_per_train_step=count // results[f"{cell}_f32_steps"],
-                                        bench_launches=0))
+                                        bench_launches=0, dp2_launches_per_rank_step=dp2[f"{cell}_f32"][
+                                            f"{key}_causal" if cell == "t2s" else key]))
     log(f"total chip_smoke time {time.time() - t_start:.1f} s")
     log("speculative decode: " + json.dumps({"bench": results["spec_bench"], "decode": results["spec_decode"],
                                               "serving_wall_s": results["spec_serving_wall_s"],
@@ -3789,6 +4159,7 @@ def main() -> int:
                                                "captures": results["decode_captures"],
                                                "memory": results["decode_memory"]}, default=str))
     log("gan training: " + json.dumps(results["gan"]))
+    log("data-parallel training: " + json.dumps(results["dp"]))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -3962,6 +4333,40 @@ def gan_mode() -> int:
     log(f"total chip_smoke --gan time {time.time() - t_start:.1f} s")
     log("gan training: " + json.dumps({**results["gan"], "export_launches": results["gan_export_launches"],
                                        "export_max_abs_err": results["gan_export_max_abs_err"]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def dp_mode() -> int:
+    """`python3 chip_smoke.py --dp`: phase 17 alone (run_dp_training: the
+    world-1 NCCL run through the train CLI against the run without a group,
+    then two ranks on the card over gloo for both recipes in bf16 and f32
+    and the GAN step, each held against one process), ending with the same
+    `ok` line. The dh-64 flash library builds before the ranks start."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    root = os.path.join(VT.BUILD_DIR, "smoke_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        run_dp_training(results, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"total chip_smoke --dp time {time.time() - t_start:.1f} s")
+    log("data-parallel training: " + json.dumps(results["dp"]))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -4177,6 +4582,8 @@ if __name__ == "__main__":
         sys.exit(vocoder_mode())
     if sys.argv[1:2] == ["--gan"]:
         sys.exit(gan_mode())
+    if sys.argv[1:2] == ["--dp"]:
+        sys.exit(dp_mode())
     if sys.argv[1:2] == ["--flash-f32"]:
         sys.exit(flash_f32_mode())
     if sys.argv[1:2] == ["--vocoder-split"]:

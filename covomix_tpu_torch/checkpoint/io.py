@@ -162,10 +162,21 @@ def _set_adam(opt, leaves, count: int, mu: dict, nu: dict) -> None:
                                 "exp_avg_sq": torch.tensor(np.asarray(nu[name]), dtype=p.dtype, device=p.device)}
 
 
+# what the JAX package's orbax saver writes into a step directory
+ORBAX_FILES = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
+JAX_STATE_ITEM = "ROADMAP.md section 1 item 5a"
+
+
 def load_train_state(ckpt_dir: str, step: int, state) -> Any:
     """Read `step_<step>/state.npz` into `state` (a TrainState or GanState of
-    the same model, on any device) in place and return it."""
-    with np.load(os.path.join(_step_path(ckpt_dir, step), STATE_FILE)) as z:
+    the same model, on any device) in place and return it. A step directory
+    that the JAX package wrote (orbax, no state.npz) raises ValueError."""
+    path = _step_path(ckpt_dir, step)
+    if (not os.path.isfile(os.path.join(path, STATE_FILE))
+            and any(os.path.exists(os.path.join(path, f)) for f in ORBAX_FILES)):
+        raise ValueError(f"{path} is a JAX (orbax) train-state checkpoint, not the port's {STATE_FILE}: carrying "
+                         f"a JAX train state into the port is {JAX_STATE_ITEM}")
+    with np.load(os.path.join(path, STATE_FILE)) as z:
         flat = {k: z[k] for k in z.files}
     if hasattr(state, "opt_d"):
         return _load_gan(flat, state)

@@ -11,12 +11,15 @@ train state with auto-resume from the newest, `g_XXXXXXXX.npz` generators
 with the `kind: vocoder` sidecar that hifigan_inference reads). `--init_g` /
 `--init_do` start from a reference `g_` / `do_` torch checkpoint or a
 converted `.npz` with fresh optimizer moments. One stdout JSON line per
-`--stdout_interval` steps and per validation. `--dp > 1` raises: data
-parallelism is not ported."""
+`--stdout_interval` steps and per validation. `--dp N > 1` trains the batch
+over N ranks, one process per device (parallel/multihost.spawn): the batch
+must divide by N, each rank keeps its rows of the batch the one-device
+sampler draws, and rank 0 alone validates, logs and writes checkpoints."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import glob
 import json
@@ -34,7 +37,8 @@ from covomix_tpu_torch.checkpoint import torch_convert as tc
 from covomix_tpu_torch.checkpoint.io import params_from_numpy
 from covomix_tpu_torch.data.prefetch import PrefetchSampler, device_transfer
 from covomix_tpu_torch.models import vocoder as V
-from covomix_tpu_torch.pipeline import PARALLEL_ITEM
+from covomix_tpu_torch.parallel import multihost as MH, train_step as TS
+from covomix_tpu_torch.parallel.mesh import make_mesh
 from covomix_tpu_torch.train.gan import GanConfig, export_generator, init_gan_state, make_gan_state, make_gan_step
 from covomix_tpu_torch.util.logging_utils import MetricsLogger
 
@@ -51,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stdout_interval", type=int, default=50)
     p.add_argument("--checkpoint_interval", type=int, default=1000)
     p.add_argument("--seed", type=int, default=1234)
-    p.add_argument("--dp", type=int, default=0, help="data-parallel devices (0 = one device; > 1 is not ported)")
+    p.add_argument("--dp", type=int, default=0, help="data-parallel devices, one process each (0 = one device)")
     p.add_argument("--num_workers", type=int, default=2, help="prefetch threads (DataLoader num_workers)")
     p.add_argument("--bf16", action="store_true", help="the generator in bf16 (the discriminators stay f32)")
     p.add_argument("--init_g", default=None,
@@ -111,6 +115,19 @@ def make_sampler(h: dict, files: list, input_mels_dir: str | None):
     return sample_batch
 
 
+def configs(h: dict, n_files: int):
+    """(vocoder, input mel, mel-loss and GAN configs) of a config JSON's
+    dict, for a run over `n_files` training files."""
+    sr = h["sampling_rate"]
+    mel_cfg = MelConfig(sr, h["n_fft"], h["num_mels"], h["hop_size"], h["win_size"], h["fmin"], h["fmax"])
+    fmax_loss = h.get("fmax_for_loss") or sr / 2
+    mel_loss_cfg = MelConfig(sr, h["n_fft"], h["num_mels"], h["hop_size"], h["win_size"], h["fmin"], fmax_loss)
+    gan_cfg = GanConfig(learning_rate=h["learning_rate"], adam_b1=h["adam_b1"], adam_b2=h["adam_b2"],
+                        lr_decay=h["lr_decay"], steps_per_epoch=max(1, n_files // h["batch_size"]),
+                        segment_size=h["segment_size"])
+    return V.config_from_json(h), mel_cfg, mel_loss_cfg, gan_cfg
+
+
 def mel_path(input_mels_dir: str, wav_path: str) -> str:
     return os.path.join(input_mels_dir, os.path.splitext(os.path.basename(wav_path))[0] + ".npy")
 
@@ -140,19 +157,41 @@ def initial_state(args, h, voc_cfg, gan_cfg, device):
 
 
 def main(argv=None):
-    """Train; returns the final train.gan.GanState (for callers in process)."""
+    """Train; returns the final train.gan.GanState (for callers in process),
+    or None after a `--dp N > 1` run, whose ranks run in processes of their
+    own."""
     args = build_parser().parse_args(argv)
-    if args.dp > 1:
-        raise NotImplementedError(f"--dp {args.dp}: the port trains on one device; data parallelism is not "
-                                  f"ported yet ({PARALLEL_ITEM})")
     device = resolve_device(args.device)
+    if args.dp > 1:
+        with open(args.config) as f:
+            batch_size = json.load(f)["batch_size"]
+        if batch_size % args.dp:
+            raise AssertionError(f"batch {batch_size} not divisible by dp={args.dp}")
+        mesh = make_mesh(args.dp, device)
+        print(f"dp mesh over {mesh.dp} devices")
+        MH.spawn(_rank_main, mesh.dp, args, device=device)
+        return None
+    return _train(args, device)
+
+
+def _rank_main(args) -> None:
+    """One rank of a `--dp N` run (multihost.spawn); rank 0 alone prints."""
+    mesh = make_mesh(args.dp, args.device)
+    with contextlib.ExitStack() as stack:
+        if mesh.rank:
+            stack.enter_context(contextlib.redirect_stdout(stack.enter_context(open(os.devnull, "w"))))
+        _train(args, mesh.device, mesh)
+
+
+def _train(args, device, mesh=None):
+    """The run on `device`; with `mesh`, as one rank of it: the state is
+    rank 0's, the rank keeps its rows of every batch the one-device sampler
+    draws (JAX's P('dp') split), D's and G's gradients are averaged over the
+    ranks, and rank 0 alone validates, logs and writes checkpoints."""
+    primary = mesh is None or mesh.rank == 0
     with open(args.config) as f:
         h = json.load(f)
-    voc_cfg = V.config_from_json(h)
     sr = h["sampling_rate"]
-    mel_cfg = MelConfig(sr, h["n_fft"], h["num_mels"], h["hop_size"], h["win_size"], h["fmin"], h["fmax"])
-    fmax_loss = h.get("fmax_for_loss") or sr / 2
-    mel_loss_cfg = MelConfig(sr, h["n_fft"], h["num_mels"], h["hop_size"], h["win_size"], h["fmin"], fmax_loss)
 
     files = sorted(glob.glob(os.path.join(args.input_wavs_dir, "**", "*.wav"), recursive=True))
     if not files:
@@ -165,22 +204,22 @@ def main(argv=None):
         print(f"fine-tuning on {len(files)} wav/mel pairs")
 
     seg = h["segment_size"]
-    gan_cfg = GanConfig(learning_rate=h["learning_rate"], adam_b1=h["adam_b1"], adam_b2=h["adam_b2"],
-                        lr_decay=h["lr_decay"], steps_per_epoch=max(1, len(files) // h["batch_size"]),
-                        segment_size=seg)
+    voc_cfg, mel_cfg, mel_loss_cfg, gan_cfg = configs(h, len(files))
     state = initial_state(args, h, voc_cfg, gan_cfg, device)
     step_fn = make_gan_step(voc_cfg, mel_cfg, mel_loss_cfg, gan_cfg,
-                            dtype=torch.bfloat16 if args.bf16 else torch.float32)
+                            dtype=torch.bfloat16 if args.bf16 else torch.float32, mesh=mesh)
 
     os.makedirs(args.checkpoint_path, exist_ok=True)
     start = cio.latest_step(args.checkpoint_path) or 0
     if start:
         state = cio.load_train_state(args.checkpoint_path, start, state)
         print(f"resumed from step {start}")
+    if mesh is not None:
+        TS.replicate_state(mesh, state)
 
     # validation: copy-synthesis mel L1 on up to 8 held-out wavs, the first
     # one's audio to TensorBoard (hifi-gan/train.py:192-225)
-    logger = MetricsLogger(args.checkpoint_path)
+    logger = MetricsLogger(args.checkpoint_path) if primary else None
     val_files = sorted(glob.glob(os.path.join(args.input_validation_dir, "**", "*.wav"),
                                  recursive=True))[:8] if args.input_validation_dir else []
 
@@ -202,12 +241,16 @@ def main(argv=None):
         logger.log(step_i, {"validation_mel_l1": val})
         print(json.dumps({"step": step_i, "validation_mel_l1": round(val, 4)}), flush=True)
 
+    to_device = device_transfer(device)
+    transfer = to_device if mesh is None else (lambda batch: to_device(TS.shard_batch(mesh, batch)))
     loader = PrefetchSampler(make_sampler(h, files, args.input_mels_dir), num_workers=max(1, args.num_workers),
-                             buffer_size=2, seed=args.seed, transfer=device_transfer(device))
+                             buffer_size=2, seed=args.seed, transfer=transfer)
     try:
         t0 = time.time()
         for step_i in range(start, args.training_steps):
             metrics = step_fn(state, next(loader))
+            if not primary:
+                continue
             if (step_i + 1) % args.stdout_interval == 0:
                 m = {k: round(float(v), 4) for k, v in metrics.items()}
                 print(json.dumps({"step": step_i + 1, **m,
@@ -222,7 +265,8 @@ def main(argv=None):
                                 meta={"kind": "vocoder", "config": dataclasses.asdict(voc_cfg)})
     finally:
         loader.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state
 
 

@@ -220,36 +220,48 @@ def forward(params, cfg: AcousticConfig, x, phoneme_ids, cond, times, *, cond_dr
 # ---------------------------------------------------------------------------
 # training-side mask + loss (OT-CFM, Voicebox eq. 5-6). Random numbers are
 # drawn from `gen` on the generator's own device and moved to the data's, so
-# one CPU generator gives the same draws to a CPU run and a CUDA run.
+# one CPU generator gives the same draws to a CPU run and a CUDA run. With
+# `mesh` (parallel/mesh.py: `dp`, `rank`, `rows`) the batch is one rank's
+# rows of a global batch: every draw is made for the global batch and the
+# rank keeps its rows, so the ranks together draw what one device would.
 
 
-def _rand(gen, shape, device):
-    return torch.rand(shape, generator=gen, device=gen.device).to(device)
+def _draw(sample, gen, shape, device, mesh=None):
+    """sample(shape, generator=, device=) from `gen`; with a mesh, for dp x
+    shape[0] rows, keeping this rank's."""
+    if mesh is None or not shape:
+        return sample(shape, generator=gen, device=gen.device).to(device)
+    full = sample((shape[0] * mesh.dp, *shape[1:]), generator=gen, device=gen.device)
+    return full[mesh.rows(shape[0])].to(device)
 
 
-def random_span_mask(gen, batch: int, seq_len: int, frac_lo: float, frac_hi: float, device=None):
+def _rand(gen, shape, device, mesh=None):
+    return _draw(torch.rand, gen, shape, device, mesh)
+
+
+def random_span_mask(gen, batch: int, seq_len: int, frac_lo: float, frac_hi: float, device=None, mesh=None):
     """[B, T] bool: one contiguous True span per row covering a uniform
     fraction in [frac_lo, frac_hi) of the sequence."""
     device = device or gen.device
-    frac = _rand(gen, (batch,), device) * (frac_hi - frac_lo) + frac_lo
+    frac = _rand(gen, (batch,), device, mesh) * (frac_hi - frac_lo) + frac_lo
     lengths = (frac * seq_len).to(torch.int32)
-    start = ((seq_len - lengths) * _rand(gen, (batch,), device)).to(torch.int32)
+    start = ((seq_len - lengths) * _rand(gen, (batch,), device, mesh)).to(torch.int32)
     seq = torch.arange(seq_len, device=device)[None, :]
     return (seq >= start[:, None]) & (seq < (start + lengths)[:, None])
 
 
-def training_mask(gen, cfg: AcousticConfig, batch: int, seq_len: int, device=None):
+def training_mask(gen, cfg: AcousticConfig, batch: int, seq_len: int, device=None, mesh=None):
     """The mask used when the batch carries none: one coin flip for the
-    batch between a frac-length span mask and bernoulli(p_drop_prob)."""
+    (global) batch between a frac-length span mask and bernoulli(p_drop_prob)."""
     device = device or gen.device
     coin = _rand(gen, (), device) < 0.5
-    span = random_span_mask(gen, batch, seq_len, *cfg.frac_lengths_mask, device=device)
-    bern = _rand(gen, (batch, seq_len), device) < cfg.p_drop_prob
+    span = random_span_mask(gen, batch, seq_len, *cfg.frac_lengths_mask, device=device, mesh=mesh)
+    bern = _rand(gen, (batch, seq_len), device, mesh) < cfg.p_drop_prob
     return torch.where(coin, span, bern)
 
 
 def cfm_inputs(cfg: AcousticConfig, gen, x1, cond, mask=None, *, cond_drop_prob: float = 0.0,
-               sigma: float = 0.0):
+               sigma: float = 0.0, mesh=None):
     """All randomness of one OT-CFM training step: (w, times, flow, mask,
     cond_masked, cond_drop_mask). x0 ~ N(0, I), t ~ U[0, 1):
     w = (1 - (1 - sigma) t) x0 + t x1, flow = x1 - (1 - sigma) x0; cond is
@@ -258,14 +270,14 @@ def cfm_inputs(cfg: AcousticConfig, gen, x1, cond, mask=None, *, cond_drop_prob:
     b, t, _ = x1.shape
     dev = x1.device
     if mask is None:
-        mask = training_mask(gen, cfg, b, t, dev)
-    x0 = torch.randn(x1.shape, generator=gen, device=gen.device).to(dev)
-    times = _rand(gen, (b,), dev)
+        mask = training_mask(gen, cfg, b, t, dev, mesh=mesh)
+    x0 = _draw(torch.randn, gen, x1.shape, dev, mesh)
+    times = _rand(gen, (b,), dev, mesh)
     tt = times[:, None, None]
     w = (1 - (1 - sigma) * tt) * x0 + tt * x1
     flow = x1 - (1 - sigma) * x0
     cond = cond * (~mask)[:, :, None]
-    drop = _rand(gen, (b,), dev) < cond_drop_prob if cond_drop_prob > 0 else None
+    drop = _rand(gen, (b,), dev, mesh) < cond_drop_prob if cond_drop_prob > 0 else None
     return w, times, flow, mask, cond, drop
 
 
@@ -278,12 +290,14 @@ def masked_mse(pred, flow, mask):
 
 
 def cfm_loss(params, cfg: AcousticConfig, gen, x1, phoneme_ids, cond, mask=None, *,
-             cond_drop_prob: float = 0.0, sigma: float = 0.0, dtype=torch.float32, inputs=None):
+             cond_drop_prob: float = 0.0, sigma: float = 0.0, dtype=torch.float32, inputs=None, mesh=None):
     """OT-CFM objective: masked-mean MSE between the predicted and the true
     flow over the masked region, averaged over the batch. `inputs`: the
-    tuple of `cfm_inputs` drawn beforehand (then `gen` is not used)."""
+    tuple of `cfm_inputs` drawn beforehand (then `gen` is not used). With
+    `mesh` the batch is one rank's equal share of the global batch, so the
+    ranks' mean is the global loss."""
     if inputs is None:
-        inputs = cfm_inputs(cfg, gen, x1, cond, mask, cond_drop_prob=cond_drop_prob, sigma=sigma)
+        inputs = cfm_inputs(cfg, gen, x1, cond, mask, cond_drop_prob=cond_drop_prob, sigma=sigma, mesh=mesh)
     w, times, flow, mask, cond, drop = inputs
     pred = forward(params, cfg, w, phoneme_ids, cond, times, cond_drop_mask=drop, dtype=dtype)
     return masked_mse(pred, flow, mask) / x1.shape[0]

@@ -248,7 +248,7 @@ def _sem_logits(params, h, dtype):
 
 def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: Optional[torch.Generator] = None,
                  source_mask=None, source_emb=None, cond_drop: bool = False, dtype=torch.float32,
-                 return_logits: bool = False):
+                 return_logits: bool = False, mesh=None):
     """Teacher-forced CE. source_ids [B, S] (two_input: [B, S, 2]), or None
     with precomputed `source_emb` [B, S, dim] and its `source_mask`;
     target_ids [B, T] (two_output: [B, T, 2]) padded with the collate pad 501.
@@ -261,8 +261,12 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
     `params`, the head's CE at the residual stream after decoder layer E is
     added (detached first with `detach_early_exit_embed`), and for
     two_output with `to_logits2` a second CE against stream 2.
-    Returns the loss (0-dim f32), or (loss, logits) with `return_logits`
-    (two_output: a pair of logits)."""
+    With `mesh` (parallel/mesh.py) the batch is one rank's rows of a global
+    batch: the cond-drop draw is the global batch's, and each CE is
+    sum(nll) x dp / the global count of valid targets (one all-reduce of the
+    counts), so that the ranks' mean is the one-device loss on the global
+    batch. Returns the loss (0-dim f32), or (loss, logits) with
+    `return_logits` (two_output: a pair of logits)."""
     # only masks derived here from right-padded ids are provably prefix masks
     mask_is_prefix = source_mask is None and source_emb is None
     if source_emb is not None:
@@ -299,8 +303,9 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
     context = encode_source(params, cfg, source_emb, source_mask, dtype, prefix_lens=src_lens)
 
     if cfg.classifier_free_guidance and cond_drop and generator is not None:
-        drop = torch.rand(context.shape[0], generator=generator, device=generator.device).to(context.device)
-        drop = drop < cfg.cond_drop_prob
+        b = context.shape[0]
+        drop = torch.rand(b * (mesh.dp if mesh else 1), generator=generator, device=generator.device)
+        drop = drop[mesh.rows(b) if mesh else slice(None)].to(context.device) < cfg.cond_drop_prob
         null = params["null_source_embedding"].to(dtype)[None, None, :]
         context = torch.where(drop[:, None, None], null, context)
 
@@ -316,21 +321,28 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
         hiddens.append(x)
     x = L.rmsnorm(params["target_final_norm"], x)
 
-    def ce(logits, tgt):
+    counts = None
+    if mesh is not None:
+        counts = torch.stack([torch.sum(t1 != cfg.semantic_pad_id), torch.sum(t2 != cfg.semantic_pad_id)])
+        mesh.all_reduce(counts)
+
+    def ce(logits, tgt, stream):
         logits = logits[:, :-1]     # the last position predicts past the end
         valid = tgt != cfg.semantic_pad_id
         tgt_c = torch.clamp(tgt, 0, cfg.num_semantic_tokens).long()
         nll = -torch.gather(torch.log_softmax(logits, dim=-1), -1, tgt_c[..., None])[..., 0]
         nll = torch.where(valid, nll, torch.zeros_like(nll))
-        return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+        if counts is None:
+            return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
+        return torch.sum(nll) / torch.clamp(counts[stream], min=1) * mesh.dp
 
     if cfg.two_output:
         half = cfg.target_dim // 2
         logits = (_sem_logits(params, x[..., :half], dtype), _sem_logits(params, x[..., half:], dtype))
-        loss = ce(logits[0], t1) + ce(logits[1], t2)
+        loss = ce(logits[0], t1, 0) + ce(logits[1], t2, 1)
     else:
         logits = _sem_logits(params, x, dtype)
-        loss = ce(logits, t1)
+        loss = ce(logits, t1, 0)
 
     # the early-exit draft head's CE, on the hidden states computed above
     if cfg.target_early_exit_layer > 0 and "early_exit" in params:
@@ -339,9 +351,9 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
             early = early.detach()
         ee = params["early_exit"]
         hn = L.rmsnorm(ee["norm"], early + _ff(ee["ff"], early))
-        loss = loss + ce(L.linear(ee["to_logits"], hn).float(), t1)
+        loss = loss + ce(L.linear(ee["to_logits"], hn).float(), t1, 0)
         if cfg.two_output and "to_logits2" in ee:
-            loss = loss + ce(L.linear(ee["to_logits2"], hn).float(), t2)
+            loss = loss + ce(L.linear(ee["to_logits2"], hn).float(), t2, 1)
     if return_logits:
         return loss, logits
     return loss
@@ -881,17 +893,20 @@ def semantic_to_text_loss(params, cfg: T2SConfig, semantic_ids, text_ids, *, dty
 
 
 def speech_speech_pretrain_loss(params, cfg: T2SConfig, generator: Optional[torch.Generator], semantic_ids, *,
-                                deletion_prob: float = 0.6, dtype=torch.float32, drop=None):
+                                deletion_prob: float = 0.6, dtype=torch.float32, drop=None, mesh=None):
     """Denoising pretraining: a random `deletion_prob` share of the speech
     tokens is replaced with the mask id (the last text id), and the model
     reconstructs the whole sequence; the corrupted tokens go through the TEXT
-    path. The draw comes from `generator`, or is handed in as `drop` ([B, T]
-    bool, True = replace; pad positions are never replaced)."""
+    path. The draw comes from `generator` (with `mesh`, the global batch's,
+    as in `forward_loss`), or is handed in as `drop` ([B, T] bool, True =
+    replace; pad positions are never replaced)."""
     mask_id = cfg.num_text_tokens - 1
     valid = semantic_ids != cfg.semantic_pad_id
     if drop is None:
-        u = torch.rand(semantic_ids.shape, generator=generator, device=generator.device)
-        drop = u.to(semantic_ids.device) < deletion_prob
+        b = semantic_ids.shape[0]
+        u = torch.rand((b * (mesh.dp if mesh else 1), *semantic_ids.shape[1:]), generator=generator,
+                       device=generator.device)
+        drop = u[mesh.rows(b) if mesh else slice(None)].to(semantic_ids.device) < deletion_prob
     drop = drop & valid
     source = torch.where(drop, mask_id, torch.clamp(semantic_ids, 0, cfg.num_text_tokens - 1))
-    return forward_loss(params, cfg, source, semantic_ids, dtype=dtype)
+    return forward_loss(params, cfg, source, semantic_ids, dtype=dtype, mesh=mesh)

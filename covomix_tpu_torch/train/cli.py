@@ -6,11 +6,20 @@ with `--text2semantic`, the T2S model (CoSingle / CoMix; the tokenizer from
 `--bert_vocab`, refusing the char-level fallback vocab unless
 `--allow_fallback_vocab`) on one device: the step loop, logging cadence, eval
 cadence with the EMA parameters (`evaluate_acoustic`, or `evaluate_t2s`'s
-token WER), and the top-10-on-'l2' checkpoints follow train.py for one
-device. Flags for what is not ported raise NotImplementedError naming their
-ROADMAP item: `--tp/--pp/--sp > 1`, `--fsdp`, `--bmuf_sync`, `--multihost`,
-`--coordinator_address`, `--dp > 1`; `--steps_per_dispatch > 1`. `--dp 0`
-("all devices") is the one device."""
+token WER), and the top-10-on-'l2' checkpoints follow train.py.
+
+Data parallelism runs one process per device (parallel/): `--dp N` (0 =
+every visible device; the CPU counts as many as --dp asks) starts N ranks
+from this one command, each running the same global loader and keeping its
+rows, so `--dp N` trains on the data of `--dp 1`; `--batch_size` is the
+global batch. `--coordinator_address host:port --num_processes P
+--process_id I`, or `--multihost` with torchrun's or SLURM's environment,
+joins a process group instead: each process loads its rank-strided share
+of the files (`ProcessShardDataset`) and `batch_size / P` rows, padded to
+the ranks' common shape (`reconcile_batch`). Rank 0 alone writes logs,
+evals and checkpoints. Flags for what is not ported raise
+NotImplementedError naming their ROADMAP item: `--tp/--pp/--sp > 1`,
+`--fsdp`, `--bmuf_sync`; `--steps_per_dispatch > 1`."""
 
 from __future__ import annotations
 
@@ -19,8 +28,10 @@ import json
 import os
 import sys
 import time
+from typing import Optional
 
 import torch
+import torch.distributed
 
 from covomix_tpu_torch import resolve_device
 from covomix_tpu_torch.checkpoint import io as cio
@@ -28,6 +39,8 @@ from covomix_tpu_torch.data.datasets import (CoVoMixDataset, collate_acoustic, c
                                              stack_microbatches)
 from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
 from covomix_tpu_torch.models import acoustic as A, text2semantic as T
+from covomix_tpu_torch.parallel import multihost as MH, train_step as TS
+from covomix_tpu_torch.parallel.mesh import Mesh, make_mesh, process_group_ready
 from covomix_tpu_torch.pipeline import PARALLEL_ITEM
 from covomix_tpu_torch.train import evaluate as E, loop
 from covomix_tpu_torch.util.logging_utils import MetricsLogger
@@ -45,7 +58,7 @@ def build_argparser():
     t.add_argument("--run_name", type=str, default=None)
     t.add_argument("--max_epochs", type=int, default=500)
     t.add_argument("--steps_per_epoch", type=int, default=0, help="0 = full dataset pass")
-    t.add_argument("--dp", type=int, default=0, help="data-parallel size (0 = all devices: the one device)")
+    t.add_argument("--dp", type=int, default=0, help="data-parallel ranks, one process each (0 = every device)")
     t.add_argument("--tp", type=int, default=1)
     t.add_argument("--pp", type=int, default=1)
     t.add_argument("--pp_microbatches", type=int, default=4)
@@ -113,13 +126,10 @@ def _refuse_unported(args) -> None:
     if (args.pp > 1 or args.sp > 1) and args.text2semantic:
         sys.exit("--pp/--sp apply to the acoustic model only")
     parallel = [flag for flag, on in (("--tp", args.tp > 1), ("--pp", args.pp > 1), ("--sp", args.sp > 1),
-                                      ("--fsdp", args.fsdp), ("--bmuf_sync", args.bmuf_sync > 0),
-                                      ("--multihost", args.multihost),
-                                      ("--coordinator_address", args.coordinator_address is not None),
-                                      ("--dp", args.dp > 1)) if on]
+                                      ("--fsdp", args.fsdp), ("--bmuf_sync", args.bmuf_sync > 0)) if on]
     if parallel:
-        raise NotImplementedError(f"{', '.join(parallel)}: the port trains on one device; parallel training "
-                                  f"is not ported yet ({PARALLEL_ITEM})")
+        raise NotImplementedError(f"{', '.join(parallel)}: the port trains data-parallel only; this form of "
+                                  f"parallel training is not ported yet ({PARALLEL_ITEM})")
     if args.steps_per_dispatch > 1:
         raise NotImplementedError(f"--steps_per_dispatch > 1 is not ported ({_MULTI_STEP_NOTE})")
 
@@ -149,19 +159,10 @@ def _datasets(args):
     return dataset, val
 
 
-def main(argv=None) -> None:
-    args = build_argparser().parse_args(argv)
-    _refuse_unported(args)
-    device = resolve_device(args.device)
-
-    run_name = args.run_name or f"{'t2s' if args.text2semantic else 'acoustic'}_{int(time.time())}"
-    run_dir = os.path.join(args.log_dir, run_name)
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "args.txt"), "w") as f:
-        json.dump(vars(args), f, indent=2)
-
+def build_model(args, gen: torch.Generator, mesh: Optional[Mesh] = None):
+    """(model config, parameters drawn from `gen` on its device, loss_fn)
+    of the run's flags; `mesh`: the loss of one rank's rows (train_step)."""
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    gen = torch.Generator(device=device).manual_seed(args.seed)
     if args.text2semantic:
         model_cfg = T.T2SConfig(
             dim=args.CoVoMix_dim_transformer, source_depth=args.text2semantic_source_depth,
@@ -170,34 +171,100 @@ def main(argv=None) -> None:
             target_dim=args.target_transformer_dim or args.CoVoMix_dim_transformer,
             two_output=args.text2semantic_two_output, no_source_transformer=args.no_source_transformer,
             cond_drop_prob=args.cond_drop_prob)
-        params = T.init(gen, model_cfg)
-        loss_fn = loop.t2s_loss_fn(model_cfg, dtype=dtype)
-    else:
-        mode = "two_one" if args.twocondition_oneoutput else ("two_two" if args.twocondition_twooutput else "single")
-        model_cfg = A.AcousticConfig(dim_in=args.CoVoMix_dim, dim=args.CoVoMix_dim_transformer,
-                                     depth=args.CoVoMix_depth, dim_head=args.CoVoMix_dim_head,
-                                     heads=args.CoVoMix_heads, num_phoneme_tokens=args.CoVoMix_num_phoneme_tokens,
-                                     mode=mode)
-        params = A.init(gen, model_cfg)
-        loss_fn = loop.acoustic_loss_fn(model_cfg, cond_drop_prob=args.cond_drop_prob, dtype=dtype)
+        return model_cfg, T.init(gen, model_cfg), loop.t2s_loss_fn(model_cfg, dtype=dtype, mesh=mesh)
+    mode = "two_one" if args.twocondition_oneoutput else ("two_two" if args.twocondition_twooutput else "single")
+    model_cfg = A.AcousticConfig(dim_in=args.CoVoMix_dim, dim=args.CoVoMix_dim_transformer,
+                                 depth=args.CoVoMix_depth, dim_head=args.CoVoMix_dim_head,
+                                 heads=args.CoVoMix_heads, num_phoneme_tokens=args.CoVoMix_num_phoneme_tokens,
+                                 mode=mode)
+    return model_cfg, A.init(gen, model_cfg), loop.acoustic_loss_fn(
+        model_cfg, cond_drop_prob=args.cond_drop_prob, dtype=dtype, mesh=mesh)
 
-    dataset, val_dataset = _datasets(args)
-    ga = max(1, args.grad_accum)
-    steps_per_epoch = args.steps_per_epoch or max(1, len(dataset) // (args.batch_size * ga))
+
+def train_config(args, steps_per_epoch: int) -> loop.TrainConfig:
+    return loop.TrainConfig(lr=args.lr, ema_decay=args.ema_decay, use_lr_schedule=args.lr_scheduler,
+                            total_epochs=args.total_epochs, wake_up_epochs=args.wake_up_epochs,
+                            decay_start_epoch=args.decay_start_epoch, steps_per_epoch=steps_per_epoch,
+                            grad_accum=max(1, args.grad_accum))
+
+
+def build_collate(args):
+    """(collate, evaluate) of the run's model."""
     if args.text2semantic:
         # strict: a model trained on the fallback vocab's ids decodes garbage under the real one
         tok = load_covomix_tokenizer(args.bert_vocab, strict=not args.allow_fallback_vocab)
-        collate = lambda items: collate_t2s(items, tok)
-        evaluate = E.evaluate_t2s
+        return (lambda items: collate_t2s(items, tok)), E.evaluate_t2s
+    return collate_acoustic, E.evaluate_acoustic
+
+
+def main(argv=None) -> None:
+    args = build_argparser().parse_args(argv)
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+    owned = False
+    if args.multihost or args.coordinator_address is not None:
+        # the rendezvous comes before the first allocation on the card
+        owned = not process_group_ready() and MH.initialize(
+            args.coordinator_address, args.num_processes, args.process_id, requested=True, device=device)
+    if process_group_ready():
+        try:
+            _train(args, make_mesh(args.dp, device), per_process_data=True)
+        finally:
+            if owned:
+                torch.distributed.destroy_process_group()
+        return
+    mesh = make_mesh(args.dp, device)
+    if mesh.dp > 1:
+        MH.spawn(_rank_main, mesh.dp, args, device=device)
     else:
-        collate, evaluate = collate_acoustic, E.evaluate_acoustic
-    loader = data_loader(dataset, args.batch_size, collate, seed=args.seed, num_workers=args.num_workers)
-    train_cfg = loop.TrainConfig(lr=args.lr, ema_decay=args.ema_decay, use_lr_schedule=args.lr_scheduler,
-                                 total_epochs=args.total_epochs, wake_up_epochs=args.wake_up_epochs,
-                                 decay_start_epoch=args.decay_start_epoch, steps_per_epoch=steps_per_epoch,
-                                 grad_accum=ga)
-    state = loop.init_train_state(params, train_cfg)
-    step_fn = loop.make_train_step(loss_fn, train_cfg)
+        _train(args, mesh)
+
+
+def _rank_main(args) -> None:
+    """One rank of a single-command `--dp N` run (multihost.spawn)."""
+    _train(args, make_mesh(args.dp, args.device), per_process_data=False)
+
+
+def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
+    """The run as rank `mesh.rank` of `mesh.dp`. In a process group the
+    step averages the gradients over the ranks and the losses draw for the
+    global batch. `per_process_data`: this process loads its share of the
+    files and rows (the multi-process contract); otherwise every rank runs
+    the global loader and keeps its rows."""
+    primary = mesh.rank == 0
+    device = mesh.device
+    dp_mesh = mesh if mesh.collective else None
+    run_name = args.run_name or f"{'t2s' if args.text2semantic else 'acoustic'}_{int(time.time())}"
+    run_dir = os.path.join(args.log_dir, run_name)
+    os.makedirs(run_dir, exist_ok=True)
+    if primary:
+        with open(os.path.join(run_dir, "args.txt"), "w") as f:
+            json.dump(vars(args), f, indent=2)
+
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model_cfg, params, loss_fn = build_model(args, gen, dp_mesh)
+
+    dataset, val_dataset = _datasets(args)
+    ga = max(1, args.grad_accum)
+    if args.batch_size % mesh.dp:
+        sys.exit(f"--batch_size {args.batch_size} must divide by {mesh.dp} processes")
+    sharded_files = per_process_data and mesh.dp > 1
+    if sharded_files and ga > 1:
+        sys.exit("--grad_accum composes with single-host dp only (one process feeding every rank)")
+    local_bs = args.batch_size // mesh.dp if sharded_files else args.batch_size
+    if sharded_files:
+        dataset = MH.ProcessShardDataset(dataset, mesh.rank, mesh.dp)
+    steps_per_epoch = args.steps_per_epoch or max(1, len(dataset) // (local_bs * ga))
+    collate, evaluate = build_collate(args)
+    loader = data_loader(dataset, local_bs, collate, seed=args.seed, num_workers=args.num_workers)
+    train_cfg = train_config(args, steps_per_epoch)
+    if dp_mesh is None:
+        state = loop.init_train_state(params, train_cfg)
+        step_fn = loop.make_train_step(loss_fn, train_cfg)
+    else:
+        state = TS.init_sharded_state(params, train_cfg, dp_mesh)
+        step_fn = TS.make_sharded_train_step(loss_fn, train_cfg, dp_mesh)
 
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     ckpt_mgr = cio.TopKCheckpointer(ckpt_dir, top_k=10, mode="min")   # save_last + top-10 on 'l2'
@@ -206,10 +273,15 @@ def main(argv=None) -> None:
         latest = cio.latest_step(ckpt_dir)
         if latest is not None:
             cio.load_train_state(ckpt_dir, latest, state)
+            if dp_mesh is not None:
+                TS.replicate_state(dp_mesh, state)
             start_step = latest
-            print(f"resumed from step {latest}", flush=True)
+            if primary:
+                print(f"resumed from step {latest}", flush=True)
 
-    logger = MetricsLogger(run_dir, tensorboard=True, wandb=not args.no_wandb, wandb_run=args.run_name)
+    # sinks on rank 0 only: every rank writing the run dir would duplicate them
+    logger = MetricsLogger(run_dir, tensorboard=True, wandb=not args.no_wandb,
+                           wandb_run=args.run_name) if primary else None
     total_steps = args.max_steps or args.max_epochs * steps_per_epoch
     t_last, step_last = time.time(), start_step
     done = start_step
@@ -217,9 +289,20 @@ def main(argv=None) -> None:
         try:
             for step_i in range(start_step, total_steps):
                 batch = (stack_microbatches([next(loader) for _ in range(ga)]) if ga > 1 else next(loader))
+                if dp_mesh is not None:
+                    batch = (MH.reconcile_batch(batch, device) if per_process_data
+                             else TS.shard_batch(dp_mesh, batch, accum=ga > 1))
                 metrics = step_fn(state, batch, gen)
                 done = step_i + 1
                 watchdog.beat(done)
+                evaluating = args.num_eval_files and args.eval_every > 0 and done % args.eval_every == 0
+                if evaluating:
+                    # read on every rank: the items draw from the dataset's own random state, which
+                    # the training items share when there are fewer than 10 files
+                    items = [val_dataset[i % len(val_dataset)]
+                             for i in range(min(args.num_eval_files, len(val_dataset)))]
+                if not primary:
+                    continue
                 if args.log_every > 0 and done % args.log_every == 0:
                     now = time.time()
                     sps = (done - step_last) / max(now - t_last, 1e-9)
@@ -229,21 +312,24 @@ def main(argv=None) -> None:
                     print(json.dumps({"step": done, **rec}), flush=True)
                     logger.log(done, rec)
                 eval_metric = None
-                if args.num_eval_files and args.eval_every > 0 and done % args.eval_every == 0:
-                    items = [val_dataset[i % len(val_dataset)]
-                             for i in range(min(args.num_eval_files, len(val_dataset)))]
+                if evaluating:
                     batches = [collate(items[i:i + args.batch_size]) for i in range(0, len(items), args.batch_size)]
-                    ev = evaluate(state.ema_params, model_cfg, batches, gen, dtype=dtype)
+                    # its own generator: the training draws stay in step across ranks, and
+                    # an eval gives the same numbers in a resumed run as in an unbroken one
+                    eval_gen = torch.Generator(device=device).manual_seed(args.seed + done)
+                    ev = evaluate(state.ema_params, model_cfg, batches, eval_gen, dtype=dtype)
                     print("eval:", json.dumps(ev), flush=True)
                     logger.log(done, ev, prefix="eval_")
                     eval_metric = ev["l2"]
                 if (args.ckpt_every > 0 and done % args.ckpt_every == 0) or eval_metric is not None:
                     ckpt_mgr.save(state, done, metric=eval_metric)
         finally:
-            logger.close()
+            if logger is not None:
+                logger.close()
             if hasattr(loader, "close"):
                 loader.close()
     final_step = max(total_steps, done)
-    if ckpt_mgr.last_step != final_step:    # not saved just now (eval at the last step)
-        ckpt_mgr.save(state, final_step)
-    print(f"done: {final_step} steps -> {ckpt_dir}", flush=True)
+    if primary:
+        if ckpt_mgr.last_step != final_step:    # not saved just now (eval at the last step)
+            ckpt_mgr.save(state, final_step)
+        print(f"done: {final_step} steps -> {ckpt_dir}", flush=True)

@@ -32,6 +32,7 @@ import torch
 
 from covomix_tpu_torch.audio.mel import MelConfig, mel_spectrogram
 from covomix_tpu_torch.models import vocoder as V
+from covomix_tpu_torch.parallel.train_step import sync_grads
 from covomix_tpu_torch.util.misc import tree_map
 
 # ---------------------------------------------------------------------------
@@ -279,12 +280,23 @@ class GanStep:
     142-160) and {'mel_loss_target': [B, T, num_mels]}; what is absent is
     computed here from `audio`. After a step each trained leaf's `.grad`
     holds the gradient its optimizer took. `d_step` and `g_step` are the two
-    halves, for timing them apart."""
+    halves, for timing them apart.
+
+    `mesh` (parallel/mesh.py): the batch is this rank's equal share of the
+    global batch; D's gradients and losses are averaged over the ranks
+    before D's update and G's before G's (one all-reduce each), as the JAX
+    step's two value_and_grads are over its 'dp' axis. The losses are
+    element means, so the ranks' mean is the global loss, and the power
+    iteration runs on weights that are the same on every rank."""
 
     def __init__(self, voc_cfg: V.VocoderConfig, mel_cfg: MelConfig, mel_loss_cfg: MelConfig, cfg: GanConfig,
-                 dtype=torch.float32):
-        self.voc_cfg, self.mel_cfg, self.mel_loss_cfg, self.cfg, self.dtype = (
-            voc_cfg, mel_cfg, mel_loss_cfg, cfg, dtype)
+                 dtype=torch.float32, mesh=None):
+        self.voc_cfg, self.mel_cfg, self.mel_loss_cfg, self.cfg, self.dtype, self.mesh = (
+            voc_cfg, mel_cfg, mel_loss_cfg, cfg, dtype, mesh)
+
+    def _sync(self, grads, *losses):
+        """The ranks' mean of the gradients (in place) and of the losses."""
+        return losses if self.mesh is None else sync_grads(self.mesh, grads, *losses)
 
     def d_fold(self, d_params):
         if not self.cfg.weight_norm:
@@ -330,8 +342,10 @@ class GanStep:
         loss_s = V.discriminator_loss(rs2, gs2)
         loss = loss_f + loss_s
         leaves = [p for _, p in trainable_leaves(state.d_params)]
-        _update(state.opt_d, torch.autograd.grad(loss, leaves), self.cfg)
-        return loss.detach(), loss_f.detach(), loss_s.detach()
+        grads = torch.autograd.grad(loss, leaves)
+        losses = self._sync(grads, loss.detach(), loss_f.detach(), loss_s.detach())
+        _update(state.opt_d, grads, self.cfg)
+        return tuple(losses)
 
     def g_step(self, state: GanState, y, mel, target):
         """The generator's loss against the updated discriminators (folded
@@ -348,8 +362,10 @@ class GanStep:
         loss_adv = V.generator_adv_loss(gs) + V.generator_adv_loss(gs2)
         loss = loss_adv + loss_fm + loss_mel
         leaves = [p for _, p in trainable_leaves(state.gen_params)]
-        _update(state.opt_g, torch.autograd.grad(loss, leaves), self.cfg)
-        return loss.detach(), loss_mel.detach(), loss_fm.detach(), loss_adv.detach()
+        grads = torch.autograd.grad(loss, leaves)
+        losses = self._sync(grads, loss.detach(), loss_mel.detach(), loss_fm.detach(), loss_adv.detach())
+        _update(state.opt_g, grads, self.cfg)
+        return tuple(losses)
 
     def __call__(self, state: GanState, batch) -> dict:
         y, mel, target = self.inputs(batch)
@@ -361,10 +377,10 @@ class GanStep:
 
 
 def make_gan_step(voc_cfg: V.VocoderConfig, mel_cfg: MelConfig, mel_loss_cfg: MelConfig, cfg: GanConfig,
-                  dtype=torch.float32) -> GanStep:
-    """The JAX package's make_gan_step (one device: its `mesh` argument has
-    no counterpart until data parallelism is ported)."""
-    return GanStep(voc_cfg, mel_cfg, mel_loss_cfg, cfg, dtype)
+                  dtype=torch.float32, mesh=None) -> GanStep:
+    """The JAX package's make_gan_step; `mesh` (parallel/mesh.py) for its
+    dp mesh: the batch is the rank's rows, gradients averaged over ranks."""
+    return GanStep(voc_cfg, mel_cfg, mel_loss_cfg, cfg, dtype, mesh)
 
 
 @torch.no_grad()

@@ -133,17 +133,21 @@ def accumulated_value_and_grad(loss_fn: Callable, grad_accum: int):
     return run
 
 
-def make_train_step(loss_fn: Callable, cfg: TrainConfig):
+def make_train_step(loss_fn: Callable, cfg: TrainConfig, grad_sync: Optional[Callable] = None):
     """loss_fn(params, batch, generator) -> scalar loss tensor. Returns
     step(state, batch, generator) -> {"loss", "grad_norm"} (0-dim tensors on
     the parameters' device), updating `state` in place: gradients, global
-    norm, clipping, Adam at the schedule's learning rate, EMA, counters."""
+    norm, clipping, Adam at the schedule's learning rate, EMA, counters.
+    `grad_sync(grads, loss) -> loss`, when given, runs between the backward
+    and the norm (the data-parallel mean, parallel/train_step.py)."""
     vg = accumulated_value_and_grad(loss_fn, cfg.grad_accum)
     schedule = reference_lr_schedule(cfg) if cfg.use_lr_schedule else None
 
     def step(state: TrainState, batch, generator):
         device = tree_leaves(state.params)[0].device
         loss, grads = vg(state.params, to_device(batch, device), generator)
+        if grad_sync is not None:
+            loss = grad_sync(grads, loss)
         gnorm = global_norm(grads)
         if cfg.grad_clip:
             keep = gnorm < cfg.grad_clip
@@ -165,10 +169,12 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig):
 # per-model loss adapters
 
 
-def acoustic_loss_fn(cfg_model, *, cond_drop_prob: float = 0.0, dtype=torch.float32):
+def acoustic_loss_fn(cfg_model, *, cond_drop_prob: float = 0.0, dtype=torch.float32, mesh=None):
     """Batch: {'x': [B, T, D] target mel(s), 'phonemes': [B, T(, 2)], 'mask':
     [B, T] bool}. VoSingle: cond = x. VoMix ('two_one'): x holds [cond_A |
-    cond_B | mixed]; target = x[..., -80:], cond = x[..., :-80]."""
+    cond_B | mixed]; target = x[..., -80:], cond = x[..., :-80]. `mesh`
+    (parallel/mesh.py): the batch is this rank's rows and the draws are
+    the global batch's."""
     from covomix_tpu_torch.models import acoustic as A
 
     def loss(params, batch, generator):
@@ -178,18 +184,19 @@ def acoustic_loss_fn(cfg_model, *, cond_drop_prob: float = 0.0, dtype=torch.floa
         else:
             target, cond = x, x
         return A.cfm_loss(params, cfg_model, generator, target, batch["phonemes"], cond, batch.get("mask"),
-                          cond_drop_prob=cond_drop_prob, dtype=dtype)
+                          cond_drop_prob=cond_drop_prob, dtype=dtype, mesh=mesh)
 
     return loss
 
 
-def t2s_loss_fn(cfg_model, dtype=torch.float32):
+def t2s_loss_fn(cfg_model, dtype=torch.float32, mesh=None):
     """Batch: {'text_ids': [B, S], 'semantic_ids': [B, T(, 2)]}. The
-    generator is passed on for the loss's cond_drop draw."""
+    generator is passed on for the loss's cond_drop draw. `mesh`: the batch
+    is this rank's rows; the CE is normalised by the global token count."""
     from covomix_tpu_torch.models import text2semantic as T
 
     def loss(params, batch, generator):
         return T.forward_loss(params, cfg_model, batch["text_ids"], batch["semantic_ids"], generator=generator,
-                              dtype=dtype)
+                              dtype=dtype, mesh=mesh)
 
     return loss

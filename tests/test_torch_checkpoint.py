@@ -177,6 +177,34 @@ def test_serve_batch_cli_on_cpu(tmp_path):
         assert sr == 8000 and 0 < len(wav) <= 16 * 160
 
 
+def test_resume_from_a_jax_train_state_names_it(tmp_path):
+    """A step directory the JAX package wrote (orbax, no state.npz) counts as
+    the newest step, and resuming from it raises an error that names it as a
+    JAX checkpoint and points to its ROADMAP item: in load_train_state, in
+    hifigan_train's automatic resume and in the train CLI's --resume."""
+    from covomix_tpu_torch import hifigan_train as HT
+    from covomix_tpu_torch.train import cli
+
+    from test_torch_hifigan_train import write_assets
+    from test_torch_train_cli import TINY, _write_items
+
+    said = r"step_00000005 is a JAX \(orbax\) train-state checkpoint.*ROADMAP.md section 1 item 5a"
+    hifi, logs = tmp_path / "hifi", tmp_path / "logs"
+    write_assets(str(hifi))
+    for ckpt in (hifi / "cp", logs / "vomix" / "checkpoints"):
+        jio.save_train_state(str(ckpt), {"params": {"w": jnp.ones(3)}, "step": jnp.int32(5)}, 5)
+        assert pio.latest_step(str(ckpt)) == 5
+        with pytest.raises(ValueError, match=said):
+            pio.load_train_state(str(ckpt), 5, None)
+    with pytest.raises(ValueError, match=said):
+        HT.main(["--input_wavs_dir", str(hifi / "wavs"), "--config", str(hifi / "config.json"), "--checkpoint_path",
+                 str(hifi / "cp"), "--device", "cpu"])
+    _write_items(str(tmp_path / "data"), "hubert_fisher", 3)
+    with pytest.raises(ValueError, match=said):
+        cli.main(["--base_dir", str(tmp_path / "data"), "--device", "cpu", *TINY, "--batch_size", "2",
+                  "--log_dir", str(logs), "--run_name", "vomix", "--resume", "--no_wandb"])
+
+
 def test_port_imports_neither_jax_nor_reference_package():
     """Every port module and chip_smoke.py import with jax, covomix_tpu and
     joblib / scikit-learn (which only `load_kmeans` needs, inside the call)
@@ -192,10 +220,11 @@ def test_port_imports_neither_jax_nor_reference_package():
         for m in mods:
             importlib.import_module(m)
         import chip_smoke
-        assert len(mods) >= 44, mods
+        assert len(mods) >= 50, mods
         for m in ("checkpoint.torch_convert", "convert_checkpoint", "hifigan_inference", "util.metrics",
                   "util.pesq_nb", "data.batching", "models.hubert", "extract_semantic_tokens", "util.profiling",
-                  "train.gan", "hifigan_train", "data.prefetch"):
+                  "train.gan", "hifigan_train", "data.prefetch", "parallel.mesh", "parallel.multihost",
+                  "parallel.train_step"):
             assert "covomix_tpu_torch." + m in mods, m
         print("imported", len(mods))
     """)

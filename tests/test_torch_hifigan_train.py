@@ -3,7 +3,7 @@ a tiny generator (initial channel 16, segment 1600, batch 2): two steps
 write the `g_` generator and the `step_` train state, a resume continues the
 counters, `--init_g` / `--init_do` read reference-layout `g_` / `do_` files
 written here with torch.nn convolutions under weight_norm / spectral_norm,
-`--dp 2` raises, and the exported `g_*.npz` loads in the JAX package and
+`--dp 3` on a batch of 2 raises, and the exported `g_*.npz` loads in the JAX package and
 vocodes as the port does."""
 
 import contextlib
@@ -117,10 +117,12 @@ def test_resume_continues_counters(trained, tmp_path):
 
 
 def test_dp_raises(trained):
+    """--dp 3 on the config's batch of 2 raises JAX's assertion before any
+    rank starts (the batch must divide by dp)."""
     root, _, _, _ = trained
-    with pytest.raises(NotImplementedError, match="Parallelism"):
+    with pytest.raises(AssertionError, match="batch 2 not divisible by dp=3"):
         HT.main(["--input_wavs_dir", os.path.join(root, "wavs"), "--config", os.path.join(root, "config.json"),
-                 "--dp", "2", "--device", "cpu"])
+                 "--dp", "3", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------

@@ -143,7 +143,7 @@ def test_train_state_round_trip_continues_identically(tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--sp", "2"], "Parallelism"),
     (["--tp", "2"], "Parallelism"),
-    (["--dp", "2"], "Parallelism"),
+    (["--bmuf_sync", "2"], "Parallelism"),
     (["--fsdp"], "Parallelism"),
     (["--steps_per_dispatch", "2"], "make_multi_step"),
 ])
