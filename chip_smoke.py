@@ -9,6 +9,7 @@
     python3 chip_smoke.py --bench             # phase 15 alone: the port's serving benchmark and its gates
     python3 chip_smoke.py --gan               # phase 16 alone: HiFi-GAN training at full width
     python3 chip_smoke.py --dp                # phase 17 alone: data-parallel training at full width
+    python3 chip_smoke.py --tp                # phase 18 alone: tensor-parallel and FSDP training at full width
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
 only their library, logs ptxas's registers and spills, runs check_vocoder's
@@ -208,10 +209,25 @@ Phases (any failure exits non-zero, nothing is passed over):
      step on every rank); (c) the GAN step at the covomix config (batch 80,
      40 a rank, f32) for 2 steps the same way; ms per step at world 1 and
      dp=2, the all-reduce's ms and bytes per step, each rank's peak GiB;
- 18. print a `kernels` JSON line (phase 13's launches as
+ 18. tensor-parallel and FSDP training at full width (parallel/mesh.py,
+     tensor.py, train_step.py), on phase 17's items and one-process
+     references, ranks sharing the one card over gloo (the collectives of
+     this slice checked first on device tensors): (a) tp=2, the VoMix and
+     CoMix T2S recipes in bf16 and f32; (b) dp=2 with --fsdp, the VoMix
+     bf16 cell; (c) dp=2 x tp=2 with --fsdp (four ranks), the VoMix bf16
+     cell; 2 steps each: every rank's losses and grad norms within DP_RTOL
+     of one process, the gathered parameters within phase 17's bounds, the
+     parts two ranks both hold bit for bit, each rank step's flash launches
+     at its H / tp heads (8 / 8 / 8 and 8 pre-passes a bf16 VoMix step, 4
+     causal of each a T2S step), its tp collectives, gradient collectives
+     and parameter gathers as counted; ms a step, the tp collectives' count,
+     bytes and host ms, the resident bytes of parameters, Adam moments and
+     EMA and the peak GiB of each rank;
+ 19. print a `kernels` JSON line (phase 13's launches as
      `speculative_launches`, phase 15's as `bench_launches`, phase 16's as
      `gan_export_launches`, phase 17's as `dp_world1_launches` and
-     `dp2_launches_per_rank_step`, the fused kernels' and the forward's
+     `dp2_launches_per_rank_step`, phase 18's as
+     `tp_launches_per_rank_step`, the fused kernels' and the forward's
      phase-15 times as `bench_shapes`) and, last, {"ok": true, "device":
      {...}}.
 """
@@ -2798,10 +2814,10 @@ def run_speculative(results, root, models):
 # phase 14: the one-program T2S decode, captured graphs against the direct step
 
 
-# timed calls of each form, in turns (graph, direct, graph, ...); two keep
-# the whole script near half its time limit (the direct step's walls, the
-# yardstick, are ~10x the graph's: ~21 s per per-file call)
-DECODE_TURNS = 2
+# timed calls of each form, in turns (graph, direct, graph, ...); one keeps
+# the whole script near half its time limit with phases 17-18 (the direct
+# step's walls, the yardstick, are ~10x the graph's: ~21 s per per-file call)
+DECODE_TURNS = 1
 READ_METHODS = ("__bool__", "item", "__int__", "__float__", "__index__", "tolist", "numpy")
 
 
@@ -3552,26 +3568,31 @@ def flat_params(tree):
 
 def timed_step(step, *args):
     """One step between synchronizes, the launch counts set to 0 just before
-    it and read just after, with the gradient all-reduces it made."""
+    it and read just after, with the gradient collectives it made, its tp
+    collectives (count, bytes, host ms) and FSDP's parameter gathers."""
     import torch
-    from covomix_tpu_torch.parallel import train_step as TS
+    from covomix_tpu_torch.parallel import tensor as TPX, train_step as TS
 
     zero_counts()
-    syncs, sync_bytes = TS.GRAD_SYNCS, TS.GRAD_SYNC_BYTES
+    before = (TS.GRAD_SYNCS, TS.GRAD_SYNC_BYTES, TPX.COLLECTIVES, TPX.BYTES, TPX.SECONDS, TS.PARAM_GATHERS)
     torch.cuda.synchronize()
     t0 = time.time()
     metrics = step(*args)
     metrics = {k: float(v) for k, v in metrics.items()}      # waits for the card
     torch.cuda.synchronize()
-    return {"ms": (time.time() - t0) * 1e3, **metrics, "launches": flash_counts(), "syncs": TS.GRAD_SYNCS - syncs,
-            "sync_bytes": TS.GRAD_SYNC_BYTES - sync_bytes}
+    return {"ms": (time.time() - t0) * 1e3, **metrics, "launches": flash_counts(), "syncs": TS.GRAD_SYNCS - before[0],
+            "sync_bytes": TS.GRAD_SYNC_BYTES - before[1], "tp_collectives": TPX.COLLECTIVES - before[2],
+            "tp_bytes": TPX.BYTES - before[3], "tp_ms": (TPX.SECONDS - before[4]) * 1e3,
+            "param_gathers": TS.PARAM_GATHERS - before[5]}
 
 
-def dp_train_cell(args, steps, mesh=None):
+def dp_train_cell(args, steps, mesh=None, fsdp=False):
     """`steps` optimizer steps of the recipe `args` with the train CLI's
     model, loss, loader and draws: in one process on the global batch
-    (mesh None) or as a rank of `mesh` on its rows. Returns (a record per
-    step, the state, the learning rates of the steps)."""
+    (mesh None) or as a rank of `mesh` on its rows and its parts of the
+    state (its tp shards; with `fsdp` its dp shards too). Returns (a record
+    per step, the state, the learning rates of the steps, the parts'
+    specs)."""
     import torch
     from covomix_tpu_torch.data.datasets import data_loader
     from covomix_tpu_torch.parallel import train_step as TS
@@ -3582,17 +3603,19 @@ def dp_train_cell(args, steps, mesh=None):
     dataset, _ = cli._datasets(args)
     loader = data_loader(dataset, args.batch_size, cli.build_collate(args)[0], seed=args.seed)
     tcfg = cli.train_config(args, max(1, len(dataset) // args.batch_size))
+    specs = None
     if mesh is None:
         state, step = loop.init_train_state(params, tcfg), loop.make_train_step(loss_fn, tcfg)
     else:
-        state, step = TS.init_sharded_state(params, tcfg, mesh), TS.make_sharded_train_step(loss_fn, tcfg, mesh)
+        state, specs = TS.init_sharded_state(params, tcfg, mesh, tp=mesh.tp > 1, fsdp=fsdp)
+        step = TS.make_sharded_train_step(loss_fn, tcfg, mesh, specs)
     recs = []
     for _ in range(steps):
         batch = next(loader)
         if mesh is not None:
             batch = TS.shard_batch(mesh, batch)
         recs.append({**timed_step(step, state, batch, gen), "rows": len(next(iter(batch.values())))})
-    return recs, state, [loop.reference_lr_schedule(tcfg)(i) for i in range(steps)]
+    return recs, state, [loop.reference_lr_schedule(tcfg)(i) for i in range(steps)], specs
 
 
 def dp_gan(root, steps, mesh=None):
@@ -3667,13 +3690,8 @@ def dp_rank(root, ref_dir, out_dir):
     torch.backends.cuda.matmul.allow_tf32 = False      # as the reference process runs
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(2, "cuda")
-    t = torch.full((4,), float(mesh.rank + 1), device="cuda")
-    dist.all_reduce(t)
-    b = torch.full((4,), float(mesh.rank + 7), device="cuda")
-    dist.broadcast(b, src=0)
-    if not (bool((t == 3).all()) and bool((b == 7).all())):
-        raise AssertionError(f"gloo collectives on device tensors: all_reduce {t.tolist()}, broadcast {b.tolist()}")
-    out = {"rank": mesh.rank, "device": str(mesh.device), "backend": dist.get_backend()}
+    forms = check_collectives(mesh)
+    out = {"rank": mesh.rank, "device": str(mesh.device), "backend": dist.get_backend(), "forms": forms}
     cells = [(cell, dt) for cell, dt in DP_CELLS] + [("gan", "f32")]
     for cell, dt in cells:
         torch.cuda.reset_peak_memory_stats()
@@ -3682,7 +3700,7 @@ def dp_rank(root, ref_dir, out_dir):
             recs, state, lrs = dp_gan(root, DP_GAN_STEPS, mesh)
             tensors = [state.gen_params, state.mpd_params, state.msd_params]
         else:
-            recs, state, lrs = dp_train_cell(dp_args(root, cell, dt), DP_STEPS, mesh)
+            recs, state, lrs, _ = dp_train_cell(dp_args(root, cell, dt), DP_STEPS, mesh)
             tensors = state.params
         wall = time.time() - t0
         flat = flat_params(tensors)
@@ -3791,9 +3809,9 @@ def run_dp_training(results, root):
             recs, state, lrs = dp_gan(root, DP_GAN_STEPS)
             tensors = [state.gen_params, state.mpd_params, state.msd_params]
         else:
-            recs, state, lrs = dp_train_cell(dp_args(root, cell, dt), DP_STEPS)
+            recs, state, lrs, _ = dp_train_cell(dp_args(root, cell, dt), DP_STEPS)
             tensors = state.params
-        torch.save(flat_params(tensors).cpu(), os.path.join(ref_dir, f"{cell}_{dt}.pt"))
+        save_reference(ref_dir, f"{cell}_{dt}", flat_params(tensors), recs, lrs)
         refs[f"{cell}_{dt}"] = recs
         del state, tensors
         torch.cuda.empty_cache()
@@ -3843,6 +3861,253 @@ def run_dp_training(results, root):
     results["dp"] = dp
     results["dp2_launches"] = {key: c["launches_per_step"] for key, c in cells.items()}
     log(f"phase 17 wall {dp['wall_s']:.1f} s (the two ranks {spawn_s:.1f} s)")
+
+
+def save_reference(ref_dir, key, flat, recs, lrs):
+    """A one-process run's final parameters (flat, on the CPU) and its step
+    records and learning rates, for the ranks to be held against."""
+    import torch
+
+    torch.save(flat.cpu(), os.path.join(ref_dir, f"{key}.pt"))
+    with open(os.path.join(ref_dir, f"{key}.json"), "w") as f:
+        json.dump({"recs": recs, "lrs": lrs}, f)
+
+
+def check_collectives(mesh) -> dict:
+    """The collectives of phases 17 and 18 on device tensors, each held to
+    its arithmetic before any cell runs: all_reduce and broadcast over the
+    world; over each axis of more than one rank, all_gather and
+    reduce_scatter (parallel/mesh.py); over tp, copy_to_tp / reduce_from_tp
+    / gather_from_tp forward and backward in f32 and bf16
+    (parallel/tensor.py). Returns the form each axis took (chosen by its
+    group's backend name)."""
+    import torch
+    import torch.distributed as dist
+    from covomix_tpu_torch.parallel import mesh as M, tensor as TPX
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    dist.all_reduce(t)
+    b = torch.full((4,), float(rank + 7), device="cuda")
+    dist.broadcast(b, src=0)
+    if not (bool((t == world * (world + 1) / 2).all()) and bool((b == 7).all())):
+        raise AssertionError(f"collectives on device tensors: all_reduce {t.tolist()}, broadcast {b.tolist()}")
+    forms = {"world": dist.get_backend()}
+    base = torch.arange(6.0, device="cuda").reshape(2, 3)
+    for axis, n, index, group in (("dp", mesh.dp, mesh.dp_rank, mesh.dp_group),
+                                  ("tp", mesh.tp, mesh.tp_rank, mesh.tp_group)):
+        if n == 1:
+            continue
+        peers = ([d * mesh.tp + mesh.tp_rank for d in range(n)] if axis == "dp"
+                 else [mesh.dp_rank * mesh.tp + k for k in range(n)])
+        got = M.all_gather(base + 100 * rank, 1, group, n, index)
+        scattered = M.reduce_scatter((base + 100 * rank).repeat(n, 1), 0, group, n, index)
+        if not (torch.equal(got, torch.cat([base + 100 * p for p in peers], dim=1))
+                and torch.equal(scattered, sum(base + 100 * p for p in peers))):
+            raise AssertionError(f"{axis} all_gather / reduce_scatter on device tensors: {got.tolist()}, "
+                                 f"{scattered.tolist()}")
+        forms[axis] = (f"{M.backend(group)}: all_gather_into_tensor / reduce_scatter_tensor"
+                       if M.backend(group) == "nccl" else f"{M.backend(group)}: all_reduce (-0.0 fill / own block)")
+    if mesh.tp > 1:
+        r, total = mesh.tp_rank + 1.0, mesh.tp * (mesh.tp + 1) / 2
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.full((2, 3), r, dtype=dtype, device="cuda", requires_grad=True)
+            y = TPX.copy_to_tp(mesh, x)
+            (y * r).sum().backward()
+            ok = bool((y == r).all()) and bool((x.grad == total).all())
+            x = torch.full((2, 3), r, dtype=dtype, device="cuda", requires_grad=True)
+            y = TPX.reduce_from_tp(mesh, x)
+            (y * r).sum().backward()
+            ok &= bool((y == total).all()) and bool((x.grad == r).all())
+            x = torch.full((2, 3), r, dtype=dtype, device="cuda", requires_grad=True)
+            y = TPX.gather_from_tp(mesh, x, dim=1)
+            weight = torch.arange(3 * mesh.tp, dtype=dtype, device="cuda")
+            (y * weight).sum().backward()
+            ok &= torch.equal(y, torch.arange(1, mesh.tp + 1, dtype=dtype, device="cuda").repeat_interleave(3)
+                              .expand(2, -1)) and torch.equal(x.grad, weight[3 * mesh.tp_rank: 3 * mesh.tp_rank + 3]
+                                                              .expand(2, -1))
+            if not ok:
+                raise AssertionError(f"tp collectives ({dtype}) on device tensors disagree with their arithmetic")
+    return forms
+
+
+# phase 18: tensor-parallel and FSDP training at full width
+
+# (cell, dtype, dp, tp, fsdp) of phase 18's cells, DP_STEPS steps each: (a) tp=2 for both recipes in
+# both precisions, (b) dp=2 with FSDP and (c) dp=2 x tp=2 with FSDP on the bf16 VoMix cell
+TP_CELLS = {"tp2_vomix_bf16": ("vomix", "bf16", 1, 2, False), "tp2_vomix_f32": ("vomix", "f32", 1, 2, False),
+            "tp2_t2s_bf16": ("t2s", "bf16", 1, 2, False), "tp2_t2s_f32": ("t2s", "f32", 1, 2, False),
+            "dp2_fsdp_vomix_bf16": ("vomix", "bf16", 2, 1, True),
+            "dp2_tp2_fsdp_vomix_bf16": ("vomix", "bf16", 2, 2, True)}
+# the tp collectives of one step (forward + backward) over tp=2 at full width: VoMix, 8 layers x
+# (attention, FFN) x (copy_to_tp, reduce_from_tp), and the time MLP's gather and copy; CoMix T2S,
+# 4 source layers x (the attention's copy and reduce, the gathered w1 and bias of the FFN's 1365
+# pairs, which 2 does not divide), 4 target layers x (self-attention 2, cross-attention's context,
+# query and null-KV copies and its reduce 4, FFN 2), sem_emb's lookup gather and the two logit
+# heads' copy and gather
+TP_COLLECTIVES = {"vomix": 8 * 2 * 2 + 2, "t2s": 4 * (2 + 2) + 4 * (2 + 4 + 2) + 1 + 2 * 2}
+
+
+def replicas_equal(mesh, state, specs) -> dict:
+    """Per axis of more than one rank: whether the parameters and EMA of the
+    leaves not split over it are bit-equal to its first rank's (one
+    broadcast within the axis group); None when every leaf is split over it."""
+    import torch
+    import torch.distributed as dist
+    from covomix_tpu_torch.util.misc import named_leaves
+
+    out = {}
+    for axis, n, group, src in (("tp", mesh.tp, mesh.tp_group, mesh.dp_rank * mesh.tp),
+                                ("dp", mesh.dp, mesh.dp_group, mesh.tp_rank)):
+        if n == 1:
+            continue
+        held = [t.detach().reshape(-1) for tree in (state.params, state.ema_params)
+                for path, t in named_leaves(tree) if axis not in specs[path]]
+        if not held:
+            out[axis] = None
+            continue
+        mine = torch.cat(held)
+        first = mine.clone()
+        dist.broadcast(first, src=src, group=group)
+        out[axis] = {"equal": bool(torch.equal(first, mine)), "numel": mine.numel()}
+    return out
+
+
+def resident_bytes(state) -> dict:
+    """Bytes of a rank's parameters, Adam moments and EMA."""
+    from covomix_tpu_torch.util.misc import tree_leaves
+
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    moments = [st[k] for st in state.optimizer.state.values() for k in ("exp_avg", "exp_avg_sq") if k in st]
+    return {"params": size(tree_leaves(state.params)), "adam": size(moments), "ema": size(tree_leaves(state.ema_params))}
+
+
+def tp_rank(root, ref_dir, out_dir, names):
+    """One rank of phase 18 on the one card over gloo: for each mesh its
+    cells use, the collectives checked on device tensors (check_collectives);
+    then each cell of `names` on the rank's rows and parts, its gathered
+    parameters held against the one-process run's (saved in ref_dir), its
+    replicated parts against the first rank of each axis; the step records,
+    the resident bytes and peak GiB into out_dir/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from covomix_tpu_torch.parallel.mesh import gather_params, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # as the reference process runs
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": dist.get_rank(), "device": f"cuda:{torch.cuda.current_device()}", "backend": dist.get_backend(),
+           "forms": {}}
+    meshes = {}
+    for name in names:
+        cell, dt, dp, tp, fsdp = TP_CELLS[name]
+        if (dp, tp) not in meshes:    # every rank builds the meshes (and their groups) in the same order
+            meshes[dp, tp] = make_mesh(dp, "cuda", tp=tp)
+            out["forms"][f"{dp}x{tp}"] = check_collectives(meshes[dp, tp])
+        mesh = meshes[dp, tp]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        recs, state, lrs, specs = dp_train_cell(dp_args(root, cell, dt), DP_STEPS, mesh, fsdp)
+        wall = time.time() - t0
+        flat = flat_params(gather_params(mesh, state.params, specs))
+        ref = torch.load(os.path.join(ref_dir, f"{cell}_{dt}.pt")).to("cuda")
+        out[name] = {"steps": recs, "lrs": lrs, "wall_s": wall, "dp_rank": mesh.dp_rank, "tp_rank": mesh.tp_rank,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "replicas": replicas_equal(mesh, state, specs), "params": param_agreement(flat, ref, lrs, dt),
+                     "resident_bytes": resident_bytes(state)}
+        del state, flat, ref
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{out['rank']}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def check_tp_cell(name, ranks, ref):
+    """Phase 18's gates on every rank's record of one cell (module
+    docstring, 18)."""
+    cell, dt, dp, tp, fsdp = TP_CELLS[name]
+    per_step = DP_PER_STEP[cell][dt]
+    want = {"tp_collectives": TP_COLLECTIVES[cell] if tp > 1 else 0, "syncs": 3 if fsdp else 1,
+            "param_gathers": 1 if fsdp else 0}
+    for rank in ranks:
+        got = rank[name]
+        what = f"18 {name} rank {rank['rank']}"
+        for i, (s, r) in enumerate(zip(got["steps"], ref["recs"])):
+            for k in ("loss", "grad_norm"):
+                if not abs(s[k] - r[k]) <= DP_RTOL[dt] * abs(r[k]):
+                    raise AssertionError(f"{what} step {i + 1}: {k} {s[k]} vs one process {r[k]}")
+            counts = {k: s[k] for k in want}
+            if s["launches"] != per_step or counts != want or s["rows"] * dp != r["rows"]:
+                raise AssertionError(f"{what} step {i + 1}: launches {s['launches']} (expected {per_step}), "
+                                     f"collectives {counts} (expected {want}), {s['rows']} rows of {r['rows']}")
+        p = got["params"]
+        if not p["max_abs_err"] <= p["bound"] or (dt == "f32" and not p["tight_share"] <= DP_TIGHT_SHARE):
+            raise AssertionError(f"{what}: parameters {p}")
+        if not all(v is None or v["equal"] for v in got["replicas"].values()) or (
+                tp > 1 and got["replicas"]["tp"] is None):
+            raise AssertionError(f"{what}: replicated parts {got['replicas']}")
+
+
+def run_tp_training(results, root):
+    """Phase 18: tensor-parallel and FSDP training at full width on phase
+    17's items (`write_dp_items`) and its one-process references, each
+    computed here when absent (`--tp` alone). The five two-rank cells run in
+    one spawn of two ranks on this card over gloo, the four-rank cell in a
+    spawn of four; every rank's records held by check_tp_cell. The kernel
+    library is built before the ranks start."""
+    import torch
+    from covomix_tpu_torch.ops import flash_attention as FA
+    from covomix_tpu_torch.parallel import multihost as MH
+
+    t_start = time.time()
+    FA.KERNEL.build(64)
+    ref_dir, out_dir = os.path.join(root, "ref"), os.path.join(root, "tp_ranks")
+    os.makedirs(ref_dir, exist_ok=True)
+    refs = {}
+    for cell, dt, *_ in TP_CELLS.values():
+        key = f"{cell}_{dt}"
+        if not os.path.exists(os.path.join(ref_dir, f"{key}.json")):
+            recs, state, lrs, _ = dp_train_cell(dp_args(root, cell, dt), DP_STEPS)
+            save_reference(ref_dir, key, flat_params(state.params), recs, lrs)
+            del state
+            torch.cuda.empty_cache()
+        with open(os.path.join(ref_dir, f"{key}.json")) as f:
+            refs[key] = json.load(f)
+    spawns = {}
+    for world in (2, 4):
+        names = [n for n, (_, _, dp, tp, _) in TP_CELLS.items() if dp * tp == world]
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        t0 = time.time()
+        MH.spawn(tp_rank, world, root, ref_dir, out_dir, names, device="cuda", backend="gloo")
+        spawns[world] = {"s": time.time() - t0, "ranks": []}
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                spawns[world]["ranks"].append(json.load(f))
+    tp = {"card": card_line(), "spawn_s": {w: v["s"] for w, v in spawns.items()},
+          "forms": spawns[4]["ranks"][0]["forms"] | spawns[2]["ranks"][0]["forms"], "cells": {}}
+    for name, (cell, dt, dp, tpn, fsdp) in TP_CELLS.items():
+        ranks = spawns[dp * tpn]["ranks"]
+        check_tp_cell(name, ranks, refs[f"{cell}_{dt}"])
+        ref = refs[f"{cell}_{dt}"]["recs"]
+        tp["cells"][name] = {
+            "one_process_ms": [round(s["ms"], 3) for s in ref],
+            "ms": [[round(s["ms"], 3) for s in rank[name]["steps"]] for rank in ranks],
+            "tp_collectives_per_step": ranks[0][name]["steps"][0]["tp_collectives"],
+            "tp_bytes_per_step": ranks[0][name]["steps"][0]["tp_bytes"],
+            "tp_ms": [[round(s["tp_ms"], 3) for s in rank[name]["steps"]] for rank in ranks],
+            "grad_sync_bytes_per_step": ranks[0][name]["steps"][0]["sync_bytes"],
+            "resident_bytes": [rank[name]["resident_bytes"] for rank in ranks],
+            "peak_gib": [round(rank[name]["peak_gib"], 3) for rank in ranks],
+            "params": ranks[0][name]["params"], "replicas": [rank[name]["replicas"] for rank in ranks],
+            "loss_rel_err": max(abs(s["loss"] - r["loss"]) / abs(r["loss"])
+                                for rank in ranks for s, r in zip(rank[name]["steps"], ref)),
+            "launches_per_step": ranks[0][name]["steps"][0]["launches"],
+            "rows_per_rank": ranks[0][name]["steps"][0]["rows"]}
+        log(f"18 {name} ({tp['card']}): " + json.dumps(tp["cells"][name]))
+    tp["wall_s"] = time.time() - t_start
+    results["tp"] = tp
+    results["tp_launches"] = {name: c["launches_per_step"] for name, c in tp["cells"].items()}
+    log(f"phase 18 wall {tp['wall_s']:.1f} s (the ranks {json.dumps(tp['spawn_s'])} s); collective forms "
+        f"{json.dumps(tp['forms'])}")
 
 
 # registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
@@ -4071,6 +4336,7 @@ def main() -> int:
     os.makedirs(root)
     try:
         run_dp_training(results, root)
+        run_tp_training(results, root)      # on phase 17's items and one-process references
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4084,6 +4350,7 @@ def main() -> int:
     # phase 15's path (the bench, all bf16): its totals by kernel, HuBERT's forwards apart from the flow's
     bench = results["bench_launches"]
     bench_hubert = results["bench_line"]["launches"]["hubert"]["fwd"]
+    tpl = results["tp_launches"]     # phase 18: a rank step's launches per cell, at its H / tp heads
     big = max(BENCH_DETAIL_B)
     kernels = [
         # the attention kernel alone; with the pre-pass, as the path calls it, in ms_with_prepass
@@ -4097,7 +4364,8 @@ def main() -> int:
         kernel_entry(results, "flash_rotary", "flash_rotary_halfsplit", flash_src,
                      "covomix_tpu/ops/flash_attention.py:213", launches["rotary"],
                      speculative_launches=spec_file["rotary"] + spec_serving["rotary"],
-                     bench_launches=bench["rotary"]),
+                     bench_launches=bench["rotary"],
+                     tp_launches_per_rank_step={name: tpl[name]["rotary"] for name in tpl}),
     ]
     for kind, replaces in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                            ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):
@@ -4118,7 +4386,9 @@ def main() -> int:
                                     with_prepass=key == "fwd_lse",
                                     launches_per_train_step=train[key] // results["train_steps"],
                                     bench_launches=bench[key], dp_world1_launches=dp1[key],
-                                    dp2_launches_per_rank_step=dp2["vomix_bf16"][key]))
+                                    dp2_launches_per_rank_step=dp2["vomix_bf16"][key],
+                                    tp_launches_per_rank_step={name: tpl[name][key] for name in tpl
+                                                               if name.endswith("vomix_bf16")}))
     for dt in ("f32", "bf16"):     # this slice's main path: HuBERT extraction (f32, and --bf16)
         kernels.append(kernel_entry(results, f"hubert_fwd_{dt}", f"flash_attention_fwd_hubert_{dt}", flash_src,
                                     "covomix_tpu/ops/flash_attention.py:162", results[f"hubert_{dt}"]["launches"],
@@ -4137,7 +4407,8 @@ def main() -> int:
         kernels.append(kernel_entry(results, key, f"flash_attention_{key}", flash_src, where, t2s[key],
                                     launches_per_train_step=t2s[key] // results["t2s_steps"],
                                     speculative_launches=spec_fit[key], bench_launches=bench[key],
-                                    dp2_launches_per_rank_step=dp2["t2s_bf16"][key]))
+                                    dp2_launches_per_rank_step=dp2["t2s_bf16"][key],
+                                    tp_launches_per_rank_step={"tp2_t2s_bf16": tpl["tp2_t2s_bf16"][key]}))
     for cell, suffix in (("vomix", "_f32"), ("t2s", "_causal_f32")):   # f32 training at the recipes' precision
         runs = results[f"{cell}_f32_launches"]
         for key, where in replaces.items():
@@ -4145,7 +4416,9 @@ def main() -> int:
             kernels.append(kernel_entry(results, f"{key}{suffix}", f"flash_attention_{key}{suffix}", flash_src, where,
                                         count, launches_per_train_step=count // results[f"{cell}_f32_steps"],
                                         bench_launches=0, dp2_launches_per_rank_step=dp2[f"{cell}_f32"][
-                                            f"{key}_causal" if cell == "t2s" else key]))
+                                            f"{key}_causal" if cell == "t2s" else key],
+                                        tp_launches_per_rank_step={f"tp2_{cell}_f32": tpl[f"tp2_{cell}_f32"][
+                                            f"{key}_causal" if cell == "t2s" else key]}))
     log(f"total chip_smoke time {time.time() - t_start:.1f} s")
     log("speculative decode: " + json.dumps({"bench": results["spec_bench"], "decode": results["spec_decode"],
                                               "serving_wall_s": results["spec_serving_wall_s"],
@@ -4160,6 +4433,7 @@ def main() -> int:
                                                "memory": results["decode_memory"]}, default=str))
     log("gan training: " + json.dumps(results["gan"]))
     log("data-parallel training: " + json.dumps(results["dp"]))
+    log("tensor-parallel and FSDP training: " + json.dumps(results["tp"]))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -4367,6 +4641,39 @@ def dp_mode() -> int:
         shutil.rmtree(root, ignore_errors=True)
     log(f"total chip_smoke --dp time {time.time() - t_start:.1f} s")
     log("data-parallel training: " + json.dumps(results["dp"]))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def tp_mode() -> int:
+    """`python3 chip_smoke.py --tp`: phase 18 alone (run_tp_training on
+    phase 17's VoMix and CoMix T2S items, its one-process references
+    computed here), ending with the same `ok` line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    root = os.path.join(VT.BUILD_DIR, "smoke_tp")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        write_vomix_items(os.path.join(root, "vomix"), 24, 0)
+        write_t2s_items(os.path.join(root, "t2s"), 24, 0)
+        run_tp_training(results, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"total chip_smoke --tp time {time.time() - t_start:.1f} s")
+    log("tensor-parallel and FSDP training: " + json.dumps(results["tp"]))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -4584,6 +4891,8 @@ if __name__ == "__main__":
         sys.exit(gan_mode())
     if sys.argv[1:2] == ["--dp"]:
         sys.exit(dp_mode())
+    if sys.argv[1:2] == ["--tp"]:
+        sys.exit(tp_mode())
     if sys.argv[1:2] == ["--flash-f32"]:
         sys.exit(flash_f32_mode())
     if sys.argv[1:2] == ["--vocoder-split"]:

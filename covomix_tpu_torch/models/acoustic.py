@@ -10,7 +10,16 @@ covomix_tpu/models/acoustic.py (inference and the OT-CFM training loss).
     and combines them as logits*(1+s) - s*null.
 
 Attention goes through `attend_flash_or_xla`: the hand-written flash kernel
-on CUDA for long sequences, `layers.attend` otherwise."""
+on CUDA for long sequences, `layers.attend` otherwise.
+
+With `tp` (a parallel/mesh.py Mesh whose tp axis has collectives) the
+parameters are this rank's tp shards (parallel/mesh.py `shard_params`) and
+the forward is tensor-parallel (parallel/tensor.py): attention on the
+rank's heads (their q, k, v columns of `qkv`, their rows of `attn_out`),
+the FFN on its columns of `ff1` / rows of `ff2`, each block entered by
+`copy_to_tp` and left by `reduce_from_tp`; the time MLP on its columns,
+gathered before the replicated adaptive norms read it; a split leaf that
+no local computation pairs with is gathered before its use."""
 
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch.nn.functional as F
 
 from covomix_tpu_torch.models import layers as L
 from covomix_tpu_torch.ops.flash_attention import attend_flash_or_xla
+from covomix_tpu_torch.parallel import tensor as TPX
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,30 +142,40 @@ def init(gen: torch.Generator, cfg: AcousticConfig, device=None):
 # model
 
 
-def _time_embedding(params, times, dtype):
-    """LearnedSinusoidalPosEmb + Linear + SiLU."""
+def _time_embedding(params, times, dtype, tp=None, hidden: int = 0):
+    """LearnedSinusoidalPosEmb + Linear + SiLU. Under `tp` with the MLP's
+    `hidden` columns split, the rank's columns, then gathered."""
     freqs = times[:, None].float() * params["sinu_weights"][None, :] * 2 * math.pi
     fouriered = torch.cat([torch.sin(freqs), torch.cos(freqs)], dim=-1)
-    return F.silu(L.linear(params["time_mlp"], fouriered.to(dtype)))
+    split = TPX.divides(tp, hidden)
+    h = F.silu(L.linear(params["time_mlp"], TPX.enter(tp, fouriered.to(dtype), split)))
+    return TPX.gather_from_tp(tp, h) if split else h
 
 
-def layer_core(lp, cfg: AcousticConfig, x, time_emb, key_mask=None, valid_len=None):
+def layer_core(lp, cfg: AcousticConfig, x, time_emb, key_mask=None, valid_len=None, tp=None):
     """One transformer layer (attention + FFN with adaptive RMSNorm), without
     the U-Net skip combiner. A `key_mask` sends attention through the masked
-    `layers.attend` path; `valid_len` keeps it on the flash kernel."""
+    `layers.attend` path; `valid_len` keeps it on the flash kernel. `tp`:
+    the layer's tp shards, run on the rank's heads and FFN columns."""
     inv_freq = L.rotary_freqs(cfg.dim_head, device=x.device)
     positions = torch.arange(x.shape[1], device=x.device)
+    inner = cfg.heads * cfg.dim_head
+    split = TPX.divides(tp, cfg.heads)
+    qkv = lp["qkv"] if split else TPX.full(tp, lp["qkv"], -1, 3 * inner, groups=3)
+    attn_out = lp["attn_out"] if split else TPX.full(tp, lp["attn_out"], 0, inner)
     h = L.adaptive_rmsnorm(lp["attn_norm"], x, time_emb)
-    q, k, v = torch.chunk(L.linear(lp["qkv"], h), 3, dim=-1)
-    q, k, v = (L.split_heads(t, cfg.heads) for t in (q, k, v))
+    q, k, v = torch.chunk(L.linear(qkv, TPX.enter(tp, h, split)), 3, dim=-1)
+    heads = q.shape[-1] // cfg.dim_head      # the shard's heads
+    q, k, v = (L.split_heads(t, heads) for t in (q, k, v))
     attn = attend_flash_or_xla(q, k, v, key_mask=key_mask, valid_len=valid_len, rotary=(positions, inv_freq))
-    x = L.linear(lp["attn_out"], L.merge_heads(attn)) + x
+    x = TPX.row_linear(tp, attn_out, L.merge_heads(attn), split) + x
+    ff_split = TPX.divides(tp, cfg.dim * cfg.ff_mult)
     h = L.adaptive_rmsnorm(lp["ff_norm"], x, time_emb)
-    h = L.linear(lp["ff2"], L.gelu(L.linear(lp["ff1"], h)))
+    h = TPX.row_linear(tp, lp["ff2"], L.gelu(L.linear(lp["ff1"], TPX.enter(tp, h, ff_split))), ff_split)
     return h + x
 
 
-def _transformer(params, cfg: AcousticConfig, x, time_emb, key_mask=None, valid_len=None):
+def _transformer(params, cfg: AcousticConfig, x, time_emb, key_mask=None, valid_len=None, tp=None):
     half = cfg.depth // 2
     skips = []
     for i, lp in enumerate(params["layers"]):
@@ -163,22 +183,24 @@ def _transformer(params, cfg: AcousticConfig, x, time_emb, key_mask=None, valid_
             skips.append(x)
         else:
             x = L.linear(lp["skip"], torch.cat([x, skips.pop()], dim=-1))
-        x = layer_core(lp, cfg, x, time_emb, key_mask=key_mask, valid_len=valid_len)
+        x = layer_core(lp, cfg, x, time_emb, key_mask=key_mask, valid_len=valid_len, tp=tp)
     return L.rmsnorm(params["final_norm"], x)
 
 
 def static_embed(params, cfg: AcousticConfig, phoneme_ids, cond, *, cond_drop_mask=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, tp=None):
     """The x-independent part of the input projection:
     to_embed(cat[x, ph, cond]) == x @ W[:mel_dim] + (ph @ W_ph + cond @ W_c + b).
-    The sampler computes the bracket once per call."""
+    The sampler computes the bracket once per call. `tp`: a vocab-split
+    phoneme table is gathered first."""
     cond = cond.to(dtype)
     if cond_drop_mask is not None:
         null_cond = params["null_cond"].to(dtype)
         cond = torch.where(cond_drop_mask[:, None, None], null_cond[None, None, :], cond)
         nd = cond_drop_mask[:, None, None] if phoneme_ids.dim() == 3 else cond_drop_mask[:, None]
         phoneme_ids = torch.where(nd, torch.full_like(phoneme_ids, cfg.num_phoneme_tokens), phoneme_ids)
-    ph = L.embedding(params["phoneme_emb"], phoneme_ids, dtype)
+    table = {"w": TPX.full_leaf(tp, params["phoneme_emb"]["w"], 0, cfg.num_phoneme_tokens + 1)}
+    ph = L.embedding(table, phoneme_ids, dtype)
     if ph.dim() == 4:  # two streams: [B, T, 2, P] -> [B, T, 2P]
         b, t = ph.shape[:2]
         ph = ph.reshape(b, t, 2 * cfg.dim_phoneme_emb)
@@ -191,17 +213,18 @@ def static_embed(params, cfg: AcousticConfig, phoneme_ids, cond, *, cond_drop_ma
 
 
 def forward(params, cfg: AcousticConfig, x, phoneme_ids, cond, times, *, cond_drop_mask=None,
-            precomputed_embed=None, key_mask=None, valid_len=None, dtype=torch.float32):
+            precomputed_embed=None, key_mask=None, valid_len=None, dtype=torch.float32, tp=None):
     """Vector-field prediction [B, T, mel_dim] (f32). `key_mask` [B, T] bool
     (False marks a padded frame) or `valid_len` (int, or one per row: frames
     >= valid_len are padding): the padded frames are zeroed before the
     depthwise conv and masked out of attention. `key_mask` takes precedence
     for the conv, and sends attention through the masked `layers.attend`
-    path, as in JAX."""
+    path, as in JAX. `tp`: `params` are this rank's tp shards (module
+    docstring); the prediction is every rank's."""
     x = x.to(dtype)
     if precomputed_embed is None:
         precomputed_embed = static_embed(params, cfg, phoneme_ids, cond,
-                                         cond_drop_mask=cond_drop_mask, dtype=dtype)
+                                         cond_drop_mask=cond_drop_mask, dtype=dtype, tp=tp)
     h = x @ params["to_embed"]["w"].to(dtype)[: cfg.mel_dim] + precomputed_embed
     conv_in = h
     if key_mask is not None:
@@ -212,8 +235,8 @@ def forward(params, cfg: AcousticConfig, x, phoneme_ids, cond, times, *, cond_dr
         conv_in = h * frame_keep[..., None].to(dtype)
     conv = L.gelu(L.depthwise_conv1d(params["conv_embed"], conv_in, padding=cfg.conv_pos_kernel // 2))
     h = conv + h
-    time_emb = _time_embedding(params, times, dtype)
-    h = _transformer(params, cfg, h, time_emb, key_mask=key_mask, valid_len=valid_len)
+    time_emb = _time_embedding(params, times, dtype, tp, cfg.time_hidden_dim)
+    h = _transformer(params, cfg, h, time_emb, key_mask=key_mask, valid_len=valid_len, tp=tp)
     return L.linear(params["to_pred"], h).float()
 
 
@@ -221,9 +244,10 @@ def forward(params, cfg: AcousticConfig, x, phoneme_ids, cond, times, *, cond_dr
 # training-side mask + loss (OT-CFM, Voicebox eq. 5-6). Random numbers are
 # drawn from `gen` on the generator's own device and moved to the data's, so
 # one CPU generator gives the same draws to a CPU run and a CUDA run. With
-# `mesh` (parallel/mesh.py: `dp`, `rank`, `rows`) the batch is one rank's
-# rows of a global batch: every draw is made for the global batch and the
-# rank keeps its rows, so the ranks together draw what one device would.
+# `mesh` (parallel/mesh.py: `dp`, `rows`) the batch is one rank's rows of a
+# global batch: every draw is made for the global batch and the rank keeps
+# the rows of its dp index, so the ranks together draw what one device
+# would, and the tp ranks of one dp index draw alike.
 
 
 def _draw(sample, gen, shape, device, mesh=None):
@@ -295,11 +319,13 @@ def cfm_loss(params, cfg: AcousticConfig, gen, x1, phoneme_ids, cond, mask=None,
     flow over the masked region, averaged over the batch. `inputs`: the
     tuple of `cfm_inputs` drawn beforehand (then `gen` is not used). With
     `mesh` the batch is one rank's equal share of the global batch, so the
-    ranks' mean is the global loss."""
+    mean over the dp ranks is the global loss; with its tp axis `params`
+    are the rank's tp shards and the forward is tensor-parallel."""
     if inputs is None:
         inputs = cfm_inputs(cfg, gen, x1, cond, mask, cond_drop_prob=cond_drop_prob, sigma=sigma, mesh=mesh)
     w, times, flow, mask, cond, drop = inputs
-    pred = forward(params, cfg, w, phoneme_ids, cond, times, cond_drop_mask=drop, dtype=dtype)
+    pred = forward(params, cfg, w, phoneme_ids, cond, times, cond_drop_mask=drop, dtype=dtype,
+                   tp=mesh if TPX.active(mesh) else None)
     return masked_mse(pred, flow, mask) / x1.shape[0]
 
 

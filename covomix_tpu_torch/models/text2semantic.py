@@ -26,7 +26,18 @@ the JAX package's while_loops, one step function over preallocated caches
 (attention over the whole cache under a position mask), run as a CUDA graph
 on the card and directly on the CPU, with one read of a device flag per
 chunk of steps; they attend through `layers.attend` / einsum (the JAX
-package's decode paths use no kernel either)."""
+package's decode paths use no kernel either).
+
+`forward_loss` with a mesh whose tp axis has collectives reads this rank's
+tp shards (parallel/mesh.py `shard_params`) and runs tensor-parallel
+(parallel/tensor.py): each attention on the rank's heads (its q columns,
+its heads' k and v columns of `kv`, its rows of `out`, its heads' slice of
+the replicated `null_kv`), each GEGLU feed-forward on its (value, gate)
+pairs of `w1` and rows of `w2` where tp divides the pairs, and else with
+`w1` gathered; the vocab-split `sem_emb` gathered for the token lookup and
+its weight-tied logits computed on the rank's rows and gathered before
+the loss, so every tp rank computes the same loss. Decoding stays
+unsharded, as in JAX."""
 
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ from covomix_tpu_torch.models import layers as L
 from covomix_tpu_torch.models.acoustic import linear_init
 from covomix_tpu_torch.ops import sampling as S
 from covomix_tpu_torch.ops.flash_attention import attend_flash_or_xla
+from covomix_tpu_torch.parallel import tensor as TPX
 from covomix_tpu_torch.util.misc import tree_leaves, tree_map
 
 @dataclasses.dataclass(frozen=True)
@@ -157,20 +169,38 @@ def init(gen: torch.Generator, cfg: T2SConfig, device=None):
 # blocks
 
 
-def _ff(p, x):
-    h = L.linear(p["w1"], L.rmsnorm(p["norm"], x))
-    return L.linear(p["w2"], L.geglu(h))
+def _ff(p, x, inner: int = 0, tp=None):
+    """GEGLU feed-forward; `tp` with its `inner` pairs: on the rank's pairs
+    where tp divides them, else with a split `w1` gathered."""
+    split = TPX.divides(tp, inner)
+    w1 = p["w1"] if split else TPX.full(tp, p["w1"], -1, 2 * inner, groups=2)
+    h = L.linear(w1, TPX.enter(tp, L.rmsnorm(p["norm"], x), split))
+    return TPX.row_linear(tp, p["w2"], L.geglu(h), split)
 
 
-def _self_attn_full(p, x, heads, *, mask=None, causal=False, rotary=True, prefix_lens=None):
+def _attn_weights(p, heads, dim_head, tp, names):
+    """(split, the block's projections): the rank's head-aligned shards, or
+    under tp without head-aligned shards each split one gathered."""
+    split = TPX.divides(tp, heads)
+    if split or not TPX.active(tp):
+        return split, [p[n] for n in names]
+    inner = heads * dim_head
+    sizes = {"q": (-1, inner, 1), "kv": (-1, 2 * inner, 2), "out": (0, inner, 1)}
+    return split, [TPX.full(tp, p[n], *sizes[n][:2], groups=sizes[n][2]) for n in names]
+
+
+def _self_attn_full(p, x, heads, *, mask=None, causal=False, rotary=True, prefix_lens=None, dim_head=0, tp=None):
     """Full-sequence self-attention (training, encoder). With `prefix_lens`
     ([B] int, the per-row valid lengths of a right-padded batch) and no
     `mask`, it goes through `attend_flash_or_xla` (the flash kernels on CUDA
     from 512 positions on, also causal); a bool key `mask` [B, T] keeps
-    `layers.attend`."""
-    h = L.rmsnorm(p["norm"], x)
-    q = L.split_heads(L.linear(p["q"], h), heads)
-    k, v = torch.chunk(L.linear(p["kv"], h), 2, dim=-1)
+    `layers.attend`. `tp`: the rank's heads of `heads` x `dim_head`."""
+    split, (wq, wkv, wout) = _attn_weights(p, heads, dim_head, tp, ("q", "kv", "out"))
+    h = TPX.enter(tp, L.rmsnorm(p["norm"], x), split)
+    if split:
+        heads //= tp.tp
+    q = L.split_heads(L.linear(wq, h), heads)
+    k, v = torch.chunk(L.linear(wkv, h), 2, dim=-1)
     k, v = L.split_heads(k, heads), L.split_heads(v, heads)
     if rotary:
         inv = L.rotary_freqs(q.shape[-1], device=x.device)
@@ -180,65 +210,80 @@ def _self_attn_full(p, x, heads, *, mask=None, causal=False, rotary=True, prefix
         out = attend_flash_or_xla(q, k, v, valid_len=prefix_lens, causal=causal)
     else:
         out = L.attend(q, k, v, key_mask=mask, causal=causal)
-    return L.linear(p["out"], L.merge_heads(out))
+    return TPX.row_linear(tp, wout, L.merge_heads(out), split)
 
 
-def _cross_attn(p, x, context_kv, heads, *, context_mask=None):
+def _cross_attn(p, x, context_kv, heads, *, context_mask=None, dim_head=0, tp=None):
     """Cross-attention with the learned null-KV slot prepended. context_kv:
-    precomputed (k, v) [B, H, S, dh] without the null slot."""
-    h = L.rmsnorm(p["norm"], x)
-    q = L.split_heads(L.linear(p["q"], h), heads)
+    precomputed (k, v) [B, H, S, dh] without the null slot (`tp`: the
+    rank's heads, from `_context_kv` with the same `tp`)."""
+    split, (wq, wout) = _attn_weights(p, heads, dim_head, tp, ("q", "out"))
+    h = TPX.enter(tp, L.rmsnorm(p["norm"], x), split)
+    null_kv = TPX.heads_slice(tp, p["null_kv"], 1, heads) if split else p["null_kv"]
+    if split:
+        heads //= tp.tp
+    q = L.split_heads(L.linear(wq, h), heads)
     k, v = context_kv
     b = x.shape[0]
-    nk = p["null_kv"][0].to(k.dtype).expand((b,) + tuple(p["null_kv"][0].shape))
-    nv = p["null_kv"][1].to(v.dtype).expand((b,) + tuple(p["null_kv"][1].shape))
+    nk = null_kv[0].to(k.dtype).expand((b,) + tuple(null_kv[0].shape))
+    nv = null_kv[1].to(v.dtype).expand((b,) + tuple(null_kv[1].shape))
     k = torch.cat([nk, k], dim=-2)
     v = torch.cat([nv, v], dim=-2)
     if context_mask is not None:
         context_mask = torch.cat([torch.ones((b, 1), dtype=torch.bool, device=x.device), context_mask], dim=-1)
     out = L.attend(q, k, v, key_mask=context_mask)
-    return L.linear(p["out"], L.merge_heads(out))
+    return TPX.row_linear(tp, wout, L.merge_heads(out), split)
 
 
-def _context_kv(p_cross, context, heads):
-    k, v = torch.chunk(L.linear(p_cross["kv"], context), 2, dim=-1)
+def _context_kv(p_cross, context, heads, *, dim_head=0, tp=None):
+    split, (wkv,) = _attn_weights(p_cross, heads, dim_head, tp, ("kv",))
+    if split:
+        heads //= tp.tp
+    k, v = torch.chunk(L.linear(wkv, TPX.enter(tp, context, split)), 2, dim=-1)
     return L.split_heads(k, heads), L.split_heads(v, heads)
 
 
-def encode_source(params, cfg: T2SConfig, source_emb, source_mask, dtype=torch.float32, prefix_lens=None):
+def encode_source(params, cfg: T2SConfig, source_emb, source_mask, dtype=torch.float32, prefix_lens=None, tp=None):
     """Source transformer (non-causal, rotary) + final RMSNorm. `prefix_lens`:
     the per-row lengths of a right-padded batch in place of `source_mask`
-    (see _self_attn_full)."""
+    (see _self_attn_full). `tp`: tensor-parallel (module docstring)."""
     x = source_emb.to(dtype)
     if cfg.no_source_transformer:
         return x
     mask = None if prefix_lens is not None else source_mask
     for lp in params["source_layers"]:
-        x = _self_attn_full(lp["self_attn"], x, cfg.heads, mask=mask, prefix_lens=prefix_lens) + x
-        x = _ff(lp["ff"], x) + x
+        x = _self_attn_full(lp["self_attn"], x, cfg.heads, mask=mask, prefix_lens=prefix_lens,
+                            dim_head=cfg.dim_head, tp=tp) + x
+        x = _ff(lp["ff"], x, cfg.ff_inner, tp) + x
     return L.rmsnorm(params["source_final_norm"], x)
 
 
-def embed_source(params, cfg: T2SConfig, source_ids, dtype=torch.float32):
-    """Token ids -> embeddings; two_input concatenates both streams."""
+def embed_source(params, cfg: T2SConfig, source_ids, dtype=torch.float32, tp=None):
+    """Token ids -> embeddings; two_input concatenates both streams. `tp`: a
+    vocab-split table is gathered first."""
     ids = torch.clamp(source_ids, 0, cfg.num_text_tokens)
+    table = {"w": TPX.full_leaf(tp, params["text_emb"]["w"], 0, cfg.num_text_tokens + 1)}
     if cfg.two_input:
-        e1 = L.embedding(params["text_emb"], ids[..., 0], dtype)
-        e2 = L.embedding(params["text_emb"], ids[..., 1], dtype)
+        e1 = L.embedding(table, ids[..., 0], dtype)
+        e2 = L.embedding(table, ids[..., 1], dtype)
         return torch.cat([e1, e2], dim=-1)
-    return L.embedding(params["text_emb"], ids, dtype)
+    return L.embedding(table, ids, dtype)
 
 
-def _embed_target(params, cfg: T2SConfig, t1, t2, dtype):
-    e = L.embedding(params["sem_emb"], torch.clamp(t1, 0, cfg.num_semantic_tokens), dtype)
+def _embed_target(params, cfg: T2SConfig, t1, t2, dtype, tp=None):
+    table = {"w": TPX.full_leaf(tp, params["sem_emb"]["w"], 0, cfg.num_semantic_tokens + 1)}
+    e = L.embedding(table, torch.clamp(t1, 0, cfg.num_semantic_tokens), dtype)
     if cfg.two_output:
-        e2 = L.embedding(params["sem_emb"], torch.clamp(t2, 0, cfg.num_semantic_tokens), dtype)
+        e2 = L.embedding(table, torch.clamp(t2, 0, cfg.num_semantic_tokens), dtype)
         e = torch.cat([e, e2], dim=-1)
     return e
 
 
-def _sem_logits(params, h, dtype):
-    """Weight-tied logits h @ emb^T (includes the EOS row), in f32."""
+def _sem_logits(params, h, dtype, tp=None, vocab: int = 0):
+    """Weight-tied logits h @ emb^T (includes the EOS row), in f32. `tp`
+    with the `vocab` rows split: the rank's columns, gathered."""
+    if TPX.divides(tp, vocab):
+        return TPX.gather_from_tp(tp, (TPX.copy_to_tp(tp, h) @ params["sem_emb"]["w"].to(dtype).T).float())
     return (h @ params["sem_emb"]["w"].to(dtype).T).float()
 
 
@@ -264,9 +309,12 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
     With `mesh` (parallel/mesh.py) the batch is one rank's rows of a global
     batch: the cond-drop draw is the global batch's, and each CE is
     sum(nll) x dp / the global count of valid targets (one all-reduce of the
-    counts), so that the ranks' mean is the one-device loss on the global
-    batch. Returns the loss (0-dim f32), or (loss, logits) with
-    `return_logits` (two_output: a pair of logits)."""
+    counts over the dp ranks), so that the dp ranks' mean is the one-device
+    loss on the global batch; with its tp axis `params` are the rank's tp
+    shards and the forward is tensor-parallel (module docstring). Returns
+    the loss (0-dim f32), or (loss, logits) with `return_logits`
+    (two_output: a pair of logits)."""
+    tp = mesh if TPX.active(mesh) else None
     # only masks derived here from right-padded ids are provably prefix masks
     mask_is_prefix = source_mask is None and source_emb is None
     if source_emb is not None:
@@ -299,8 +347,8 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
     src_lens = torch.sum(source_mask, dim=-1, dtype=torch.int32) if mask_is_prefix else None
 
     if source_emb is None:
-        source_emb = embed_source(params, cfg, source_ids, dtype)
-    context = encode_source(params, cfg, source_emb, source_mask, dtype, prefix_lens=src_lens)
+        source_emb = embed_source(params, cfg, source_ids, dtype, tp=tp)
+    context = encode_source(params, cfg, source_emb, source_mask, dtype, prefix_lens=src_lens, tp=tp)
 
     if cfg.classifier_free_guidance and cond_drop and generator is not None:
         b = context.shape[0]
@@ -311,13 +359,15 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
 
     b = t1.shape[0]
     start = params["start_speech"].to(dtype)[None, None, :].expand(b, 1, cfg.target_dim)
-    x = torch.cat([start, _embed_target(params, cfg, t1, t2, dtype)], dim=1)
+    x = torch.cat([start, _embed_target(params, cfg, t1, t2, dtype, tp)], dim=1)
     hiddens = []
+    dh = cfg.dim_head
     for lp in params["target_layers"]:
-        x = _self_attn_full(lp["self_attn"], x, cfg.heads, causal=True, prefix_lens=dec_lens) + x
-        ckv = _context_kv(lp["cross_attn"], context, cfg.heads)
-        x = _cross_attn(lp["cross_attn"], x, ckv, cfg.heads, context_mask=source_mask) + x
-        x = _ff(lp["ff"], x) + x
+        x = _self_attn_full(lp["self_attn"], x, cfg.heads, causal=True, prefix_lens=dec_lens, dim_head=dh,
+                            tp=tp) + x
+        ckv = _context_kv(lp["cross_attn"], context, cfg.heads, dim_head=dh, tp=tp)
+        x = _cross_attn(lp["cross_attn"], x, ckv, cfg.heads, context_mask=source_mask, dim_head=dh, tp=tp) + x
+        x = _ff(lp["ff"], x, cfg.target_ff_inner, tp) + x
         hiddens.append(x)
     x = L.rmsnorm(params["target_final_norm"], x)
 
@@ -336,12 +386,14 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
             return torch.sum(nll) / torch.clamp(torch.sum(valid), min=1)
         return torch.sum(nll) / torch.clamp(counts[stream], min=1) * mesh.dp
 
+    vocab = cfg.num_semantic_tokens + 1
     if cfg.two_output:
         half = cfg.target_dim // 2
-        logits = (_sem_logits(params, x[..., :half], dtype), _sem_logits(params, x[..., half:], dtype))
+        logits = (_sem_logits(params, x[..., :half], dtype, tp, vocab),
+                  _sem_logits(params, x[..., half:], dtype, tp, vocab))
         loss = ce(logits[0], t1, 0) + ce(logits[1], t2, 1)
     else:
-        logits = _sem_logits(params, x, dtype)
+        logits = _sem_logits(params, x, dtype, tp, vocab)
         loss = ce(logits, t1, 0)
 
     # the early-exit draft head's CE, on the hidden states computed above
@@ -350,7 +402,7 @@ def forward_loss(params, cfg: T2SConfig, source_ids, target_ids, *, generator: O
         if cfg.detach_early_exit_embed:
             early = early.detach()
         ee = params["early_exit"]
-        hn = L.rmsnorm(ee["norm"], early + _ff(ee["ff"], early))
+        hn = L.rmsnorm(ee["norm"], early + _ff(ee["ff"], early, int(cfg.target_dim * 4 * 2 / 3), tp))
         loss = loss + ce(L.linear(ee["to_logits"], hn).float(), t1, 0)
         if cfg.two_output and "to_logits2" in ee:
             loss = loss + ce(L.linear(ee["to_logits2"], hn).float(), t2, 1)

@@ -127,10 +127,12 @@ def process_count() -> int:
     return dist.get_world_size() if process_group_ready() else 1
 
 
-def process_batch_slice(global_batch: int) -> slice:
+def process_batch_slice(global_batch: int, mesh=None) -> slice:
     """The slice of the global batch this process loads: global batch G over
-    P processes -> process i loads rows [i*G/P, (i+1)*G/P)."""
-    p, i = process_count(), process_index()
+    P processes -> process i loads rows [i*G/P, (i+1)*G/P). With a
+    `mesh` (parallel/mesh.py) over tp too, P is its dp and i its dp index:
+    the tp ranks of one dp index load the same rows."""
+    p, i = (process_count(), process_index()) if mesh is None else (mesh.dp, mesh.dp_rank)
     if global_batch % p:
         raise AssertionError(f"global batch {global_batch} must divide by process count {p}")
     per = global_batch // p
@@ -139,10 +141,14 @@ def process_batch_slice(global_batch: int) -> slice:
 
 class ProcessShardDataset:
     """Rank-strided view: process i of P sees items i, i+P, i+2P, ... (the
-    DistributedSampler contract); the identity for one process."""
+    DistributedSampler contract); the identity for one process. With a
+    `mesh`, i and P are its dp index and dp, so the tp ranks of one dp
+    index see the same items."""
 
-    def __init__(self, dataset, index: Optional[int] = None, count: Optional[int] = None):
+    def __init__(self, dataset, index: Optional[int] = None, count: Optional[int] = None, mesh=None):
         self.dataset = dataset
+        if mesh is not None:
+            index, count = mesh.dp_rank, mesh.dp
         self.index = process_index() if index is None else index
         self.count = process_count() if count is None else count
 

@@ -1,14 +1,28 @@
-"""The data-parallel train step (port of covomix_tpu/parallel/train_step.py,
-its pure-dp form).
+"""The sharded train step (port of covomix_tpu/parallel/train_step.py).
 
-JAX pins the batch to 'dp', replicates the parameters and lets XLA emit the
-gradient all-reduce. Here each rank computes the backward of its rows, then
-one all-reduce of one flat bucket (every gradient, and the loss) makes the
-mean over the ranks, and the norm, clipping, Adam and EMA of
-`train.loop.make_train_step` run on it identically on every rank. The loss
-functions draw their random numbers for the global batch and keep the
-rank's rows (`mesh=`), so a dp=N step is the one-device step on the global
-batch."""
+JAX pins the batch to 'dp' and the gradients, parameters and EMA to the
+layout of `param_shardings`, and XLA emits the collectives. Here each rank
+holds its part of every leaf (`init_sharded_state`: the tp shards, and
+under FSDP the dp shards too; Adam moments and EMA live on the same
+shards) and computes the backward of its rows; then:
+
+  * the gradients of the leaves that are not split over dp, and the loss,
+    are averaged over the dp ranks by one all-reduce of one flat bucket
+    (`sync_grads`; pure dp is this alone);
+  * under FSDP the parameters split over dp are all-gathered (one bucket)
+    before the forward, the whole tree once a step, and their gradients
+    reduce-scattered (one bucket) back onto the shards;
+  * the global norm sums each shard's squares once: a leaf counts on the
+    ranks that hold distinct parts of it, a replicated one on one rank
+    (`sharded_norm`);
+  * clipping, Adam and EMA run on the shards, as `train.loop` runs them on
+    the whole tree.
+
+The tensor-parallel forward's collectives are the losses' (the `mesh=`
+of the loss adapters; parallel/tensor.py). The loss functions draw their
+random numbers for the global batch and keep the rows of the rank's dp
+index, so a dp x tp step, with or without FSDP, is the one-device step on
+the global batch."""
 
 from __future__ import annotations
 
@@ -17,27 +31,34 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-from covomix_tpu_torch.parallel.mesh import Mesh, replicate
+from covomix_tpu_torch.parallel.mesh import (Mesh, all_gather, gather_params, is_sharded, param_shardings,
+                                             reduce_scatter, replicate, shard_leaf, shard_params, tp_groups)
 from covomix_tpu_torch.train import loop
-from covomix_tpu_torch.util.misc import tree_leaves
+from covomix_tpu_torch.util.misc import named_leaves, tree_leaves, tree_map
 
-GRAD_SYNCS = 0         # gradient all-reduces launched (one flat bucket each)
+GRAD_SYNCS = 0         # gradient collectives launched (a flat bucket each, and the sharded norm's scalar)
 GRAD_SYNC_BYTES = 0    # the bytes they carried
+PARAM_GATHERS = 0      # FSDP's parameter all-gathers (one bucket a step)
+PARAM_GATHER_BYTES = 0
+
+
+def _count_sync(t: torch.Tensor) -> None:
+    global GRAD_SYNCS, GRAD_SYNC_BYTES
+    GRAD_SYNCS += 1
+    GRAD_SYNC_BYTES += t.numel() * t.element_size()
 
 
 @torch.no_grad()
 def sync_grads(mesh: Mesh, grads, *scalars) -> list:
-    """The mean over the ranks of every gradient (in place) and of the
+    """The mean over the dp ranks of every gradient (in place) and of the
     0-dim `scalars` (returned): one all-reduce of one flat bucket. Without a
-    process group, the scalars as they are."""
-    global GRAD_SYNCS, GRAD_SYNC_BYTES
-    if not mesh.collective:
+    collective on the dp axis, the scalars as they are."""
+    if not mesh.syncs_dp:
         return list(scalars)
-    dtype = grads[0].dtype
+    dtype = grads[0].dtype if grads else torch.float32
     flat = torch.cat([g.reshape(-1) for g in grads] + [s.reshape(1).to(dtype) for s in scalars])
-    dist.all_reduce(flat)
-    GRAD_SYNCS += 1
-    GRAD_SYNC_BYTES += flat.numel() * flat.element_size()
+    dist.all_reduce(flat, group=mesh.dp_group)
+    _count_sync(flat)
     flat.div_(mesh.dp)
     offset = 0
     for g in grads:
@@ -46,24 +67,102 @@ def sync_grads(mesh: Mesh, grads, *scalars) -> list:
     return list(flat[offset:].unbind())
 
 
-def make_sharded_train_step(loss_fn: Callable, cfg: loop.TrainConfig, mesh: Mesh):
-    """`loop.make_train_step` with the gradients and the loss averaged over
-    the ranks before the global norm: step(state, batch, generator) ->
-    {"loss": the global loss, "grad_norm": the norm of the averaged
-    gradients}. `batch` holds this rank's rows (`shard_batch`), and
-    `loss_fn` draws for the global batch (the loss adapters' `mesh=`)."""
-
-    def grad_sync(grads, loss):
-        return sync_grads(mesh, grads, loss)[0]
-
-    return loop.make_train_step(loss_fn, cfg, grad_sync=grad_sync)
+def _dp_axes(specs) -> list:
+    """The dp axis of each leaf (None: not split over dp)."""
+    return [spec.index("dp") if "dp" in spec else None for spec in specs]
 
 
-def init_sharded_state(params, cfg: loop.TrainConfig, mesh: Mesh) -> loop.TrainState:
-    """Rank 0's parameters on every rank (one broadcast), then the train
-    state over them (the EMA a copy)."""
+@torch.no_grad()
+def gather_dp(mesh: Mesh, specs, params):
+    """The tree the loss reads under FSDP: every leaf split over dp
+    all-gathered (one bucket) as a new leaf that requires grad, the others
+    the state's own leaves."""
+    global PARAM_GATHERS, PARAM_GATHER_BYTES
+    leaves, axes = tree_leaves(params), _dp_axes(specs)
+    split = [i for i, ax in enumerate(axes) if ax is not None]
+    out = list(leaves)
+    if split and mesh.syncs_dp:
+        parts = [leaves[i].detach().movedim(axes[i], 0).reshape(-1) for i in split]
+        full = all_gather(torch.cat(parts)[None], 0, mesh.dp_group, mesh.dp, mesh.dp_rank)   # [dp, total]
+        PARAM_GATHERS += 1
+        PARAM_GATHER_BYTES += full.numel() * full.element_size()
+        offset = 0
+        for i in split:
+            moved = leaves[i].movedim(axes[i], 0)
+            n = moved.numel()
+            rows = full[:, offset: offset + n].reshape((mesh.dp * moved.shape[0],) + tuple(moved.shape[1:]))
+            out[i] = rows.movedim(0, axes[i]).contiguous().requires_grad_(True)
+            offset += n
+    it = iter(out)
+    return tree_map(lambda _: next(it), params)
+
+
+@torch.no_grad()
+def sync_sharded_grads(mesh: Mesh, specs, grads, params, loss):
+    """The mean over the dp ranks of the gradients `grads` (of the tree the
+    loss read) onto `params`' leaves, and of the loss (returned): the leaves
+    not split over dp by `sync_grads` (in place: they are the state's own),
+    the others reduce-scattered (one bucket) into their shard's .grad."""
+    leaves, axes = tree_leaves(params), _dp_axes(specs)
+    whole = [g for g, ax in zip(grads, axes) if ax is None]
+    loss = sync_grads(mesh, whole, loss)[0]
+    split = [i for i, ax in enumerate(axes) if ax is not None]
+    if split and mesh.syncs_dp:
+        bucket = torch.cat([grads[i].movedim(axes[i], 0).reshape(mesh.dp, -1) for i in split], dim=1)
+        mine = reduce_scatter(bucket, 0, mesh.dp_group, mesh.dp, mesh.dp_rank).reshape(-1) / mesh.dp
+        _count_sync(bucket)
+        offset = 0
+        for i in split:
+            moved = leaves[i].movedim(axes[i], 0)
+            n = moved.numel()
+            leaves[i].grad = mine[offset: offset + n].view(moved.shape).movedim(0, axes[i]).contiguous()
+            offset += n
+    return loss
+
+
+def sharded_norm(mesh: Mesh, specs, grads) -> torch.Tensor:
+    """optax.global_norm of the whole gradient tree from the shards: each
+    rank sums the squares of the leaves it holds a distinct part of (split
+    over tp, or tp rank 0; split over dp, or dp rank 0), one all-reduce over
+    the world adds them."""
+    if not mesh.collective or not any(is_sharded(s) for s in specs):
+        return loop.global_norm(grads)
+    mine = [g for g, s in zip(grads, specs)
+            if ("tp" in s or mesh.tp_rank == 0) and ("dp" in s or mesh.dp_rank == 0)]
+    sq = torch.zeros(1, device=grads[0].device)
+    if mine:
+        sq = torch.stack([torch.sum(torch.square(g.float())) for g in mine]).sum().reshape(1)
+    dist.all_reduce(sq)
+    _count_sync(sq)
+    return torch.sqrt(sq[0])
+
+
+def make_sharded_train_step(loss_fn: Callable, cfg: loop.TrainConfig, mesh: Mesh, specs: dict):
+    """`loop.make_train_step` on this rank's parts (`specs`: the layout of
+    `init_sharded_state`): step(state, batch, generator) -> {"loss": the
+    global loss, "grad_norm": the norm of the whole averaged gradient}.
+    `batch` holds the rows of this rank's dp index (`shard_batch`), and
+    `loss_fn` draws for the global batch and runs the model on the rank's
+    tp shards (the loss adapters' `mesh=`). With every leaf replicated this
+    is the data-parallel step: one all-reduce, the norm of the local tree."""
+    flat = list(specs.values())
+    gather = (lambda params: gather_dp(mesh, flat, params)) if any("dp" in s for s in flat) else None
+    return loop.make_train_step(loss_fn, cfg, gather=gather,
+                                grad_sync=lambda grads, loss, params: sync_sharded_grads(mesh, flat, grads, params,
+                                                                                         loss),
+                                norm=lambda grads: sharded_norm(mesh, flat, grads))
+
+
+def init_sharded_state(params, cfg: loop.TrainConfig, mesh: Mesh, *, tp: bool = True, fsdp: bool = False):
+    """Rank 0's parameters on every rank (one broadcast), this rank's part of
+    each (`param_shardings(mesh, params, tp=, fsdp=)`), then the train state
+    over the parts (Adam's moments and the EMA on the same parts). Returns
+    (state, specs)."""
     replicate(mesh, tree_leaves(params))
-    return loop.init_train_state(params, cfg)
+    specs = param_shardings(mesh, params, tp=tp, fsdp=fsdp)
+    if any(is_sharded(s) for s in specs.values()):
+        params = shard_params(mesh, params, specs)
+    return loop.init_train_state(params, cfg), specs
 
 
 def replicate_state(mesh: Mesh, state) -> None:
@@ -82,9 +181,45 @@ def replicate_state(mesh: Mesh, state) -> None:
     replicate(mesh, tensors)
 
 
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+def gather_state(mesh: Mesh, state: loop.TrainState, specs) -> loop.TrainState:
+    """The whole TrainState from every rank's parts, on every rank (a
+    collective: every rank calls it): parameters, EMA and Adam's moments in
+    the full layout, the counters, under an optimizer of the same settings
+    over the full leaves. What rank 0 checkpoints and evaluates."""
+    params = gather_params(mesh, state.params, specs)
+    ema = gather_params(mesh, state.ema_params, specs)
+    opt = torch.optim.Adam(tree_leaves(params), **state.optimizer.defaults)
+    for (path, p), full in zip(named_leaves(state.params), tree_leaves(params)):
+        st = state.optimizer.state.get(p)
+        if st:
+            opt.state[full] = {"step": st["step"].clone(),
+                               **{k: gather_params(mesh, {path: st[k]}, specs)[path] for k in _MOMENTS}}
+    return loop.TrainState(params, opt, ema, state.ema_num_updates, state.step)
+
+
+@torch.no_grad()
+def load_shards(mesh: Mesh, state: loop.TrainState, full: loop.TrainState, specs) -> None:
+    """This rank's parts of a whole TrainState into `state`, in place."""
+    for (path, p), e, fp, fe in zip(named_leaves(state.params), tree_leaves(state.ema_params),
+                                    tree_leaves(full.params), tree_leaves(full.ema_params)):
+        spec, groups = specs[path], tp_groups(path)
+        p.copy_(shard_leaf(mesh, fp, spec, groups))
+        e.copy_(shard_leaf(mesh, fe, spec, groups))
+        st = full.optimizer.state.get(fp)
+        state.optimizer.state.pop(p, None)
+        if st:
+            state.optimizer.state[p] = {"step": st["step"].clone(),
+                                        **{k: shard_leaf(mesh, st[k], spec, groups) for k in _MOMENTS}}
+    state.ema_num_updates, state.step = full.ema_num_updates, full.step
+
+
 def shard_batch(mesh: Mesh, batch: dict, accum: bool = False) -> dict:
     """This rank's rows of a global host batch: axis 0, or axis 1 of grad
-    accumulation's [A, B, ...] leaves. The global batch must divide by dp."""
+    accumulation's [A, B, ...] leaves, by its dp index. The global batch
+    must divide by dp."""
     axis = 1 if accum else 0
     out = {}
     for k, v in batch.items():

@@ -8,18 +8,26 @@ with `--text2semantic`, the T2S model (CoSingle / CoMix; the tokenizer from
 cadence with the EMA parameters (`evaluate_acoustic`, or `evaluate_t2s`'s
 token WER), and the top-10-on-'l2' checkpoints follow train.py.
 
-Data parallelism runs one process per device (parallel/): `--dp N` (0 =
-every visible device; the CPU counts as many as --dp asks) starts N ranks
-from this one command, each running the same global loader and keeping its
-rows, so `--dp N` trains on the data of `--dp 1`; `--batch_size` is the
-global batch. `--coordinator_address host:port --num_processes P
---process_id I`, or `--multihost` with torchrun's or SLURM's environment,
-joins a process group instead: each process loads its rank-strided share
-of the files (`ProcessShardDataset`) and `batch_size / P` rows, padded to
-the ranks' common shape (`reconcile_batch`). Rank 0 alone writes logs,
-evals and checkpoints. Flags for what is not ported raise
-NotImplementedError naming their ROADMAP item: `--tp/--pp/--sp > 1`,
-`--fsdp`, `--bmuf_sync`; `--steps_per_dispatch > 1`."""
+Parallel training runs one process per device (parallel/) on a `dp x tp`
+mesh: `--dp N --tp M` (dp 0 = every visible device over tp; the CPU counts
+as many as the two ask) starts N x M ranks from this one command, each
+running the same global loader and keeping the rows of its dp index, so
+the run trains on the data of `--dp 1`; `--batch_size` is the global batch.
+`--tp M` splits the matmul weights, embeddings and time MLP over M ranks
+(the tensor-parallel forward of the models' `tp=`), `--fsdp` also splits
+every parameter, its Adam moments and EMA over dp (the whole tree gathered
+once a step), with JAX's layout (`parallel/mesh.param_shardings`).
+`--coordinator_address host:port --num_processes P --process_id I`, or
+`--multihost` with torchrun's or SLURM's environment, joins a process group
+instead: each process loads its dp index's rank-strided share of the files
+(`ProcessShardDataset`) and `batch_size / dp` rows, padded to the ranks'
+common shape (`reconcile_batch`). Rank 0 alone writes logs, evals and
+checkpoints; a split state is gathered first (every rank takes part), so
+checkpoints hold the full JAX layout and a run of any mesh resumes from
+them. JAX's refusals stand: `--bmuf_sync` with any other parallel flag,
+`--fsdp` in a multi-process group. Flags for what is not ported raise
+NotImplementedError naming their ROADMAP item: `--pp/--sp > 1`,
+`--bmuf_sync`; `--steps_per_dispatch > 1`."""
 
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ from covomix_tpu_torch.data.datasets import (CoVoMixDataset, collate_acoustic, c
 from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
 from covomix_tpu_torch.models import acoustic as A, text2semantic as T
 from covomix_tpu_torch.parallel import multihost as MH, train_step as TS
-from covomix_tpu_torch.parallel.mesh import Mesh, make_mesh, process_group_ready
+from covomix_tpu_torch.parallel.mesh import Mesh, is_sharded, make_mesh, process_group_ready
 from covomix_tpu_torch.pipeline import PARALLEL_ITEM
 from covomix_tpu_torch.train import evaluate as E, loop
 from covomix_tpu_torch.util.logging_utils import MetricsLogger
@@ -122,14 +130,22 @@ def build_argparser():
     return p
 
 
+_FSDP_MULTIHOST = ("--fsdp with --multihost needs an all-gather before host checkpointing (params are not "
+                   "host-addressable); run multihost with replicated params (dp/tp) for now")
+
+
 def _refuse_unported(args) -> None:
+    if args.bmuf_sync > 0 and (args.tp > 1 or args.pp > 1 or args.sp > 1 or args.fsdp
+                               or args.multihost or args.coordinator_address):
+        sys.exit("--bmuf_sync is the pure-dp local-steps mode; it composes with none of "
+                 "--tp/--pp/--sp/--fsdp/--multihost")
     if (args.pp > 1 or args.sp > 1) and args.text2semantic:
         sys.exit("--pp/--sp apply to the acoustic model only")
-    parallel = [flag for flag, on in (("--tp", args.tp > 1), ("--pp", args.pp > 1), ("--sp", args.sp > 1),
-                                      ("--fsdp", args.fsdp), ("--bmuf_sync", args.bmuf_sync > 0)) if on]
+    parallel = [flag for flag, on in (("--pp", args.pp > 1), ("--sp", args.sp > 1),
+                                      ("--bmuf_sync", args.bmuf_sync > 0)) if on]
     if parallel:
-        raise NotImplementedError(f"{', '.join(parallel)}: the port trains data-parallel only; this form of "
-                                  f"parallel training is not ported yet ({PARALLEL_ITEM})")
+        raise NotImplementedError(f"{', '.join(parallel)}: the port trains dp x tp (and --fsdp) only; this form "
+                                  f"of parallel training is not ported yet ({PARALLEL_ITEM})")
     if args.steps_per_dispatch > 1:
         raise NotImplementedError(f"--steps_per_dispatch > 1 is not ported ({_MULTI_STEP_NOTE})")
 
@@ -208,29 +224,32 @@ def main(argv=None) -> None:
             args.coordinator_address, args.num_processes, args.process_id, requested=True, device=device)
     if process_group_ready():
         try:
-            _train(args, make_mesh(args.dp, device), per_process_data=True)
+            if args.fsdp and torch.distributed.get_world_size() > 1:
+                sys.exit(_FSDP_MULTIHOST)
+            _train(args, make_mesh(args.dp, device, tp=args.tp), per_process_data=True)
         finally:
             if owned:
                 torch.distributed.destroy_process_group()
         return
-    mesh = make_mesh(args.dp, device)
-    if mesh.dp > 1:
-        MH.spawn(_rank_main, mesh.dp, args, device=device)
+    mesh = make_mesh(args.dp, device, tp=args.tp)
+    if mesh.dp * mesh.tp > 1:
+        MH.spawn(_rank_main, mesh.dp * mesh.tp, args, device=device)
     else:
         _train(args, mesh)
 
 
 def _rank_main(args) -> None:
-    """One rank of a single-command `--dp N` run (multihost.spawn)."""
-    _train(args, make_mesh(args.dp, args.device), per_process_data=False)
+    """One rank of a single-command `--dp N --tp M` run (multihost.spawn)."""
+    _train(args, make_mesh(args.dp, args.device, tp=args.tp), per_process_data=False)
 
 
 def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
-    """The run as rank `mesh.rank` of `mesh.dp`. In a process group the
-    step averages the gradients over the ranks and the losses draw for the
-    global batch. `per_process_data`: this process loads its share of the
-    files and rows (the multi-process contract); otherwise every rank runs
-    the global loader and keeps its rows."""
+    """The run as rank `mesh.rank` of `mesh.dp x mesh.tp`. In a process
+    group the step averages the gradients over the dp ranks, the losses draw
+    for the global batch, and with --tp / --fsdp each rank holds its part of
+    the state. `per_process_data`: this process loads its dp index's share
+    of the files and rows (the multi-process contract); otherwise every rank
+    runs the global loader and keeps its rows."""
     primary = mesh.rank == 0
     device = mesh.device
     dp_mesh = mesh if mesh.collective else None
@@ -254,27 +273,38 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
         sys.exit("--grad_accum composes with single-host dp only (one process feeding every rank)")
     local_bs = args.batch_size // mesh.dp if sharded_files else args.batch_size
     if sharded_files:
-        dataset = MH.ProcessShardDataset(dataset, mesh.rank, mesh.dp)
+        dataset = MH.ProcessShardDataset(dataset, mesh=mesh)
     steps_per_epoch = args.steps_per_epoch or max(1, len(dataset) // (local_bs * ga))
     collate, evaluate = build_collate(args)
     loader = data_loader(dataset, local_bs, collate, seed=args.seed, num_workers=args.num_workers)
     train_cfg = train_config(args, steps_per_epoch)
+    specs = None        # the parts' layout, when the state is split over the ranks
     if dp_mesh is None:
         state = loop.init_train_state(params, train_cfg)
         step_fn = loop.make_train_step(loss_fn, train_cfg)
     else:
-        state = TS.init_sharded_state(params, train_cfg, dp_mesh)
-        step_fn = TS.make_sharded_train_step(loss_fn, train_cfg, dp_mesh)
+        state, specs = TS.init_sharded_state(params, train_cfg, dp_mesh, tp=args.tp > 1, fsdp=args.fsdp)
+        step_fn = TS.make_sharded_train_step(loss_fn, train_cfg, dp_mesh, specs)
+        if not any(is_sharded(s) for s in specs.values()):
+            specs = None
+
+    def whole_state():
+        """The full train state (every rank takes part when it is split)."""
+        return state if specs is None else TS.gather_state(dp_mesh, state, specs)
 
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     ckpt_mgr = cio.TopKCheckpointer(ckpt_dir, top_k=10, mode="min")   # save_last + top-10 on 'l2'
+    last_saved = ckpt_mgr.last_step
     start_step = 0
     if args.resume:
         latest = cio.latest_step(ckpt_dir)
         if latest is not None:
-            cio.load_train_state(ckpt_dir, latest, state)
-            if dp_mesh is not None:
-                TS.replicate_state(dp_mesh, state)
+            if specs is None:
+                cio.load_train_state(ckpt_dir, latest, state)
+                if dp_mesh is not None:
+                    TS.replicate_state(dp_mesh, state)
+            else:   # the full tree, then this rank's parts of it
+                TS.load_shards(dp_mesh, state, cio.load_train_state(ckpt_dir, latest, whole_state()), specs)
             start_step = latest
             if primary:
                 print(f"resumed from step {latest}", flush=True)
@@ -296,12 +326,17 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
                 done = step_i + 1
                 watchdog.beat(done)
                 evaluating = args.num_eval_files and args.eval_every > 0 and done % args.eval_every == 0
+                saving = (args.ckpt_every > 0 and done % args.ckpt_every == 0) or evaluating
                 if evaluating:
                     # read on every rank: the items draw from the dataset's own random state, which
                     # the training items share when there are fewer than 10 files
                     items = [val_dataset[i % len(val_dataset)]
                              for i in range(min(args.num_eval_files, len(val_dataset)))]
+                if saving:
+                    last_saved = done
+                whole = whole_state() if saving else None     # a split state gathered on every rank
                 if not primary:
+                    del whole           # not held through the next step (under FSDP it is the whole state)
                     continue
                 if args.log_every > 0 and done % args.log_every == 0:
                     now = time.time()
@@ -317,19 +352,22 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
                     # its own generator: the training draws stay in step across ranks, and
                     # an eval gives the same numbers in a resumed run as in an unbroken one
                     eval_gen = torch.Generator(device=device).manual_seed(args.seed + done)
-                    ev = evaluate(state.ema_params, model_cfg, batches, eval_gen, dtype=dtype)
+                    ev = evaluate(whole.ema_params, model_cfg, batches, eval_gen, dtype=dtype)
                     print("eval:", json.dumps(ev), flush=True)
                     logger.log(done, ev, prefix="eval_")
                     eval_metric = ev["l2"]
-                if (args.ckpt_every > 0 and done % args.ckpt_every == 0) or eval_metric is not None:
-                    ckpt_mgr.save(state, done, metric=eval_metric)
+                if saving:
+                    ckpt_mgr.save(whole, done, metric=eval_metric)
+                del whole
         finally:
             if logger is not None:
                 logger.close()
             if hasattr(loader, "close"):
                 loader.close()
     final_step = max(total_steps, done)
+    if last_saved != final_step:     # not saved just now (eval at the last step)
+        whole = whole_state()
+        if primary:
+            ckpt_mgr.save(whole, final_step)
     if primary:
-        if ckpt_mgr.last_step != final_step:    # not saved just now (eval at the last step)
-            ckpt_mgr.save(state, final_step)
         print(f"done: {final_step} steps -> {ckpt_dir}", flush=True)

@@ -133,22 +133,29 @@ def accumulated_value_and_grad(loss_fn: Callable, grad_accum: int):
     return run
 
 
-def make_train_step(loss_fn: Callable, cfg: TrainConfig, grad_sync: Optional[Callable] = None):
+def make_train_step(loss_fn: Callable, cfg: TrainConfig, grad_sync: Optional[Callable] = None,
+                    gather: Optional[Callable] = None, norm: Callable = global_norm):
     """loss_fn(params, batch, generator) -> scalar loss tensor. Returns
     step(state, batch, generator) -> {"loss", "grad_norm"} (0-dim tensors on
     the parameters' device), updating `state` in place: gradients, global
     norm, clipping, Adam at the schedule's learning rate, EMA, counters.
-    `grad_sync(grads, loss) -> loss`, when given, runs between the backward
-    and the norm (the data-parallel mean, parallel/train_step.py)."""
+    The hooks of the sharded step (parallel/train_step.py): `gather(params)
+    -> tree`, what the loss reads in place of state.params (FSDP's
+    all-gather); `grad_sync(grads, loss, params) -> loss`, between the
+    backward (`grads` of the tree the loss read) and the norm, leaving the
+    gradients of state.params' leaves in their .grad (the data-parallel
+    mean); `norm(grads)`, the global norm of those gradients."""
     vg = accumulated_value_and_grad(loss_fn, cfg.grad_accum)
     schedule = reference_lr_schedule(cfg) if cfg.use_lr_schedule else None
 
     def step(state: TrainState, batch, generator):
-        device = tree_leaves(state.params)[0].device
-        loss, grads = vg(state.params, to_device(batch, device), generator)
+        leaves = tree_leaves(state.params)
+        params = state.params if gather is None else gather(state.params)
+        loss, grads = vg(params, to_device(batch, leaves[0].device), generator)
         if grad_sync is not None:
-            loss = grad_sync(grads, loss)
-        gnorm = global_norm(grads)
+            loss = grad_sync(grads, loss, state.params)
+            grads = [p.grad for p in leaves]
+        gnorm = norm(grads)
         if cfg.grad_clip:
             keep = gnorm < cfg.grad_clip
             for g in grads:

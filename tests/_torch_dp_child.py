@@ -53,8 +53,8 @@ def _train_step(case, mesh):
                                cond_drop_prob=case["drop"], inputs=inputs, mesh=mesh)
     else:
         loss_fn = loop.t2s_loss_fn(PT.T2SConfig(**case["cfg"]), mesh=mesh)
-    state = TS.init_sharded_state(params, tcfg, mesh)
-    step = TS.make_sharded_train_step(loss_fn, tcfg, mesh)
+    state, specs = TS.init_sharded_state(params, tcfg, mesh)
+    step = TS.make_sharded_train_step(loss_fn, tcfg, mesh, specs)
     syncs = TS.GRAD_SYNCS
     m = step(state, TS.shard_batch(mesh, case["batch"]), None)
     return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(), "params": _numpy_leaves(state.params),

@@ -142,9 +142,9 @@ def test_train_state_round_trip_continues_identically(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--sp", "2"], "Parallelism"),
-    (["--tp", "2"], "Parallelism"),
+    (["--pp", "2"], "Parallelism"),
     (["--bmuf_sync", "2"], "Parallelism"),
-    (["--fsdp"], "Parallelism"),
+    (["--pp", "2", "--sp", "2"], "Parallelism"),
     (["--steps_per_dispatch", "2"], "make_multi_step"),
 ])
 def test_unported_flags_raise(tmp_path, flags, item):
