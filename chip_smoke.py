@@ -10,6 +10,8 @@
     python3 chip_smoke.py --gan               # phase 16 alone: HiFi-GAN training at full width
     python3 chip_smoke.py --dp                # phase 17 alone: data-parallel training at full width
     python3 chip_smoke.py --tp                # phase 18 alone: tensor-parallel and FSDP training at full width
+    python3 chip_smoke.py --pp                # phase 19's pipeline-parallel cells alone
+    python3 chip_smoke.py --sp                # phase 19's sequence-parallel cells and sample_sp alone
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
 only their library, logs ptxas's registers and spills, runs check_vocoder's
@@ -153,7 +155,10 @@ Phases (any failure exits non-zero, nothing is passed over):
      phase 13's fitted heads): `generate` as a captured CUDA graph against
      the same step called directly (text2semantic.CAPTURE off) at the
      serving shape (B=4, 512 steps, min_length 512, bf16 and f32) and the
-     per-file shape (B=1, 2048 steps, bf16), and greedy / speculative
+     per-file shape (B=1, 2048 steps, bf16; both forms of the 2048-step
+     program cut after its first PER_FILE_HELD steps, held and timed there,
+     the same captured program then timed over the whole decode), and
+     greedy / speculative
      (gamma 2 / 4 / 8) at B=8 in bf16: tokens equal (f32 exactly, bf16 up
      to hold_tokens' near-tie), num_steps equal, the generator's next draw
      equal; walls best of DECODE_TURNS in turns, ms per step or round, host
@@ -223,11 +228,30 @@ Phases (any failure exits non-zero, nothing is passed over):
      and parameter gathers as counted; ms a step, the tp collectives' count,
      bytes and host ms, the resident bytes of parameters, Adam moments and
      EMA and the peak GiB of each rank;
- 19. print a `kernels` JSON line (phase 13's launches as
+ 19. pipeline- and sequence-parallel training at full width
+     (parallel/pipeline.py, ring.py, collectives.py), on phase 17's VoMix
+     items and one-process references, ranks sharing the one card over gloo
+     (the ppermute and the axis sum checked first on device tensors): (a)
+     pp=2 with 4 microbatches and (b) sp=2, each in bf16 and f32; (c) dp=2 x
+     pp=2 and dp=2 x sp=2 in bf16 (four ranks); 2 steps each: every rank's
+     losses and grad norms within DP_RTOL of one process, the gathered and
+     unstacked parameters within phase 17's bounds, the parts two ranks both
+     hold bit for bit, the first-half skip placeholders (value, gradient,
+     EMA) exactly 0, each rank step's flash launches ((M + pp - 1) x depth
+     / pp = 20 lse forwards, dQ and dK/dV, and 20 pre-passes in bf16, under
+     pp; none under sp), its ppermutes (8 under pp, 20 under sp) and
+     gradient collectives as counted; ms a step, the ppermutes' count,
+     bytes and host ms, the resident bytes and peak GiB of each rank; (d)
+     `ring.sample_sp` at sp=2 on a full-width acoustic model (2 rows x 912
+     frames, cond_scale 0.7, f32) against `acoustic.sample` on the card with
+     the same noise (SAMPLE_SP_RTOL), no flash launch, and the same call
+     with TF32 allowed, a control whose error must exceed the bound;
+ 20. print a `kernels` JSON line (phase 13's launches as
      `speculative_launches`, phase 15's as `bench_launches`, phase 16's as
      `gan_export_launches`, phase 17's as `dp_world1_launches` and
      `dp2_launches_per_rank_step`, phase 18's as
-     `tp_launches_per_rank_step`, the fused kernels' and the forward's
+     `tp_launches_per_rank_step`, phase 19's as `pp_launches_per_rank_step`
+     and `sp_launches_per_rank_step`, the fused kernels' and the forward's
      phase-15 times as `bench_shapes`) and, last, {"ok": true, "device":
      {...}}.
 """
@@ -2815,9 +2839,13 @@ def run_speculative(results, root, models):
 
 
 # timed calls of each form, in turns (graph, direct, graph, ...); one keeps
-# the whole script near half its time limit with phases 17-18 (the direct
-# step's walls, the yardstick, are ~10x the graph's: ~21 s per per-file call)
+# the whole script near half its time limit with phases 17-19 (the direct
+# step's walls, the yardstick, are ~10x the graph's)
 DECODE_TURNS = 1
+# the per-file cell's 2048-step program is held and timed in both forms on its first PER_FILE_HELD
+# steps (text2semantic.STOP_AFTER: the direct step ~2.6 s a call in place of ~21 s); the same captured
+# program then runs the whole decode, timed and traced. The serving cells are held on all 512 steps
+PER_FILE_HELD = 256
 READ_METHODS = ("__bool__", "item", "__int__", "__float__", "__index__", "tolist", "numpy")
 
 
@@ -2881,6 +2909,19 @@ def decode_form(graph: bool):
         yield
     finally:
         T.CAPTURE = prev
+
+
+@contextlib.contextmanager
+def stop_after(steps):
+    """Every decode cut after `steps` steps while entered
+    (text2semantic.STOP_AFTER; None: not cut)."""
+    from covomix_tpu_torch.models import text2semantic as T
+
+    prev, T.STOP_AFTER = T.STOP_AFTER, steps
+    try:
+        yield
+    finally:
+        T.STOP_AFTER = prev
 
 
 def decode_forms(what, fn, seed=None) -> dict:
@@ -2952,8 +2993,9 @@ def run_decode_graphs(results, serving_t2s, spec_cfg, spec_params):
     """Phase 14: `generate` and `generate_speculative` as CUDA graphs against
     the same step called directly, at full width with phase 4's T2S: the
     serving shape (B=4, 512 steps, min_length 512, sampled, bf16 and f32),
-    the per-file shape (B=1, 2048 steps, sampled, bf16), and greedy /
-    speculative at B=8 on phase 13's fitted heads (gamma 2 / 4 / 8, bf16).
+    the per-file shape (B=1, 2048 steps, sampled, bf16; both forms cut
+    after PER_FILE_HELD steps, then the graph alone over the whole decode),
+    and greedy / speculative at B=8 on phase 13's fitted heads (gamma 2 / 4 / 8, bf16).
     Tokens, steps and the generator's next draw must agree (f32 exactly,
     bf16 up to hold_tokens' near-tie); walls best of DECODE_TURNS in turns,
     ms per step or round, host reads per call, each graph's capture time,
@@ -2967,24 +3009,35 @@ def run_decode_graphs(results, serving_t2s, spec_cfg, spec_params):
     text_serving = torch.as_tensor(serving_inputs(4, 400, 64, 160, 1)[0], device="cuda")
     text_file = torch.as_tensor(np.random.RandomState(2).randint(1, 30000, (1, 48)), dtype=torch.int32,
                                 device="cuda")
-    cells = {"serving_bf16": (text_serving, 512, 512, torch.bfloat16), "serving_f32": (text_serving, 512, 512,
-                                                                                       torch.float32),
-             "per_file_bf16": (text_file, 2048, 0, torch.bfloat16)}
+    cells = {"serving_bf16": (text_serving, 512, 512, torch.bfloat16, None),
+             "serving_f32": (text_serving, 512, 512, torch.float32, None),
+             "per_file_bf16": (text_file, 2048, 0, torch.bfloat16, PER_FILE_HELD)}
     table, idle = {}, {}
-    for name, (text, max_length, min_length, dtype) in cells.items():
+    for name, (text, max_length, min_length, dtype, held) in cells.items():
         def decode(gen, text=text, max_length=max_length, min_length=min_length, dtype=dtype):
             return T.generate(serving_t2s, cfg, gen, text, max_length=max_length, min_length=min_length,
                               dtype=dtype)
 
-        forms = decode_forms(f"decode {name}", decode, seed=10)
-        ties = hold_forms(f"decode {name}", forms, exact=dtype == torch.float32,
-                          redo=lambda: decode(torch.Generator(device="cuda").manual_seed(10)))
+        what = f"decode {name}" + (f", first {held} of {max_length} steps" if held else "")
+        with stop_after(held):
+            forms = decode_forms(what, decode, seed=10)
+            ties = hold_forms(what, forms, exact=dtype == torch.float32,
+                              redo=lambda: decode(torch.Generator(device="cuda").manual_seed(10)))
         steps = forms["graph"]["res"].num_steps
         table[name] = {"steps": steps, "ties": ties, **per_step_ms(forms, steps)}
+        graph_s = table[name]["graph"]["best_s"]
+        if held:        # the same captured program over the whole decode
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = decode(torch.Generator(device="cuda").manual_seed(10))
+            torch.cuda.synchronize()
+            graph_s = time.time() - t0
+            table[name]["graph_full"] = {"steps": res.num_steps, "best_s": graph_s,
+                                         "ms_per_step": graph_s / res.num_steps * 1e3}
         if name != "serving_f32":
             idle[f"{name}_graph"] = traced_idle_share(f"decode {name}, graph",
                                                       lambda: decode(torch.Generator(device="cuda").manual_seed(10)),
-                                                      table[name]["graph"]["best_s"])
+                                                      graph_s)
         if name == "serving_bf16":
             with decode_form(False):
                 idle[f"{name}_direct"] = traced_idle_share(
@@ -3410,6 +3463,20 @@ def check_gan_small_against_cpu():
     return max(rel.values())
 
 
+@contextlib.contextmanager
+def tf32_allowed():
+    """TF32 allowed for matmuls and cuDNN while entered, the flags put back
+    after."""
+    import torch
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
 def check_mel_with_tf32_allowed():
     """The log-mel of a full batch (80 x 8032, seeded) on the card with TF32
     allowed globally, against the CPU's; the flags are put back after."""
@@ -3418,13 +3485,9 @@ def check_mel_with_tf32_allowed():
     from covomix_tpu_torch.audio import MelConfig, mel_spectrogram
 
     y = torch.from_numpy((np.random.RandomState(8).randn(80, 8032) * 0.1).astype(np.float32))
-    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
-    try:
+    with tf32_allowed():
         card = mel_spectrogram(y.cuda(), MelConfig()).cpu()
         still = torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
     err = (card - mel_spectrogram(y, MelConfig())).abs().max().item()
     ok = err <= MEL_TF32_TOL and still
     log(f"log-mel on the card with TF32 allowed vs the CPU: max |diff| {err:.3e} (tol {MEL_TF32_TOL:g}), "
@@ -3549,14 +3612,14 @@ DP_PER_STEP = {"vomix": {"bf16": launches(fwd_lse=8, bwd_dq=8, bwd_dkv=8, rotary
                "t2s": {dt: launches(fwd_lse_causal=4, bwd_dq_causal=4, bwd_dkv_causal=4) for dt in ("bf16", "f32")}}
 
 
-def dp_args(root, cell, dtype):
+def dp_args(root, cell, dtype, *extra):
     """The train CLI's flags of the VoMix or CoMix T2S recipe at full width,
-    in bf16 or f32, on phase 17's items."""
+    in bf16 or f32, on phase 17's items (and `extra` flags)."""
     from covomix_tpu_torch.train import cli
 
     recipe = [a for a in (VOMIX_RECIPE if cell == "vomix" else COMIX_T2S_RECIPE) if a != "--bf16"]
     return cli.build_argparser().parse_args(["--base_dir", os.path.join(root, cell), *recipe, "--device", "cuda",
-                                             "--seed", "0", *(["--bf16"] if dtype == "bf16" else [])])
+                                             "--seed", "0", *(["--bf16"] if dtype == "bf16" else []), *extra])
 
 
 def flat_params(tree):
@@ -3569,12 +3632,14 @@ def flat_params(tree):
 def timed_step(step, *args):
     """One step between synchronizes, the launch counts set to 0 just before
     it and read just after, with the gradient collectives it made, its tp
-    collectives (count, bytes, host ms) and FSDP's parameter gathers."""
+    collectives (count, bytes, host ms), FSDP's parameter gathers and the
+    pp / sp ppermutes (count, bytes, host ms)."""
     import torch
-    from covomix_tpu_torch.parallel import tensor as TPX, train_step as TS
+    from covomix_tpu_torch.parallel import collectives as C, tensor as TPX, train_step as TS
 
     zero_counts()
-    before = (TS.GRAD_SYNCS, TS.GRAD_SYNC_BYTES, TPX.COLLECTIVES, TPX.BYTES, TPX.SECONDS, TS.PARAM_GATHERS)
+    before = (TS.GRAD_SYNCS, TS.GRAD_SYNC_BYTES, TPX.COLLECTIVES, TPX.BYTES, TPX.SECONDS, TS.PARAM_GATHERS,
+              C.PPERMUTES, C.PPERMUTE_BYTES, C.PPERMUTE_SECONDS)
     torch.cuda.synchronize()
     t0 = time.time()
     metrics = step(*args)
@@ -3583,7 +3648,8 @@ def timed_step(step, *args):
     return {"ms": (time.time() - t0) * 1e3, **metrics, "launches": flash_counts(), "syncs": TS.GRAD_SYNCS - before[0],
             "sync_bytes": TS.GRAD_SYNC_BYTES - before[1], "tp_collectives": TPX.COLLECTIVES - before[2],
             "tp_bytes": TPX.BYTES - before[3], "tp_ms": (TPX.SECONDS - before[4]) * 1e3,
-            "param_gathers": TS.PARAM_GATHERS - before[5]}
+            "param_gathers": TS.PARAM_GATHERS - before[5], "ppermutes": C.PPERMUTES - before[6],
+            "ppermute_bytes": C.PPERMUTE_BYTES - before[7], "ppermute_ms": (C.PPERMUTE_SECONDS - before[8]) * 1e3}
 
 
 def dp_train_cell(args, steps, mesh=None, fsdp=False):
@@ -3894,12 +3960,12 @@ def check_collectives(mesh) -> dict:
         raise AssertionError(f"collectives on device tensors: all_reduce {t.tolist()}, broadcast {b.tolist()}")
     forms = {"world": dist.get_backend()}
     base = torch.arange(6.0, device="cuda").reshape(2, 3)
-    for axis, n, index, group in (("dp", mesh.dp, mesh.dp_rank, mesh.dp_group),
-                                  ("tp", mesh.tp, mesh.tp_rank, mesh.tp_group)):
+    for axis in ("dp", "tp"):
+        group, n, index = mesh.axis_info(axis)
         if n == 1:
             continue
-        peers = ([d * mesh.tp + mesh.tp_rank for d in range(n)] if axis == "dp"
-                 else [mesh.dp_rank * mesh.tp + k for k in range(n)])
+        peers = ([d * mesh.n + mesh.rank % mesh.n for d in range(n)] if axis == "dp"
+                 else [mesh.dp_rank * mesh.n + k for k in range(n)])
         got = M.all_gather(base + 100 * rank, 1, group, n, index)
         scattered = M.reduce_scatter((base + 100 * rank).repeat(n, 1), 0, group, n, index)
         if not (torch.equal(got, torch.cat([base + 100 * p for p in peers], dim=1))
@@ -3957,8 +4023,9 @@ def replicas_equal(mesh, state, specs) -> dict:
     from covomix_tpu_torch.util.misc import named_leaves
 
     out = {}
-    for axis, n, group, src in (("tp", mesh.tp, mesh.tp_group, mesh.dp_rank * mesh.tp),
-                                ("dp", mesh.dp, mesh.dp_group, mesh.tp_rank)):
+    for axis in (mesh.axis, "dp"):
+        group, n, _ = mesh.axis_info(axis)
+        src = mesh.rank % mesh.n if axis == "dp" else mesh.dp_rank * mesh.n     # the axis' first rank
         if n == 1:
             continue
         held = [t.detach().reshape(-1) for tree in (state.params, state.ema_params)
@@ -3982,21 +4049,16 @@ def resident_bytes(state) -> dict:
     return {"params": size(tree_leaves(state.params)), "adam": size(moments), "ema": size(tree_leaves(state.ema_params))}
 
 
-def tp_rank(root, ref_dir, out_dir, names):
-    """One rank of phase 18 on the one card over gloo: for each mesh its
-    cells use, the collectives checked on device tensors (check_collectives);
-    then each cell of `names` on the rank's rows and parts, its gathered
-    parameters held against the one-process run's (saved in ref_dir), its
-    replicated parts against the first rank of each axis; the step records,
-    the resident bytes and peak GiB into out_dir/rank<r>.json."""
+def tp_cells(root, ref_dir, names, out):
+    """Phase 18's cells `names` as one rank on the one card over gloo, into
+    `out`: for each mesh they use, the collectives checked on device tensors
+    (check_collectives); then each cell on the rank's rows and parts, its
+    gathered parameters held against the one-process run's (saved in
+    ref_dir), its replicated parts against the first rank of each axis; the
+    step records, the resident bytes and peak GiB."""
     import torch
-    import torch.distributed as dist
     from covomix_tpu_torch.parallel.mesh import gather_params, make_mesh
 
-    torch.backends.cuda.matmul.allow_tf32 = False      # as the reference process runs
-    torch.backends.cudnn.allow_tf32 = False
-    out = {"rank": dist.get_rank(), "device": f"cuda:{torch.cuda.current_device()}", "backend": dist.get_backend(),
-           "forms": {}}
     meshes = {}
     for name in names:
         cell, dt, dp, tp, fsdp = TP_CELLS[name]
@@ -4016,8 +4078,6 @@ def tp_rank(root, ref_dir, out_dir, names):
                      "resident_bytes": resident_bytes(state)}
         del state, flat, ref
         torch.cuda.empty_cache()
-    with open(os.path.join(out_dir, f"rank{out['rank']}.json"), "w") as f:
-        json.dump(out, f)
 
 
 def check_tp_cell(name, ranks, ref):
@@ -4046,45 +4106,13 @@ def check_tp_cell(name, ranks, ref):
             raise AssertionError(f"{what}: replicated parts {got['replicas']}")
 
 
-def run_tp_training(results, root):
-    """Phase 18: tensor-parallel and FSDP training at full width on phase
-    17's items (`write_dp_items`) and its one-process references, each
-    computed here when absent (`--tp` alone). The five two-rank cells run in
-    one spawn of two ranks on this card over gloo, the four-rank cell in a
-    spawn of four; every rank's records held by check_tp_cell. The kernel
-    library is built before the ranks start."""
-    import torch
-    from covomix_tpu_torch.ops import flash_attention as FA
-    from covomix_tpu_torch.parallel import multihost as MH
-
-    t_start = time.time()
-    FA.KERNEL.build(64)
-    ref_dir, out_dir = os.path.join(root, "ref"), os.path.join(root, "tp_ranks")
-    os.makedirs(ref_dir, exist_ok=True)
-    refs = {}
-    for cell, dt, *_ in TP_CELLS.values():
-        key = f"{cell}_{dt}"
-        if not os.path.exists(os.path.join(ref_dir, f"{key}.json")):
-            recs, state, lrs, _ = dp_train_cell(dp_args(root, cell, dt), DP_STEPS)
-            save_reference(ref_dir, key, flat_params(state.params), recs, lrs)
-            del state
-            torch.cuda.empty_cache()
-        with open(os.path.join(ref_dir, f"{key}.json")) as f:
-            refs[key] = json.load(f)
-    spawns = {}
-    for world in (2, 4):
-        names = [n for n, (_, _, dp, tp, _) in TP_CELLS.items() if dp * tp == world]
-        shutil.rmtree(out_dir, ignore_errors=True)
-        os.makedirs(out_dir)
-        t0 = time.time()
-        MH.spawn(tp_rank, world, root, ref_dir, out_dir, names, device="cuda", backend="gloo")
-        spawns[world] = {"s": time.time() - t0, "ranks": []}
-        for r in range(world):
-            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-                spawns[world]["ranks"].append(json.load(f))
-    tp = {"card": card_line(), "spawn_s": {w: v["s"] for w, v in spawns.items()},
-          "forms": spawns[4]["ranks"][0]["forms"] | spawns[2]["ranks"][0]["forms"], "cells": {}}
-    for name, (cell, dt, dp, tpn, fsdp) in TP_CELLS.items():
+def check_tp(results, spawns, refs, names):
+    """Phase 18's records of every rank held by check_tp_cell, logged and
+    kept in results["tp"]."""
+    tp = {"card": card_line(), "forms": {k: v for sp in spawns.values() for k, v in sp["ranks"][0]["forms"].items()
+                                         if "x" in k and k.split("x")[1].isdigit()}, "cells": {}}
+    for name in names:
+        cell, dt, dp, tpn, fsdp = TP_CELLS[name]
         ranks = spawns[dp * tpn]["ranks"]
         check_tp_cell(name, ranks, refs[f"{cell}_{dt}"])
         ref = refs[f"{cell}_{dt}"]["recs"]
@@ -4097,17 +4125,344 @@ def run_tp_training(results, root):
             "grad_sync_bytes_per_step": ranks[0][name]["steps"][0]["sync_bytes"],
             "resident_bytes": [rank[name]["resident_bytes"] for rank in ranks],
             "peak_gib": [round(rank[name]["peak_gib"], 3) for rank in ranks],
+            "wall_s": [round(rank[name]["wall_s"], 3) for rank in ranks],
             "params": ranks[0][name]["params"], "replicas": [rank[name]["replicas"] for rank in ranks],
             "loss_rel_err": max(abs(s["loss"] - r["loss"]) / abs(r["loss"])
                                 for rank in ranks for s, r in zip(rank[name]["steps"], ref)),
             "launches_per_step": ranks[0][name]["steps"][0]["launches"],
             "rows_per_rank": ranks[0][name]["steps"][0]["rows"]}
         log(f"18 {name} ({tp['card']}): " + json.dumps(tp["cells"][name]))
-    tp["wall_s"] = time.time() - t_start
     results["tp"] = tp
     results["tp_launches"] = {name: c["launches_per_step"] for name, c in tp["cells"].items()}
-    log(f"phase 18 wall {tp['wall_s']:.1f} s (the ranks {json.dumps(tp['spawn_s'])} s); collective forms "
-        f"{json.dumps(tp['forms'])}")
+    log(f"phase 18 collective forms {json.dumps(tp['forms'])}")
+
+
+# ---------------------------------------------------------------------------
+# phase 19: pipeline- and sequence-parallel training at full width
+
+PP_MICROBATCHES = 4
+# (dtype, dp, axis, size) of phase 19's cells, DP_STEPS steps each of the VoMix recipe (global B 8, T 832):
+# pp=2 and sp=2 in bf16 and f32, and dp=2 x pp=2 and dp=2 x sp=2 in bf16 (four ranks)
+PP_CELLS = {"pp2_vomix_bf16": ("bf16", 1, "pp", 2), "pp2_vomix_f32": ("f32", 1, "pp", 2),
+            "sp2_vomix_bf16": ("bf16", 1, "sp", 2), "sp2_vomix_f32": ("f32", 1, "sp", 2),
+            "dp2_pp2_vomix_bf16": ("bf16", 2, "pp", 2), "dp2_sp2_vomix_bf16": ("bf16", 2, "sp", 2)}
+VOMIX_DEPTH = 8
+# sample_sp at sp=2 on a full-width acoustic model of the serving config (seeded random weights): 2 rows x
+# 912 frames, cond_scale 0.7, 16 midpoint steps, f32 with TF32 off, against acoustic.sample on the card with
+# the same noise. The reference's attention is the f32 flash kernel (tiled online softmax), sample_sp's the
+# plain ring (f32 einsums over two blocks): both f32, the sums in another order. The sound reading was 6.7e-7
+# of max |reference|; SAMPLE_SP_RTOL sits 15x above it. The same sample_sp with TF32 allowed (the ring's
+# einsums and the dense layers at TF32's 10-bit mantissa) is the control: its error must exceed the bound, so
+# a ring that lost f32 would fail the gate
+SAMPLE_SP = {"rows": 2, "frames": 912, "cond_scale": 0.7, "seed": 19}
+SAMPLE_SP_RTOL = 1e-5
+
+
+def pp_per_step(dt, axis, size):
+    """A rank step's flash launches: under pp, M + pp - 1 ticks of depth / pp
+    layers, each one lse forward, dQ and dK/dV (and in bf16 one rotary
+    pre-pass); none under sp (ring attention is plain PyTorch, as JAX's)."""
+    if axis == "sp":
+        return launches()
+    k = (PP_MICROBATCHES + size - 1) * VOMIX_DEPTH // size
+    return launches(fwd_lse=k, bwd_dq=k, bwd_dkv=k, **({"rotary": k} if dt == "bf16" else {}))
+
+
+def pp_ppermutes(axis, size):
+    """A rank step's ppermutes: under pp one a tick but the last, each way;
+    under sp depth x (sp - 1) K / V hops and the two halos, each way."""
+    from covomix_tpu_torch.parallel import pipeline as PP
+
+    return PP.ppermutes_per_step(PP_MICROBATCHES, size) if axis == "pp" else 2 * (VOMIX_DEPTH * (size - 1) + 2)
+
+
+def pp_syncs(dp, axis):
+    """A rank step's gradient collectives: the shares added over the axis
+    (one bucket), the dp mean when dp > 1, and under pp the sharded norm's
+    scalar (the stacked leaves are split)."""
+    return 1 + (dp > 1) + (axis == "pp")
+
+
+def check_axis_collectives(mesh, axis) -> str:
+    """ppermute by +1 and -1 (f32 and bf16) and axis_sum, forward and
+    backward, on rank-valued device tensors over the mesh's pp or sp axis,
+    each held to its arithmetic; returns the form the backend took."""
+    import torch
+    from covomix_tpu_torch.parallel import collectives as C, mesh as M
+
+    group, n, i = mesh.axis_info(axis)
+    r = i + 1.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shift in (1, -1):
+            a = torch.full((2, 3), r, dtype=dtype, device="cuda", requires_grad=True)
+            y, = C.ppermute(mesh, axis, [a], shift=shift)
+            (y * r).sum().backward()
+            if not (bool((y == (i - shift) % n + 1.0).all()) and bool((a.grad == (i + shift) % n + 1.0).all())):
+                raise AssertionError(f"{axis} ppermute by {shift} ({dtype}) on device tensors: {y.tolist()}, "
+                                     f"gradient {a.grad.tolist()}")
+    x = torch.full((3,), r, device="cuda", requires_grad=True)
+    y = C.axis_sum(mesh, axis, x)
+    (y * r).sum().backward()
+    if not (bool((y == n * (n + 1) / 2).all()) and bool((x.grad == r).all())):
+        raise AssertionError(f"{axis} axis_sum on device tensors: {y.tolist()}, gradient {x.grad.tolist()}")
+    name = M.backend(group)
+    return f"{name}: batched isend / irecv " + ("on the device" if name == "nccl" else "of a host copy")
+
+
+def sample_sp_inputs():
+    """(config, seeded full-width parameters, phoneme ids, cond, noise) of
+    the sample_sp cell, on the card."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.models import acoustic as A
+
+    cfg = full_width_configs()[1]
+    params = A.init(torch.Generator(device="cuda").manual_seed(SAMPLE_SP["seed"]), cfg)
+    rs = np.random.RandomState(SAMPLE_SP["seed"])
+    b, t = SAMPLE_SP["rows"], SAMPLE_SP["frames"]
+    ph = torch.as_tensor(rs.randint(0, 500, (b, t, 2)), device="cuda")
+    cond = torch.as_tensor((rs.randn(b, t, cfg.dim_in) * 0.1).astype(np.float32), device="cuda")
+    noise = torch.as_tensor(rs.randn(b, t, cfg.mel_dim).astype(np.float32), device="cuda")
+    return cfg, params, ph, cond, noise
+
+
+def timed_sample(fn) -> tuple:
+    """(fn()'s output, ms between synchronizes, flash launches, ppermutes)."""
+    import torch
+    from covomix_tpu_torch.parallel import collectives as C
+
+    zero_counts()
+    before = C.PPERMUTES
+    torch.cuda.synchronize()
+    t0 = time.time()
+    y = fn()
+    torch.cuda.synchronize()
+    return y, (time.time() - t0) * 1e3, flash_counts(), C.PPERMUTES - before
+
+
+def pp_cells(root, ref_dir, names, sample, out):
+    """Phase 19's cells `names` as one rank on the one card over gloo, into
+    `out`: for each mesh they use, phase 17's and this phase's collectives
+    checked on device tensors; each cell on the rank's rows (its stage, or
+    its frames), its gathered (and unstacked) parameters held against the
+    one-process run's, its replicated parts against the first rank of each
+    axis, the first-half skip placeholders of a first pp stage; with
+    `sample`, sample_sp at sp=2 against the reference saved in ref_dir."""
+    import torch
+    from covomix_tpu_torch.parallel import pipeline as PP, ring as R
+    from covomix_tpu_torch.parallel.mesh import gather_params, make_mesh
+
+    cfg = full_width_configs()[1]
+    meshes = {}
+    for name in names:
+        dt, dp, axis, size = PP_CELLS[name]
+        if (dp, axis) not in meshes:      # every rank builds the meshes (and their groups) in the same order
+            mesh = meshes[dp, axis] = make_mesh(dp, "cuda", **{axis: size})
+            out["forms"][f"{dp}x{axis}{size}"] = {**check_collectives(mesh), axis: check_axis_collectives(mesh, axis)}
+        mesh = meshes[dp, axis]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        recs, state, lrs, specs = dp_train_cell(dp_args(root, "vomix", dt, f"--{axis}", str(size), "--pp_microbatches",
+                                                        str(PP_MICROBATCHES)), DP_STEPS, mesh)
+        wall = time.time() - t0
+        params = gather_params(mesh, state.params, specs)
+        if axis == "pp":
+            params = PP.unstack_layer_params(params["stacked"], params["rest"], cfg)
+        flat = flat_params(params)
+        ref = torch.load(os.path.join(ref_dir, f"vomix_{dt}.pt")).to("cuda")
+        rec = {"steps": recs, "lrs": lrs, "wall_s": wall, "dp_rank": mesh.dp_rank, "index": mesh.rank % mesh.n,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "replicas": replicas_equal(mesh, state, specs), "params": param_agreement(flat, ref, lrs, dt),
+               "resident_bytes": resident_bytes(state)}
+        if axis == "pp":      # the stage's first-half layers: zero placeholders, zero gradients, zero EMA
+            lpp = cfg.depth // size
+            skip = state.params["stacked"]["skip"]
+            ema = state.ema_params["stacked"]["skip"]
+            rec["skip_placeholders"] = {
+                mesh.pp_rank * lpp + j: max(float(t[j].detach().abs().max()) for k in ("w", "b")
+                                            for t in (skip[k], skip[k].grad, ema[k]))
+                for j in range(lpp) if mesh.pp_rank * lpp + j < cfg.depth // 2}
+        out[name] = rec
+        del state, flat, ref, params
+        torch.cuda.empty_cache()
+    if sample:
+        mesh = meshes.get((1, "sp")) or make_mesh(1, "cuda", sp=2)
+        s_cfg, s_params, ph, cond, noise = sample_sp_inputs()
+        y, ms, flash, pperm = timed_sample(lambda: R.sample_sp(s_params, s_cfg, None, ph, cond, mesh=mesh,
+                                                               cond_scale=SAMPLE_SP["cond_scale"], noise=noise))
+        with tf32_allowed():        # the lower-precision control
+            y_tf32 = R.sample_sp(s_params, s_cfg, None, ph, cond, mesh=mesh, cond_scale=SAMPLE_SP["cond_scale"],
+                                 noise=noise)
+        ref = torch.load(os.path.join(ref_dir, "sample_sp.pt")).to("cuda")
+        out["sample_sp"] = {"ms": ms, "launches": flash, "ppermutes": pperm, "shape": list(y.shape),
+                            "finite": bool(torch.isfinite(y).all()), "max_abs_err": float((y - ref).abs().max()),
+                            "tf32_max_abs_err": float((y_tf32 - ref).abs().max()),
+                            "ref_max_abs": float(ref.abs().max())}
+
+
+def parallel_rank(root, ref_dir, out_dir, tp_names, pp_names, sample):
+    """One rank of phases 18 and 19 on the one card over gloo: phase 18's
+    cells `tp_names` (tp_cells), then phase 19's `pp_names` and, with
+    `sample`, sample_sp (pp_cells); the records into out_dir/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # as the reference process runs
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": dist.get_rank(), "device": f"cuda:{torch.cuda.current_device()}", "backend": dist.get_backend(),
+           "forms": {}}
+    tp_cells(root, ref_dir, tp_names, out)
+    pp_cells(root, ref_dir, pp_names, sample, out)
+    with open(os.path.join(out_dir, f"rank{out['rank']}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def check_pp_cell(name, ranks, ref):
+    """Phase 19's gates on every rank's record of one cell (module
+    docstring, 19)."""
+    dt, dp, axis, size = PP_CELLS[name]
+    per_step = pp_per_step(dt, axis, size)
+    want = {"ppermutes": pp_ppermutes(axis, size), "syncs": pp_syncs(dp, axis), "tp_collectives": 0,
+            "param_gathers": 0}
+    seen = set()
+    for rank in ranks:
+        got = rank[name]
+        what = f"19 {name} rank {rank['rank']}"
+        for i, (s, r) in enumerate(zip(got["steps"], ref["recs"])):
+            for k in ("loss", "grad_norm"):
+                if not abs(s[k] - r[k]) <= DP_RTOL[dt] * abs(r[k]):
+                    raise AssertionError(f"{what} step {i + 1}: {k} {s[k]} vs one process {r[k]}")
+            counts = {k: s[k] for k in want}
+            if s["launches"] != per_step or counts != want or s["rows"] * dp != r["rows"]:
+                raise AssertionError(f"{what} step {i + 1}: launches {s['launches']} (expected {per_step}), "
+                                     f"collectives {counts} (expected {want}), {s['rows']} rows of {r['rows']}")
+        p = got["params"]
+        if not p["max_abs_err"] <= p["bound"] or (dt == "f32" and not p["tight_share"] <= DP_TIGHT_SHARE):
+            raise AssertionError(f"{what}: parameters {p}")
+        if not all(v is None or v["equal"] for v in got["replicas"].values()) or got["replicas"].get(axis) is None:
+            raise AssertionError(f"{what}: replicated parts {got['replicas']}")
+        placeholders = got.get("skip_placeholders", {})
+        if any(v != 0.0 for v in placeholders.values()):
+            raise AssertionError(f"{what}: first-half skip placeholders (max |param|, |grad|, |ema|) {placeholders}")
+        seen |= {int(k) for k in placeholders}
+    if axis == "pp" and seen != set(range(VOMIX_DEPTH // 2)):
+        raise AssertionError(f"19 {name}: first-half skip placeholders checked for layers {sorted(seen)}")
+
+
+def check_sample_sp(ranks, ref):
+    """sample_sp's gates: each sp rank's gathered output finite, of the
+    reference's shape, within SAMPLE_SP_RTOL of its max, and the TF32
+    control beyond it; no flash launch in the timed call; 16 steps x 2
+    field evaluations x (depth hops + 2 halos) ppermutes."""
+    want = 16 * 2 * (VOMIX_DEPTH + 2)
+    for rank in ranks:
+        got = rank["sample_sp"]
+        bound = SAMPLE_SP_RTOL * got["ref_max_abs"]
+        if (not got["finite"] or got["shape"] != ref["shape"] or got["launches"] != launches()
+                or got["ppermutes"] != want or not got["max_abs_err"] <= bound < got["tf32_max_abs_err"]):
+            raise AssertionError(f"19 sample_sp rank {rank['rank']}: {got} (reference {ref}; {want} ppermutes)")
+
+
+def check_pp(results, spawns, refs, names, sample_ref):
+    """Phase 19's records of every rank held by check_pp_cell (and, with
+    `sample_ref`, check_sample_sp), logged and kept in results["pp"]."""
+    pp = {"card": card_line(), "microbatches": PP_MICROBATCHES, "cells": {},
+          "forms": {k: v for sp in spawns.values() for k, v in sp["ranks"][0]["forms"].items()
+                    if not k.split("x")[1].isdigit()}}
+    for name in names:
+        dt, dp, axis, size = PP_CELLS[name]
+        ranks = spawns[dp * size]["ranks"]
+        ref = refs[f"vomix_{dt}"]
+        check_pp_cell(name, ranks, ref)
+        steps = [rank[name]["steps"] for rank in ranks]
+        pp["cells"][name] = {
+            "one_process_ms": [round(s["ms"], 3) for s in ref["recs"]],
+            "ms": [[round(s["ms"], 3) for s in st] for st in steps],
+            "ppermutes_per_step": steps[0][0]["ppermutes"], "ppermute_bytes_per_step": steps[0][0]["ppermute_bytes"],
+            "ppermute_ms": [[round(s["ppermute_ms"], 3) for s in st] for st in steps],
+            "grad_syncs_per_step": steps[0][0]["syncs"], "grad_sync_bytes_per_step": steps[0][0]["sync_bytes"],
+            "resident_bytes": [rank[name]["resident_bytes"] for rank in ranks],
+            "peak_gib": [round(rank[name]["peak_gib"], 3) for rank in ranks],
+            "wall_s": [round(rank[name]["wall_s"], 3) for rank in ranks],
+            "params": ranks[0][name]["params"], "replicas": [rank[name]["replicas"] for rank in ranks],
+            "loss_rel_err": max(abs(s["loss"] - r["loss"]) / abs(r["loss"])
+                                for st in steps for s, r in zip(st, ref["recs"])),
+            "launches_per_step": steps[0][0]["launches"], "rows_per_rank": steps[0][0]["rows"]}
+        log(f"19 {name} ({pp['card']}): " + json.dumps(pp["cells"][name]))
+    if sample_ref is not None:
+        check_sample_sp(spawns[2]["ranks"], sample_ref)
+        pp["sample_sp"] = {"reference": sample_ref, "ranks": [rank["sample_sp"] for rank in spawns[2]["ranks"]],
+                           "rtol_of_max": SAMPLE_SP_RTOL, **SAMPLE_SP}
+        log(f"19 sample_sp sp=2 ({pp['card']}): " + json.dumps(pp["sample_sp"]))
+    results["pp"] = pp
+    results["pp_launches"] = {name: c["launches_per_step"] for name, c in pp["cells"].items()}
+    log(f"phase 19 collective forms {json.dumps(pp['forms'])}")
+
+
+def run_parallel_training(results, root, tp_names=tuple(TP_CELLS), axes=("pp", "sp")):
+    """Phases 18 and 19 at full width on phase 17's items (`write_dp_items`)
+    and its one-process references, each computed here when absent (`--tp`,
+    `--pp`, `--sp` alone): phase 18's cells `tp_names`, phase 19's cells of
+    `axes` (and, with sp, sample_sp against acoustic.sample, computed here),
+    the two-rank cells of both in one spawn of two ranks on this card over
+    gloo, the four-rank ones in one spawn of four (one start-up per world
+    size); every rank's records held by check_tp / check_pp. The kernel
+    library is built before the ranks start."""
+    import torch
+    from covomix_tpu_torch.models import acoustic as A
+    from covomix_tpu_torch.ops import flash_attention as FA
+    from covomix_tpu_torch.parallel import multihost as MH
+
+    t_start = time.time()
+    FA.KERNEL.build(64)
+    ref_dir, out_dir = os.path.join(root, "ref"), os.path.join(root, "parallel_ranks")
+    os.makedirs(ref_dir, exist_ok=True)
+    pp_names = [n for n, c in PP_CELLS.items() if c[2] in axes]
+    refs = {}
+    for cell, dt in sorted({TP_CELLS[n][:2] for n in tp_names} | {("vomix", PP_CELLS[n][0]) for n in pp_names}):
+        key = f"{cell}_{dt}"
+        if not os.path.exists(os.path.join(ref_dir, f"{key}.json")):
+            recs, state, lrs, _ = dp_train_cell(dp_args(root, cell, dt), DP_STEPS)
+            save_reference(ref_dir, key, flat_params(state.params), recs, lrs)
+            del state
+            torch.cuda.empty_cache()
+        with open(os.path.join(ref_dir, f"{key}.json")) as f:
+            refs[key] = json.load(f)
+    sample_ref = None
+    if "sp" in axes:
+        s_cfg, s_params, ph, cond, noise = sample_sp_inputs()
+        y, ms, flash, _ = timed_sample(lambda: A.sample(s_params, s_cfg, None, ph, cond,
+                                                        cond_scale=SAMPLE_SP["cond_scale"], noise=noise))
+        torch.save(y.cpu(), os.path.join(ref_dir, "sample_sp.pt"))
+        sample_ref = {"ms": ms, "launches": flash, "shape": list(y.shape), "max_abs": float(y.abs().max())}
+        del s_params, y
+        torch.cuda.empty_cache()
+    spawns = {}
+    for world in (2, 4):
+        tn = [n for n in tp_names if TP_CELLS[n][2] * TP_CELLS[n][3] == world]
+        pn = [n for n in pp_names if PP_CELLS[n][1] * PP_CELLS[n][3] == world]
+        sample = sample_ref is not None and world == 2
+        if not (tn or pn or sample):
+            continue
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        t0 = time.time()
+        MH.spawn(parallel_rank, world, root, ref_dir, out_dir, tn, pn, sample, device="cuda", backend="gloo")
+        spawns[world] = {"s": time.time() - t0, "ranks": []}
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                spawns[world]["ranks"].append(json.load(f))
+    if tp_names:
+        check_tp(results, spawns, refs, tp_names)
+    if pp_names or sample_ref is not None:
+        check_pp(results, spawns, refs, pp_names, sample_ref)
+    wall = {"wall_s": time.time() - t_start, "spawn_s": {w: v["s"] for w, v in spawns.items()},
+            "cells_s": {name: max(rank[name]["wall_s"] for rank in spawns[world]["ranks"])
+                        for world, sp in spawns.items() for name in sp["ranks"][0] if name in TP_CELLS or
+                        name in PP_CELLS}}
+    results["parallel_wall"] = wall
+    log(f"phases 18-19 wall {wall['wall_s']:.1f} s (the ranks {json.dumps(wall['spawn_s'])} s; each cell's "
+        f"slowest rank {json.dumps(wall['cells_s'])} s)")
 
 
 # registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
@@ -4336,7 +4691,7 @@ def main() -> int:
     os.makedirs(root)
     try:
         run_dp_training(results, root)
-        run_tp_training(results, root)      # on phase 17's items and one-process references
+        run_parallel_training(results, root)    # phases 18-19, on phase 17's items and one-process references
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4351,6 +4706,12 @@ def main() -> int:
     bench = results["bench_launches"]
     bench_hubert = results["bench_line"]["launches"]["hubert"]["fwd"]
     tpl = results["tp_launches"]     # phase 18: a rank step's launches per cell, at its H / tp heads
+    ppl = results["pp_launches"]     # phase 19: a rank step's launches per cell (its stage's ticks; none under sp)
+
+    def staged(axis, dt, key):
+        """Phase 19's launches of `key` per rank step, by cell, of the cells of `axis` in `dt`."""
+        return {name: ppl[name][key] for name in ppl if PP_CELLS[name][2] == axis and PP_CELLS[name][0] == dt}
+
     big = max(BENCH_DETAIL_B)
     kernels = [
         # the attention kernel alone; with the pre-pass, as the path calls it, in ms_with_prepass
@@ -4365,7 +4726,9 @@ def main() -> int:
                      "covomix_tpu/ops/flash_attention.py:213", launches["rotary"],
                      speculative_launches=spec_file["rotary"] + spec_serving["rotary"],
                      bench_launches=bench["rotary"],
-                     tp_launches_per_rank_step={name: tpl[name]["rotary"] for name in tpl}),
+                     tp_launches_per_rank_step={name: tpl[name]["rotary"] for name in tpl},
+                     pp_launches_per_rank_step=staged("pp", "bf16", "rotary"),
+                     sp_launches_per_rank_step=staged("sp", "bf16", "rotary")),
     ]
     for kind, replaces in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                            ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):
@@ -4388,7 +4751,9 @@ def main() -> int:
                                     bench_launches=bench[key], dp_world1_launches=dp1[key],
                                     dp2_launches_per_rank_step=dp2["vomix_bf16"][key],
                                     tp_launches_per_rank_step={name: tpl[name][key] for name in tpl
-                                                               if name.endswith("vomix_bf16")}))
+                                                               if name.endswith("vomix_bf16")},
+                                    pp_launches_per_rank_step=staged("pp", "bf16", key),
+                                    sp_launches_per_rank_step=staged("sp", "bf16", key)))
     for dt in ("f32", "bf16"):     # this slice's main path: HuBERT extraction (f32, and --bf16)
         kernels.append(kernel_entry(results, f"hubert_fwd_{dt}", f"flash_attention_fwd_hubert_{dt}", flash_src,
                                     "covomix_tpu/ops/flash_attention.py:162", results[f"hubert_{dt}"]["launches"],
@@ -4418,7 +4783,10 @@ def main() -> int:
                                         bench_launches=0, dp2_launches_per_rank_step=dp2[f"{cell}_f32"][
                                             f"{key}_causal" if cell == "t2s" else key],
                                         tp_launches_per_rank_step={f"tp2_{cell}_f32": tpl[f"tp2_{cell}_f32"][
-                                            f"{key}_causal" if cell == "t2s" else key]}))
+                                            f"{key}_causal" if cell == "t2s" else key]},
+                                        **({"pp_launches_per_rank_step": staged("pp", "f32", key),
+                                            "sp_launches_per_rank_step": staged("sp", "f32", key)}
+                                           if cell == "vomix" else {})))
     log(f"total chip_smoke time {time.time() - t_start:.1f} s")
     log("speculative decode: " + json.dumps({"bench": results["spec_bench"], "decode": results["spec_decode"],
                                               "serving_wall_s": results["spec_serving_wall_s"],
@@ -4434,6 +4802,7 @@ def main() -> int:
     log("gan training: " + json.dumps(results["gan"]))
     log("data-parallel training: " + json.dumps(results["dp"]))
     log("tensor-parallel and FSDP training: " + json.dumps(results["tp"]))
+    log("pipeline- and sequence-parallel training: " + json.dumps(results["pp"]))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -4647,7 +5016,7 @@ def dp_mode() -> int:
 
 
 def tp_mode() -> int:
-    """`python3 chip_smoke.py --tp`: phase 18 alone (run_tp_training on
+    """`python3 chip_smoke.py --tp`: phase 18 alone (run_parallel_training on
     phase 17's VoMix and CoMix T2S items, its one-process references
     computed here), ending with the same `ok` line."""
     import torch
@@ -4669,11 +5038,44 @@ def tp_mode() -> int:
     try:
         write_vomix_items(os.path.join(root, "vomix"), 24, 0)
         write_t2s_items(os.path.join(root, "t2s"), 24, 0)
-        run_tp_training(results, root)
+        run_parallel_training(results, root, axes=())
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"total chip_smoke --tp time {time.time() - t_start:.1f} s")
     log("tensor-parallel and FSDP training: " + json.dumps(results["tp"]))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def pp_mode(axis) -> int:
+    """`python3 chip_smoke.py --pp` / `--sp`: phase 19's cells of that axis
+    alone (run_parallel_training on phase 17's VoMix items, the one-process
+    references computed here; with --sp also sample_sp), ending with the
+    same `ok` line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    root = os.path.join(VT.BUILD_DIR, f"smoke_{axis}")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        write_vomix_items(os.path.join(root, "vomix"), 24, 0)
+        run_parallel_training(results, root, tp_names=(), axes=(axis,))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"total chip_smoke --{axis} time {time.time() - t_start:.1f} s")
+    log("pipeline- and sequence-parallel training: " + json.dumps(results["pp"]))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -4893,6 +5295,8 @@ if __name__ == "__main__":
         sys.exit(dp_mode())
     if sys.argv[1:2] == ["--tp"]:
         sys.exit(tp_mode())
+    if sys.argv[1:2] in (["--pp"], ["--sp"]):
+        sys.exit(pp_mode(sys.argv[1][2:]))
     if sys.argv[1:2] == ["--flash-f32"]:
         sys.exit(flash_f32_mode())
     if sys.argv[1:2] == ["--vocoder-split"]:

@@ -167,10 +167,20 @@ ORBAX_FILES = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
 JAX_STATE_ITEM = "ROADMAP.md section 1 item 5a"
 
 
+def _layout(names) -> str:
+    """The layout a parameter tree's leaf names are in."""
+    if any(n.startswith("stacked/") for n in names):
+        return "pipeline {'stacked', 'rest'} layout (a --pp run's)"
+    return "canonical layout"
+
+
 def load_train_state(ckpt_dir: str, step: int, state) -> Any:
     """Read `step_<step>/state.npz` into `state` (a TrainState or GanState of
     the same model, on any device) in place and return it. A step directory
-    that the JAX package wrote (orbax, no state.npz) raises ValueError."""
+    that the JAX package wrote (orbax, no state.npz) raises ValueError, and
+    so does a train state whose parameters are not the state's (a --pp
+    checkpoint into a canonical state or the reverse: the error names both
+    layouts)."""
     path = _step_path(ckpt_dir, step)
     if (not os.path.isfile(os.path.join(path, STATE_FILE))
             and any(os.path.exists(os.path.join(path, f)) for f in ORBAX_FILES)):
@@ -180,6 +190,12 @@ def load_train_state(ckpt_dir: str, step: int, state) -> Any:
         flat = {k: z[k] for k in z.files}
     if hasattr(state, "opt_d"):
         return _load_gan(flat, state)
+    names = [n for n, _ in named_leaves(state.params)]
+    held = [k[len("params/"):] for k in flat if k.startswith("params/")]
+    if sorted(held) != sorted(names):
+        raise ValueError(f"{path} holds a train state in the {_layout(held)}, this run's state is in the "
+                         f"{_layout(names)} ({len(held)} against {len(names)} parameter leaves): a --pp "
+                         "checkpoint resumes only under --pp and a canonical one only without it, as in JAX")
     adam_step = int(flat["adam_step"])
     with torch.no_grad():
         for (name, p), (_, e) in zip(named_leaves(state.params), named_leaves(state.ema_params)):

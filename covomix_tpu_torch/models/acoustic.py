@@ -152,13 +152,20 @@ def _time_embedding(params, times, dtype, tp=None, hidden: int = 0):
     return TPX.gather_from_tp(tp, h) if split else h
 
 
-def layer_core(lp, cfg: AcousticConfig, x, time_emb, key_mask=None, valid_len=None, tp=None):
+def layer_core(lp, cfg: AcousticConfig, x, time_emb, key_mask=None, valid_len=None, tp=None, positions=None,
+               attend_fn=None):
     """One transformer layer (attention + FFN with adaptive RMSNorm), without
-    the U-Net skip combiner. A `key_mask` sends attention through the masked
-    `layers.attend` path; `valid_len` keeps it on the flash kernel. `tp`:
-    the layer's tp shards, run on the rank's heads and FFN columns."""
+    the U-Net skip combiner: shared by `_transformer`, the pipeline stage
+    (parallel/pipeline.py) and the sequence-parallel stack (parallel/ring.py,
+    which passes global rotary `positions` and a ring `attend_fn`). A
+    `key_mask` sends attention through the masked `layers.attend` path;
+    `valid_len` keeps it on the flash kernel. With `attend_fn` the rotary is
+    applied here (`layers.rotary_halfsplit`) and attend_fn(q, k, v) attends,
+    off the flash route. `tp`: the layer's tp shards, run on the rank's
+    heads and FFN columns."""
     inv_freq = L.rotary_freqs(cfg.dim_head, device=x.device)
-    positions = torch.arange(x.shape[1], device=x.device)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
     inner = cfg.heads * cfg.dim_head
     split = TPX.divides(tp, cfg.heads)
     qkv = lp["qkv"] if split else TPX.full(tp, lp["qkv"], -1, 3 * inner, groups=3)
@@ -167,7 +174,10 @@ def layer_core(lp, cfg: AcousticConfig, x, time_emb, key_mask=None, valid_len=No
     q, k, v = torch.chunk(L.linear(qkv, TPX.enter(tp, h, split)), 3, dim=-1)
     heads = q.shape[-1] // cfg.dim_head      # the shard's heads
     q, k, v = (L.split_heads(t, heads) for t in (q, k, v))
-    attn = attend_flash_or_xla(q, k, v, key_mask=key_mask, valid_len=valid_len, rotary=(positions, inv_freq))
+    if attend_fn is None:
+        attn = attend_flash_or_xla(q, k, v, key_mask=key_mask, valid_len=valid_len, rotary=(positions, inv_freq))
+    else:
+        attn = attend_fn(L.rotary_halfsplit(positions, inv_freq, q), L.rotary_halfsplit(positions, inv_freq, k), v)
     x = TPX.row_linear(tp, attn_out, L.merge_heads(attn), split) + x
     ff_split = TPX.divides(tp, cfg.dim * cfg.ff_mult)
     h = L.adaptive_rmsnorm(lp["ff_norm"], x, time_emb)
@@ -210,6 +220,19 @@ def static_embed(params, cfg: AcousticConfig, phoneme_ids, cond, *, cond_drop_ma
     if "b" in params["to_embed"]:
         out = out + params["to_embed"]["b"].to(dtype)
     return out
+
+
+def embed_inputs(params, cfg: AcousticConfig, x, phoneme_ids, cond, times, *, cond_drop_mask=None, key_mask=None,
+                 dtype=torch.float32):
+    """Everything in `forward` before the transformer stack: the input
+    projection, the depthwise-conv positional embedding and the flow-time
+    embedding. Returns (h, time_emb)."""
+    x = x.to(dtype)
+    emb = static_embed(params, cfg, phoneme_ids, cond, cond_drop_mask=cond_drop_mask, dtype=dtype)
+    h = x @ params["to_embed"]["w"].to(dtype)[: cfg.mel_dim] + emb
+    conv_in = h if key_mask is None else h * key_mask[..., None].to(dtype)
+    conv = L.gelu(L.depthwise_conv1d(params["conv_embed"], conv_in, padding=cfg.conv_pos_kernel // 2))
+    return conv + h, _time_embedding(params, times, dtype)
 
 
 def forward(params, cfg: AcousticConfig, x, phoneme_ids, cond, times, *, cond_drop_mask=None,

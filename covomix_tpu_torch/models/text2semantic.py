@@ -431,6 +431,10 @@ GRAPH_CACHE_SIZE = 16   # captured decodes kept, least recently used dropped
 # False runs the step uncaptured on CUDA too: the yardstick that
 # chip_smoke.py times the graphs against, never a fallback
 CAPTURE = True
+# a step count at which every decode stops, as if it had been cut there (None:
+# none); chip_smoke.py holds the direct step against the graph on a prefix of
+# the very program it times over the whole decode
+STOP_AFTER: Optional[int] = None
 
 _GRAPHS: "collections.OrderedDict[tuple, _Decode]" = collections.OrderedDict()
 
@@ -526,7 +530,7 @@ def _prepared(key, build, inputs, dtype, dev, generator):
 
 def _drive(dec, per_read, redraw=None):
     """Run the step `per_read` times between reads of `read` until one says
-    stop; returns the count. With `redraw(n)` (n steps' noise draws), the
+    stop, or the count reaches STOP_AFTER; returns the count. With `redraw(n)` (n steps' noise draws), the
     generator ends where the steps taken leave it: each chunk starts from a
     snapshot, and a chunk that stopped early restores it and redraws its
     live steps."""
@@ -538,7 +542,7 @@ def _drive(dec, per_read, redraw=None):
         for _ in range(per_read):
             run()
         cont, now = dec.state["read"].tolist()      # the chunk's one host read
-        if not cont:
+        if not cont or (STOP_AFTER is not None and now >= STOP_AFTER):
             break
         count = now
     if gen is not None and now - count < per_read:

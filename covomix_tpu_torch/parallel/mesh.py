@@ -1,17 +1,23 @@
-"""The dp x tp mesh and the parameter layout (port of covomix_tpu/parallel/mesh.py).
+"""The dp x tp, dp x pp and dp x sp meshes and the parameter layout (port
+of covomix_tpu/parallel/mesh.py, and of the meshes of pipeline.py and
+ring.py).
 
 JAX builds one `Mesh` over every device and lets XLA emit the collectives.
 The port runs one process per device over `torch.distributed` (the usual
 PyTorch layout; the parameter trees are functional, so there is no module
 to wrap in DistributedDataParallel or torch's FSDP): a `Mesh` is this
-process's view of the `dp x tp` grid, its rank, its device, and the process
-groups of its two axes. Rank r sits at (r // tp, r % tp), the order of JAX's
-`devices.reshape(dp, tp)`.
+process's view of the grid, its rank, its device, and the process groups
+of its two axes. The second axis is tp, pp or sp (JAX's pp and sp meshes
+have no tp axis). Rank r sits at (r // n, r % n) for a second axis of n,
+the order of JAX's `devices.reshape(dp, n)`.
 
 `param_shardings` gives each leaf's path JAX's spec, a tuple of None /
-"tp" / "dp" per axis, from the same regexes on the same flattened paths.
+"tp" / "dp" per axis, from the same regexes on the same flattened paths
+(`pipeline.pp_param_shardings` adds "pp" on a stacked leaf's [depth]
+axis).
 `shard_params` keeps this rank's part of each leaf and `gather_params`
-gives the full tree back, bit for bit. A "dp" axis is split in contiguous blocks. A "tp" axis is
+gives the full tree back, bit for bit. A "dp" or "pp" axis is split in
+contiguous blocks. A "tp" axis is
 too, except where the axis concatenates groups that a rank computes with
 locally (`tp_groups`: q | k | v of `qkv`, k | v of `kv`, value | gate of a
 GEGLU `w1`) and each group divides by tp: the rank's shard then holds block
@@ -41,34 +47,67 @@ def process_group_ready() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-@dataclasses.dataclass(frozen=True)
+def second_axis(tp: int = 1, pp: int = 1, sp: int = 1) -> tuple:
+    """(name, size) of a mesh's second axis from its three possible sizes:
+    at most one above 1 (JAX's pp and sp meshes have no tp axis); all 1
+    gives ("tp", 1)."""
+    sizes = {"tp": tp, "pp": pp, "sp": sp}
+    for name, size in sizes.items():
+        if size < 1:
+            raise ValueError(f"{name}={size}: a mesh axis needs at least one device")
+    if sum(size > 1 for size in sizes.values()) > 1:
+        raise ValueError(f"one second mesh axis at a time: {sizes}")
+    return max(sizes.items(), key=lambda kv: kv[1])
+
+
+@dataclasses.dataclass(frozen=True, init=False)
 class Mesh:
-    """`dp x tp` ranks, one process each; this process is `rank` on `device`.
-    `collective`: a process group is up. `dp_group` / `tp_group`: the
-    process groups of this rank's two axes (None: the default group, for
-    the axis that spans the world)."""
-    dp: int = 1
-    rank: int = 0
-    device: torch.device = torch.device("cpu")
-    collective: bool = False
-    tp: int = 1
-    dp_group: Any = dataclasses.field(default=None, compare=False, repr=False)
-    tp_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    """`dp x n` ranks, one process each; the second axis `axis` (tp, pp or
+    sp) of size `n`; this process is `rank` on `device`. `collective`: a
+    process group is up. `dp_group` and `group`: the process groups of this
+    rank's two axes (None: the default group, for the axis that spans the
+    world). Built as Mesh(dp, rank, device, collective, tp= | pp= | sp=);
+    `axis_info` is the one place that tells the axes apart."""
+    dp: int
+    rank: int
+    device: torch.device
+    collective: bool
+    axis: str
+    n: int
+    dp_group: Any = dataclasses.field(compare=False, repr=False)
+    group: Any = dataclasses.field(compare=False, repr=False)
 
-    @property
-    def dp_rank(self) -> int:
-        return self.rank // self.tp
+    def __init__(self, dp: int = 1, rank: int = 0, device: torch.device = torch.device("cpu"),
+                 collective: bool = False, *, tp: int = 1, pp: int = 1, sp: int = 1, dp_group=None, group=None):
+        axis, n = second_axis(tp, pp, sp)
+        for name, value in (("dp", dp), ("rank", rank), ("device", device), ("collective", collective),
+                            ("axis", axis), ("n", n), ("dp_group", dp_group), ("group", group)):
+            object.__setattr__(self, name, value)
 
-    @property
-    def tp_rank(self) -> int:
-        return self.rank % self.tp
+    def axis_info(self, name: str) -> tuple:
+        """(group, size, index of this rank) on the axis `name`: "dp", the
+        second axis, or an axis this mesh lacks (None, 1, 0)."""
+        if name == "dp":
+            return self.dp_group, self.dp, self.rank // self.n
+        if name == self.axis:
+            return self.group, self.n, self.rank % self.n
+        return None, 1, 0
+
+    tp = property(lambda self: self.axis_info("tp")[1])
+    pp = property(lambda self: self.axis_info("pp")[1])
+    sp = property(lambda self: self.axis_info("sp")[1])
+    dp_rank = property(lambda self: self.axis_info("dp")[2])
+    tp_rank = property(lambda self: self.axis_info("tp")[2])
+    pp_rank = property(lambda self: self.axis_info("pp")[2])
+    sp_rank = property(lambda self: self.axis_info("sp")[2])
+    tp_group = property(lambda self: self.axis_info("tp")[0])
 
     @property
     def syncs_dp(self) -> bool:
         """The data axis has a collective: a group is up and dp > 1, or the
-        world is the data axis (tp 1; at world 1 too, where the sum is the
-        value itself)."""
-        return self.collective and (self.dp > 1 or self.tp == 1)
+        world is the data axis (no second axis; at world 1 too, where the
+        sum is the value itself)."""
+        return self.collective and (self.dp > 1 or self.n == 1)
 
     @property
     def syncs_tp(self) -> bool:
@@ -79,6 +118,11 @@ class Mesh:
         its dp index, the same on every tp rank."""
         return slice(self.dp_rank * b, (self.dp_rank + 1) * b)
 
+    def frames(self, t: int) -> slice:
+        """This rank's frames of a sequence of `sp * t` frames (every frame
+        without an sp axis)."""
+        return slice(self.sp_rank * t, (self.sp_rank + 1) * t)
+
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the data axis, in place; the value itself without a
         collective on that axis."""
@@ -87,57 +131,58 @@ class Mesh:
         return t
 
 
-def _groups(dp: int, tp: int):
-    """(dp group, tp group) of this rank. Every rank creates every subgroup,
-    in the same order (new_group requires it); an axis that spans the world
-    uses the default group, an axis of 1 none."""
-    if dp > 1 and tp > 1:
+def _groups(dp: int, n: int):
+    """(dp group, second axis's group) of this rank. Every rank creates
+    every subgroup, in the same order (new_group requires it); an axis that
+    spans the world uses the default group, an axis of 1 none."""
+    if dp > 1 and n > 1:
         rank = dist.get_rank()
-        along_dp = [dist.new_group([d * tp + t for d in range(dp)]) for t in range(tp)]
-        along_tp = [dist.new_group([d * tp + t for t in range(tp)]) for d in range(dp)]
-        return along_dp[rank % tp], along_tp[rank // tp]
+        along_dp = [dist.new_group([d * n + t for d in range(dp)]) for t in range(n)]
+        along_n = [dist.new_group([d * n + t for t in range(n)]) for d in range(dp)]
+        return along_dp[rank % n], along_n[rank // n]
     return None, None
 
 
 def make_mesh(dp: Optional[int] = 0, device="cuda", devices: Optional[Sequence[torch.device]] = None,
-              tp: int = 1) -> Mesh:
-    """JAX's make_mesh(dp, tp) on devices of `device`'s type. Inside a
-    process group the group is the mesh: dp x tp must be its size (dp 0:
-    world // tp), and the rank runs on the current CUDA device
-    (`multihost.initialize` set it) or on the CPU. Without one, the mesh
-    over `devices`: by default every visible CUDA card, or for the CPU as
-    many as dp x tp asks (CPU ranks share the host's cores, as JAX's forced
-    host devices do). dp 0 takes n // tp; a tp beyond the devices or a mesh
-    larger than them raises with the count, a smaller one prints JAX's note;
-    the mesh returned is rank 0's on `devices[0]`, and `multihost.spawn`
-    starts the ranks when dp x tp > 1."""
+              tp: int = 1, pp: int = 1, sp: int = 1) -> Mesh:
+    """JAX's make_mesh(dp, tp), make_pp_mesh(dp, pp) or make_sp_mesh(dp, sp)
+    on devices of `device`'s type; at most one of tp, pp, sp above 1 (the
+    second axis, n). Inside a process group the group is the mesh: dp x n
+    must be its size (dp 0: world // n), and the rank runs on the current
+    CUDA device (`multihost.initialize` set it) or on the CPU. Without one,
+    the mesh over `devices`: by default every visible CUDA card, or for the
+    CPU as many as dp x n asks (CPU ranks share the host's cores, as JAX's
+    forced host devices do). dp 0 takes the devices // n; an n beyond the
+    devices or a mesh larger than them raises with the count, a smaller one
+    prints JAX's note; the mesh returned is rank 0's on `devices[0]`, and
+    `multihost.spawn` starts the ranks when dp x n > 1."""
     device = torch.device(device)
-    if tp < 1:
-        raise ValueError(f"tp={tp}: the tensor-parallel axis needs at least one device")
+    axis, n = second_axis(tp, pp, sp)
     if process_group_ready():
         world = dist.get_world_size()
-        if world // tp == 0:
-            raise ValueError(f"tp={tp} exceeds the {world} processes of the group (dp would be 0)")
-        dp = dp or world // tp
-        if dp * tp != world:
-            raise ValueError(f"mesh {dp}x{tp} in a process group of {world}: the port runs one process per "
-                             f"device, so dp x tp is the world size (pass dp 0 or {world // tp})")
+        if world // n == 0:
+            raise ValueError(f"{axis}={n} exceeds the {world} processes of the group (dp would be 0)")
+        dp = dp or world // n
+        if dp * n != world:
+            raise ValueError(f"mesh {dp}x{n} in a process group of {world}: the port runs one process per "
+                             f"device, so dp x {axis} is the world size (pass dp 0 or {world // n})")
         here = torch.device("cuda", torch.cuda.current_device()) if device.type == "cuda" else device
-        dp_group, tp_group = _groups(dp, tp)
-        return Mesh(dp, dist.get_rank(), here, collective=True, tp=tp, dp_group=dp_group, tp_group=tp_group)
+        dp_group, group = _groups(dp, n)
+        return Mesh(dp, dist.get_rank(), here, collective=True, tp=tp, pp=pp, sp=sp, dp_group=dp_group,
+                    group=group)
     if devices is None:
         devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda"
-                   else [device] * (max(1, dp or 0) * tp))
+                   else [device] * (max(1, dp or 0) * n))
     devices = list(devices)
-    n = len(devices)
-    dp = dp or n // tp
+    count = len(devices)
+    dp = dp or count // n
     if dp < 1:
-        raise ValueError(f"tp={tp} exceeds the {n} available devices (dp would be 0)")
-    if dp * tp > n:
-        raise ValueError(f"mesh {dp}x{tp} needs more than the {n} available devices")
-    if dp * tp < n:
-        print(f"note: mesh dp={dp} x tp={tp} uses {dp * tp} of {n} available devices")
-    return Mesh(dp, 0, devices[0], tp=tp)
+        raise ValueError(f"{axis}={n} exceeds the {count} available devices (dp would be 0)")
+    if dp * n > count:
+        raise ValueError(f"mesh {dp}x{n} needs more than the {count} available devices")
+    if dp * n < count:
+        print(f"note: mesh dp={dp} x {axis}={n} uses {dp * n} of {count} available devices")
+    return Mesh(dp, 0, devices[0], tp=tp, pp=pp, sp=sp)
 
 
 @torch.no_grad()
@@ -220,7 +265,8 @@ def param_shardings(mesh: Mesh, params: Any, *, tp: bool = True, fsdp: bool = Fa
     leaves' order: JAX's `param_shardings(...).spec` of each leaf as a
     tuple. tp shards matmul weights, embeddings and the k-means leaf over
     'tp' where the axis divides; fsdp also shards the first free axis that
-    dp divides over 'dp'."""
+    dp divides over 'dp'. (A pp mesh's layout is the pipeline's own:
+    `pipeline.pp_param_shardings`.)"""
     return {path: _spec(path, tuple(leaf.shape), mesh.tp, mesh.dp, tp, fsdp) for path, leaf in named_leaves(params)}
 
 
@@ -253,12 +299,12 @@ def unblock(x: torch.Tensor, axis: int, n: int, groups: int = 1) -> torch.Tensor
 
 
 def shard_leaf(mesh: Mesh, x: torch.Tensor, spec, groups: int = 1) -> torch.Tensor:
-    """This rank's part of a full leaf (a new contiguous tensor)."""
+    """This rank's part of a full leaf (a new contiguous tensor); `groups`
+    applies to a tp axis."""
     for ax, name in enumerate(spec):
-        if name == "tp":
-            x = block(x, ax, mesh.tp, mesh.tp_rank, groups)
-        elif name == "dp":
-            x = block(x, ax, mesh.dp, mesh.dp_rank)
+        if name is not None:
+            _, n, i = mesh.axis_info(name)
+            x = block(x, ax, n, i, groups if name == "tp" else 1)
     return x.contiguous().clone()
 
 
@@ -271,14 +317,14 @@ def shard_params(mesh: Mesh, tree: Any, specs: dict) -> Any:
 @torch.no_grad()
 def gather_leaf(mesh: Mesh, x: torch.Tensor, spec, groups: int = 1) -> torch.Tensor:
     """The full leaf from every rank's part (a collective of the leaf's
-    axes' groups): over dp, then over tp with its blocks undone."""
+    axes' groups): over dp and pp, then over tp with its blocks undone."""
     x = x.detach()
     for ax, name in enumerate(spec):
-        if name == "dp":
-            x = all_gather(x, ax, mesh.dp_group, mesh.dp, mesh.dp_rank)
+        if name not in (None, "tp"):
+            x = all_gather(x, ax, *mesh.axis_info(name))
     for ax, name in enumerate(spec):
         if name == "tp":
-            x = unblock(all_gather(x, ax, mesh.tp_group, mesh.tp, mesh.tp_rank), ax, mesh.tp, groups)
+            x = unblock(all_gather(x, ax, *mesh.axis_info("tp")), ax, mesh.tp, groups)
     return x.contiguous().clone()
 
 

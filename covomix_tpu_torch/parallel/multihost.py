@@ -17,6 +17,7 @@ the slice is the whole batch."""
 
 from __future__ import annotations
 
+import datetime
 import os
 import re
 import socket
@@ -56,7 +57,7 @@ def _bind_device(device, rank: int) -> None:
 
 def initialize(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
                process_id: Optional[int] = None, requested: bool = False, *, device="cuda",
-               backend: Optional[str] = None) -> bool:
+               backend: Optional[str] = None, timeout: Optional[float] = None) -> bool:
     """Bring up the process group. Resolution order, as the JAX package's:
       1. an explicit coordinator 'host:port' with num_processes and
          process_id (tcp://host:port);
@@ -65,24 +66,28 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
          WORLD_SIZE, RANK), else SLURM's (SLURM_PROCID, SLURM_NTASKS);
          with neither, a visible note and one process.
     The backend defaults to NCCL for CUDA and gloo for the CPU; on CUDA each process
-    binds its local card first. Returns True when a group is up (at world
-    1 too), False for the single-process case."""
+    binds its local card first. `timeout`: seconds a collective may wait
+    before it fails (torch's default when None: 30 minutes under gloo), so
+    ranks whose collectives are out of step raise instead of hanging.
+    Returns True when a group is up (at world 1 too), False for the
+    single-process case."""
     if process_group_ready():
         return True
     backend = backend or ("nccl" if torch.device(device).type == "cuda" else "gloo")
+    opts = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
     if coordinator_address is not None:
         if num_processes is None or process_id is None:
             raise ValueError("--coordinator_address needs --num_processes and --process_id")
         _bind_device(device, process_id)
         dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}", world_size=num_processes,
-                                rank=process_id)
+                                rank=process_id, **opts)
         return True
     slurm_n = int(os.environ.get("SLURM_NTASKS", "1"))
     if not (slurm_n > 1 or requested or (num_processes is not None and num_processes > 1)):
         return False
     if all(k in os.environ for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK")):
         _bind_device(device, int(os.environ["RANK"]))
-        dist.init_process_group(backend, init_method="env://")
+        dist.init_process_group(backend, init_method="env://", **opts)
         return True
     address = _slurm_address() if "SLURM_PROCID" in os.environ else None
     if address is None:
@@ -91,7 +96,7 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
         return False
     rank = int(os.environ["SLURM_PROCID"])
     _bind_device(device, rank)
-    dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=slurm_n, rank=rank)
+    dist.init_process_group(backend, init_method=f"tcp://{address}", world_size=slurm_n, rank=rank, **opts)
     return True
 
 
@@ -102,21 +107,24 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawned(rank: int, fn: Callable, world: int, port: int, device: str, backend: Optional[str], args) -> None:
-    initialize(f"127.0.0.1:{port}", world, rank, device=device, backend=backend)
+def _spawned(rank: int, fn: Callable, world: int, port: int, device: str, backend: Optional[str],
+             timeout: Optional[float], args) -> None:
+    initialize(f"127.0.0.1:{port}", world, rank, device=device, backend=backend, timeout=timeout)
     try:
         fn(*args)
     finally:
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, world: int, *args, device="cuda", backend: Optional[str] = None) -> None:
+def spawn(fn: Callable, world: int, *args, device="cuda", backend: Optional[str] = None,
+          timeout: Optional[float] = None) -> None:
     """Run fn(*args) in `world` new processes, rank r bound to local card r
-    (on CUDA), in one process group at a free local port. Joins every rank;
-    a rank that fails ends the others and raises here. `fn` must be
-    importable by name (a module-level function)."""
-    torch.multiprocessing.spawn(_spawned, args=(fn, world, free_port(), str(torch.device(device)), backend, args),
-                                nprocs=world, join=True)
+    (on CUDA), in one process group at a free local port (`timeout`: as
+    `initialize`'s). Joins every rank; a rank that fails ends the others
+    and raises here. `fn` must be importable by name (a module-level
+    function)."""
+    torch.multiprocessing.spawn(_spawned, args=(fn, world, free_port(), str(torch.device(device)), backend, timeout,
+                                                args), nprocs=world, join=True)
 
 
 def process_index() -> int:

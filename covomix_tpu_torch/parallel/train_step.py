@@ -18,11 +18,20 @@ shards) and computes the backward of its rows; then:
   * clipping, Adam and EMA run on the shards, as `train.loop` runs them on
     the whole tree.
 
+On a dp x pp or dp x sp mesh a rank's backward gives its own share of
+the gradient of the one global loss (the losses' ppermutes carry the
+cotangents between ranks, parallel/collectives.py), so before the dp mean
+the shares are added over the second axis (`sum_axis_shares`): under sp
+every leaf's (each is replicated), under pp those of the leaves not split
+over pp (the embed and head, which only the first and the last stage
+reach); a stacked layer's gradient is its stage's own. The norm then
+counts each stacked layer and each replicated leaf once.
+
 The tensor-parallel forward's collectives are the losses' (the `mesh=`
 of the loss adapters; parallel/tensor.py). The loss functions draw their
 random numbers for the global batch and keep the rows of the rank's dp
-index, so a dp x tp step, with or without FSDP, is the one-device step on
-the global batch."""
+index, so a dp x tp, dp x pp or dp x sp step, with or without FSDP, is the
+one-device step on the global batch."""
 
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from covomix_tpu_torch.parallel import pipeline as PP
 from covomix_tpu_torch.parallel.mesh import (Mesh, all_gather, gather_params, is_sharded, param_shardings,
                                              reduce_scatter, replicate, shard_leaf, shard_params, tp_groups)
 from covomix_tpu_torch.train import loop
@@ -98,11 +108,35 @@ def gather_dp(mesh: Mesh, specs, params):
 
 
 @torch.no_grad()
+def sum_axis_shares(mesh: Mesh, specs, grads) -> None:
+    """The pp or sp ranks' shares of each gradient added, in place (one
+    all-reduce of one flat bucket over the axis): under sp every leaf's,
+    under pp the leaves' not split over pp. Nothing on other meshes."""
+    if mesh.sp > 1:
+        shared = list(grads)
+    elif mesh.pp > 1:
+        shared = [g for g, s in zip(grads, specs) if "pp" not in s]
+    else:
+        return
+    if not (mesh.collective and shared):
+        return
+    flat = torch.cat([g.reshape(-1) for g in shared])
+    dist.all_reduce(flat, group=mesh.group)
+    _count_sync(flat)
+    offset = 0
+    for g in shared:
+        g.copy_(flat[offset: offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+@torch.no_grad()
 def sync_sharded_grads(mesh: Mesh, specs, grads, params, loss):
     """The mean over the dp ranks of the gradients `grads` (of the tree the
-    loss read) onto `params`' leaves, and of the loss (returned): the leaves
-    not split over dp by `sync_grads` (in place: they are the state's own),
-    the others reduce-scattered (one bucket) into their shard's .grad."""
+    loss read) onto `params`' leaves, and of the loss (returned), after the
+    pp / sp shares are added (`sum_axis_shares`): the leaves not split over
+    dp by `sync_grads` (in place: they are the state's own), the others
+    reduce-scattered (one bucket) into their shard's .grad."""
+    sum_axis_shares(mesh, specs, grads)
     leaves, axes = tree_leaves(params), _dp_axes(specs)
     whole = [g for g, ax in zip(grads, axes) if ax is None]
     loss = sync_grads(mesh, whole, loss)[0]
@@ -122,13 +156,13 @@ def sync_sharded_grads(mesh: Mesh, specs, grads, params, loss):
 
 def sharded_norm(mesh: Mesh, specs, grads) -> torch.Tensor:
     """optax.global_norm of the whole gradient tree from the shards: each
-    rank sums the squares of the leaves it holds a distinct part of (split
-    over tp, or tp rank 0; split over dp, or dp rank 0), one all-reduce over
-    the world adds them."""
+    rank sums the squares of the leaves it holds a distinct part of (on
+    each axis: split over it, or the axis' rank 0; sp splits no leaf), one
+    all-reduce over the world adds them."""
     if not mesh.collective or not any(is_sharded(s) for s in specs):
         return loop.global_norm(grads)
-    mine = [g for g, s in zip(grads, specs)
-            if ("tp" in s or mesh.tp_rank == 0) and ("dp" in s or mesh.dp_rank == 0)]
+    index = {axis: mesh.axis_info(axis)[2] for axis in ("dp", mesh.axis)}
+    mine = [g for g, s in zip(grads, specs) if all(axis in s or i == 0 for axis, i in index.items())]
     sq = torch.zeros(1, device=grads[0].device)
     if mine:
         sq = torch.stack([torch.sum(torch.square(g.float())) for g in mine]).sum().reshape(1)
@@ -143,8 +177,10 @@ def make_sharded_train_step(loss_fn: Callable, cfg: loop.TrainConfig, mesh: Mesh
     global loss, "grad_norm": the norm of the whole averaged gradient}.
     `batch` holds the rows of this rank's dp index (`shard_batch`), and
     `loss_fn` draws for the global batch and runs the model on the rank's
-    tp shards (the loss adapters' `mesh=`). With every leaf replicated this
-    is the data-parallel step: one all-reduce, the norm of the local tree."""
+    tp shards (the loss adapters' `mesh=`), or its pp stage, or its sp
+    frames. With every leaf replicated this is the data-parallel step: one
+    all-reduce (under sp two: the sp shares, then the dp mean), the norm of
+    the local tree."""
     flat = list(specs.values())
     gather = (lambda params: gather_dp(mesh, flat, params)) if any("dp" in s for s in flat) else None
     return loop.make_train_step(loss_fn, cfg, gather=gather,
@@ -155,11 +191,14 @@ def make_sharded_train_step(loss_fn: Callable, cfg: loop.TrainConfig, mesh: Mesh
 
 def init_sharded_state(params, cfg: loop.TrainConfig, mesh: Mesh, *, tp: bool = True, fsdp: bool = False):
     """Rank 0's parameters on every rank (one broadcast), this rank's part of
-    each (`param_shardings(mesh, params, tp=, fsdp=)`), then the train state
+    each (`param_shardings(mesh, params, tp=, fsdp=)`; on a pp mesh
+    `params` is the pipeline's {'stacked', 'rest'} tree and the stage keeps
+    its layers, `pipeline.pp_param_shardings`), then the train state
     over the parts (Adam's moments and the EMA on the same parts). Returns
     (state, specs)."""
     replicate(mesh, tree_leaves(params))
-    specs = param_shardings(mesh, params, tp=tp, fsdp=fsdp)
+    specs = (PP.pp_param_shardings(mesh, params) if mesh.pp > 1
+             else param_shardings(mesh, params, tp=tp, fsdp=fsdp))
     if any(is_sharded(s) for s in specs.values()):
         params = shard_params(mesh, params, specs)
     return loop.init_train_state(params, cfg), specs

@@ -8,30 +8,45 @@ with `--text2semantic`, the T2S model (CoSingle / CoMix; the tokenizer from
 cadence with the EMA parameters (`evaluate_acoustic`, or `evaluate_t2s`'s
 token WER), and the top-10-on-'l2' checkpoints follow train.py.
 
-Parallel training runs one process per device (parallel/) on a `dp x tp`
-mesh: `--dp N --tp M` (dp 0 = every visible device over tp; the CPU counts
-as many as the two ask) starts N x M ranks from this one command, each
-running the same global loader and keeping the rows of its dp index, so
-the run trains on the data of `--dp 1`; `--batch_size` is the global batch.
-`--tp M` splits the matmul weights, embeddings and time MLP over M ranks
-(the tensor-parallel forward of the models' `tp=`), `--fsdp` also splits
-every parameter, its Adam moments and EMA over dp (the whole tree gathered
-once a step), with JAX's layout (`parallel/mesh.param_shardings`).
+Parallel training runs one process per device (parallel/) on a `dp x tp`,
+`dp x pp` or `dp x sp` mesh: `--dp N --tp M` (dp 0 = every visible device
+over the second axis; the CPU counts as many as the flags ask) starts N x M
+ranks from this one command, each running the same global loader and
+keeping the rows of its dp index, so the run trains on the data of `--dp
+1`; `--batch_size` is the global batch. `--tp M` splits the matmul
+weights, embeddings and time MLP over M ranks (the tensor-parallel forward
+of the models' `tp=`), `--fsdp` also splits every parameter, its Adam
+moments and EMA over dp (the whole tree gathered once a step), with JAX's
+layout (`parallel/mesh.param_shardings`). `--pp M` trains the acoustic
+model with the GPipe schedule over M stages (`--pp_microbatches`,
+parallel/pipeline.py): the state keeps JAX's {'stacked', 'rest'} layout,
+each stage its depth / M layers, and every checkpoint also writes
+`ema_canonical.npz` (+ `.json`), the EMA in the canonical layout that the
+generation CLIs load; evals run on that layout. `--sp M` splits the
+sequence over M ranks (ring attention, parallel/ring.py), with `--fsdp`
+the parameters over dp as well. As in JAX, `--tp` has no effect under
+`--pp` / `--sp` and `--fsdp` none under `--pp` (a note says so).
 `--coordinator_address host:port --num_processes P --process_id I`, or
 `--multihost` with torchrun's or SLURM's environment, joins a process group
 instead: each process loads its dp index's rank-strided share of the files
 (`ProcessShardDataset`) and `batch_size / dp` rows, padded to the ranks'
 common shape (`reconcile_batch`). Rank 0 alone writes logs, evals and
 checkpoints; a split state is gathered first (every rank takes part), so
-checkpoints hold the full JAX layout and a run of any mesh resumes from
-them. JAX's refusals stand: `--bmuf_sync` with any other parallel flag,
-`--fsdp` in a multi-process group. Flags for what is not ported raise
-NotImplementedError naming their ROADMAP item: `--pp/--sp > 1`,
-`--bmuf_sync`; `--steps_per_dispatch > 1`."""
+a checkpoint holds the whole state and a run of any dp / tp / sp mesh or
+of one device resumes from it. Under `--pp` the whole state is the
+{'stacked', 'rest'} tree, as in JAX: a `--pp` checkpoint resumes only
+under `--pp` and a canonical one only without it (any other resume raises
+ValueError naming both layouts); `ema_canonical.npz` is the canonical EMA
+for generation. JAX's refusals stand: `--pp` / `--sp` with `--text2semantic`, both
+at once, or with `--grad_accum` / `--steps_per_dispatch` above 1;
+`--bmuf_sync` with any other parallel flag, `--fsdp` in a multi-process
+group. Flags for what is not ported raise NotImplementedError naming their
+ROADMAP item: `--bmuf_sync`; `--steps_per_dispatch > 1`."""
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -47,7 +62,7 @@ from covomix_tpu_torch.data.datasets import (CoVoMixDataset, collate_acoustic, c
                                              stack_microbatches)
 from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
 from covomix_tpu_torch.models import acoustic as A, text2semantic as T
-from covomix_tpu_torch.parallel import multihost as MH, train_step as TS
+from covomix_tpu_torch.parallel import multihost as MH, pipeline as PP, train_step as TS
 from covomix_tpu_torch.parallel.mesh import Mesh, is_sharded, make_mesh, process_group_ready
 from covomix_tpu_torch.pipeline import PARALLEL_ITEM
 from covomix_tpu_torch.train import evaluate as E, loop
@@ -139,13 +154,19 @@ def _refuse_unported(args) -> None:
                                or args.multihost or args.coordinator_address):
         sys.exit("--bmuf_sync is the pure-dp local-steps mode; it composes with none of "
                  "--tp/--pp/--sp/--fsdp/--multihost")
-    if (args.pp > 1 or args.sp > 1) and args.text2semantic:
+    staged = args.pp > 1 or args.sp > 1
+    if staged and args.text2semantic:
         sys.exit("--pp/--sp apply to the acoustic model only")
-    parallel = [flag for flag, on in (("--pp", args.pp > 1), ("--sp", args.sp > 1),
-                                      ("--bmuf_sync", args.bmuf_sync > 0)) if on]
-    if parallel:
-        raise NotImplementedError(f"{', '.join(parallel)}: the port trains dp x tp (and --fsdp) only; this form "
-                                  f"of parallel training is not ported yet ({PARALLEL_ITEM})")
+    if args.pp > 1 and args.sp > 1:
+        sys.exit("choose one of --pp / --sp")
+    if args.grad_accum > 1 and staged:
+        sys.exit("--grad_accum composes with single-host dp/tp/fsdp only (pp has its own microbatching; bmuf "
+                 "accumulates via local steps)")
+    if args.steps_per_dispatch > 1 and staged:
+        sys.exit("--steps_per_dispatch composes with single-host dp/tp/fsdp only")
+    if args.bmuf_sync > 0:
+        raise NotImplementedError(f"--bmuf_sync: the port trains dp x tp / pp / sp (and --fsdp); this form of "
+                                  f"parallel training is not ported yet ({PARALLEL_ITEM})")
     if args.steps_per_dispatch > 1:
         raise NotImplementedError(f"--steps_per_dispatch > 1 is not ported ({_MULTI_STEP_NOTE})")
 
@@ -175,9 +196,26 @@ def _datasets(args):
     return dataset, val
 
 
+def _notes(args) -> None:
+    """JAX's pp / sp meshes have no tp axis, and its pp state no FSDP split."""
+    if (args.pp > 1 or args.sp > 1) and args.tp > 1:
+        print(f"note: --tp {args.tp} has no effect under --pp / --sp (their meshes are dp x pp and dp x sp)")
+    if args.pp > 1 and args.fsdp:
+        print("note: --fsdp has no effect under --pp (each stage holds its layers, the rest is replicated)")
+
+
+def make_run_mesh(args, device) -> Mesh:
+    """The mesh of the run's flags: dp x pp, dp x sp or dp x tp."""
+    if args.pp > 1 or args.sp > 1:
+        return make_mesh(args.dp, device, pp=args.pp, sp=args.sp)
+    return make_mesh(args.dp, device, tp=args.tp)
+
+
 def build_model(args, gen: torch.Generator, mesh: Optional[Mesh] = None):
     """(model config, parameters drawn from `gen` on its device, loss_fn)
-    of the run's flags; `mesh`: the loss of one rank's rows (train_step)."""
+    of the run's flags; `mesh`: the loss of one rank's rows (train_step);
+    on a pp mesh the parameters in the pipeline's {'stacked', 'rest'}
+    layout."""
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     if args.text2semantic:
         model_cfg = T.T2SConfig(
@@ -193,8 +231,11 @@ def build_model(args, gen: torch.Generator, mesh: Optional[Mesh] = None):
                                  depth=args.CoVoMix_depth, dim_head=args.CoVoMix_dim_head,
                                  heads=args.CoVoMix_heads, num_phoneme_tokens=args.CoVoMix_num_phoneme_tokens,
                                  mode=mode)
-    return model_cfg, A.init(gen, model_cfg), loop.acoustic_loss_fn(
-        model_cfg, cond_drop_prob=args.cond_drop_prob, dtype=dtype, mesh=mesh)
+    params = A.init(gen, model_cfg)
+    if mesh is not None and mesh.pp > 1:
+        params = dict(zip(("stacked", "rest"), PP.stack_layer_params(params, model_cfg)))
+    return model_cfg, params, loop.acoustic_loss_fn(model_cfg, cond_drop_prob=args.cond_drop_prob, dtype=dtype,
+                                                    mesh=mesh, num_microbatches=args.pp_microbatches)
 
 
 def train_config(args, steps_per_epoch: int) -> loop.TrainConfig:
@@ -216,6 +257,7 @@ def build_collate(args):
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
     _refuse_unported(args)
+    _notes(args)
     device = resolve_device(args.device)
     owned = False
     if args.multihost or args.coordinator_address is not None:
@@ -226,30 +268,32 @@ def main(argv=None) -> None:
         try:
             if args.fsdp and torch.distributed.get_world_size() > 1:
                 sys.exit(_FSDP_MULTIHOST)
-            _train(args, make_mesh(args.dp, device, tp=args.tp), per_process_data=True)
+            _train(args, make_run_mesh(args, device), per_process_data=True)
         finally:
             if owned:
                 torch.distributed.destroy_process_group()
         return
-    mesh = make_mesh(args.dp, device, tp=args.tp)
-    if mesh.dp * mesh.tp > 1:
-        MH.spawn(_rank_main, mesh.dp * mesh.tp, args, device=device)
+    mesh = make_run_mesh(args, device)
+    if mesh.dp * mesh.n > 1:
+        MH.spawn(_rank_main, mesh.dp * mesh.n, args, device=device)
     else:
         _train(args, mesh)
 
 
 def _rank_main(args) -> None:
-    """One rank of a single-command `--dp N --tp M` run (multihost.spawn)."""
-    _train(args, make_mesh(args.dp, args.device, tp=args.tp), per_process_data=False)
+    """One rank of a single-command `--dp N --tp / --pp / --sp M` run
+    (multihost.spawn)."""
+    _train(args, make_run_mesh(args, args.device), per_process_data=False)
 
 
 def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
-    """The run as rank `mesh.rank` of `mesh.dp x mesh.tp`. In a process
+    """The run as rank `mesh.rank` of `mesh.dp x mesh.n`. In a process
     group the step averages the gradients over the dp ranks, the losses draw
-    for the global batch, and with --tp / --fsdp each rank holds its part of
-    the state. `per_process_data`: this process loads its dp index's share
-    of the files and rows (the multi-process contract); otherwise every rank
-    runs the global loader and keeps its rows."""
+    for the global batch, with --tp / --fsdp / --pp each rank holds its part
+    of the state, and under --pp / --sp the ranks of a dp index add their
+    shares of the gradient first. `per_process_data`: this process loads its
+    dp index's share of the files and rows (the multi-process contract);
+    otherwise every rank runs the global loader and keeps its rows."""
     primary = mesh.rank == 0
     device = mesh.device
     dp_mesh = mesh if mesh.collective else None
@@ -291,6 +335,18 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
     def whole_state():
         """The full train state (every rank takes part when it is split)."""
         return state if specs is None else TS.gather_state(dp_mesh, state, specs)
+
+    stacked = dp_mesh is not None and dp_mesh.pp > 1
+
+    def canonical(params):
+        """The canonical layout of a whole parameter tree (under --pp)."""
+        return PP.unstack_layer_params(params["stacked"], params["rest"], model_cfg) if stacked else params
+
+    def save(whole, step, metric=None):
+        ckpt_mgr.save(whole, step, metric=metric)
+        if stacked:      # the layout every generation CLI loads
+            cio.save_params(os.path.join(ckpt_dir, "ema_canonical.npz"), canonical(whole.ema_params),
+                            meta={"step": step, "config": dataclasses.asdict(model_cfg)})
 
     ckpt_dir = os.path.join(run_dir, "checkpoints")
     ckpt_mgr = cio.TopKCheckpointer(ckpt_dir, top_k=10, mode="min")   # save_last + top-10 on 'l2'
@@ -352,12 +408,12 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
                     # its own generator: the training draws stay in step across ranks, and
                     # an eval gives the same numbers in a resumed run as in an unbroken one
                     eval_gen = torch.Generator(device=device).manual_seed(args.seed + done)
-                    ev = evaluate(whole.ema_params, model_cfg, batches, eval_gen, dtype=dtype)
+                    ev = evaluate(canonical(whole.ema_params), model_cfg, batches, eval_gen, dtype=dtype)
                     print("eval:", json.dumps(ev), flush=True)
                     logger.log(done, ev, prefix="eval_")
                     eval_metric = ev["l2"]
                 if saving:
-                    ckpt_mgr.save(whole, done, metric=eval_metric)
+                    save(whole, done, eval_metric)
                 del whole
         finally:
             if logger is not None:
@@ -368,6 +424,6 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
     if last_saved != final_step:     # not saved just now (eval at the last step)
         whole = whole_state()
         if primary:
-            ckpt_mgr.save(whole, final_step)
+            save(whole, final_step)
     if primary:
         print(f"done: {final_step} steps -> {ckpt_dir}", flush=True)

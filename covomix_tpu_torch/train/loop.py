@@ -176,13 +176,17 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig, grad_sync: Optional[Cal
 # per-model loss adapters
 
 
-def acoustic_loss_fn(cfg_model, *, cond_drop_prob: float = 0.0, dtype=torch.float32, mesh=None):
+def acoustic_loss_fn(cfg_model, *, cond_drop_prob: float = 0.0, dtype=torch.float32, mesh=None,
+                     num_microbatches: int = 4):
     """Batch: {'x': [B, T, D] target mel(s), 'phonemes': [B, T(, 2)], 'mask':
     [B, T] bool}. VoSingle: cond = x. VoMix ('two_one'): x holds [cond_A |
     cond_B | mixed]; target = x[..., -80:], cond = x[..., :-80]. `mesh`
     (parallel/mesh.py): the batch is this rank's rows and the draws are
-    the global batch's."""
+    the global batch's; on a pp mesh the loss is the GPipe schedule's over
+    `num_microbatches` (parallel/pipeline.py, the {'stacked', 'rest'}
+    parameters), on an sp mesh the sequence-parallel one (parallel/ring.py)."""
     from covomix_tpu_torch.models import acoustic as A
+    from covomix_tpu_torch.parallel import pipeline, ring
 
     def loss(params, batch, generator):
         x = batch["x"]
@@ -190,8 +194,13 @@ def acoustic_loss_fn(cfg_model, *, cond_drop_prob: float = 0.0, dtype=torch.floa
             target, cond = x[..., -80:], x[..., :-80]
         else:
             target, cond = x, x
-        return A.cfm_loss(params, cfg_model, generator, target, batch["phonemes"], cond, batch.get("mask"),
-                          cond_drop_prob=cond_drop_prob, dtype=dtype, mesh=mesh)
+        args = (params, cfg_model, generator, target, batch["phonemes"], cond, batch.get("mask"))
+        if mesh is not None and mesh.pp > 1:
+            return pipeline.pp_cfm_loss(*args, mesh=mesh, num_microbatches=num_microbatches,
+                                        cond_drop_prob=cond_drop_prob, dtype=dtype)
+        if mesh is not None and mesh.sp > 1:
+            return ring.cfm_loss_sp(*args, mesh=mesh, cond_drop_prob=cond_drop_prob, dtype=dtype)
+        return A.cfm_loss(*args, cond_drop_prob=cond_drop_prob, dtype=dtype, mesh=mesh)
 
     return loss
 
