@@ -12,6 +12,8 @@
     python3 chip_smoke.py --tp                # phase 18 alone: tensor-parallel and FSDP training at full width
     python3 chip_smoke.py --pp                # phase 19's pipeline-parallel cells alone
     python3 chip_smoke.py --sp                # phase 19's sequence-parallel cells and sample_sp alone
+    python3 chip_smoke.py --bmuf              # phase 20's BMUF training cells alone
+    python3 chip_smoke.py --serve_dp          # phase 20's dialogue serving over dp alone
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
 only their library, logs ptxas's registers and spills, runs check_vocoder's
@@ -139,7 +141,8 @@ Phases (any failure exits non-zero, nothing is passed over):
      phase 6's assets): (a) fit the draft heads of the serving CoMix T2S
      with the early exit at layer 2 (`train.loop.make_train_step`,
      `t2s_loss_fn`, bf16, Adam 3e-4, B=8, 24-id texts, targets of 576
-     codes: bench.py's positional pattern for 480, then EOS) for 400 steps,
+     codes: bench.py's positional pattern for 480, then EOS) for
+     SPEC_FIT_STEPS = 200 steps (400 until PR 18),
      each launching exactly 4 causal forwards with lse, 4 causal dQ and 4
      causal dK/dV and no other flash kernel, with finite losses and the
      first step's gradient on both draft heads; (b) greedy `generate`
@@ -156,14 +159,16 @@ Phases (any failure exits non-zero, nothing is passed over):
      the same step called directly (text2semantic.CAPTURE off) at the
      serving shape (B=4, 512 steps, min_length 512, bf16 and f32) and the
      per-file shape (B=1, 2048 steps, bf16; both forms of the 2048-step
-     program cut after its first PER_FILE_HELD steps, held and timed there,
-     the same captured program then timed over the whole decode), and
+     program cut after its first PER_FILE_HELD steps, held, timed and
+     traced there, the same captured program then timed over the whole
+     decode), and
      greedy / speculative
      (gamma 2 / 4 / 8) at B=8 in bf16: tokens equal (f32 exactly, bf16 up
      to hold_tokens' near-tie), num_steps equal, the generator's next draw
      equal; walls best of DECODE_TURNS in turns, ms per step or round, host
      reads per call, each graph's capture time, peak memory, and
-     `util.profiling`'s device idle share of each decode window (phase 4
+     `util.profiling`'s device idle share of each captured decode window
+     (the direct windows are no longer traced, since PR 19; phase 4
      adds one serving batch's, phase 8 one bf16 VoMix step's). Phases 4, 6,
      7, 9 and 13 decode through the graphs too, with their gates unchanged;
  15. the port's serving benchmark, `covomix_tpu_torch.bench`, in-process
@@ -246,12 +251,41 @@ Phases (any failure exits non-zero, nothing is passed over):
      frames, cond_scale 0.7, f32) against `acoustic.sample` on the card with
      the same noise (SAMPLE_SP_RTOL), no flash launch, and the same call
      with TF32 allowed, a control whose error must exceed the bound;
- 20. print a `kernels` JSON line (phase 13's launches as
+ 20. BMUF training and dialogue serving over dp at full width
+     (parallel/bmuf.py, serving.py, serve_batch.py), ranks sharing the one
+     card over gloo in phase 18-19's two-rank spawn: (a) the VoMix recipe
+     at dp=2 (global B 8) in bf16 and f32 and the CoMix T2S recipe at dp=2
+     (global B 6) in bf16, `--bmuf_sync 2 --bmuf_warmup 1` and the default
+     block momentum 0.5 for 4 steps (step 1 the warmup sync, 2 and 4 block
+     syncs, 3 local), each against one process that runs the two workers'
+     local steps one after the other and the BMUF update on the stack: the
+     ranks' parameters equal (by bit checksum) after steps 1, 2 and 4 and
+     apart after step 3, Adam's count and moments reset at step 1, every
+     rank's losses and grad norms within DP_RTOL and its parameters within
+     phase 17's bounds of the reference, no gradient all-reduce, one sync
+     collective of the parameters' bytes on a sync step and none on the
+     local one, 8 / 8 / 8 flash launches (and 8 pre-passes in bf16) a VoMix
+     rank step and 4 / 4 / 4 causal a T2S one; ms a step per rank (local
+     and sync apart), the sync collectives' bytes and host ms, resident
+     bytes (parameters, Adam, EMA, BMUF global and smoothed) and peak GiB;
+     (b) `BatchedPipeline(mesh=)` at dp=2 on phase 4's serving models
+     (global B 8, decode 512) in f32 (TF32 off) and bf16 against the
+     one-process pipeline with the same inputs and generator seed: tokens,
+     lengths, num_steps and the generator's next draw equal (bf16: tokens
+     by hold_tokens' near-tie rule), the wav within SERVE_DP_WAV_TOL of
+     max |wav|, both ranks' gathered wavs bit for bit, 256 flash forwards
+     (and 256 pre-passes in bf16) per rank call; ms a call per rank
+     against one process; (c) after phase 10's `serve_batch`, the same
+     command with `--multihost` in a torchrun-style environment of one
+     process over NCCL: every wav bit for bit;
+ 21. print a `kernels` JSON line (phase 13's launches as
      `speculative_launches`, phase 15's as `bench_launches`, phase 16's as
      `gan_export_launches`, phase 17's as `dp_world1_launches` and
      `dp2_launches_per_rank_step`, phase 18's as
      `tp_launches_per_rank_step`, phase 19's as `pp_launches_per_rank_step`
-     and `sp_launches_per_rank_step`, the fused kernels' and the forward's
+     and `sp_launches_per_rank_step`, phase 20's as
+     `bmuf_launches_per_rank_step` and `serve_dp_launches_per_rank_call`,
+     the fused kernels' and the forward's
      phase-15 times as `bench_shapes`) and, last, {"ok": true, "device":
      {...}}.
 """
@@ -1173,7 +1207,7 @@ def serving_inputs(b, prompt, text_len, cond_dim, seed):
             (rs.randn(b, prompt, cond_dim) * 0.1).astype(np.float32))
 
 
-def run_serving(results, batch=4, prompt=400, decode=512, timed=2):
+def run_serving(results, batch=4, prompt=400, decode=512, timed=1):
     import torch
     from covomix_tpu_torch.models import acoustic as A, text2semantic as T, vocoder as V
     from covomix_tpu_torch.ops import flash_attention as FA
@@ -2162,6 +2196,52 @@ def run_serve_batch_from_torch(results, root, paths, batch=4, decode=512, text_l
         if sr != 8000 or len(w) != max(int(lengths[i]) * 160, 160):
             raise AssertionError(f"served {name}: {sr} Hz, {len(w)} samples for {lengths[i]} frames")
     results.update(serve_torch_wall_s=wall, serve_torch_launches=counts)
+    results["serve_multihost"] = run_serve_batch_multihost(root, argv, out)
+
+
+def run_serve_batch_multihost(root, argv, plain_out):
+    """Phase 20: the same serve_batch command with `--multihost` in a
+    torchrun-style environment of one process (MASTER_ADDR, MASTER_PORT,
+    WORLD_SIZE 1, RANK 0, LOCAL_RANK 0): a process group of one over NCCL,
+    this process's share of the scripts (all of them) on its card; every wav
+    bit for bit the run's without the flag, the group gone after."""
+    import numpy as np
+    import torch.distributed as dist
+    from scipy.io import wavfile
+    from covomix_tpu_torch import serve_batch
+    from covomix_tpu_torch.parallel import multihost as MH
+
+    out = os.path.join(root, "served_multihost")
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(MH.free_port()), "WORLD_SIZE": "1", "RANK": "0",
+           "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    zero_counts()
+    try:
+        t0 = time.time()
+        serve_batch.main([*argv[:argv.index("--saved_dir") + 1], out, *argv[argv.index("--saved_dir") + 2:],
+                          "--multihost"])
+        wall = time.time() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    counts = flash_counts()
+
+    def same_wav(name):
+        (sr_a, a), (sr_b, b) = (wavfile.read(os.path.join(d, name)) for d in (out, plain_out))
+        return sr_a == sr_b and np.array_equal(a, b)
+
+    names = sorted(os.listdir(plain_out))
+    same = [name for name in names if os.path.exists(os.path.join(out, name)) and same_wav(name)]
+    rec = {"wall_s": wall, "launches": counts, "wavs": len(names), "bit_equal": len(same),
+           "group_left": dist.is_initialized()}
+    log(f"20 serve_batch --multihost at world 1 over NCCL ({card_line()}): " + json.dumps(rec))
+    if same != names or not names or counts != launches(fwd=256, rotary=256) or rec["group_left"]:
+        raise AssertionError(f"serve_batch --multihost: {rec}; wavs equal to the plain run's: {same} of {names}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2523,7 +2603,10 @@ def run_hubert(results, root):
 # phase 13: speculative decode at full width
 
 
-SPEC_FIT_STEPS = 400      # bench.py's BENCH_SPEC_FIT
+# draft-head fit steps (bench.py's BENCH_SPEC_FIT is 400): at 200 the fitted heads accept 0.988-0.994 of
+# the drafts at gamma 2 / 4 / 8, 161 / 97 / 54 rounds for 481 tokens, far inside the gate's tokens / 2
+# (PR 19 probe, NVIDIA H100 80GB HBM3, 700.00 W)
+SPEC_FIT_STEPS = 200
 SPEC_FIT_BATCH = 8
 SPEC_TARGET = 576         # targets bucketed to 576: decoder T 578, on the causal flash kernels
 SPEC_PATTERN = 480        # pattern tokens before the trained EOS
@@ -2999,7 +3082,8 @@ def run_decode_graphs(results, serving_t2s, spec_cfg, spec_params):
     Tokens, steps and the generator's next draw must agree (f32 exactly,
     bf16 up to hold_tokens' near-tie); walls best of DECODE_TURNS in turns,
     ms per step or round, host reads per call, each graph's capture time,
-    the peak memory, and the device idle share of each decode window."""
+    the peak memory, and the device idle share of each captured decode
+    window."""
     import numpy as np
     import torch
     from covomix_tpu_torch.models import text2semantic as T
@@ -3035,14 +3119,13 @@ def run_decode_graphs(results, serving_t2s, spec_cfg, spec_params):
             table[name]["graph_full"] = {"steps": res.num_steps, "best_s": graph_s,
                                          "ms_per_step": graph_s / res.num_steps * 1e3}
         if name != "serving_f32":
-            idle[f"{name}_graph"] = traced_idle_share(f"decode {name}, graph",
-                                                      lambda: decode(torch.Generator(device="cuda").manual_seed(10)),
-                                                      graph_s)
-        if name == "serving_bf16":
-            with decode_form(False):
-                idle[f"{name}_direct"] = traced_idle_share(
-                    f"decode {name}, direct", lambda: decode(torch.Generator(device="cuda").manual_seed(10)),
-                    table[name]["direct"]["best_s"])
+            # per file the traced window is the timed prefix of the same captured program: a trace of all
+            # 2048 steps (~1 M kernel events) took ~30 s to gather
+            with stop_after(held):
+                idle[f"{name}_graph"] = traced_idle_share(
+                    f"decode {name}, graph" + (f", first {held} steps" if held else ""),
+                    lambda: decode(torch.Generator(device="cuda").manual_seed(10)),
+                    table[name]["graph"]["best_s"] if held else graph_s)
 
     text_spec = torch.as_tensor(spec_batch(np.random.RandomState(7), 8)["text_ids"], device="cuda")
 
@@ -3075,12 +3158,11 @@ def run_decode_graphs(results, serving_t2s, spec_cfg, spec_params):
     idle["greedy_b8_graph"] = traced_idle_share("greedy B=8 bf16, graph",
                                                 lambda: greedy(torch.Generator(device="cuda").manual_seed(0)),
                                                 spec_row["greedy"]["graph"]["best_s"])
-    for form in ("graph", "direct"):
-        with decode_form(form == "graph"):
-            idle[f"spec_gamma4_{form}"] = traced_idle_share(
-                f"speculative gamma 4, {form}",
-                lambda: T.generate_speculative(spec_params, spec_cfg, text_spec, max_length=SPEC_DECODE, gamma=4,
-                                               dtype=torch.bfloat16), spec_row[4][form]["best_s"])
+    idle["spec_gamma4_graph"] = traced_idle_share(
+        "speculative gamma 4, graph", lambda: T.generate_speculative(spec_params, spec_cfg, text_spec,
+                                                                      max_length=SPEC_DECODE, gamma=4,
+                                                                      dtype=torch.bfloat16),
+        spec_row[4]["graph"]["best_s"])
     captures = [{"kind": key[0], "batch": key[2], "source": key[3][1], "dtype": str(key[5]), "max_length": key[6],
                  "gamma": key[7] if key[0] == "speculative" else None, "capture_s": dec.capture_s}
                 for key, dec in T._GRAPHS.items()]
@@ -3777,7 +3859,7 @@ def dp_rank(root, ref_dir, out_dir):
                                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                                "params_equal_rank0": bool(torch.equal(rank0, flat)),
                                "params": param_agreement(flat, ref, lrs, dt),
-                               "all_reduce_ms": time_all_reduce(flat.numel(), iters=2)}
+                               "all_reduce_ms": time_all_reduce(flat.numel(), iters=1)}
         del state, flat, rank0, ref, tensors
         torch.cuda.empty_cache()
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
@@ -4300,10 +4382,12 @@ def pp_cells(root, ref_dir, names, sample, out):
                             "ref_max_abs": float(ref.abs().max())}
 
 
-def parallel_rank(root, ref_dir, out_dir, tp_names, pp_names, sample):
-    """One rank of phases 18 and 19 on the one card over gloo: phase 18's
+def parallel_rank(root, ref_dir, out_dir, tp_names, pp_names, sample, bmuf_names=(), serve_dp=False):
+    """One rank of phases 18-20 on the one card over gloo: phase 18's
     cells `tp_names` (tp_cells), then phase 19's `pp_names` and, with
-    `sample`, sample_sp (pp_cells); the records into out_dir/rank<r>.json."""
+    `sample`, sample_sp (pp_cells), then phase 20's BMUF cells `bmuf_names`
+    (bmuf_cells) and, with `serve_dp`, the dp serving cell
+    (serve_dp_cells); the records into out_dir/rank<r>.json."""
     import torch
     import torch.distributed as dist
 
@@ -4313,6 +4397,9 @@ def parallel_rank(root, ref_dir, out_dir, tp_names, pp_names, sample):
            "forms": {}}
     tp_cells(root, ref_dir, tp_names, out)
     pp_cells(root, ref_dir, pp_names, sample, out)
+    bmuf_cells(root, ref_dir, bmuf_names, out)
+    if serve_dp:
+        serve_dp_cells(out_dir, out)
     with open(os.path.join(out_dir, f"rank{out['rank']}.json"), "w") as f:
         json.dump(out, f)
 
@@ -4398,16 +4485,375 @@ def check_pp(results, spawns, refs, names, sample_ref):
     results["pp_launches"] = {name: c["launches_per_step"] for name, c in pp["cells"].items()}
     log(f"phase 19 collective forms {json.dumps(pp['forms'])}")
 
+# ---------------------------------------------------------------------------
+# phase 20: BMUF training and dialogue serving over dp at full width
 
-def run_parallel_training(results, root, tp_names=tuple(TP_CELLS), axes=("pp", "sp")):
-    """Phases 18 and 19 at full width on phase 17's items (`write_dp_items`)
+BMUF_STEPS = 4
+BMUF_SYNC, BMUF_WARMUP = 2, 1      # step 1 the warmup sync, steps 2 and 4 block syncs, step 3 local
+# (cell, dtype) of phase 20's BMUF cells at dp=2, the default block momentum 1 - 1/2
+BMUF_CELLS = {"bmuf_vomix_bf16": ("vomix", "bf16"), "bmuf_vomix_f32": ("vomix", "f32"),
+              "bmuf_t2s_bf16": ("t2s", "bf16")}
+# BatchedPipeline(mesh=) at dp=2 on phase 4's serving models: global B 8 (4 rows a rank, 8 with CFG in the
+# flow), 400-frame prompts, 512 decode steps (min_length 512), against the one-process pipeline on the same
+# inputs and generator seed. A rank runs every GEMM and convolution at half the rows, where cuBLAS and cuDNN
+# may pick other kernels (sums in another order): in f32 (TF32 off) the tokens must still be equal (a flip
+# needs a Gumbel-perturbed near-tie at ~1e-6) and the wav within SERVE_DP_WAV_TOL of max |wav| (16 midpoint
+# steps of 8 layers, then the vocoder, carry ~1e-6 relative differences); in bf16 the tokens are held by
+# hold_tokens' near-tie rule and the wav on the rows whose tokens match
+SERVE_DP = {"batch": 8, "prompt": 400, "decode": 512, "text_len": 64, "seed": 20}
+SERVE_DP_DTYPES = ("f32", "bf16")
+SERVE_DP_WARM = ("bf16",)       # timed after a warm-up call; f32's timed call includes the decode's capture
+# the wav bounds, of max |wav| (first card reading, PR 19: f32 2.8e-7, bf16 6.1e-3): f32 1e-5, 36x the reading; bf16
+# 2^-6, 4 of bf16's ulps at the top of the wav's binade (the reading is one ulp: the output rounded to bf16)
+SERVE_DP_WAV_TOL = {"f32": 1e-5, "bf16": 2 ** -6}
+
+
+def bmuf_args(root, cell, dt):
+    """The train CLI's flags of a phase 20 BMUF cell (dp=2, sync 2, warmup 1)."""
+    return dp_args(root, cell, dt, "--dp", "2", "--bmuf_sync", str(BMUF_SYNC), "--bmuf_warmup", str(BMUF_WARMUP))
+
+
+def bmuf_setup(args):
+    """What the train CLI builds for a BMUF run: (the parameters drawn from
+    --seed, the plain loss (no dp mesh: a rank's loss is its own rows'), the
+    loader of the global batch, the TrainConfig, the BMUFConfig)."""
+    import torch
+    from covomix_tpu_torch.data.datasets import data_loader
+    from covomix_tpu_torch.parallel import bmuf as BM
+    from covomix_tpu_torch.train import cli
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    _, params, loss_fn = cli.build_model(args, gen, None)
+    dataset, _ = cli._datasets(args)
+    loader = data_loader(dataset, args.batch_size, cli.build_collate(args)[0], seed=args.seed)
+    tcfg = cli.train_config(args, max(1, len(dataset) // args.batch_size))
+    bcfg = BM.BMUFConfig(sync_every=args.bmuf_sync, warmup_steps=args.bmuf_warmup, block_momentum=args.bmuf_momentum)
+    return params, loss_fn, loader, tcfg, bcfg
+
+
+def bits_checksum(flat):
+    """[2] int64 checksums of a flat f32 tensor's bit patterns: their sum and
+    a sum weighted by position mod 7 (+ 1), both exact (|bits| < 2^31, 8 x
+    2^31 x 250.5 M < 2^63): bit-equal tensors give equal checksums, and a
+    tensor that differs anywhere gives others unless the differences cancel
+    in both sums."""
+    import torch
+
+    bits = flat.view(torch.int32).to(torch.int64)
+    weights = torch.arange(bits.numel(), device=bits.device) % 7 + 1
+    return torch.stack([bits.sum(), (bits * weights).sum()])
+
+
+def bmuf_reference(root, ref_dir, name):
+    """A BMUF cell in one process: the two workers' local steps one after the
+    other (each on its rows of the global batch, with its own generator,
+    Adam at the schedule's value of its own count), then the BMUF update on
+    the stack of their models in plain PyTorch (rank 0's model at the
+    warmup, with both Adam states reset; the block update with the default
+    momentum at the syncs), then each worker's EMA. Saves each worker's
+    final parameters (flat) and the steps' mean loss and grad norm, the
+    learning rates and branches to ref_dir."""
+    import torch
+    from covomix_tpu_torch.parallel import bmuf as BM
+    from covomix_tpu_torch.train import loop
+    from covomix_tpu_torch.train.gan import opt_count
+    from covomix_tpu_torch.util.misc import tree_leaves, tree_map
+
+    cell, dt = BMUF_CELLS[name]
+    args = bmuf_args(root, cell, dt)
+    params, loss_fn, loader, tcfg, bcfg = bmuf_setup(args)
+    dp = args.dp
+    workers = [loop.init_train_state(tree_map(lambda p: p.detach().clone(), params), tcfg) for _ in range(dp)]
+    gens = [BM.rank_generator("cuda", args.seed, w) for w in range(dp)]
+    vg, schedule = loop.accumulated_value_and_grad(loss_fn, 1), loop.reference_lr_schedule(tcfg)
+    bm = bcfg.resolved_momentum(dp)
+    flat = lambda st: torch.cat([t.detach().reshape(-1) for t in tree_leaves(st.params)])
+    glob = flat(workers[0])
+    smoothed = torch.zeros_like(glob)
+    recs = []
+    for i in range(BMUF_STEPS):
+        batch = next(loader)
+        b = len(next(iter(batch.values()))) // dp
+        losses, norms, lrs = [], [], []
+        for w, st in enumerate(workers):
+            loss, grads = vg(st.params, loop.to_device({k: v[w * b:(w + 1) * b] for k, v in batch.items()}, "cuda"),
+                             gens[w])
+            lr = schedule(opt_count(st.optimizer))
+            for group in st.optimizer.param_groups:
+                group["lr"] = lr
+            st.optimizer.step()
+            losses.append(float(loss))
+            norms.append(float(loop.global_norm(grads)))
+            lrs.append(lr)
+        kind = BM.branch(i + 1, bcfg)
+        if kind == "warmup_sync":
+            glob = flat(workers[0])
+            smoothed.zero_()
+            for st in workers:
+                st.optimizer.state.clear()
+        elif kind == "block_sync":
+            grad = sum(glob - flat(st) for st in workers) / dp
+            smoothed = smoothed * bm + grad * bcfg.block_lr
+            glob = (glob - smoothed) - smoothed * bm
+        if kind != "noop":
+            with torch.no_grad():
+                for st in workers:
+                    offset = 0
+                    for t in tree_leaves(st.params):
+                        t.copy_(glob[offset: offset + t.numel()].view_as(t))
+                        offset += t.numel()
+        for st in workers:
+            loop.ema_update(st.ema_params, st.params, st.ema_num_updates, tcfg.ema_decay)
+            st.ema_num_updates += 1
+            st.step += 1
+        recs.append({"loss": sum(losses) / dp, "grad_norm": sum(norms) / dp, "lrs": lrs, "branch": kind})
+    for w, st in enumerate(workers):
+        torch.save(flat(st).cpu(), os.path.join(ref_dir, f"{name}_w{w}.pt"))
+    with open(os.path.join(ref_dir, f"{name}.json"), "w") as f:
+        json.dump({"recs": recs, "lrs": [r["lrs"][0] for r in recs]}, f)
+
+
+def bmuf_cells(root, ref_dir, names, out):
+    """Phase 20's BMUF cells `names` as one rank of dp=2 on the one card over
+    gloo, into `out`: BMUF_STEPS steps each (`parallel/bmuf.make_bmuf_train_step`
+    as the train CLI drives it), every step timed with its launches, gradient
+    all-reduces, BMUF sync collectives (count, bytes, host ms), the ranks'
+    parameters compared by checksum, Adam's count and state; the final
+    parameters against the worker's of the one-process reference; resident
+    bytes and peak GiB."""
+    import torch
+    from covomix_tpu_torch.parallel import bmuf as BM, train_step as TS
+    from covomix_tpu_torch.parallel.mesh import all_gather, make_mesh, replicate
+    from covomix_tpu_torch.train import loop
+    from covomix_tpu_torch.train.gan import opt_count
+    from covomix_tpu_torch.util.misc import tree_leaves
+
+    if not names:
+        return
+    mesh = make_mesh(2, "cuda")
+    for name in names:
+        cell, dt = BMUF_CELLS[name]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        args = bmuf_args(root, cell, dt)
+        params, loss_fn, loader, tcfg, bcfg = bmuf_setup(args)
+        replicate(mesh, tree_leaves(params))
+        state = loop.init_train_state(params, tcfg)
+        bstate = BM.init_bmuf_state(state.params)
+        step = BM.make_bmuf_train_step(loss_fn, tcfg, bcfg, mesh, bstate)
+        gen = BM.rank_generator("cuda", args.seed, mesh.dp_rank)
+        recs = []
+        for i in range(BMUF_STEPS):
+            batch = TS.shard_batch(mesh, next(loader))
+            before = (BM.SYNCS, BM.SYNC_BYTES, BM.SYNC_SECONDS)
+            rec = timed_step(step, state, batch, gen)
+            sums = all_gather(bits_checksum(flat_params(state.params))[None], 0, mesh.dp_group, mesh.dp, mesh.dp_rank)
+            rec.update(branch=BM.branch(i + 1, bcfg), rows=len(next(iter(batch.values()))),
+                       bmuf_syncs=BM.SYNCS - before[0], bmuf_bytes=BM.SYNC_BYTES - before[1],
+                       bmuf_ms=(BM.SYNC_SECONDS - before[2]) * 1e3, params_equal=bool((sums == sums[0]).all()),
+                       adam_count=opt_count(state.optimizer), adam_states=len(state.optimizer.state))
+            recs.append(rec)
+        wall = time.time() - t0
+        flat = flat_params(state.params)
+        ref = torch.load(os.path.join(ref_dir, f"{name}_w{mesh.dp_rank}.pt")).to("cuda")
+        with open(os.path.join(ref_dir, f"{name}.json")) as f:
+            lrs = json.load(f)["lrs"]
+        size = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+        out[name] = {"steps": recs, "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "params": param_agreement(flat, ref, lrs, dt), "param_bytes": size(state.params),
+                     "resident_bytes": {**resident_bytes(state), "bmuf_global": size(bstate["global"]),
+                                        "bmuf_smoothed": size(bstate["smoothed"])}}
+        del state, bstate, flat, ref, params
+        torch.cuda.empty_cache()
+
+
+def serve_dp_pipe(dt, mesh=None):
+    """BatchedPipeline on phase 4's serving models (full width, seed 0) at
+    SERVE_DP's shape in `dt`: one process, or over `mesh`."""
+    import torch
+    from covomix_tpu_torch.models import acoustic as A, text2semantic as T, vocoder as V
+    from covomix_tpu_torch.serving import BatchedPipeline
+
+    t2s_cfg, ac_cfg, voc_cfg = full_width_configs()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return BatchedPipeline(T.init(g, t2s_cfg), t2s_cfg, A.init(g, ac_cfg), ac_cfg, V.init_generator(g, voc_cfg),
+                           voc_cfg, decode_len=SERVE_DP["decode"], cond_scale=0.7,
+                           dtype=torch.bfloat16 if dt == "bf16" else torch.float32, min_length=SERVE_DP["decode"],
+                           device="cuda" if mesh is None else mesh.device, mesh=mesh)
+
+
+def serve_dp_call(pipe, warm=True) -> dict:
+    """One seeded call of a phase 20 pipeline (after a warm-up call that
+    captures the decode's graph, with `warm`; without, the timed call
+    captures it): its wav and GenerateResult on the host, the generator's
+    next draw, ms between synchronizes and the flash launches."""
+    import torch
+
+    placed = pipe.place(*serving_inputs(SERVE_DP["batch"], SERVE_DP["prompt"], SERVE_DP["text_len"], 160,
+                                        SERVE_DP["seed"]))
+    if warm:
+        pipe(torch.Generator(device="cuda").manual_seed(SERVE_DP["seed"]), *placed)
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_DP["seed"])
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    wav, res = pipe(gen, *placed)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    counts = flash_counts()
+    return {"wav": wav.float().cpu(), "tokens": res.tokens.cpu(), "tokens2": res.tokens2.cpu(),
+            "lengths": res.lengths.cpu(), "lengths2": res.lengths2.cpu(), "num_steps": res.num_steps,
+            "next_draw": torch.rand(4, generator=gen, device="cuda").cpu(), "ms": ms, "launches": counts}
+
+
+def serve_dp_cells(out_dir, out):
+    """Phase 20's serving cell as one rank of dp=2 on the one card over
+    gloo: the dp pipeline's seeded call in each of SERVE_DP_DTYPES, its
+    gathered results saved to out_dir for the parent to hold, its ms and
+    launches into `out`."""
+    import torch
+    from covomix_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, "cuda")
+    for dt in SERVE_DP_DTYPES:
+        torch.cuda.reset_peak_memory_stats()
+        r = serve_dp_call(serve_dp_pipe(dt, mesh), warm=dt in SERVE_DP_WARM)
+        torch.save(r, os.path.join(out_dir, f"serve_dp_{dt}_rank{mesh.rank}.pt"))
+        out[f"serve_dp_{dt}"] = {"ms": r["ms"], "launches": r["launches"], "num_steps": r["num_steps"],
+                                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        torch.cuda.empty_cache()
+
+
+def check_bmuf(results, ranks, refs, names):
+    """Phase 20's BMUF gates on both ranks' records (module docstring, 20),
+    logged and kept in results["bmuf"]."""
+    bmuf = {"card": card_line(), "cells": {}}
+    for name in names:
+        cell, dt = BMUF_CELLS[name]
+        per_step, ref = DP_PER_STEP[cell][dt], refs[name]
+        for rank in ranks:
+            got = rank[name]
+            what = f"20 {name} rank {rank['rank']}"
+            for i, (s, r) in enumerate(zip(got["steps"], ref["recs"])):
+                sync = s["branch"] != "noop"
+                want = {"branch": r["branch"], "launches": per_step, "syncs": 0, "bmuf_syncs": int(sync),
+                        "bmuf_bytes": got["param_bytes"] if sync else 0, "params_equal": sync}
+                have = {k: s[k] for k in want}
+                if have != want or not all(abs(s[k] - r[k]) <= DP_RTOL[dt] * abs(r[k]) for k in ("loss", "grad_norm")):
+                    raise AssertionError(f"{what} step {i + 1}: {have} (expected {want}); loss {s['loss']} grad norm "
+                                         f"{s['grad_norm']} vs one process {r['loss']} / {r['grad_norm']}")
+                if s["branch"] == "warmup_sync" and (s["adam_count"], s["adam_states"]) != (0, 0):
+                    raise AssertionError(f"{what}: Adam not reset at the warmup: count {s['adam_count']}, "
+                                         f"{s['adam_states']} leaves with state")
+            p = got["params"]
+            if not p["max_abs_err"] <= p["bound"] or (dt == "f32" and not p["tight_share"] <= DP_TIGHT_SHARE):
+                raise AssertionError(f"{what}: parameters {p}")
+        steps = [rank[name]["steps"] for rank in ranks]
+        bmuf["cells"][name] = {
+            "ms": [[round(s["ms"], 3) for s in st] for st in steps],
+            "local_ms": [[round(s["ms"], 3) for s in st if s["branch"] == "noop"] for st in steps],
+            "sync_ms": [[round(s["ms"], 3) for s in st if s["branch"] != "noop"] for st in steps],
+            "sync_collectives_per_step": [s["bmuf_syncs"] for s in steps[0]],
+            "sync_bytes_per_sync": ranks[0][name]["param_bytes"],
+            "sync_host_ms": [[round(s["bmuf_ms"], 3) for s in st if s["branch"] != "noop"] for st in steps],
+            "branches": [s["branch"] for s in steps[0]], "lrs": ref["lrs"],
+            "resident_bytes": [rank[name]["resident_bytes"] for rank in ranks],
+            "peak_gib": [round(rank[name]["peak_gib"], 3) for rank in ranks],
+            "wall_s": [round(rank[name]["wall_s"], 3) for rank in ranks], "params": ranks[0][name]["params"],
+            "loss_rel_err": max(abs(s["loss"] - r["loss"]) / abs(r["loss"]) for st in steps
+                                for s, r in zip(st, ref["recs"])),
+            "launches_per_step": steps[0][0]["launches"], "rows_per_rank": steps[0][0]["rows"]}
+        log(f"20 {name} ({bmuf['card']}): " + json.dumps(bmuf["cells"][name]))
+    results["bmuf"] = bmuf
+    results["bmuf_launches"] = {name: c["launches_per_step"] for name, c in bmuf["cells"].items()}
+
+
+def serve_dp_reference(ref_dir):
+    """The one-process pipeline's seeded call in each dtype (after its
+    warm-up), saved to ref_dir."""
+    import torch
+
+    for dt in SERVE_DP_DTYPES:
+        r = serve_dp_call(serve_dp_pipe(dt), warm=dt in SERVE_DP_WARM)
+        torch.save(r, os.path.join(ref_dir, f"serve_dp_{dt}.pt"))
+        torch.cuda.empty_cache()
+
+
+def check_serve_dp(results, ranks, ref_dir, out_dir):
+    """Phase 20's serving gates (module docstring, 20): each rank's gathered
+    result against the one process's, the two ranks' wavs bit for bit,
+    256 forwards (and in bf16 256 pre-passes) per rank call; logged and kept
+    in results["serve_dp"]."""
+    import torch
+
+    serve = {"card": card_line(), **SERVE_DP, "wav_tol_of_max": SERVE_DP_WAV_TOL, "cells": {}}
+    for dt in SERVE_DP_DTYPES:
+        ref = torch.load(os.path.join(ref_dir, f"serve_dp_{dt}.pt"))
+        got = [torch.load(os.path.join(out_dir, f"serve_dp_{dt}_rank{r}.pt")) for r in range(2)]
+        want = launches(fwd=256, **({"rotary": 256} if dt == "bf16" else {}))
+        what = f"20 serving dp=2 {dt}"
+        if ref["launches"] != want or any(g["launches"] != want for g in got):
+            raise AssertionError(f"{what}: launches {[g['launches'] for g in got]}, one process {ref['launches']}, "
+                                 f"expected {want}")
+        if not torch.equal(got[0]["wav"], got[1]["wav"]):
+            raise AssertionError(f"{what}: the two ranks' gathered wavs differ")
+        for r, x in enumerate(got):
+            if x["num_steps"] != ref["num_steps"] or not torch.equal(x["next_draw"], ref["next_draw"]):
+                raise AssertionError(f"{what} rank {r}: {x['num_steps']} steps (one process {ref['num_steps']}), "
+                                     f"next draw {x['next_draw'].tolist()} vs {ref['next_draw'].tolist()}")
+        g = got[0]
+        same = [r for r in range(ref["tokens"].shape[0])
+                if all(torch.equal(g[k][r], ref[k][r]) for k in ("tokens", "tokens2", "lengths", "lengths2"))]
+        ties = []
+        if len(same) != ref["tokens"].shape[0]:
+            if dt == "f32":
+                raise AssertionError(f"{what}: tokens differ from one process's in rows "
+                                     f"{sorted(set(range(ref['tokens'].shape[0])) - set(same))}")
+            ties = hold_dp_tokens(what, g)
+        scale = float(ref["wav"].abs().max())
+        err = float((g["wav"][same] - ref["wav"][same]).abs().max()) if same else 0.0
+        if not (torch.isfinite(g["wav"]).all() and err <= SERVE_DP_WAV_TOL[dt] * scale):
+            raise AssertionError(f"{what}: wav max abs error {err} on rows {same}, bound "
+                                 f"{SERVE_DP_WAV_TOL[dt]} x {scale}")
+        serve["cells"][dt] = {"one_process_ms": ref["ms"], "ms": [x["ms"] for x in got], "launches": g["launches"],
+                              "num_steps": g["num_steps"], "rows_equal": len(same), "ties": ties,
+                              "wav_max_abs_err": err, "wav_max_abs": scale, "wav_shape": list(g["wav"].shape)}
+        log(f"{what} ({serve['card']}): " + json.dumps(serve["cells"][dt], default=str))
+    results["serve_dp"] = serve
+    results["serve_dp_launches"] = {dt: c["launches"] for dt, c in serve["cells"].items()}
+
+
+def hold_dp_tokens(what, got):
+    """bf16: the dp tokens against the one-process call redone with its
+    decode uncaptured under GreedyLogits (the scores it sampled from), by
+    hold_tokens' near-tie rule."""
+    from types import SimpleNamespace
+
+    import torch
+
+    pipe = serve_dp_pipe("bf16")
+    with GreedyLogits() as logits:
+        ref = serve_dp_call(pipe, warm=False)
+    to_res = lambda r: SimpleNamespace(tokens=r["tokens"], tokens2=r["tokens2"], num_steps=r["num_steps"])
+    del pipe
+    torch.cuda.empty_cache()
+    return hold_tokens(f"{what}: dp=2 vs one process", to_res(ref), to_res(got), logits)
+
+
+
+def run_parallel_training(results, root, tp_names=tuple(TP_CELLS), axes=("pp", "sp"),
+                          bmuf_names=tuple(BMUF_CELLS), serve_dp=True):
+    """Phases 18-20 at full width on phase 17's items (`write_dp_items`)
     and its one-process references, each computed here when absent (`--tp`,
-    `--pp`, `--sp` alone): phase 18's cells `tp_names`, phase 19's cells of
-    `axes` (and, with sp, sample_sp against acoustic.sample, computed here),
-    the two-rank cells of both in one spawn of two ranks on this card over
-    gloo, the four-rank ones in one spawn of four (one start-up per world
-    size); every rank's records held by check_tp / check_pp. The kernel
-    library is built before the ranks start."""
+    `--pp`, `--sp`, `--bmuf`, `--serve_dp` alone): phase 18's cells
+    `tp_names`, phase 19's cells of `axes` (and, with sp, sample_sp against
+    acoustic.sample, computed here), phase 20's BMUF cells `bmuf_names`
+    (bmuf_reference here) and, with `serve_dp`, the dp serving cell
+    (serve_dp_reference here); the two-rank cells in one spawn of two ranks
+    on this card over gloo, the four-rank ones in one spawn of four (one
+    start-up per world size); every rank's records held by check_tp /
+    check_pp / check_bmuf / check_serve_dp. The kernel library is built
+    before the ranks start."""
     import torch
     from covomix_tpu_torch.models import acoustic as A
     from covomix_tpu_torch.ops import flash_attention as FA
@@ -4437,32 +4883,49 @@ def run_parallel_training(results, root, tp_names=tuple(TP_CELLS), axes=("pp", "
         sample_ref = {"ms": ms, "launches": flash, "shape": list(y.shape), "max_abs": float(y.abs().max())}
         del s_params, y
         torch.cuda.empty_cache()
+    t20 = time.time()
+    for name in bmuf_names:
+        bmuf_reference(root, ref_dir, name)
+        torch.cuda.empty_cache()
+    if serve_dp:
+        serve_dp_reference(ref_dir)
+    refs20_s = time.time() - t20
     spawns = {}
     for world in (2, 4):
         tn = [n for n in tp_names if TP_CELLS[n][2] * TP_CELLS[n][3] == world]
         pn = [n for n in pp_names if PP_CELLS[n][1] * PP_CELLS[n][3] == world]
         sample = sample_ref is not None and world == 2
-        if not (tn or pn or sample):
+        bn, sd = (list(bmuf_names), serve_dp) if world == 2 else ([], False)
+        if not (tn or pn or sample or bn or sd):
             continue
         shutil.rmtree(out_dir, ignore_errors=True)
         os.makedirs(out_dir)
         t0 = time.time()
-        MH.spawn(parallel_rank, world, root, ref_dir, out_dir, tn, pn, sample, device="cuda", backend="gloo")
+        MH.spawn(parallel_rank, world, root, ref_dir, out_dir, tn, pn, sample, bn, sd, device="cuda", backend="gloo")
         spawns[world] = {"s": time.time() - t0, "ranks": []}
         for r in range(world):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
                 spawns[world]["ranks"].append(json.load(f))
+        if sd:      # the gathered results, held here before the next spawn empties out_dir
+            check_serve_dp(results, spawns[world]["ranks"], ref_dir, out_dir)
     if tp_names:
         check_tp(results, spawns, refs, tp_names)
     if pp_names or sample_ref is not None:
         check_pp(results, spawns, refs, pp_names, sample_ref)
+    if bmuf_names:
+        bmuf_refs = {}
+        for name in bmuf_names:
+            with open(os.path.join(ref_dir, f"{name}.json")) as f:
+                bmuf_refs[name] = json.load(f)
+        check_bmuf(results, spawns[2]["ranks"], bmuf_refs, bmuf_names)
     wall = {"wall_s": time.time() - t_start, "spawn_s": {w: v["s"] for w, v in spawns.items()},
+            "phase20_references_s": refs20_s,
             "cells_s": {name: max(rank[name]["wall_s"] for rank in spawns[world]["ranks"])
                         for world, sp in spawns.items() for name in sp["ranks"][0] if name in TP_CELLS or
-                        name in PP_CELLS}}
+                        name in PP_CELLS or name in BMUF_CELLS}}
     results["parallel_wall"] = wall
-    log(f"phases 18-19 wall {wall['wall_s']:.1f} s (the ranks {json.dumps(wall['spawn_s'])} s; each cell's "
-        f"slowest rank {json.dumps(wall['cells_s'])} s)")
+    log(f"phases 18-20 wall {wall['wall_s']:.1f} s (phase 20's one-process references {refs20_s:.1f} s; the ranks "
+        f"{json.dumps(wall['spawn_s'])} s; each cell's slowest rank {json.dumps(wall['cells_s'])} s)")
 
 
 # registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
@@ -4691,7 +5154,7 @@ def main() -> int:
     os.makedirs(root)
     try:
         run_dp_training(results, root)
-        run_parallel_training(results, root)    # phases 18-19, on phase 17's items and one-process references
+        run_parallel_training(results, root)    # phases 18-20, on phase 17's items and one-process references
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4707,6 +5170,8 @@ def main() -> int:
     bench_hubert = results["bench_line"]["launches"]["hubert"]["fwd"]
     tpl = results["tp_launches"]     # phase 18: a rank step's launches per cell, at its H / tp heads
     ppl = results["pp_launches"]     # phase 19: a rank step's launches per cell (its stage's ticks; none under sp)
+    bml = results["bmuf_launches"]   # phase 20: a BMUF rank step's launches per cell
+    sdl = results["serve_dp_launches"]   # phase 20: a dp=2 serving rank call's launches, by dtype
 
     def staged(axis, dt, key):
         """Phase 19's launches of `key` per rank step, by cell, of the cells of `axis` in `dt`."""
@@ -4718,6 +5183,7 @@ def main() -> int:
         kernel_entry(results, "flash", "flash_attention_fwd", flash_src, "covomix_tpu/ops/flash_attention.py:162",
                      launches["flash"], with_prepass=True,
                      speculative_launches=spec_file["flash"] + spec_serving["fwd"],
+                     serve_dp_launches_per_rank_call=sdl["bf16"]["fwd"],
                      bench_launches=bench["fwd"] - bench_hubert,
                      bench_shapes={f"b{big}": bench_shape_entry(results, f"flash_bench_b{big}", "with_prepass_ms",
                                                                 "library_ms")}),
@@ -4728,7 +5194,9 @@ def main() -> int:
                      bench_launches=bench["rotary"],
                      tp_launches_per_rank_step={name: tpl[name]["rotary"] for name in tpl},
                      pp_launches_per_rank_step=staged("pp", "bf16", "rotary"),
-                     sp_launches_per_rank_step=staged("sp", "bf16", "rotary")),
+                     sp_launches_per_rank_step=staged("sp", "bf16", "rotary"),
+                     bmuf_launches_per_rank_step=bml["bmuf_vomix_bf16"]["rotary"],
+                     serve_dp_launches_per_rank_call=sdl["bf16"]["rotary"]),
     ]
     for kind, replaces in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                            ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):
@@ -4753,11 +5221,15 @@ def main() -> int:
                                     tp_launches_per_rank_step={name: tpl[name][key] for name in tpl
                                                                if name.endswith("vomix_bf16")},
                                     pp_launches_per_rank_step=staged("pp", "bf16", key),
-                                    sp_launches_per_rank_step=staged("sp", "bf16", key)))
+                                    sp_launches_per_rank_step=staged("sp", "bf16", key),
+                                    bmuf_launches_per_rank_step=bml["bmuf_vomix_bf16"][key]))
     for dt in ("f32", "bf16"):     # this slice's main path: HuBERT extraction (f32, and --bf16)
         kernels.append(kernel_entry(results, f"hubert_fwd_{dt}", f"flash_attention_fwd_hubert_{dt}", flash_src,
                                     "covomix_tpu/ops/flash_attention.py:162", results[f"hubert_{dt}"]["launches"],
-                                    bench_launches=bench_hubert if dt == "bf16" else 0))
+                                    bench_launches=bench_hubert if dt == "bf16" else 0,
+                                    # phase 20: the f32 inference forward of a dp=2 serving rank call
+                                    **({"serve_dp_launches_per_rank_call": sdl["f32"]["fwd"]} if dt == "f32"
+                                       else {})))
     for kind, where in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                         ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):   # hifigan_inference --fuse_tail, f32
         kernels.append(kernel_entry(results, f"{kind}_f32", f"vocoder_fused_{kind}_f32", voc_src, where,
@@ -4773,7 +5245,8 @@ def main() -> int:
                                     launches_per_train_step=t2s[key] // results["t2s_steps"],
                                     speculative_launches=spec_fit[key], bench_launches=bench[key],
                                     dp2_launches_per_rank_step=dp2["t2s_bf16"][key],
-                                    tp_launches_per_rank_step={"tp2_t2s_bf16": tpl["tp2_t2s_bf16"][key]}))
+                                    tp_launches_per_rank_step={"tp2_t2s_bf16": tpl["tp2_t2s_bf16"][key]},
+                                    bmuf_launches_per_rank_step=bml["bmuf_t2s_bf16"][key]))
     for cell, suffix in (("vomix", "_f32"), ("t2s", "_causal_f32")):   # f32 training at the recipes' precision
         runs = results[f"{cell}_f32_launches"]
         for key, where in replaces.items():
@@ -4785,7 +5258,8 @@ def main() -> int:
                                         tp_launches_per_rank_step={f"tp2_{cell}_f32": tpl[f"tp2_{cell}_f32"][
                                             f"{key}_causal" if cell == "t2s" else key]},
                                         **({"pp_launches_per_rank_step": staged("pp", "f32", key),
-                                            "sp_launches_per_rank_step": staged("sp", "f32", key)}
+                                            "sp_launches_per_rank_step": staged("sp", "f32", key),
+                                            "bmuf_launches_per_rank_step": bml["bmuf_vomix_f32"][key]}
                                            if cell == "vomix" else {})))
     log(f"total chip_smoke time {time.time() - t_start:.1f} s")
     log("speculative decode: " + json.dumps({"bench": results["spec_bench"], "decode": results["spec_decode"],
@@ -4803,6 +5277,7 @@ def main() -> int:
     log("data-parallel training: " + json.dumps(results["dp"]))
     log("tensor-parallel and FSDP training: " + json.dumps(results["tp"]))
     log("pipeline- and sequence-parallel training: " + json.dumps(results["pp"]))
+    log("bmuf training and serving over dp: " + json.dumps({k: results[k] for k in ("bmuf", "serve_dp")}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -5038,7 +5513,7 @@ def tp_mode() -> int:
     try:
         write_vomix_items(os.path.join(root, "vomix"), 24, 0)
         write_t2s_items(os.path.join(root, "t2s"), 24, 0)
-        run_parallel_training(results, root, axes=())
+        run_parallel_training(results, root, axes=(), bmuf_names=(), serve_dp=False)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"total chip_smoke --tp time {time.time() - t_start:.1f} s")
@@ -5071,11 +5546,50 @@ def pp_mode(axis) -> int:
     shutil.rmtree(root, ignore_errors=True)
     try:
         write_vomix_items(os.path.join(root, "vomix"), 24, 0)
-        run_parallel_training(results, root, tp_names=(), axes=(axis,))
+        run_parallel_training(results, root, tp_names=(), axes=(axis,), bmuf_names=(), serve_dp=False)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"total chip_smoke --{axis} time {time.time() - t_start:.1f} s")
     log("pipeline- and sequence-parallel training: " + json.dumps(results["pp"]))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def phase20_mode(bmuf: bool) -> int:
+    """`python3 chip_smoke.py --bmuf` / `--serve_dp`: phase 20's BMUF cells
+    (on phase 17's VoMix and CoMix T2S items) or its dp serving cell alone
+    (run_parallel_training, the one-process references computed here),
+    ending with the same `ok` line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    root = os.path.join(VT.BUILD_DIR, "smoke_bmuf" if bmuf else "smoke_serve_dp")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        if bmuf:
+            write_vomix_items(os.path.join(root, "vomix"), 24, 0)
+            write_t2s_items(os.path.join(root, "t2s"), 24, 0)
+        else:
+            os.makedirs(root)
+        run_parallel_training(results, root, tp_names=(), axes=(), bmuf_names=tuple(BMUF_CELLS) if bmuf else (),
+                              serve_dp=not bmuf)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"total chip_smoke --{'bmuf' if bmuf else 'serve_dp'} time {time.time() - t_start:.1f} s")
+    log("bmuf training and serving over dp: " + json.dumps({k: results[k] for k in ("bmuf", "serve_dp")
+                                                             if k in results}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -5297,6 +5811,8 @@ if __name__ == "__main__":
         sys.exit(tp_mode())
     if sys.argv[1:2] in (["--pp"], ["--sp"]):
         sys.exit(pp_mode(sys.argv[1][2:]))
+    if sys.argv[1:2] in (["--bmuf"], ["--serve_dp"]):
+        sys.exit(phase20_mode(sys.argv[1] == "--bmuf"))
     if sys.argv[1:2] == ["--flash-f32"]:
         sys.exit(flash_f32_mode())
     if sys.argv[1:2] == ["--vocoder-split"]:

@@ -9,8 +9,13 @@ after `np.asarray`) onto a torch device under the same names.
 
 Training state (parameters, Adam moments, EMA, counters; or a GAN state:
 generator, MPD, MSD with the spectral buffers, both AdamW moments and
-counts) is saved per step by `save_train_state` / `TopKCheckpointer` and
-read back by `load_train_state`."""
+counts; or a --bmuf_sync run's every rank, stacked) is saved per step by
+`save_train_state` / `TopKCheckpointer` and read back by
+`load_train_state`. `train_state_from_numpy` carries a JAX package train
+state (numpy trees: a `train.loop.TrainState`, a --pp one, a --bmuf_sync
+{'train', 'bmuf'} stack or a GanState) into the port's; the repo root's
+`convert_jax_train_state.py` uses it to turn a JAX run's orbax step
+directory into the port's state.npz."""
 
 from __future__ import annotations
 
@@ -18,13 +23,14 @@ import json
 import os
 import re
 import shutil
+from types import SimpleNamespace
 from typing import Any
 
 import numpy as np
 import torch
 
 from covomix_tpu_torch.train.gan import GanConfig, make_gan_state, opt_count, trainable_leaves
-from covomix_tpu_torch.util.misc import named_leaves
+from covomix_tpu_torch.util.misc import named_leaves, tree_leaves
 
 
 def _numpy(x) -> np.ndarray:
@@ -94,16 +100,25 @@ def _step_path(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
+class StackedTrainState(dict):
+    """A --bmuf_sync run's train state of every dp rank, as state.npz holds
+    it: {name: array} with the names of a TrainState's file plus
+    bmuf/global/..., bmuf/smoothed/... and bmuf/t, every array with a
+    leading [dp] axis (JAX's stacked {'train', 'bmuf'} layout; made by
+    `parallel/bmuf.stack_states` or `stack_rank_states`)."""
+
+
 def save_train_state(ckpt_dir: str, state, step: int) -> None:
     """Write a `train.loop.TrainState` to `<ckpt_dir>/step_<step>/state.npz`:
     params/..., ema_params/..., adam_m/..., adam_v/... under the parameter
     tree's names, and the counters step, ema_num_updates and adam_step. A
     `train.gan.GanState` is written as gen_params/..., mpd_params/...,
     msd_params/... (the spectral u, v included), opt_g|opt_d/mu|nu/... over
-    the trained leaves, and step, opt_g_count, opt_d_count. The directory
-    appears whole (written beside it, then renamed); an existing one for the
-    same step is replaced."""
-    flat = _gan_flat(state) if hasattr(state, "opt_d") else _train_flat(state)
+    the trained leaves, and step, opt_g_count, opt_d_count; a
+    `StackedTrainState` as it is. The directory appears whole (written
+    beside it, then renamed); an existing one for the same step is
+    replaced."""
+    flat = state_arrays(state)
     final = _step_path(ckpt_dir, step)
     tmp = f"{final}.tmp-{os.getpid()}"
     os.makedirs(tmp, exist_ok=True)
@@ -111,6 +126,14 @@ def save_train_state(ckpt_dir: str, state, step: int) -> None:
     if os.path.isdir(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
+
+
+def state_arrays(state) -> dict:
+    """{name: array} of a train state, GanState or StackedTrainState: what
+    its state.npz holds."""
+    if isinstance(state, StackedTrainState):
+        return dict(state)
+    return _gan_flat(state) if hasattr(state, "opt_d") else _train_flat(state)
 
 
 def _train_flat(state) -> dict:
@@ -164,38 +187,55 @@ def _set_adam(opt, leaves, count: int, mu: dict, nu: dict) -> None:
 
 # what the JAX package's orbax saver writes into a step directory
 ORBAX_FILES = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
-JAX_STATE_ITEM = "ROADMAP.md section 1 item 5a"
+CONVERTER = "convert_jax_train_state.py"
 
 
-def _layout(names) -> str:
-    """The layout a parameter tree's leaf names are in."""
+def _layout(names, dp=None) -> str:
+    """The layout a parameter tree's leaf names are in (`dp`: the ranks of a
+    --bmuf_sync stack)."""
+    if dp is not None:
+        return f"BMUF stacked {{'train', 'bmuf'}} layout of dp={dp} (a --bmuf_sync run's)"
     if any(n.startswith("stacked/") for n in names):
         return "pipeline {'stacked', 'rest'} layout (a --pp run's)"
     return "canonical layout"
 
 
-def load_train_state(ckpt_dir: str, step: int, state) -> Any:
+def load_train_state(ckpt_dir: str, step: int, state, bmuf=None) -> Any:
     """Read `step_<step>/state.npz` into `state` (a TrainState or GanState of
-    the same model, on any device) in place and return it. A step directory
-    that the JAX package wrote (orbax, no state.npz) raises ValueError, and
-    so does a train state whose parameters are not the state's (a --pp
-    checkpoint into a canonical state or the reverse: the error names both
-    layouts)."""
+    the same model, on any device) in place and return it. `bmuf`: (the
+    rank's BMUF state, dp, dp index) of a --bmuf_sync rank, which takes its
+    own row of a stacked checkpoint (its `global`, `smoothed` and `t` into
+    the BMUF state). A step directory that the JAX package wrote (orbax, no
+    state.npz) raises ValueError naming the converter's command, and so does
+    a train state in another layout than the run's (a --pp checkpoint into a
+    canonical state, a --bmuf_sync one outside BMUF at its dp, or the
+    reverse: the error names both layouts)."""
     path = _step_path(ckpt_dir, step)
     if (not os.path.isfile(os.path.join(path, STATE_FILE))
             and any(os.path.exists(os.path.join(path, f)) for f in ORBAX_FILES)):
-        raise ValueError(f"{path} is a JAX (orbax) train-state checkpoint, not the port's {STATE_FILE}: carrying "
-                         f"a JAX train state into the port is {JAX_STATE_ITEM}")
+        raise ValueError(f"{path} is a JAX (orbax) train-state checkpoint, not the port's {STATE_FILE}: convert it "
+                         f"first with `python {CONVERTER} {path}` (writes {STATE_FILE} into it; needs jax and orbax)")
     with np.load(os.path.join(path, STATE_FILE)) as z:
         flat = {k: z[k] for k in z.files}
     if hasattr(state, "opt_d"):
         return _load_gan(flat, state)
     names = [n for n, _ in named_leaves(state.params)]
     held = [k[len("params/"):] for k in flat if k.startswith("params/")]
-    if sorted(held) != sorted(names):
-        raise ValueError(f"{path} holds a train state in the {_layout(held)}, this run's state is in the "
-                         f"{_layout(names)} ({len(held)} against {len(names)} parameter leaves): a --pp "
-                         "checkpoint resumes only under --pp and a canonical one only without it, as in JAX")
+    held_dp = len(flat["bmuf/t"]) if "bmuf/t" in flat else None
+    run_dp = None if bmuf is None else bmuf[1]
+    if sorted(held) != sorted(names) or held_dp != run_dp:
+        raise ValueError(f"{path} holds a train state in the {_layout(held, held_dp)}, this run's state is in the "
+                         f"{_layout(names, run_dp)} ({len(held)} against {len(names)} parameter leaves): a --pp "
+                         "checkpoint resumes only under --pp, a --bmuf_sync one only under --bmuf_sync at the same "
+                         "dp, and a canonical one only without either, as in JAX")
+    if bmuf is not None:
+        bstate, _, index = bmuf
+        flat = {k: v[index] for k, v in flat.items()}
+        with torch.no_grad():
+            for kind in ("global", "smoothed"):
+                for name, t in named_leaves(bstate[kind]):
+                    t.copy_(torch.from_numpy(flat[f"bmuf/{kind}/{name}"]))
+        bstate["t"] = int(flat["bmuf/t"])
     adam_step = int(flat["adam_step"])
     with torch.no_grad():
         for (name, p), (_, e) in zip(named_leaves(state.params), named_leaves(state.ema_params)):
@@ -337,16 +377,111 @@ def params_from_numpy(tree: Any, device, dtype=torch.float32, gan_cfg=None) -> A
 
 def _adam_moments(opt_state):
     """(count, mu, nu) of an optax Adam state in numpy: the first node of the
-    chain / masked (named)tuples with `mu` and `nu` fields. A masked-out
-    leaf's moment is an empty tuple (optax's MaskedNode) and names no leaf."""
+    chain / masked (named)tuples with `mu` and `nu` fields (a dict with them
+    where orbax restored the tree without its types, tuples then lists). A
+    masked-out leaf's moment is an empty tuple (optax's MaskedNode) and
+    names no leaf."""
+    if isinstance(opt_state, dict) and {"count", "mu", "nu"} <= set(opt_state):
+        return int(np.asarray(opt_state["count"])), opt_state["mu"], opt_state["nu"]
     if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
         return int(np.asarray(opt_state.count)), opt_state.mu, opt_state.nu
-    if isinstance(opt_state, tuple):
-        for s in opt_state:
+    if isinstance(opt_state, (tuple, list, dict)):
+        for s in (opt_state.values() if isinstance(opt_state, dict) else opt_state):
             found = _adam_moments(s)
             if found is not None:
                 return found
     return None
+
+
+def _fields(tree, names) -> SimpleNamespace:
+    """A JAX NamedTuple's fields by name, from the NamedTuple itself, from
+    the dict orbax restores it as, or from a list of its fields in order."""
+    if isinstance(tree, dict):
+        return SimpleNamespace(**{n: tree[n] for n in names})
+    if hasattr(tree, "_fields"):
+        return SimpleNamespace(**{n: getattr(tree, n) for n in names})
+    return SimpleNamespace(**dict(zip(names, tree)))
+
+
+_TRAIN_FIELDS = ("params", "opt_state", "ema_params", "ema_num_updates", "step")
+_GAN_FIELDS = ("gen_params", "mpd_params", "msd_params", "opt_g", "opt_d", "step")
+
+
+def _train_state_from_fields(js: SimpleNamespace, device):
+    """A port TrainState from a JAX TrainState's fields (numpy trees): the
+    parameters, EMA and counters; Adam's moments and count from optax's
+    ScaleByAdamState (with or without the clip link), the count being the
+    one the schedule reads (after a BMUF warmup it differs from the step)."""
+    from covomix_tpu_torch.train import loop
+
+    count, mu, nu = _adam_moments(js.opt_state)
+    state = loop.init_train_state(params_from_numpy(js.params, device), loop.TrainConfig())
+    with torch.no_grad():
+        for e, src in zip(tree_leaves(state.ema_params), tree_leaves(params_from_numpy(js.ema_params, device))):
+            e.copy_(src)
+    _set_adam(state.optimizer, named_leaves(state.params), count, dict(named_leaves(mu)), dict(named_leaves(nu)))
+    state.ema_num_updates, state.step = int(np.asarray(js.ema_num_updates)), int(np.asarray(js.step))
+    return state
+
+
+def train_state_from_numpy(tree, device="cpu", gan_cfg=None):
+    """Carry a JAX package train state, given as numpy trees (after
+    `jax.device_get`, or as orbax restores it without an abstract state:
+    NamedTuples as dicts, tuples as lists), into the port:
+
+      * a `train.loop.TrainState` (canonical, or a --pp run's {'stacked',
+        'rest'} parameters: the names carry over) -> `loop.TrainState` on
+        `device` with Adam's moments and count (a default TrainConfig: the
+        run's optimizer settings come from its own flags);
+      * a --bmuf_sync stack {'train': TrainState fields, 'bmuf': {'global',
+        'smoothed', 't'}} whose leaves lead with [dp] -> `StackedTrainState`,
+        the port's checkpoint of every rank;
+      * a `train.gan.GanState` -> `train.gan.GanState` (`params_from_numpy`).
+    """
+    if isinstance(tree, dict) and {"train", "bmuf"} <= set(tree):
+        ts = np.asarray(tree["bmuf"]["t"])
+        rows = []
+        for r in range(len(ts)):
+            state = _train_state_from_fields(_fields(_pick_rows(tree["train"], r), _TRAIN_FIELDS), "cpu")
+            bmuf = {kind: params_from_numpy(_pick_rows(tree["bmuf"][kind], r), "cpu")
+                    for kind in ("global", "smoothed")}
+            rows.append((state, dict(bmuf, t=int(ts[r]))))
+        return stack_rank_states(rows)
+    if hasattr(tree, "opt_d") or (isinstance(tree, dict) and "opt_d" in tree):
+        return _gan_state_from_numpy(_fields(tree, _GAN_FIELDS), device, gan_cfg)
+    return _train_state_from_fields(_fields(tree, _TRAIN_FIELDS), device)
+
+
+def _pick_rows(tree, r):
+    """Row r of every array leaf of an optax state (None and empty nodes kept;
+    a NamedTuple becomes a dict of its fields)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _pick_rows(v, r) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return {k: _pick_rows(getattr(tree, k), r) for k in tree._fields}
+    if isinstance(tree, (list, tuple)):
+        return [_pick_rows(v, r) for v in tree]
+    return np.asarray(tree)[r]
+
+
+def bmuf_rank_arrays(state, bmuf) -> dict:
+    """One dp rank's row of a `StackedTrainState`: its train state's arrays
+    (as state.npz names them) and its BMUF state's global, smoothed and t."""
+    flat = _train_flat(state)
+    for kind in ("global", "smoothed"):
+        flat.update({f"bmuf/{kind}/{n}": _numpy(t) for n, t in named_leaves(bmuf[kind])})
+    flat["bmuf/t"] = np.int64(bmuf["t"])
+    return {k: np.asarray(v) for k, v in flat.items()}
+
+
+def stack_rank_states(rows) -> StackedTrainState:
+    """[(TrainState, BMUF state)] of each dp rank, in rank order -> the
+    stacked checkpoint (`StackedTrainState`); the single-process counterpart
+    of `parallel/bmuf.stack_states`."""
+    flats = [bmuf_rank_arrays(state, bmuf) for state, bmuf in rows]
+    return StackedTrainState({k: np.stack([f[k] for f in flats]) for k in flats[0]})
 
 
 def _gan_state_from_numpy(js, device, gan_cfg):

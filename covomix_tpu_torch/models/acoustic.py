@@ -355,17 +355,20 @@ def cfm_loss(params, cfg: AcousticConfig, gen, x1, phoneme_ids, cond, mask=None,
 @torch.no_grad()
 def sample(params, cfg: AcousticConfig, generator: Optional[torch.Generator], phoneme_ids, cond, *,
            cond_scale: float = 1.0, step_size: float = 0.0625, key_mask=None, valid_len=None,
-           noise=None, dtype=torch.float32):
+           noise=None, dtype=torch.float32, mesh=None):
     """Midpoint ODE integration of the vector field from t=0 to t=1 (16 steps
     at the default step size). y0 ~ N(0, I) from `generator`, or `noise` when
     given. CFG (cond_scale != 1) runs cond + null rows as one 2B batch (and
     doubles `key_mask` / a per-row `valid_len` for it). `key_mask` [B, T] /
-    `valid_len` exclude bucket padding as in `forward`."""
+    `valid_len` exclude bucket padding as in `forward`. With `mesh` the rows
+    are one dp rank's share of a global batch: y0 is drawn for the global
+    batch and the rank keeps its rows."""
     n_steps = int(round(1.0 / step_size))
     b, t = cond.shape[0], cond.shape[1]
     dev = cond.device
     if noise is None:
-        y0 = torch.randn((b, t, cfg.mel_dim), generator=generator, device=dev, dtype=torch.float32)
+        rows, kept = (b, slice(None)) if mesh is None else (b * mesh.dp, mesh.rows(b))
+        y0 = torch.randn((rows, t, cfg.mel_dim), generator=generator, device=dev, dtype=torch.float32)[kept]
     else:
         y0 = noise.to(device=dev, dtype=torch.float32)
 

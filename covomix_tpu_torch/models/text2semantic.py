@@ -47,6 +47,7 @@ import time
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from covomix_tpu_torch.models import layers as L
 from covomix_tpu_torch.models.acoustic import linear_init
@@ -528,20 +529,23 @@ def _prepared(key, build, inputs, dtype, dev, generator):
     return dec
 
 
-def _drive(dec, per_read, redraw=None):
+def _drive(dec, per_read, redraw=None, decide=None):
     """Run the step `per_read` times between reads of `read` until one says
     stop, or the count reaches STOP_AFTER; returns the count. With `redraw(n)` (n steps' noise draws), the
     generator ends where the steps taken leave it: each chunk starts from a
     snapshot, and a chunk that stopped early restores it and redraws its
-    live steps."""
+    live steps. `decide(read) -> (continue, count)` reads the chunk's
+    `read` where it is not [continue, count] itself (over dp: a collective
+    of the ranks' reads)."""
     run = dec.step if dec.graph is None else dec.graph.replay
     gen = dec.generator if redraw is not None else None
+    decide = decide or (lambda read: read.tolist())
     count = 0
     while True:
         snap = gen.get_state() if gen is not None else None
         for _ in range(per_read):
             run()
-        cont, now = dec.state["read"].tolist()      # the chunk's one host read
+        cont, now = decide(dec.state["read"])      # the chunk's one host read
         if not cont or (STOP_AFTER is not None and now >= STOP_AFTER):
             break
         count = now
@@ -552,8 +556,13 @@ def _drive(dec, per_read, redraw=None):
 
 
 def _build_generate(cfg: T2SConfig, b, bb, max_length, dtype, use_cfg, cond_scale, temperature, top_k_thres,
-                    min_length, no_repeat_ngram_size, inputs, generator) -> _Decode:
-    """The greedy / top-k decode's buffers and step (the JAX body)."""
+                    min_length, no_repeat_ngram_size, inputs, generator, rows=None) -> _Decode:
+    """The greedy / top-k decode's buffers and step (the JAX body). `rows`
+    ((global rows, this rank's slice)): the rows of a dp rank, which draws
+    the noise of the global batch, keeps its slice, and steps on until the
+    host's read of every rank says stop (the step records, per stream, the
+    step count at which all of its rows were done, `max_length` + 1 until
+    then, and `read` is [those two, the count])."""
     heads, dh = cfg.heads, cfg.dim_head
     eos, pad, two = cfg.semantic_eos_id, cfg.semantic_pad_id, cfg.two_output
     dev = inputs["mask"].device
@@ -566,11 +575,14 @@ def _build_generate(cfg: T2SConfig, b, bb, max_length, dtype, use_cfg, cond_scal
           "tokens1": torch.full((b, max_length), pad, dtype=torch.int32, device=dev),
           "done1": torch.zeros(b, dtype=torch.bool, device=dev),
           "step": torch.zeros((), dtype=torch.long, device=dev),
-          "read": torch.zeros(2, dtype=torch.long, device=dev)}
+          "read": torch.zeros(2 if rows is None else 3, dtype=torch.long, device=dev)}
     st["tokens2"] = torch.full_like(st["tokens1"], pad) if two else st["tokens1"]
     st["done2"] = torch.zeros_like(st["done1"]) if two else st["done1"]
-    dec = _Decode(None, inputs, st, {"k": 0, "v": 0, "tokens1": pad, "tokens2": pad, "done1": 0, "done2": 0,
-                                     "step": 0, "read": 0}, generator)
+    initial = {"k": 0, "v": 0, "tokens1": pad, "tokens2": pad, "done1": 0, "done2": 0, "step": 0, "read": 0}
+    if rows is not None:
+        st["at"] = torch.full((2,), max_length + 1, dtype=torch.long, device=dev)
+        initial["at"] = max_length + 1
+    dec = _Decode(None, inputs, st, initial, generator)
 
     def stopped():
         return (st["done1"].all() | st["done2"].all()) if two else st["done1"].all()
@@ -585,9 +597,15 @@ def _build_generate(cfg: T2SConfig, b, bb, max_length, dtype, use_cfg, cond_scal
         lg = _sem_logits(w, h, dtype)
         return lg, lg
 
+    def sample(lg):
+        if rows is None:
+            return S.gumbel_sample(dec.generator, lg, temperature).to(torch.int32)
+        return S.gumbel_sample(dec.generator, lg, temperature, rows=rows).to(torch.int32)
+
     def step():
         i = st["step"]
-        live = ~stopped() & (i < max_length)
+        # a dp rank does not know the other ranks' rows: it steps on, and the host cuts at the global stop
+        live = (i < max_length) if rows is not None else ~stopped() & (i < max_length)
         at = torch.clamp(i, max=max_length - 1).view(1)       # a step past the end writes in bounds, gated
         prev = torch.clamp(i - 1, min=0).view(1)
         e = _embed_target(w, cfg, st["tokens1"].index_select(1, prev)[:, 0],
@@ -621,16 +639,20 @@ def _build_generate(cfg: T2SConfig, b, bb, max_length, dtype, use_cfg, cond_scal
             lg1 = S.ban_repeated_ngrams(lg1, st["tokens1"], i, no_repeat_ngram_size)
             if two:
                 lg2 = S.ban_repeated_ngrams(lg2, st["tokens2"], i, no_repeat_ngram_size)
-        s1 = S.gumbel_sample(dec.generator, S.top_k_filter(lg1, thres=top_k_thres), temperature).to(torch.int32)
+        s1 = sample(S.top_k_filter(lg1, thres=top_k_thres))
         put(st["tokens1"], at, live, s1)
         st["done1"] |= live & (s1 == eos)
         if two:
-            s2 = S.gumbel_sample(dec.generator, S.top_k_filter(lg2, thres=top_k_thres),
-                                 temperature).to(torch.int32)
+            s2 = sample(S.top_k_filter(lg2, thres=top_k_thres))
             put(st["tokens2"], at, live, s2)
             st["done2"] |= live & (s2 == eos)
         i += live
-        st["read"].copy_(torch.stack([(~stopped() & (i < max_length)).long(), i]))
+        if rows is None:
+            st["read"].copy_(torch.stack([(~stopped() & (i < max_length)).long(), i]))
+            return
+        done = torch.stack([st["done1"].all(), st["done2"].all()])
+        st["at"].copy_(torch.where((st["at"] > max_length) & done, i, st["at"]))
+        st["read"].copy_(torch.cat([st["at"], i.view(1)]))
 
     dec.step = step
     return dec
@@ -640,14 +662,21 @@ def _build_generate(cfg: T2SConfig, b, bb, max_length, dtype, use_cfg, cond_scal
 def generate(params, cfg: T2SConfig, generator: Optional[torch.Generator], source_ids, *,
              max_length: int = 2048, temperature: float = 1.0, top_k_thres: float = 0.1,
              cond_scale: float = 1.0, min_length: int = 0, no_repeat_ngram_size: int = 0,
-             source_emb=None, source_mask=None, dtype=torch.float32) -> GenerateResult:
+             source_emb=None, source_mask=None, dtype=torch.float32, mesh=None) -> GenerateResult:
     """Top-k + Gumbel AR decode of up to max_length steps. Stops when every
     row has emitted EOS (two_output: when either stream has). After a stop,
     positions after EOS become pad; positions never written are pad either way.
     `min_length` masks the EOS logit for the first min_length steps. The
     noise comes from `generator` (None: the device's default one), which the
     call leaves where num_steps eager steps would. The source is encoded
-    eagerly; the decode runs as one captured step on CUDA (see `_Decode`)."""
+    eagerly; the decode runs as one captured step on CUDA (see `_Decode`).
+
+    With `mesh` (parallel/mesh.py) the rows are one dp rank's share of a
+    global batch: each step draws the noise of the global batch and keeps
+    the rank's rows, and the stop is decided over dp at each host read
+    (one all-reduce of the ranks' stop steps), so every rank runs the
+    global step count, each row's tokens are the one-device call's on the
+    global batch, and the generator ends where that call leaves it."""
     b = (source_ids if source_emb is None else source_emb).shape[0]
     if source_emb is not None:
         if source_mask is None:
@@ -679,29 +708,48 @@ def generate(params, cfg: T2SConfig, generator: Optional[torch.Generator], sourc
               "cross": [_context_kv(lp["cross_attn"], context, cfg.heads) for lp in params["target_layers"]],
               "mask": source_mask}
     flags = (max_length, temperature, top_k_thres, cond_scale, min_length, no_repeat_ngram_size)
-    key = ("generate", cfg, b, tuple(context.shape), str(dev), dtype) + flags
+    rows = None if mesh is None else (b * mesh.dp, mesh.rows(b))
+    key = ("generate", cfg, b, tuple(context.shape), str(dev), dtype) + flags + (rows and (rows[0], rows[1].start),)
     dec = _prepared(key, lambda inp, gen: _build_generate(cfg, b, bb, max_length, dtype, use_cfg, cond_scale,
                                                           temperature, top_k_thres, min_length,
-                                                          no_repeat_ngram_size, inp, gen),
+                                                          no_repeat_ngram_size, inp, gen, rows),
                     inputs, dtype, dev, generator)
     if dec.generator is not generator:      # a captured decode draws from its own generator
         dec.generator.set_state(generator.get_state())
-    shape, draws = (b, cfg.num_semantic_tokens + 1), 2 if cfg.two_output else 1
+    shape = (b if rows is None else rows[0], cfg.num_semantic_tokens + 1)
+    draws = 2 if cfg.two_output else 1
 
     def redraw(n):
         for _ in range(n * draws):
             S.gumbel_noise(dec.generator, shape, dev)
 
-    num_steps = _drive(dec, STEPS_PER_READ, redraw)
+    stop = {}
+
+    def decide(read):
+        """The global stop: the step count at which every rank's rows of a
+        stream were done (the max over dp), the earlier of the two streams'."""
+        at = read.clone()
+        dist.all_reduce(at, op=dist.ReduceOp.MAX, group=mesh.dp_group)
+        at1, at2, now = at.tolist()
+        stop["at"] = min(at1, at2) if cfg.two_output else at1
+        return stop["at"] > now and now < max_length, min(now, stop["at"])
+
+    num_steps = _drive(dec, STEPS_PER_READ, redraw, None if mesh is None else decide)
     if dec.generator is not generator:
         generator.set_state(dec.generator.get_state())
 
     st = dec.state
-    # the reference masks after EOS only when the loop stopped on EOS
-    stopped = (st["done1"].all() | st["done2"].all()) if cfg.two_output else st["done1"].all()
     eos, pad = cfg.semantic_eos_id, cfg.semantic_pad_id
-    tokens1 = torch.where(stopped, S.mask_after_eos(st["tokens1"], eos, pad), st["tokens1"])
-    tokens2 = torch.where(stopped, S.mask_after_eos(st["tokens2"], eos, pad), st["tokens2"])
+    tokens1, tokens2 = st["tokens1"], st["tokens2"]
+    # the reference masks after EOS only when the loop stopped on EOS
+    if mesh is None:
+        stopped = (st["done1"].all() | st["done2"].all()) if cfg.two_output else st["done1"].all()
+    else:       # the steps a rank ran past the global stop are cut
+        stopped = torch.tensor(stop["at"] <= max_length, device=dev)
+        kept = torch.arange(max_length, device=dev)[None, :] < num_steps
+        tokens1, tokens2 = torch.where(kept, tokens1, pad), torch.where(kept, tokens2, pad)
+    tokens1 = torch.where(stopped, S.mask_after_eos(tokens1, eos, pad), tokens1)
+    tokens2 = torch.where(stopped, S.mask_after_eos(tokens2, eos, pad), tokens2)
     return GenerateResult(tokens1, tokens2, torch.sum(tokens1 != pad, dim=-1), torch.sum(tokens2 != pad, dim=-1),
                           num_steps)
 
@@ -868,7 +916,19 @@ def generate_speculative(params, cfg: T2SConfig, source_ids, *, max_length: int 
     continuation reads stream 1's tokens through the concatenated
     embedding). The tokens equal greedy `generate`'s; `num_steps` counts the
     verify rounds. The rounds run ROUNDS_PER_READ at a time between reads of
-    the stop flag, captured as one CUDA graph on CUDA (see `_Decode`)."""
+    the stop flag, captured as one CUDA graph on CUDA (see `_Decode`).
+    (The JAX signature; `generate_speculative_rows` takes a dp mesh.)"""
+    return generate_speculative_rows(params, cfg, source_ids, None, max_length=max_length, gamma=gamma, dtype=dtype)
+
+
+@torch.no_grad()
+def generate_speculative_rows(params, cfg: T2SConfig, source_ids, mesh, *, max_length: int = 2048, gamma: int = 4,
+                              dtype=torch.float32) -> GenerateResult:
+    """`generate_speculative` of one dp rank's rows of a global batch over
+    `mesh` (parallel/mesh.py; None: the whole batch). A row's rounds depend
+    on its own tokens alone; the stop read and the global stop step are
+    decided over dp (all-reduces of the ranks' flags and first-EOS
+    positions), and `num_steps` is the global batch's rounds."""
     if cfg.two_input:
         raise AssertionError("speculative decode: two_input not supported")
     if not (cfg.target_early_exit_layer > 0 and "early_exit" in params):
@@ -890,20 +950,31 @@ def generate_speculative(params, cfg: T2SConfig, source_ids, *, max_length: int 
     key = ("speculative", cfg, b, tuple(context.shape), str(dev), dtype, max_length, gamma)
     dec = _prepared(key, lambda inp, gen: _build_speculative(cfg, b, max_length, gamma, dtype, inp),
                     inputs, dtype, dev, None)
-    rounds = _drive(dec, ROUNDS_PER_READ)
+
+    def over_dp(values):
+        """The max over the dp ranks of a [n] long tensor."""
+        values = values.clone()
+        dist.all_reduce(values, op=dist.ReduceOp.MAX, group=mesh.dp_group)
+        return values
+
+    rounds = _drive(dec, ROUNDS_PER_READ, decide=None if mesh is None else lambda read: over_dp(read).tolist())
 
     st = dec.state
     # generate's global stop: it halts after the step where ALL rows emitted
     # EOS on stream 1 OR all rows on stream 2, so positions >= I = min(max_r
     # p1, max_r p2) + 1 were never decoded there
-    done1, done2 = st["done1"], st["done2"]
-    i1 = torch.where(done1.all(), st["p1"].max() + 1, max_length)
-    i2 = torch.where(done2.all(), st["p2"].max() + 1, max_length) if two else i1
+    done1, done2 = st["done1"].all(), st["done2"].all()
+    p1, p2 = st["p1"].max(), st["p2"].max()
+    if mesh is not None:        # over the global batch's rows: done on every rank, the last first EOS
+        g = over_dp(torch.stack([(~done1).long(), (~done2).long(), p1, p2]))
+        done1, done2, p1, p2 = g[0] == 0, g[1] == 0, g[2], g[3]
+    i1 = torch.where(done1, p1 + 1, max_length)
+    i2 = torch.where(done2, p2 + 1, max_length) if two else i1
     pos_idx = torch.arange(max_length, device=dev)
     valid = pos_idx[None, :] < torch.clamp(torch.minimum(i1, i2), max=max_length)
     tokens1 = torch.where(valid, st["tokens1"][:, :max_length], pad)
     tokens2 = torch.where(valid, st["tokens2"][:, :max_length], pad)
-    stopped = (done1.all() | done2.all()) if two else done1.all()
+    stopped = (done1 | done2) if two else done1
     # generate masks after EOS only when its loop stopped on EOS
     tokens1 = torch.where(stopped, S.mask_after_eos(tokens1, eos, pad), tokens1)
     tokens2 = torch.where(stopped, S.mask_after_eos(tokens2, eos, pad), tokens2)

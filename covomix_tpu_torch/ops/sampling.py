@@ -20,10 +20,17 @@ def gumbel_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
     return -safe_log(-safe_log(u))
 
 
-def gumbel_sample(generator: torch.Generator, logits, temperature: float = 1.0, dim: int = -1):
-    """argmax(logits / max(T, 1e-10) + gumbel)."""
+def gumbel_sample(generator: torch.Generator, logits, temperature: float = 1.0, dim: int = -1, rows=None):
+    """argmax(logits / max(T, 1e-10) + gumbel). `rows` = (total, slice):
+    the logits are those rows of a batch of `total` (a dp rank's share),
+    whose noise is drawn whole and sliced, so each row's noise is the whole
+    batch's."""
     t = max(float(temperature), 1e-10)
-    return torch.argmax(logits / t + gumbel_noise(generator, logits.shape, logits.device), dim=dim)
+    if rows is None:
+        noise = gumbel_noise(generator, logits.shape, logits.device)
+    else:
+        noise = gumbel_noise(generator, (rows[0], *logits.shape[1:]), logits.device)[rows[1]]
+    return torch.argmax(logits / t + noise, dim=dim)
 
 
 def top_k_filter(logits, thres: float = 0.1, k: int | None = None):

@@ -20,6 +20,17 @@ a host copy, moved back to the device after. Every rank of the axis must
 make the same calls in the same order, forward and backward: the models
 here build the same autograd graph on every rank for that reason.
 
+The T2S alignment regularizer's batch gather (the JAX package's
+parallel/collectives.py):
+
+  * `all_gather_batch(x, mesh, axis)`: the concatenation of the axis'
+    batches along dim 0, in rank order; its backward is JAX's transpose of
+    a tiled all_gather, a reduce-scatter of the cotangent (each rank gets
+    the sum over the ranks of its own rows' slice);
+  * `alignment_regularizer`: pool source and target over time (logsumexp
+    or max), l2-normalize, and match the off-diagonal similarity
+    structures across the (gathered) batch with MSE.
+
 Counters, in plain numbers: `PPERMUTES` launched (forward and backward
 each count), `PPERMUTE_BYTES` received, `PPERMUTE_SECONDS` of host time
 inside them (they return when the data is on the device); `AXIS_SUMS`."""
@@ -31,7 +42,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from covomix_tpu_torch.parallel.mesh import all_gather, backend
+from covomix_tpu_torch.parallel.mesh import all_gather, backend, reduce_scatter
 
 PPERMUTES = 0
 PPERMUTE_BYTES = 0
@@ -118,3 +129,61 @@ def axis_gather(mesh, axis: str, x: torch.Tensor, dim: int) -> torch.Tensor:
     (no gradient)."""
     group, n, i = mesh.axis_info(axis)
     return all_gather(x.contiguous(), dim % x.dim(), group, n, i)
+
+
+class _AllGatherBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        group, n, i = mesh.axis_info(axis)
+        return all_gather(x.contiguous(), 0, group, n, i)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis = ctx.args
+        group, n, i = mesh.axis_info(axis)
+        return reduce_scatter(g.contiguous(), 0, group, n, i), None, None
+
+
+def all_gather_batch(x: torch.Tensor, mesh=None, axis: str = "dp") -> torch.Tensor:
+    """The axis' batches concatenated along dim 0 (every rank's of the same
+    shape); differentiable, each rank's gradient the sum over the ranks of
+    its rows' slice. Without a mesh, or on an axis of one rank, `x`."""
+    if mesh is None or mesh.axis_info(axis)[1] == 1:
+        return x
+    return _AllGatherBatch.apply(x, mesh, axis)
+
+
+def alignment_regularizer(source_emb: torch.Tensor, target_emb: torch.Tensor, source_mask=None, target_mask=None, *,
+                          mesh=None, axis: str = "dp", use_logsumexp_pool: bool = True,
+                          temp: float = 0.1) -> torch.Tensor:
+    """SpeechAlign-style CFG regularizer: source [B, S, D] and target [B, T,
+    D] embeddings, masked positions filled with -1e30 (finite under /temp,
+    so an all-masked row pools to a constant vector instead of nan), with
+    `mesh` gathered over `axis`, pooled over time (logsumexp at `temp`, or
+    the max), l2-normalized (norm floor 1e-12); the mean over the
+    off-diagonal pairs of the squared difference of the two cosine
+    similarity matrices."""
+    neg = torch.tensor(-1e30, dtype=source_emb.dtype, device=source_emb.device)
+    if source_mask is not None:
+        source_emb = torch.where(source_mask[..., None], source_emb, neg)
+    if target_mask is not None:
+        target_emb = torch.where(target_mask[..., None], target_emb, neg.to(target_emb.dtype))
+    source_emb = all_gather_batch(source_emb, mesh, axis)
+    target_emb = all_gather_batch(target_emb, mesh, axis)
+    if use_logsumexp_pool:
+        source_pool = torch.logsumexp(source_emb / temp, dim=1) * temp
+        target_pool = torch.logsumexp(target_emb / temp, dim=1) * temp
+    else:   # amax: the gradient of tied maxima split evenly, as jnp.max's
+        source_pool = torch.amax(source_emb, dim=1)
+        target_pool = torch.amax(target_emb, dim=1)
+
+    def l2norm(t):
+        return t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True), min=1e-12)
+
+    s, t = l2norm(source_pool), l2norm(target_pool)
+    sim_s, sim_t = s @ s.T, t @ t.T
+    b = sim_s.shape[0]
+    off_diag = ~torch.eye(b, dtype=torch.bool, device=sim_s.device)
+    diff = torch.where(off_diag, sim_s - sim_t, torch.zeros_like(sim_s))
+    return torch.sum(torch.square(diff)) / max(b * b - b, 1)

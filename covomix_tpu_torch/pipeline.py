@@ -49,7 +49,6 @@ SILENCE_TOKEN = 157          # silence unit id
 TOKEN_CLAMP = 501            # clamp ceiling incl. EOS
 PROMPT_MAX_FRAMES = 400      # 8 s at 20 ms hop
 MEL_PAD = -15.0              # collate pad value
-PARALLEL_ITEM = "ROADMAP.md 'Modules to port': Parallelism"
 
 
 def _tupled(v):

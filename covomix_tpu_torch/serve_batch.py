@@ -1,7 +1,18 @@
-"""Batched dialogue serving CLI on one device: N scripts -> N wavs.
+"""Batched dialogue serving CLI: N scripts -> N wavs, data-parallel over the
+local cards.
 
     python -m covomix_tpu_torch.serve_batch --t2s_ckpt t2s.npz --acous_ckpt ac.npz \
         --hifigan_ckpt voc.npz --text_dir scripts/ --prompt_dir prompts/ [--device cuda]
+
+As JAX's serve_batch.py: dp is the largest divisor of `--batch` that is at
+most the number of local CUDA cards (a note says when it is fewer); for dp
+> 1 the command starts dp ranks (one process per card,
+`parallel/multihost.spawn`), each serving its rows of every batch
+(`BatchedPipeline(mesh=)`), and rank 0 writes the wavs. `--multihost` joins
+a process group first (`multihost.initialize`: torchrun's or SLURM's
+environment) and each process serves its rank-strided share of the
+scripts, `scripts[rank::world]`, on its own card with no collective in the
+serving, writing its own wavs. `--device cpu` serves on the CPU (dp 1).
 
 Checkpoints are the `.npz` + `.json` files that `checkpoint.io.save_params`
 (or `convert_checkpoint`) writes, or the released PyTorch files (Lightning
@@ -24,7 +35,9 @@ from covomix_tpu_torch import resolve_device
 from covomix_tpu_torch.audio import MelConfig, save_wav
 from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
 from covomix_tpu_torch.models import acoustic as A, text2semantic as T, vocoder as V
-from covomix_tpu_torch.pipeline import PARALLEL_ITEM, clean_text, load_checkpoint, prepare_prompt
+from covomix_tpu_torch.parallel import multihost as MH
+from covomix_tpu_torch.parallel.mesh import make_mesh, process_group_ready
+from covomix_tpu_torch.pipeline import clean_text, load_checkpoint, prepare_prompt
 from covomix_tpu_torch.serving import SILENCE_TOKEN, BatchedPipeline
 
 
@@ -53,15 +66,47 @@ def parse_args(argv=None):
                         "with the early-exit draft head(s); output == greedy decode)")
     p.add_argument("--spec_gamma", type=int, default=4,
                    help="speculative drafts per verify round")
-    p.add_argument("--multihost", action="store_true", help="multi-host serving (not ported yet: raises)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-host serving: join the process group (torchrun / SLURM environment), then each "
+                        "process serves its rank-strided share of the scripts on its own card (no collective)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(f"--multihost: multi-host serving is not ported yet ({PARALLEL_ITEM})")
     device = resolve_device(args.device)
+    owned = False
+    if args.multihost:       # the rendezvous comes before the first allocation on the card
+        owned = not process_group_ready() and MH.initialize(requested=True, device=device)
+    try:
+        if args.multihost and process_group_ready():
+            here = torch.device("cuda", torch.cuda.current_device()) if device.type == "cuda" else device
+            serve(args, here, share=(MH.process_index(), MH.process_count()))
+            return
+        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        dp = max(d for d in range(1, n_dev + 1) if args.batch % d == 0)
+        if dp < n_dev:
+            print(f"note: batch {args.batch} not divisible by {n_dev} devices; using dp={dp}")
+        if dp > 1:
+            MH.spawn(_rank_main, dp, args, device=device)
+        else:
+            serve(args, device)
+    finally:
+        if owned:
+            torch.distributed.destroy_process_group()
+
+
+def _rank_main(args) -> None:
+    """One rank of a dp > 1 serving run (multihost.spawn): its rows of every batch."""
+    mesh = make_mesh(0, args.device)
+    serve(args, mesh.device, mesh=mesh)
+
+
+def serve(args, device, mesh=None, share=(0, 1)) -> None:
+    """Serve the scripts of `share` = (index, count) (the rank-strided
+    share of --multihost) on `device`; with a dp `mesh` the rows of each
+    batch over its ranks, rank 0 writing the wavs."""
+    primary = mesh is None or mesh.rank == 0
     if args.f32:
         dtype = torch.float32
     elif args.bf16 or device.type == "cuda":
@@ -75,11 +120,16 @@ def main(argv=None):
     mel_cfg = MelConfig(sample_rate=voc_cfg.sampling_rate)
     pipe = BatchedPipeline(t2s_params, t2s_cfg, ac_params, ac_cfg, voc_params, voc_cfg,
                            decode_len=args.decode_len, dtype=dtype, device=device,
-                           speculative=args.speculative, spec_gamma=args.spec_gamma)
+                           speculative=args.speculative, spec_gamma=args.spec_gamma, mesh=mesh)
 
     os.makedirs(args.saved_dir, exist_ok=True)
     scripts = sorted(glob.glob(os.path.join(args.text_dir, "*.txt")))
-    print(f"{len(scripts)} scripts, batch {args.batch}, device {device}")
+    if share[1] > 1:
+        scripts = scripts[share[0]::share[1]]
+        print(f"process {share[0]}/{share[1]}: {len(scripts)} scripts")
+    if primary:
+        print(f"{len(scripts)} scripts, batch {args.batch}, device {device}"
+              + (f", dp {mesh.dp}" if mesh is not None else ""))
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     hop = mel_cfg.hop_size
@@ -112,6 +162,8 @@ def main(argv=None):
         wav = wav.cpu().numpy()
         lengths = torch.minimum(res.lengths, res.lengths2).cpu().numpy()
         wall = time.time() - t0
+        if not primary:
+            continue
         for i, path in enumerate(chunk):
             out = os.path.join(args.saved_dir, os.path.basename(path).replace(".txt", ".wav"))
             save_wav(out, wav[i, : max(int(lengths[i]) * hop, hop)], mel_cfg.sample_rate)

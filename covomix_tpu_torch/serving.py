@@ -1,10 +1,19 @@
-"""Batched multi-dialogue serving on one device: port of
-covomix_tpu/serving.py's fused cascade (T2S decode -> per-row left-packing ->
-flow sampling -> generated-region slice -> vocoder).
+"""Batched multi-dialogue serving: port of covomix_tpu/serving.py's fused
+cascade (T2S decode -> per-row left-packing -> flow sampling ->
+generated-region slice -> vocoder), on one device or with its rows over a
+dp mesh.
 
 Each row is packed as [prompt_i ‖ generated_i ‖ silence filler]; the flow
 stage gets one valid length per row (prompt + generated) and the vocoder one
-per row (generated frames), so a batched row equals its per-file synthesis."""
+per row (generated frames), so a batched row equals its per-file synthesis.
+
+With `mesh` (parallel/mesh.py, one process per device) the parameters are
+replicated and each rank packs, samples and vocodes its dp index's rows of
+the batch, as JAX shards the rows over 'dp': the T2S draws and the flow's
+y0 are the global batch's (each rank keeps its rows) and the decode's stop
+is decided over dp, so a row's result does not depend on the split. The
+wav and the GenerateResult are gathered over dp (the collective chosen by
+the group's backend name) and every rank returns the global batch's."""
 
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ from covomix_tpu_torch.checkpoint.io import params_from_numpy
 from covomix_tpu_torch.models import acoustic as A
 from covomix_tpu_torch.models import text2semantic as T
 from covomix_tpu_torch.models import vocoder as V
+from covomix_tpu_torch.parallel.mesh import all_gather
 
 SILENCE_TOKEN = 157
 TOKEN_CLAMP = 501
@@ -77,7 +87,10 @@ class BatchedPipeline:
     `speculative` decodes the T2S stage greedily with `generate_speculative`
     (`spec_gamma` drafts per verify round; the tokens of greedy `generate`).
     It needs the early-exit draft head(s) in the checkpoint, and takes no
-    generator, `min_length` or `top_k_thres`: EOS stops the greedy model."""
+    generator, `min_length` or `top_k_thres`: EOS stops the greedy model.
+
+    `mesh`: a dp mesh in a process group (module docstring); B must divide
+    by its dp, `device` is the rank's. None: one device."""
 
     t2s_params: dict
     t2s_cfg: T.T2SConfig
@@ -95,6 +108,7 @@ class BatchedPipeline:
     spec_gamma: int = 4        # drafts per verify round when speculative
     prompt_frames: int = 400   # informational, as in JAX
     fused: bool = True         # accepted for the JAX signature; no effect here
+    mesh: Optional[object] = None   # a parallel/mesh.py Mesh: the rows over its dp ranks
 
     def __post_init__(self):
         if self.speculative and not (self.t2s_cfg.target_early_exit_layer > 0 and "early_exit" in self.t2s_params):
@@ -106,14 +120,34 @@ class BatchedPipeline:
 
     def _gen(self, params, generator, source_ids):
         if self.speculative:   # greedy: the generator is not drawn from
-            return T.generate_speculative(params, self.t2s_cfg, source_ids, max_length=self.decode_len,
-                                          gamma=self.spec_gamma, dtype=self.dtype)
+            if self.mesh is None:
+                return T.generate_speculative(params, self.t2s_cfg, source_ids, max_length=self.decode_len,
+                                              gamma=self.spec_gamma, dtype=self.dtype)
+            return T.generate_speculative_rows(params, self.t2s_cfg, source_ids, self.mesh,
+                                               max_length=self.decode_len, gamma=self.spec_gamma, dtype=self.dtype)
         return T.generate(params, self.t2s_cfg, generator, source_ids, max_length=self.decode_len,
-                          min_length=self.min_length, top_k_thres=self.top_k_thres, dtype=self.dtype)
+                          min_length=self.min_length, top_k_thres=self.top_k_thres, dtype=self.dtype,
+                          mesh=self.mesh)
+
+    def _rows(self, x):
+        """This rank's rows of a global batch's array (all of them without a mesh)."""
+        if self.mesh is None:
+            return x
+        b = x.shape[0]
+        if b % self.mesh.dp:
+            raise ValueError(f"batch of {b} rows does not divide by dp={self.mesh.dp}")
+        return x[self.mesh.rows(b // self.mesh.dp)]
+
+    def _gather(self, x):
+        """The global batch's rows of a per-rank tensor, on every rank."""
+        if self.mesh is None:
+            return x
+        return all_gather(x.contiguous(), 0, self.mesh.dp_group, self.mesh.dp, self.mesh.dp_rank)
 
     def place(self, text_ids, prompt_tokens, prompt_mels, prompt_lens=None):
-        """Move a batch's inputs onto the device once; returns a tuple to
-        splat into repeated calls: pipe(generator, *placed)."""
+        """Move a batch's inputs onto the device once (with a mesh, this
+        rank's rows of them); returns a tuple to splat into repeated calls:
+        pipe(generator, *placed)."""
         b = np.shape(text_ids)[0]
         pt = np.asarray(prompt_tokens)
         if self.acoustic_cfg.n_phoneme_streams == 2 and pt.ndim == 2:
@@ -121,18 +155,20 @@ class BatchedPipeline:
         if prompt_lens is None:
             prompt_lens = np.full((b,), pt.shape[1], np.int32)
         dev = self.device
-        return (torch.as_tensor(np.asarray(text_ids), dtype=torch.int32, device=dev),
-                torch.as_tensor(pt, dtype=torch.int32, device=dev),
-                torch.as_tensor(np.asarray(prompt_mels), dtype=torch.float32, device=dev),
-                torch.as_tensor(np.asarray(prompt_lens), dtype=torch.int32, device=dev))
+        return (torch.as_tensor(self._rows(np.asarray(text_ids)), dtype=torch.int32, device=dev),
+                torch.as_tensor(self._rows(pt), dtype=torch.int32, device=dev),
+                torch.as_tensor(self._rows(np.asarray(prompt_mels)), dtype=torch.float32, device=dev),
+                torch.as_tensor(self._rows(np.asarray(prompt_lens)), dtype=torch.int32, device=dev))
 
     @torch.no_grad()
     def __call__(self, generator: Optional[torch.Generator], text_ids, prompt_tokens, prompt_mels,
                  prompt_lens=None, noise=None):
         """text_ids [B, S]; prompt_tokens [B, P] (or [B, P, 2]); prompt_mels
-        [B, P, cond_dim]; prompt_lens [B] (default P). `noise` [B, P+L, 80]
-        overrides the flow sampler's y0. Returns (wav [B, samples] over the
-        generated region, GenerateResult)."""
+        [B, P, cond_dim]; prompt_lens [B] (default P); tensors are taken as
+        placed (`place`: with a mesh, the rank's rows). `noise` [B, P+L, 80]
+        (the global batch's) overrides the flow sampler's y0. Returns (wav
+        [B, samples] over the generated region, GenerateResult), with a mesh
+        the global batch's on every rank."""
         two = self.acoustic_cfg.n_phoneme_streams == 2
         if not isinstance(prompt_tokens, torch.Tensor):
             text_ids, prompt_tokens, prompt_mels, prompt_lens = self.place(
@@ -150,8 +186,11 @@ class BatchedPipeline:
                                    prompt_lens, two)
         valid = prompt_lens.to(torch.int32) + gen_lens
         mel = A.sample(self.acoustic_params, self.acoustic_cfg, generator, phonemes, cond,
-                       cond_scale=self.cond_scale, valid_len=valid, noise=noise, dtype=self.dtype)
+                       cond_scale=self.cond_scale, valid_len=valid,
+                       noise=None if noise is None else self._rows(noise), dtype=self.dtype, mesh=self.mesh)
         mel_gen = slice_generated(mel, prompt_lens, L)
         wav = V.generator(self.vocoder_params, self.vocoder_cfg, mel_gen, dtype=self.dtype,
                           valid_len=gen_lens)
-        return wav, gen
+        if self.mesh is None:
+            return wav, gen
+        return self._gather(wav), T.GenerateResult(*(self._gather(x) for x in gen[:4]), gen.num_steps)

@@ -37,11 +37,20 @@ of one device resumes from it. Under `--pp` the whole state is the
 {'stacked', 'rest'} tree, as in JAX: a `--pp` checkpoint resumes only
 under `--pp` and a canonical one only without it (any other resume raises
 ValueError naming both layouts); `ema_canonical.npz` is the canonical EMA
-for generation. JAX's refusals stand: `--pp` / `--sp` with `--text2semantic`, both
-at once, or with `--grad_accum` / `--steps_per_dispatch` above 1;
-`--bmuf_sync` with any other parallel flag, `--fsdp` in a multi-process
-group. Flags for what is not ported raise NotImplementedError naming their
-ROADMAP item: `--bmuf_sync`; `--steps_per_dispatch > 1`."""
+for generation. `--dp N --bmuf_sync K [--bmuf_warmup W] [--bmuf_momentum
+m]` trains with BMUF (parallel/bmuf.py, both recipes): N ranks each take
+local optimizer steps on their rows with their own draws and no gradient
+all-reduce, and sync their models every K steps (rank 0's model at step W;
+the block momentum defaults to 1 - 1/N); the logged loss and grad norm are
+the means over the ranks. Its checkpoints hold every rank's state in JAX's
+stacked layout (a leading [N] axis; a resume restores each rank's row, and
+resumes only under --bmuf_sync at the same N), beside `ema_canonical.npz`,
+rank 0's EMA, on which evals run. JAX's refusals stand: `--pp` / `--sp`
+with `--text2semantic`, both at once, or with `--grad_accum` /
+`--steps_per_dispatch` above 1; `--bmuf_sync` with any other parallel
+flag, with either of those two above 1, or with a batch that dp does not
+divide; `--fsdp` in a multi-process group. `--steps_per_dispatch > 1` alone
+raises NotImplementedError naming its ROADMAP note."""
 
 from __future__ import annotations
 
@@ -62,11 +71,11 @@ from covomix_tpu_torch.data.datasets import (CoVoMixDataset, collate_acoustic, c
                                              stack_microbatches)
 from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
 from covomix_tpu_torch.models import acoustic as A, text2semantic as T
-from covomix_tpu_torch.parallel import multihost as MH, pipeline as PP, train_step as TS
-from covomix_tpu_torch.parallel.mesh import Mesh, is_sharded, make_mesh, process_group_ready
-from covomix_tpu_torch.pipeline import PARALLEL_ITEM
+from covomix_tpu_torch.parallel import bmuf as BM, multihost as MH, pipeline as PP, train_step as TS
+from covomix_tpu_torch.parallel.mesh import Mesh, is_sharded, make_mesh, process_group_ready, replicate
 from covomix_tpu_torch.train import evaluate as E, loop
 from covomix_tpu_torch.util.logging_utils import MetricsLogger
+from covomix_tpu_torch.util.misc import tree_leaves
 from covomix_tpu_torch.util.watchdog import Watchdog
 
 _MULTI_STEP_NOTE = ("ROADMAP.md section 3, reference behaviours: make_multi_step unrolls K optimizer steps "
@@ -159,14 +168,11 @@ def _refuse_unported(args) -> None:
         sys.exit("--pp/--sp apply to the acoustic model only")
     if args.pp > 1 and args.sp > 1:
         sys.exit("choose one of --pp / --sp")
-    if args.grad_accum > 1 and staged:
+    if args.grad_accum > 1 and (staged or args.bmuf_sync > 0):
         sys.exit("--grad_accum composes with single-host dp/tp/fsdp only (pp has its own microbatching; bmuf "
                  "accumulates via local steps)")
-    if args.steps_per_dispatch > 1 and staged:
+    if args.steps_per_dispatch > 1 and (staged or args.bmuf_sync > 0):
         sys.exit("--steps_per_dispatch composes with single-host dp/tp/fsdp only")
-    if args.bmuf_sync > 0:
-        raise NotImplementedError(f"--bmuf_sync: the port trains dp x tp / pp / sp (and --fsdp); this form of "
-                                  f"parallel training is not ported yet ({PARALLEL_ITEM})")
     if args.steps_per_dispatch > 1:
         raise NotImplementedError(f"--steps_per_dispatch > 1 is not ported ({_MULTI_STEP_NOTE})")
 
@@ -274,6 +280,8 @@ def main(argv=None) -> None:
                 torch.distributed.destroy_process_group()
         return
     mesh = make_run_mesh(args, device)
+    if args.bmuf_sync > 0 and args.batch_size % mesh.dp:
+        sys.exit(f"--batch_size {args.batch_size} must divide by dp={mesh.dp} for --bmuf_sync")
     if mesh.dp * mesh.n > 1:
         MH.spawn(_rank_main, mesh.dp * mesh.n, args, device=device)
     else:
@@ -291,9 +299,11 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
     group the step averages the gradients over the dp ranks, the losses draw
     for the global batch, with --tp / --fsdp / --pp each rank holds its part
     of the state, and under --pp / --sp the ranks of a dp index add their
-    shares of the gradient first. `per_process_data`: this process loads its
-    dp index's share of the files and rows (the multi-process contract);
-    otherwise every rank runs the global loader and keeps its rows."""
+    shares of the gradient first; under --bmuf_sync each rank steps on its
+    rows alone and the ranks sync their models every K steps.
+    `per_process_data`: this process loads its dp index's share of the
+    files and rows (the multi-process contract); otherwise every rank runs
+    the global loader and keeps its rows."""
     primary = mesh.rank == 0
     device = mesh.device
     dp_mesh = mesh if mesh.collective else None
@@ -306,7 +316,8 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
 
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model_cfg, params, loss_fn = build_model(args, gen, dp_mesh)
+    bmuf = args.bmuf_sync > 0     # each rank's loss is its own rows' (JAX's per_worker calls the plain loss)
+    model_cfg, params, loss_fn = build_model(args, gen, None if bmuf else dp_mesh)
 
     dataset, val_dataset = _datasets(args)
     ga = max(1, args.grad_accum)
@@ -323,7 +334,15 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
     loader = data_loader(dataset, local_bs, collate, seed=args.seed, num_workers=args.num_workers)
     train_cfg = train_config(args, steps_per_epoch)
     specs = None        # the parts' layout, when the state is split over the ranks
-    if dp_mesh is None:
+    if bmuf:
+        replicate(mesh, tree_leaves(params))
+        state = loop.init_train_state(params, train_cfg)
+        bcfg = BM.BMUFConfig(sync_every=args.bmuf_sync, warmup_steps=args.bmuf_warmup,
+                             block_momentum=args.bmuf_momentum)
+        bmuf_state = BM.init_bmuf_state(state.params)
+        step_fn = BM.make_bmuf_train_step(loss_fn, train_cfg, bcfg, mesh, bmuf_state)
+        gen = BM.rank_generator(device, args.seed, mesh.dp_rank)
+    elif dp_mesh is None:
         state = loop.init_train_state(params, train_cfg)
         step_fn = loop.make_train_step(loss_fn, train_cfg)
     else:
@@ -333,19 +352,26 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
             specs = None
 
     def whole_state():
-        """The full train state (every rank takes part when it is split)."""
+        """The full train state (every rank takes part when it is split or,
+        under BMUF, stacked)."""
+        if bmuf:
+            return BM.stack_states(mesh, state, bmuf_state)
         return state if specs is None else TS.gather_state(dp_mesh, state, specs)
 
     stacked = dp_mesh is not None and dp_mesh.pp > 1
 
-    def canonical(params):
-        """The canonical layout of a whole parameter tree (under --pp)."""
-        return PP.unstack_layer_params(params["stacked"], params["rest"], model_cfg) if stacked else params
+    def ema_tree(whole):
+        """The EMA that evals run on and ema_canonical.npz holds, in the
+        canonical layout: under --pp unstacked, under BMUF rank 0's own."""
+        if bmuf:
+            return state.ema_params
+        ema = whole.ema_params
+        return PP.unstack_layer_params(ema["stacked"], ema["rest"], model_cfg) if stacked else ema
 
     def save(whole, step, metric=None):
         ckpt_mgr.save(whole, step, metric=metric)
-        if stacked:      # the layout every generation CLI loads
-            cio.save_params(os.path.join(ckpt_dir, "ema_canonical.npz"), canonical(whole.ema_params),
+        if stacked or bmuf:      # the layout every generation CLI loads
+            cio.save_params(os.path.join(ckpt_dir, "ema_canonical.npz"), ema_tree(whole),
                             meta={"step": step, "config": dataclasses.asdict(model_cfg)})
 
     ckpt_dir = os.path.join(run_dir, "checkpoints")
@@ -355,7 +381,9 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
     if args.resume:
         latest = cio.latest_step(ckpt_dir)
         if latest is not None:
-            if specs is None:
+            if bmuf:        # each rank its own row of the stack
+                cio.load_train_state(ckpt_dir, latest, state, bmuf=(bmuf_state, mesh.dp, mesh.dp_rank))
+            elif specs is None:
                 cio.load_train_state(ckpt_dir, latest, state)
                 if dp_mesh is not None:
                     TS.replicate_state(dp_mesh, state)
@@ -408,7 +436,7 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
                     # its own generator: the training draws stay in step across ranks, and
                     # an eval gives the same numbers in a resumed run as in an unbroken one
                     eval_gen = torch.Generator(device=device).manual_seed(args.seed + done)
-                    ev = evaluate(canonical(whole.ema_params), model_cfg, batches, eval_gen, dtype=dtype)
+                    ev = evaluate(ema_tree(whole), model_cfg, batches, eval_gen, dtype=dtype)
                     print("eval:", json.dumps(ev), flush=True)
                     logger.log(done, ev, prefix="eval_")
                     eval_metric = ev["l2"]

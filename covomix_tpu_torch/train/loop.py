@@ -134,7 +134,8 @@ def accumulated_value_and_grad(loss_fn: Callable, grad_accum: int):
 
 
 def make_train_step(loss_fn: Callable, cfg: TrainConfig, grad_sync: Optional[Callable] = None,
-                    gather: Optional[Callable] = None, norm: Callable = global_norm):
+                    gather: Optional[Callable] = None, norm: Callable = global_norm,
+                    post_update: Optional[Callable] = None, schedule_count: Callable = lambda state: state.step):
     """loss_fn(params, batch, generator) -> scalar loss tensor. Returns
     step(state, batch, generator) -> {"loss", "grad_norm"} (0-dim tensors on
     the parameters' device), updating `state` in place: gradients, global
@@ -144,7 +145,9 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig, grad_sync: Optional[Cal
     all-gather); `grad_sync(grads, loss, params) -> loss`, between the
     backward (`grads` of the tree the loss read) and the norm, leaving the
     gradients of state.params' leaves in their .grad (the data-parallel
-    mean); `norm(grads)`, the global norm of those gradients."""
+    mean); `norm(grads)`, the global norm of those gradients. BMUF's
+    (parallel/bmuf.py): `post_update(state)`, between Adam and the EMA;
+    `schedule_count(state)`, the count the schedule reads (default the step)."""
     vg = accumulated_value_and_grad(loss_fn, cfg.grad_accum)
     schedule = reference_lr_schedule(cfg) if cfg.use_lr_schedule else None
 
@@ -160,10 +163,12 @@ def make_train_step(loss_fn: Callable, cfg: TrainConfig, grad_sync: Optional[Cal
             keep = gnorm < cfg.grad_clip
             for g in grads:
                 g.copy_(torch.where(keep, g, g / gnorm * cfg.grad_clip))
-        lr = schedule(state.step) if schedule is not None else cfg.lr
+        lr = schedule(schedule_count(state)) if schedule is not None else cfg.lr
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.optimizer.step()
+        if post_update is not None:
+            post_update(state)
         ema_update(state.ema_params, state.params, state.ema_num_updates, cfg.ema_decay)
         state.ema_num_updates += 1
         state.step += 1

@@ -180,15 +180,16 @@ def test_serve_batch_cli_on_cpu(tmp_path):
 def test_resume_from_a_jax_train_state_names_it(tmp_path):
     """A step directory the JAX package wrote (orbax, no state.npz) counts as
     the newest step, and resuming from it raises an error that names it as a
-    JAX checkpoint and points to its ROADMAP item: in load_train_state, in
-    hifigan_train's automatic resume and in the train CLI's --resume."""
+    JAX checkpoint and gives the converter's command line for it: in
+    load_train_state, in hifigan_train's automatic resume and in the train
+    CLI's --resume."""
     from covomix_tpu_torch import hifigan_train as HT
     from covomix_tpu_torch.train import cli
 
     from test_torch_hifigan_train import write_assets
     from test_torch_train_cli import TINY, _write_items
 
-    said = r"step_00000005 is a JAX \(orbax\) train-state checkpoint.*ROADMAP.md section 1 item 5a"
+    said = r"step_00000005 is a JAX \(orbax\) train-state checkpoint.*python convert_jax_train_state.py .*step_00000005"
     hifi, logs = tmp_path / "hifi", tmp_path / "logs"
     write_assets(str(hifi))
     for ckpt in (hifi / "cp", logs / "vomix" / "checkpoints"):

@@ -1,8 +1,9 @@
 """The port's serving CLI (`python -m covomix_tpu_torch.serve_batch`) takes the
 JAX CLI's flags: `--staged` runs (the eager port runs the stages one after
-another anyway), the flags of parts not ported yet are refused with a
-message that names what is missing, and the released PyTorch checkpoint
-formats are read as the `.npz` files they convert to."""
+another anyway), `--speculative` without the draft heads raises JAX's
+error, `--multihost` without a cluster serves in the one process, and the
+released PyTorch checkpoint formats are read as the `.npz` files they
+convert to."""
 
 import dataclasses
 import json
@@ -63,9 +64,21 @@ def test_speculative_flags_raise(tmp_path, flags):
     assert str(perr.value) == str(jerr.value)
 
 
-def test_multihost_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        serve_batch.main(_assets(tmp_path) + ["--multihost"])
+def test_multihost_raises(tmp_path, monkeypatch, capsys):
+    """--multihost no longer raises: with no cluster in the environment it
+    prints JAX's note and serves every script in this one process, its wavs
+    those of the run without the flag. (tests/test_torch_serving_dp.py runs
+    it in a group of two.)"""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK", "SLURM_NTASKS", "SLURM_PROCID"):
+        monkeypatch.delenv(var, raising=False)
+    argv = _assets(tmp_path)
+    serve_batch.main(argv + ["--multihost"])
+    assert "no cluster detected" in capsys.readouterr().out
+    ref = list(argv)
+    ref[ref.index("--saved_dir") + 1] = str(tmp_path / "ref")
+    serve_batch.main(ref)
+    np.testing.assert_array_equal(wavfile.read(str(tmp_path / "out" / "a.wav"))[1],
+                                  wavfile.read(str(tmp_path / "ref" / "a.wav"))[1])
 
 
 @pytest.mark.parametrize("flag,path", [("--t2s_ckpt", "last.ckpt"), ("--hifigan_ckpt", "g_02500000")])

@@ -143,12 +143,12 @@ def test_train_state_round_trip_continues_identically(tmp_path):
 @pytest.mark.parametrize("flags,exc,item", [
     (["--pp", "2", "--sp", "2"], SystemExit, "choose one of --pp / --sp"),
     (["--pp", "2", "--grad_accum", "2"], SystemExit, "--grad_accum composes with single-host"),
-    (["--bmuf_sync", "2"], NotImplementedError, "Parallelism"),
+    (["--bmuf_sync", "2", "--grad_accum", "2"], SystemExit, "--grad_accum composes with single-host"),
     (["--sp", "2", "--steps_per_dispatch", "2"], SystemExit, "--steps_per_dispatch composes with single-host"),
     (["--steps_per_dispatch", "2"], NotImplementedError, "make_multi_step"),
 ])
 def test_unported_flags_raise(tmp_path, flags, exc, item):
-    """What the CLI still refuses: BMUF and the multi-step dispatch (not
-    ported), and JAX's exits for the --pp / --sp combinations it refuses."""
+    """What the CLI still refuses: the multi-step dispatch (not ported), and
+    JAX's exits for the --pp / --sp / --bmuf_sync combinations it refuses."""
     with pytest.raises(exc, match=item):
         cli.main(["--base_dir", str(tmp_path), "--device", "cpu", *flags])
