@@ -14,6 +14,8 @@
     python3 chip_smoke.py --sp                # phase 19's sequence-parallel cells and sample_sp alone
     python3 chip_smoke.py --bmuf              # phase 20's BMUF training cells alone
     python3 chip_smoke.py --serve_dp          # phase 20's dialogue serving over dp alone
+    python3 chip_smoke.py --data_prep         # phase 21's data preparation (mels, metrics, legacy helpers) alone
+    python3 chip_smoke.py --eval_files        # phase 21's file-level evals and adaptive sampling alone
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
 only their library, logs ptxas's registers and spills, runs check_vocoder's
@@ -172,7 +174,8 @@ Phases (any failure exits non-zero, nothing is passed over):
      adds one serving batch's, phase 8 one bf16 VoMix step's). Phases 4, 6,
      7, 9 and 13 decode through the graphs too, with their gates unchanged;
  15. the port's serving benchmark, `covomix_tpu_torch.bench`, in-process
-     with its defaults (the JAX bench.py's measurement at full width:
+     with its defaults but BENCH_RUNS timed runs per B and a
+     SPEC_FIT_STEPS draft fit (the JAX bench.py's measurement at full width:
      staged and one-call serving at B = 4, 16, 64, prompt 400, decode 512,
      bf16; vocoder and HuBERT throughput; a VoMix and a CoMix T2S training
      step; the draft heads fitted and speculative against greedy decode);
@@ -278,13 +281,31 @@ Phases (any failure exits non-zero, nothing is passed over):
      against one process; (c) after phase 10's `serve_batch`, the same
      command with `--multihost` in a torchrun-style environment of one
      process over NCCL: every wav bit for bit;
- 21. print a `kernels` JSON line (phase 13's launches as
+ 21. data preparation and the file-level evals at full width (run after
+     phase 14, on phase 4's VoMix and CoMix T2S): seeded 8 kHz wavs of
+     EVAL_SECONDS (VoSingle utterances; VoMix -A / -B streams and their sum),
+     `prepare_mels --device cuda` held against `--device cpu`
+     (MEL_CARD_TOL), seeded code siblings and `.txt` files;
+     `evaluate_metrics --device cuda` on 4 pairs (finite, the trailer, the
+     CPU run within METRICS_CARD_TOL); stft_complex / istft and light /
+     dynamic convolution card vs CPU; then, in f32, evaluate_acoustic_files
+     (a seeded VoSingle model), evaluate_acoustic_two_one_files (phase 4's
+     VoMix), evaluate_acoustic_two_two_files (a seeded two_two model) on
+     EVAL_FILES files each (exactly 16 x 2 x 8 = 256 f32 forwards per file,
+     no pre-pass) and evaluate_t2s_files (phase 4's T2S, max_length cut to
+     EVAL_T2S_MAX_LENGTH, no flash launch), every 'l2' finite and > 0;
+     sample_adaptive in bf16 at ADAPTIVE_SHAPE, cond_scale 0.7 (56 forwards
+     and 56 pre-passes per attempt), sample_regression in f32 with CFG (16
+     forwards: two separate forwards), and a small f32 sample_adaptive card
+     vs CPU (equal attempts, ADAPTIVE_CPU_TOL);
+ 22. print a `kernels` JSON line (phase 13's launches as
      `speculative_launches`, phase 15's as `bench_launches`, phase 16's as
      `gan_export_launches`, phase 17's as `dp_world1_launches` and
      `dp2_launches_per_rank_step`, phase 18's as
      `tp_launches_per_rank_step`, phase 19's as `pp_launches_per_rank_step`
      and `sp_launches_per_rank_step`, phase 20's as
      `bmuf_launches_per_rank_step` and `serve_dp_launches_per_rank_call`,
+     phase 21's as `eval_files_launches` and `adaptive_launches`,
      the fused kernels' and the forward's
      phase-15 times as `bench_shapes`) and, last, {"ok": true, "device":
      {...}}.
@@ -3193,6 +3214,7 @@ BENCH_ROW_KEYS = ("rtf", "t2s_wall_s", "flow_wall_s", "vocoder_wall_s", "audio_s
                   "fused_wall_s", "upload_s", "flow_mfu", "fused_mfu_lb")
 BENCH_MFU_MAX = 1.05     # a share above this means the FLOP count is wrong, not the kernel
 BENCH_DETAIL_B = (4, 64)  # the batches phase 15 looks into: fused stage / tail held and timed, flow traced
+BENCH_RUNS = 1            # timed runs per B after the warm-up (the bench's default: 3 at B=4, 2 at the others)
 
 
 def bench_part_launches(sweep) -> dict:
@@ -3312,8 +3334,10 @@ def flow_device_breakdown(bench, b) -> dict:
 
 def run_bench(results):
     """Phase 15: `covomix_tpu_torch.bench` in this process with its defaults
-    (full width, sweep 4, 16, 64, the JAX bench's runs, loops, fit and
-    HuBERT sizes; the bench itself raises on a non-finite or misshapen wav
+    (full width, sweep 4, 16, 64, the JAX bench's loops and HuBERT sizes)
+    but BENCH_RUNS timed runs at every B and phase 13's SPEC_FIT_STEPS
+    draft fit (no gate reads either; fewer repetitions keep the script
+    under 900 s); the bench itself raises on a non-finite or misshapen wav
     or id array and on a non-finite loss), its line printed and held by
     check_bench_line; then the fused stage and tail held to their plain
     versions (phase 3b's tolerances) and timed on the inputs one generator
@@ -3327,7 +3351,7 @@ def run_bench(results):
     from covomix_tpu_torch import bench as BN
 
     t0 = time.time()
-    settings = BN.Settings()
+    settings = BN.Settings(runs=BENCH_RUNS, spec_fit=SPEC_FIT_STEPS)
     zero_counts()
     bench = BN.Bench(settings, "cuda")
     line = bench.run()
@@ -4928,6 +4952,446 @@ def run_parallel_training(results, root, tp_names=tuple(TP_CELLS), axes=("pp", "
         f"{json.dumps(wall['spawn_s'])} s; each cell's slowest rank {json.dumps(wall['cells_s'])} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: data preparation and the file-level evals
+
+EVAL_SECONDS = (12.2, 15.7, 19.3)   # 8 kHz wavs: 611-966 mel frames, every file on the flash route (>= 512)
+EVAL_FILES = 2                       # num_eval_files of each file-level eval
+EVAL_T2S_MAX_LENGTH = 512            # the file-level T2S eval's decode, cut from its default 2048
+ADAPTIVE_SHAPE = (1, 912)            # sample_adaptive (bf16) and sample_regression (f32): B, T
+ADAPTIVE_MAX_STEPS = 64
+# prepare_mels on the card against the port on the CPU, TF32 off: the STFT's
+# 480-tap sums and the 241-bin projection in another order, in the log
+# domain (the CPU port reads ~1e-5 against the JAX package's)
+MEL_CARD_TOL = 1e-4
+# evaluate_metrics' numbers (rounded to 3-4 places) with the mels on the card
+# against the mels on the CPU: only MCD reads the mels
+METRICS_CARD_TOL = 1e-3
+# stft_complex / istft and light / dynamic convolution card vs CPU, f32 with
+# TF32 off: summation order only, x max(1, max |cpu|)
+SPEC_CARD_TOL = 1e-5
+LIGHTCONV_CARD_TOL = 1e-5
+# the small f32 sample_adaptive, card vs CPU: equal attempts, y within this x max |y|
+ADAPTIVE_CPU_TOL = 1e-4
+EVAL_TEXTS = ("hello there, how are you doing today?", "i am fine, thank you [laughter] and you?",
+              "good to hear [spkchange] see you soon")
+
+
+def eval_wave(rs, seconds, f0, sr=8000):
+    """A seeded voiced-like wave: eight harmonics of f0 under a syllable-rate
+    envelope, with noise."""
+    import numpy as np
+
+    t = np.arange(int(sr * seconds)) / sr
+    x = sum(np.sin(2 * np.pi * h * f0 * t + rs.rand()) / h for h in range(1, 9))
+    return 0.2 * x * (0.5 + 0.5 * np.sin(2 * np.pi * (2.5 + rs.rand()) * t)) + 0.02 * rs.randn(len(t))
+
+
+def write_eval_wavs(root, seed=21):
+    """Seeded 8 kHz wavs under root/wavs: VoSingle utterances `single/
+    fe_03_00001-0k.wav` of EVAL_SECONDS, and VoMix streams `mix/u{k}-A.wav`,
+    `u{k}-B.wav` (two voices) with their sum `u{k}.wav` as the mix."""
+    import numpy as np
+    from covomix_tpu_torch.audio import save_wav
+
+    rs = np.random.RandomState(seed)
+    for sub in ("single", "mix"):
+        os.makedirs(os.path.join(root, "wavs", sub), exist_ok=True)
+    for k, s in enumerate(EVAL_SECONDS):
+        save_wav(os.path.join(root, "wavs", "single", f"fe_03_00001-{k:02d}.wav"),
+                 eval_wave(rs, s, 120 + 15 * k).astype(np.float32), 8000)
+        a, b = eval_wave(rs, s, 110 + 10 * k), eval_wave(rs, s, 190 + 10 * k)
+        for name, x in ((f"u{k}-A", a), (f"u{k}-B", b), (f"u{k}", np.clip(a + b, -1, 1))):
+            save_wav(os.path.join(root, "wavs", "mix", f"{name}.wav"), x.astype(np.float32), 8000)
+
+
+def prepare_eval_data(results, root, seed=21):
+    """Phase 21's data, built by the port: the wavs, then `prepare_mels
+    --device cuda` into root/data (subpaths mirrored), held against `--device
+    cpu` (MEL_CARD_TOL), then seeded code siblings (string arrays: VoSingle
+    `.hubert_code.npy` two frames longer than the mel, VoMix `-A` / `-B`
+    `-16k.hubert_code.npy`) and `.txt` files for the T2S eval (`x.txt`
+    beside `x.hubert_code.npy`, `u0-A.txt` beside `u0-A-16k.hubert_code.npy`).
+    Returns (VoSingle mel files, VoMix mixed mel files, T2S code files)."""
+    import glob
+
+    import numpy as np
+    from covomix_tpu_torch import prepare_mels as PM
+
+    t0 = time.time()
+    write_eval_wavs(root, seed)
+    wavs = os.path.join(root, "wavs")
+    timings = {"wavs_s": time.time() - t0}
+    for dev, out in (("cuda", "data"), ("cpu", "data_cpu")):
+        t0 = time.time()
+        PM.main(["--data_path", wavs, "--save_path", os.path.join(root, out), "--device", dev])
+        timings[f"prepare_mels_{dev}_s"] = time.time() - t0
+    data = os.path.join(root, "data")
+    names = sorted(os.path.relpath(p, data) for p in glob.glob(os.path.join(data, "**", "*.mel.npy"), recursive=True))
+    cpu_names = sorted(os.path.relpath(p, os.path.join(root, "data_cpu"))
+                       for p in glob.glob(os.path.join(root, "data_cpu", "**", "*.mel.npy"), recursive=True))
+    if names != cpu_names or len(names) != 4 * len(EVAL_SECONDS):
+        raise AssertionError(f"prepare_mels wrote {names} on the card and {cpu_names} on the CPU")
+    errs = {}
+    for name in names:
+        card, cpu = np.load(os.path.join(data, name)), np.load(os.path.join(root, "data_cpu", name))
+        if card.shape != cpu.shape or card.dtype != np.float32 or not np.isfinite(card).all():
+            raise AssertionError(f"{name}: card {card.shape} {card.dtype}, cpu {cpu.shape}")
+        errs[name] = float(np.abs(card - cpu).max())
+    worst = max(errs.values())
+    log(f"21 prepare_mels --device cuda: {len(names)} mels (frames {sorted({np.load(os.path.join(data, n)).shape[1] for n in names})}); "
+        f"card vs CPU max |diff| {worst:.3e} (tol {MEL_CARD_TOL:g}) {'ok' if worst <= MEL_CARD_TOL else 'FAIL'}; "
+        f"walls {json.dumps(timings)}")
+    if worst > MEL_CARD_TOL:
+        raise AssertionError(f"prepare_mels card vs CPU: {errs}")
+    rs = np.random.RandomState(seed + 1)
+    single = sorted(glob.glob(os.path.join(data, "single", "*.mel.npy")))
+    for path in single:
+        frames = np.load(path).shape[1]
+        np.save(path.replace(".mel.npy", ".hubert_code.npy"), rs.randint(0, 500, frames + 2).astype(str))
+    mixed = []
+    for k in range(len(EVAL_SECONDS)):
+        base = os.path.join(data, "mix", f"u{k}")
+        for side in ("-A", "-B"):
+            frames = np.load(base + side + ".mel.npy").shape[1]
+            np.save(base + side + "-16k.hubert_code.npy", rs.randint(0, 500, frames).astype(str))
+        mixed.append(base + ".mel.npy")
+    codes = [single[0].replace(".mel.npy", ".hubert_code.npy"), os.path.join(data, "mix", "u0-A-16k.hubert_code.npy")]
+    for path, text in zip((single[0].replace(".mel.npy", ".txt"), os.path.join(data, "mix", "u0-A.txt")), EVAL_TEXTS):
+        with open(path, "w") as f:
+            f.write(text + "\n")
+    results["data_prep"] = {"mel_card_vs_cpu_max_abs_diff": worst, **timings}
+    return single, mixed, codes
+
+
+def run_eval_metrics(results, root):
+    """`evaluate_metrics --device cuda` on 4 pairs (three VoSingle wavs and a
+    VoMix mix against noisy copies named `_generated`, one unmatched file):
+    4 rows, every number finite, the `# key: m +- s` trailer; the same run
+    with `--device cpu` within METRICS_CARD_TOL."""
+    import csv
+
+    import numpy as np
+    from covomix_tpu_torch import evaluate_metrics as EM
+    from covomix_tpu_torch.audio import load_wav, save_wav
+
+    rs = np.random.RandomState(5)
+    gen, ref = os.path.join(root, "metrics_gen"), os.path.join(root, "metrics_ref")
+    os.makedirs(gen), os.makedirs(ref)
+    srcs = sorted(os.listdir(os.path.join(root, "wavs", "single"))) + ["u1.wav"]
+    for i, name in enumerate(srcs):
+        w, _ = load_wav(os.path.join(root, "wavs", "single" if i < 3 else "mix", name), sr=8000)
+        save_wav(os.path.join(ref, name), w, 8000)
+        g = 0.9 * w[: len(w) - 400 * i] + 0.01 * rs.randn(len(w) - 400 * i)
+        save_wav(os.path.join(gen, name.replace(".wav", "_generated.wav")), g.astype(np.float32), 8000)
+    save_wav(os.path.join(gen, "unmatched.wav"), (0.1 * rs.randn(8000)).astype(np.float32), 8000)
+    tables, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(root, f"metrics_{dev}.csv")
+        t0 = time.time()
+        EM.main(["--gen_dir", gen, "--ref_dir", ref, "--out_csv", out, "--device", dev])
+        walls[dev] = time.time() - t0
+        with open(out) as f:
+            lines = f.read().splitlines()
+        rows = list(csv.DictReader([ln for ln in lines if not ln.startswith("#")]))
+        trailer = [ln for ln in lines if ln.startswith("# ")]
+        tables[dev] = (rows, trailer)
+    rows, trailer = tables["cuda"]
+    values = [float(row[k]) for row in rows for k in EM.COLUMNS]
+    diff = max(abs(float(a[k]) - float(b[k])) for a, b in zip(rows, tables["cpu"][0]) for k in EM.COLUMNS)
+    ok = (len(rows) == 4 and [r["file"] for r in rows] == [r["file"] for r in tables["cpu"][0]]
+          and all(math.isfinite(v) for v in values) and len(trailer) == len(EM.COLUMNS) and diff <= METRICS_CARD_TOL)
+    log(f"21 evaluate_metrics --device cuda: {len(rows)} pairs in {walls['cuda']:.2f} s (cpu {walls['cpu']:.2f} s); "
+        f"rows {rows}; trailer {trailer}; card vs CPU max |diff| {diff:.3e} (tol {METRICS_CARD_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("evaluate_metrics on the card: rows, trailer or numbers wrong")
+    results["data_prep"].update(metrics_rows=len(rows), metrics_card_vs_cpu_max_abs_diff=diff,
+                                metrics_cuda_s=walls["cuda"], metrics_cpu_s=walls["cpu"])
+
+
+def check_legacy_helpers_on_card(results):
+    """stft_complex / istft (n_fft 510, hop 128, hann and sqrthann) and
+    light_conv / dynamic_conv (causal and centred padding_l) on the card
+    against the CPU, f32 with TF32 off; istft(stft(x)) gives x back."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.audio import spec as S
+    from covomix_tpu_torch.ops import lightconv as LC
+
+    def err(card, cpu):
+        card, cpu = card.cpu(), cpu
+        return ((card - cpu).abs().max() / max(1.0, cpu.abs().max().item())).item()
+
+    rs = np.random.RandomState(6)
+    x = torch.from_numpy((rs.randn(2, 8000 * 20) * 0.3).astype(np.float32))
+    errs = {}
+    for window in ("hann", "sqrthann"):
+        spec_cpu = S.stft_complex(x, 510, 128, window)
+        spec = S.stft_complex(x.cuda(), 510, 128, window)
+        back = S.istft(spec, 510, 128, window, length=x.shape[1])
+        errs[f"stft_{window}"] = err(spec, spec_cpu)
+        errs[f"istft_{window}"] = err(back, S.istft(spec_cpu, 510, 128, window, length=x.shape[1]))
+        errs[f"round_trip_{window}"] = (back.cpu() - x)[:, 510:-510].abs().max().item()
+    h = torch.from_numpy((rs.randn(2, 912, 256)).astype(np.float32))
+    w = torch.from_numpy(rs.randn(8, 7).astype(np.float32))
+    dw = torch.from_numpy(rs.randn(2, 912, 8, 7).astype(np.float32))
+    for pad in (6, 3):
+        errs[f"light_conv_pad{pad}"] = err(LC.light_conv(h.cuda(), w.cuda(), padding_l=pad),
+                                           LC.light_conv(h, w, padding_l=pad))
+        errs[f"dynamic_conv_pad{pad}"] = err(LC.dynamic_conv(h.cuda(), dw.cuda(), padding_l=pad),
+                                             LC.dynamic_conv(h, dw, padding_l=pad))
+    ok = all(v <= (LIGHTCONV_CARD_TOL if "conv" in k else 1e-4 if k.startswith("round") else SPEC_CARD_TOL)
+             for k, v in errs.items())
+    log(f"21 spec / lightconv card vs CPU (rel. to max(1, max|cpu|); round trip absolute): "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("stft / istft / light_conv / dynamic_conv on the card disagree with the CPU")
+    results["data_prep"]["legacy_card_vs_cpu"] = errs
+
+
+def eval_models(vomix=None, t2s=None):
+    """(VoSingle, VoMix two_one, VoMix two_two, CoMix T2S) full-width
+    parameters and configs: VoMix and T2S phase 4's (or built as phase 4
+    builds them), the other two seeded."""
+    import dataclasses
+
+    import torch
+    from covomix_tpu_torch.models import acoustic as A, text2semantic as T
+
+    t2s_cfg, ac_cfg, _ = full_width_configs()
+    if vomix is None:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        t2s, vomix = T.init(g, t2s_cfg), A.init(g, ac_cfg)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    single_cfg = dataclasses.replace(ac_cfg, dim_in=80, mode="single")   # running_command/Acous_VoSingle.sh
+    two_two_cfg = dataclasses.replace(ac_cfg, mode="two_two")
+    return ((A.init(g, single_cfg), single_cfg), (vomix, ac_cfg), (A.init(g, two_two_cfg), two_two_cfg),
+            (t2s, t2s_cfg))
+
+
+def run_eval_files(results, models, single, mixed, codes):
+    """The four file-level evals at full width, f32 (their default), on
+    EVAL_FILES files each, with a CUDA generator, counts set to 0 before
+    each and read after: every acoustic file's flow sample launches exactly
+    16 steps x 2 evaluations x 8 layers = 256 f32 forwards (one CFG-doubled
+    batch per evaluation) and no other flash kernel (no pre-pass: the f32
+    kernel applies the rotary itself); two_one skips nothing here (every
+    file has its mix); the T2S eval (its decode cut to EVAL_T2S_MAX_LENGTH)
+    launches none. Every 'l2' finite and > 0."""
+    import torch
+    from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
+    from covomix_tpu_torch.models import acoustic as A
+    from covomix_tpu_torch.train import evaluate as E
+
+    (single_p, single_cfg), (mix_p, mix_cfg), (tt_p, tt_cfg), (t2s_p, t2s_cfg) = models
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    per_file_want = launches(fwd=16 * 2 * mix_cfg.depth)
+    out, files = {}, {}
+    orig = A.sample
+
+    def counted(*a, **kw):
+        c0 = flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        y = orig(*a, **kw)
+        torch.cuda.synchronize()
+        files[name].append({"frames": int(a[4].shape[1]), "valid_len": kw.get("valid_len"),
+                            "wall_s": time.time() - t0,
+                            "launches": {k: v - c0[k] for k, v in flash_counts().items()}})
+        return y
+
+    for name, fn, params, cfg, paths in (("single", E.evaluate_acoustic_files, single_p, single_cfg, single),
+                                         ("two_one", E.evaluate_acoustic_two_one_files, mix_p, mix_cfg, mixed),
+                                         ("two_two", E.evaluate_acoustic_two_two_files, tt_p, tt_cfg, mixed)):
+        files[name] = []
+        A.sample = counted
+        zero_counts()
+        try:
+            t0 = time.time()
+            m = fn(params, cfg, paths, EVAL_FILES, gen)
+            wall = time.time() - t0
+        finally:
+            A.sample = orig
+        counts = flash_counts()
+        out[name] = {"l2": m["l2"], "wall_s": wall, "launches": counts["fwd"], "files": files[name]}
+        log(f"21 {fn.__name__} ({name}, full width f32, {EVAL_FILES} files): l2 {m['l2']:.6f}, {wall:.2f} s; per file "
+            f"(frames, valid_len, s, forwards) {[(f['frames'], f['valid_len'], round(f['wall_s'], 4), f['launches']['fwd']) for f in files[name]]}; "
+            f"launches {counts}")
+        if len(files[name]) != EVAL_FILES or any(f["launches"] != per_file_want for f in files[name]) \
+                or counts != launches(fwd=EVAL_FILES * per_file_want["fwd"]):
+            raise AssertionError(f"{name}: flow samples {len(files[name])}, launches per file "
+                                 f"{[f['launches'] for f in files[name]]}, expected {per_file_want} each")
+        if any(f["frames"] < 512 for f in files[name]):
+            raise AssertionError(f"{name}: a file below the flash route's 512 frames")
+        if not (math.isfinite(m["l2"]) and m["l2"] > 0):
+            raise AssertionError(f"{name}: l2 {m['l2']}")
+    tok = load_covomix_tokenizer(None, strict=False)
+    zero_counts()
+    t0 = time.time()
+    m = E.evaluate_t2s_files(t2s_p, t2s_cfg, tok, codes, EVAL_FILES, gen, max_length=EVAL_T2S_MAX_LENGTH)
+    wall = time.time() - t0
+    counts = flash_counts()
+    out["t2s"] = {"l2": m["l2"], "wall_s": wall, "launches": counts["fwd"]}
+    log(f"21 evaluate_t2s_files (CoMix T2S, f32, max_length {EVAL_T2S_MAX_LENGTH}, {EVAL_FILES} files): "
+        f"WER l2 {m['l2']:.4f}, {wall:.2f} s; launches {counts}")
+    if counts != launches() or not (math.isfinite(m["l2"]) and m["l2"] > 0):
+        raise AssertionError(f"evaluate_t2s_files: l2 {m['l2']}, launches {counts}")
+    results["eval_files"] = out
+    return mix_p, mix_cfg
+
+
+def adaptive_inputs(cfg, b, t, seed):
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    shape = (b, t, 2) if cfg.n_phoneme_streams == 2 else (b, t)
+    return (torch.from_numpy(rs.randint(0, 500, shape).astype(np.int64)).cuda(),
+            torch.from_numpy((rs.randn(b, t, cfg.dim_in) * 0.3).astype(np.float32)).cuda())
+
+
+def run_adaptive(results, params, cfg):
+    """acoustic.sample_adaptive at full width (phase 4's VoMix), bf16,
+    ADAPTIVE_SHAPE, cond_scale 0.7, at most ADAPTIVE_MAX_STEPS attempts:
+    every attempt 7 stages x 8 layers = 56 bf16 forwards (one CFG-doubled
+    batch per stage) and as many rotary pre-passes, nothing else; y finite.
+    Then sample_regression in f32 with CFG at the same shape: 2 separate
+    forwards x 8 layers = 16 f32 forwards, no pre-pass; finite."""
+    import torch
+    from covomix_tpu_torch.models import acoustic as A
+
+    b, t = ADAPTIVE_SHAPE
+    ph, cond = adaptive_inputs(cfg, b, t, 7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    norms = []
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    y, steps = A.sample_adaptive(params, cfg, gen, ph, cond, cond_scale=0.7, max_steps=ADAPTIVE_MAX_STEPS,
+                                 dtype=torch.bfloat16, norms=norms)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = flash_counts()
+    per_attempt = 7 * cfg.depth
+    accepted = sum(n <= 1.0 for n in norms)
+    log(f"21 sample_adaptive bf16 B={b} T={t} cond_scale 0.7: {steps} attempts ({accepted} accepted), "
+        f"{wall:.3f} s ({wall / steps * 1e3:.2f} ms per attempt); error norms {[round(n, 4) for n in norms]}; "
+        f"launches {counts}")
+    if counts != launches(fwd=per_attempt * steps, rotary=per_attempt * steps) or not 0 < steps <= ADAPTIVE_MAX_STEPS:
+        raise AssertionError(f"sample_adaptive: {steps} attempts, launches {counts}, expected {per_attempt} forwards "
+                             f"and pre-passes per attempt")
+    if tuple(y.shape) != (b, t, cfg.mel_dim) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"sample_adaptive: y {tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    r = A.sample_regression(params, cfg, gen, ph, cond, cond_scale=0.7)
+    torch.cuda.synchronize()
+    reg_wall = time.time() - t0
+    reg_counts = flash_counts()
+    log(f"21 sample_regression f32 B={b} T={t} cond_scale 0.7: {reg_wall:.3f} s; launches {reg_counts}")
+    if reg_counts != launches(fwd=2 * cfg.depth) or not bool(torch.isfinite(r).all()):
+        raise AssertionError(f"sample_regression: launches {reg_counts}, finite {bool(torch.isfinite(r).all())}")
+    results["adaptive"] = {"attempts": steps, "accepted": accepted, "wall_s": wall, "launches": counts["fwd"],
+                           "rotary_launches": counts["rotary"], "regression_wall_s": reg_wall,
+                           "regression_launches": reg_counts["fwd"]}
+
+
+def check_small_adaptive_against_cpu(results):
+    """sample_adaptive of a small f32 model (dim 128, 2 layers, dh 64, T=512:
+    the flash kernel on the card, layers.attend on the CPU), cond_scale 0.7,
+    the same weights and y0, TF32 off: the same number of attempts, y within
+    ADAPTIVE_CPU_TOL x max |y|. Where the counts differ, both runs' error
+    norms at the first attempt where they part are logged before failing."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.models import acoustic as A
+    from covomix_tpu_torch.util.misc import tree_map
+
+    cfg = A.AcousticConfig(dim_in=80, dim=128, depth=2, heads=2, dim_head=64, dim_phoneme_emb=64)
+    params = A.init(torch.Generator().manual_seed(3), cfg, device="cpu")
+    ph, cond = (v.cpu() for v in adaptive_inputs(cfg, 1, 512, 8))
+    y0 = torch.randn((1, 512, 80), generator=torch.Generator().manual_seed(4))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda v: v.to(dev), params)
+        norms = []
+        zero_counts()
+        y, steps = A.sample_adaptive(p, cfg, None, ph.to(dev), cond.to(dev), cond_scale=0.7, noise=y0.to(dev),
+                                     norms=norms)
+        runs[dev] = (y.cpu(), steps, norms, flash_counts())
+    (yc, sc, nc, _), (yg, sg, ng, counts) = runs["cpu"], runs["cuda"]
+    if sc != sg:
+        part = next(i for i, (a, b) in enumerate(zip(nc, ng)) if (a <= 1.0) != (b <= 1.0))
+        log(f"21 small sample_adaptive card vs CPU: attempts {sg} vs {sc}; the runs part at attempt {part}: "
+            f"error norm card {ng[part]!r}, CPU {nc[part]!r} FAIL")
+        raise AssertionError("sample_adaptive takes another number of attempts on the card than on the CPU")
+    err = ((yg - yc).abs().max() / yc.abs().max()).item()
+    norm_diff = max(abs(a - b) / max(b, 1e-30) for a, b in zip(ng, nc))
+    ok = err <= ADAPTIVE_CPU_TOL and counts == launches(fwd=7 * cfg.depth * sg)
+    log(f"21 small sample_adaptive f32 card vs CPU: {sg} attempts both, y max |diff| / max |y| {err:.3e} "
+        f"(tol {ADAPTIVE_CPU_TOL:g}), error norms max rel. diff {norm_diff:.3e}; card launches {counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("small sample_adaptive: card and CPU disagree")
+    results["adaptive"].update(small_attempts=sg, small_card_vs_cpu=err)
+
+
+def run_phase21(results, root, models=None, data_prep=True, evals=True):
+    """Phase 21 under `root` (removed after): the data and its checks, then
+    (with `evals`) the file-level evals, sample_adaptive / sample_regression
+    and the small adaptive run card vs CPU; (with `data_prep`)
+    evaluate_metrics and the legacy helpers card vs CPU. `models`: from
+    eval_models, built there when not given."""
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t_phase = time.time()
+    try:
+        single, mixed, codes = prepare_eval_data(results, root)
+        if data_prep:
+            run_eval_metrics(results, root)
+            check_legacy_helpers_on_card(results)
+        if evals:
+            mix_p, mix_cfg = run_eval_files(results, models or eval_models(), single, mixed, codes)
+            run_adaptive(results, mix_p, mix_cfg)
+            check_small_adaptive_against_cpu(results)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    results["phase21_s"] = time.time() - t_phase
+    log(f"phase 21 wall {results['phase21_s']:.1f} s")
+
+
+def phase21_mode(which: str) -> int:
+    """`python3 chip_smoke.py --data_prep` / `--eval_files`: phase 21's data
+    preparation (prepare_mels, evaluate_metrics, the legacy helpers) or its
+    file-level evals and adaptive sampling (on models built as phase 4
+    builds them) alone, ending with the same `ok` line. The kernels build on
+    first use."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    run_phase21(results, os.path.join(VT.BUILD_DIR, "smoke_eval"), data_prep=which == "data_prep",
+                evals=which == "eval_files")
+    log(f"total chip_smoke --{which} time {time.time() - t_start:.1f} s")
+    log("data preparation and file-level evals: " + json.dumps({k: results[k] for k in
+                                                              ("data_prep", "eval_files", "adaptive") if k in results}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 # registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
 # to the counts of their first build: the bf16 TMA + wgmma forward's four
 # forms (<dh, lse, causal>), the rotary pre-pass, the TMA + wgmma backward
@@ -5101,12 +5565,15 @@ def main() -> int:
         paths = write_torch_checkpoints(root)
         run_serve_batch_from_torch(results, root, paths)
         run_hifigan_inference(results, root, paths["vocoder"])
+        vomix, t2s = results["serving_models"][0], results["serving_t2s"]   # phase 21 evaluates with them
         spec_cfg, spec_params = run_speculative(results, root, results.pop("serving_models"))
         t0 = time.time()
         run_decode_graphs(results, results.pop("serving_t2s"), spec_cfg, spec_params)
         log(f"phase 14 wall {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    run_phase21(results, os.path.join(VT.BUILD_DIR, "smoke_eval"), eval_models(vomix, t2s))
+    del vomix, t2s
     root = os.path.join(VT.BUILD_DIR, "smoke_hubert")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -5184,6 +5651,7 @@ def main() -> int:
                      launches["flash"], with_prepass=True,
                      speculative_launches=spec_file["flash"] + spec_serving["fwd"],
                      serve_dp_launches_per_rank_call=sdl["bf16"]["fwd"],
+                     adaptive_launches=results["adaptive"]["launches"],     # phase 21: sample_adaptive, bf16
                      bench_launches=bench["fwd"] - bench_hubert,
                      bench_shapes={f"b{big}": bench_shape_entry(results, f"flash_bench_b{big}", "with_prepass_ms",
                                                                 "library_ms")}),
@@ -5196,7 +5664,8 @@ def main() -> int:
                      pp_launches_per_rank_step=staged("pp", "bf16", "rotary"),
                      sp_launches_per_rank_step=staged("sp", "bf16", "rotary"),
                      bmuf_launches_per_rank_step=bml["bmuf_vomix_bf16"]["rotary"],
-                     serve_dp_launches_per_rank_call=sdl["bf16"]["rotary"]),
+                     serve_dp_launches_per_rank_call=sdl["bf16"]["rotary"],
+                     adaptive_launches=results["adaptive"]["rotary_launches"]),
     ]
     for kind, replaces in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                            ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):
@@ -5227,9 +5696,13 @@ def main() -> int:
         kernels.append(kernel_entry(results, f"hubert_fwd_{dt}", f"flash_attention_fwd_hubert_{dt}", flash_src,
                                     "covomix_tpu/ops/flash_attention.py:162", results[f"hubert_{dt}"]["launches"],
                                     bench_launches=bench_hubert if dt == "bf16" else 0,
-                                    # phase 20: the f32 inference forward of a dp=2 serving rank call
-                                    **({"serve_dp_launches_per_rank_call": sdl["f32"]["fwd"]} if dt == "f32"
-                                       else {})))
+                                    # phase 20: the f32 inference forward of a dp=2 serving rank call;
+                                    # phase 21: the f32 file-level evals' and sample_regression's
+                                    **({"serve_dp_launches_per_rank_call": sdl["f32"]["fwd"],
+                                        "eval_files_launches": {
+                                            **{k: v["launches"] for k, v in results["eval_files"].items()},
+                                            "regression": results["adaptive"]["regression_launches"]}}
+                                       if dt == "f32" else {})))
     for kind, where in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                         ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):   # hifigan_inference --fuse_tail, f32
         kernels.append(kernel_entry(results, f"{kind}_f32", f"vocoder_fused_{kind}_f32", voc_src, where,
@@ -5278,6 +5751,8 @@ def main() -> int:
     log("tensor-parallel and FSDP training: " + json.dumps(results["tp"]))
     log("pipeline- and sequence-parallel training: " + json.dumps(results["pp"]))
     log("bmuf training and serving over dp: " + json.dumps({k: results[k] for k in ("bmuf", "serve_dp")}))
+    log("data preparation and file-level evals: " + json.dumps({k: results[k] for k in
+                                                              ("data_prep", "eval_files", "adaptive")}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -5813,6 +6288,8 @@ if __name__ == "__main__":
         sys.exit(pp_mode(sys.argv[1][2:]))
     if sys.argv[1:2] in (["--bmuf"], ["--serve_dp"]):
         sys.exit(phase20_mode(sys.argv[1] == "--bmuf"))
+    if sys.argv[1:2] in (["--data_prep"], ["--eval_files"]):
+        sys.exit(phase21_mode(sys.argv[1][2:]))
     if sys.argv[1:2] == ["--flash-f32"]:
         sys.exit(flash_f32_mode())
     if sys.argv[1:2] == ["--vocoder-split"]:

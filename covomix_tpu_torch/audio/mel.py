@@ -1,8 +1,8 @@
 """Log-mel frontend in PyTorch (port of covomix_tpu/audio/mel.py).
 
   1. reflect-pad the waveform by (n_fft - hop) / 2 on each side
-  2. STFT (hann window, center=False, onesided) as one strided convolution
-     against a windowed DFT basis
+  2. STFT (hann window, center=False, onesided) as one matmul of the framed
+     signal against a windowed DFT basis
   3. magnitude = sqrt(re^2 + im^2 + 1e-9)
   4. Slaney mel filterbank (norm='slaney', htk=False) @ magnitude
   5. log(clamp(mel, min=1e-5))
@@ -75,19 +75,20 @@ def mel_filterbank(sample_rate: int, n_fft: int, num_mels: int, fmin: float, fma
 
 @functools.lru_cache(maxsize=8)
 def _bases(cfg: MelConfig):
-    """(mel basis [M, F], DFT conv kernels cos/sin [F, 1, n_fft]) in numpy."""
+    """(mel basis [M, F], windowed DFT basis [n_fft, 2F]: the cos columns,
+    then the -sin ones) in numpy."""
     basis = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.num_mels, cfg.fmin, cfg.fmax)
     n = np.arange(cfg.win_size, dtype=np.float64)
     window = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / cfg.win_size)   # periodic hann
     win = np.zeros(cfg.n_fft, np.float64)
     lp = (cfg.n_fft - cfg.win_size) // 2
     win[lp: lp + cfg.win_size] = window.astype(np.float32)
-    k = np.arange(cfg.n_fft)[None, :]
-    f = np.arange(1 + cfg.n_fft // 2)[:, None]
+    k = np.arange(cfg.n_fft)[:, None]
+    f = np.arange(1 + cfg.n_fft // 2)[None, :]
     ang = 2.0 * np.pi * k * f / cfg.n_fft
-    cos_k = (np.cos(ang) * win[None, :]).astype(np.float32)[:, None, :]
-    sin_k = (-np.sin(ang) * win[None, :]).astype(np.float32)[:, None, :]
-    return basis, cos_k, sin_k
+    dft = np.concatenate([(np.cos(ang) * win[:, None]).astype(np.float32),
+                          (-np.sin(ang) * win[:, None]).astype(np.float32)], axis=1)
+    return basis, dft
 
 
 @contextlib.contextmanager
@@ -102,14 +103,29 @@ def _no_tf32():
         cudnn.allow_tf32, mm.allow_tf32 = prev
 
 
+def stft_magnitude(y: torch.Tensor, cfg: MelConfig) -> torch.Tensor:
+    """Magnitude STFT of [..., T] -> [..., F, frames] in f32: reflect pad
+    (n_fft - hop) / 2, center=False, sqrt(power + 1e-9)."""
+    dft = torch.from_numpy(_bases(cfg)[1]).to(y.device)
+    lead = y.shape[:-1]
+    x = F.pad(y.float().reshape(-1, 1, y.shape[-1]), (cfg.pad, cfg.pad), mode="reflect")[:, 0]
+    with _no_tf32():
+        z = x.unfold(-1, cfg.n_fft, cfg.hop_size) @ dft                  # [N, frames, 2F]
+    re, im = torch.chunk(z, 2, dim=-1)
+    mag = torch.sqrt(re * re + im * im + 1e-9).transpose(1, 2)          # [N, F, frames]
+    return mag.reshape(*lead, *mag.shape[1:])
+
+
 def mel_spectrogram(y: torch.Tensor, cfg: MelConfig = MelConfig()) -> torch.Tensor:
     """Log-mel of waveform [B, T] in [-1, 1] -> [B, num_mels, frames], in f32."""
-    basis, cos_k, sin_k = _bases(cfg)
-    dev = y.device
-    x = F.pad(y.float()[:, None, :], (cfg.pad, cfg.pad), mode="reflect")
+    basis = torch.from_numpy(_bases(cfg)[0]).to(y.device)
+    mag = stft_magnitude(y, cfg)
     with _no_tf32():
-        re = F.conv1d(x, torch.from_numpy(cos_k).to(dev), stride=cfg.hop_size)
-        im = F.conv1d(x, torch.from_numpy(sin_k).to(dev), stride=cfg.hop_size)
-        mag = torch.sqrt(re * re + im * im + 1e-9)                       # [B, F, frames]
-        mel = torch.einsum("mf,bft->bmt", torch.from_numpy(basis).to(dev), mag)
+        mel = torch.einsum("mf,bft->bmt", basis, mag)
     return torch.log(torch.clamp(mel, min=1e-5))
+
+
+def mel_frames_for_samples(num_samples: int, cfg: MelConfig = MelConfig()) -> int:
+    """Number of mel frames produced for a waveform of num_samples samples."""
+    padded = num_samples + 2 * cfg.pad
+    return 1 + (padded - cfg.n_fft) // cfg.hop_size

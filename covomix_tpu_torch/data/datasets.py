@@ -12,8 +12,9 @@ Formats:
 Collate: mel pad -15, hubert codes pad 501, mask False; batches are padded to
 a 64-frame bucket (`collate_acoustic`). T2S batches (`collate_t2s`): token ids
 from the tokenizer padded with 0 to a multiple of 16, semantic targets padded
-with 501 to a 64 bucket. With the same files and seed this gives the same
-items and batches as the JAX package."""
+with 501 to a 64 bucket; `collate_t2s_duration` run-length compresses the
+targets into (tokens, durations), padded 501 / 0. With the same files and
+seed this gives the same items and batches as the JAX package."""
 
 from __future__ import annotations
 
@@ -240,6 +241,52 @@ def collate_t2s(items: List[Dict], tokenizer, bucket: int = 64, max_text_len: in
     for i, it in enumerate(items):
         sem[i, : len(it["semantic"])] = it["semantic"]
     return {"text_ids": text_ids, "semantic_ids": sem}
+
+
+def compress_token_runs(tokens: np.ndarray):
+    """Run-length compress a semantic token sequence [T] or [T, S] into
+    (unique_tokens, durations), each [Tc, S] int64, each stream padded with
+    CODE_PAD / 0 up to the longest stream's run count."""
+    t = np.asarray(tokens)
+    if t.ndim == 1:
+        t = t[:, None]
+    uniq_streams, dur_streams = [], []
+    for s in range(t.shape[1]):
+        seq = t[:, s]
+        if len(seq) == 0:
+            uniq_streams.append(np.zeros((0,), np.int64))
+            dur_streams.append(np.zeros((0,), np.int64))
+            continue
+        starts = np.flatnonzero(np.concatenate([[True], seq[1:] != seq[:-1]]))
+        uniq_streams.append(seq[starts].astype(np.int64))
+        dur_streams.append(np.diff(np.concatenate([starts, [len(seq)]])).astype(np.int64))
+    n = max((len(u) for u in uniq_streams), default=0)
+    uniq = np.full((n, t.shape[1]), CODE_PAD, np.int64)
+    dur = np.zeros((n, t.shape[1]), np.int64)
+    for s in range(t.shape[1]):
+        uniq[: len(uniq_streams[s]), s] = uniq_streams[s]
+        dur[: len(dur_streams[s]), s] = dur_streams[s]
+    return uniq, dur
+
+
+def collate_t2s_duration(items: List[Dict], tokenizer, bucket: int = 64,
+                         max_text_len: int = 512) -> Dict[str, np.ndarray]:
+    """collate_t2s for duration-predicting T2S training: the semantic
+    targets run-length compressed to (unique tokens, durations) per stream,
+    padded CODE_PAD / 0 to a multiple of `bucket`; one stream gives [B, T],
+    two [B, T, 2]."""
+    text_ids = _collate_text_ids(items, tokenizer, max_text_len)
+    comp = [compress_token_runs(it["semantic"]) for it in items]
+    n = round_up(max((u.shape[0] for u, _ in comp), default=1), bucket)
+    streams = comp[0][0].shape[1] if comp else 1
+    uniq = np.full((len(items), n, streams), CODE_PAD, np.int64)
+    dur = np.zeros((len(items), n, streams), np.int64)
+    for i, (u, d) in enumerate(comp):
+        uniq[i, : u.shape[0]] = u
+        dur[i, : d.shape[0]] = d
+    if streams == 1:
+        uniq, dur = uniq[..., 0], dur[..., 0]
+    return {"text_ids": text_ids, "semantic_ids": uniq.astype(np.int32), "durations": dur.astype(np.int32)}
 
 
 _STACK_PAD = {"x": MEL_PAD, "phonemes": CODE_PAD, "mask": False,

@@ -7,7 +7,9 @@ covomix_tpu/models/acoustic.py (inference and the OT-CFM training loss).
     Linear to mel
   * sampler: 16 midpoint steps, the ODE state kept in f32 while the model
     computes in `dtype`; CFG runs the cond and null rows as one doubled batch
-    and combines them as logits*(1+s) - s*null.
+    and combines them as logits*(1+s) - s*null. `sample_adaptive` integrates
+    the same field with adaptive Tsit5 steps, `sample_regression` is one
+    forward at a random time.
 
 Attention goes through `attend_flash_or_xla`: the hand-written flash kernel
 on CUDA for long sequences, `layers.attend` otherwise.
@@ -406,3 +408,124 @@ def sample(params, cfg: AcousticConfig, generator: Optional[torch.Generator], ph
         k2 = field(y + 0.5 * h * k1, t0 + 0.5 * h)
         y = y + h * k2
     return y
+
+
+# Tsitouras 5(4) Runge-Kutta tables (the torchode Tsit5 method)
+_TSIT5_C = (0.0, 0.161, 0.327, 0.9, 0.9800255409045097, 1.0, 1.0)
+_TSIT5_A = (
+    (),
+    (0.161,),
+    (-0.008480655492356989, 0.335480655492357),
+    (2.8971530571054935, -6.359448489975075, 4.3622954328695815),
+    (5.325864828439257, -11.748883564062828, 7.4955393428898365, -0.09249506636175525),
+    (5.86145544294642, -12.92096931784711, 8.159367898576159, -0.071584973281401, -0.028269050394068383),
+    (0.09646076681806523, 0.01, 0.4798896504144996, 1.379008574103742, -3.290069515436081, 2.324710524099774),
+)
+_TSIT5_B = (0.09646076681806523, 0.01, 0.4798896504144996, 1.379008574103742, -3.290069515436081, 2.324710524099774, 0.0)
+# error-estimate weights btilde = b - bhat
+_TSIT5_E = (
+    -0.001780011052226, -0.000816434459657, 0.007880878010262, -0.144711007173263,
+    0.582357165452555, -0.458082105929187, 1.0 / 66.0,
+)
+
+
+@torch.no_grad()
+def sample_adaptive(params, cfg: AcousticConfig, generator: Optional[torch.Generator], phoneme_ids, cond, *,
+                    cond_scale: float = 1.0, atol: float = 1e-5, rtol: float = 1e-5, max_steps: int = 64,
+                    noise=None, dtype=torch.float32, norms: Optional[list] = None):
+    """Adaptive Tsit5 integration of the vector field from t=0 to t=1 with an
+    integral step-size controller (h *= clip(0.9 en^-1/5, 0.2, 5)) on the
+    embedded 4th-order error estimate, at most `max_steps` attempts. y0 ~
+    N(0, I) from `generator`, or `noise`. CFG runs cond + null rows as one
+    doubled batch; no valid_len or key mask.
+
+    Time, step and error norm are f32 tensors, as in the JAX while_loop, so
+    both end on the same step; each attempt reads accept and t < 1 back in
+    one host read (with `norms`, a list, each attempt's error norm is
+    appended to it from the same read). The stage derivatives and the
+    y / error sums are f32 whatever `dtype`, and the error scale carries a
+    rounding-noise floor eps(dtype) h rms_features(k) per frame (eps 0 at
+    f32): under bf16 the 5(4) estimate is dominated by the stages' output
+    rounding, and without the floor the controller would reject every step
+    down to h ~ 0.
+
+    Returns (y [B, T, mel_dim] f32, attempts, rejected ones included)."""
+    b, t = cond.shape[0], cond.shape[1]
+    dev = cond.device
+    if noise is None:
+        y = torch.randn((b, t, cfg.mel_dim), generator=generator, device=dev, dtype=torch.float32)
+    else:
+        y = noise.to(device=dev, dtype=torch.float32)
+
+    if cond_scale != 1.0:
+        ph2 = torch.cat([phoneme_ids, phoneme_ids], dim=0)
+        c2 = torch.cat([cond, cond], dim=0)
+        drop = torch.cat([torch.zeros(b, dtype=torch.bool, device=dev),
+                          torch.ones(b, dtype=torch.bool, device=dev)])
+        emb2 = static_embed(params, cfg, ph2, c2, cond_drop_mask=drop, dtype=dtype)
+
+        def field(y_s, tt):
+            out = forward(params, cfg, torch.cat([y_s, y_s], dim=0), ph2, c2, tt.expand(2 * b), cond_drop_mask=drop,
+                          precomputed_embed=emb2, dtype=dtype)
+            return out[:b] * (1 + cond_scale) - cond_scale * out[b:]
+    else:
+        emb1 = static_embed(params, cfg, phoneme_ids, cond,
+                            cond_drop_mask=torch.zeros(b, dtype=torch.bool, device=dev), dtype=dtype)
+
+        def field(y_s, tt):
+            return forward(params, cfg, y_s, phoneme_ids, cond, tt.expand(b), precomputed_embed=emb1, dtype=dtype)
+
+    n_stages = len(_TSIT5_C)
+    noise_eps = torch.finfo(dtype).eps if torch.finfo(dtype).bits < 32 else 0.0
+    tt = torch.zeros((), dtype=torch.float32, device=dev)
+    h = torch.full((), 0.05, dtype=torch.float32, device=dev)
+    steps, more = 0, True
+    while more and steps < max_steps:
+        h = torch.minimum(h, 1.0 - tt)
+        ks = []
+        for s in range(n_stages):
+            y_s = y
+            for j, a in enumerate(_TSIT5_A[s]):
+                y_s = y_s + h * a * ks[j]
+            ks.append(field(y_s, tt + _TSIT5_C[s] * h).float())
+        y_new, err, ksq = y, torch.zeros_like(y), torch.zeros_like(y)
+        for s in range(n_stages):
+            y_new = y_new + h * _TSIT5_B[s] * ks[s]
+            err = err + h * _TSIT5_E[s] * ks[s]
+            ksq = ksq + torch.square(ks[s])
+        krms = torch.sqrt(torch.mean(ksq / n_stages, dim=-1, keepdim=True))
+        scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y_new)) + noise_eps * h * krms
+        en = torch.sqrt(torch.mean(torch.square(err / scale)))
+        accept = en <= 1.0
+        tt = torch.where(accept, tt + h, tt)
+        h = h * torch.clamp(0.9 * torch.pow(torch.clamp(en, min=1e-10), -0.2), 0.2, 5.0)
+        en_h, accepted, more = torch.stack([en, accept.float(), (tt < 1.0).float()]).tolist()
+        if norms is not None:
+            norms.append(en_h)
+        if accepted:
+            y = y_new
+        steps += 1
+    return y, steps
+
+
+@torch.no_grad()
+def sample_regression(params, cfg: AcousticConfig, generator: Optional[torch.Generator], phoneme_ids, cond, *,
+                      cond_scale: float = 1.0, noise=None, times=None, dtype=torch.float32):
+    """One forward of the field at a random time t ~ U[0, 1) per row from
+    y0 ~ N(0, I) (drawn from `generator` in that order, or `times` /
+    `noise`). CFG runs the null rows as a second forward and combines the
+    two as out*(1+s) - s*null."""
+    b, t = cond.shape[0], cond.shape[1]
+    dev = cond.device
+    if times is None:
+        times = torch.rand((b,), generator=generator, device=dev)
+    if noise is None:
+        noise = torch.randn((b, t, cfg.mel_dim), generator=generator, device=dev)
+    times, y0 = times.to(device=dev, dtype=torch.float32), noise.to(device=dev, dtype=torch.float32)
+    out = forward(params, cfg, y0, phoneme_ids, cond, times,
+                  cond_drop_mask=torch.zeros(b, dtype=torch.bool, device=dev), dtype=dtype)
+    if cond_scale == 1.0:
+        return out
+    null = forward(params, cfg, y0, phoneme_ids, cond, times,
+                   cond_drop_mask=torch.ones(b, dtype=torch.bool, device=dev), dtype=dtype)
+    return out * (1 + cond_scale) - cond_scale * null

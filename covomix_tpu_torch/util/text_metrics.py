@@ -1,7 +1,8 @@
 """Token-sequence metrics of the T2S eval, in numpy: the edit distance behind
-the token WER and a corpus BLEU accumulator. The port's own copy of the
-numpy fallbacks in covomix_tpu/native/__init__.py (`levenshtein`,
-`BleuScorer`), which give the same numbers as that package's C++ helpers."""
+the token WER (one pair, or a batch of pairs) and a corpus BLEU accumulator.
+The port's own copy of the numpy fallbacks in covomix_tpu/native/__init__.py
+(`levenshtein`, `levenshtein_batch`, `BleuScorer`), which give the same
+numbers as that package's C++ helpers."""
 
 from __future__ import annotations
 
@@ -27,6 +28,12 @@ def levenshtein(a: Sequence[int], b: Sequence[int]) -> int:
         base[1:] = np.minimum(prev[1:] + 1, prev[:-1] + (aa[i - 1] != bb))
         prev = np.minimum.accumulate(base - ramp) + ramp
     return int(prev[-1])
+
+
+def levenshtein_batch(refs: Sequence[Sequence[int]], hyps: Sequence[Sequence[int]]) -> np.ndarray:
+    """[N] int64 edit distances of the pairs (refs[i], hyps[i])."""
+    assert len(refs) == len(hyps)
+    return np.asarray([levenshtein(r, h) for r, h in zip(refs, hyps)], np.int64)
 
 
 class BleuScorer:
