@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py            # from the root of a checkout; needs one CUDA card
-    python3 chip_smoke.py --ab-training DIR   # the training cells (bf16, f32), DIR's tree against this one
+    python3 chip_smoke.py --ab-training DIR [CELLS [PAIRS]]  # the training cells (bf16, f32), DIR's tree
+                                              # against this one (CELLS e.g. train,t2s; PAIRS default 10)
     python3 chip_smoke.py --vocoder           # the fused vocoder kernels alone
     python3 chip_smoke.py --flash-f32         # the f32 flash kernels at head dim 64 alone
     python3 chip_smoke.py --vocoder-split DIR # the fused kernels' time split, DIR's tree against this one
@@ -16,6 +17,7 @@
     python3 chip_smoke.py --serve_dp          # phase 20's dialogue serving over dp alone
     python3 chip_smoke.py --data_prep         # phase 21's data preparation (mels, metrics, legacy helpers) alone
     python3 chip_smoke.py --eval_files        # phase 21's file-level evals and adaptive sampling alone
+    python3 chip_smoke.py --multi_step        # phase 22 alone: K steps per dispatch, one captured CUDA graph
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
 only their library, logs ptxas's registers and spills, runs check_vocoder's
@@ -37,7 +39,9 @@ Phases (any failure exits non-zero, nothing is passed over):
      vocoder stage/tail library (both dtypes), all started together; log
      ptxas's registers, spills and wgmma notes, and hold the dh-64 flash
      kernels to FLASH_REGS and the fused vocoder kernels to VOC_REGS, with
-     no spills;
+     no spills. Phases 16 and 9b, which need only the dh-64 flash and the
+     vocoder libraries and are bound by the card, run first, while the edge
+     head dims build;
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the paths give it and at edge shapes, with stated tolerances:
      the rotary pre-pass bit for bit against `_rotary_plain`; the inference
@@ -144,14 +148,17 @@ Phases (any failure exits non-zero, nothing is passed over):
      with the early exit at layer 2 (`train.loop.make_train_step`,
      `t2s_loss_fn`, bf16, Adam 3e-4, B=8, 24-id texts, targets of 576
      codes: bench.py's positional pattern for 480, then EOS) for
-     SPEC_FIT_STEPS = 200 steps (400 until PR 18),
-     each launching exactly 4 causal forwards with lse, 4 causal dQ and 4
-     causal dK/dV and no other flash kernel, with finite losses and the
-     first step's gradient on both draft heads; (b) greedy `generate`
+     SPEC_FIT_STEPS = 200 steps: the first
+     SPEC_FIT_EAGER = 8 one at a time, each launching exactly 4 causal
+     forwards with lse, 4 causal dQ and 4 causal dK/dV and no other flash
+     kernel, the first step's gradient on both draft heads; the rest as
+     captured dispatches of SPEC_FIT_K = 8 steps
+     (`make_multi_step`), each replay 8 steps' launches; finite losses
+     throughout; (b) greedy `generate`
      against `generate_speculative` at gamma 2, 4, 8 on 8 texts, max_length
      512: tokens equal in f32 (TF32 off), in bf16 equal up to a near-tie
-     (SPEC_BF16_TIE), at most tokens / 2 verify rounds; bf16 walls best of
-     3 and bench.py's t2s_spec_* keys; (c) BatchedPipeline(speculative=True,
+     (SPEC_BF16_TIE), at most tokens / 2 verify rounds; bf16 walls (one
+     run each) and bench.py's t2s_spec_* keys; (c) BatchedPipeline(speculative=True,
      spec_gamma=4) at phase 4's shape: 256 flash forwards and pre-passes per
      batch, a finite wav, tokens a greedy decode's, the split beside phase
      4's; (d) `dialogue_generation --speculative` on phase 6's assets with
@@ -188,9 +195,11 @@ Phases (any failure exits non-zero, nothing is passed over):
      VoMix step, 4 causal of each per T2S step, 12 per HuBERT batch, none
      in the decodes and the fit); then the fused stage and tail held to
      their plain versions and timed on the inputs the bench's staged mels
-     give them at B = 4 and 64, one flow sample at B = 4 and 64 traced (the
-     card's time by kernel: flash, GEMMs, the rest), and the flash forward
-     held and timed at the flow's B=64 shape [128, 16, 912, 64];
+     give them at B = 4 (and held once more, untimed, at B = 64), one flow
+     sample at B = 4 traced (the card's time by kernel: flash, GEMMs, the
+     rest), and
+     the flash forward held and timed at the flow's B=64 shape
+     [128, 16, 912, 64];
  16. HiFi-GAN training at the covomix config's full width (batch 80,
      segment 8032, initial channel 500; GAN_CONFIG writes
      config_covomix.json) through `covomix_tpu_torch.hifigan_train.main`
@@ -298,14 +307,33 @@ Phases (any failure exits non-zero, nothing is passed over):
      and 56 pre-passes per attempt), sample_regression in f32 with CFG (16
      forwards: two separate forwards), and a small f32 sample_adaptive card
      vs CPU (equal attempts, ADAPTIVE_CPU_TOL);
- 22. print a `kernels` JSON line (phase 13's launches as
-     `speculative_launches`, phase 15's as `bench_launches`, phase 16's as
+ 22. K optimizer steps per dispatch (`train.loop.make_multi_step`, the
+     train CLI's --steps_per_dispatch; run after phase 9), K = MULTI_K = 4:
+     for each MULTI_CELLS cell at full width (VoMix bf16 B=8 T=832, CoMix
+     T2S bf16 B=6 decoder T 1026, VoMix f32), from one state and generator
+     4 eager steps against one captured dispatch, parameters, EMA, Adam's
+     moments and counts, the 4 losses and grad norms and the generator's
+     next draw bit for bit; the launches one replay runs, recorded at the
+     capture, exactly 4 steps' flash kernels (8 lse forwards, dQ, dK/dV and
+     pre-passes a VoMix bf16 step, 4 causal of each a T2S step, 8 f32 tiled
+     of each a VoMix f32 step), and one traced replay showing them; the
+     bf16 cells' ms a step eager against captured over MULTI_DISPATCHES
+     dispatches, capture seconds, each window's idle share, the graph's
+     pool and peak GiB; then `train.cli.main` on the VoMix recipe (depth
+     cut to MULTI_CLI_DEPTH) with --steps_per_dispatch 4 to 8 and --resume
+     to 12 (saves at 4, 8, 12), against an eager resume from the
+     dispatched step 8, the saved states at 12 bit for bit;
+ 23. print a `kernels` JSON line (phase 13's launches as
+     `speculative_launches` and the draft fit's replays of its captured
+     dispatch apart as `speculative_fit_replays`, phase 15's as
+     `bench_launches` and its B=64 fused check as `bench_check`, phase 16's as
      `gan_export_launches`, phase 17's as `dp_world1_launches` and
      `dp2_launches_per_rank_step`, phase 18's as
      `tp_launches_per_rank_step`, phase 19's as `pp_launches_per_rank_step`
      and `sp_launches_per_rank_step`, phase 20's as
      `bmuf_launches_per_rank_step` and `serve_dp_launches_per_rank_call`,
-     phase 21's as `eval_files_launches` and `adaptive_launches`,
+     phase 21's as `eval_files_launches` and `adaptive_launches`, phase
+     22's as `multi_step_launches_per_dispatch`,
      the fused kernels' and the forward's
      phase-15 times as `bench_shapes`) and, last, {"ok": true, "device":
      {...}}.
@@ -1137,28 +1165,38 @@ def unfused_stage(x, up, blocks, tail_post=None):
     return torch.tanh(L.conv1d(tail_post, L.leaky_relu(h), padding=3))[..., 0].float()
 
 
-def time_vocoder(results, key, kind, x, up, blocks, post=None):
-    """Kernel, plain version and the unfused generator ops of the stage
-    (kind "stage") or tail ("tail") on input x [B, T, Cin] with the default
-    taps, into results[f"{key}_ms"] etc.; the kernel's output on these inputs
-    is held against the plain version's. No single PyTorch call computes
-    either function, so there is no library yardstick. The bound counts the
-    operations at the peak of x's type (bf16: tensor cores; f32: the f32
-    kernels' scalar FMAs)."""
-    import torch
+def hold_vocoder(results, key, kind, x, up, blocks, post=None, what="the timed inputs"):
+    """The stage's (kind "stage") or tail's ("tail") kernel on input x
+    [B, T, Cin] with the default taps, its block plan logged, held against
+    its plain version (vocoder_agreement) once, the error into
+    results[f"{key}_max_abs_err"]; returns (kernel call, plain call)."""
     from covomix_tpu_torch.ops import vocoder_tail as VT
 
     tail = kind == "tail"
-    b, t, cin = x.shape
-    c = up["w"].shape[2]
     packed = VT.pack_weights(up, blocks, post, (3, 7, 11), ((1, 3, 5),) * 3, x.dtype, x.device)
     kern = VT.TAIL if tail else VT.STAGE
     log_vocoder_plan(results, key, kern, x, packed)
     plain = (lambda: VT.fused_tail_plain(x, up, blocks, post)) if tail else (
         lambda: VT.fused_stage_plain(x, up, blocks))
-    results[f"{key}_max_abs_err"] = vocoder_agreement(f"fused {kind} at the timed inputs", x, kern(x, packed),
-                                                      plain())
-    ms = both_times(results, key, lambda: kern(x, packed))
+    results[f"{key}_max_abs_err"] = vocoder_agreement(f"fused {kind} at {what}", x, kern(x, packed), plain())
+    return (lambda: kern(x, packed)), plain
+
+
+def time_vocoder(results, key, kind, x, up, blocks, post=None):
+    """Kernel, plain version and the unfused generator ops of the stage
+    (kind "stage") or tail ("tail") on input x [B, T, Cin] with the default
+    taps, into results[f"{key}_ms"] etc.; the kernel's output on these inputs
+    is held against the plain version's (hold_vocoder). No single PyTorch
+    call computes either function, so there is no library yardstick. The
+    bound counts the operations at the peak of x's type (bf16: tensor cores;
+    f32: the f32 kernels' scalar FMAs)."""
+    import torch
+
+    tail = kind == "tail"
+    b, t, cin = x.shape
+    c = up["w"].shape[2]
+    fused, plain = hold_vocoder(results, key, kind, x, up, blocks, post)
+    ms = both_times(results, key, fused)
     results[f"{key}_plain_ms"] = cuda_time_ms(plain, iters=5)
     results[f"{key}_unfused_ms"] = cuda_time_ms(lambda: unfused_stage(x, up, blocks, post), iters=10)
     n_out = (2 if tail else 4) * b * t
@@ -2629,6 +2667,8 @@ def run_hubert(results, root):
 # (PR 19 probe, NVIDIA H100 80GB HBM3, 700.00 W)
 SPEC_FIT_STEPS = 200
 SPEC_FIT_BATCH = 8
+SPEC_FIT_EAGER = 8        # fit steps taken one at a time (gated step by step), then dispatches of SPEC_FIT_K steps
+SPEC_FIT_K = 8            # (make_multi_step: one captured CUDA graph; the eager steps' host time ~10x the card's)
 SPEC_TARGET = 576         # targets bucketed to 576: decoder T 578, on the causal flash kernels
 SPEC_PATTERN = 480        # pattern tokens before the trained EOS
 SPEC_GAMMAS = (2, 4, 8)
@@ -2662,14 +2702,20 @@ def spec_batch(rs, b):
 
 
 def fit_draft_heads(results):
-    """SPEC_FIT_STEPS optimizer steps of `train.loop.make_train_step` with
-    `t2s_loss_fn` (bf16, Adam 3e-4, EMA on) over fresh spec_batch rows:
-    every step must launch exactly 4 causal forwards with lse, 4 causal dQ
-    and 4 causal dK/dV (the 4 decoder layers; the early-exit CE reuses the
-    hidden states) and no other flash kernel, with a finite loss; the first
-    step's gradient reaches both draft heads. Returns (config, parameters)."""
+    """SPEC_FIT_STEPS optimizer steps with `t2s_loss_fn` (bf16, Adam 3e-4,
+    EMA on) over fresh spec_batch rows: the first SPEC_FIT_EAGER one at a
+    time (`train.loop.make_train_step`), each launching exactly 4 causal
+    forwards with lse, 4 causal dQ and 4 causal dK/dV (the 4 decoder layers;
+    the early-exit CE reuses the hidden states) and no other flash kernel,
+    with a finite loss, the first step's gradient reaching both draft heads;
+    the rest SPEC_FIT_K at a time (`make_multi_step`, one captured CUDA
+    graph: the same batches in the same order, the same arithmetic), one
+    capture whose warm-up launches one step's kernels and whose replays
+    each run SPEC_FIT_K steps' (recorded at the capture), every loss finite.
+    Returns (config, parameters)."""
     import numpy as np
     import torch
+    from covomix_tpu_torch.data.datasets import stack_microbatches
     from covomix_tpu_torch.models import text2semantic as T
     from covomix_tpu_torch.train import loop
     from covomix_tpu_torch.util.misc import tree_map
@@ -2677,12 +2723,13 @@ def fit_draft_heads(results):
     cfg = spec_config()
     tcfg = loop.TrainConfig(lr=3e-4)
     state = loop.init_train_state(T.init(torch.Generator(device="cuda").manual_seed(21), cfg), tcfg)
-    step = loop.make_train_step(loop.t2s_loss_fn(cfg, dtype=torch.bfloat16), tcfg)
+    loss_fn = loop.t2s_loss_fn(cfg, dtype=torch.bfloat16)
+    step, multi = loop.make_train_step(loss_fn, tcfg), loop.make_multi_step(loss_fn, tcfg, SPEC_FIT_K)
     per_step = launches(fwd_lse_causal=4, bwd_dq_causal=4, bwd_dkv_causal=4)
     rs = np.random.RandomState(100)
-    ms, losses = [], []
+    ms, dispatch_ms, losses = [], [], []
     zero_counts()
-    for i in range(SPEC_FIT_STEPS):
+    for i in range(SPEC_FIT_EAGER):
         batch = spec_batch(rs, SPEC_FIT_BATCH)
         torch.cuda.synchronize()
         c0, t0 = flash_counts(), time.time()
@@ -2697,12 +2744,35 @@ def fit_draft_heads(results):
             heads = {h: float(ee[h]["w"].grad.abs().sum()) for h in ("to_logits", "to_logits2")}
             if not all(g > 0 for g in heads.values()):
                 raise AssertionError(f"the first fit step's gradient does not reach the draft heads: {heads}")
-    median = float(np.median(ms[2:]))
-    totals = flash_counts()
+    eager = flash_counts()
+    for _ in range((SPEC_FIT_STEPS - SPEC_FIT_EAGER) // SPEC_FIT_K):
+        batch = stack_microbatches([spec_batch(rs, SPEC_FIT_BATCH) for _ in range(SPEC_FIT_K)])
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dispatch = multi(state, batch, None)["loss"].tolist()       # waits for the card
+        dispatch_ms.append((time.time() - t0) * 1e3 / SPEC_FIT_K)
+        losses += dispatch
+        if not np.all(np.isfinite(dispatch)):
+            raise AssertionError(f"draft-head fit dispatch {len(dispatch_ms)}: losses {dispatch}")
+    warm = {k: v - eager[k] for k, v in flash_counts().items()}
+    recorded = {k: multi.last.launches.get(a, 0) for k, a in COUNTS.items()}
+    replayed = {k: multi.replayed.get(a, 0) for k, a in COUNTS.items()}
+    if (state.step != SPEC_FIT_STEPS or multi.captures != 1 or warm != per_step
+            or recorded != {k: n * SPEC_FIT_K for k, n in per_step.items()}):
+        raise AssertionError(f"draft-head fit: {state.step} steps, {multi.captures} captures, warm-up launches "
+                             f"{warm}, {recorded} a dispatch (expected one capture, {per_step} a step)")
+    median, dispatched = float(np.median(ms[2:])), float(np.median(dispatch_ms[1:]))
+    # counted: the eager steps' and the warm-up's launches and the one capture's record; the replays run
+    # that record each, which no counter sees, so they are reported apart (spec_fit_replays)
+    totals = {k: v + recorded[k] for k, v in flash_counts().items()}
     log(f"draft-head fit (CoMix full width + early exit at layer 2, bf16, B={SPEC_FIT_BATCH}, decoder T "
-        f"{SPEC_TARGET + 2}): {SPEC_FIT_STEPS} steps, median {median:.2f} ms per step, loss {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f}; launch totals {totals}")
-    results.update(spec_fit_step_ms=median, spec_fit_loss=losses[-1], spec_fit_launches=totals)
+        f"{SPEC_TARGET + 2}): {SPEC_FIT_STEPS} steps, {SPEC_FIT_EAGER} eager (median {median:.2f} ms a step) and "
+        f"{len(dispatch_ms)} captured dispatches of {SPEC_FIT_K} (median {dispatched:.2f} ms a step, capture "
+        f"{multi.last.capture_s:.2f} s), loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches counted {totals}, "
+        f"{multi.replays} replays of the capture's record (by the record: {replayed})")
+    results.update(spec_fit_step_ms=median, spec_fit_dispatch_ms_per_step=dispatched, spec_fit_loss=losses[-1],
+                   spec_fit_launches=totals, spec_fit_replays={"replays": multi.replays,
+                                                               "launches_per_replay": recorded})
     return cfg, tree_map(lambda p: p.detach(), state.params)
 
 
@@ -2794,10 +2864,10 @@ def run_spec_decode(results, cfg, params):
     `generate_speculative` at every gamma of SPEC_GAMMAS on 8 seeded texts,
     max_length 512: in f32 with TF32 off the tokens must be equal position
     for position; in bf16 equal up to near-ties (hold_tokens). Every
-    speculative run must take at most tokens / 2 verify rounds. The bf16
-    decodes are timed as the best of 3, taken in turns (greedy's scores
-    recorded by one more, untimed call of the direct step); bench.py's keys
-    are logged for gamma 4."""
+    speculative run must take at most tokens / 2 verify rounds. Every
+    decode is timed once, in turns (greedy's
+    scores recorded by one more, untimed call of the direct step); bench.py's
+    keys are logged for gamma 4."""
     import numpy as np
     import torch
     from covomix_tpu_torch.bench import spec_stats
@@ -2808,7 +2878,7 @@ def run_spec_decode(results, cfg, params):
     table = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
-        runs = 3 if dtype == torch.bfloat16 else 1     # the f32 walls: one run each, first calls included
+        runs = 1    # one timed run each (first calls included in f32); no gate reads the walls
         decoders = {"greedy": lambda: T.generate(params, cfg, gen.manual_seed(0), text, max_length=SPEC_DECODE,
                                                  temperature=1e-10, top_k_thres=1.0, dtype=dtype)}
         for g in SPEC_GAMMAS:
@@ -2953,13 +3023,14 @@ PER_FILE_HELD = 256
 READ_METHODS = ("__bool__", "item", "__int__", "__float__", "__index__", "tolist", "numpy")
 
 
-def traced_idle_share(what, fn, untraced_s=None) -> dict:
+def traced_idle_share(what, fn, untraced_s=None, by_kernel=False):
     """fn() once under `profiling.trace`, inside a scope that ends after a
     synchronize; the scope's device idle share (1 - the union of the card's
     kernels, copies and sets over its wall), logged. Tracing slows the
     host's launches, so with `untraced_s`, the best wall of the same call
     untraced, the share of that wall the traced device work leaves idle is
-    logged beside it. A trace that saw no device work fails."""
+    logged beside it. A trace that saw no device work fails. With
+    `by_kernel`, returns (the share, the card's work by kernel)."""
     import torch
     from covomix_tpu_torch.util import profiling
 
@@ -2975,7 +3046,7 @@ def traced_idle_share(what, fn, untraced_s=None) -> dict:
     log(f"device idle share, {what}: {json.dumps(share)}")
     if share["device_events"] == 0:
         raise AssertionError(f"{what}: the trace shows no device activity")
-    return share
+    return (share, profiling.device_time_by_kernel(prof)) if by_kernel else share
 
 
 @contextlib.contextmanager
@@ -3213,7 +3284,9 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "chip", "chip_peak_bf16_
 BENCH_ROW_KEYS = ("rtf", "t2s_wall_s", "flow_wall_s", "vocoder_wall_s", "audio_s", "decoded_steps", "rtf_fused",
                   "fused_wall_s", "upload_s", "flow_mfu", "fused_mfu_lb")
 BENCH_MFU_MAX = 1.05     # a share above this means the FLOP count is wrong, not the kernel
-BENCH_DETAIL_B = (4, 64)  # the batches phase 15 looks into: fused stage / tail held and timed, flow traced
+BENCH_DETAIL_B = (4,)     # the batches phase 15 looks into: fused stage / tail held and timed, flow traced
+BENCH_CHECK_B = 64        # the bench's largest batch: there the fused stage / tail are held once, untimed
+BENCH_FLASH_B = 64        # the bench's batch at whose flow shape phase 15 holds and times the flash forward
 BENCH_RUNS = 1            # timed runs per B after the warm-up (the bench's default: 3 at B=4, 2 at the others)
 
 
@@ -3341,10 +3414,12 @@ def run_bench(results):
     or id array and on a non-finite loss), its line printed and held by
     check_bench_line; then the fused stage and tail held to their plain
     versions (phase 3b's tolerances) and timed on the inputs one generator
-    call on the bench's staged mel gives them at B = 4 and 64; the card's
-    time in one flow sample at B = 4 and 64 by kernel
-    (flow_device_breakdown); the flash forward (with and without its
-    pre-pass) held and timed at the flow's B=64 shape, [128, 16, 912, 64].
+    call on the bench's staged mel gives them at B = 4 (BENCH_DETAIL_B),
+    and held once, untimed, at B = 64 (BENCH_CHECK_B: the tile follows the
+    SM count, so the largest batch can tile otherwise); the card's time in
+    one flow sample at B = 4 by kernel (flow_device_breakdown); the flash
+    forward (with and without its pre-pass) held and timed at the flow's
+    B=64 shape, [128, 16, 912, 64].
     The launch counts are set to 0 just before the bench and read just
     after."""
     import torch
@@ -3362,11 +3437,14 @@ def run_bench(results):
     for b in BENCH_DETAIL_B:
         for kind, (x, up, blocks, post) in bench_vocoder_inputs(bench, b).items():
             time_vocoder(results, f"{kind}_bench_b{b}", kind, x, up, blocks, post)
+    for kind, (x, up, blocks, post) in bench_vocoder_inputs(bench, BENCH_CHECK_B).items():
+        hold_vocoder(results, f"{kind}_bench_b{BENCH_CHECK_B}", kind, x, up, blocks, post,
+                     f"the bench's B={BENCH_CHECK_B} inputs")
     results["bench_flow_breakdown"] = {b: flow_device_breakdown(bench, b) for b in BENCH_DETAIL_B}
     del bench
     torch.cuda.empty_cache()
     frames = BN.PROMPT + settings.decode_len      # the flow at B=64: 128 rows (CFG), every frame live
-    time_flash(results, f"flash_bench_b{max(BENCH_DETAIL_B)}", 2 * max(BENCH_DETAIL_B), frames, frames)
+    time_flash(results, f"flash_bench_b{BENCH_FLASH_B}", 2 * BENCH_FLASH_B, frames, frames)
     log(f"phase 15 wall {time.time() - t0:.1f} s (the bench {results['bench_wall_s']:.1f} s)")
 
 
@@ -5392,6 +5470,324 @@ def phase21_mode(which: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 22: K optimizer steps per dispatch, one captured CUDA graph (--steps_per_dispatch)
+
+
+MULTI_K = 4
+# name -> (model, dtype, timed): the recipes' shapes at full width; the f32 VoMix cell (the recipes' own
+# precision) is held and its kernels counted, not timed
+MULTI_CELLS = {"vomix_bf16": ("vomix", "bf16", True), "t2s_bf16": ("t2s", "bf16", True),
+               "vomix_f32": ("vomix", "f32", False)}
+MULTI_DISPATCHES = 3     # timed dispatches of each form, in turns, each ended by a synchronize
+# the flash kernels of one step of a cell: (kernel name in a trace, flash_counts key, launches a step)
+MULTI_KERNELS = {
+    "vomix_bf16": (("flash_fwd_wgmma", "fwd_lse", 8), ("flash_bwd_dq_wgmma", "bwd_dq", 8),
+                   ("flash_bwd_dkv_wgmma", "bwd_dkv", 8), ("flash_rotary_halfsplit_bf16", "rotary", 8)),
+    "t2s_bf16": (("flash_fwd_wgmma", "fwd_lse_causal", 4), ("flash_bwd_dq_wgmma", "bwd_dq_causal", 4),
+                 ("flash_bwd_dkv_wgmma", "bwd_dkv_causal", 4)),
+    "vomix_f32": (("flash_fwd_f32_tile", "fwd_lse", 8), ("flash_bwd_dq_f32_tile", "bwd_dq", 8),
+                  ("flash_bwd_dkv_f32_tile", "bwd_dkv", 8)),
+}
+
+
+def multi_cell(model, dt):
+    """(parameters, loss_fn, train config, [MULTI_K, ...] numpy batch) of a
+    phase-22 cell, seeded: the VoMix recipe's model and batch (B=8, T=832,
+    one random span mask a row, cond-drop 0.3: the loss draws noise, times
+    and the drop coin) or the CoMix T2S recipe's (B=6, 64 text ids, targets
+    bucketed to 1024: decoder T 1026, the causal flash route). The schedule
+    moves the learning rate inside the dispatch (2 steps an epoch) and the
+    clip is on."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.models import acoustic as A, text2semantic as T
+    from covomix_tpu_torch.train import loop
+
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    rs, gen, k = np.random.RandomState(22), torch.Generator(device="cuda").manual_seed(22), MULTI_K
+    tcfg = loop.TrainConfig(lr=1e-4, use_lr_schedule=True, steps_per_epoch=2, wake_up_epochs=15, grad_clip=1.0)
+    if model == "vomix":
+        cfg = A.AcousticConfig(dim_in=160, dim=1024, depth=8, heads=16, dim_head=64, num_phoneme_tokens=502,
+                               mode="two_one")
+        start = rs.randint(0, 400, (k, 8))
+        mask = (np.arange(832) >= start[..., None]) & (np.arange(832) < start[..., None] + 300)
+        batch = {"x": (rs.randn(k, 8, 832, 240) * 2 - 5).astype(np.float32),
+                 "phonemes": rs.randint(0, 502, (k, 8, 832, 2)).astype(np.int32), "mask": mask}
+        return A.init(gen, cfg), loop.acoustic_loss_fn(cfg, cond_drop_prob=0.3, dtype=dtype), tcfg, batch
+    cfg = T.T2SConfig(dim=512, source_depth=4, target_depth=4, heads=8, dim_head=64, num_text_tokens=30528,
+                      num_semantic_tokens=501, target_dim=1024, two_output=True)
+    batch = {"text_ids": rs.randint(1, 180, (k, 6, 64)).astype(np.int32),
+             "semantic_ids": rs.randint(0, 500, (k, 6, 1024, 2)).astype(np.int32)}
+    return T.init(gen, cfg), loop.t2s_loss_fn(cfg, dtype=dtype), tcfg, batch
+
+
+def differences(got: dict, ref: dict) -> dict:
+    """{name: max |got - ref|} of the tensors of `got` that are not equal to
+    `ref`'s bit for bit."""
+    import torch
+
+    if got.keys() != ref.keys():
+        return {"keys": sorted(set(got) ^ set(ref))}
+    return {k: (got[k].double() - ref[k].double()).abs().max().item() for k in got
+            if not torch.equal(got[k], ref[k])}
+
+
+def run_multi_cell(name) -> dict:
+    """One phase-22 cell: from one state and generator, MULTI_K eager
+    `make_train_step` calls against one `make_multi_step` dispatch (its
+    capture and first replay) on the same stacked batch: parameters, EMA,
+    Adam's moments and counts, the K losses and grad norms and the
+    generator's next draw bit for bit. The warm-up before the capture must
+    launch one step's flash kernels and the capture record K steps' (the
+    launches of one replay); one more replay, traced, must show the
+    hand-written kernels at their per-step counts x K (where the trace
+    attributes the graph's kernels). Timed cells: ms a step of the eager
+    steps and of the captured dispatch over MULTI_DISPATCHES dispatches each
+    (in turns), one eager dispatch traced for its idle share beside the
+    replay's; the capture's seconds, the graph's pool and the peak GiB."""
+    import torch
+    from covomix_tpu_torch.train import loop
+
+    model, dt, timed = MULTI_CELLS[name]
+    t_cell = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, loss_fn, tcfg, batch = multi_cell(model, dt)
+    state = loop.init_train_state(params, tcfg)
+    eager, multi = loop.make_train_step(loss_fn, tcfg), loop.make_multi_step(loss_fn, tcfg, MULTI_K)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def eager_dispatch():
+        return [eager(state, {k: v[i] for k, v in batch.items()}, gen) for i in range(MULTI_K)]
+
+    eager_dispatch()        # Adam's moments live and every kernel built before the reference
+    torch.cuda.synchronize()
+    # detached: a clone of a parameter that records autograd would keep its grad accumulator alive, made on
+    # this (the legacy) stream, and the capture's backward would then have to join that stream
+    saved = {k: v.detach().clone() for k, v in loop.state_tensors(state).items()}
+    counters, g0 = (state.step, state.ema_num_updates), gen.get_state()
+    ms = eager_dispatch()
+    ref_metrics = {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+    ref_draw = torch.rand(256, generator=gen, device="cuda")
+    ref = {k: v.detach().clone() for k, v in loop.state_tensors(state).items()}
+    with torch.no_grad():   # back to the saved state, in place
+        for k, v in loop.state_tensors(state).items():
+            v.copy_(saved[k])
+    del saved
+    state.step, state.ema_num_updates = counters
+    gen.set_state(g0)
+    torch.cuda.empty_cache()
+    c0, reserved0 = flash_counts(), torch.cuda.memory_reserved()
+    metrics = multi(state, batch, gen)
+    torch.cuda.synchronize()
+    warm = {k: v - c0[k] for k, v in flash_counts().items()}
+    entry = multi.last
+    torch.cuda.empty_cache()    # what stays reserved is the graph's private pool (and the metrics)
+    pool_gib = (torch.cuda.memory_reserved() - reserved0) / 2 ** 30
+    diff = differences(loop.state_tensors(state), ref)
+    diff.update({f"metric_{k}": v for k, v in differences(metrics, ref_metrics).items()})
+    diff.update({"generator_next_draw": v for v in differences({"d": torch.rand(256, generator=gen,
+                                                                                 device="cuda")},
+                                                                {"d": ref_draw}).values()})
+    del ref
+    per_step = launches(**{key: n for _, key, n in MULTI_KERNELS[name]})
+    recorded = {key: entry.launches.get(attr, 0) for key, attr in COUNTS.items()}
+    rec = {"k": MULTI_K, "launches_per_step": per_step, "launches_per_dispatch": recorded,
+           "warmup_launches": warm, "capture_s": entry.capture_s, "pool_gib": pool_gib,
+           "state_counters": [state.step, state.ema_num_updates], "losses": metrics["loss"].tolist(),
+           "grad_norms": metrics["grad_norm"].tolist(), "differences": diff}
+    log(f"multi-step {name}: captured dispatch vs {MULTI_K} eager steps: {json.dumps(rec)}")
+    if diff:
+        raise AssertionError(f"multi-step {name}: the captured dispatch differs from {MULTI_K} eager steps: {diff}")
+    if recorded != {k: v * MULTI_K for k, v in per_step.items()} or warm != per_step:
+        raise AssertionError(f"multi-step {name}: launches {recorded} a dispatch (warm-up {warm}), expected "
+                             f"{per_step} a step")
+    replay_idle, by_kernel = traced_idle_share(f"multi-step {name}, one captured dispatch",
+                                               lambda: multi(state, batch, gen), by_kernel=True)
+    traced = {base: sum(n for nm, (n, _) in by_kernel.items() if base in nm) for base, _, _ in MULTI_KERNELS[name]}
+    want = {base: n * MULTI_K for base, _, n in MULTI_KERNELS[name]}
+    rec.update(traced_launches=traced, replay_idle=replay_idle,
+               trace_top=[[nm[:90], n, ms] for nm, (n, ms) in list(by_kernel.items())[:8]])
+    if not any(traced.values()):
+        log(f"multi-step {name}: the trace attributes none of the graph's flash kernels; gated on the launches "
+            f"recorded at the capture")
+    elif traced != want:
+        raise AssertionError(f"multi-step {name}: the traced replay ran {traced}, expected {want}")
+    if multi.captures != 1 or multi.replays != 2:
+        raise AssertionError(f"multi-step {name}: {multi.captures} captures, {multi.replays} replays")
+    if timed:
+        walls = {"eager": [], "captured": []}
+        for _ in range(MULTI_DISPATCHES):
+            for form, fn in (("captured", lambda: multi(state, batch, gen)), ("eager", eager_dispatch)):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                fn()
+                torch.cuda.synchronize()
+                walls[form].append((time.time() - t0) * 1e3 / MULTI_K)
+        eager_idle = traced_idle_share(f"multi-step {name}, {MULTI_K} eager steps", eager_dispatch)
+        rec.update(ms_per_step={form: statistics.median(v) for form, v in walls.items()}, ms_per_step_all=walls,
+                   eager_idle=eager_idle)
+    if model == "t2s":      # the cache full: one graph per decoder bucket up to GRAPH_CACHE_SIZE shapes
+        rec["cache_fill"] = fill_graph_cache(multi, state, batch, gen)
+    rec.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, wall_s=time.time() - t_cell)
+    log(f"multi-step {name}: " + json.dumps({k: rec[k] for k in ("ms_per_step", "capture_s", "pool_gib", "peak_gib",
+                                                                 "traced_launches", "wall_s") if k in rec}))
+    del multi, eager, state, params
+    return rec
+
+
+MULTI_CLI_DEPTH = 2    # the CLI runs' depth: a depth-8 state.npz (4 GB) took ~6 s a save; the cells hold depth 8
+
+
+def train_state_checksums(state) -> dict:
+    """{name: bits_checksum} of every tensor a step writes (on the card),
+    and the counters."""
+    from covomix_tpu_torch.train import loop
+
+    out = {k: tuple(bits_checksum(v.detach().float().reshape(-1)).tolist())
+           for k, v in loop.state_tensors(state).items()}
+    return {**out, "counters": (state.step, state.ema_num_updates)}
+
+
+def fill_graph_cache(multi, state, batch, gen) -> dict:
+    """One dispatch at each of the T2S recipe's longer decoder buckets
+    (targets 1280, 1536, ...: decoder T up to 1794) until the multi-step's
+    cache holds GRAPH_CACHE_SIZE graphs: each a capture of its own, every
+    graph kept; the card's reserved memory (the graphs' pools) and peak."""
+    import numpy as np
+    import torch
+    from covomix_tpu_torch.train import loop
+
+    rs, shapes = np.random.RandomState(24), []
+    for n in range(loop.GRAPH_CACHE_SIZE - len(multi.graphs)):
+        t = 1024 + 256 * (n + 1)
+        multi(state, {"text_ids": batch["text_ids"], "semantic_ids": rs.randint(0, 500, (MULTI_K, 6, t, 2)).astype(
+            np.int32)}, gen)
+        shapes.append(t + 2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {"decoder_t": shapes, "graphs": len(multi.graphs), "captures": multi.captures,
+           "capture_s": multi.last.capture_s, "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"multi-step t2s, the graph cache full: {json.dumps(out)}")
+    if out["graphs"] != loop.GRAPH_CACHE_SIZE:
+        raise AssertionError(f"the multi-step cache holds {out['graphs']} graphs, expected {loop.GRAPH_CACHE_SIZE}")
+    return out
+
+
+def run_multi_cli(results, root):
+    """`covomix_tpu_torch.train.cli.main` on the VoMix recipe at full width
+    (bf16, B=8, T=832; depth cut to MULTI_CLI_DEPTH) on 24 random items with
+    `--steps_per_dispatch 4 --max_steps 8 --ckpt_every 4 --eval_every 0`,
+    then `--resume` to 12 (saves at 4, 8 and 12); beside it, from the
+    dispatched run's step 8 as written, the same resume with one step a
+    dispatch (eager). The two resumed runs must save the same state at 12,
+    bit for bit (checksums of every saved tensor's bits; both resume with
+    a fresh loader and generator, as JAX's train.py does). Every dispatched
+    run captures once (its warm-up launching one step's flash kernels) and
+    replays its dispatches, each running 4 steps' kernels; the eager resume
+    launches them step by step."""
+    from covomix_tpu_torch.checkpoint import io as cio
+    from covomix_tpu_torch.train import cli, loop
+
+    train_dir, logs = os.path.join(root, "train"), os.path.join(root, "logs")
+    write_vomix_items(train_dir, 24, 0)
+    argv = ["--base_dir", train_dir, *VOMIX_RECIPE, "--CoVoMix_depth", str(MULTI_CLI_DEPTH), "--device", "cuda",
+            "--log_every", "4", "--eval_every", "0", "--ckpt_every", "4", "--no_wandb", "--log_dir", logs,
+            "--seed", "0"]
+    made, saves, orig = [], {}, (loop.make_multi_step, cio.save_train_state)
+
+    def make_multi_step(loss_fn, cfg, k):
+        made.append(orig[0](loss_fn, cfg, k))
+        return made[-1]
+
+    def save_train_state(ckpt_dir, state, step):
+        orig[1](ckpt_dir, state, step)
+        saves[(os.path.basename(os.path.dirname(ckpt_dir)), step)] = train_state_checksums(state)
+
+    per_step = launches(fwd_lse=MULTI_CLI_DEPTH, bwd_dq=MULTI_CLI_DEPTH, bwd_dkv=MULTI_CLI_DEPTH,
+                        rotary=MULTI_CLI_DEPTH)
+    runs = (("k4", ["--steps_per_dispatch", "4", "--max_steps", "8"]),
+            ("k4", ["--steps_per_dispatch", "4", "--max_steps", "12", "--resume"]),
+            ("k1r", ["--max_steps", "12", "--resume"]))
+    loop.make_multi_step, cio.save_train_state = make_multi_step, save_train_state
+    out = {}
+    try:
+        for i, (run, extra) in enumerate(runs):
+            zero_counts()
+            t0 = time.time()
+            cli.main(argv + ["--run_name", run] + extra)
+            step = made[-1]
+            if i == 0:      # the eager resume's start: this run's step 8 as written (a hard link; the
+                step8 = os.path.join(logs, "k1r", "checkpoints", "step_00000008")   # resume at 12 prunes it)
+                os.makedirs(step8)
+                os.link(os.path.join(logs, "k4", "checkpoints", "step_00000008", "state.npz"),
+                        os.path.join(step8, "state.npz"))
+            out[f"run{i + 1}_{run}"] = {"s": time.time() - t0, "eager_launches": flash_counts(),
+                                        **({"captures": step.captures, "replays": step.replays,
+                                            "replayed": {k: step.replayed.get(a, 0) for k, a in COUNTS.items()}}
+                                           if isinstance(step, loop.MultiStep) else {})}
+    finally:
+        loop.make_multi_step, cio.save_train_state = orig
+    log(f"multi-step CLI runs: saves {sorted(saves)}; {json.dumps(out)}")
+    if sorted(saves) != [("k1r", 12), ("k4", 4), ("k4", 8), ("k4", 12)]:
+        raise AssertionError(f"multi-step CLI saves {sorted(saves)}, expected k4 at 4, 8, 12 and k1r at 12")
+    times = lambda n: {k: v * n for k, v in per_step.items()}
+    for key, dispatches in (("run1_k4", 2), ("run2_k4", 1)):
+        r = out[key]
+        if (r["captures"], r["replays"], r["replayed"], r["eager_launches"]) != (1, dispatches,
+                                                                                 times(4 * dispatches), per_step):
+            raise AssertionError(f"multi-step CLI {key}: {r}, expected one capture (a step's warm-up launches) "
+                                 f"and {dispatches} replays of 4 steps' launches")
+    if out["run3_k1r"]["eager_launches"] != times(4):
+        raise AssertionError(f"multi-step CLI eager resume launched {out['run3_k1r']}")
+    got, ref = saves[("k4", 12)], saves[("k1r", 12)]
+    bad = sorted(k for k in ref if got.get(k) != ref[k])
+    if bad or got.keys() != ref.keys():
+        raise AssertionError(f"multi-step CLI: the dispatched resume's step 12 differs from the eager one's: {bad[:8]}")
+    results["multi_cli"] = out
+
+
+def run_multi_step(results, root):
+    """Phase 22: every MULTI_CELLS cell, then the CLI runs (run_multi_cli)
+    under `root` (removed after)."""
+    t0 = time.time()
+    cells = {name: run_multi_cell(name) for name in MULTI_CELLS}
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        run_multi_cli(results, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    results.update(multi_step=cells, multi_step_wall_s=time.time() - t0)
+    log(f"phase 22 wall {results['multi_step_wall_s']:.1f} s")
+
+
+def multi_step_mode() -> int:
+    """`python3 chip_smoke.py --multi_step`: phase 22 alone, ending with the
+    same `ok` line. The kernels build on first use."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    run_multi_step(results, os.path.join(VT.BUILD_DIR, "smoke_multi"))
+    log(f"total chip_smoke --multi_step time {time.time() - t_start:.1f} s")
+    log("multi-step training: " + json.dumps({"cells": results["multi_step"], "cli": results["multi_cli"]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 # registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
 # to the counts of their first build: the bf16 TMA + wgmma forward's four
 # forms (<dh, lse, causal>), the rotary pre-pass, the TMA + wgmma backward
@@ -5536,10 +5932,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    regs, spills = build_kernels()
+    # every library's nvcc starts now; the head-dim-64 flash and the vocoder libraries are ready in
+    # ~20-25 s, the edge head dims in ~100-160 s: meanwhile the phases that need only those two and whose
+    # time is mostly the card's (16: HiFi-GAN training, idle ~10 %; 9b: the f32 training cells) run. Their
+    # timings are then taken with nvcc busy on the host's cores: `--gan` times phase 16 alone.
+    results = {}
+    with ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build_kernels)
+        FA.KERNEL.build(SERVING_DH)
+        VT.LIBRARY.build()
+        log("phases 16 and 9b run while the edge head dims build: their ms a step, rates and idle shares are "
+            "host-contended, not comparable with those phases timed alone")
+        t0 = time.time()
+        root = os.path.join(VT.BUILD_DIR, "smoke_gan")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        try:
+            run_gan_training(results, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        for cell in F32_CELLS:
+            root = os.path.join(VT.BUILD_DIR, f"smoke_{cell}_f32")
+            shutil.rmtree(root, ignore_errors=True)
+            try:
+                run_f32_training(results, root, cell)
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+        log(f"phases 16 and 9b (beside the edge head dims' builds) {time.time() - t0:.1f} s")
+        regs, spills = building.result()
     check_registers(regs, spills)
 
-    results = {}
     check_rotary_prepass(results)
     check_flash(results)
     check_flash_training(results)
@@ -5601,21 +6023,8 @@ def main() -> int:
     time_flash_causal(results)
     time_flash_f32(results, "_causal_f32", *F32_SHAPES["_causal_f32"])
     check_small_t2s_training_against_cpu()
-    for cell in F32_CELLS:
-        root = os.path.join(VT.BUILD_DIR, f"smoke_{cell}_f32")
-        shutil.rmtree(root, ignore_errors=True)
-        try:
-            run_f32_training(results, root, cell)
-        finally:
-            shutil.rmtree(root, ignore_errors=True)
+    run_multi_step(results, os.path.join(VT.BUILD_DIR, "smoke_multi"))
     run_bench(results)
-    root = os.path.join(VT.BUILD_DIR, "smoke_gan")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    try:
-        run_gan_training(results, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
     root = os.path.join(VT.BUILD_DIR, "smoke_dp")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -5644,7 +6053,11 @@ def main() -> int:
         """Phase 19's launches of `key` per rank step, by cell, of the cells of `axis` in `dt`."""
         return {name: ppl[name][key] for name in ppl if PP_CELLS[name][2] == axis and PP_CELLS[name][0] == dt}
 
-    big = max(BENCH_DETAIL_B)
+    def dispatched(cell, key):
+        """Phase 22: the launches of `key` one captured dispatch of `cell` runs (recorded at its capture)."""
+        return {cell: results["multi_step"][cell]["launches_per_dispatch"][key]}
+
+    big = BENCH_FLASH_B
     kernels = [
         # the attention kernel alone; with the pre-pass, as the path calls it, in ms_with_prepass
         kernel_entry(results, "flash", "flash_attention_fwd", flash_src, "covomix_tpu/ops/flash_attention.py:162",
@@ -5665,7 +6078,8 @@ def main() -> int:
                      sp_launches_per_rank_step=staged("sp", "bf16", "rotary"),
                      bmuf_launches_per_rank_step=bml["bmuf_vomix_bf16"]["rotary"],
                      serve_dp_launches_per_rank_call=sdl["bf16"]["rotary"],
-                     adaptive_launches=results["adaptive"]["rotary_launches"]),
+                     adaptive_launches=results["adaptive"]["rotary_launches"],
+                     multi_step_launches_per_dispatch=dispatched("vomix_bf16", "rotary")),
     ]
     for kind, replaces in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                            ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):
@@ -5674,7 +6088,9 @@ def main() -> int:
                                     speculative_launches=spec_file[kind], bench_launches=bench[kind],
                                     bench_shapes={f"b{b}": bench_shape_entry(results, f"{kind}_bench_b{b}",
                                                                              "unfused_ms")
-                                                  for b in BENCH_DETAIL_B}))
+                                                  for b in BENCH_DETAIL_B},
+                                    bench_check={f"b{BENCH_CHECK_B}": results[
+                                        f"{kind}_bench_b{BENCH_CHECK_B}_max_abs_err"]}))
     replaces = {"fwd_lse": "covomix_tpu/ops/flash_attention.py:162",
                 "bwd_dq": "covomix_tpu/ops/flash_attention.py:502",
                 "bwd_dkv": "covomix_tpu/ops/flash_attention.py:544"}
@@ -5691,7 +6107,8 @@ def main() -> int:
                                                                if name.endswith("vomix_bf16")},
                                     pp_launches_per_rank_step=staged("pp", "bf16", key),
                                     sp_launches_per_rank_step=staged("sp", "bf16", key),
-                                    bmuf_launches_per_rank_step=bml["bmuf_vomix_bf16"][key]))
+                                    bmuf_launches_per_rank_step=bml["bmuf_vomix_bf16"][key],
+                                    multi_step_launches_per_dispatch=dispatched("vomix_bf16", key)))
     for dt in ("f32", "bf16"):     # this slice's main path: HuBERT extraction (f32, and --bf16)
         kernels.append(kernel_entry(results, f"hubert_fwd_{dt}", f"flash_attention_fwd_hubert_{dt}", flash_src,
                                     "covomix_tpu/ops/flash_attention.py:162", results[f"hubert_{dt}"]["launches"],
@@ -5716,10 +6133,15 @@ def main() -> int:
         key = f"{key}_causal"
         kernels.append(kernel_entry(results, key, f"flash_attention_{key}", flash_src, where, t2s[key],
                                     launches_per_train_step=t2s[key] // results["t2s_steps"],
-                                    speculative_launches=spec_fit[key], bench_launches=bench[key],
+                                    speculative_launches=spec_fit[key],
+                                    speculative_fit_replays={"replays": results["spec_fit_replays"]["replays"],
+                                                             "launches_per_replay": results["spec_fit_replays"][
+                                                                 "launches_per_replay"][key]},
+                                    bench_launches=bench[key],
                                     dp2_launches_per_rank_step=dp2["t2s_bf16"][key],
                                     tp_launches_per_rank_step={"tp2_t2s_bf16": tpl["tp2_t2s_bf16"][key]},
-                                    bmuf_launches_per_rank_step=bml["bmuf_t2s_bf16"][key]))
+                                    bmuf_launches_per_rank_step=bml["bmuf_t2s_bf16"][key],
+                                    multi_step_launches_per_dispatch=dispatched("t2s_bf16", key)))
     for cell, suffix in (("vomix", "_f32"), ("t2s", "_causal_f32")):   # f32 training at the recipes' precision
         runs = results[f"{cell}_f32_launches"]
         for key, where in replaces.items():
@@ -5732,7 +6154,8 @@ def main() -> int:
                                             f"{key}_causal" if cell == "t2s" else key]},
                                         **({"pp_launches_per_rank_step": staged("pp", "f32", key),
                                             "sp_launches_per_rank_step": staged("sp", "f32", key),
-                                            "bmuf_launches_per_rank_step": bml["bmuf_vomix_f32"][key]}
+                                            "bmuf_launches_per_rank_step": bml["bmuf_vomix_f32"][key],
+                                            "multi_step_launches_per_dispatch": dispatched("vomix_f32", key)}
                                            if cell == "vomix" else {})))
     log(f"total chip_smoke time {time.time() - t_start:.1f} s")
     log("speculative decode: " + json.dumps({"bench": results["spec_bench"], "decode": results["spec_decode"],
@@ -5740,6 +6163,7 @@ def main() -> int:
                                               "serving_stages": results["spec_serving_stages"],
                                               "per_file_rtf": results["spec_dialogue_rtf"],
                                               "fit_step_ms": results["spec_fit_step_ms"],
+                                              "fit_dispatch_ms_per_step": results["spec_fit_dispatch_ms_per_step"],
                                               "walls": results["spec_walls"]}))
     log("one-program decode: " + json.dumps({"decode": results["decode_graphs"], "speculative": results["decode_spec"],
                                                "idle": {**results["decode_idle"], "serving_batch": results["serving_idle"],
@@ -5753,6 +6177,7 @@ def main() -> int:
     log("bmuf training and serving over dp: " + json.dumps({k: results[k] for k in ("bmuf", "serve_dp")}))
     log("data preparation and file-level evals: " + json.dumps({k: results[k] for k in
                                                               ("data_prep", "eval_files", "adaptive")}))
+    log("multi-step training: " + json.dumps({"cells": results["multi_step"], "cli": results["multi_cli"]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -5760,53 +6185,60 @@ def main() -> int:
 
 
 # One tree's training cells, run from the root of that tree's checkout with
-# this chip_smoke.py (its path the first argument), so both trees are driven
-# and gated by the same code: the dh-64 flash library, the bf16 VoMix
-# training run and its step split, the bf16 CoMix T2S run and its split, the
-# two f32 cells (the recipes' own precision: run and split), then the f32
-# backward's device times at both training shapes; prints one "AB {json}"
-# line.
+# this chip_smoke.py (its path the first argument, the cells the second), so
+# both trees are driven and gated by the same code: the dh-64 flash library,
+# of the cells asked for the bf16 VoMix training run and its step split, the
+# bf16 CoMix T2S run and its split, the two f32 cells (the recipes' own
+# precision: run and split), then, with an f32 cell, the f32 backward's
+# device times at both training shapes; prints one "AB {json}" line.
 AB_CELLS = """
 import importlib.util, json, os, shutil, sys
 sys.path.insert(0, os.getcwd())
 spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[1])
 CS = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(CS)
+cells = sys.argv[2].split(",")
 from covomix_tpu_torch.ops import flash_attention as FA
 FA.KERNEL.build(64)
 root = os.path.join(os.getcwd(), "covomix_tpu_torch", "_build", "ab")
 shutil.rmtree(root, ignore_errors=True)
 r = {}
 try:
-    CS.split_vomix_step(r, CS.run_training(r, os.path.join(root, "vomix")))
-    CS.run_t2s_training(r, os.path.join(root, "t2s"))
-    CS.split_t2s_step(r)
+    if "train" in cells:
+        CS.split_vomix_step(r, CS.run_training(r, os.path.join(root, "vomix")))
+    if "t2s" in cells:
+        CS.run_t2s_training(r, os.path.join(root, "t2s"))
+        CS.split_t2s_step(r)
     for cell in CS.F32_CELLS:
-        CS.run_f32_training(r, os.path.join(root, cell + "_f32"), cell)
+        if cell + "_f32" in cells:
+            CS.run_f32_training(r, os.path.join(root, cell + "_f32"), cell)
 finally:
     shutil.rmtree(root, ignore_errors=True)
-CS.f32_backward_times(r)
-keys = [f"{c}_{p}_ms" for c in CS.AB_STEP_CELLS for p in ("step", "split")] + CS.AB_KERNEL_KEYS
+f32 = any(c.endswith("_f32") for c in cells)
+if f32:
+    CS.f32_backward_times(r)
+keys = [f"{c}_{p}_ms" for c in cells for p in ("step", "split")] + (CS.AB_KERNEL_KEYS if f32 else [])
 print("AB " + json.dumps({k: r[k] for k in keys}), flush=True)
 """
 AB_STEP_CELLS = ("train", "t2s", "vomix_f32", "t2s_f32")
 AB_KERNEL_KEYS = [f"{name}{suffix}_{what}" for suffix in F32_SHAPES for name, what in (
     ("bwd_dq", "untabled_device_ms"), ("bwd_dkv", "untabled_device_ms"), ("backward", "device_ms"))]
-AB_ORDER = ("other", "this", "this", "other") * 5   # ten pairs, each side first in half of them
+AB_PAIRS = 10            # pairs of runs, each side first in half of them
 
 
-def ab_training(other: str) -> int:
-    """`python3 chip_smoke.py --ab-training DIR`: the training cells (VoMix and
-    CoMix T2S in bf16 and in f32, AB_CELLS) of the checkout at DIR (another
-    commit, unpacked with git archive) and of this one, one process per run,
-    in the order AB_ORDER on one card (both trees' dh-64 libraries built
-    first, in parallel; both driven by this script); logs every run's median
-    step times, step splits (forward / backward / optimizer) and f32
-    backward device times, then per cell and per backward time each tree's
-    medians, the pairs (runs 2i and 2i + 1) this tree won, and the spread
-    between the other tree's quartiles: a gain is resolved when this tree
-    wins nine tenths of the pairs and the medians differ by more than that
-    spread."""
+def ab_training(other: str, cells=AB_STEP_CELLS, pairs=AB_PAIRS) -> int:
+    """`python3 chip_smoke.py --ab-training DIR [CELLS [PAIRS]]`: the
+    training cells (of AB_STEP_CELLS, all by default: VoMix and CoMix T2S in
+    bf16 and in f32, AB_CELLS) of the checkout at DIR (another commit,
+    unpacked with git archive) and of this one, one process per run, in
+    `pairs` pairs ordered other, this, this, other, ... on one card (both
+    trees' dh-64 libraries built first, in parallel; both driven by this
+    script); logs every run's median step times, step splits (forward /
+    backward / optimizer) and, with an f32 cell, f32 backward device times,
+    then per cell and per part each tree's medians, the pairs (runs 2i and
+    2i + 1) this tree won, and the spread between the other tree's
+    quartiles: a gain is resolved when this tree wins nine tenths of the
+    pairs and the medians differ by more than that spread."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5819,10 +6251,13 @@ def ab_training(other: str) -> int:
     procs = [subprocess.Popen([sys.executable, "-c", build], cwd=d) for d in trees.values()]
     if any(p.wait() for p in procs):
         raise RuntimeError("a tree's flash library did not build")
+    unknown = set(cells) - set(AB_STEP_CELLS)
+    if unknown:
+        raise ValueError(f"unknown A/B cells {sorted(unknown)}; the cells are {AB_STEP_CELLS}")
     runs = []
-    for name in AB_ORDER:
-        res = subprocess.run([sys.executable, "-c", AB_CELLS, os.path.abspath(__file__)], cwd=trees[name],
-                             capture_output=True, text=True)
+    for name in (("other", "this", "this", "other") * pairs)[:2 * pairs]:
+        res = subprocess.run([sys.executable, "-c", AB_CELLS, os.path.abspath(__file__), ",".join(cells)],
+                             cwd=trees[name], capture_output=True, text=True)
         line = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
         if res.returncode != 0 or not line:
             raise RuntimeError(f"{name} tree's training cells failed:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
@@ -5835,9 +6270,9 @@ def ab_training(other: str) -> int:
         return xs[int(i)] + (xs[min(int(i) + 1, len(xs) - 1)] - xs[int(i)]) * (i - int(i))
 
     measures = [(f"{cell} {part}", (lambda r, c=cell: r[f"{c}_step_ms"]) if part == "step" else
-                 (lambda r, c=cell: r[f"{c}_split_ms"]["backward"])) for cell in AB_STEP_CELLS
-                for part in ("step", "backward")]
-    measures += [(key, lambda r, k=key: r[k]) for key in AB_KERNEL_KEYS]
+                 (lambda r, c=cell, q=part: r[f"{c}_split_ms"][q])) for cell in cells
+                for part in ("step", "backward", "optimizer")]
+    measures += [(key, lambda r, k=key: r[k]) for key in AB_KERNEL_KEYS if key in runs[0][1]]
     for what, get in measures:
         times = {n: [get(r) for m, r in runs if m == n] for n in trees}
         pairs = [dict(runs[i:i + 2]) for i in range(0, len(runs), 2)]
@@ -6273,7 +6708,8 @@ def vocoder_split(other: str) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ab-training"]:
-        sys.exit(ab_training(sys.argv[2]))
+        sys.exit(ab_training(sys.argv[2], *([sys.argv[3].split(",")] if len(sys.argv) > 3 else []),
+                             *([int(sys.argv[4])] if len(sys.argv) > 4 else [])))
     if sys.argv[1:2] == ["--bench"]:
         sys.exit(bench_mode())
     if sys.argv[1:2] == ["--vocoder"]:
@@ -6290,6 +6726,8 @@ if __name__ == "__main__":
         sys.exit(phase20_mode(sys.argv[1] == "--bmuf"))
     if sys.argv[1:2] in (["--data_prep"], ["--eval_files"]):
         sys.exit(phase21_mode(sys.argv[1][2:]))
+    if sys.argv[1:2] == ["--multi_step"]:
+        sys.exit(multi_step_mode())
     if sys.argv[1:2] == ["--flash-f32"]:
         sys.exit(flash_f32_mode())
     if sys.argv[1:2] == ["--vocoder-split"]:

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+log_mel_floor = float(np.log(1e-5))  # ~= -11.5129, the log of the mel floor (silence)
+
 
 @dataclasses.dataclass(frozen=True)
 class MelConfig:

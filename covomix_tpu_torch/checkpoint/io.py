@@ -175,12 +175,15 @@ def _gan_flat(state) -> dict:
 
 def _set_adam(opt, leaves, count: int, mu: dict, nu: dict) -> None:
     """Adam moments (by leaf name) and the update count into `opt`'s state;
-    count 0 leaves it empty, as a fresh optimizer's."""
+    count 0 leaves it empty, as a fresh optimizer's. A capturable or fused
+    optimizer (train.loop's on CUDA) keeps its count on the parameter's
+    device."""
     with torch.no_grad():
         for name, p in leaves:
             opt.state.pop(p, None)
             if count > 0:
-                opt.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32),
+                step_device = p.device if opt.defaults.get("capturable") or opt.defaults.get("fused") else "cpu"
+                opt.state[p] = {"step": torch.tensor(float(count), dtype=torch.float32, device=step_device),
                                 "exp_avg": torch.tensor(np.asarray(mu[name]), dtype=p.dtype, device=p.device),
                                 "exp_avg_sq": torch.tensor(np.asarray(nu[name]), dtype=p.dtype, device=p.device)}
 

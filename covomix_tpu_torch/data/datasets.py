@@ -311,10 +311,11 @@ def stack_microbatches(batches: List[Dict]) -> Dict[str, np.ndarray]:
 
 
 def data_loader(dataset, batch_size: int, collate, *, shuffle=True, seed=0, drop_last=True,
-                num_workers: int = 0):
+                num_workers: int = 0, transfer=None):
     """Endless epoch iterator (decode + pad in numpy). With num_workers > 0
     a producer thread fills a bounded queue (data.prefetch.PrefetchIterator)
-    so disk IO and collate overlap the device step."""
+    so disk IO and collate overlap the device step; `transfer` then runs on
+    each batch in that thread (e.g. `prefetch.device_transfer`)."""
 
     def epochs():
         idx = np.arange(len(dataset))
@@ -331,5 +332,5 @@ def data_loader(dataset, batch_size: int, collate, *, shuffle=True, seed=0, drop
     if num_workers > 0:
         from covomix_tpu_torch.data.prefetch import PrefetchIterator
 
-        return PrefetchIterator(epochs(), buffer_size=max(2, num_workers))
+        return PrefetchIterator(epochs(), buffer_size=max(2, num_workers), transfer=transfer)
     return epochs()

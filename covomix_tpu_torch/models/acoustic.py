@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from covomix_tpu_torch.models import layers as L
+from covomix_tpu_torch.models.layers import (adaptive_rmsnorm_init, conv1d_init, embedding_init,  # noqa: F401
+                                             linear_init, rmsnorm_init)
 from covomix_tpu_torch.ops.flash_attention import attend_flash_or_xla
 from covomix_tpu_torch.parallel import tensor as TPX
 
@@ -78,35 +80,6 @@ class AcousticConfig:
 # init (same names and shapes as the JAX package; numbers from a Generator)
 
 
-def _uniform(gen, shape, bound, device):
-    return (torch.rand(shape, generator=gen, device=device) * 2 - 1) * bound
-
-
-def linear_init(gen, d_in: int, d_out: int, bias: bool = True, device=None):
-    bound = 1.0 / math.sqrt(d_in)
-    p = {"w": _uniform(gen, (d_in, d_out), bound, device)}
-    if bias:
-        p["b"] = _uniform(gen, (d_out,), bound, device)
-    return p
-
-
-def conv1d_init(gen, c_in: int, c_out: int, kernel: int, groups: int = 1, bias: bool = True,
-                device=None):
-    """WIO weights [K, C_in/groups, C_out]."""
-    bound = 1.0 / math.sqrt(kernel * c_in // groups)
-    p = {"w": _uniform(gen, (kernel, c_in // groups, c_out), bound, device)}
-    if bias:
-        p["b"] = _uniform(gen, (c_out,), bound, device)
-    return p
-
-
-def adaptive_rmsnorm_init(dim: int, cond_dim: int, device=None):
-    """Identity at init: gamma weight 0 / bias 1, beta 0 / 0."""
-    z = lambda *s: torch.zeros(s, device=device)
-    return {"to_gamma": {"w": z(cond_dim, dim), "b": torch.ones(dim, device=device)},
-            "to_beta": {"w": z(cond_dim, dim), "b": z(dim)}}
-
-
 def init(gen: torch.Generator, cfg: AcousticConfig, device=None):
     """Random parameters drawn from `gen` (on gen's device unless `device`)."""
     device = device or gen.device
@@ -114,22 +87,21 @@ def init(gen: torch.Generator, cfg: AcousticConfig, device=None):
     p = {
         "sinu_weights": torch.randn(d // 2, generator=gen, device=device),
         "time_mlp": linear_init(gen, d, cfg.time_hidden_dim, device=device),
-        "phoneme_emb": {"w": torch.randn(cfg.num_phoneme_tokens + 1, cfg.dim_phoneme_emb,
-                                         generator=gen, device=device)},
+        "phoneme_emb": embedding_init(gen, cfg.num_phoneme_tokens + 1, cfg.dim_phoneme_emb, device=device),
         "null_cond": torch.zeros(cfg.dim_in, device=device),
         "to_embed": linear_init(gen, cfg.embed_in_dim, d, device=device),
         "conv_embed": conv1d_init(gen, d, d, cfg.conv_pos_kernel, groups=d, device=device),
-        "final_norm": {"gamma": torch.ones(d, device=device)},
+        "final_norm": rmsnorm_init(d, device),
         "to_pred": linear_init(gen, d, cfg.mel_dim, bias=False, device=device),
     }
     half = cfg.depth // 2
     layers_p = []
     for i in range(cfg.depth):
         lp = {
-            "attn_norm": adaptive_rmsnorm_init(d, cfg.time_hidden_dim, device),
+            "attn_norm": adaptive_rmsnorm_init(gen, d, cfg.time_hidden_dim, device),
             "qkv": linear_init(gen, d, cfg.heads * cfg.dim_head * 3, bias=False, device=device),
             "attn_out": linear_init(gen, cfg.heads * cfg.dim_head, d, bias=False, device=device),
-            "ff_norm": adaptive_rmsnorm_init(d, cfg.time_hidden_dim, device),
+            "ff_norm": adaptive_rmsnorm_init(gen, d, cfg.time_hidden_dim, device),
             "ff1": linear_init(gen, d, d * cfg.ff_mult, device=device),
             "ff2": linear_init(gen, d * cfg.ff_mult, d, device=device),
         }

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from covomix_tpu_torch.models import layers as L
-from covomix_tpu_torch.models.acoustic import conv1d_init, linear_init
+from covomix_tpu_torch.models.layers import conv1d_init, layernorm_init, linear_init
 from covomix_tpu_torch.ops.flash_attention import attend_flash_or_xla
 
 
@@ -57,10 +57,6 @@ class HubertConfig:
         return d
 
 
-def _layernorm_init(dim: int, device):
-    return {"gamma": torch.ones(dim, device=device), "beta": torch.zeros(dim, device=device)}
-
-
 def init(gen: torch.Generator, cfg: HubertConfig, device=None):
     """Random parameters drawn from `gen` (the JAX package's names, shapes
     and bounds; on gen's device unless `device`)."""
@@ -69,11 +65,11 @@ def init(gen: torch.Generator, cfg: HubertConfig, device=None):
     c0, c_last = cfg.conv_layers[0][0], cfg.conv_layers[-1][0]
     p = {
         "conv_layers": [],
-        "fe_group_norm": _layernorm_init(c0, device),
-        "layer_norm": _layernorm_init(c_last, device),
+        "fe_group_norm": layernorm_init(c0, device),
+        "layer_norm": layernorm_init(c_last, device),
         "post_extract_proj": linear_init(gen, c_last, d, device=device),
         "pos_conv": conv1d_init(gen, d, d, cfg.conv_pos, groups=cfg.conv_pos_groups, device=device),
-        "encoder_layer_norm": _layernorm_init(d, device),
+        "encoder_layer_norm": layernorm_init(d, device),
         "layers": [],
         "kmeans": torch.randn(cfg.num_units, d, generator=gen, device=device),
     }
@@ -87,10 +83,10 @@ def init(gen: torch.Generator, cfg: HubertConfig, device=None):
             "k": linear_init(gen, d, d, device=device),
             "v": linear_init(gen, d, d, device=device),
             "out": linear_init(gen, d, d, device=device),
-            "attn_ln": _layernorm_init(d, device),
+            "attn_ln": layernorm_init(d, device),
             "fc1": linear_init(gen, d, cfg.encoder_ffn_dim, device=device),
             "fc2": linear_init(gen, cfg.encoder_ffn_dim, d, device=device),
-            "final_ln": _layernorm_init(d, device),
+            "final_ln": layernorm_init(d, device),
         })
     return p
 

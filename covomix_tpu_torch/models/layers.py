@@ -17,6 +17,54 @@ import torch
 import torch.nn.functional as F
 
 # ---------------------------------------------------------------------------
+# initializers (the JAX package's names and arguments; numbers from a
+# torch.Generator, on `device`)
+
+
+def _uniform(gen, shape, bound, device):
+    return (torch.rand(shape, generator=gen, device=device) * 2 - 1) * bound
+
+
+def linear_init(gen, d_in: int, d_out: int, bias: bool = True, scale: float = 1.0, device=None):
+    """w [d_in, d_out] (and b [d_out]) uniform in +-scale / sqrt(d_in)."""
+    bound = scale / math.sqrt(d_in)
+    p = {"w": _uniform(gen, (d_in, d_out), bound, device)}
+    if bias:
+        p["b"] = _uniform(gen, (d_out,), bound, device)
+    return p
+
+
+def embedding_init(gen, vocab: int, dim: int, device=None):
+    return {"w": torch.randn(vocab, dim, generator=gen, device=device)}
+
+
+def conv1d_init(gen, c_in: int, c_out: int, kernel: int, groups: int = 1, bias: bool = True, device=None):
+    """WIO weights [K, C_in/groups, C_out] (and b [C_out]) uniform in
+    +-1 / sqrt(K * C_in / groups)."""
+    bound = 1.0 / math.sqrt(kernel * c_in // groups)
+    p = {"w": _uniform(gen, (kernel, c_in // groups, c_out), bound, device)}
+    if bias:
+        p["b"] = _uniform(gen, (c_out,), bound, device)
+    return p
+
+
+def rmsnorm_init(dim: int, device=None):
+    return {"gamma": torch.ones(dim, device=device)}
+
+
+def adaptive_rmsnorm_init(gen, dim: int, cond_dim: int, device=None):
+    """Identity at init: gamma weight 0 / bias 1, beta 0 / 0 (nothing is
+    drawn from `gen`, as JAX's takes a key it does not use)."""
+    z = lambda *s: torch.zeros(s, device=device)
+    return {"to_gamma": {"w": z(cond_dim, dim), "b": torch.ones(dim, device=device)},
+            "to_beta": {"w": z(cond_dim, dim), "b": z(dim)}}
+
+
+def layernorm_init(dim: int, device=None):
+    return {"gamma": torch.ones(dim, device=device), "beta": torch.zeros(dim, device=device)}
+
+
+# ---------------------------------------------------------------------------
 # dense / embedding / convolutions
 
 

@@ -50,7 +50,7 @@ import torch
 import torch.distributed as dist
 
 from covomix_tpu_torch.models import layers as L
-from covomix_tpu_torch.models.acoustic import linear_init
+from covomix_tpu_torch.models.layers import embedding_init, linear_init, rmsnorm_init
 from covomix_tpu_torch.ops import sampling as S
 from covomix_tpu_torch.ops.flash_attention import attend_flash_or_xla
 from covomix_tpu_torch.parallel import tensor as TPX
@@ -110,7 +110,7 @@ class T2SConfig:
 def _attn_init(gen, dim, heads, dim_head, *, dim_context=None, null_kv=False, device=None):
     dim_context = dim_context or dim
     p = {
-        "norm": {"gamma": torch.ones(dim, device=device)},
+        "norm": rmsnorm_init(dim, device),
         "q": linear_init(gen, dim, heads * dim_head, bias=False, device=device),
         "kv": linear_init(gen, dim_context, heads * dim_head * 2, bias=False, device=device),
         "out": linear_init(gen, heads * dim_head, dim, bias=False, device=device),
@@ -121,7 +121,7 @@ def _attn_init(gen, dim, heads, dim_head, *, dim_context=None, null_kv=False, de
 
 
 def _ff_init(gen, dim, inner, device=None):
-    return {"norm": {"gamma": torch.ones(dim, device=device)},
+    return {"norm": rmsnorm_init(dim, device),
             "w1": linear_init(gen, dim, inner * 2, device=device),
             "w2": linear_init(gen, inner, dim, device=device)}
 
@@ -132,12 +132,12 @@ def init(gen: torch.Generator, cfg: T2SConfig, device=None):
     device = device or gen.device
     rn = lambda *s: torch.randn(s, generator=gen, device=device)
     p = {
-        "text_emb": {"w": rn(cfg.num_text_tokens + 1, cfg.text_emb_dim)},
-        "sem_emb": {"w": rn(cfg.num_semantic_tokens + 1, cfg.sem_emb_dim)},
+        "text_emb": embedding_init(gen, cfg.num_text_tokens + 1, cfg.text_emb_dim, device),
+        "sem_emb": embedding_init(gen, cfg.num_semantic_tokens + 1, cfg.sem_emb_dim, device),
         "start_text": rn(cfg.dim),
         "start_speech": rn(cfg.target_dim),
-        "source_final_norm": {"gamma": torch.ones(cfg.dim, device=device)},
-        "target_final_norm": {"gamma": torch.ones(cfg.target_dim, device=device)},
+        "source_final_norm": rmsnorm_init(cfg.dim, device),
+        "target_final_norm": rmsnorm_init(cfg.target_dim, device),
     }
     if cfg.classifier_free_guidance:
         p["null_source_embedding"] = torch.zeros(cfg.dim, device=device)
@@ -157,7 +157,7 @@ def init(gen: torch.Generator, cfg: T2SConfig, device=None):
         # inner width follows the reference head (mult 4), not target_ff_inner
         p["early_exit"] = {
             "ff": _ff_init(gen, cfg.target_dim, int(cfg.target_dim * 4 * 2 / 3), device=device),
-            "norm": {"gamma": torch.ones(cfg.target_dim, device=device)},
+            "norm": rmsnorm_init(cfg.target_dim, device),
             "to_logits": linear_init(gen, cfg.target_dim, cfg.num_semantic_tokens + 1, bias=False, device=device),
         }
         if cfg.two_output:   # a second full-width head drafts stream 2

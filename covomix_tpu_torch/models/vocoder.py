@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from covomix_tpu_torch.models import layers as L
-from covomix_tpu_torch.models.acoustic import conv1d_init
+from covomix_tpu_torch.models.layers import conv1d_init
 from covomix_tpu_torch.ops import vocoder_tail as VT
 
 LRELU_SLOPE = 0.1

@@ -68,6 +68,7 @@ j < valid_len and j <= i. Rows past valid_len still see the keys below it."""
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import threading
@@ -100,10 +101,15 @@ class FlashKernel:
     `dq_launches` and `dkv_launches` (the backward kernels); the causal
     launches are counted apart, in `causal_launches`, `causal_lse_launches`,
     `causal_dq_launches` and `causal_dkv_launches`; `rotary_launches` counts
-    the bf16 rotary pre-pass, which runs before a forward given tables."""
+    the bf16 rotary pre-pass, which runs before a forward given tables.
+    A launch made while the stream is being captured into a CUDA graph runs
+    only when the graph is replayed: it counts in `captured` ({counter name:
+    launches}) instead, which the graph's owner reads across its capture to
+    know the launches of one replay (`train.loop.MultiStep`)."""
 
     def __init__(self):
         self.build_logs = {}
+        self.captured = collections.Counter()
         self.rotary_launches = 0
         self.launches = 0
         self.lse_launches = 0
@@ -116,6 +122,13 @@ class FlashKernel:
         self._libs = {}
         self._locks = {}
         self._lock = threading.Lock()
+
+    def _launched(self, counter: str) -> None:
+        """One launch counted in `counter` (or, under capture, in `captured`)."""
+        if torch.cuda.is_current_stream_capturing():
+            self.captured[counter] += 1
+        else:
+            setattr(self, counter, getattr(self, counter) + 1)
 
     @staticmethod
     def lib_path(dh: int) -> str:
@@ -218,7 +231,7 @@ class FlashKernel:
         err = lib.covomix_flash_rotary_bf16(q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                                             qr.data_ptr(), kr.data_ptr(), b, h, t, dh, _stream(q))
         self._raise_on(lib, err, "rotary pre-pass")
-        self.rotary_launches += 1
+        self._launched("rotary_launches")
         return qr, kr
 
     def __call__(self, q, k, v, valid, rotary=None, return_lse=False, causal=False):
@@ -245,14 +258,14 @@ class FlashKernel:
         self._raise_on(lib, err, "forward")
         if return_lse:
             if causal:
-                self.causal_lse_launches += 1
+                self._launched("causal_lse_launches")
             else:
-                self.lse_launches += 1
+                self._launched("lse_launches")
             return out, lse
         if causal:
-            self.causal_launches += 1
+            self._launched("causal_launches")
         else:
-            self.launches += 1
+            self._launched("launches")
         return out
 
     def _check_bwd(self, q, k, v, dout, lse, delta, valid, rotary):
@@ -282,9 +295,9 @@ class FlashKernel:
             b, h, t, dh, dh ** -0.5, _stream(q))
         self._raise_on(lib, err, "dQ")
         if causal:
-            self.causal_dq_launches += 1
+            self._launched("causal_dq_launches")
         else:
-            self.dq_launches += 1
+            self._launched("dq_launches")
         return dq
 
     def bwd_dkv(self, q, k, v, dout, lse, delta, valid, causal=False, rotary=None):
@@ -300,9 +313,9 @@ class FlashKernel:
             valid.shape[0], cos, sin, b, h, t, dh, dh ** -0.5, _stream(q))
         self._raise_on(lib, err, "dK/dV")
         if causal:
-            self.causal_dkv_launches += 1
+            self._launched("causal_dkv_launches")
         else:
-            self.dkv_launches += 1
+            self._launched("dkv_launches")
         return dk, dv
 
 
@@ -357,7 +370,10 @@ def _valid_array(valid_len, b: int, t: int, device) -> torch.Tensor:
     on `device`, clamped to [1, T]."""
     if valid_len is None:
         valid_len = t
-    v = torch.as_tensor(valid_len, dtype=torch.int32, device=device).reshape(-1)
+    if isinstance(valid_len, int):      # a fill on the device, no host copy (capture-safe)
+        v = torch.full((1,), valid_len, dtype=torch.int32, device=device)
+    else:
+        v = torch.as_tensor(valid_len, dtype=torch.int32, device=device).reshape(-1)
     if v.shape[0] not in (1, b):
         raise ValueError(f"valid_len must be scalar or [B]; got shape {tuple(v.shape)}")
     return torch.clamp(v, 1, t).to(torch.int32).contiguous()

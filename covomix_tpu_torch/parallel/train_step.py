@@ -181,12 +181,30 @@ def make_sharded_train_step(loss_fn: Callable, cfg: loop.TrainConfig, mesh: Mesh
     frames. With every leaf replicated this is the data-parallel step: one
     all-reduce (under sp two: the sp shares, then the dp mean), the norm of
     the local tree."""
+    return loop.make_train_step(loss_fn, cfg, **_sharded_hooks(mesh, specs))
+
+
+def _sharded_hooks(mesh: Mesh, specs: dict) -> dict:
+    """The step body's hooks on this rank's parts: FSDP's gather, the
+    gradient sync and the sharded norm."""
     flat = list(specs.values())
     gather = (lambda params: gather_dp(mesh, flat, params)) if any("dp" in s for s in flat) else None
-    return loop.make_train_step(loss_fn, cfg, gather=gather,
-                                grad_sync=lambda grads, loss, params: sync_sharded_grads(mesh, flat, grads, params,
-                                                                                         loss),
-                                norm=lambda grads: sharded_norm(mesh, flat, grads))
+    return {"gather": gather, "norm": lambda grads: sharded_norm(mesh, flat, grads),
+            "grad_sync": lambda grads, loss, params: sync_sharded_grads(mesh, flat, grads, params, loss)}
+
+
+def make_sharded_multi_step(loss_fn: Callable, cfg: loop.TrainConfig, mesh: Mesh, specs: dict, k: int):
+    """K sharded steps per call (`loop.MultiStep` over the sharded step
+    body): batch leaves [K, b, ...] or [K, A, b, ...] of this rank's rows
+    (`shard_batch(..., lead=)`), metrics stacked [K]. The steps run
+    uncaptured on every backend: under gloo every collective is staged
+    through host memory, and the tp collectives time themselves on the host
+    (parallel/tensor.py), so neither can sit in a CUDA graph; capturing the
+    NCCL form waits for runs over several cards. k < 2 returns
+    `make_sharded_train_step`."""
+    if k < 2:
+        return make_sharded_train_step(loss_fn, cfg, mesh, specs)
+    return loop.MultiStep(loss_fn, cfg, k, capture=False, **_sharded_hooks(mesh, specs))
 
 
 def init_sharded_state(params, cfg: loop.TrainConfig, mesh: Mesh, *, tp: bool = True, fsdp: bool = False):
@@ -255,11 +273,12 @@ def load_shards(mesh: Mesh, state: loop.TrainState, full: loop.TrainState, specs
     state.ema_num_updates, state.step = full.ema_num_updates, full.step
 
 
-def shard_batch(mesh: Mesh, batch: dict, accum: bool = False) -> dict:
-    """This rank's rows of a global host batch: axis 0, or axis 1 of grad
-    accumulation's [A, B, ...] leaves, by its dp index. The global batch
-    must divide by dp."""
-    axis = 1 if accum else 0
+def shard_batch(mesh: Mesh, batch: dict, accum: bool = False, lead: int = 0) -> dict:
+    """This rank's rows of a global host batch by its dp index: axis `lead`,
+    the count of leading axes before the batch axis (grad accumulation's [A,
+    B, ...]: 1, or `accum`; a multi-step's [K, B, ...]: 1, [K, A, B, ...]:
+    2), as JAX's `lead=`. The global batch must divide by dp."""
+    axis = max(lead, 1 if accum else 0)
     out = {}
     for k, v in batch.items():
         n = v.shape[axis]

@@ -45,12 +45,19 @@ the block momentum defaults to 1 - 1/N); the logged loss and grad norm are
 the means over the ranks. Its checkpoints hold every rank's state in JAX's
 stacked layout (a leading [N] axis; a resume restores each rank's row, and
 resumes only under --bmuf_sync at the same N), beside `ema_canonical.npz`,
-rank 0's EMA, on which evals run. JAX's refusals stand: `--pp` / `--sp`
-with `--text2semantic`, both at once, or with `--grad_accum` /
-`--steps_per_dispatch` above 1; `--bmuf_sync` with any other parallel
-flag, with either of those two above 1, or with a batch that dp does not
-divide; `--fsdp` in a multi-process group. `--steps_per_dispatch > 1` alone
-raises NotImplementedError naming its ROADMAP note."""
+rank 0's EMA, on which evals run. `--steps_per_dispatch K` runs K optimizer
+steps per call (`train.loop.make_multi_step`: on CUDA one captured CUDA
+graph; `parallel.train_step.make_sharded_multi_step` under --dp / --tp /
+--fsdp) over K loader batches stacked (each itself a --grad_accum stack),
+as JAX's train.py: the loop advances K steps at a time, so a run may
+overshoot --max_steps to a whole dispatch, and it logs the dispatch's last
+step, saves and evaluates when a multiple of the cadence falls inside the
+dispatch (JAX's `crossed`); a resume starts at the saved dispatch boundary.
+JAX's refusals stand: `--pp` / `--sp` with `--text2semantic`, both at once,
+or with `--grad_accum` / `--steps_per_dispatch` above 1; `--bmuf_sync`
+with any other parallel flag, with either of those two above 1, or with a
+batch that dp does not divide; `--fsdp`, `--grad_accum` or
+`--steps_per_dispatch` above 1 in a multi-process group."""
 
 from __future__ import annotations
 
@@ -77,10 +84,6 @@ from covomix_tpu_torch.train import evaluate as E, loop
 from covomix_tpu_torch.util.logging_utils import MetricsLogger
 from covomix_tpu_torch.util.misc import tree_leaves
 from covomix_tpu_torch.util.watchdog import Watchdog
-
-_MULTI_STEP_NOTE = ("ROADMAP.md section 3, reference behaviours: make_multi_step unrolls K optimizer steps "
-                    "into one jitted XLA dispatch, which has no eager counterpart")
-
 
 def build_argparser():
     p = argparse.ArgumentParser(prog="python -m covomix_tpu_torch.train")
@@ -173,8 +176,6 @@ def _refuse_unported(args) -> None:
                  "accumulates via local steps)")
     if args.steps_per_dispatch > 1 and (staged or args.bmuf_sync > 0):
         sys.exit("--steps_per_dispatch composes with single-host dp/tp/fsdp only")
-    if args.steps_per_dispatch > 1:
-        raise NotImplementedError(f"--steps_per_dispatch > 1 is not ported ({_MULTI_STEP_NOTE})")
 
 
 def _datasets(args):
@@ -326,6 +327,9 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
     sharded_files = per_process_data and mesh.dp > 1
     if sharded_files and ga > 1:
         sys.exit("--grad_accum composes with single-host dp only (one process feeding every rank)")
+    spd = max(1, args.steps_per_dispatch)
+    if sharded_files and spd > 1:
+        sys.exit("--steps_per_dispatch composes with single-host dp/tp/fsdp only")
     local_bs = args.batch_size // mesh.dp if sharded_files else args.batch_size
     if sharded_files:
         dataset = MH.ProcessShardDataset(dataset, mesh=mesh)
@@ -344,10 +348,10 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
         gen = BM.rank_generator(device, args.seed, mesh.dp_rank)
     elif dp_mesh is None:
         state = loop.init_train_state(params, train_cfg)
-        step_fn = loop.make_train_step(loss_fn, train_cfg)
+        step_fn = loop.make_multi_step(loss_fn, train_cfg, spd)
     else:
         state, specs = TS.init_sharded_state(params, train_cfg, dp_mesh, tp=args.tp > 1, fsdp=args.fsdp)
-        step_fn = TS.make_sharded_train_step(loss_fn, train_cfg, dp_mesh, specs)
+        step_fn = TS.make_sharded_multi_step(loss_fn, train_cfg, dp_mesh, specs, spd)
         if not any(is_sharded(s) for s in specs.values()):
             specs = None
 
@@ -399,18 +403,30 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
     total_steps = args.max_steps or args.max_epochs * steps_per_epoch
     t_last, step_last = time.time(), start_step
     done = start_step
+
+    def crossed(done: int, every: int) -> bool:
+        """JAX's rule: a multiple of `every` lies in (done - spd, done] (with
+        one step a dispatch, done % every == 0)."""
+        return every > 0 and done // every > (done - spd) // every
+
+    def one_step_batch():
+        return stack_microbatches([next(loader) for _ in range(ga)]) if ga > 1 else next(loader)
+
     with Watchdog(timeout_s=1800.0, name=run_name) as watchdog:
         try:
-            for step_i in range(start_step, total_steps):
-                batch = (stack_microbatches([next(loader) for _ in range(ga)]) if ga > 1 else next(loader))
+            for step_i in range(start_step, total_steps, spd):
+                # [K(, A), b, ...] under --steps_per_dispatch: K step batches stacked
+                batch = stack_microbatches([one_step_batch() for _ in range(spd)]) if spd > 1 else one_step_batch()
                 if dp_mesh is not None:
                     batch = (MH.reconcile_batch(batch, device) if per_process_data
-                             else TS.shard_batch(dp_mesh, batch, accum=ga > 1))
+                             else TS.shard_batch(dp_mesh, batch, lead=(spd > 1) + (ga > 1)))
                 metrics = step_fn(state, batch, gen)
-                done = step_i + 1
+                if spd > 1:     # the stacked [K] metrics -> the dispatch's last step
+                    metrics = {k: v[-1] for k, v in metrics.items()}
+                done = step_i + spd
                 watchdog.beat(done)
-                evaluating = args.num_eval_files and args.eval_every > 0 and done % args.eval_every == 0
-                saving = (args.ckpt_every > 0 and done % args.ckpt_every == 0) or evaluating
+                evaluating = args.num_eval_files and crossed(done, args.eval_every)
+                saving = crossed(done, args.ckpt_every) or evaluating
                 if evaluating:
                     # read on every rank: the items draw from the dataset's own random state, which
                     # the training items share when there are fewer than 10 files
@@ -422,7 +438,7 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
                 if not primary:
                     del whole           # not held through the next step (under FSDP it is the whole state)
                     continue
-                if args.log_every > 0 and done % args.log_every == 0:
+                if crossed(done, args.log_every):
                     now = time.time()
                     sps = (done - step_last) / max(now - t_last, 1e-9)
                     t_last, step_last = now, done
@@ -448,7 +464,7 @@ def _train(args, mesh: Mesh, per_process_data: bool = False) -> None:
                 logger.close()
             if hasattr(loader, "close"):
                 loader.close()
-    final_step = max(total_steps, done)
+    final_step = max(total_steps, done)     # --steps_per_dispatch may overshoot by < K
     if last_saved != final_step:     # not saved just now (eval at the last step)
         whole = whole_state()
         if primary:

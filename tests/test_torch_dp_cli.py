@@ -9,7 +9,10 @@ once on tiny random VoMix files (three steps, an eval at step 2):
   * `--multihost` with no cluster in the environment: JAX's note, then the
     plain run, its losses bit for bit;
   * `--coordinator_address` with `--num_processes 2`: two processes, each on
-    its rank-strided files, rank 0 alone writing."""
+    its rank-strided files, rank 0 alone writing;
+  * `--steps_per_dispatch 2` at `--dp 1` and at `--dp 2` (the sharded
+    multi-step): two dispatches (the third step overshoots to 4), the
+    losses of the two to 1e-5 relative."""
 
 import json
 import os
@@ -57,6 +60,8 @@ def runs(tmp_path_factory):
     coord = f"127.0.0.1:{free_port()}"
     cmds = {"plain": _argv(data, logs, "plain", "--dp", "1"), "dp2": _argv(data, logs, "dp2", "--dp", "2"),
             "multihost": _argv(data, logs, "multihost", "--multihost"),
+            "k2_dp1": _argv(data, logs, "k2_dp1", "--dp", "1", "--steps_per_dispatch", "2"),
+            "k2_dp2": _argv(data, logs, "k2_dp2", "--dp", "2", "--steps_per_dispatch", "2"),
             **{f"coord{i}": _argv(data, logs, "coord", "--coordinator_address", coord, "--num_processes", "2",
                                   "--process_id", str(i)) for i in range(2)}}
     procs = {k: subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -111,3 +116,16 @@ def test_multihost_without_cluster_is_the_plain_run(runs):
     assert _steps(runs["out"]["multihost"])[-1]["step"] == 3
     for a, b in zip(_steps(runs["out"]["plain"]), _steps(runs["out"]["multihost"])):
         assert (a["train_loss"], a["grad_norm"]) == (b["train_loss"], b["grad_norm"])
+
+
+def test_dp2_steps_per_dispatch_gives_the_losses_of_dp1(runs):
+    """The sharded multi-step at dp=2 against the multi-step at dp=1: the
+    dispatches' last steps logged (2 and 4, past --max_steps 3), their
+    losses and grad norms to 1e-5 relative; the evals where a multiple of 2
+    falls inside a dispatch."""
+    one, two = _steps(runs["out"]["k2_dp1"]), _steps(runs["out"]["k2_dp2"])
+    assert [r["step"] for r in one] == [r["step"] for r in two] == [2, 4]
+    for a, b in zip(one, two):
+        np.testing.assert_allclose(b["train_loss"], a["train_loss"], rtol=LOSS_RTOL)
+        np.testing.assert_allclose(b["grad_norm"], a["grad_norm"], rtol=LOSS_RTOL)
+    assert runs["out"]["k2_dp2"].count("eval:") == 2 and "done: 4 steps" in runs["out"]["k2_dp2"]

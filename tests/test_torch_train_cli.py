@@ -3,7 +3,7 @@
 The dataset and loader against covomix_tpu.data.datasets on the same files
 and seed (same batches, bit for bit); `python -m covomix_tpu_torch.train
 --device cpu` for two steps on tiny random VoMix files, then `--resume` for a
-third; and the flags that name work not ported yet."""
+third; and the flag combinations that JAX's train.py refuses."""
 
 import json
 import os
@@ -145,10 +145,10 @@ def test_train_state_round_trip_continues_identically(tmp_path):
     (["--pp", "2", "--grad_accum", "2"], SystemExit, "--grad_accum composes with single-host"),
     (["--bmuf_sync", "2", "--grad_accum", "2"], SystemExit, "--grad_accum composes with single-host"),
     (["--sp", "2", "--steps_per_dispatch", "2"], SystemExit, "--steps_per_dispatch composes with single-host"),
-    (["--steps_per_dispatch", "2"], NotImplementedError, "make_multi_step"),
+    (["--bmuf_sync", "2", "--steps_per_dispatch", "2"], SystemExit, "--steps_per_dispatch composes with single-host"),
 ])
 def test_unported_flags_raise(tmp_path, flags, exc, item):
-    """What the CLI still refuses: the multi-step dispatch (not ported), and
-    JAX's exits for the --pp / --sp / --bmuf_sync combinations it refuses."""
+    """What the CLI refuses: JAX's exits for the --pp / --sp / --bmuf_sync
+    combinations it refuses."""
     with pytest.raises(exc, match=item):
         cli.main(["--base_dir", str(tmp_path), "--device", "cpu", *flags])
