@@ -18,6 +18,7 @@
     python3 chip_smoke.py --data_prep         # phase 21's data preparation (mels, metrics, legacy helpers) alone
     python3 chip_smoke.py --eval_files        # phase 21's file-level evals and adaptive sampling alone
     python3 chip_smoke.py --multi_step        # phase 22 alone: K steps per dispatch, one captured CUDA graph
+    python3 chip_smoke.py --single            # phase 23 alone: the CoVoSingle family (generation and training)
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
 only their library, logs ptxas's registers and spills, runs check_vocoder's
@@ -216,7 +217,11 @@ Phases (any failure exits non-zero, nothing is passed over):
      two wavs: exactly one f32 fused stage and one tail launch per file,
      each held to its plain version on the last file's inputs;
  17. data-parallel training at full width (parallel/, one process per
-     device): (a) the VoMix recipe (bf16, B=8, T=832) through the train CLI
+     device), phases 17-20's recipe cells at PAR_DEPTH's cut depth (VoMix 2
+     layers, CoMix T2S 2 + 2; every width the recipes': their gates hold a
+     rank against one process on the same model, and the launch counts
+     below scale with the depth: "8 / 8 / 8" reads 2 / 2 / 2 there, "4
+     causal" 2): (a) the VoMix recipe (bf16, B=8, T=832) through the train CLI
      for 4 steps in a process group of one over NCCL
      (`--coordinator_address 127.0.0.1:<free port> --num_processes 1
      --process_id 0`) and again without a group: losses, grad norms and the
@@ -323,7 +328,34 @@ Phases (any failure exits non-zero, nothing is passed over):
      cut to MULTI_CLI_DEPTH) with --steps_per_dispatch 4 to 8 and --resume
      to 12 (saves at 4, 8, 12), against an eager resume from the
      dispatched step 8, the saved states at 12 bit for bit;
- 23. print a `kernels` JSON line (phase 13's launches as
+ 23. the CoVoSingle family at full width (run after phase 14, on phase 6's
+     checkpoints and prompts): seeded CoSingle T2S (one output stream,
+     target dim 512) and VoSingle (80-d, one phoneme stream) checkpoints;
+     the monologue CLI in covosingle (--fuse_tail), covosinx (exact) and
+     covomix (--fuse_tail) on one script, the dialogue CLI in covosingle
+     (--fuse_tail) and covosinx (exact) on DIALOGUE_SCRIPT's three turns,
+     each with phase 6's gates per flow sample and vocode (256 flash forwards
+     and pre-passes, one stage and tail launch with --fuse_tail, none
+     without), one decode a turn in the per-turn modes' dialogues, one flow
+     a turn in covosingle's, int16 wavs of 160 samples per frame; each
+     captured decode's text bucket, capture s and pool GiB, the graphs kept
+     (phase 14's dropped first, this phase's after); the one-stream captured
+     decode against the direct step on its first SINGLE_HELD steps (tokens
+     up to hold_tokens' near-tie, steps, the generator's next draw), then
+     timed over the whole decode; the flash forward held and timed at the
+     covosinx dialogue's flow shape, the fused stage / tail at a covosingle
+     turn's vocode inputs; small f32 covosingle (fused, SMALL_SYNTH_WAV_TOL)
+     and covosinx (exact, SMALL_WAV_TOL) dialogues card vs CPU; then the
+     VoSingle (B=6, T=832) and CoSingle (B=10, decoder T 578-1026) recipes
+     through the train CLI: bf16 SINGLE_TRAIN_STEPS steps with an eval and
+     its top-k save, --resume for one more; f32 SINGLE_F32_STEPS steps;
+     every step exactly its flash launches (VoSingle 8 lse forwards, dQ,
+     dK/dV and, in bf16, 8 pre-passes; CoSingle 4 causal of each), the
+     VoSingle eval 256 forwards and pre-passes per eval batch, the CoSingle
+     eval none; the bf16 step's split and a traced step's idle share; the
+     three kernels held at each recipe's shape (bf16, f32); two tiny f32
+     steps of each recipe card vs CPU;
+ 24. print a `kernels` JSON line (phase 13's launches as
      `speculative_launches` and the draft fit's replays of its captured
      dispatch apart as `speculative_fit_replays`, phase 15's as
      `bench_launches` and its B=64 fused check as `bench_check`, phase 16's as
@@ -333,7 +365,10 @@ Phases (any failure exits non-zero, nothing is passed over):
      and `sp_launches_per_rank_step`, phase 20's as
      `bmuf_launches_per_rank_step` and `serve_dp_launches_per_rank_call`,
      phase 21's as `eval_files_launches` and `adaptive_launches`, phase
-     22's as `multi_step_launches_per_dispatch`,
+     22's as `multi_step_launches_per_dispatch`, phase 23's as
+     `single_launches` per CLI run, `single_eval_launches`,
+     `single_launches_per_train_step` and its holds as `single_check` and
+     `single_shapes`, phases 17-20's depth as `parallel_depth`,
      the fused kernels' and the forward's
      phase-15 times as `bench_shapes`) and, last, {"ok": true, "device":
      {...}}.
@@ -396,6 +431,12 @@ SMALL_SYNTH_WAV_TOL = 1e-5
 # few thousandths of the learning rate (1e-3): parameters to 1e-2 of it
 SMALL_TRAIN_LOSS_TOL = 1e-5
 SMALL_TRAIN_PARAM_TOL = 1e-5
+# The CoVoSingle family's small steps (phase 23) hold the parameters to Adam's own bound instead
+# (param_agreement, as phase 17 holds a rank against one process): every element within DP_BOUND lr
+# a step, all but DP_TIGHT_SHARE of them within DP_TIGHT lr (= SMALL_TRAIN_PARAM_TOL here). An H100
+# read 1.324e-5 on the CoSingle check, in one GEGLU w1 element: the CPU alone, the flash route's plain
+# version against the einsum route, moves the same leaf by 5.9e-6 (CoMix: 4.4e-6), so the few
+# thousandths of the lr assumed above are exceeded by rounding-level gradients, not by a kernel
 # a Lightning / HiFi-GAN file converted back to .npz against its source
 # tree: weight-norm folding g * v / |v| with g = |v| computed in another
 # order gives w back within a few f32 roundings (3e-7 measured on the CPU)
@@ -1424,24 +1465,36 @@ def write_dialogue_assets(root, n_scripts=2, seed=0):
             save_wav(base + ".wav", (rs.randn(8 * 8000) * 0.05).astype(np.float32), 8000)
 
 
-def run_dialogue_cli(results, root, t2s="t2s.npz", extra=(), key="dialogue"):
-    """The dialogue CLI over the assets in `root` (T2S checkpoint `t2s`, more
-    flags `extra`), full width, bf16, covomix, --fuse_tail. The launch counts
-    are set to 0 just before and read just after; per call, flow_sample and
-    vocode record their own launches. Results go to results[f"{key}_*"];
-    returns [(Synthesizer, GenerateResult)] of every T2S decode, through
-    `generate` or, with --speculative, `generate_speculative` (and then
-    never the other)."""
+PER_TURN_MODES = ("covosingle", "covosinx")   # one T2S decode per dialogue turn
+
+
+def run_generation_cli(results, root, cli, mode, *, t2s="t2s.npz", acoustic="acoustic.npz", fuse_tail=True,
+                       texts="texts", prompts="prompts", extra=(), key="dialogue"):
+    """A generation CLI (`cli`: "dialogue" or "monologue") over the scripts
+    in root/`texts` with the prompts in root/`prompts` and the checkpoints
+    `t2s` / `acoustic` / vocoder.npz in `root`: full width, bf16, `mode`,
+    with or without --fuse_tail, more flags `extra`. The launch counts are
+    set to 0 just before and read just after; per call, flow_sample and
+    vocode record their own launches. Gates per script: one T2S decode a
+    turn in the per-turn modes' dialogues (one otherwise), one flow sample a
+    turn in covosingle's (one otherwise), each flow 256 flash forwards and
+    256 rotary pre-passes over at least the prompt's 400 frames, one vocode
+    after each flow with one fused stage and one tail launch under
+    --fuse_tail and none without, and an int16 wav of 160 samples per
+    generated frame. Results go to results[f"{key}_*"]; returns
+    [(Synthesizer, GenerateResult)] of every T2S decode, through `generate`
+    or, with --speculative, `generate_speculative` (and then never the
+    other)."""
     import numpy as np
     from scipy.io import wavfile
-    from covomix_tpu_torch import dialogue_generation, pipeline as P
+    from covomix_tpu_torch import dialogue_generation, monologue_generation, pipeline as P
     from covomix_tpu_torch.models import text2semantic as T
     from covomix_tpu_torch.ops import flash_attention as FA, vocoder_tail as VT
 
-    calls = {"flow": [], "vocode": [], "steps": [], "dialogue": [], "flow_s": [], "vocode_s": [], "decodes": []}
+    calls = {"flow": [], "vocode": [], "steps": [], "script": [], "flow_s": [], "vocode_s": [], "decodes": []}
     speculative = "--speculative" in extra
     orig = (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer._decode, T.generate,
-            VT.fused_stage, VT.fused_tail, P.Synthesizer.dialogue)
+            VT.fused_stage, VT.fused_tail, getattr(P.Synthesizer, cli))     # the Synthesizer's method of each CLI
     inputs = {}      # the last vocode's fused-kernel inputs (default taps), for the timing phase
 
     def fused_stage(x, up_p, resblocks, kernels, dilations):
@@ -1453,99 +1506,124 @@ def run_dialogue_cli(results, root, t2s="t2s.npz", extra=(), key="dialogue"):
         return orig[5](x, up_p, resblocks, post_p, kernels, dilations)
 
     def flow_sample(self, phoneme_ids, cond, generator, noise=None):
-        n0, t0 = FA.KERNEL.launches, time.time()
+        n0, r0, t0 = FA.KERNEL.launches, FA.KERNEL.rotary_launches, time.time()
         out = orig[0](self, phoneme_ids, cond, generator, noise)   # numpy: the card has finished
-        calls["flow"].append((FA.KERNEL.launches - n0, len(phoneme_ids)))
+        calls["flow"].append((len(calls["script"]), FA.KERNEL.launches - n0, FA.KERNEL.rotary_launches - r0,
+                              len(phoneme_ids)))
         calls["flow_s"].append(time.time() - t0)
         return out
 
     def vocode(self, mel):
         s0, n0, t0 = VT.STAGE.launches, VT.TAIL.launches, time.time()
         wav = orig[1](self, mel)
-        calls["vocode"].append((VT.STAGE.launches - s0, VT.TAIL.launches - n0, len(mel), len(wav)))
+        calls["vocode"].append((len(calls["script"]), VT.STAGE.launches - s0, VT.TAIL.launches - n0, len(mel),
+                                len(wav)))
         calls["vocode_s"].append(time.time() - t0)
         return wav
 
-    def dialogue(self, *args, **kwargs):
+    def script(self, *args, **kwargs):
         t0 = time.time()
         wav = orig[6](self, *args, **kwargs)          # numpy: the card has finished
-        calls["dialogue"].append((time.time() - t0, len(wav)))
+        calls["script"].append((time.time() - t0, len(wav)))
         return wav
 
     def decode(self, text, generator):
         res = orig[2](self, text, generator)
         calls["steps"].append(res.num_steps)
-        calls["decodes"].append((self, res))
+        calls["decodes"].append((self, res, len(calls["script"])))
         return res
 
     def generate(*args, **kwargs):
         raise AssertionError("the sampling decode ran in a --speculative run")
 
     out = os.path.join(root, f"{key}_out")
-    argv = ["--t2s_ckpt", os.path.join(root, t2s), "--acous_ckpt", os.path.join(root, "acoustic.npz"),
-            "--hifigan_ckpt", os.path.join(root, "vocoder.npz"), "--text_dir", os.path.join(root, "texts"),
-            "--prompt_dir", os.path.join(root, "prompts"), "--saved_dir", out, "--mode", "covomix",
-            "--fuse_tail", "--device", "cuda", "--allow_fallback_vocab", *extra]
-    (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer._decode, VT.fused_stage, VT.fused_tail,
-     P.Synthesizer.dialogue) = (flow_sample, vocode, decode, fused_stage, fused_tail, dialogue)
+    argv = ["--t2s_ckpt", os.path.join(root, t2s), "--acous_ckpt", os.path.join(root, acoustic),
+            "--hifigan_ckpt", os.path.join(root, "vocoder.npz"), "--text_dir", os.path.join(root, texts),
+            "--prompt_dir", os.path.join(root, prompts), "--saved_dir", out, "--mode", mode,
+            *(["--fuse_tail"] if fuse_tail else []), "--device", "cuda", "--allow_fallback_vocab", *extra]
+    (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer._decode, VT.fused_stage,
+     VT.fused_tail) = (flow_sample, vocode, decode, fused_stage, fused_tail)
+    setattr(P.Synthesizer, cli, script)
     if speculative:
         T.generate = generate
     FA.KERNEL.launches = FA.KERNEL.rotary_launches = VT.STAGE.launches = VT.TAIL.launches = 0
     try:
         t0 = time.time()
-        dialogue_generation.main(argv)
+        (dialogue_generation if cli == "dialogue" else monologue_generation).main(argv)
         total = time.time() - t0
     finally:
         (P.Synthesizer.flow_sample, P.Synthesizer.vocode, P.Synthesizer._decode, T.generate, VT.fused_stage,
-         VT.fused_tail, P.Synthesizer.dialogue) = orig
+         VT.fused_tail) = orig[:6]
+        setattr(P.Synthesizer, cli, orig[6])
     launches = {"flash": FA.KERNEL.launches, "rotary": FA.KERNEL.rotary_launches, "stage": VT.STAGE.launches,
                 "tail": VT.TAIL.launches}
-    log(f"dialogue CLI {' '.join(extra)}: {total:.2f} s for {len(calls['dialogue'])} scripts incl. loading; per "
-        f"script (wall s, samples) {calls['dialogue']}; decode steps {calls['steps']}; flow (flash launches, "
-        f"frames) {calls['flow']}; vocode (stage, tail launches, frames, samples) {calls['vocode']}; totals "
+    what = f"{cli} CLI {mode}{' --fuse_tail' if fuse_tail else ''} {' '.join(extra)}".rstrip()
+    log(f"{what}: {total:.2f} s for {len(calls['script'])} scripts incl. loading; per script (wall s, samples) "
+        f"{calls['script']}; decode steps {calls['steps']}; flow (script, flash, pre-pass launches, frames) "
+        f"{calls['flow']}; vocode (script, stage, tail launches, frames, samples) {calls['vocode']}; totals "
         f"{launches}")
-    n = len(calls["vocode"])
-    if n == 0 or len(calls["flow"]) != n or len(calls["dialogue"]) != n or len(calls["decodes"]) != n:
-        raise AssertionError(f"expected one decode, flow sample and vocode per script, got {calls}")
-    if any(synth.speculative != speculative for synth, _ in calls["decodes"]):
-        raise AssertionError(f"the CLI's Synthesizer decoded with speculative != {speculative}")
-    for (flash, frames), (stage, tail, mel_frames, samples) in zip(calls["flow"], calls["vocode"]):
-        if flash != 8 * 16 * 2 or stage != 1 or tail != 1:
-            raise AssertionError(f"per call: {flash} flash launches (expected 256), {stage} stage and {tail} "
-                                 f"tail launches (expected 1 each)")
-        if frames < 400 or samples != 160 * mel_frames:
-            raise AssertionError(f"flow over {frames} frames, vocode {mel_frames} frames -> {samples} samples")
-    if launches != {"flash": 256 * n, "rotary": 256 * n, "stage": n, "tail": n}:
-        raise AssertionError(f"launch totals {launches} do not add up over {n} scripts")
-    for i, (_, _, mel_frames, samples) in enumerate(calls["vocode"]):
-        sr, wav = wavfile.read(os.path.join(out, f"dlg{i}.wav"))
-        if sr != 8000 or wav.dtype != np.int16 or len(wav) != 160 * mel_frames or len(wav) != samples:
-            raise AssertionError(f"dlg{i}.wav: {sr} Hz, {wav.dtype}, {len(wav)} samples, expected "
-                                 f"{160 * mel_frames}")
+    names = sorted(f[:-len(".txt")] for f in os.listdir(os.path.join(root, texts)) if f.endswith(".txt"))
+    if not names or len(calls["script"]) != len(names):
+        raise AssertionError(f"{what}: {len(calls['script'])} scripts synthesized of {names}")
+    if any(synth.speculative != speculative for synth, _, _ in calls["decodes"]):
+        raise AssertionError(f"{what}: the CLI's Synthesizer decoded with speculative != {speculative}")
+    per_call = (1, 1) if fuse_tail else (0, 0)
+    for i, name in enumerate(names):
+        with open(os.path.join(root, texts, name + ".txt")) as f:
+            turns = f.read().count("[spkchange]") + 1 if cli == "dialogue" else 1
+        decodes = [d for d in calls["decodes"] if d[2] == i]
+        flows = [c for c in calls["flow"] if c[0] == i]
+        vocodes = [c for c in calls["vocode"] if c[0] == i]
+        want = (turns if mode in PER_TURN_MODES else 1, turns if mode == "covosingle" else 1)
+        if (len(decodes), len(flows)) != want or len(vocodes) != len(flows):
+            raise AssertionError(f"{what} {name}: {len(decodes)} decodes, {len(flows)} flow samples, {len(vocodes)} "
+                                 f"vocodes for {turns} turns (expected {want[0]} / {want[1]} / {want[1]})")
+        for (_, flash, rotary, frames), (_, stage, tail, mel_frames, samples) in zip(flows, vocodes):
+            if flash != 8 * 16 * 2 or rotary != flash or (stage, tail) != per_call:
+                raise AssertionError(f"{what} {name}: per call {flash} flash and {rotary} pre-pass launches (expected "
+                                     f"256), {stage} stage and {tail} tail launches (expected {per_call})")
+            if frames < 400 or samples != 160 * mel_frames:
+                raise AssertionError(f"{what} {name}: flow over {frames} frames, vocode {mel_frames} frames -> "
+                                     f"{samples} samples")
+        sr, wav = wavfile.read(os.path.join(out, f"{name}.wav"))
+        frames = sum(c[3] for c in vocodes)
+        if sr != 8000 or wav.dtype != np.int16 or len(wav) != 160 * frames or len(wav) != calls["script"][i][1]:
+            raise AssertionError(f"{what} {name}.wav: {sr} Hz, {wav.dtype}, {len(wav)} samples, expected "
+                                 f"{160 * frames}")
+    n = len(calls["flow"])
+    if launches != {"flash": 256 * n, "rotary": 256 * n, "stage": per_call[0] * n, "tail": per_call[1] * n}:
+        raise AssertionError(f"{what}: launch totals {launches} do not add up over {n} flow samples")
     if not os.path.isfile(os.path.join(out, "config.txt")):
-        raise AssertionError("the CLI wrote no config.txt")
-    wall, samples = calls["dialogue"][-1]        # the last script: the first one warmed the card up
+        raise AssertionError(f"{what}: the CLI wrote no config.txt")
+    wall, samples = calls["script"][-1]        # the last script: an earlier one warmed the card up
+    last = len(calls["script"]) - 1
     audio_s = samples / 8000
-    stages = {"flow_s": calls["flow_s"][-1], "vocode_s": calls["vocode_s"][-1]}
+    stages = {"flow_s": sum(t for c, t in zip(calls["flow"], calls["flow_s"]) if c[0] == last),
+              "vocode_s": sum(t for c, t in zip(calls["vocode"], calls["vocode_s"]) if c[0] == last)}
     stages["rest_s (prompts, T2S decode)"] = wall - sum(stages.values())
     results.update({f"{key}_launches": launches, f"{key}_wall_s": wall, f"{key}_audio_s": audio_s,
                     f"{key}_rtf": wall / audio_s, f"{key}_steps": calls["steps"][-1],
-                    f"{key}_flow_frames": calls["flow"][-1][1], f"{key}_vocoder_inputs": inputs,
-                    f"{key}_stages": stages})
-    log(f"per-file dialogue {' '.join(extra)}, full width bf16 --fuse_tail: wall {wall:.4f} s for {audio_s:.2f} s "
-        f"of audio, RTF {wall / audio_s:.5f}, T2S decode steps {calls['steps'][-1]}, stages (s) "
+                    f"{key}_decode_steps": calls["steps"], f"{key}_flow_frames": calls["flow"][-1][3],
+                    f"{key}_vocoder_inputs": inputs, f"{key}_stages": stages})
+    log(f"per-file {what}, full width bf16: wall {wall:.4f} s for {audio_s:.2f} s of audio, RTF "
+        f"{wall / audio_s:.5f}, T2S decode steps {calls['steps']}, stages of the last script (s) "
         f"{json.dumps(stages)}")
-    return calls["decodes"]
+    return [(synth, res) for synth, res, _ in calls["decodes"]]
 
 
 # ---------------------------------------------------------------------------
 # phase 7b: small f32 Synthesizer run, card vs CPU
 
 
-def check_small_synth_against_cpu(prompt_dir):
-    """Tiny T2S / acoustic models with the full-width vocoder, so that the
-    fused kernels run on the card: covomix dialogue with fuse_tail, greedy
-    T2S, the same y0 on both sides, prompt mel from shared `.mel.npy` caches."""
+def check_small_synth_against_cpu(prompt_dir, mode="covomix"):
+    """The Synthesizer's dialogue in `mode` with tiny T2S / acoustic models,
+    greedy T2S, the same y0 on both sides, prompt mel from shared `.mel.npy`
+    caches, f32, card vs CPU. covomix (CoMix T2S, VoMix) and covosingle
+    (CoSingle T2S, VoSingle) with the full-width vocoder and fuse_tail, so
+    that the fused kernels run on the card (the unfused generator on the
+    CPU; SMALL_SYNTH_WAV_TOL); covosinx (CoSingle T2S, VoMix) exact, with
+    phase 5's small vocoder, unfused on both sides (SMALL_WAV_TOL)."""
+    import dataclasses
     import functools
 
     import numpy as np
@@ -1561,7 +1639,13 @@ def check_small_synth_against_cpu(prompt_dir):
                           num_text_tokens=30528, target_dim=64, two_output=True)
     ac_cfg = A.AcousticConfig(dim_in=160, dim=64, depth=2, heads=2, dim_head=32, dim_phoneme_emb=16,
                               mode="two_one")
-    voc_cfg = V.VocoderConfig()
+    voc_cfg, fuse_tail, tol = V.VocoderConfig(), True, SMALL_SYNTH_WAV_TOL
+    if mode in PER_TURN_MODES:
+        t2s_cfg = dataclasses.replace(t2s_cfg, target_dim=32, two_output=False)
+    if mode == "covosingle":
+        ac_cfg = dataclasses.replace(ac_cfg, dim_in=80, mode="single")
+    if mode == "covosinx":
+        voc_cfg, fuse_tail, tol = V.VocoderConfig(upsample_initial_channel=16), False, SMALL_WAV_TOL
     g = torch.Generator().manual_seed(3)
     params = (T.init(g, t2s_cfg), A.init(g, ac_cfg), V.init_generator(g, voc_cfg))
     p1, p2 = (os.path.join(prompt_dir, f"dlg0_{spk}.hubert_code.npy") for spk in (1, 2))
@@ -1573,7 +1657,7 @@ def check_small_synth_against_cpu(prompt_dir):
     outs = []
     for dev in ("cuda", "cpu"):
         synth = Synthesizer(params[0], t2s_cfg, params[1], ac_cfg, params[2], voc_cfg,
-                            load_covomix_tokenizer(None, strict=False), dtype=torch.float32, fuse_tail=True,
+                            load_covomix_tokenizer(None, strict=False), dtype=torch.float32, fuse_tail=fuse_tail,
                             t2s_max_length=max_len, device=dev)
         tokens = []
         greedy = functools.partial(T.generate, cfg=t2s_cfg, max_length=max_len, dtype=torch.float32,
@@ -1588,22 +1672,24 @@ def check_small_synth_against_cpu(prompt_dir):
             s, ph, cond, gen, noise=torch.from_numpy(np.random.RandomState(5).randn(
                 1, max(s.bucket, round_up(len(ph), s.bucket)), 80).astype(np.float32)))
         before = (FA.KERNEL.launches, VT.STAGE.launches, VT.TAIL.launches)
-        wav = synth.dialogue("covomix", DIALOGUE_SCRIPT, p1, p2, torch.Generator(device=dev).manual_seed(0))
+        wav = synth.dialogue(mode, DIALOGUE_SCRIPT, p1, p2, torch.Generator(device=dev).manual_seed(0))
         after = (FA.KERNEL.launches, VT.STAGE.launches, VT.TAIL.launches)
         outs.append((wav, [(r.tokens.cpu(), r.tokens2.cpu()) for r in tokens],
                      [a - b for a, b in zip(after, before)]))
     (wc, tc, nc), (wh, th, nh) = outs
     same_tokens = len(tc) == len(th) and all(torch.equal(a, c) and torch.equal(b, d) for (a, b), (c, d) in zip(tc, th))
     err = float(np.abs(wc - wh).max()) if wc.shape == wh.shape else float("inf")
-    log(f"small f32 Synthesizer (full-width vocoder, fuse_tail), card vs CPU: tokens equal {same_tokens}, "
-        f"wav {wc.shape} max_abs_err {err:.3e} (tol {SMALL_SYNTH_WAV_TOL:g}), (flash, stage, tail) launches "
-        f"card {nc} / cpu {nh}")
+    log(f"small f32 Synthesizer {mode} ({'full-width vocoder, fuse_tail' if fuse_tail else 'small vocoder, exact'}),"
+        f" card vs CPU: {len(tc)} decodes, tokens equal {same_tokens}, wav {wc.shape} max_abs_err {err:.3e} (tol "
+        f"{tol:g}), (flash, stage, tail) launches card {nc} / cpu {nh}")
     if not same_tokens:
-        raise AssertionError("greedy tokens differ between the card and the CPU")
-    if nc[1] < 1 or nc[2] < 1 or nc[0] < 1 or any(nh):
-        raise AssertionError("the small card run did not go through the kernels, or the CPU run did")
-    if not err <= SMALL_SYNTH_WAV_TOL:
-        raise AssertionError(f"card and CPU wavs differ by {err}")
+        raise AssertionError(f"{mode}: greedy tokens differ between the card and the CPU")
+    fused = (nc[1] >= 1 and nc[2] >= 1) if fuse_tail else nc[1] == nc[2] == 0
+    if nc[0] < 1 or not fused or any(nh):
+        raise AssertionError(f"{mode}: the small card run did not go through the kernels, or the CPU run did")
+    if not err <= tol:
+        raise AssertionError(f"{mode}: card and CPU wavs differ by {err}")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -1851,26 +1937,31 @@ def split_vomix_step(results, train_dir, key="train_split_ms", f32=False, idle_k
                         collate_acoustic([ds[i] for i in range(8)]), idle_key=idle_key)
 
 
-def check_small_training_against_cpu():
-    """Two optimizer steps of a tiny f32 VoMix model (dh 16, T = 576 >= 512, so
-    the card takes the flash kernels) on the card and on the CPU (einsum
+def check_small_training_against_cpu(single=False, adam_bound=False):
+    """Two optimizer steps of a tiny f32 VoMix model (with `single`, VoSingle:
+    80-d, one phoneme stream, the batch's end mask) (dh 16, T = 576 >= 512,
+    so the card takes the flash kernels) on the card and on the CPU (einsum
     attention there), TF32 off, the same batches and the same draws (one CPU
-    generator: the loss draws on the generator's device)."""
+    generator: the loss draws on the generator's device); held by
+    hold_small_steps."""
     import numpy as np
     import torch
     from covomix_tpu_torch.models import acoustic as A
     from covomix_tpu_torch.train import loop
-    from covomix_tpu_torch.util.misc import tree_leaves, tree_map
+    from covomix_tpu_torch.util.misc import tree_map
 
-    cfg = A.AcousticConfig(dim_in=160, dim=32, depth=2, heads=2, dim_head=16, dim_phoneme_emb=16, mode="two_one")
+    cfg = A.AcousticConfig(dim_in=80 if single else 160, dim=32, depth=2, heads=2, dim_head=16, dim_phoneme_emb=16,
+                           mode="single" if single else "two_one")
     tcfg = loop.TrainConfig(lr=1e-3, use_lr_schedule=True, steps_per_epoch=1, wake_up_epochs=2, grad_clip=1.0)
     rs = np.random.RandomState(9)
+    lo, hi = (200, 576) if single else (100, 400)      # VoSingle: the end span its items carry
     batches = []
     for _ in range(2):
         mask = np.zeros((2, 576), bool)
-        mask[:, 100:400] = True
-        batches.append({"x": rs.randn(2, 576, 240).astype(np.float32),
-                        "phonemes": rs.randint(0, 502, (2, 576, 2)).astype(np.int32), "mask": mask})
+        mask[:, lo:hi] = True
+        batches.append({"x": rs.randn(2, 576, 80 if single else 240).astype(np.float32),
+                        "phonemes": rs.randint(0, 502, (2, 576) if single else (2, 576, 2)).astype(np.int32),
+                        "mask": mask})
     init = A.init(torch.Generator().manual_seed(0), cfg)
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -1881,16 +1972,40 @@ def check_small_training_against_cpu():
         losses = [float(step(state, b, gen)["loss"]) for b in batches]
         runs[dev] = (losses, tree_map(lambda p: p.detach().cpu(), state.params),
                      {k: v - c0[k] for k, v in flash_counts().items()})
+    return hold_small_steps(f"small f32 {'VoSingle' if single else 'VoMix'} training", runs,
+                            launches(fwd_lse=4, bwd_dq=4, bwd_dkv=4), tcfg, adam_bound)
+
+
+def hold_small_steps(what, runs, launched, tcfg, adam_bound):
+    """Two small f32 steps on the card against the same on the CPU (`runs`:
+    {device: (losses, parameters, launches)}): the losses within
+    SMALL_TRAIN_LOSS_TOL relative, the card's launches `launched` and the
+    CPU's none, the parameters within SMALL_TRAIN_PARAM_TOL or, with
+    `adam_bound`, by param_agreement at the two steps' learning rates (Adam's
+    bound; module constants). Returns the errors."""
+    import torch
+    from covomix_tpu_torch.train import loop
+    from covomix_tpu_torch.util.misc import tree_leaves
+
     (lc, pc, nc), (lh, ph, nh) = runs["cuda"], runs["cpu"]
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
-    param_err = max((a - b).abs().max().item() for a, b in zip(tree_leaves(pc), tree_leaves(ph)))
-    log(f"small f32 training, card vs CPU, 2 steps: losses {lc} / {lh} (max rel err {loss_err:.3e}, tol "
-        f"{SMALL_TRAIN_LOSS_TOL:g}), params max_abs_err {param_err:.3e} (tol {SMALL_TRAIN_PARAM_TOL:g}), "
-        f"launches card {nc} / cpu {nh}")
-    if nc != launches(fwd_lse=4, bwd_dq=4, bwd_dkv=4) or any(nh.values()):
-        raise AssertionError("the small card run did not go through the training kernels, or the CPU run did")
-    if not (loss_err <= SMALL_TRAIN_LOSS_TOL and param_err <= SMALL_TRAIN_PARAM_TOL):
-        raise AssertionError("card and CPU training steps differ")
+    flat_c, flat_h = (torch.cat([p.reshape(-1) for p in tree_leaves(t)]) for t in (pc, ph))
+    out = {"loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(lc, lh)),
+           "param_max_abs_err": float((flat_c - flat_h).abs().max())}
+    if adam_bound:
+        schedule = loop.reference_lr_schedule(tcfg)
+        out["adam"] = agree = param_agreement(flat_c, flat_h, [schedule(0), schedule(1)], "f32")
+        params_ok = agree["max_abs_err"] <= agree["bound"] and agree["tight_share"] <= DP_TIGHT_SHARE
+        rule = f"Adam's bound: {json.dumps(agree)}, tight share at most {DP_TIGHT_SHARE:g}"
+    else:
+        params_ok, rule = out["param_max_abs_err"] <= SMALL_TRAIN_PARAM_TOL, f"tol {SMALL_TRAIN_PARAM_TOL:g}"
+    log(f"{what}, card vs CPU, 2 steps: losses {lc} / {lh} (max rel err {out['loss_rel_err']:.3e}, tol "
+        f"{SMALL_TRAIN_LOSS_TOL:g}), params max_abs_err {out['param_max_abs_err']:.3e} ({rule}), launches card "
+        f"{nc} / cpu {nh}")
+    if nc != launched or any(nh.values()):
+        raise AssertionError(f"{what}: the small card run did not go through the kernels, or the CPU run did")
+    if not (out["loss_rel_err"] <= SMALL_TRAIN_LOSS_TOL and params_ok):
+        raise AssertionError(f"{what}: card and CPU training steps differ")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1908,10 +2023,11 @@ T2S_WORDS = ("hello there how are you doing today i am fine thank you good to he
              "okay right sure well maybe later").split()
 
 
-def write_t2s_items(root, n, seed):
+def write_t2s_items(root, n, seed, pairs=True):
     """n random CoMix T2S items: `u<i>.hubert_code.npy` of 520-1000 codes (as
     strings) beside `u<i>.txt` of 4-12 words, every fourth one a `_1` / `_2`
-    two-speaker pair. The texts stay short enough that a 20 % concatenation
+    two-speaker pair (with `pairs`; without, CoSingle items, one speaker
+    each). The texts stay short enough that a 20 % concatenation
     of two is far below 512 ids of the fallback vocab, so the encoder stays on
     layers.attend; the codes are long enough that every decoder runs from 578
     positions on, so every layer takes the causal flash kernels."""
@@ -1922,7 +2038,7 @@ def write_t2s_items(root, n, seed):
     for i in range(n):
         t = int(rs.randint(520, 1001))
         base = os.path.join(root, f"u{i}")
-        if i % 4 == 3:
+        if pairs and i % 4 == 3:
             np.save(base + "_1.hubert_code.npy", rs.randint(0, 500, t).astype(str))
             np.save(base + "_2.hubert_code.npy", rs.randint(0, 500, t - int(rs.randint(0, 60))).astype(str))
         else:
@@ -2040,26 +2156,27 @@ def time_flash_causal(results, b=6, h=8, t=1026, dh=64):
     log_backward_pair(results, "_causal", [b, h, t, dh])
 
 
-def check_small_t2s_training_against_cpu():
-    """Two optimizer steps of a tiny f32 CoMix T2S model (dh 16, 2 decoder
-    layers, targets of 512 -> decoder T 514, so the card takes the causal
-    flash kernels) on the card and on the CPU (layers.attend there), TF32 off,
-    the same batches."""
+def check_small_t2s_training_against_cpu(two_output=True, adam_bound=False):
+    """Two optimizer steps of a tiny f32 CoMix T2S model (without
+    `two_output`, CoSingle: one output stream, target dim = dim) (dh 16, 2
+    decoder layers, targets of 512 -> decoder T 514, so the card takes the
+    causal flash kernels) on the card and on the CPU (layers.attend there),
+    TF32 off, the same batches; held by hold_small_steps."""
     import numpy as np
     import torch
     from covomix_tpu_torch.models import text2semantic as T
     from covomix_tpu_torch.train import loop
-    from covomix_tpu_torch.util.misc import tree_leaves, tree_map
+    from covomix_tpu_torch.util.misc import tree_map
 
     cfg = T.T2SConfig(dim=32, source_depth=1, target_depth=2, heads=2, dim_head=16, num_text_tokens=200,
-                      target_dim=64, two_output=True)
+                      target_dim=64 if two_output else 32, two_output=two_output)
     tcfg = loop.TrainConfig(lr=1e-3, use_lr_schedule=True, steps_per_epoch=1, wake_up_epochs=2, grad_clip=1.0)
     rs = np.random.RandomState(9)
     batches = []
     for _ in range(2):
         text = rs.randint(1, 200, (2, 16)).astype(np.int32)
         text[1, 9:] = 0
-        sem = rs.randint(0, 500, (2, 512, 2)).astype(np.int32)
+        sem = rs.randint(0, 500, (2, 512, 2) if two_output else (2, 512)).astype(np.int32)
         sem[1, 400:] = 501
         batches.append({"text_ids": text, "semantic_ids": sem})
     init = T.init(torch.Generator().manual_seed(0), cfg)
@@ -2071,16 +2188,8 @@ def check_small_t2s_training_against_cpu():
         losses = [float(step(state, b, None)["loss"]) for b in batches]
         runs[dev] = (losses, tree_map(lambda p: p.detach().cpu(), state.params),
                      {k: v - c0[k] for k, v in flash_counts().items()})
-    (lc, pc, nc), (lh, ph, nh) = runs["cuda"], runs["cpu"]
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
-    param_err = max((a - b).abs().max().item() for a, b in zip(tree_leaves(pc), tree_leaves(ph)))
-    log(f"small f32 CoMix T2S training, card vs CPU, 2 steps: losses {lc} / {lh} (max rel err {loss_err:.3e}, tol "
-        f"{SMALL_TRAIN_LOSS_TOL:g}), params max_abs_err {param_err:.3e} (tol {SMALL_TRAIN_PARAM_TOL:g}), "
-        f"launches card {nc} / cpu {nh}")
-    if nc != launches(fwd_lse_causal=4, bwd_dq_causal=4, bwd_dkv_causal=4) or any(nh.values()):
-        raise AssertionError("the small card run did not go through the causal kernels, or the CPU run did")
-    if not (loss_err <= SMALL_TRAIN_LOSS_TOL and param_err <= SMALL_TRAIN_PARAM_TOL):
-        raise AssertionError("card and CPU T2S training steps differ")
+    return hold_small_steps(f"small f32 {'CoMix' if two_output else 'CoSingle'} T2S training", runs,
+                            launches(fwd_lse_causal=4, bwd_dq_causal=4, bwd_dkv_causal=4), tcfg, adam_bound)
 
 
 # ---------------------------------------------------------------------------
@@ -2966,7 +3075,7 @@ def run_spec_serving(results, cfg, params, models, batch=4, prompt=400, decode=S
 
 def run_spec_dialogue(results, root, cfg, params):
     """The fitted T2S saved with save_params, then the dialogue CLI with
-    --speculative on phase 6's prompts and scripts (run_dialogue_cli's gates:
+    --speculative on phase 6's prompts and scripts (run_generation_cli's gates:
     one fused stage and tail per vocode, 256 flash forwards and pre-passes
     per flow sample, int16 wavs of 160 x generated frames), and the decoded
     tokens against a greedy Synthesizer's (temperature 1e-10) decode of the
@@ -2978,7 +3087,8 @@ def run_spec_dialogue(results, root, cfg, params):
     from covomix_tpu_torch.checkpoint.io import save_params
 
     save_params(os.path.join(root, "t2s_spec.npz"), params, meta={"config": dataclasses.asdict(cfg)})
-    decodes = run_dialogue_cli(results, root, t2s="t2s_spec.npz", extra=["--speculative"], key="spec_dialogue")
+    decodes = run_generation_cli(results, root, "dialogue", "covomix", t2s="t2s_spec.npz", extra=["--speculative"],
+                                 key="spec_dialogue")
     results.pop("spec_dialogue_vocoder_inputs")
     spec_synth, spec = decodes[-1]
     greedy_synth = dataclasses.replace(spec_synth, speculative=False, temperature=1e-10)
@@ -3133,12 +3243,12 @@ def decode_forms(what, fn, seed=None) -> dict:
     return out
 
 
-def hold_forms(what, forms, exact, redo=None):
+def hold_forms(what, forms, exact, redo=None, streams=2):
     """The graph form's result against the direct form's: num_steps equal,
     the generator's next draw equal, tokens equal (`exact`), or, in bf16,
     equal up to the near-tie rule of hold_tokens, the margins recorded by
-    `redo()` (the direct form's decode again, under GreedyLogits). Returns
-    the divergences."""
+    `redo()` (the direct form's decode again, under GreedyLogits of the
+    decode's `streams`). Returns the divergences."""
     import torch
 
     g, d = forms["graph"], forms["direct"]
@@ -3152,7 +3262,7 @@ def hold_forms(what, forms, exact, redo=None):
         return []
     if exact or redo is None:
         raise AssertionError(f"{what}: the captured decode's tokens differ from the direct step's")
-    with GreedyLogits() as logits:
+    with GreedyLogits(streams) as logits:
         ref = redo()
     return hold_tokens(f"{what}: graph vs direct", ref, g["res"], logits)
 
@@ -3791,19 +3901,32 @@ DP_GAN_STEPS = 2
 DP_RTOL = {"f32": 1e-4, "bf16": 2e-2}
 DP_TIGHT, DP_TIGHT_SHARE = 1e-2, 1e-3
 DP_BOUND = 2 * 1.0055
-DP_PER_STEP = {"vomix": {"bf16": launches(fwd_lse=8, bwd_dq=8, bwd_dkv=8, rotary=8),
-                         "f32": launches(fwd_lse=8, bwd_dq=8, bwd_dkv=8)},
-               "t2s": {dt: launches(fwd_lse_causal=4, bwd_dq_causal=4, bwd_dkv_causal=4) for dt in ("bf16", "f32")}}
+# Phases 17-20 train the VoMix and CoMix T2S recipes at every width of the recipes but a cut depth: their
+# gates hold a rank's arithmetic against one process on the same model, which does not depend on the
+# depth, while their collectives, staged through the host by gloo, carry every parameter (VoMix 250.5 M at
+# depth 8, 68.0 M at 2; CoMix T2S 76.8 M at 4 + 4 layers, 46.3 M at 2 + 2). VoMix: layers (pp=2 needs an
+# even count); T2S: (source, target) layers, the target layers on the causal kernels
+PAR_DEPTH = {"vomix": 2, "t2s": (2, 2)}
+PAR_DEPTH_FLAGS = {"vomix": ["--CoVoMix_depth", str(PAR_DEPTH["vomix"])],
+                   "t2s": ["--text2semantic_source_depth", str(PAR_DEPTH["t2s"][0]),
+                           "--text2semantic_target_depth", str(PAR_DEPTH["t2s"][1])]}
+_PV, _PT = PAR_DEPTH["vomix"], PAR_DEPTH["t2s"][1]
+DP_PER_STEP = {"vomix": {"bf16": launches(fwd_lse=_PV, bwd_dq=_PV, bwd_dkv=_PV, rotary=_PV),
+                         "f32": launches(fwd_lse=_PV, bwd_dq=_PV, bwd_dkv=_PV)},
+               "t2s": {dt: launches(fwd_lse_causal=_PT, bwd_dq_causal=_PT, bwd_dkv_causal=_PT)
+                       for dt in ("bf16", "f32")}}
 
 
 def dp_args(root, cell, dtype, *extra):
-    """The train CLI's flags of the VoMix or CoMix T2S recipe at full width,
-    in bf16 or f32, on phase 17's items (and `extra` flags)."""
+    """The train CLI's flags of the VoMix or CoMix T2S recipe at full width
+    and PAR_DEPTH's depth, in bf16 or f32, on phase 17's items (and `extra`
+    flags)."""
     from covomix_tpu_torch.train import cli
 
     recipe = [a for a in (VOMIX_RECIPE if cell == "vomix" else COMIX_T2S_RECIPE) if a != "--bf16"]
-    return cli.build_argparser().parse_args(["--base_dir", os.path.join(root, cell), *recipe, "--device", "cuda",
-                                             "--seed", "0", *(["--bf16"] if dtype == "bf16" else []), *extra])
+    return cli.build_argparser().parse_args(["--base_dir", os.path.join(root, cell), *recipe, *PAR_DEPTH_FLAGS[cell],
+                                             "--device", "cuda", "--seed", "0",
+                                             *(["--bf16"] if dtype == "bf16" else []), *extra])
 
 
 def flat_params(tree):
@@ -3989,7 +4112,8 @@ def run_dp_world1(results, root):
     from covomix_tpu_torch.parallel import multihost as MH, train_step as TS
 
     logs = os.path.join(root, "logs")
-    argv = ["--base_dir", os.path.join(root, "vomix"), *VOMIX_RECIPE, "--device", "cuda", "--log_every", "1",
+    argv = ["--base_dir", os.path.join(root, "vomix"), *VOMIX_RECIPE, *PAR_DEPTH_FLAGS["vomix"], "--device", "cuda",
+            "--log_every", "1",
             "--num_eval_files", "0", "--ckpt_every", "1000", "--no_wandb", "--log_dir", logs, "--seed", "0"]
     runs = {}
     for name, extra in (("nccl_world1", ["--coordinator_address", f"127.0.0.1:{MH.free_port()}",
@@ -4025,7 +4149,9 @@ def run_dp_world1(results, root):
         "ms_per_step": [round(s["ms"], 3) for s in r["steps"]]} for name, r in runs.items()}
     a.update(grad_bucket_numel=numel + 1, grad_bucket_bytes=4 * (numel + 1), nccl_world1_all_reduce_ms=ar_ms,
              losses=[s["loss"] for s in plain["steps"]], state_arrays_equal=len(plain["state"]))
-    log(f"17a world 1 over NCCL vs no group (VoMix bf16 B=8, {card_line()}): " + json.dumps(a))
+    a["depth"] = PAR_DEPTH["vomix"]
+    log(f"17a world 1 over NCCL vs no group (VoMix bf16 B=8, depth {PAR_DEPTH['vomix']}, {card_line()}): "
+        + json.dumps(a))
     return a
 
 
@@ -4104,13 +4230,14 @@ def run_dp_training(results, root):
                                               r["loss" if cell != "gan" else "loss_gen"]) /
                                           abs(r["loss" if cell != "gan" else "loss_gen"])
                                           for rank in ranks for s, r in zip(rank[key]["steps"], ref)),
-                      "launches_per_step": r0["steps"][0]["launches"], "rows_per_rank": r0["steps"][0]["rows"]}
+                      "launches_per_step": r0["steps"][0]["launches"], "rows_per_rank": r0["steps"][0]["rows"],
+                      "depth": PAR_DEPTH.get(cell)}
         log(f"17 dp=2 {key} ({dp['card']}): " + json.dumps(cells[key]))
-    dp.update(dp2=cells, spawn_s=spawn_s, wall_s=time.time() - t_start,
+    dp.update(dp2=cells, spawn_s=spawn_s, wall_s=time.time() - t_start, depth=PAR_DEPTH,
               backend=ranks[0]["backend"], devices=[r["device"] for r in ranks])
     results["dp"] = dp
     results["dp2_launches"] = {key: c["launches_per_step"] for key, c in cells.items()}
-    log(f"phase 17 wall {dp['wall_s']:.1f} s (the two ranks {spawn_s:.1f} s)")
+    log(f"phase 17 wall {dp['wall_s']:.1f} s at depth {json.dumps(PAR_DEPTH)} (the two ranks {spawn_s:.1f} s)")
 
 
 def save_reference(ref_dir, key, flat, recs, lrs):
@@ -4189,13 +4316,14 @@ TP_CELLS = {"tp2_vomix_bf16": ("vomix", "bf16", 1, 2, False), "tp2_vomix_f32": (
             "tp2_t2s_bf16": ("t2s", "bf16", 1, 2, False), "tp2_t2s_f32": ("t2s", "f32", 1, 2, False),
             "dp2_fsdp_vomix_bf16": ("vomix", "bf16", 2, 1, True),
             "dp2_tp2_fsdp_vomix_bf16": ("vomix", "bf16", 2, 2, True)}
-# the tp collectives of one step (forward + backward) over tp=2 at full width: VoMix, 8 layers x
+# the tp collectives of one step (forward + backward) over tp=2 at full width: VoMix, its layers x
 # (attention, FFN) x (copy_to_tp, reduce_from_tp), and the time MLP's gather and copy; CoMix T2S,
-# 4 source layers x (the attention's copy and reduce, the gathered w1 and bias of the FFN's 1365
-# pairs, which 2 does not divide), 4 target layers x (self-attention 2, cross-attention's context,
+# its source layers x (the attention's copy and reduce, the gathered w1 and bias of the FFN's 1365
+# pairs, which 2 does not divide), its target layers x (self-attention 2, cross-attention's context,
 # query and null-KV copies and its reduce 4, FFN 2), sem_emb's lookup gather and the two logit
-# heads' copy and gather
-TP_COLLECTIVES = {"vomix": 8 * 2 * 2 + 2, "t2s": 4 * (2 + 2) + 4 * (2 + 4 + 2) + 1 + 2 * 2}
+# heads' copy and gather (at depth 8 and 4 + 4: 34 and 53)
+TP_COLLECTIVES = {"vomix": PAR_DEPTH["vomix"] * 2 * 2 + 2,
+                  "t2s": PAR_DEPTH["t2s"][0] * (2 + 2) + PAR_DEPTH["t2s"][1] * (2 + 4 + 2) + 1 + 2 * 2}
 
 
 def replicas_equal(mesh, state, specs) -> dict:
@@ -4314,7 +4442,7 @@ def check_tp(results, spawns, refs, names):
             "loss_rel_err": max(abs(s["loss"] - r["loss"]) / abs(r["loss"])
                                 for rank in ranks for s, r in zip(rank[name]["steps"], ref)),
             "launches_per_step": ranks[0][name]["steps"][0]["launches"],
-            "rows_per_rank": ranks[0][name]["steps"][0]["rows"]}
+            "rows_per_rank": ranks[0][name]["steps"][0]["rows"], "depth": PAR_DEPTH[cell]}
         log(f"18 {name} ({tp['card']}): " + json.dumps(tp["cells"][name]))
     results["tp"] = tp
     results["tp_launches"] = {name: c["launches_per_step"] for name, c in tp["cells"].items()}
@@ -4330,7 +4458,7 @@ PP_MICROBATCHES = 4
 PP_CELLS = {"pp2_vomix_bf16": ("bf16", 1, "pp", 2), "pp2_vomix_f32": ("f32", 1, "pp", 2),
             "sp2_vomix_bf16": ("bf16", 1, "sp", 2), "sp2_vomix_f32": ("f32", 1, "sp", 2),
             "dp2_pp2_vomix_bf16": ("bf16", 2, "pp", 2), "dp2_sp2_vomix_bf16": ("bf16", 2, "sp", 2)}
-VOMIX_DEPTH = 8
+VOMIX_DEPTH = 8        # the full-width VoMix model's layers (sample_sp's); the recipe cells run PAR_DEPTH's
 # sample_sp at sp=2 on a full-width acoustic model of the serving config (seeded random weights): 2 rows x
 # 912 frames, cond_scale 0.7, 16 midpoint steps, f32 with TF32 off, against acoustic.sample on the card with
 # the same noise. The reference's attention is the f32 flash kernel (tiled online softmax), sample_sp's the
@@ -4348,7 +4476,7 @@ def pp_per_step(dt, axis, size):
     pre-pass); none under sp (ring attention is plain PyTorch, as JAX's)."""
     if axis == "sp":
         return launches()
-    k = (PP_MICROBATCHES + size - 1) * VOMIX_DEPTH // size
+    k = (PP_MICROBATCHES + size - 1) * PAR_DEPTH["vomix"] // size
     return launches(fwd_lse=k, bwd_dq=k, bwd_dkv=k, **({"rotary": k} if dt == "bf16" else {}))
 
 
@@ -4357,7 +4485,8 @@ def pp_ppermutes(axis, size):
     under sp depth x (sp - 1) K / V hops and the two halos, each way."""
     from covomix_tpu_torch.parallel import pipeline as PP
 
-    return PP.ppermutes_per_step(PP_MICROBATCHES, size) if axis == "pp" else 2 * (VOMIX_DEPTH * (size - 1) + 2)
+    return PP.ppermutes_per_step(PP_MICROBATCHES, size) if axis == "pp" else 2 * (
+        PAR_DEPTH["vomix"] * (size - 1) + 2)
 
 
 def pp_syncs(dp, axis):
@@ -4432,11 +4561,13 @@ def pp_cells(root, ref_dir, names, sample, out):
     one-process run's, its replicated parts against the first rank of each
     axis, the first-half skip placeholders of a first pp stage; with
     `sample`, sample_sp at sp=2 against the reference saved in ref_dir."""
+    import dataclasses
+
     import torch
     from covomix_tpu_torch.parallel import pipeline as PP, ring as R
     from covomix_tpu_torch.parallel.mesh import gather_params, make_mesh
 
-    cfg = full_width_configs()[1]
+    cfg = dataclasses.replace(full_width_configs()[1], depth=PAR_DEPTH["vomix"])
     meshes = {}
     for name in names:
         dt, dp, axis, size = PP_CELLS[name]
@@ -4534,7 +4665,7 @@ def check_pp_cell(name, ranks, ref):
         if any(v != 0.0 for v in placeholders.values()):
             raise AssertionError(f"{what}: first-half skip placeholders (max |param|, |grad|, |ema|) {placeholders}")
         seen |= {int(k) for k in placeholders}
-    if axis == "pp" and seen != set(range(VOMIX_DEPTH // 2)):
+    if axis == "pp" and seen != set(range(PAR_DEPTH["vomix"] // 2)):
         raise AssertionError(f"19 {name}: first-half skip placeholders checked for layers {sorted(seen)}")
 
 
@@ -4576,7 +4707,8 @@ def check_pp(results, spawns, refs, names, sample_ref):
             "params": ranks[0][name]["params"], "replicas": [rank[name]["replicas"] for rank in ranks],
             "loss_rel_err": max(abs(s["loss"] - r["loss"]) / abs(r["loss"])
                                 for st in steps for s, r in zip(st, ref["recs"])),
-            "launches_per_step": steps[0][0]["launches"], "rows_per_rank": steps[0][0]["rows"]}
+            "launches_per_step": steps[0][0]["launches"], "rows_per_rank": steps[0][0]["rows"],
+            "depth": PAR_DEPTH["vomix"]}
         log(f"19 {name} ({pp['card']}): " + json.dumps(pp["cells"][name]))
     if sample_ref is not None:
         check_sample_sp(spawns[2]["ranks"], sample_ref)
@@ -4864,7 +4996,8 @@ def check_bmuf(results, ranks, refs, names):
             "wall_s": [round(rank[name]["wall_s"], 3) for rank in ranks], "params": ranks[0][name]["params"],
             "loss_rel_err": max(abs(s["loss"] - r["loss"]) / abs(r["loss"]) for st in steps
                                 for s, r in zip(st, ref["recs"])),
-            "launches_per_step": steps[0][0]["launches"], "rows_per_rank": steps[0][0]["rows"]}
+            "launches_per_step": steps[0][0]["launches"], "rows_per_rank": steps[0][0]["rows"],
+            "depth": PAR_DEPTH[BMUF_CELLS[name][0]]}
         log(f"20 {name} ({bmuf['card']}): " + json.dumps(bmuf["cells"][name]))
     results["bmuf"] = bmuf
     results["bmuf_launches"] = {name: c["launches_per_step"] for name, c in bmuf["cells"].items()}
@@ -5026,7 +5159,8 @@ def run_parallel_training(results, root, tp_names=tuple(TP_CELLS), axes=("pp", "
                         for world, sp in spawns.items() for name in sp["ranks"][0] if name in TP_CELLS or
                         name in PP_CELLS or name in BMUF_CELLS}}
     results["parallel_wall"] = wall
-    log(f"phases 18-20 wall {wall['wall_s']:.1f} s (phase 20's one-process references {refs20_s:.1f} s; the ranks "
+    log(f"phases 18-20 wall {wall['wall_s']:.1f} s at depth {json.dumps(PAR_DEPTH)} (phase 20's one-process "
+        f"references {refs20_s:.1f} s; the ranks "
         f"{json.dumps(wall['spawn_s'])} s; each cell's slowest rank {json.dumps(wall['cells_s'])} s)")
 
 
@@ -5788,6 +5922,339 @@ def multi_step_mode() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the CoVoSingle family at full width (the CoSingle T2S and VoSingle acoustic models)
+
+
+# the CoSingle T2S recipe (running_command/T2S_CoSingle.sh, the fallback vocab in place of --bert_vocab) and
+# the VoSingle acoustic recipe (Acous_VoSingle.sh) on one card, bf16; f32 as the recipes are written
+COSINGLE_T2S_RECIPE = ["--format", "text2semantic", "--text2semantic", "--allow_fallback_vocab",
+                       "--CoVoMix_dim_transformer", "512", "--text2semantic_tokens", "501",
+                       "--text2semantic_source_depth", "4", "--text2semantic_target_depth", "4",
+                       "--text2semantic_head", "8", "--batch_size", "10", "--lr", "1e-4", "--lr_scheduler", "--bf16"]
+VOSINGLE_RECIPE = ["--format", "hubert_fisher", "--CoVoMix_dim", "80", "--CoVoMix_dim_transformer", "1024",
+                   "--CoVoMix_depth", "8", "--CoVoMix_heads", "16", "--CoVoMix_num_phoneme_tokens", "502",
+                   "--cond_drop_prob", "0.3", "--batch_size", "6", "--lr", "1e-4", "--lr_scheduler", "--bf16"]
+# recipe -> (flags, batch, train items, evaluate function, a bf16 step's flash launches)
+SINGLE_RECIPES = {
+    "vosingle": (VOSINGLE_RECIPE, 6, 12, "evaluate_acoustic", launches(fwd_lse=8, bwd_dq=8, bwd_dkv=8, rotary=8)),
+    "cosingle": (COSINGLE_T2S_RECIPE, 10, 20, "evaluate_t2s",
+                 launches(fwd_lse_causal=4, bwd_dq_causal=4, bwd_dkv_causal=4)),
+}
+SINGLE_TRAIN_STEPS = 4    # bf16 steps of each recipe, the eval and its top-k save at the last, then a resumed one
+SINGLE_F32_STEPS = 3      # f32 steps of each recipe: no eval, no resume
+# (CLI, mode, --fuse_tail) of the generation runs, in this order on phase 6's asset directory, and the
+# (T2S, acoustic) checkpoints each mode pairs
+SINGLE_RUNS = (("monologue", "covosingle", True), ("monologue", "covosinx", False), ("monologue", "covomix", True),
+               ("dialogue", "covosingle", True), ("dialogue", "covosinx", False))
+SINGLE_MODELS = {"covosingle": ("t2s_single.npz", "acoustic_single.npz"),
+                 "covosinx": ("t2s_single.npz", "acoustic.npz"), "covomix": ("t2s.npz", "acoustic.npz")}
+MONOLOGUE_SCRIPT = "hello there, how are you doing today? i am fine, thank you [laughter] see you soon"
+SINGLE_HELD = 256        # the one-stream captured decode held against the direct step on this prefix
+
+
+def single_family_configs():
+    """(CoSingle T2SConfig, VoSingle AcousticConfig) at full width: what
+    T2S_CoSingle.sh and train/cli.py build (one output stream, target dim =
+    dim = 512) and Acous_VoSingle.sh's model (80-d input, one phoneme
+    stream)."""
+    import dataclasses
+
+    t2s, ac, _ = full_width_configs()
+    return (dataclasses.replace(t2s, target_dim=512, two_output=False),
+            dataclasses.replace(ac, dim_in=80, mode="single"))
+
+
+def write_single_assets(root, seed=23):
+    """In phase 6's asset directory `root`: seeded full-width CoSingle and
+    VoSingle checkpoints beside phase 6's CoMix, VoMix and vocoder ones, the
+    monologue script with a prompt (phase 6's first speaker's, copied), and
+    DIALOGUE_SCRIPT alone for the dialogues (on phase 6's prompts)."""
+    import dataclasses
+
+    import torch
+    from covomix_tpu_torch.checkpoint.io import save_params
+    from covomix_tpu_torch.models import acoustic as A, text2semantic as T
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for name, init, cfg in zip(("t2s_single", "acoustic_single"), (T.init, A.init), single_family_configs()):
+        save_params(os.path.join(root, f"{name}.npz"), init(g, cfg), meta={"config": dataclasses.asdict(cfg)})
+    for d in ("mono_texts", "mono_prompts", "single_texts"):
+        os.makedirs(os.path.join(root, d))
+    with open(os.path.join(root, "mono_texts", "mono0.txt"), "w") as f:
+        f.write(MONOLOGUE_SCRIPT)
+    for ext in (".hubert_code.npy", ".wav"):
+        shutil.copy(os.path.join(root, "prompts", "dlg0_1" + ext), os.path.join(root, "mono_prompts", "mono0" + ext))
+    with open(os.path.join(root, "single_texts", "dlg0.txt"), "w") as f:
+        f.write(DIALOGUE_SCRIPT)
+
+
+@contextlib.contextmanager
+def recorded_captures():
+    """Yields a list that gets, per T2S decode captured while entered, its
+    source shape (the text bucket), whether its token streams alias (one
+    stream), the capture's seconds and what the card keeps reserved for its
+    graph (the private pool: the allocator's cache emptied before and after,
+    as phase 22 reads it; GiB)."""
+    import torch
+    from covomix_tpu_torch.models import text2semantic as T
+
+    orig = T._Decode.capture
+    got = []
+
+    def capture(self):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        orig(self)
+        torch.cuda.empty_cache()
+        got.append({"source": list(self.inputs["mask"].shape), "max_length": self.state["tokens1"].shape[1],
+                    "one_stream": self.state["tokens2"] is self.state["tokens1"], "capture_s": self.capture_s,
+                    "pool_gib": (torch.cuda.memory_reserved() - reserved) / 2 ** 30})
+
+    T._Decode.capture = capture
+    try:
+        yield got
+    finally:
+        T._Decode.capture = orig
+
+
+def run_single_generation(results, root):
+    """Phase 23's generation on phase 6's assets in `root`: the monologue CLI
+    in covosingle, covosinx and covomix, the dialogue CLI in covosingle and
+    covosinx (SINGLE_RUNS; run_generation_cli's gates), each run's captured
+    decodes (text bucket, capture s, pool GiB), the graphs kept; the
+    one-stream captured decode against the direct step on its first
+    SINGLE_HELD steps, and timed over the whole decode; the flash forward
+    held and timed at the covosinx dialogue's flow shape, the fused stage
+    and tail at the covosingle dialogue's last vocode's inputs; small f32
+    covosingle / covosinx dialogues card vs CPU. Phase 14's decodes are
+    dropped first, and this phase's after it."""
+    import torch
+    from covomix_tpu_torch import pipeline as P
+    from covomix_tpu_torch.models import text2semantic as T
+    from covomix_tpu_torch.util.misc import round_up
+
+    t0 = time.time()
+    T._GRAPHS.clear()
+    torch.cuda.empty_cache()
+    write_single_assets(root)
+    log(f"23 CoSingle / VoSingle checkpoints and scripts written in {time.time() - t0:.1f} s")
+    runs = {}
+    with recorded_captures() as captures:
+        for cli, mode, fuse_tail in SINGLE_RUNS:
+            key = f"single_{cli}_{mode}"
+            t2s, acoustic = SINGLE_MODELS[mode]
+            texts, prompts = ("mono_texts", "mono_prompts") if cli == "monologue" else ("single_texts", "prompts")
+            n0 = len(captures)
+            decodes = run_generation_cli(results, root, cli, mode, t2s=t2s, acoustic=acoustic, fuse_tail=fuse_tail,
+                                         texts=texts, prompts=prompts, key=key)
+            inputs = results.pop(f"{key}_vocoder_inputs")
+            if (cli, mode) == ("dialogue", "covosingle"):
+                vocoder_inputs, (synth, _) = inputs, decodes[0]
+            runs[key] = {k: results[f"{key}_{k}"] for k in ("wall_s", "audio_s", "rtf", "decode_steps", "flow_frames",
+                                                           "stages", "launches")}
+            runs[key]["captures"] = captures[n0:]
+        # the one-stream decode of the covosingle dialogue's first turn, as its Synthesizer ran it
+        ids = torch.as_tensor(synth._encode_bucketed(P.clean_text(DIALOGUE_SCRIPT.split("[spkchange]")[0])),
+                              dtype=torch.int32, device="cuda")
+
+        def decode(gen):
+            return T.generate(synth.t2s_params, synth.t2s_cfg, gen, ids, max_length=synth.t2s_max_length,
+                              temperature=synth.temperature, cond_scale=synth.t2s_cond_scale, dtype=synth.dtype)
+
+        what = f"one-stream decode B=1 bf16, first {SINGLE_HELD} of {synth.t2s_max_length} steps"
+        with stop_after(SINGLE_HELD):
+            forms = decode_forms(what, decode, seed=23)
+            ties = hold_forms(what, forms, exact=False, streams=1,
+                              redo=lambda: decode(torch.Generator(device="cuda").manual_seed(23)))
+        steps = forms["graph"]["res"].num_steps
+        if steps != SINGLE_HELD:
+            raise AssertionError(f"{what}: {steps} steps")
+        torch.cuda.synchronize()
+        t1 = time.time()
+        res = decode(torch.Generator(device="cuda").manual_seed(23))
+        torch.cuda.synchronize()
+        full_s = time.time() - t1
+    held = {"steps": steps, "ties": ties, **per_step_ms(forms, steps),
+            "graph_full": {"steps": res.num_steps, "s": full_s, "ms_per_step": full_s / res.num_steps * 1e3}}
+    graphs = {"kept": len(T._GRAPHS), "captured": len(captures),
+              "pool_gib": sum(c["pool_gib"] for c in captures), "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+              "one_stream": sum(c["one_stream"] for c in captures)}
+    log(f"23 captured decodes per run (text bucket, capture s, pool GiB): "
+        + json.dumps({k: r["captures"] for k, r in runs.items()}))
+    log(f"23 one-stream captured decode: {json.dumps(held)}; graphs {json.dumps(graphs)}")
+    if graphs["one_stream"] < 1:
+        raise AssertionError("23: no one-stream decode was captured")
+    frames = results["single_dialogue_covosinx_flow_frames"]   # three turns' tokens after the 400-frame prompt
+    time_flash(results, "single_flash", 2, round_up(frames, 128), frames)
+    for kind, (x, up, blocks, post) in vocoder_inputs.items():
+        time_vocoder(results, f"single_{kind}", kind, x, up, blocks, post)    # a covosingle turn's vocode
+    small = {mode: check_small_synth_against_cpu(os.path.join(root, "prompts"), mode) for mode in PER_TURN_MODES}
+    T._GRAPHS.clear()
+    torch.cuda.empty_cache()
+    results["single_generation"] = {"runs": runs, "decode": held, "graphs": graphs, "small_wav_err": small,
+                                    "wall_s": time.time() - t0}
+    log(f"23 generation wall {time.time() - t0:.1f} s")
+
+
+def write_vosingle_items(root, n, seed):
+    """n random VoSingle items in the hubert_fisher layout: u.mel.npy
+    [80, ~1000] f32 and u.hubert_code.npy as a string array."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(root)
+    for i in range(n):
+        t = 960 + 7 * i
+        base = os.path.join(root, f"u{i}")
+        np.save(base + ".mel.npy", (rs.randn(80, t) * 2 - 5).astype(np.float32))
+        np.save(base + ".hubert_code.npy", rs.randint(0, 500, t).astype(str))
+
+
+def single_batch(recipe, train_dir):
+    """A batch of the recipe's size from its first train items, as the CLI's
+    loader collates them."""
+    from covomix_tpu_torch.data import datasets as D
+    from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer
+
+    b = SINGLE_RECIPES[recipe][1]
+    if recipe == "vosingle":
+        ds = D.CoVoMixDataset(train_dir, format="hubert_fisher")
+        return D.collate_acoustic([ds[i] for i in range(b)])
+    ds = D.CoVoMixDataset(train_dir, format="text2semantic")
+    return D.collate_t2s([ds[i] for i in range(b)], load_covomix_tokenizer(None, strict=False))
+
+
+def run_single_training(results, root):
+    """Phase 23's training under `root`: each SINGLE_RECIPES recipe through
+    `covomix_tpu_torch.train.cli.main` at full width on random items (VoSingle:
+    12 + 6, B=6, bucketed to T=832; CoSingle: 20 + 10 of 520-1000 codes, B=10,
+    decoder T 578-1026), bf16 for SINGLE_TRAIN_STEPS steps with one eval and
+    its top-k save, then --resume for one step (check_train_run), then f32 for
+    SINGLE_F32_STEPS steps (check_steps); every step exactly the recipe's
+    flash launches (VoSingle 8 lse forwards, dQ, dK/dV and, in bf16, 8 rotary
+    pre-passes; CoSingle 4 causal of each), VoSingle's eval 256 forwards
+    without lse and pre-passes per eval batch, CoSingle's eval none; then
+    the bf16 step's split and one traced step's idle share, the three
+    training kernels held against their plain versions at the recipe's
+    shape (bf16 and f32), and two tiny f32 steps of each card vs CPU."""
+    import torch
+    from covomix_tpu_torch.models import acoustic as A, text2semantic as T
+    from covomix_tpu_torch.train import loop
+
+    t0 = time.time()
+    cfgs = dict(zip(("cosingle", "vosingle"), single_family_configs()))
+    out = {}
+    for recipe, (flags, b, n_train, evaluate_name, per_step) in SINGLE_RECIPES.items():
+        train_dir, dev_dir, logs = (os.path.join(root, recipe, d) for d in ("train", "dev", "logs"))
+        if recipe == "vosingle":
+            write_vosingle_items(train_dir, n_train, 0)
+            write_vosingle_items(dev_dir, b, 1)
+        else:
+            write_t2s_items(train_dir, n_train, 0, pairs=False)
+            write_t2s_items(dev_dir, b, 1, pairs=False)
+        common = ["--base_dir", train_dir, "--device", "cuda", "--log_every", "1", "--ckpt_every", "1000",
+                  "--no_wandb", "--log_dir", logs, "--seed", "0"]
+        steps, evals, totals, peak_gb, first_s, resume_s = run_train_cli(
+            [*common, *flags, "--dev_base_dir", dev_dir, "--eval_every", str(SINGLE_TRAIN_STEPS),
+             "--num_eval_files", str(b), "--run_name", f"{recipe}_bf16"], evaluate_name, SINGLE_TRAIN_STEPS)
+        batches = evals[0]["batches"] if evals else 0
+        eval_launches = launches(fwd=256 * batches, rotary=256 * batches) if recipe == "vosingle" else launches()
+        median = check_train_run(f"23 {recipe} bf16", steps, evals, os.path.join(logs, f"{recipe}_bf16", "checkpoints"),
+                                 SINGLE_TRAIN_STEPS, b, per_step, eval_launches)
+        expect = {k: v * len(steps) + eval_launches[k] for k, v in per_step.items()}
+        if totals != expect:
+            raise AssertionError(f"23 {recipe} bf16: launch totals {totals}, expected {expect}")
+        shapes = sorted({s["shapes"]["x" if recipe == "vosingle" else "semantic_ids"] for s in steps})
+        if recipe == "vosingle" and shapes != [(6, 832, 80)] or recipe == "cosingle" and any(
+                len(sh) != 2 or sh[0] != 10 or not 576 <= sh[1] <= 2048 for sh in shapes):
+            raise AssertionError(f"23 {recipe}: batches {shapes}")
+        f32_per_step = {k: v for k, v in per_step.items() if k != "rotary"} | {"rotary": 0}
+        f32_steps, f32_evals, f32_totals, f32_peak, f32_s, _ = run_train_cli(
+            [*common, *[a for a in flags if a != "--bf16"], "--dev_base_dir", train_dir, "--num_eval_files", "0",
+             "--run_name", f"{recipe}_f32"], evaluate_name, SINGLE_F32_STEPS, resume=False)
+        check_steps(f"23 {recipe} f32", f32_steps, f32_per_step)
+        if len(f32_steps) != SINGLE_F32_STEPS or f32_evals or f32_totals != {
+                k: v * SINGLE_F32_STEPS for k, v in f32_per_step.items()}:
+            raise AssertionError(f"23 {recipe} f32: {len(f32_steps)} steps, {len(f32_evals)} evals, totals "
+                                 f"{f32_totals}")
+        cfg = cfgs[recipe]
+        params = (A if recipe == "vosingle" else T).init(torch.Generator(device="cuda").manual_seed(5), cfg)
+        loss_fn = (loop.acoustic_loss_fn(cfg, cond_drop_prob=0.3, dtype=torch.bfloat16) if recipe == "vosingle"
+                   else loop.t2s_loss_fn(cfg, dtype=torch.bfloat16))
+        split_training_step(results, f"single_{recipe}_split_ms", params, loss_fn, single_batch(recipe, train_dir),
+                            n=3, idle_key=f"single_{recipe}_idle")
+        del params
+        if recipe == "vosingle":
+            shape, causal, rotary = (6, 16, 832, 64), False, True
+        else:
+            shape, causal, rotary = (10, 8, max(sh[1] for sh in shapes) + 2, 64), True, False
+        holds = {dt: check_flash_training_case(*shape, getattr(torch, dt), 2300, shape[2], rotary, causal)
+                 for dt in ("bfloat16", "float32")}
+        small = (check_small_training_against_cpu(single=True, adam_bound=True) if recipe == "vosingle"
+                 else check_small_t2s_training_against_cpu(two_output=False, adam_bound=True))
+        f32_ms = sorted(s["ms"] for s in f32_steps[1:])
+        out[recipe] = {"bf16": {"ms_per_step_median": median, "samples_per_s": b / (median / 1e3),
+                                "peak_gib": peak_gb, "run_s": first_s, "resume_s": resume_s,
+                                "eval_s": evals[0]["s"], "eval": {k: v for k, v in evals[0].items() if k != "launches"},
+                                "launches_per_step": per_step, "eval_launches": eval_launches, "totals": totals,
+                                "split_ms": results[f"single_{recipe}_split_ms"],
+                                "idle": results[f"single_{recipe}_idle"], "losses": [s["loss"] for s in steps]},
+                       "f32": {"ms_per_step_median": f32_ms[len(f32_ms) // 2], "peak_gib": f32_peak, "run_s": f32_s,
+                               "launches_per_step": f32_per_step, "losses": [s["loss"] for s in f32_steps]},
+                       "batches": [list(sh) for sh in shapes], "kernel_shape": list(shape), "holds": holds,
+                       "small_card_vs_cpu": small}
+        log(f"23 {recipe} training at full width ({card_line()}): " + json.dumps(out[recipe], default=str))
+    results["single_training"] = out
+    results["single_training_wall_s"] = time.time() - t0
+    log(f"23 training wall {time.time() - t0:.1f} s")
+
+
+def run_single_family(results, root):
+    """Phase 23: run_single_generation on phase 6's assets in `root`, then
+    run_single_training under root/single_train."""
+    t0 = time.time()
+    run_single_generation(results, root)
+    run_single_training(results, os.path.join(root, "single_train"))
+    results["single_wall_s"] = time.time() - t0
+    log(f"phase 23 wall {results['single_wall_s']:.1f} s")
+
+
+def single_mode() -> int:
+    """`python3 chip_smoke.py --single`: phase 23 alone on a fresh phase 6
+    asset directory (one dialogue script), ending with the same `ok` line.
+    The kernels build on first use."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    root = os.path.join(VT.BUILD_DIR, "smoke_single")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        write_dialogue_assets(root, n_scripts=1)
+        run_single_family(results, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"total chip_smoke --single time {time.time() - t_start:.1f} s")
+    log("single family: " + json.dumps({"generation": results["single_generation"],
+                                        "training": results["single_training"]}, default=str))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 # registers per thread of the dh-64 flash kernels (ptxas, CUDA 12.8), held
 # to the counts of their first build: the bf16 TMA + wgmma forward's four
 # forms (<dh, lse, causal>), the rotary pre-pass, the TMA + wgmma backward
@@ -5977,7 +6444,7 @@ def main() -> int:
         t0 = time.time()
         write_dialogue_assets(root)
         log(f"dialogue assets (full-width checkpoints, scripts, prompts) written in {time.time() - t0:.1f} s")
-        run_dialogue_cli(results, root)
+        run_generation_cli(results, root, "dialogue", "covomix")
         frames = results["dialogue_flow_frames"]   # the Synthesizer's shape: CFG-doubled, bucketed, scalar valid_len
         time_flash(results, "flash", 2, round_up(frames, 128), frames)
         for kind, (x, up, blocks, post) in results.pop("dialogue_vocoder_inputs").items():
@@ -5992,6 +6459,7 @@ def main() -> int:
         t0 = time.time()
         run_decode_graphs(results, results.pop("serving_t2s"), spec_cfg, spec_params)
         log(f"phase 14 wall {time.time() - t0:.1f} s")
+        run_single_family(results, root)        # phase 23, on phase 6's checkpoints and prompts
     finally:
         shutil.rmtree(root, ignore_errors=True)
     run_phase21(results, os.path.join(VT.BUILD_DIR, "smoke_eval"), eval_models(vomix, t2s))
@@ -6057,6 +6525,20 @@ def main() -> int:
         """Phase 22: the launches of `key` one captured dispatch of `cell` runs (recorded at its capture)."""
         return {cell: results["multi_step"][cell]["launches_per_dispatch"][key]}
 
+    single_runs = results["single_generation"]["runs"]     # phase 23's generation CLI runs
+    single_train = results["single_training"]             # phase 23's recipes
+
+    def single(kind):
+        """Phase 23: the launches of `kind` (flash, rotary, stage, tail) in each generation CLI run."""
+        return {name[len("single_"):]: run["launches"][kind] for name, run in single_runs.items()}
+
+    def single_step(recipe, dt, key):
+        """Phase 23: a `recipe` step's launches of `key` in `dt`, and the hold at the recipe's shape."""
+        rec = single_train[recipe]
+        return {"single_launches_per_train_step": {f"{recipe}_{dt}": rec[dt]["launches_per_step"][key]},
+                "single_check": {f"{recipe}_{dt}": rec["holds"]["bfloat16" if dt == "bf16" else "float32"][
+                    key.replace("_causal", "")], "shape": rec["kernel_shape"]}}
+
     big = BENCH_FLASH_B
     kernels = [
         # the attention kernel alone; with the pre-pass, as the path calls it, in ms_with_prepass
@@ -6065,6 +6547,10 @@ def main() -> int:
                      speculative_launches=spec_file["flash"] + spec_serving["fwd"],
                      serve_dp_launches_per_rank_call=sdl["bf16"]["fwd"],
                      adaptive_launches=results["adaptive"]["launches"],     # phase 21: sample_adaptive, bf16
+                     single_launches=single("flash"),
+                     single_eval_launches=single_train["vosingle"]["bf16"]["eval_launches"]["fwd"],
+                     single_shapes={"covosinx_dialogue": bench_shape_entry(results, "single_flash", "with_prepass_ms",
+                                                                           "library_ms")},
                      bench_launches=bench["fwd"] - bench_hubert,
                      bench_shapes={f"b{big}": bench_shape_entry(results, f"flash_bench_b{big}", "with_prepass_ms",
                                                                 "library_ms")}),
@@ -6079,7 +6565,10 @@ def main() -> int:
                      bmuf_launches_per_rank_step=bml["bmuf_vomix_bf16"]["rotary"],
                      serve_dp_launches_per_rank_call=sdl["bf16"]["rotary"],
                      adaptive_launches=results["adaptive"]["rotary_launches"],
-                     multi_step_launches_per_dispatch=dispatched("vomix_bf16", "rotary")),
+                     multi_step_launches_per_dispatch=dispatched("vomix_bf16", "rotary"),
+                     single_launches=single("rotary"),
+                     single_launches_per_train_step={"vosingle_bf16": single_train["vosingle"]["bf16"][
+                         "launches_per_step"]["rotary"]}),
     ]
     for kind, replaces in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                            ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):
@@ -6090,7 +6579,10 @@ def main() -> int:
                                                                              "unfused_ms")
                                                   for b in BENCH_DETAIL_B},
                                     bench_check={f"b{BENCH_CHECK_B}": results[
-                                        f"{kind}_bench_b{BENCH_CHECK_B}_max_abs_err"]}))
+                                        f"{kind}_bench_b{BENCH_CHECK_B}_max_abs_err"]},
+                                    single_launches=single(kind),
+                                    single_shapes={"covosingle_turn": bench_shape_entry(results, f"single_{kind}",
+                                                                                        "unfused_ms")}))
     replaces = {"fwd_lse": "covomix_tpu/ops/flash_attention.py:162",
                 "bwd_dq": "covomix_tpu/ops/flash_attention.py:502",
                 "bwd_dkv": "covomix_tpu/ops/flash_attention.py:544"}
@@ -6108,7 +6600,8 @@ def main() -> int:
                                     pp_launches_per_rank_step=staged("pp", "bf16", key),
                                     sp_launches_per_rank_step=staged("sp", "bf16", key),
                                     bmuf_launches_per_rank_step=bml["bmuf_vomix_bf16"][key],
-                                    multi_step_launches_per_dispatch=dispatched("vomix_bf16", key)))
+                                    multi_step_launches_per_dispatch=dispatched("vomix_bf16", key),
+                                    parallel_depth=PAR_DEPTH, **single_step("vosingle", "bf16", key)))
     for dt in ("f32", "bf16"):     # this slice's main path: HuBERT extraction (f32, and --bf16)
         kernels.append(kernel_entry(results, f"hubert_fwd_{dt}", f"flash_attention_fwd_hubert_{dt}", flash_src,
                                     "covomix_tpu/ops/flash_attention.py:162", results[f"hubert_{dt}"]["launches"],
@@ -6141,7 +6634,8 @@ def main() -> int:
                                     dp2_launches_per_rank_step=dp2["t2s_bf16"][key],
                                     tp_launches_per_rank_step={"tp2_t2s_bf16": tpl["tp2_t2s_bf16"][key]},
                                     bmuf_launches_per_rank_step=bml["bmuf_t2s_bf16"][key],
-                                    multi_step_launches_per_dispatch=dispatched("t2s_bf16", key)))
+                                    multi_step_launches_per_dispatch=dispatched("t2s_bf16", key),
+                                    parallel_depth=PAR_DEPTH, **single_step("cosingle", "bf16", key)))
     for cell, suffix in (("vomix", "_f32"), ("t2s", "_causal_f32")):   # f32 training at the recipes' precision
         runs = results[f"{cell}_f32_launches"]
         for key, where in replaces.items():
@@ -6152,6 +6646,9 @@ def main() -> int:
                                             f"{key}_causal" if cell == "t2s" else key],
                                         tp_launches_per_rank_step={f"tp2_{cell}_f32": tpl[f"tp2_{cell}_f32"][
                                             f"{key}_causal" if cell == "t2s" else key]},
+                                        parallel_depth=PAR_DEPTH,
+                                        **single_step("vosingle" if cell == "vomix" else "cosingle", "f32",
+                                                      f"{key}_causal" if cell == "t2s" else key),
                                         **({"pp_launches_per_rank_step": staged("pp", "f32", key),
                                             "sp_launches_per_rank_step": staged("sp", "f32", key),
                                             "bmuf_launches_per_rank_step": bml["bmuf_vomix_f32"][key],
@@ -6178,6 +6675,8 @@ def main() -> int:
     log("data preparation and file-level evals: " + json.dumps({k: results[k] for k in
                                                               ("data_prep", "eval_files", "adaptive")}))
     log("multi-step training: " + json.dumps({"cells": results["multi_step"], "cli": results["multi_cli"]}))
+    log("single family: " + json.dumps({"generation": results["single_generation"],
+                                        "training": results["single_training"]}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -6728,6 +7227,8 @@ if __name__ == "__main__":
         sys.exit(phase21_mode(sys.argv[1][2:]))
     if sys.argv[1:2] == ["--multi_step"]:
         sys.exit(multi_step_mode())
+    if sys.argv[1:2] == ["--single"]:
+        sys.exit(single_mode())
     if sys.argv[1:2] == ["--flash-f32"]:
         sys.exit(flash_f32_mode())
     if sys.argv[1:2] == ["--vocoder-split"]:
