@@ -19,6 +19,7 @@
     python3 chip_smoke.py --eval_files        # phase 21's file-level evals and adaptive sampling alone
     python3 chip_smoke.py --multi_step        # phase 22 alone: K steps per dispatch, one captured CUDA graph
     python3 chip_smoke.py --single            # phase 23 alone: the CoVoSingle family (generation and training)
+    python3 chip_smoke.py --recipes           # phase 24 alone: VoMix two_two, the default format, --grad_accum
 
 `--vocoder` is the quick loop for the fused stage / tail kernels: it builds
 only their library, logs ptxas's registers and spills, runs check_vocoder's
@@ -313,7 +314,8 @@ Phases (any failure exits non-zero, nothing is passed over):
      forwards: two separate forwards), and a small f32 sample_adaptive card
      vs CPU (equal attempts, ADAPTIVE_CPU_TOL);
  22. K optimizer steps per dispatch (`train.loop.make_multi_step`, the
-     train CLI's --steps_per_dispatch; run after phase 9), K = MULTI_K = 4:
+     train CLI's --steps_per_dispatch; beside the edge head dims' builds,
+     after phase 9b), K = MULTI_K = 4:
      for each MULTI_CELLS cell at full width (VoMix bf16 B=8 T=832, CoMix
      T2S bf16 B=6 decoder T 1026, VoMix f32), from one state and generator
      4 eager steps against one captured dispatch, parameters, EMA, Adam's
@@ -355,7 +357,26 @@ Phases (any failure exits non-zero, nothing is passed over):
      eval none; the bf16 step's split and a traced step's idle share; the
      three kernels held at each recipe's shape (bf16, f32); two tiny f32
      steps of each recipe card vs CPU;
- 24. print a `kernels` JSON line (phase 13's launches as
+ 24. the acoustic training configurations no recipe script sets (the
+     training in a process of its own beside the edge head dims' builds
+     and phases 16 and 9b; the kernel checks after phase 3's): the VoMix recipe in the two_two
+     format and mode (TWO_TWO_RECIPE: B=8, T=832, the -A / -B channels
+     only) bf16 4 steps with an eval and its top-k save, --resume for one
+     more, f32 2 steps; the default format at the VoSingle recipe's widths
+     (DEFAULT_RECIPE: B=6, items of 1700-2400 frames cropped to T=1600)
+     bf16 3 steps with an eval, f32 2; every step exactly 8 lse forwards,
+     dQ and dK/dV (and in bf16 8 pre-passes), each eval 256 forwards and
+     pre-passes per batch; the forward with lse, dQ and dK/dV held against
+     their plain versions at DEFAULT_SHAPE [6,16,1600,64] in bf16 and f32
+     (the rotary and the backward's transpose bit for bit) and timed there
+     beside SDPA; two tiny f32 two_two steps card vs CPU (Adam's bound);
+     then the VoMix recipe with --grad_accum 2, three runs from one
+     initial state: 2 eager steps with --num_workers 2, 2 captured
+     dispatches of --steps_per_dispatch 2 with --num_workers 2, the same 4
+     steps eager with --num_workers 0: 16 of each kernel an eager step, 32
+     a replay, every step's micro-batch bytes, loss and grad norm and the
+     saved step-4 states bit for bit;
+ 25. print a `kernels` JSON line (phase 13's launches as
      `speculative_launches` and the draft fit's replays of its captured
      dispatch apart as `speculative_fit_replays`, phase 15's as
      `bench_launches` and its B=64 fused check as `bench_check`, phase 16's as
@@ -368,7 +389,9 @@ Phases (any failure exits non-zero, nothing is passed over):
      22's as `multi_step_launches_per_dispatch`, phase 23's as
      `single_launches` per CLI run, `single_eval_launches`,
      `single_launches_per_train_step` and its holds as `single_check` and
-     `single_shapes`, phases 17-20's depth as `parallel_depth`,
+     `single_shapes`, phase 24's as `recipe_launches`, its holds as
+     `recipe_check` and its times at [6,16,1600,64] as `recipe_shapes`,
+     phases 17-20's depth as `parallel_depth`,
      the fused kernels' and the forward's
      phase-15 times as `bench_shapes`) and, last, {"ok": true, "device":
      {...}}.
@@ -898,13 +921,14 @@ def bound_and_log(results, key, shape, flops, nbytes, f32=False):
         f"{nbytes / 1e6:.1f} MB) -> {flops / dev / 1e9:.1f} TFLOP/s on the card")
 
 
-def time_flash_training(results, b=8, h=16, t=832, dh=64):
+def time_flash_training(results, b=8, h=16, t=832, dh=64, suffix=""):
     """The forward with lse, dQ and dK/dV at the training shape (bf16, rotary,
     all keys live), each beside its plain version, its bound and one PyTorch
     call of the same function: SDPA on the pre-rotated inputs for the
     forward, the gradient of SDPA (one call computes dQ, dK and dV) for the
     pair. The outputs on the timed inputs are held against the plain
-    versions'."""
+    versions'. Results under keys ending in `suffix` (none: the VoMix
+    shape's)."""
     import torch
     import torch.nn.functional as F
     from covomix_tpu_torch.ops import flash_attention as FA
@@ -915,7 +939,7 @@ def time_flash_training(results, b=8, h=16, t=832, dh=64):
     log(f"flash training kernels at the timed inputs [{b},{h},{t},{dh}] bf16 rotary:")
     out, lse = FA.KERNEL(q, k, v, valid_arr, tables, return_lse=True)
     ref, ref_lse = FA.flash_attention_plain(q, k, v, valid_arr, tables, return_lse=True)
-    results["fwd_lse_max_abs_err"] = max(flash_agreement("out", out, ref, BF16_TOL),
+    results[f"fwd_lse{suffix}_max_abs_err"] = max(flash_agreement("out", out, ref, BF16_TOL),
                                          flash_agreement("lse", lse, ref_lse, LSE_TOL))
     qr, kr = FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables)
     delta = FA.flash_delta(dout, ref)
@@ -923,19 +947,19 @@ def time_flash_training(results, b=8, h=16, t=832, dh=64):
     # as the VoMix step calls them: rotated q and k, the tables (dq and dk
     # leave through the rotary's transpose)
     dq = FA.KERNEL.bwd_dq(*bwd, rotary=tables)
-    results["bwd_dq_max_abs_err"] = flash_agreement("dq", dq, FA.flash_bwd_dq_plain(*bwd, rotary=tables),
+    results[f"bwd_dq{suffix}_max_abs_err"] = flash_agreement("dq", dq, FA.flash_bwd_dq_plain(*bwd, rotary=tables),
                                                     BWD_BF16_TOL)
     (dk, dv), (dk_p, dv_p) = FA.KERNEL.bwd_dkv(*bwd, rotary=tables), FA.flash_bwd_dkv_plain(*bwd, rotary=tables)
-    results["bwd_dkv_max_abs_err"] = max(flash_agreement("dk", dk, dk_p, BWD_BF16_TOL),
+    results[f"bwd_dkv{suffix}_max_abs_err"] = max(flash_agreement("dk", dk, dk_p, BWD_BF16_TOL),
                                          flash_agreement("dv", dv, dv_p, BWD_BF16_TOL))
     del out, ref, dk, dv, dk_p, dv_p
 
     timed = {   # the forward's entry is the attention kernel alone, on the pre-rotated inputs
-        "fwd_lse": (lambda: FA.KERNEL(qr, kr, v, valid_arr, None, return_lse=True),
+        f"fwd_lse{suffix}": (lambda: FA.KERNEL(qr, kr, v, valid_arr, None, return_lse=True),
                     lambda: FA.flash_attention_plain(qr, kr, v, valid_arr, None, return_lse=True)),
-        "bwd_dq": (lambda: FA.KERNEL.bwd_dq(*bwd, rotary=tables),
+        f"bwd_dq{suffix}": (lambda: FA.KERNEL.bwd_dq(*bwd, rotary=tables),
                    lambda: FA.flash_bwd_dq_plain(*bwd, rotary=tables)),
-        "bwd_dkv": (lambda: FA.KERNEL.bwd_dkv(*bwd, rotary=tables),
+        f"bwd_dkv{suffix}": (lambda: FA.KERNEL.bwd_dkv(*bwd, rotary=tables),
                     lambda: FA.flash_bwd_dkv_plain(*bwd, rotary=tables)),
     }
     for key, (kern, plain) in timed.items():
@@ -946,41 +970,42 @@ def time_flash_training(results, b=8, h=16, t=832, dh=64):
     # what a backward that saves the unrotated q and k runs in PyTorch
     # around the kernels, per layer: the re-rotation of q and k, then the
     # counter-rotation of dq and dk
-    old_rot = both_times(results, "old_rotary_bwd", lambda: (
+    old_rot = both_times(results, f"old_rotary_bwd{suffix}", lambda: (
         FA._rotary_plain(q, *tables), FA._rotary_plain(k, *tables),
         FA._rotary_transpose(qr, *tables), FA._rotary_transpose(kr, *tables)))
     log(f"backward at [{b},{h},{t},{dh}] bf16, behind a sleep: with the tables (the VoMix step's form) dq "
-        f"{results['bwd_dq_device_ms']:.4f} / dk-dv {results['bwd_dkv_device_ms']:.4f} ms, without "
+        f"{results[f'bwd_dq{suffix}_device_ms']:.4f} / dk-dv {results[f'bwd_dkv{suffix}_device_ms']:.4f} ms, without "
         f"{untabled['dq']:.4f} / {untabled['dk/dv']:.4f} ms; the re-rotation and counter-rotation in PyTorch "
-        f"that the tables replace: {old_rot:.4f} / {results['old_rotary_bwd_device_ms']:.4f} ms per layer "
+        f"that the tables replace: {old_rot:.4f} / {results[f'old_rotary_bwd{suffix}_device_ms']:.4f} ms per layer "
         f"(back to back / behind a sleep)")
     # the call the path makes (pre-pass + attention: the gated number), and
     # what the lse output and the pre-pass cost, on these inputs
-    both_times(results, "fwd_lse_with_prepass", lambda: FA.KERNEL(q, k, v, valid_arr, tables, return_lse=True))
+    both_times(results, f"fwd_lse{suffix}_with_prepass", lambda: FA.KERNEL(q, k, v, valid_arr, tables, return_lse=True))
     variants = {"no lse, with the pre-pass": cuda_time_ms(lambda: FA.KERNEL(q, k, v, valid_arr, tables)),
                 "the rotary pre-pass alone": cuda_time_ms(lambda: FA.KERNEL.rotary(q, k, *tables))}
     log(f"forward with lse at [{b},{h},{t},{dh}] bf16 (ms back to back / behind a sleep): with the pre-pass "
-        f"{results['fwd_lse_with_prepass_ms']:.4f} / {results['fwd_lse_with_prepass_device_ms']:.4f}, "
-        f"attention alone {results['fwd_lse_ms']:.4f} / {results['fwd_lse_device_ms']:.4f}; "
+        f"{results[f'fwd_lse{suffix}_with_prepass_ms']:.4f} / "
+        f"{results[f'fwd_lse{suffix}_with_prepass_device_ms']:.4f}, "
+        f"attention alone {results[f'fwd_lse{suffix}_ms']:.4f} / {results[f'fwd_lse{suffix}_device_ms']:.4f}; "
         + ", ".join(f"{name} {ms:.4f}" for name, ms in variants.items()))
-    both_times(results, "fwd_lse_library", lambda: F.scaled_dot_product_attention(qr, kr, v))
+    both_times(results, f"fwd_lse{suffix}_library", lambda: F.scaled_dot_product_attention(qr, kr, v))
     leaves = [x.detach().clone().requires_grad_() for x in (qr, kr, v)]
     o = F.scaled_dot_product_attention(*leaves)
-    both_times(results, "bwd_library", lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True))
-    for key in ("bwd_dq", "bwd_dkv"):   # one call computes dQ, dK and dV
-        results[f"{key}_library_ms"] = results["bwd_library_ms"]
-        results[f"{key}_library_device_ms"] = results["bwd_library_device_ms"]
+    both_times(results, f"bwd{suffix}_library", lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True))
+    for key in (f"bwd_dq{suffix}", f"bwd_dkv{suffix}"):   # one call computes dQ, dK and dV
+        results[f"{key}_library_ms"] = results[f"bwd{suffix}_library_ms"]
+        results[f"{key}_library_device_ms"] = results[f"bwd{suffix}_library_device_ms"]
     del o, leaves
 
     n, rows = b * h * t * dh * 2, b * h * t * 4          # one [B,H,T,dh] bf16 tensor; one f32 [B,H,T] row array
     live = valid_arr.long().expand(b).sum().item()
     tab = 2 * t * dh * 2                                  # the two bf16 rotary tables the backward reads
-    work = {"fwd_lse": (4.0 * h * dh * t * live, 4 * n + rows),                       # q,k,v,out; lse
-            "bwd_dq": (6.0 * h * dh * t * live, 5 * n + 2 * rows + tab),              # q,k,v,dO,dq; lse,delta
-            "bwd_dkv": (8.0 * h * dh * t * live, 6 * n + 2 * rows + tab)}             # q,k,v,dO,dk,dv; lse,delta
+    work = {f"fwd_lse{suffix}": (4.0 * h * dh * t * live, 4 * n + rows),                # q,k,v,out; lse
+            f"bwd_dq{suffix}": (6.0 * h * dh * t * live, 5 * n + 2 * rows + tab),       # q,k,v,dO,dq; lse,delta
+            f"bwd_dkv{suffix}": (8.0 * h * dh * t * live, 6 * n + 2 * rows + tab)}      # q,k,v,dO,dk,dv; lse,delta
     for key, (flops, nbytes) in work.items():
         bound_and_log(results, key, [b, h, t, dh], flops, nbytes + valid_arr.numel() * 4)
-    log_backward_pair(results, "", [b, h, t, dh])
+    log_backward_pair(results, suffix, [b, h, t, dh])
 
 
 def time_flash_f32(results, suffix, b, h, t, causal, rotary, dh=64):
@@ -1937,29 +1962,35 @@ def split_vomix_step(results, train_dir, key="train_split_ms", f32=False, idle_k
                         collate_acoustic([ds[i] for i in range(8)]), idle_key=idle_key)
 
 
-def check_small_training_against_cpu(single=False, adam_bound=False):
-    """Two optimizer steps of a tiny f32 VoMix model (with `single`, VoSingle:
-    80-d, one phoneme stream, the batch's end mask) (dh 16, T = 576 >= 512,
-    so the card takes the flash kernels) on the card and on the CPU (einsum
-    attention there), TF32 off, the same batches and the same draws (one CPU
-    generator: the loss draws on the generator's device); held by
-    hold_small_steps."""
+SMALL_MODES = {"two_one": "VoMix", "single": "VoSingle", "two_two": "VoMix two_two"}
+
+
+def check_small_training_against_cpu(mode="two_one", adam_bound=False):
+    """Two optimizer steps of a tiny f32 acoustic model of `mode` (VoMix
+    two_one: 160-d condition, 80-d target; VoSingle 'single': 80-d, one
+    phoneme stream, the batch's end mask; 'two_two': 160-d condition and
+    target) (dh 16, T = 576 >= 512, so the card takes the flash kernels) on
+    the card and on the CPU (einsum attention there), TF32 off, the same
+    batches and the same draws (one CPU generator: the loss draws on the
+    generator's device); held by hold_small_steps."""
     import numpy as np
     import torch
     from covomix_tpu_torch.models import acoustic as A
     from covomix_tpu_torch.train import loop
     from covomix_tpu_torch.util.misc import tree_map
 
+    single = mode == "single"
     cfg = A.AcousticConfig(dim_in=80 if single else 160, dim=32, depth=2, heads=2, dim_head=16, dim_phoneme_emb=16,
-                           mode="single" if single else "two_one")
+                           mode=mode)
     tcfg = loop.TrainConfig(lr=1e-3, use_lr_schedule=True, steps_per_epoch=1, wake_up_epochs=2, grad_clip=1.0)
     rs = np.random.RandomState(9)
     lo, hi = (200, 576) if single else (100, 400)      # VoSingle: the end span its items carry
+    width = {"two_one": 240, "single": 80, "two_two": 160}[mode]
     batches = []
     for _ in range(2):
         mask = np.zeros((2, 576), bool)
         mask[:, lo:hi] = True
-        batches.append({"x": rs.randn(2, 576, 80 if single else 240).astype(np.float32),
+        batches.append({"x": rs.randn(2, 576, width).astype(np.float32),
                         "phonemes": rs.randint(0, 502, (2, 576) if single else (2, 576, 2)).astype(np.int32),
                         "mask": mask})
     init = A.init(torch.Generator().manual_seed(0), cfg)
@@ -1972,8 +2003,8 @@ def check_small_training_against_cpu(single=False, adam_bound=False):
         losses = [float(step(state, b, gen)["loss"]) for b in batches]
         runs[dev] = (losses, tree_map(lambda p: p.detach().cpu(), state.params),
                      {k: v - c0[k] for k, v in flash_counts().items()})
-    return hold_small_steps(f"small f32 {'VoSingle' if single else 'VoMix'} training", runs,
-                            launches(fwd_lse=4, bwd_dq=4, bwd_dkv=4), tcfg, adam_bound)
+    return hold_small_steps(f"small f32 {SMALL_MODES[mode]} training", runs, launches(fwd_lse=4, bwd_dq=4, bwd_dkv=4),
+                            tcfg, adam_bound)
 
 
 def hold_small_steps(what, runs, launched, tcfg, adam_bound):
@@ -6192,7 +6223,7 @@ def run_single_training(results, root):
             shape, causal, rotary = (10, 8, max(sh[1] for sh in shapes) + 2, 64), True, False
         holds = {dt: check_flash_training_case(*shape, getattr(torch, dt), 2300, shape[2], rotary, causal)
                  for dt in ("bfloat16", "float32")}
-        small = (check_small_training_against_cpu(single=True, adam_bound=True) if recipe == "vosingle"
+        small = (check_small_training_against_cpu("single", adam_bound=True) if recipe == "vosingle"
                  else check_small_t2s_training_against_cpu(two_output=False, adam_bound=True))
         f32_ms = sorted(s["ms"] for s in f32_steps[1:])
         out[recipe] = {"bf16": {"ms_per_step_median": median, "samples_per_s": b / (median / 1e3),
@@ -6250,6 +6281,318 @@ def single_mode() -> int:
     log(f"total chip_smoke --single time {time.time() - t_start:.1f} s")
     log("single family: " + json.dumps({"generation": results["single_generation"],
                                         "training": results["single_training"]}, default=str))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 24: the acoustic training configurations that no recipe script sets: VoMix two_two, the default
+# format, --grad_accum with --num_workers (eager and in captured dispatches)
+
+
+def write_two_two_items(root, n, seed):
+    """n random items in the hubert_overlap_two_input_two_output layout:
+    u-A / u-B .mel.npy [80, ~1000] f32 and their .hubert_code.npy as string
+    arrays, and no base u.mel.npy (the format reads the channels only)."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(root)
+    for i in range(n):
+        t = 960 + 7 * i
+        for ch in "AB":
+            np.save(os.path.join(root, f"u{i}-{ch}.mel.npy"), (rs.randn(80, t) * 2 - 5).astype(np.float32))
+            np.save(os.path.join(root, f"u{i}-{ch}.hubert_code.npy"), rs.randint(0, 500, t).astype(str))
+
+
+def write_default_items(root, n, seed):
+    """n random items in the default layout: u.mel.npy [80, t] f32 and
+    u.phone_by_frame.npy (integers), t from 1700 to 2400 frames: every item
+    is cropped to 1600."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(root)
+    for i in range(n):
+        t = 1700 + 700 * i // max(1, n - 1)
+        np.save(os.path.join(root, f"u{i}.mel.npy"), (rs.randn(80, t) * 2 - 5).astype(np.float32))
+        np.save(os.path.join(root, f"u{i}.phone_by_frame.npy"), rs.randint(0, 500, t))
+
+
+# VoMix two_two: Acous_VoMix.sh's widths and flags with the two_two format and mode (the A and B channel
+# mels are both the condition and the 160-d target); the default format at Acous_VoSingle.sh's widths (80-d,
+# B=6); bf16, then f32 as the scripts are written
+TWO_TWO_RECIPE = ["--format", "hubert_overlap_two_input_two_output", "--twocondition_twooutput",
+                  *VOMIX_RECIPE[VOMIX_RECIPE.index("--CoVoMix_dim"):]]
+DEFAULT_RECIPE = ["--format", "default", *VOSINGLE_RECIPE[2:]]
+# recipe -> (flags, batch, train items, writer, bf16 steps, a resumed step after them, a batch's x)
+RECIPE_CELLS = {"two_two": (TWO_TWO_RECIPE, 8, 16, write_two_two_items, 4, True, (8, 832, 160)),
+                "default": (DEFAULT_RECIPE, 6, 12, write_default_items, 3, False, (6, 1600, 80))}
+RECIPE_F32_STEPS = 2
+RECIPE_PER_STEP = launches(fwd_lse=8, bwd_dq=8, bwd_dkv=8, rotary=8)   # a bf16 step of 8 layers with rotary
+DEFAULT_SHAPE = (6, 16, 1600, 64)     # the default format's training attention: B=6, 16 heads, the 1600 crop
+ACCUM = 2               # --grad_accum of the VoMix accumulation cell: a step takes 2 micro-batches of 8
+ACCUM_EAGER = 2         # its eager steps with --num_workers 2; ACCUM_DISPATCHES dispatches of ACCUM_K steps
+ACCUM_K = 2
+ACCUM_DISPATCHES = 2
+
+
+def median_ms(steps) -> float:
+    return statistics.median(s["ms"] for s in steps)
+
+
+def run_recipe(root, recipe):
+    """One RECIPE_CELLS recipe through `covomix_tpu_torch.train.cli.main` at
+    full width under root/recipe, on random items (train items, and a dev
+    set of one batch): bf16 for its steps with one eval on the dev files and
+    its top-k save at the last (two_two: then --resume for one step,
+    check_train_run), then f32 for RECIPE_F32_STEPS steps (check_steps).
+    Every bf16 step exactly RECIPE_PER_STEP and of the recipe's batch
+    shape, the eval 256 forwards without lse and 256 pre-passes per eval
+    batch, every f32 step 8 f32 forwards with lse, dQ and dK/dV; finite
+    losses and l2. Returns the cell's record."""
+    flags, b, n_train, write, steps_total, resume, x_shape = RECIPE_CELLS[recipe]
+    train_dir, dev_dir, logs = (os.path.join(root, recipe, d) for d in ("train", "dev", "logs"))
+    write(train_dir, n_train, 0)
+    write(dev_dir, b, 1)
+    common = ["--base_dir", train_dir, "--device", "cuda", "--log_every", "1", "--ckpt_every", "1000",
+              "--no_wandb", "--log_dir", logs, "--seed", "0"]
+    steps, evals, totals, peak_gb, first_s, resume_s = run_train_cli(
+        [*common, *flags, "--dev_base_dir", dev_dir, "--eval_every", str(steps_total), "--num_eval_files", str(b),
+         "--run_name", f"{recipe}_bf16"], "evaluate_acoustic", steps_total, resume=resume)
+    what, ckpt = f"24 {recipe} bf16", os.path.join(logs, f"{recipe}_bf16", "checkpoints")
+    batches = evals[0]["batches"] if evals else 0
+    eval_launches = launches(fwd=256 * batches, rotary=256 * batches)
+    if resume:
+        check_train_run(what, steps, evals, ckpt, steps_total, b, RECIPE_PER_STEP, eval_launches)
+    else:
+        check_steps(what, steps, RECIPE_PER_STEP)
+        log(f"{what} eval: {evals}; checkpoints {sorted(os.listdir(ckpt))}")
+        with open(os.path.join(ckpt, "topk.json")) as f:
+            best = json.load(f)["best_step"]
+        if (len(steps) != steps_total or len(evals) != 1 or evals[0]["rows"] != b
+                or not math.isfinite(evals[0]["l2"]) or evals[0]["launches"] != eval_launches
+                or sorted(os.listdir(ckpt)) != [f"step_{steps_total:08d}", "topk.json"] or best != steps_total):
+            raise AssertionError(f"{what}: {len(steps)} steps, evals {evals}, top-k pick {best}")
+    expect = {k: v * len(steps) + eval_launches[k] for k, v in RECIPE_PER_STEP.items()}
+    shapes = sorted({s["shapes"]["x"] for s in steps})
+    if totals != expect or shapes != [x_shape]:
+        raise AssertionError(f"{what}: launch totals {totals} (expected {expect}), batches {shapes}")
+    f32_per_step = {**RECIPE_PER_STEP, "rotary": 0}
+    f32_steps, f32_evals, f32_totals, f32_peak, f32_s, _ = run_train_cli(
+        [*common, *[a for a in flags if a != "--bf16"], "--dev_base_dir", train_dir, "--num_eval_files", "0",
+         "--run_name", f"{recipe}_f32"], "evaluate_acoustic", RECIPE_F32_STEPS, resume=False)
+    check_steps(f"24 {recipe} f32", f32_steps, f32_per_step)
+    if len(f32_steps) != RECIPE_F32_STEPS or f32_evals or f32_totals != {
+            k: v * RECIPE_F32_STEPS for k, v in f32_per_step.items()}:
+        raise AssertionError(f"24 {recipe} f32: {len(f32_steps)} steps, {len(f32_evals)} evals, totals {f32_totals}")
+    rec = {"bf16": {"ms_per_step_median": median_ms(steps[1:steps_total]), "peak_gib": peak_gb, "run_s": first_s,
+                    "resume_s": resume_s, "eval_s": evals[0]["s"],
+                    "eval": {k: v for k, v in evals[0].items() if k != "launches"},
+                    "launches_per_step": RECIPE_PER_STEP, "eval_launches": eval_launches, "totals": totals,
+                    "losses": [s["loss"] for s in steps]},
+           "f32": {"ms_per_step_median": median_ms(f32_steps[1:]), "peak_gib": f32_peak, "run_s": f32_s,
+                   "launches_per_step": f32_per_step, "losses": [s["loss"] for s in f32_steps]},
+           "batch": list(x_shape)}
+    log(f"24 {recipe} training at full width ({card_line()}; host-contended where it runs beside the builds): "
+        + json.dumps(rec, default=str))
+    return rec
+
+
+def batch_crcs(batch, lead) -> list:
+    """crc32 of every micro-batch of a loader batch as a step takes it: a
+    list per step of `lead` leading axes ([A, b, ...]: one step; [K, A, b,
+    ...]: K steps) of the micro-batches' crcs over their leaves' bytes."""
+    import zlib
+
+    import numpy as np
+
+    k = next(iter(batch.values())).shape[0] if lead == 2 else 1
+    out = []
+    for i in range(k):
+        step = {name: (v[i] if lead == 2 else v) for name, v in sorted(batch.items())}
+        out.append([zlib.crc32(b"".join(np.ascontiguousarray(v[j]).tobytes() for v in step.values()))
+                    for j in range(ACCUM)])
+    return out
+
+
+def run_accum_workers(root):
+    """The VoMix recipe at full width (bf16, B=8, T=832) with --grad_accum 2
+    through `covomix_tpu_torch.train.cli.main` on 24 random items, under
+    `root`, three runs from the same initial state, generator and loader:
+    "w2" ACCUM_EAGER eager steps with --num_workers 2; "k2_w2"
+    ACCUM_DISPATCHES captured dispatches of --steps_per_dispatch ACCUM_K
+    with --num_workers 2; "w0" the same steps eager with --num_workers 0.
+    Gates: every eager step exactly ACCUM x 8 lse forwards, dQ, dK/dV and
+    pre-passes; k2_w2 one capture (its warm-up one step's launches) and
+    ACCUM_DISPATCHES replays of ACCUM_K steps' launches each; every step's
+    micro-batches (crc32 of their bytes), loss and grad norm equal bit for
+    bit in every run that takes that step (--num_workers 2 against 0, the
+    captured dispatches against the eager steps), and k2_w2's and w0's
+    saved states at the last step bit for bit. Returns the cell's
+    record."""
+    from covomix_tpu_torch.checkpoint import io as cio
+    from covomix_tpu_torch.train import cli, loop
+
+    train_dir, logs = os.path.join(root, "train"), os.path.join(root, "logs")
+    write_vomix_items(train_dir, 24, 0)
+    last = ACCUM_K * ACCUM_DISPATCHES
+    argv = ["--base_dir", train_dir, *VOMIX_RECIPE, "--grad_accum", str(ACCUM), "--device", "cuda",
+            "--log_every", "1", "--num_eval_files", "0", "--ckpt_every", "1000", "--no_wandb", "--log_dir", logs,
+            "--seed", "0"]
+    per_step = {k: v * ACCUM for k, v in RECIPE_PER_STEP.items()}
+    calls, made, saves = [], [], {}
+    orig = (loop.make_multi_step, cio.save_train_state)
+
+    def make_multi_step(loss_fn, cfg, k):
+        step = orig[0](loss_fn, cfg, k)
+        made.append(step)
+
+        def recorded(state, batch, generator):
+            import torch
+
+            torch.cuda.synchronize()
+            c0, t0 = flash_counts(), time.time()
+            metrics = step(state, batch, generator)
+            losses, norms = metrics["loss"].reshape(-1).tolist(), metrics["grad_norm"].reshape(-1).tolist()
+            calls[-1]["calls"].append({"ms": (time.time() - t0) * 1e3, "losses": losses, "grad_norms": norms,
+                                       "batches": batch_crcs(batch, 2 if k > 1 else 1),
+                                       "launches": {key: v - c0[key] for key, v in flash_counts().items()}})
+            return metrics
+
+        return recorded
+
+    def save_train_state(ckpt_dir, state, step):
+        orig[1](ckpt_dir, state, step)
+        saves[(os.path.basename(os.path.dirname(ckpt_dir)), step)] = train_state_checksums(state)
+
+    runs = (("w2", ["--num_workers", "2", "--max_steps", str(ACCUM_EAGER)]),
+            ("k2_w2", ["--num_workers", "2", "--steps_per_dispatch", str(ACCUM_K), "--max_steps", str(last)]),
+            ("w0", ["--num_workers", "0", "--max_steps", str(last)]))
+    loop.make_multi_step, cio.save_train_state = make_multi_step, save_train_state
+    try:
+        for run, extra in runs:
+            zero_counts()
+            calls.append({"run": run, "calls": []})
+            t0 = time.time()
+            cli.main(argv + ["--run_name", run] + extra)
+            calls[-1].update(s=time.time() - t0, launches=flash_counts())
+            if run == "k2_w2":
+                step = made[-1]
+                calls[-1].update(captures=step.captures, replays=step.replays,
+                                 replayed={k: step.replayed.get(a, 0) for k, a in COUNTS.items()},
+                                 capture_s=step.last.capture_s)
+    finally:
+        loop.make_multi_step, cio.save_train_state = orig
+    eager, dispatched, w0 = calls
+    log("24 grad_accum cell: " + json.dumps({"runs": calls, "saves": sorted(saves)}))
+    times = lambda n: {k: v * n for k, v in per_step.items()}
+    bad = [f"{c['run']} call {j + 1}: {call['launches']}" for c in (eager, w0) for j, call in enumerate(c["calls"])
+           if call["launches"] != per_step]
+    if bad or len(eager["calls"]) != ACCUM_EAGER or len(w0["calls"]) != last:
+        raise AssertionError(f"24 grad_accum: eager steps {bad}, expected {per_step} each")
+    if (dispatched["captures"], dispatched["replays"], dispatched["replayed"], dispatched["launches"]) != (
+            1, ACCUM_DISPATCHES, times(ACCUM_K * ACCUM_DISPATCHES), per_step):
+        raise AssertionError(f"24 grad_accum: the dispatched run {dispatched}: expected one capture (one step's "
+                             f"launches in its warm-up) and {ACCUM_DISPATCHES} replays of {ACCUM_K} steps")
+    flat = lambda c, key: [x for call in c["calls"] for x in call[key]]
+    for key in ("batches", "losses", "grad_norms"):
+        if flat(eager, key) != flat(w0, key)[:ACCUM_EAGER] or flat(dispatched, key) != flat(w0, key):
+            raise AssertionError(f"24 grad_accum: the {key} of --num_workers 2 and 0, or of the dispatches and the "
+                                 f"eager steps, differ: {[flat(c, key) for c in calls]}")
+    if any(not math.isfinite(x) for x in flat(w0, "losses") + flat(w0, "grad_norms")):
+        raise AssertionError("24 grad_accum: a loss or grad norm is not finite")
+    got, ref = saves.get(("k2_w2", last)), saves.get(("w0", last))
+    if got is None or ref is None or got != ref:
+        diff = sorted(k for k in (ref or {}) if (got or {}).get(k) != ref[k])
+        raise AssertionError(f"24 grad_accum: the saved states at step {last} differ: {diff[:8]}")
+    return {"accum": ACCUM, "k": ACCUM_K, "launches_per_step": per_step,
+            "launches_per_dispatch": {k: v // ACCUM_DISPATCHES for k, v in dispatched["replayed"].items()},
+            "eager_ms_per_step": median_ms(eager["calls"][1:] + w0["calls"][1:]),
+            "dispatch_ms_per_step": statistics.median(c["ms"] for c in dispatched["calls"][1:]) / ACCUM_K,
+            "capture_s": dispatched["capture_s"], "losses": flat(w0, "losses"),
+            "run_s": {c["run"]: c["s"] for c in calls}, "micro_batches_held": len(flat(w0, "batches")) * ACCUM}
+
+
+def run_recipe_training(results, root):
+    """Phase 24's training under `root` (removed after): each RECIPE_CELLS
+    recipe (run_recipe), then the grad_accum cell (run_accum_workers)."""
+    t0 = time.time()
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        out = {recipe: run_recipe(root, recipe) for recipe in RECIPE_CELLS}
+        out["accum_workers"] = run_accum_workers(os.path.join(root, "accum"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    results.update(recipe_training=out, recipe_training_wall_s=time.time() - t0)
+    log(f"24 training wall {time.time() - t0:.1f} s")
+
+
+def check_recipe_kernels(results):
+    """Phase 24's kernels: the rotary pre-pass, the forward with lse, dQ and
+    dK/dV held against their plain versions at DEFAULT_SHAPE in bf16 and
+    f32 (check_flash_training_case: the rotary and the backward's transpose
+    bit for bit), each timed there back to back and alone beside its SDPA
+    yardstick (suffixes "_t1600", "_t1600_f32"), and two tiny f32 two_two
+    steps card vs CPU (Adam's bound, as phase 23's)."""
+    import torch
+
+    t0 = time.time()
+    holds = {dt: check_flash_training_case(*DEFAULT_SHAPE, getattr(torch, dt), 2400, DEFAULT_SHAPE[2], True)
+             for dt in ("bfloat16", "float32")}
+    time_flash_training(results, *DEFAULT_SHAPE, suffix="_t1600")
+    time_flash_f32(results, "_t1600_f32", *DEFAULT_SHAPE[:3], False, True)
+    small = check_small_training_against_cpu("two_two", adam_bound=True)
+    results["recipe_kernels"] = {"holds": holds, "shape": list(DEFAULT_SHAPE), "small_two_two_card_vs_cpu": small,
+                                 "wall_s": time.time() - t0}
+    log(f"24 kernels at {list(DEFAULT_SHAPE)} ({card_line()}): " + json.dumps(results["recipe_kernels"]))
+
+
+def recipes_training_mode(out_path) -> int:
+    """`python3 chip_smoke.py --recipes-training OUT`: phase 24's training
+    alone (run_recipe_training), its results written to OUT as JSON; the
+    whole script runs it so, in a process of its own, beside the kernels'
+    builds."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    run_recipe_training(results, os.path.join(VT.BUILD_DIR, "smoke_recipes"))
+    with open(out_path, "w") as f:
+        json.dump({k: results[k] for k in ("recipe_training", "recipe_training_wall_s")}, f)
+    return 0
+
+
+def recipes_mode() -> int:
+    """`python3 chip_smoke.py --recipes`: phase 24 alone, ending with the
+    same `ok` line. The kernels build on first use."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from covomix_tpu_torch.ops import vocoder_tail as VT
+
+    t_start = time.time()
+    log(card_line())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    run_recipe_training(results, os.path.join(VT.BUILD_DIR, "smoke_recipes"))
+    check_recipe_kernels(results)
+    log(f"total chip_smoke --recipes time {time.time() - t_start:.1f} s")
+    log("recipes: " + json.dumps({"training": results["recipe_training"], "kernels": results["recipe_kernels"]},
+                                 default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
@@ -6378,6 +6721,12 @@ def plan_summary(results, key) -> dict:
     return {"tile": p["tile"], "waves": p["waves"], "smem": p["smem"]}
 
 
+def stamp(t_start, what):
+    """One log line with the seconds since the script started, after `what`:
+    the script's time by phase."""
+    log(f"[{time.time() - t_start:.1f} s since the start] {what} done")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "covomix_tpu_torch")):
         print("chip_smoke: covomix_tpu_torch/ not found beside this script; run from a checkout",
@@ -6401,42 +6750,65 @@ def main() -> int:
 
     # every library's nvcc starts now; the head-dim-64 flash and the vocoder libraries are ready in
     # ~20-25 s, the edge head dims in ~100-160 s: meanwhile the phases that need only those two and whose
-    # time is mostly the card's (16: HiFi-GAN training, idle ~10 %; 9b: the f32 training cells) run. Their
-    # timings are then taken with nvcc busy on the host's cores: `--gan` times phase 16 alone.
+    # time is mostly the card's (16: HiFi-GAN training, idle ~10 %; 9b: the f32 training cells; 22: K
+    # steps a dispatch) run, and phase 24's training in a process of its own (its own launch counters and
+    # patched step; mostly the host's time: checkpoint writes and reads). Their timings are then taken
+    # with nvcc and each other busy on the host's cores and the card: `--gan` times phase 16 alone,
+    # `--multi_step` phase 22, `--recipes` phase 24.
     results = {}
     with ThreadPoolExecutor(1) as pool:
         building = pool.submit(build_kernels)
         FA.KERNEL.build(SERVING_DH)
         VT.LIBRARY.build()
-        log("phases 16 and 9b run while the edge head dims build: their ms a step, rates and idle shares are "
-            "host-contended, not comparable with those phases timed alone")
+        log("phases 16, 9b, 22 and 24's training run while the edge head dims build: their ms a step, rates and "
+            "idle shares are host-contended, not comparable with those phases timed alone")
         t0 = time.time()
-        root = os.path.join(VT.BUILD_DIR, "smoke_gan")
-        shutil.rmtree(root, ignore_errors=True)
-        os.makedirs(root)
+        recipe_out, recipe_log = (os.path.join(VT.BUILD_DIR, f"smoke_recipes.{ext}") for ext in ("json", "log"))
+        with open(recipe_log, "w") as f:
+            recipe_child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--recipes-training",
+                                             recipe_out], cwd=REPO, stdout=f, stderr=subprocess.STDOUT)
         try:
-            run_gan_training(results, root)
-        finally:
+            root = os.path.join(VT.BUILD_DIR, "smoke_gan")
             shutil.rmtree(root, ignore_errors=True)
-        for cell in F32_CELLS:
-            root = os.path.join(VT.BUILD_DIR, f"smoke_{cell}_f32")
-            shutil.rmtree(root, ignore_errors=True)
+            os.makedirs(root)
             try:
-                run_f32_training(results, root, cell)
+                run_gan_training(results, root)
             finally:
                 shutil.rmtree(root, ignore_errors=True)
-        log(f"phases 16 and 9b (beside the edge head dims' builds) {time.time() - t0:.1f} s")
+            for cell in F32_CELLS:
+                root = os.path.join(VT.BUILD_DIR, f"smoke_{cell}_f32")
+                shutil.rmtree(root, ignore_errors=True)
+                try:
+                    run_f32_training(results, root, cell)
+                finally:
+                    shutil.rmtree(root, ignore_errors=True)
+            log(f"phases 16 and 9b (beside the builds and phase 24's training) {time.time() - t0:.1f} s")
+            run_multi_step(results, os.path.join(VT.BUILD_DIR, "smoke_multi"))    # phase 22: dh 64 only
+            log(f"phases 16, 9b and 22 (beside the builds and phase 24's training) {time.time() - t0:.1f} s")
+        finally:
+            rc = recipe_child.wait()
+        with open(recipe_log) as f:
+            log(f"phase 24's training process (exit {rc}), its log:\n{f.read().rstrip()}\nphase 24's log ends")
+        if rc != 0:
+            raise RuntimeError(f"phase 24's training failed (exit {rc})")
+        with open(recipe_out) as f:
+            results.update(json.load(f))
+        log(f"phases 16, 9b, 22 and 24's training (beside the builds) {time.time() - t0:.1f} s")
         regs, spills = building.result()
+    stamp(t_start, "the builds and the phases beside them")
     check_registers(regs, spills)
 
     check_rotary_prepass(results)
     check_flash(results)
     check_flash_training(results)
+    check_recipe_kernels(results)       # phase 24's kernels at the default format's shape
     check_vocoder(results)
+    stamp(t_start, "phases 2-3 and 24's kernel checks")
     valid_rows = run_serving(results)
     time_flash(results, "flash_serving", 8, 912, valid_rows)
     time_flash_host(results)
     time_vocoder_t512(results)
+    stamp(t_start, "phases 4-5")
     root = os.path.join(VT.BUILD_DIR, "smoke_dialogue")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -6451,17 +6823,21 @@ def main() -> int:
             time_vocoder(results, kind, kind, x, up, blocks, post)   # the main path's own inputs
         check_small_against_cpu()
         check_small_synth_against_cpu(os.path.join(root, "prompts"))
+        stamp(t_start, "phases 6-7")
         paths = write_torch_checkpoints(root)
         run_serve_batch_from_torch(results, root, paths)
         run_hifigan_inference(results, root, paths["vocoder"])
+        stamp(t_start, "phases 10-11")
         vomix, t2s = results["serving_models"][0], results["serving_t2s"]   # phase 21 evaluates with them
         spec_cfg, spec_params = run_speculative(results, root, results.pop("serving_models"))
+        stamp(t_start, "phase 13")
         t0 = time.time()
         run_decode_graphs(results, results.pop("serving_t2s"), spec_cfg, spec_params)
         log(f"phase 14 wall {time.time() - t0:.1f} s")
         run_single_family(results, root)        # phase 23, on phase 6's checkpoints and prompts
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    stamp(t_start, "phases 14 and 23")
     run_phase21(results, os.path.join(VT.BUILD_DIR, "smoke_eval"), eval_models(vomix, t2s))
     del vomix, t2s
     root = os.path.join(VT.BUILD_DIR, "smoke_hubert")
@@ -6471,6 +6847,7 @@ def main() -> int:
         run_hubert(results, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    stamp(t_start, "phases 21 and 12")
     root = os.path.join(VT.BUILD_DIR, "smoke_train")
     shutil.rmtree(root, ignore_errors=True)
     try:
@@ -6481,6 +6858,7 @@ def main() -> int:
     time_flash_training(results)
     time_flash_f32(results, "_f32", *F32_SHAPES["_f32"])
     check_small_training_against_cpu()
+    stamp(t_start, "phase 8")
     root = os.path.join(VT.BUILD_DIR, "smoke_t2s")
     shutil.rmtree(root, ignore_errors=True)
     try:
@@ -6491,8 +6869,9 @@ def main() -> int:
     time_flash_causal(results)
     time_flash_f32(results, "_causal_f32", *F32_SHAPES["_causal_f32"])
     check_small_t2s_training_against_cpu()
-    run_multi_step(results, os.path.join(VT.BUILD_DIR, "smoke_multi"))
+    stamp(t_start, "phase 9")
     run_bench(results)
+    stamp(t_start, "phase 15")
     root = os.path.join(VT.BUILD_DIR, "smoke_dp")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -6501,6 +6880,7 @@ def main() -> int:
         run_parallel_training(results, root)    # phases 18-20, on phase 17's items and one-process references
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    stamp(t_start, "phases 17-20")
 
     launches = results["dialogue_launches"]     # this slice's main path: the per-file dialogue CLI
     # phase 13's path (speculative decode): the fit's causal kernels, the
@@ -6539,6 +6919,26 @@ def main() -> int:
                 "single_check": {f"{recipe}_{dt}": rec["holds"]["bfloat16" if dt == "bf16" else "float32"][
                     key.replace("_causal", "")], "shape": rec["kernel_shape"]}}
 
+    recipe_train, recipe_kern = results["recipe_training"], results["recipe_kernels"]    # phase 24
+
+    def recipe(dt, key):
+        """Phase 24: the launches of `key` a step by cell in `dt` (and in the
+        grad_accum cell a step and a captured dispatch), its hold and its
+        times at DEFAULT_SHAPE."""
+        cells = {f"{r}_{dt}": recipe_train[r][dt]["launches_per_step"][key] for r in RECIPE_CELLS}
+        if dt == "bf16":
+            acc = recipe_train["accum_workers"]
+            cells.update(accum_bf16=acc["launches_per_step"][key], accum_dispatch=acc["launches_per_dispatch"][key])
+        out = {"recipe_launches": cells}
+        if key in recipe_kern["holds"]["float32"]:
+            suffix, held = ("_t1600", "bfloat16") if dt == "bf16" else ("_t1600_f32", "float32")
+            extra = ("with_prepass_ms",) if suffix == "_t1600" and key == "fwd_lse" else ()
+            out.update(recipe_shapes={"default_t1600": bench_shape_entry(results, f"{key}{suffix}", "library_ms",
+                                                                         *extra)},
+                       recipe_check={"max_abs_err": recipe_kern["holds"][held][key], "shape": recipe_kern["shape"]})
+        return out
+
+    recipe_eval = {f"{r}_per_eval_batch": recipe_train[r]["bf16"]["eval_launches"]["fwd"] for r in RECIPE_CELLS}
     big = BENCH_FLASH_B
     kernels = [
         # the attention kernel alone; with the pre-pass, as the path calls it, in ms_with_prepass
@@ -6549,6 +6949,7 @@ def main() -> int:
                      adaptive_launches=results["adaptive"]["launches"],     # phase 21: sample_adaptive, bf16
                      single_launches=single("flash"),
                      single_eval_launches=single_train["vosingle"]["bf16"]["eval_launches"]["fwd"],
+                     recipe_launches=recipe_eval,
                      single_shapes={"covosinx_dialogue": bench_shape_entry(results, "single_flash", "with_prepass_ms",
                                                                            "library_ms")},
                      bench_launches=bench["fwd"] - bench_hubert,
@@ -6568,7 +6969,9 @@ def main() -> int:
                      multi_step_launches_per_dispatch=dispatched("vomix_bf16", "rotary"),
                      single_launches=single("rotary"),
                      single_launches_per_train_step={"vosingle_bf16": single_train["vosingle"]["bf16"][
-                         "launches_per_step"]["rotary"]}),
+                         "launches_per_step"]["rotary"]},
+                     recipe_launches={**recipe("bf16", "rotary")["recipe_launches"], **recipe_eval},
+                     recipe_check={"bit_equal_to_rotary_plain": True, "shape": recipe_kern["shape"]}),
     ]
     for kind, replaces in (("stage", "covomix_tpu/ops/vocoder_tail.py:369"),
                            ("tail", "covomix_tpu/ops/vocoder_tail.py:209")):
@@ -6601,7 +7004,8 @@ def main() -> int:
                                     sp_launches_per_rank_step=staged("sp", "bf16", key),
                                     bmuf_launches_per_rank_step=bml["bmuf_vomix_bf16"][key],
                                     multi_step_launches_per_dispatch=dispatched("vomix_bf16", key),
-                                    parallel_depth=PAR_DEPTH, **single_step("vosingle", "bf16", key)))
+                                    parallel_depth=PAR_DEPTH, **single_step("vosingle", "bf16", key),
+                                    **recipe("bf16", key)))
     for dt in ("f32", "bf16"):     # this slice's main path: HuBERT extraction (f32, and --bf16)
         kernels.append(kernel_entry(results, f"hubert_fwd_{dt}", f"flash_attention_fwd_hubert_{dt}", flash_src,
                                     "covomix_tpu/ops/flash_attention.py:162", results[f"hubert_{dt}"]["launches"],
@@ -6652,7 +7056,8 @@ def main() -> int:
                                         **({"pp_launches_per_rank_step": staged("pp", "f32", key),
                                             "sp_launches_per_rank_step": staged("sp", "f32", key),
                                             "bmuf_launches_per_rank_step": bml["bmuf_vomix_f32"][key],
-                                            "multi_step_launches_per_dispatch": dispatched("vomix_f32", key)}
+                                            "multi_step_launches_per_dispatch": dispatched("vomix_f32", key),
+                                            **recipe("f32", key)}
                                            if cell == "vomix" else {})))
     log(f"total chip_smoke time {time.time() - t_start:.1f} s")
     log("speculative decode: " + json.dumps({"bench": results["spec_bench"], "decode": results["spec_decode"],
@@ -6677,6 +7082,7 @@ def main() -> int:
     log("multi-step training: " + json.dumps({"cells": results["multi_step"], "cli": results["multi_cli"]}))
     log("single family: " + json.dumps({"generation": results["single_generation"],
                                         "training": results["single_training"]}, default=str))
+    log("recipes: " + json.dumps({"training": recipe_train, "kernels": recipe_kern}, default=str))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -7229,6 +7635,10 @@ if __name__ == "__main__":
         sys.exit(multi_step_mode())
     if sys.argv[1:2] == ["--single"]:
         sys.exit(single_mode())
+    if sys.argv[1:2] == ["--recipes"]:
+        sys.exit(recipes_mode())
+    if sys.argv[1:2] == ["--recipes-training"]:
+        sys.exit(recipes_training_mode(sys.argv[2]))
     if sys.argv[1:2] == ["--flash-f32"]:
         sys.exit(flash_f32_mode())
     if sys.argv[1:2] == ["--vocoder-split"]:

@@ -1,12 +1,16 @@
 """Metrics logging (the port's copy of covomix_tpu/util/logging_utils.py):
 JSONL always; TensorBoard event files when `torch.utils.tensorboard` imports;
-a W&B run when asked for and available."""
+a W&B run when asked for and available. The event files are written through
+TensorBoard's own file layer: TensorFlow, where it is installed, is not
+imported for them (a slow import that nothing else here needs)."""
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
+import types
 from typing import Optional
 
 import numpy as np
@@ -19,6 +23,9 @@ class MetricsLogger:
         self._jsonl = open(os.path.join(run_dir, "metrics.jsonl"), "a")
         self._tb = None
         if tensorboard:
+            # TensorBoard's "no TensorFlow" marker: `tensorboard.compat.tf` then
+            # resolves to its bundled stub (gfile on the local file system)
+            sys.modules.setdefault("tensorboard.compat.notf", types.ModuleType("tensorboard.compat.notf"))
             try:
                 from torch.utils.tensorboard import SummaryWriter
             except ImportError:    # the tensorboard package is not installed

@@ -152,3 +152,33 @@ def test_unported_flags_raise(tmp_path, flags, exc, item):
     combinations it refuses."""
     with pytest.raises(exc, match=item):
         cli.main(["--base_dir", str(tmp_path), "--device", "cpu", *flags])
+
+
+LOGGER_CHILD = """
+import sys
+from covomix_tpu_torch.util.logging_utils import MetricsLogger
+log = MetricsLogger(sys.argv[1], tensorboard=True)
+log.log(1, {"loss": 2.5})
+log.log(2, {"loss": 1.5, "l2": 0.25}, prefix="eval_")
+log.close()
+assert log._tb is None
+assert "tensorflow" not in sys.modules, "TensorFlow was imported for the event files"
+from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+acc = EventAccumulator(sys.argv[1] + "/tb")
+acc.Reload()
+print({tag: [(e.step, e.value) for e in acc.Scalars(tag)] for tag in acc.Tags()["scalars"]})
+"""
+
+
+def test_metrics_logger_writes_events_without_tensorflow(tmp_path):
+    """The metrics logger's JSONL lines and TensorBoard scalars (read back
+    with TensorBoard's own reader), written without importing TensorFlow
+    (a fresh process: this one may hold it already)."""
+    r = subprocess.run([sys.executable, "-c", LOGGER_CHILD, str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr[-2500:]
+    assert r.stdout.strip().splitlines()[-1] == str({"loss": [(1, 2.5)], "eval_loss": [(2, 1.5)],
+                                                     "eval_l2": [(2, 0.25)]})
+    lines = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
+    assert [(rec["step"], {k: v for k, v in rec.items() if k not in ("step", "time")}) for rec in lines] == [
+        (1, {"loss": 2.5}), (2, {"eval_loss": 1.5, "eval_l2": 0.25})]
