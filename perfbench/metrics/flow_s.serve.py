@@ -1,0 +1,8 @@
+"""Seconds per step in the flow sampler (`acoustic.sample`), ended by a
+synchronize."""
+
+from perfbench.lib.readers import span_per_step
+
+
+def read(ctx):
+    return span_per_step(ctx, "flow")
