@@ -37,6 +37,7 @@ from covomix_tpu_torch.models.layers import (adaptive_rmsnorm_init, conv1d_init,
                                              linear_init, rmsnorm_init)
 from covomix_tpu_torch.ops.flash_attention import attend_flash_or_xla
 from covomix_tpu_torch.parallel import tensor as TPX
+from covomix_tpu_torch.util import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,6 +328,7 @@ def cfm_loss(params, cfg: AcousticConfig, gen, x1, phoneme_ids, cond, mask=None,
 
 
 @torch.no_grad()
+@profiling.scoped("flow.sample")
 def sample(params, cfg: AcousticConfig, generator: Optional[torch.Generator], phoneme_ids, cond, *,
            cond_scale: float = 1.0, step_size: float = 0.0625, key_mask=None, valid_len=None,
            noise=None, dtype=torch.float32, mesh=None):
@@ -351,7 +353,8 @@ def sample(params, cfg: AcousticConfig, generator: Optional[torch.Generator], ph
         c2 = torch.cat([cond, cond], dim=0)
         drop = torch.cat([torch.zeros(b, dtype=torch.bool, device=dev),
                           torch.ones(b, dtype=torch.bool, device=dev)])
-        emb2 = static_embed(params, cfg, ph2, c2, cond_drop_mask=drop, dtype=dtype)
+        with profiling.scope("flow.embed"):
+            emb2 = static_embed(params, cfg, ph2, c2, cond_drop_mask=drop, dtype=dtype)
         km2 = None if key_mask is None else torch.cat([key_mask, key_mask], dim=0)
         vl2 = valid_len
         if valid_len is not None and torch.as_tensor(valid_len).dim() >= 1:
@@ -364,8 +367,9 @@ def sample(params, cfg: AcousticConfig, generator: Optional[torch.Generator], ph
                           precomputed_embed=emb2, key_mask=km2, valid_len=vl2, dtype=dtype)
             return out[:b] * (1 + cond_scale) - cond_scale * out[b:]
     else:
-        emb1 = static_embed(params, cfg, phoneme_ids, cond,
-                            cond_drop_mask=torch.zeros(b, dtype=torch.bool, device=dev), dtype=dtype)
+        with profiling.scope("flow.embed"):
+            emb1 = static_embed(params, cfg, phoneme_ids, cond,
+                                cond_drop_mask=torch.zeros(b, dtype=torch.bool, device=dev), dtype=dtype)
 
         def field(y, tt):
             times = torch.full((b,), tt, device=dev)
@@ -375,10 +379,11 @@ def sample(params, cfg: AcousticConfig, generator: Optional[torch.Generator], ph
     h = 1.0 / n_steps
     y = y0
     for i in range(n_steps):
-        t0 = i * h   # exact in f32 for the power-of-two step sizes used
-        k1 = field(y, t0)
-        k2 = field(y + 0.5 * h * k1, t0 + 0.5 * h)
-        y = y + h * k2
+        with profiling.scope("flow.step"):
+            t0 = i * h   # exact in f32 for the power-of-two step sizes used
+            k1 = field(y, t0)
+            k2 = field(y + 0.5 * h * k1, t0 + 0.5 * h)
+            y = y + h * k2
     return y
 
 

@@ -54,6 +54,7 @@ from covomix_tpu_torch.models.layers import embedding_init, linear_init, rmsnorm
 from covomix_tpu_torch.ops import sampling as S
 from covomix_tpu_torch.ops.flash_attention import attend_flash_or_xla
 from covomix_tpu_torch.parallel import tensor as TPX
+from covomix_tpu_torch.util import profiling
 from covomix_tpu_torch.util.misc import tree_leaves, tree_map
 
 @dataclasses.dataclass(frozen=True)
@@ -440,6 +441,26 @@ STOP_AFTER: Optional[int] = None
 _GRAPHS: "collections.OrderedDict[tuple, _Decode]" = collections.OrderedDict()
 
 
+class DecodeCounts:
+    """The decodes' counts in this process, each a plain integer that goes
+    up where its event happens (as ops/flash_attention.KERNEL counts
+    launches): `captures`, decodes built and captured as a CUDA graph;
+    `evictions`, captured decodes dropped from `_GRAPHS` (least recently
+    used first); `replays`, graph replays (a step or a speculative round
+    each; steps run directly, on the CPU or with CAPTURE off, are not
+    replays); `reads`, host reads of the stop flag (one a chunk of steps)."""
+
+    def __init__(self):
+        self.captures = self.evictions = self.replays = self.reads = 0
+
+    def __str__(self):
+        return (f"decode graphs: {self.captures} captured, {self.evictions} evicted, {self.replays} replays, "
+                f"{self.reads} host reads")
+
+
+DECODE = DecodeCounts()
+
+
 class GenerateResult(NamedTuple):
     tokens: torch.Tensor       # [B, L] stream-1 tokens, pad-filled after EOS
     tokens2: torch.Tensor      # [B, L] stream-2 (== tokens when not two_output)
@@ -503,6 +524,7 @@ def _cast_weights(tree, dtype):
     return tree.to(dtype)
 
 
+@profiling.scoped("t2s.prepare")
 def _prepared(key, build, inputs, dtype, dev, generator):
     """The decode for this call, its inputs in place and its state reset. On
     the CPU (and on CUDA with CAPTURE off) `build(inputs, generator)` makes it
@@ -516,11 +538,14 @@ def _prepared(key, build, inputs, dtype, dev, generator):
     else:
         dec = _GRAPHS.pop(key, None)
         if dec is None:
-            static = tree_map(torch.clone, dict(inputs, w=_cast_weights(w, dtype)))
-            dec = build(static, None if generator is None else torch.Generator(device=dev))
-            dec.capture()
+            with profiling.scope("t2s.capture", key[2], *key[3]):     # rows, context shape
+                static = tree_map(torch.clone, dict(inputs, w=_cast_weights(w, dtype)))
+                dec = build(static, None if generator is None else torch.Generator(device=dev))
+                dec.capture()
+            DECODE.captures += 1
             while len(_GRAPHS) >= GRAPH_CACHE_SIZE:
                 _GRAPHS.popitem(last=False)
+                DECODE.evictions += 1
         else:
             for buf, src in zip(tree_leaves(dec.inputs), tree_leaves(inputs)):
                 buf.copy_(src)          # the weights cast on the way in
@@ -540,12 +565,16 @@ def _drive(dec, per_read, redraw=None, decide=None):
     run = dec.step if dec.graph is None else dec.graph.replay
     gen = dec.generator if redraw is not None else None
     decide = decide or (lambda read: read.tolist())
+    replays = per_read if dec.graph is not None else 0
     count = 0
     while True:
         snap = gen.get_state() if gen is not None else None
-        for _ in range(per_read):
+        for _ in range(per_read):   # no range here: one a chunk would double the ranges of a trace
             run()
-        cont, now = decide(dec.state["read"])      # the chunk's one host read
+        DECODE.replays += replays
+        with profiling.scope("t2s.read"):
+            cont, now = decide(dec.state["read"])      # the chunk's one host read
+        DECODE.reads += 1
         if not cont or (STOP_AFTER is not None and now >= STOP_AFTER):
             break
         count = now
@@ -659,6 +688,7 @@ def _build_generate(cfg: T2SConfig, b, bb, max_length, dtype, use_cfg, cond_scal
 
 
 @torch.no_grad()
+@profiling.scoped("t2s.generate")
 def generate(params, cfg: T2SConfig, generator: Optional[torch.Generator], source_ids, *,
              max_length: int = 2048, temperature: float = 1.0, top_k_thres: float = 0.1,
              cond_scale: float = 1.0, min_length: int = 0, no_repeat_ngram_size: int = 0,
@@ -678,35 +708,36 @@ def generate(params, cfg: T2SConfig, generator: Optional[torch.Generator], sourc
     global step count, each row's tokens are the one-device call's on the
     global batch, and the generator ends where that call leaves it."""
     b = (source_ids if source_emb is None else source_emb).shape[0]
-    if source_emb is not None:
-        if source_mask is None:
-            raise ValueError("precomputed source_emb requires source_mask")
-        dev = source_emb.device
-    else:
-        dev = source_ids.device
-        if cfg.two_input:
-            s1 = S.set_eos_id(source_ids[..., 0], cfg.text_eos_id, cfg.text_pad_id)
-            s2 = S.set_eos_id(source_ids[..., 1], cfg.text_eos_id, cfg.text_pad_id)
-            source_ids = torch.stack([s1, s2], dim=-1)
-            src_flat = s1
+    with profiling.scope("t2s.encode"):     # source embed, encoder, cross K / V
+        if source_emb is not None:
+            if source_mask is None:
+                raise ValueError("precomputed source_emb requires source_mask")
+            dev = source_emb.device
         else:
-            source_ids = S.set_eos_id(source_ids, cfg.text_eos_id, cfg.text_pad_id)
-            src_flat = source_ids
-        source_mask = src_flat != cfg.text_pad_id
-        source_emb = embed_source(params, cfg, source_ids, dtype)
-    context = encode_source(params, cfg, source_emb, source_mask, dtype)
+            dev = source_ids.device
+            if cfg.two_input:
+                s1 = S.set_eos_id(source_ids[..., 0], cfg.text_eos_id, cfg.text_pad_id)
+                s2 = S.set_eos_id(source_ids[..., 1], cfg.text_eos_id, cfg.text_pad_id)
+                source_ids = torch.stack([s1, s2], dim=-1)
+                src_flat = s1
+            else:
+                source_ids = S.set_eos_id(source_ids, cfg.text_eos_id, cfg.text_pad_id)
+                src_flat = source_ids
+            source_mask = src_flat != cfg.text_pad_id
+            source_emb = embed_source(params, cfg, source_ids, dtype)
+        context = encode_source(params, cfg, source_emb, source_mask, dtype)
 
-    use_cfg = cond_scale > 1.0
-    if use_cfg:  # null-context branch folded into the batch
-        context = torch.cat([context, context], dim=0)
-        source_mask = torch.cat([source_mask, torch.zeros_like(source_mask)], dim=0)
-    bb = context.shape[0]
-    if generator is None:
-        generator = torch.default_generator if dev.type == "cpu" else torch.cuda.default_generators[
-            dev.index if dev.index is not None else torch.cuda.current_device()]
-    inputs = {"w": {k: params[k] for k in ("target_layers", "target_final_norm", "sem_emb", "start_speech")},
-              "cross": [_context_kv(lp["cross_attn"], context, cfg.heads) for lp in params["target_layers"]],
-              "mask": source_mask}
+        use_cfg = cond_scale > 1.0
+        if use_cfg:  # null-context branch folded into the batch
+            context = torch.cat([context, context], dim=0)
+            source_mask = torch.cat([source_mask, torch.zeros_like(source_mask)], dim=0)
+        bb = context.shape[0]
+        if generator is None:
+            generator = torch.default_generator if dev.type == "cpu" else torch.cuda.default_generators[
+                dev.index if dev.index is not None else torch.cuda.current_device()]
+        inputs = {"w": {k: params[k] for k in ("target_layers", "target_final_norm", "sem_emb", "start_speech")},
+                  "cross": [_context_kv(lp["cross_attn"], context, cfg.heads) for lp in params["target_layers"]],
+                  "mask": source_mask}
     flags = (max_length, temperature, top_k_thres, cond_scale, min_length, no_repeat_ngram_size)
     rows = None if mesh is None else (b * mesh.dp, mesh.rows(b))
     key = ("generate", cfg, b, tuple(context.shape), str(dev), dtype) + flags + (rows and (rows[0], rows[1].start),)
@@ -738,20 +769,21 @@ def generate(params, cfg: T2SConfig, generator: Optional[torch.Generator], sourc
     if dec.generator is not generator:
         generator.set_state(dec.generator.get_state())
 
-    st = dec.state
-    eos, pad = cfg.semantic_eos_id, cfg.semantic_pad_id
-    tokens1, tokens2 = st["tokens1"], st["tokens2"]
-    # the reference masks after EOS only when the loop stopped on EOS
-    if mesh is None:
-        stopped = (st["done1"].all() | st["done2"].all()) if cfg.two_output else st["done1"].all()
-    else:       # the steps a rank ran past the global stop are cut
-        stopped = torch.tensor(stop["at"] <= max_length, device=dev)
-        kept = torch.arange(max_length, device=dev)[None, :] < num_steps
-        tokens1, tokens2 = torch.where(kept, tokens1, pad), torch.where(kept, tokens2, pad)
-    tokens1 = torch.where(stopped, S.mask_after_eos(tokens1, eos, pad), tokens1)
-    tokens2 = torch.where(stopped, S.mask_after_eos(tokens2, eos, pad), tokens2)
-    return GenerateResult(tokens1, tokens2, torch.sum(tokens1 != pad, dim=-1), torch.sum(tokens2 != pad, dim=-1),
-                          num_steps)
+    with profiling.scope("t2s.finish"):     # after-EOS masking, lengths
+        st = dec.state
+        eos, pad = cfg.semantic_eos_id, cfg.semantic_pad_id
+        tokens1, tokens2 = st["tokens1"], st["tokens2"]
+        # the reference masks after EOS only when the loop stopped on EOS
+        if mesh is None:
+            stopped = (st["done1"].all() | st["done2"].all()) if cfg.two_output else st["done1"].all()
+        else:       # the steps a rank ran past the global stop are cut
+            stopped = torch.tensor(stop["at"] <= max_length, device=dev)
+            kept = torch.arange(max_length, device=dev)[None, :] < num_steps
+            tokens1, tokens2 = torch.where(kept, tokens1, pad), torch.where(kept, tokens2, pad)
+        tokens1 = torch.where(stopped, S.mask_after_eos(tokens1, eos, pad), tokens1)
+        tokens2 = torch.where(stopped, S.mask_after_eos(tokens2, eos, pad), tokens2)
+        return GenerateResult(tokens1, tokens2, torch.sum(tokens1 != pad, dim=-1), torch.sum(tokens2 != pad, dim=-1),
+                              num_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -922,6 +954,7 @@ def generate_speculative(params, cfg: T2SConfig, source_ids, *, max_length: int 
 
 
 @torch.no_grad()
+@profiling.scoped("t2s.generate")
 def generate_speculative_rows(params, cfg: T2SConfig, source_ids, mesh, *, max_length: int = 2048, gamma: int = 4,
                               dtype=torch.float32) -> GenerateResult:
     """`generate_speculative` of one dp rank's rows of a global batch over
@@ -940,13 +973,14 @@ def generate_speculative_rows(params, cfg: T2SConfig, source_ids, mesh, *, max_l
     b, dev = source_ids.shape[0], source_ids.device
     eos, pad = cfg.semantic_eos_id, cfg.semantic_pad_id
 
-    src = S.set_eos_id(source_ids, cfg.text_eos_id, cfg.text_pad_id)
-    source_mask = src != cfg.text_pad_id
-    context = encode_source(params, cfg, embed_source(params, cfg, src, dtype), source_mask, dtype)
-    names = ("target_layers", "target_final_norm", "sem_emb", "start_speech", "early_exit")
-    inputs = {"w": {k: params[k] for k in names},
-              "cross": [_context_kv(lp["cross_attn"], context, cfg.heads) for lp in params["target_layers"]],
-              "mask": source_mask}
+    with profiling.scope("t2s.encode"):
+        src = S.set_eos_id(source_ids, cfg.text_eos_id, cfg.text_pad_id)
+        source_mask = src != cfg.text_pad_id
+        context = encode_source(params, cfg, embed_source(params, cfg, src, dtype), source_mask, dtype)
+        names = ("target_layers", "target_final_norm", "sem_emb", "start_speech", "early_exit")
+        inputs = {"w": {k: params[k] for k in names},
+                  "cross": [_context_kv(lp["cross_attn"], context, cfg.heads) for lp in params["target_layers"]],
+                  "mask": source_mask}
     key = ("speculative", cfg, b, tuple(context.shape), str(dev), dtype, max_length, gamma)
     dec = _prepared(key, lambda inp, gen: _build_speculative(cfg, b, max_length, gamma, dtype, inp),
                     inputs, dtype, dev, None)
@@ -959,27 +993,28 @@ def generate_speculative_rows(params, cfg: T2SConfig, source_ids, mesh, *, max_l
 
     rounds = _drive(dec, ROUNDS_PER_READ, decide=None if mesh is None else lambda read: over_dp(read).tolist())
 
-    st = dec.state
-    # generate's global stop: it halts after the step where ALL rows emitted
-    # EOS on stream 1 OR all rows on stream 2, so positions >= I = min(max_r
-    # p1, max_r p2) + 1 were never decoded there
-    done1, done2 = st["done1"].all(), st["done2"].all()
-    p1, p2 = st["p1"].max(), st["p2"].max()
-    if mesh is not None:        # over the global batch's rows: done on every rank, the last first EOS
-        g = over_dp(torch.stack([(~done1).long(), (~done2).long(), p1, p2]))
-        done1, done2, p1, p2 = g[0] == 0, g[1] == 0, g[2], g[3]
-    i1 = torch.where(done1, p1 + 1, max_length)
-    i2 = torch.where(done2, p2 + 1, max_length) if two else i1
-    pos_idx = torch.arange(max_length, device=dev)
-    valid = pos_idx[None, :] < torch.clamp(torch.minimum(i1, i2), max=max_length)
-    tokens1 = torch.where(valid, st["tokens1"][:, :max_length], pad)
-    tokens2 = torch.where(valid, st["tokens2"][:, :max_length], pad)
-    stopped = (done1 | done2) if two else done1
-    # generate masks after EOS only when its loop stopped on EOS
-    tokens1 = torch.where(stopped, S.mask_after_eos(tokens1, eos, pad), tokens1)
-    tokens2 = torch.where(stopped, S.mask_after_eos(tokens2, eos, pad), tokens2)
-    return GenerateResult(tokens1, tokens2, torch.sum(tokens1 != pad, dim=-1), torch.sum(tokens2 != pad, dim=-1),
-                          rounds)
+    with profiling.scope("t2s.finish"):
+        st = dec.state
+        # generate's global stop: it halts after the step where ALL rows emitted
+        # EOS on stream 1 OR all rows on stream 2, so positions >= I = min(max_r
+        # p1, max_r p2) + 1 were never decoded there
+        done1, done2 = st["done1"].all(), st["done2"].all()
+        p1, p2 = st["p1"].max(), st["p2"].max()
+        if mesh is not None:        # over the global batch's rows: done on every rank, the last first EOS
+            g = over_dp(torch.stack([(~done1).long(), (~done2).long(), p1, p2]))
+            done1, done2, p1, p2 = g[0] == 0, g[1] == 0, g[2], g[3]
+        i1 = torch.where(done1, p1 + 1, max_length)
+        i2 = torch.where(done2, p2 + 1, max_length) if two else i1
+        pos_idx = torch.arange(max_length, device=dev)
+        valid = pos_idx[None, :] < torch.clamp(torch.minimum(i1, i2), max=max_length)
+        tokens1 = torch.where(valid, st["tokens1"][:, :max_length], pad)
+        tokens2 = torch.where(valid, st["tokens2"][:, :max_length], pad)
+        stopped = (done1 | done2) if two else done1
+        # generate masks after EOS only when its loop stopped on EOS
+        tokens1 = torch.where(stopped, S.mask_after_eos(tokens1, eos, pad), tokens1)
+        tokens2 = torch.where(stopped, S.mask_after_eos(tokens2, eos, pad), tokens2)
+        return GenerateResult(tokens1, tokens2, torch.sum(tokens1 != pad, dim=-1), torch.sum(tokens2 != pad, dim=-1),
+                              rounds)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from covomix_tpu_torch.models import layers as L
 from covomix_tpu_torch.models.layers import conv1d_init
 from covomix_tpu_torch.ops import vocoder_tail as VT
+from covomix_tpu_torch.util import profiling
 
 LRELU_SLOPE = 0.1
 
@@ -143,6 +144,7 @@ def _length_mask(vl):
     return mask
 
 
+@profiling.scoped("vocoder.generator")
 def generator(params, cfg: VocoderConfig, mel, dtype=torch.float32, fuse_tail: bool = None,
               valid_len=None):
     """mel [B, T, num_mels] -> waveform [B, output_length(T)] in [-1, 1], f32.

@@ -27,6 +27,7 @@ import torch
 
 from covomix_tpu_torch import resolve_device
 from covomix_tpu_torch.audio import save_wav
+from covomix_tpu_torch.models import text2semantic as T
 from covomix_tpu_torch.pipeline import Synthesizer, load_synthesizer
 
 
@@ -75,7 +76,8 @@ def load_models(args) -> Synthesizer:
 def generate_all(args, kind: str, synthesize) -> None:
     """Load the models, write config.txt, then per script in --text_dir call
     synthesize(synth, text, base path without .txt, generator) and save the
-    wav, printing its audio seconds and RTF."""
+    wav, printing its audio seconds and RTF; last the decode counts
+    (`text2semantic.DECODE`)."""
     os.makedirs(args.saved_dir, exist_ok=True)
     synth = load_models(args)
     with open(os.path.join(args.saved_dir, "config.txt"), "w") as f:
@@ -97,6 +99,7 @@ def generate_all(args, kind: str, synthesize) -> None:
         save_wav(out, wav, synth.mel_cfg.sample_rate)
         wall = time.time() - t0
         print(f"saved {out}  ({dur:.1f}s audio, RTF {wall / max(dur, 1e-6):.3f})", flush=True)
+    print(T.DECODE, flush=True)     # a capture per text bucket; more means graphs were built again
 
 
 def main(argv=None):

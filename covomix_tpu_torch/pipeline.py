@@ -43,6 +43,7 @@ from covomix_tpu_torch.data.tokenizer import load_covomix_tokenizer, remove_punc
 from covomix_tpu_torch.models import acoustic as A
 from covomix_tpu_torch.models import text2semantic as T
 from covomix_tpu_torch.models import vocoder as V
+from covomix_tpu_torch.util import profiling
 from covomix_tpu_torch.util.misc import round_up
 
 SILENCE_TOKEN = 157          # silence unit id
@@ -174,6 +175,7 @@ class Synthesizer:
         # fuse_tail=None: the generator's auto dispatch (fused kernels on CUDA
         # for covomix-shaped configs); valid_len, when given, forces unfused
         self._voc_fn = functools.partial(V.generator, cfg=self.vocoder_cfg, dtype=self.dtype)
+        self.calls = 0      # monologue / dialogue calls made, the `file.call` span's number
 
     # ---- prompt preparation ------------------------------------------------
 
@@ -181,7 +183,8 @@ class Synthesizer:
         return extract_mel(wav_path, self.mel_cfg, self.device, channel)
 
     def prepare_prompt(self, hubert_code_path: str) -> Tuple[np.ndarray, np.ndarray]:
-        return prepare_prompt(hubert_code_path, self.mel_cfg, self.device)
+        with profiling.scope("file.prompt"):
+            return prepare_prompt(hubert_code_path, self.mel_cfg, self.device)
 
     # ---- stages ------------------------------------------------------------
 
@@ -289,60 +292,64 @@ class Synthesizer:
         return self.vocode(mel[prompt_len:])
 
     def monologue(self, mode: str, text: str, prompt_path: str, generator) -> np.ndarray:
-        self._check_mode(mode)
-        text = clean_text(text)
-        sem, mel = self.prepare_prompt(prompt_path)
-        if mode == "covosingle":
-            return self.synthesize_turn(text, sem, mel, generator)
-        prompt_len = len(mel)
-        mel2 = np.concatenate([mel, mel], axis=-1)  # the same prompt on both streams
-        if mode == "covosinx":
-            pred = self.text_to_tokens(text, generator)
-            sem_a = np.concatenate([sem, pred])
-            sem_b = np.concatenate([sem, np.full(len(pred), SILENCE_TOKEN, pred.dtype)])
-        elif mode == "covomix":
-            p1, p2 = self.text_to_tokens_2stream(text, generator)
-            sem_a = np.concatenate([sem, p1])
-            sem_b = np.concatenate([sem, p2])
-        else:
-            raise ValueError(f"unknown mode {mode}")
-        return self.synthesize_two_stream(sem_a, sem_b, mel2, prompt_len, generator)
+        self.calls += 1
+        with profiling.scope("file.call", self.calls):
+            self._check_mode(mode)
+            text = clean_text(text)
+            sem, mel = self.prepare_prompt(prompt_path)
+            if mode == "covosingle":
+                return self.synthesize_turn(text, sem, mel, generator)
+            prompt_len = len(mel)
+            mel2 = np.concatenate([mel, mel], axis=-1)  # the same prompt on both streams
+            if mode == "covosinx":
+                pred = self.text_to_tokens(text, generator)
+                sem_a = np.concatenate([sem, pred])
+                sem_b = np.concatenate([sem, np.full(len(pred), SILENCE_TOKEN, pred.dtype)])
+            elif mode == "covomix":
+                p1, p2 = self.text_to_tokens_2stream(text, generator)
+                sem_a = np.concatenate([sem, p1])
+                sem_b = np.concatenate([sem, p2])
+            else:
+                raise ValueError(f"unknown mode {mode}")
+            return self.synthesize_two_stream(sem_a, sem_b, mel2, prompt_len, generator)
 
     # ---- modes (dialogue) --------------------------------------------------
 
     def dialogue(self, mode: str, text: str, prompt_path_1: str, prompt_path_2: str,
                  generator) -> np.ndarray:
-        self._check_mode(mode)
-        sem1, mel1 = self.prepare_prompt(prompt_path_1)
-        sem2, mel2 = self.prepare_prompt(prompt_path_2)
-        if mode == "covosingle":
-            # per-turn synthesis alternating prompts, waveform concat
-            wavs = []
-            for i, turn in enumerate(text.split("[spkchange]")):
-                sem, mel = (sem1, mel1) if i % 2 == 0 else (sem2, mel2)
-                wavs.append(self.synthesize_turn(clean_text(turn), sem, mel, generator))
-            return np.concatenate(wavs) if wavs else np.zeros((0,), np.float32)
+        self.calls += 1
+        with profiling.scope("file.call", self.calls):
+            self._check_mode(mode)
+            sem1, mel1 = self.prepare_prompt(prompt_path_1)
+            sem2, mel2 = self.prepare_prompt(prompt_path_2)
+            if mode == "covosingle":
+                # per-turn synthesis alternating prompts, waveform concat
+                wavs = []
+                for i, turn in enumerate(text.split("[spkchange]")):
+                    sem, mel = (sem1, mel1) if i % 2 == 0 else (sem2, mel2)
+                    wavs.append(self.synthesize_turn(clean_text(turn), sem, mel, generator))
+                return np.concatenate(wavs) if wavs else np.zeros((0,), np.float32)
 
-        prompt_len = min(len(mel1), len(mel2))
-        mel_2ch = np.concatenate([mel1[:prompt_len], mel2[:prompt_len]], axis=-1)
-        sem_a, sem_b = sem1[:prompt_len], sem2[:prompt_len]
-        if mode == "covosinx":
-            # per-turn T2S, tokens routed to alternating streams
-            for i, turn in enumerate(text.split("[spkchange]")):
-                pred = self.text_to_tokens(clean_text(turn), generator)
-                sil = np.full(len(pred), SILENCE_TOKEN, pred.dtype)
-                if i % 2 == 0:
-                    sem_a, sem_b = np.concatenate([sem_a, pred]), np.concatenate([sem_b, sil])
-                else:
-                    sem_a, sem_b = np.concatenate([sem_a, sil]), np.concatenate([sem_b, pred])
-        elif mode == "covomix":
-            # the full script through CoMix once
-            p1, p2 = self.text_to_tokens_2stream(clean_text(text), generator)
-            sem_a = np.concatenate([sem_a, p1])
-            sem_b = np.concatenate([sem_b, p2])
-        else:
-            raise ValueError(f"unknown mode {mode}")
-        return self.synthesize_two_stream(sem_a, sem_b, mel_2ch, prompt_len, generator)
+            prompt_len = min(len(mel1), len(mel2))
+            mel_2ch = np.concatenate([mel1[:prompt_len], mel2[:prompt_len]], axis=-1)
+            sem_a, sem_b = sem1[:prompt_len], sem2[:prompt_len]
+            if mode == "covosinx":
+                # per-turn T2S, tokens routed to alternating streams
+                for i, turn in enumerate(text.split("[spkchange]")):
+                    pred = self.text_to_tokens(clean_text(turn), generator)
+                    sil = np.full(len(pred), SILENCE_TOKEN, pred.dtype)
+                    if i % 2 == 0:
+                        sem_a, sem_b = np.concatenate([sem_a, pred]), np.concatenate([sem_b, sil])
+                    else:
+                        sem_a, sem_b = np.concatenate([sem_a, sil]), np.concatenate([sem_b, pred])
+            elif mode == "covomix":
+                # the full script through CoMix once
+                p1, p2 = self.text_to_tokens_2stream(clean_text(text), generator)
+                sem_a = np.concatenate([sem_a, p1])
+                sem_b = np.concatenate([sem_b, p2])
+            else:
+                raise ValueError(f"unknown mode {mode}")
+            return self.synthesize_two_stream(sem_a, sem_b, mel_2ch, prompt_len, generator)
 
 
 def load_synthesizer(t2s_path: str, acoustic_path: str, vocoder_path: str, *,

@@ -169,6 +169,8 @@ def serve(args, device, mesh=None, share=(0, 1)) -> None:
             save_wav(out, wav[i, : max(int(lengths[i]) * hop, hop)], mel_cfg.sample_rate)
         audio_s = max(float(lengths[:b].sum()) * hop / mel_cfg.sample_rate, 1e-6)
         print(f"batch of {b}: {wall:.2f}s wall for {audio_s:.0f}s audio (RTF {wall / audio_s:.4f})")
+    if primary:
+        print(T.DECODE)
 
 
 if __name__ == "__main__":

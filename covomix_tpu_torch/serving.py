@@ -29,6 +29,7 @@ from covomix_tpu_torch.models import acoustic as A
 from covomix_tpu_torch.models import text2semantic as T
 from covomix_tpu_torch.models import vocoder as V
 from covomix_tpu_torch.parallel.mesh import all_gather
+from covomix_tpu_torch.util import profiling
 
 SILENCE_TOKEN = 157
 TOKEN_CLAMP = 501
@@ -117,6 +118,7 @@ class BatchedPipeline:
         self.t2s_params = params_from_numpy(self.t2s_params, self.device)
         self.acoustic_params = params_from_numpy(self.acoustic_params, self.device)
         self.vocoder_params = params_from_numpy(self.vocoder_params, self.device)
+        self.calls = 0             # calls made, the `serve.call` span's number
 
     def _gen(self, params, generator, source_ids):
         if self.speculative:   # greedy: the generator is not drawn from
@@ -169,28 +171,33 @@ class BatchedPipeline:
         (the global batch's) overrides the flow sampler's y0. Returns (wav
         [B, samples] over the generated region, GenerateResult), with a mesh
         the global batch's on every rank."""
-        two = self.acoustic_cfg.n_phoneme_streams == 2
-        if not isinstance(prompt_tokens, torch.Tensor):
-            text_ids, prompt_tokens, prompt_mels, prompt_lens = self.place(
-                text_ids, prompt_tokens, prompt_mels, prompt_lens)
-        else:
-            if two and prompt_tokens.dim() == 2:   # one prompt row for both streams, as place() does
-                prompt_tokens = torch.stack([prompt_tokens, prompt_tokens], dim=-1)
-            if prompt_lens is None:
-                prompt_lens = torch.full((prompt_tokens.shape[0],), prompt_tokens.shape[1],
-                                         dtype=torch.int32, device=prompt_tokens.device)
-        L = self.decode_len
-        gen = self._gen(self.t2s_params, generator, text_ids)
-        gen_lens = (torch.minimum(gen.lengths, gen.lengths2) if two else gen.lengths).to(torch.int32)
-        phonemes, cond = pack_rows(gen.tokens, gen.tokens2, gen_lens, prompt_tokens, prompt_mels,
-                                   prompt_lens, two)
-        valid = prompt_lens.to(torch.int32) + gen_lens
-        mel = A.sample(self.acoustic_params, self.acoustic_cfg, generator, phonemes, cond,
-                       cond_scale=self.cond_scale, valid_len=valid,
-                       noise=None if noise is None else self._rows(noise), dtype=self.dtype, mesh=self.mesh)
-        mel_gen = slice_generated(mel, prompt_lens, L)
-        wav = V.generator(self.vocoder_params, self.vocoder_cfg, mel_gen, dtype=self.dtype,
-                          valid_len=gen_lens)
-        if self.mesh is None:
-            return wav, gen
-        return self._gather(wav), T.GenerateResult(*(self._gather(x) for x in gen[:4]), gen.num_steps)
+        self.calls += 1
+        with profiling.scope("serve.call", self.calls):
+            two = self.acoustic_cfg.n_phoneme_streams == 2
+            with profiling.scope("serve.place"):
+                if not isinstance(prompt_tokens, torch.Tensor):
+                    text_ids, prompt_tokens, prompt_mels, prompt_lens = self.place(
+                        text_ids, prompt_tokens, prompt_mels, prompt_lens)
+                else:
+                    if two and prompt_tokens.dim() == 2:   # one prompt row for both streams, as place() does
+                        prompt_tokens = torch.stack([prompt_tokens, prompt_tokens], dim=-1)
+                    if prompt_lens is None:
+                        prompt_lens = torch.full((prompt_tokens.shape[0],), prompt_tokens.shape[1],
+                                                 dtype=torch.int32, device=prompt_tokens.device)
+            L = self.decode_len
+            gen = self._gen(self.t2s_params, generator, text_ids)
+            with profiling.scope("serve.pack"):
+                gen_lens = (torch.minimum(gen.lengths, gen.lengths2) if two else gen.lengths).to(torch.int32)
+                phonemes, cond = pack_rows(gen.tokens, gen.tokens2, gen_lens, prompt_tokens, prompt_mels,
+                                           prompt_lens, two)
+                valid = prompt_lens.to(torch.int32) + gen_lens
+            mel = A.sample(self.acoustic_params, self.acoustic_cfg, generator, phonemes, cond,
+                           cond_scale=self.cond_scale, valid_len=valid,
+                           noise=None if noise is None else self._rows(noise), dtype=self.dtype, mesh=self.mesh)
+            with profiling.scope("serve.slice"):
+                mel_gen = slice_generated(mel, prompt_lens, L)
+            wav = V.generator(self.vocoder_params, self.vocoder_cfg, mel_gen, dtype=self.dtype,
+                              valid_len=gen_lens)
+            if self.mesh is None:
+                return wav, gen
+            return self._gather(wav), T.GenerateResult(*(self._gather(x) for x in gen[:4]), gen.num_steps)

@@ -40,6 +40,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from covomix_tpu_torch.util import profiling
 from covomix_tpu_torch.util.misc import named_leaves, tree_leaves, tree_map
 
 
@@ -351,8 +352,8 @@ class _Captured:
         now = list(state_tensors(state).values())
         return len(now) == len(self.bound) and all(a is b for a, b in zip(now, self.bound))
 
-    def replay(self, batch: dict, generator, lrs, weights) -> dict:
-        self.fill(batch, lrs, weights)
+    def replay(self, generator) -> dict:
+        """The K steps on what `fill` (or the capture) left in the buffers."""
         if generator is not None:
             self.generator.set_state(generator.get_state())
         self.graph.replay()
@@ -374,7 +375,8 @@ class MultiStep:
     `make_step_body`'s. Counts of the
     captured path: `captures`, `replays`, and `replayed` ({flash counter
     name: launches run by replays}), beside the eager counters in
-    ops/flash_attention.KERNEL, which the warm-up before a capture adds to.
+    ops/flash_attention.KERNEL, which the warm-up before a capture adds to;
+    `dispatches` counts the calls on either path.
     A capture needs the parameters' gradient accumulators made inside it: a
     tensor the caller keeps that was computed from a parameter with autograd
     on (a clone without `detach`, an undetached loss) keeps the accumulator
@@ -387,7 +389,7 @@ class MultiStep:
         self.cfg, self.k, self.capture = cfg, k, capture
         self.schedule = reference_lr_schedule(cfg) if cfg.use_lr_schedule else None
         self.graphs: "collections.OrderedDict[tuple, _Captured]" = collections.OrderedDict()
-        self.captures = self.replays = 0
+        self.captures = self.replays = self.dispatches = 0
         self.replayed = collections.Counter()
         self.last: Optional[_Captured] = None
 
@@ -401,31 +403,38 @@ class MultiStep:
             if v.shape[0] != self.k:
                 raise ValueError(f"multi-step batch leaf {name!r} has {v.shape[0]} steps on its leading axis, "
                                  f"expected K={self.k}")
-        if tree_leaves(state.params)[0].is_cuda and self.capture:
-            metrics = self._replay(state, batch, generator)
-            state.step += self.k
-            state.ema_num_updates += self.k
-            return metrics
-        out = [self.single(state, _slice(batch, i), generator) for i in range(self.k)]
-        return {key: torch.stack([m[key] for m in out]) for key in ("loss", "grad_norm")}
+        self.dispatches += 1
+        with profiling.scope("train.dispatch", self.dispatches):
+            if tree_leaves(state.params)[0].is_cuda and self.capture:
+                metrics = self._replay(state, batch, generator)
+                state.step += self.k
+                state.ema_num_updates += self.k
+                return metrics
+            out = [self.single(state, _slice(batch, i), generator) for i in range(self.k)]
+            return {key: torch.stack([m[key] for m in out]) for key in ("loss", "grad_norm")}
 
     def _replay(self, state, batch, generator) -> dict:
         dev = tree_leaves(state.params)[0].device
-        lrs, weights = self.rates(state)
-        if generator is not None and generator.device.type != dev.type:
-            raise ValueError(f"a captured multi-step draws on the parameters' device {dev}; the generator is on "
-                             f"{generator.device}")
-        key = tuple((name, tuple(v.shape), str(v.dtype)) for name, v in sorted(batch.items()))
-        entry = self.graphs.pop(key, None)
-        if entry is not None and not entry.fits(state):
-            entry = None        # another state, or its Adam state replaced (a load): capture again
+        with profiling.scope("train.fill"):
+            lrs, weights = self.rates(state)
+            if generator is not None and generator.device.type != dev.type:
+                raise ValueError(f"a captured multi-step draws on the parameters' device {dev}; the generator is "
+                                 f"on {generator.device}")
+            key = tuple((name, tuple(v.shape), str(v.dtype)) for name, v in sorted(batch.items()))
+            entry = self.graphs.pop(key, None)
+            if entry is not None and not entry.fits(state):
+                entry = None        # another state, or its Adam state replaced (a load): capture again
+            if entry is not None:
+                entry.fill(batch, lrs, weights)
         if entry is None:
-            entry = _Captured(self.body, self.k, state, batch, generator, lrs, weights)
+            with profiling.scope("train.capture"):     # filled with this dispatch's batch and rates
+                entry = _Captured(self.body, self.k, state, batch, generator, lrs, weights)
             self.captures += 1
             while len(self.graphs) >= GRAPH_CACHE_SIZE:
                 self.graphs.popitem(last=False)
         self.graphs[key] = self.last = entry
-        metrics = entry.replay(batch, generator, lrs, weights)
+        with profiling.scope("train.replay"):
+            metrics = entry.replay(generator)
         self.replays += 1
         self.replayed.update(entry.launches)
         return metrics

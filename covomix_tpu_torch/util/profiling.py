@@ -3,8 +3,9 @@ covomix_tpu/util/profiling.py).
 
   * `trace`: a torch.profiler trace of the host and the card, written as a
     Chrome / Perfetto trace (`trace.json`) where a directory is given
-  * `scope`: a named range, a `record_function` span in the trace and an
-    NVTX range on the card
+  * `scope`: a named range of the program's hot path (`serve.*`, `file.*`,
+    `t2s.*`, `flow.*`, `vocoder.*`, `train.*`), a `record_function` range
+    while a profiler runs and nothing else otherwise
   * `debug_nans`: raises at the first op that produces a NaN (the JAX
     package's jax_debug_nans)
   * `checkify_call`: runs a function and returns (error, value), the error
@@ -15,11 +16,30 @@ covomix_tpu/util/profiling.py).
   * `idle_share` / `device_idle_share`: a window's device idle share, 1 minus
     the union of the card's activity intervals (kernels, copies, sets) over
     the window's wall time
-  * `device_time_by_kernel`: the card's time in a trace by kernel name."""
+  * `device_time_by_kernel`: the card's time in a trace by kernel name.
+
+Where the host time of a few calls goes:
+
+    from covomix_tpu_torch.util import profiling
+    with profiling.trace("trace_dir"):
+        for text, prompt in files[:3]:
+            synth.monologue("covosingle", text, prompt, gen)
+
+writes `trace_dir/trace.json`; open it in Perfetto (ui.perfetto.dev). The
+host row shows the program's scopes (`file.call`, then `t2s.generate` >
+`t2s.encode` / `t2s.prepare` / `t2s.read` ..., `flow.sample` > `flow.step`,
+`vocoder.generator`), the device rows the kernels on the same clock, so
+each idle stretch of the card lies under the scope the host was in. The
+profiler slows the host's launches (graph replays most), so a traced call
+idles the card more than an untraced one. For Nsight Systems run the calls under `torch.autograd.profiler.
+emit_nvtx()` instead: the scopes then become NVTX ranges. Scopes stop at a
+captured CUDA graph's edge: a replay is one launch to the host, so the
+decode step's and the training step's own phases are not seen."""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import shutil
 import subprocess
@@ -52,19 +72,52 @@ def trace(log_dir: Optional[str] = None, enabled: bool = True):
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-@contextlib.contextmanager
-def scope(name: str):
-    """A named range: `with profiling.scope("t2s_decode"): ...` shows as a
-    span in `trace`'s output and as an NVTX range on the card."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+_NO_SCOPE = contextlib.nullcontext()
+
+
+class _Numbered:
+    """A profiler range that keeps numbers (a call count, a shape) as its
+    inputs."""
+
+    __slots__ = ("name", "numbers", "handle")
+
+    def __init__(self, name: str, numbers: tuple):
+        self.name, self.numbers, self.handle = name, numbers, None
+
+    def __enter__(self):
+        self.handle = torch.autograd._record_function_with_args_enter(self.name, *self.numbers)
+
+    def __exit__(self, *exc):
+        torch.autograd._record_function_with_args_exit(self.handle)
+        return False
+
+
+def scope(name: str, *numbers: int):
+    """A named range: `with profiling.scope("t2s.read"): ...` shows as a
+    span in `trace`'s output (and as an NVTX range under
+    `torch.autograd.profiler.emit_nvtx`). `numbers` (a call count, a shape)
+    are kept with the range as its inputs: the trace shows them (`Concrete
+    Inputs`) where the profiler records shapes (`record_shapes=True`).
+    With no profiler running it returns a shared do-nothing context after
+    one check, so the hot path may call it freely; never call it inside a
+    function that is captured into a CUDA graph (it would be recorded once,
+    at the capture)."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SCOPE
+    if not numbers:
+        return torch.profiler.record_function(name)
+    return _Numbered(name, numbers)
+
+
+def scoped(name: str):
+    """Decorator: `scope(name)` around every call of the function."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def scoped_fn(*args, **kwargs):
+            with scope(name):
+                return fn(*args, **kwargs)
+        return scoped_fn
+    return wrap
 
 
 class _FloatChecks(TorchDispatchMode):
